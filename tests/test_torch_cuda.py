@@ -1,0 +1,145 @@
+"""vitcap_tpu_torch CUDA kernels vs their plain PyTorch versions, on a card.
+
+Imports no JAX, so it runs on a GPU machine without it:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+Without a CUDA device the `cuda` tests skip (chip_smoke.py checks the
+kernels at the flagship shapes); the rest check the wrappers' device rules.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from vitcap_tpu_torch import ops
+from vitcap_tpu_torch.models import decode as TD
+from vitcap_tpu_torch.models import layers as TL
+from vitcap_tpu_torch.models.config import tiny_config
+from vitcap_tpu_torch.models.vitcap import init_params
+from vitcap_tpu_torch.ops.attention import attention, attention_plain
+from vitcap_tpu_torch.ops.fused_block import fused_bert_block, fused_vit_block
+from vitcap_tpu_torch.ops.gemm import gemm, gemm_plain
+from vitcap_tpu_torch.ops.layer_norm import layer_norm, layer_norm_plain
+
+NO_CUDA = "no CUDA device; kernels are checked by chip_smoke.py"
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip(NO_CUDA)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(out, ref, dtype):
+    """f32: 1e-4 (at least absolute); bf16: 2e-2 of the output's scale."""
+    out, ref = out.float().cpu(), ref.float().cpu()
+    assert torch.isfinite(out).all()
+    scale = ref.abs().max().item()
+    tol = 1e-4 * max(1.0, scale) if dtype == torch.float32 else 2e-2 * scale
+    err = (out - ref).abs().max().item()
+    assert err <= tol, (err, tol)
+
+
+def test_wrappers_refuse_devices_without_a_kernel():
+    """A wrapper runs the plain version only for CPU tensors: any other
+    device gets its kernel or an error, never a silent fallback."""
+    a = torch.empty(4, 8, device="meta")
+    with pytest.raises(RuntimeError):
+        gemm(a, torch.empty(8, 8, device="meta"))
+    with pytest.raises(RuntimeError):
+        layer_norm(a, torch.ones(8), torch.zeros(8), 1e-6, torch.float32)
+    with pytest.raises(RuntimeError):
+        attention(torch.empty(1, 4, 24, device="meta"), 2, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_gemm_and_layer_norm_match_plain(cuda, dtype):
+    g = torch.Generator().manual_seed(0)
+    M, K, N = 240, 96, 136                 # ragged against every tile
+    a = torch.randn(M, K, generator=g).to(cuda, dtype)
+    w = (torch.randn(N, K, generator=g) * 0.1).to(cuda, dtype)
+    b = torch.randn(N, generator=g).to(cuda)
+    r = torch.randn(M, N, generator=g).to(cuda, dtype)
+    for kw in (dict(), dict(gelu=True), dict(residual=r),
+               dict(gelu=True, f32_sum=True),
+               dict(residual=r, f32_sum=True, out_f32=True)):
+        out, ref = gemm(a, w, b, **kw), gemm_plain(a, w, b, **kw)
+        _close(out, ref, dtype)
+        if out.dtype == torch.bfloat16:    # same rounding points as plain
+            assert (out == ref).float().mean().item() >= 0.99
+    for in_dt in (dtype, torch.float32):
+        x = (torch.randn(M, N, generator=g) * 3 + 1).to(cuda, in_dt)
+        _close(layer_norm(x, b, b, 1e-12, dtype),
+               layer_norm_plain(x, b, b, 1e-12, dtype), dtype)
+    with pytest.raises(ValueError):
+        gemm(a[:, :90].contiguous(), w[:, :90].contiguous())   # K % 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [8, 40, 64, 128])
+def test_cuda_attention_matches_plain(cuda, dtype, hd):
+    """Tensor-core (bf16, any hd) and CUDA-core (f32) kernels, ragged L,
+    with and without the additive bias."""
+    g = torch.Generator().manual_seed(hd)
+    nh, B, L, Lp = 2, 3, 70, 80
+    slab = torch.randn(B, Lp, 3 * nh * hd, generator=g).to(cuda, dtype)
+    bias = torch.where(torch.rand(B, 1, Lp, Lp, generator=g) > 0.3, 0.0,
+                       -10000.0).to(cuda)
+    bias[..., 0] = 0.0                     # every row sees a key
+    for bb in (None, bias):
+        _close(attention(slab, nh, L, bb), attention_plain(slab, nh, L, bb),
+               dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_fused_blocks_match_plain_blocks(cuda, dtype):
+    cfg = tiny_config(hidden_size=128, num_attention_heads=2,
+                      intermediate_size=512)
+    model = init_params(cfg, torch.Generator().manual_seed(0), cuda)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 130, 128, generator=g).to(cuda, dtype)
+    blk, layer = model.bert.encoder.blocks[0], model.bert.decoder.layer[0]
+    _close(fused_vit_block(blk, x, 2, 1e-6),
+           TL._vit_block_plain(blk, x, 2, 1e-6), dtype)
+    bias = torch.zeros(2, 1, 130, 130, device=cuda)
+    bias[:, :, 20:, :20] = -10000.0
+    _close(fused_bert_block(layer, x, bias, 2, 1e-12),
+           TL._bert_layer_plain(layer, x, bias, 2, 1e-12), dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_greedy_runs_the_kernels_and_matches_cpu(cuda):
+    """tiny_config(img_size=128): 5 full ViT blocks + 1 prefill layer per
+    batch, so 24 gemm, 12 layer_norm and 6 attention launches; f32 ids
+    equal the CPU run's (plain versions)."""
+    cfg = tiny_config(img_size=128)
+    cpu_model = init_params(cfg, torch.Generator().manual_seed(0))
+    gpu_model = init_params(cfg, torch.Generator().manual_seed(0), cuda)
+    rs = np.random.RandomState(0)
+    imgs = torch.from_numpy(rs.randint(0, 256, (2, 128, 128, 3))
+                            .astype(np.uint8))
+    od_len = cfg.max_seq_len - cfg.max_seq_a_len
+    opts = TD.DecodeOptions(max_length=cfg.max_gen_length,
+                            od_labels_start_posid=cfg.max_seq_a_len)
+
+    def run(model, dev):
+        return TD.generate(model, imgs.to(dev),
+                           torch.zeros(2, od_len, dtype=torch.long,
+                                       device=dev), None,
+                           torch.full((2,), cfg.max_seq_a_len, device=dev),
+                           cfg, opts)
+    ref = run(cpu_model, "cpu")
+    ops.reset_counts()
+    out = run(gpu_model, cuda)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"gemm": 24, "layer_norm": 12,
+                                   "attention": 6}
+    assert torch.equal(out["ids"].cpu(), ref["ids"])
+    _close(out["tag_logits"], ref["tag_logits"], torch.float32)

@@ -1,0 +1,330 @@
+// attention: softmax(q . k^T * hd^-0.5 [+ bias]) . v over a fused
+// (B, Lp, 3H) qkv slab, keys at or past l_actual masked, out (B, Lp, H).
+//
+// Replaces the attention TPU kernels of vitcap_tpu/ops/fused_block.py:
+// _attn_pairbd_kernel / _attn_perhead_kernel (ViT, no bias) and
+// _bert_attn_pairbd_kernel / _bert_attn_perhead_kernel (BERT prefill, with
+// the additive head-broadcast (B, 1, Lp, Lp) f32 bias).  The TPU kernels'
+// pair-blockdiagonal packing is an MXU trick and is not carried over.
+//
+// Math, as on the TPU: f32 scores, scale applied after the dot, bias added,
+// keys >= l_actual masked (they contribute exactly 0: exp(-1e30 - m)
+// underflows, so these kernels stop at l_actual), f32 softmax statistics,
+// the unnormalised probabilities rounded to the compute dtype for the
+// product with v, and the output divided by max(l, 1e-30).
+//
+// What bounds it on the H100: at Lp = 592, hd = 64 the work is
+// 4 * Lp^2 * hd flops per (image, head) against only 3 * Lp * hd inputs,
+// so it is compute-bound, and the exp/max work of the softmax is the second
+// cost.  Two kernels, one block per (q-tile, head, image) each:
+// - bf16 (the main path): tensor cores through WMMA bf16 16x16x16
+//   fragments.  Four warps own 16 query rows each and share K/V tiles in
+//   shared memory.  Two passes over the keys: the first finds each row's max
+//   and sum, the second forms exp(s - max) once, so the output accumulator
+//   stays in registers with no rescaling (the score product runs twice;
+//   tensor-core flops are the cheap resource here).
+// - f32 (exact f32, no TF32): CUDA cores, one thread per query row with q
+//   and the output accumulator in registers, K/V tiles staged as f32 in
+//   shared memory (broadcast reads), online softmax over chunks of 16 keys.
+// Head sizes are padded up to a compiled size (64 or 128 on the tensor
+// cores; 16, 32, 64 or 128 on the CUDA cores) with zeros, which leaves the
+// dot products unchanged.
+#include <math.h>
+#include <mma.h>
+
+#include "common.cuh"
+
+using namespace nvcuda;
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (WMMA), two-pass softmax
+// ---------------------------------------------------------------------------
+
+constexpr int TC_Q = 64;      // query rows per block: 4 warps x 16
+constexpr int TC_THREADS = 128;
+
+template <int HDP, int KT>
+struct TcSmem {
+  static constexpr int LD = HDP + 8;  // bf16 row stride (bank skew)
+  static constexpr int LS = KT + 4;   // f32 score row stride
+  static constexpr int LP = KT + 8;   // bf16 probability row stride
+  bf16 q[TC_Q * LD];
+  bf16 k[KT * LD];
+  bf16 v[KT * LD];
+  float s[4][16 * LS];  // per warp: scores, then bf16 probabilities in place
+  static_assert(16 * LP * sizeof(bf16) <= 16 * LS * sizeof(float),
+                "probabilities must fit in the score scratch");
+};
+
+// rows [r0, r0 + nrows) of one head's hd columns -> smem tile, zero-filled
+// beyond `valid` rows and beyond hd columns
+template <int HDP, int LD>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
+                                          size_t ld_src, int r0, int nrows,
+                                          int valid, int hd) {
+  const int chunks = HDP / 8;  // 16-byte chunks per row
+  for (int i = threadIdx.x; i < nrows * chunks; i += blockDim.x) {
+    const int r = i / chunks, c = (i % chunks) * 8;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (r0 + r < valid && c < hd)
+      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * ld_src +
+                                            c);
+    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
+  }
+}
+
+template <int HDP, int KT>
+__global__ void __launch_bounds__(TC_THREADS)
+    attention_tc_kernel(const bf16* __restrict__ slab,
+                        const float* __restrict__ bias, bf16* __restrict__ out,
+                        int Lp, int H, int hd, int l_actual, float scale) {
+  using S = TcSmem<HDP, KT>;
+  constexpr int LD = S::LD, LS = S::LS, LP = S::LP;
+  constexpr int HALF = KT / 2;  // score columns per lane
+  __shared__ __align__(128) S sm;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * TC_Q;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t ld = 3 * (size_t)H;
+  const bf16* base = slab + (size_t)b * Lp * ld;
+  float* sw = sm.s[warp];
+  bf16* pw = reinterpret_cast<bf16*>(sw);  // probabilities, row stride LP
+  // softmax ownership: lane -> (row, half of the key tile)
+  const int row = lane / 2, c0 = (lane % 2) * HALF;
+  const int qrow = q0 + warp * 16 + row;
+  const float* brow = (bias && qrow < Lp)
+                          ? bias + ((size_t)b * Lp + qrow) * Lp
+                          : nullptr;
+
+  load_rows<HDP, LD>(sm.q, base + h * hd, ld, q0, TC_Q, Lp, hd);
+  __syncthreads();
+  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
+      qf[HDP / 16];
+#pragma unroll
+  for (int kk = 0; kk < HDP / 16; ++kk)
+    wmma::load_matrix_sync(qf[kk], sm.q + warp * 16 * LD + kk * 16, LD);
+
+  // this warp's scores for keys [k0, k0 + KT) -> its f32 scratch
+  auto scores = [&](int k0, float* s) {
+#pragma unroll
+    for (int j = 0; j < KT / 16; ++j) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+      wmma::fill_fragment(acc, 0.0f);
+#pragma unroll
+      for (int kk = 0; kk < HDP / 16; ++kk) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
+        wmma::load_matrix_sync(kf, sm.k + j * 16 * LD + kk * 16, LD);
+        wmma::mma_sync(acc, qf[kk], kf, acc);
+      }
+      wmma::store_matrix_sync(sw + j * 16, acc, LS, wmma::mem_row_major);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int c = 0; c < HALF; ++c) {
+      const int kg = k0 + c0 + c;
+      float v = sw[row * LS + c0 + c] * scale;
+      if (brow && kg < l_actual) v += brow[kg];
+      s[c] = kg < l_actual ? v : -INFINITY;
+    }
+    __syncwarp();
+  };
+
+  // pass 1: row max and sum of exp over all valid keys
+  float m = -INFINITY, l = 0.0f;
+  for (int k0 = 0; k0 < l_actual; k0 += KT) {
+    __syncthreads();
+    load_rows<HDP, LD>(sm.k, base + H + h * hd, ld, k0, KT, l_actual, hd);
+    __syncthreads();
+    float s[HALF];
+    scores(k0, s);
+    float tm = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < HALF; ++c) tm = fmaxf(tm, s[c]);
+    tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 1));
+    const float mn = fmaxf(m, tm);  // finite from the first tile on
+    float part = 0.0f;
+#pragma unroll
+    for (int c = 0; c < HALF; ++c) part += expf(s[c] - mn);
+    l = l * expf(m - mn) + part;
+    m = mn;
+  }
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+
+  // pass 2: o = sum_k exp(s - m) v, probabilities rounded to bf16
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> of[HDP / 16];
+#pragma unroll
+  for (int n = 0; n < HDP / 16; ++n) wmma::fill_fragment(of[n], 0.0f);
+  for (int k0 = 0; k0 < l_actual; k0 += KT) {
+    __syncthreads();
+    load_rows<HDP, LD>(sm.k, base + H + h * hd, ld, k0, KT, l_actual, hd);
+    load_rows<HDP, LD>(sm.v, base + 2 * H + h * hd, ld, k0, KT, l_actual, hd);
+    __syncthreads();
+    float s[HALF];
+    scores(k0, s);
+#pragma unroll
+    for (int c = 0; c < HALF; ++c)
+      pw[row * LP + c0 + c] = __float2bfloat16(expf(s[c] - m));
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < KT / 16; ++j) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf;
+      wmma::load_matrix_sync(pf, pw + j * 16, LP);
+#pragma unroll
+      for (int n = 0; n < HDP / 16; ++n) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
+        wmma::load_matrix_sync(vf, sm.v + j * 16 * LD + n * 16, LD);
+        wmma::mma_sync(of[n], pf, vf, of[n]);
+      }
+    }
+    __syncwarp();
+  }
+
+  // epilogue: stage each 16x16 output fragment, divide by the row sum
+  const float den = fmaxf(l, 1e-30f);
+#pragma unroll
+  for (int n = 0; n < HDP / 16; ++n) {
+    wmma::store_matrix_sync(sw, of[n], 16, wmma::mem_row_major);
+    __syncwarp();
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int col = n * 16 + (lane % 2) * 8 + c;
+      if (qrow < Lp && col < hd)
+        out[((size_t)b * Lp + qrow) * H + h * hd + col] =
+            __float2bfloat16(sw[row * 16 + (lane % 2) * 8 + c] / den);
+    }
+    __syncwarp();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32: CUDA cores, online softmax
+// ---------------------------------------------------------------------------
+
+constexpr int ATT_Q = 64;   // query rows per block (one per thread)
+constexpr int ATT_K = 32;   // keys per shared-memory tile
+constexpr int ATT_CH = 16;  // keys per online-softmax chunk
+
+template <int HDP>
+__global__ void __launch_bounds__(ATT_Q)
+    attention_kernel(const float* __restrict__ slab,
+                     const float* __restrict__ bias, float* __restrict__ out,
+                     int Lp, int H, int hd, int l_actual, float scale) {
+  __shared__ __align__(16) float Ks[ATT_K][HDP];
+  __shared__ __align__(16) float Vs[ATT_K][HDP];
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int row = blockIdx.x * ATT_Q + threadIdx.x;
+  const bool active = row < Lp;
+  const size_t ld = 3 * (size_t)H;
+  const float* base = slab + (size_t)b * Lp * ld;
+  const float* brow =
+      (bias && active) ? bias + ((size_t)b * Lp + row) * Lp : nullptr;
+
+  float q[HDP], o[HDP];
+#pragma unroll
+  for (int d = 0; d < HDP; ++d) {
+    q[d] = (active && d < hd) ? base[row * ld + h * hd + d] : 0.0f;
+    o[d] = 0.0f;
+  }
+  float m = -INFINITY, l = 0.0f;
+
+  for (int k0 = 0; k0 < l_actual; k0 += ATT_K) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < ATT_K * HDP; i += ATT_Q) {
+      const int r = i / HDP, d = i % HDP, kr = k0 + r;
+      float kv = 0.0f, vv = 0.0f;
+      if (kr < l_actual && d < hd) {
+        kv = base[kr * ld + H + h * hd + d];
+        vv = base[kr * ld + 2 * H + h * hd + d];
+      }
+      Ks[r][d] = kv;
+      Vs[r][d] = vv;
+    }
+    __syncthreads();
+    if (!active) continue;
+    const int nt = min(ATT_K, l_actual - k0);
+    for (int c0 = 0; c0 < nt; c0 += ATT_CH) {
+      float s[ATT_CH];
+      float mc = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < ATT_CH; ++j) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int d = 0; d < HDP; ++d) acc = fmaf(q[d], Ks[c0 + j][d], acc);
+        float sv = acc * scale;
+        if (brow && c0 + j < nt) sv += brow[k0 + c0 + j];
+        sv = (c0 + j < nt) ? sv : -INFINITY;
+        s[j] = sv;
+        mc = fmaxf(mc, sv);
+      }
+      if (mc > m) {
+        const float f = expf(m - mc);  // 0 on the first chunk (m = -inf)
+        l *= f;
+#pragma unroll
+        for (int d = 0; d < HDP; ++d) o[d] *= f;
+        m = mc;
+      }
+#pragma unroll
+      for (int j = 0; j < ATT_CH; ++j) {
+        const float p = expf(s[j] - m);
+        l += p;
+#pragma unroll
+        for (int d = 0; d < HDP; ++d) o[d] = fmaf(p, Vs[c0 + j][d], o[d]);
+      }
+    }
+  }
+  if (!active) return;
+  const float den = fmaxf(l, 1e-30f);
+  float* orow = out + ((size_t)b * Lp + row) * H + h * hd;
+  for (int d = 0; d < hd; ++d) orow[d] = o[d] / den;
+}
+
+// ---------------------------------------------------------------------------
+// dispatch
+// ---------------------------------------------------------------------------
+
+template <int HDP>
+static void launch_cc(const void* slab, const float* bias, void* out, int B,
+                      int Lp, int H, int nh, int l_actual, float scale,
+                      cudaStream_t s) {
+  dim3 grid((Lp + ATT_Q - 1) / ATT_Q, nh, B);
+  attention_kernel<HDP><<<grid, ATT_Q, 0, s>>>(
+      static_cast<const float*>(slab), bias, static_cast<float*>(out), Lp, H,
+      H / nh, l_actual, scale);
+}
+
+template <int HDP, int KT>
+static void launch_tc(const void* slab, const float* bias, void* out, int B,
+                      int Lp, int H, int nh, int l_actual, float scale,
+                      cudaStream_t s) {
+  dim3 grid((Lp + TC_Q - 1) / TC_Q, nh, B);
+  attention_tc_kernel<HDP, KT><<<grid, TC_THREADS, 0, s>>>(
+      static_cast<const bf16*>(slab), bias, static_cast<bf16*>(out), Lp, H,
+      H / nh, l_actual, scale);
+}
+
+extern "C" int vc_attention(const void* slab, const void* bias, void* out,
+                            int B, int Lp, int H, int nh, int l_actual,
+                            float scale, int dtype, void* stream) {
+  if (nh <= 0 || H % nh) return (int)cudaErrorInvalidValue;
+  const int hd = H / nh;
+  if (hd % 8 || hd > 128 || H % 8) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* bf = static_cast<const float*>(bias);
+  if (dtype == VC_BF16) {
+    if (hd <= 64)
+      launch_tc<64, 64>(slab, bf, out, B, Lp, H, nh, l_actual, scale, s);
+    else
+      launch_tc<128, 32>(slab, bf, out, B, Lp, H, nh, l_actual, scale, s);
+  } else if (dtype == VC_F32) {
+    if (hd <= 16)
+      launch_cc<16>(slab, bf, out, B, Lp, H, nh, l_actual, scale, s);
+    else if (hd <= 32)
+      launch_cc<32>(slab, bf, out, B, Lp, H, nh, l_actual, scale, s);
+    else if (hd <= 64)
+      launch_cc<64>(slab, bf, out, B, Lp, H, nh, l_actual, scale, s);
+    else
+      launch_cc<128>(slab, bf, out, B, Lp, H, nh, l_actual, scale, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,304 @@
+"""Transformer primitives: nn.Module parameter containers plus plain
+functions on tensors, the port of vitcap_tpu/models/layers.py.
+
+The modules only hold parameters (torch Linear layout: weight (out, in));
+the math lives in the functions below, which take a module and tensors.
+Routing is by shape, as in the TPU package: a bias-free ViT block or a
+biased self-attention BERT layer with at least 64 tokens goes to the fused
+block (ops/fused_block.py), on every device; the device of the tensors then
+decides between the CUDA kernels and their plain versions.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.fused_block import fused_bert_block, fused_vit_block
+from ..ops.layer_norm import layer_norm_plain
+
+NEG_MASK_VALUE = -10000.0  # the reference's (1 - m) * -10000 mask value
+
+
+# ---------------------------------------------------------------------------
+# parameter containers (names = the reference's torch state-dict names)
+# ---------------------------------------------------------------------------
+
+def _linear(fan_in: int, fan_out: int, device, bias: bool = True):
+    return nn.Linear(fan_in, fan_out, bias=bias, device=device)
+
+
+def _norm(dim: int, device):
+    return nn.LayerNorm(dim, device=device)
+
+
+class _Group(nn.Module):
+    """A named bag of submodules (keeps the state-dict names flat)."""
+
+    def __init__(this, /, **children):   # BERT names a child 'self'
+        super().__init__()
+        for name, mod in children.items():
+            setattr(this, name, mod)
+
+
+class ViTBlock(nn.Module):
+    def __init__(self, h: int, i: int, device=None):
+        super().__init__()
+        self.norm1 = _norm(h, device)
+        self.attn = _Group(qkv=_linear(h, 3 * h, device),
+                           proj=_linear(h, h, device))
+        self.norm2 = _norm(h, device)
+        self.mlp = _Group(fc1=_linear(h, i, device), fc2=_linear(i, h, device))
+
+
+class BertLayer(nn.Module):
+    def __init__(self, h: int, i: int, device=None):
+        super().__init__()
+        self.attention = _Group(
+            self=_Group(query=_linear(h, h, device), key=_linear(h, h, device),
+                        value=_linear(h, h, device)),
+            output=_Group(dense=_linear(h, h, device),
+                          LayerNorm=_norm(h, device)))
+        self.intermediate = _Group(dense=_linear(h, i, device))
+        self.output = _Group(dense=_linear(i, h, device),
+                             LayerNorm=_norm(h, device))
+
+
+class BertEmbeddings(nn.Module):
+    def __init__(self, vocab: int, max_pos: int, n_types: int, h: int,
+                 device=None):
+        super().__init__()
+        self.word_embeddings = nn.Embedding(vocab, h, device=device)
+        self.position_embeddings = nn.Embedding(max_pos, h, device=device)
+        self.token_type_embeddings = nn.Embedding(n_types, h, device=device)
+        self.LayerNorm = _norm(h, device)
+
+
+class LMPredictionHead(nn.Module):
+    """transform (dense, LayerNorm) + output bias, plus its own decoder
+    weight when not tied to the word embeddings."""
+
+    def __init__(self, h: int, out_dim: int, tied: bool, device=None):
+        super().__init__()
+        self.transform = _Group(dense=_linear(h, h, device),
+                                LayerNorm=_norm(h, device))
+        if not tied:
+            self.decoder = _linear(h, out_dim, device, bias=False)
+        self.bias = nn.Parameter(torch.empty(out_dim, device=device))
+
+
+# ---------------------------------------------------------------------------
+# elementary ops
+# ---------------------------------------------------------------------------
+
+def dense(p: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """x @ W.T + b in x's dtype (weights stored f32, cast per use)."""
+    y = x @ p.weight.to(x.dtype).t()
+    if p.bias is not None:
+        y = y + p.bias.to(x.dtype)
+    return y
+
+
+def layer_norm(p: nn.LayerNorm, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """Normalise in f32 whatever the compute dtype (always the plain
+    version: this is the LayerNorm outside the fused blocks)."""
+    return layer_norm_plain(x, p.weight, p.bias, eps, x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x)                     # exact (erf)
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
+        bias: Optional[torch.Tensor] = None,
+        scores_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """q (B, Lq, H), k/v (B, Lk, H), bias (B, 1|nh, Lq, Lk) additive ->
+    (B, Lq, H).  No dropout: inference only."""
+    B, Lq, H = q.shape
+    Lk = k.shape[1]
+    hd = H // num_heads
+
+    def heads(a, L):
+        return a.reshape(B, L, num_heads, hd).transpose(1, 2)
+
+    qh, kh, vh = heads(q, Lq), heads(k, Lk), heads(v, Lk)
+    if scores_dtype is not None and scores_dtype != torch.float32:
+        qh = qh * torch.tensor(hd ** -0.5, dtype=qh.dtype)
+        scores = (qh.float() @ kh.float().transpose(-1, -2)).to(scores_dtype)
+        if bias is not None:
+            scores = scores + bias.to(scores.dtype)
+        probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    else:
+        scores = (qh.float() @ kh.float().transpose(-1, -2)) * (hd ** -0.5)
+        if bias is not None:
+            scores = scores + bias.float()
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = probs @ vh
+    return out.transpose(1, 2).reshape(B, Lq, H)
+
+
+# ---------------------------------------------------------------------------
+# ViT (pre-norm)
+# ---------------------------------------------------------------------------
+
+def vit_mlp(p, x: torch.Tensor) -> torch.Tensor:
+    return dense(p.fc2, gelu(dense(p.fc1, x)))
+
+
+def _vit_block_plain(p: ViTBlock, x: torch.Tensor, num_heads: int,
+                     ln_eps: float, bias: Optional[torch.Tensor] = None,
+                     scores_dtype=None) -> torch.Tensor:
+    y = layer_norm(p.norm1, x, ln_eps)
+    q, k, v = dense(p.attn.qkv, y).chunk(3, dim=-1)
+    x = x + dense(p.attn.proj, mha(q, k, v, num_heads, bias, scores_dtype))
+    return x + vit_mlp(p.mlp, layer_norm(p.norm2, x, ln_eps))
+
+
+def vit_block(p: ViTBlock, x: torch.Tensor, num_heads: int, ln_eps: float,
+              bias: Optional[torch.Tensor] = None, scores_dtype=None,
+              l_actual: int = 0) -> torch.Tensor:
+    """One pre-norm ViT block.  Bias-free with L >= 64 -> fused block (the
+    gate of vitcap_tpu/models/layers.py vit_block).  l_actual > 0: x is
+    pre-padded with that many valid rows, valid only on the fused path."""
+    if bias is None and x.shape[1] >= 64:
+        return fused_vit_block(p, x, num_heads, ln_eps, l_actual)
+    if l_actual:
+        raise ValueError("pre-padded input (l_actual > 0) needs the fused "
+                         "block path")
+    return _vit_block_plain(p, x, num_heads, ln_eps, bias, scores_dtype)
+
+
+def vit_block_cls_only(p: ViTBlock, x: torch.Tensor, num_heads: int,
+                       ln_eps: float, scores_dtype=None) -> torch.Tensor:
+    """Exact CLS-row output of vit_block, (B, L, H) -> (B, 1, H): q, proj
+    and MLP run on one row, k/v on every row."""
+    H = x.shape[-1]
+    ln1 = layer_norm(p.norm1, x, ln_eps)
+    w = p.attn.qkv.weight.to(x.dtype)
+    b = p.attn.qkv.bias.to(x.dtype)
+    q = ln1[:, :1] @ w[:H].t() + b[:H]
+    kv = ln1 @ w[H:].t() + b[H:]
+    k, v = kv.chunk(2, dim=-1)
+    out = mha(q, k, v, num_heads, scores_dtype=scores_dtype)
+    x0 = x[:, :1] + dense(p.attn.proj, out)
+    return x0 + vit_mlp(p.mlp, layer_norm(p.norm2, x0, ln_eps))
+
+
+def patch_embed(p: nn.Conv2d, images: torch.Tensor,
+                compute_dtype: Optional[torch.dtype] = None,
+                mean: float = 0.5, std: float = 0.5) -> torch.Tensor:
+    """images (B, H, W, C) NHWC float or uint8, or (B, N, P*P*C)
+    pre-patchified -> patch tokens (B, N, H).  A stride-patch conv computed
+    as space-to-depth + matmul; for uint8 input the (x/255 - mean)/std
+    normalisation is folded into the projection weights."""
+    Hd, C, ph, pw = p.weight.shape
+    w_mat = p.weight.permute(2, 3, 1, 0).reshape(ph * pw * C, Hd)  # HWIO rows
+    if images.dtype == torch.uint8:
+        dt = compute_dtype or torch.float32
+        w32 = w_mat.float()
+        w = (w32 / (255.0 * std)).to(dt)
+        b = (p.bias.float() - (mean / std) * w32.sum(0)).to(dt)
+    else:
+        dt = images.dtype
+        w = w_mat.to(dt)
+        b = p.bias.to(dt)
+    if images.dim() == 3:                       # already (B, N, ph*pw*C)
+        x = images
+    else:
+        B, ih, iw, _ = images.shape
+        gh, gw = ih // ph, iw // pw
+        # conv-stride truncation: the sub-patch tail is ignored
+        images = images[:, :gh * ph, :gw * pw]
+        x = images.reshape(B, gh, ph, gw, pw, C).permute(0, 1, 3, 2, 4, 5)
+        x = x.reshape(B, gh * gw, ph * pw * C)
+    return x.to(dt) @ w + b
+
+
+def patchify_host(image_hwc: np.ndarray, patch: int) -> np.ndarray:
+    """Host-side space-to-depth: (H, W, C) numpy -> (N, patch*patch*C), the
+    pre-patchified layout patch_embed consumes."""
+    ih, iw, C = image_hwc.shape
+    gh, gw = ih // patch, iw // patch
+    x = image_hwc.reshape(gh, patch, gw, patch, C).transpose(0, 2, 1, 3, 4)
+    return np.ascontiguousarray(x).reshape(gh * gw, patch * patch * C)
+
+
+def vision_embed(p, images: torch.Tensor, patch_size: int,
+                 compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """patch embed + CLS + pos-embed.  p holds patch_embed.proj, cls_token
+    and pos_embed.  The pos-embed grid must match the input's."""
+    tokens = patch_embed(p.patch_embed.proj, images, compute_dtype)
+    B, N, H = tokens.shape
+    if p.pos_embed.shape[1] - 1 != N:
+        raise NotImplementedError(
+            f"pos-embed holds {p.pos_embed.shape[1] - 1} patches, input has "
+            f"{N}: pos-embed interpolation is not ported yet")
+    cls_tok = p.cls_token.to(tokens.dtype).expand(B, 1, H)
+    x = torch.cat([cls_tok, tokens], dim=1)
+    return x + p.pos_embed.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# BERT (post-norm)
+# ---------------------------------------------------------------------------
+
+def bert_embeddings(p: BertEmbeddings, input_ids: torch.Tensor,
+                    position_ids: Optional[torch.Tensor],
+                    token_type_ids: Optional[torch.Tensor], ln_eps: float,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """word + position + type embeddings -> LN (no dropout: inference)."""
+    B, L = input_ids.shape
+    if position_ids is None:
+        position_ids = torch.arange(L, device=input_ids.device).expand(B, L)
+    if token_type_ids is None:
+        token_type_ids = torch.zeros_like(input_ids)
+    emb = (p.word_embeddings.weight[input_ids]
+           + p.position_embeddings.weight[position_ids]
+           + p.token_type_embeddings.weight[token_type_ids]).to(dtype)
+    return layer_norm(p.LayerNorm, emb, ln_eps)
+
+
+def _bert_layer_plain(p: BertLayer, x: torch.Tensor, bias: torch.Tensor,
+                      num_heads: int, ln_eps: float,
+                      scores_dtype=None) -> torch.Tensor:
+    ps = p.attention.self
+    attn = mha(dense(ps.query, x), dense(ps.key, x), dense(ps.value, x),
+               num_heads, bias, scores_dtype)
+    attn = dense(p.attention.output.dense, attn)
+    x = layer_norm(p.attention.output.LayerNorm, attn + x, ln_eps)
+    out = dense(p.output.dense, gelu(dense(p.intermediate.dense, x)))
+    return layer_norm(p.output.LayerNorm, out + x, ln_eps)
+
+
+def bert_layer(p: BertLayer, x: torch.Tensor, bias: torch.Tensor,
+               num_heads: int, ln_eps: float,
+               scores_dtype=None) -> torch.Tensor:
+    """Post-norm BERT self-attention layer.  Biased with L >= 64 -> fused
+    block (the gate of vitcap_tpu/models/layers.py bert_layer)."""
+    if bias is not None and x.shape[1] >= 64:
+        return fused_bert_block(p, x, bias, num_heads, ln_eps)
+    return _bert_layer_plain(p, x, bias, num_heads, ln_eps, scores_dtype)
+
+
+def bert_pooler(p, hidden: torch.Tensor) -> torch.Tensor:
+    """tanh(dense(token 0)); p holds .dense."""
+    return torch.tanh(dense(p.dense, hidden[:, 0]))
+
+
+def lm_head_transform(p, x: torch.Tensor, ln_eps: float) -> torch.Tensor:
+    """dense -> gelu -> LN; p holds .dense and .LayerNorm."""
+    return layer_norm(p.LayerNorm, gelu(dense(p.dense, x)), ln_eps)
+
+
+def lm_head(p: LMPredictionHead, x: torch.Tensor, ln_eps: float,
+            decoder_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """transform -> tied (decoder_weight (V, H)) or own decoder + bias.
+    Tied: the f32 bias promotes bf16 logits to f32, as in the TPU package."""
+    h = lm_head_transform(p.transform, x, ln_eps)
+    if decoder_weight is not None:
+        return h @ decoder_weight.to(h.dtype).t() + p.bias
+    return h @ p.decoder.weight.to(h.dtype).t() + p.bias.to(h.dtype)

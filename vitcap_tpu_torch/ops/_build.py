@@ -1,0 +1,112 @@
+"""Build and load the CUDA kernels of vitcap_tpu_torch/csrc.
+
+The sources are compiled with nvcc into one shared library with a plain C
+interface, loaded with ctypes.  The build runs at the first CUDA call into a
+directory under the checkout's ``build/`` (listed in .gitignore), keyed by a
+hash of the sources and the flags, so an edited kernel is rebuilt and an
+unchanged one is reused.  A failed build raises with nvcc's output; there is
+no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "vitcap_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points and their argument types (see csrc/*.cu)
+SIGNATURES = {
+    # a, w, bias, res, out, M, N, K, dtype, gelu, f32_sum, out_f32, stream
+    "vc_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, g, b, y, rows, H, eps, in_dtype, out_dtype, stream
+    "vc_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
+    # slab, bias, out, B, Lp, H, nh, l_actual, scale, dtype, stream
+    "vc_attention": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+}
+
+
+def dtype_code(dtype) -> int:
+    """The csrc dtype code (VC_F32 / VC_BF16 in common.cuh)."""
+    import torch
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    if dtype not in codes:
+        raise TypeError(f"kernels take float32 or bfloat16, got {dtype}")
+    return codes[dtype]
+
+
+# the last build's facts, for chip_smoke.py: seconds, path, ptxas summary
+build_info: dict = {}
+
+
+def _sources():
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found on PATH or in /usr/local/cuda/bin; "
+                           "the CUDA kernels cannot be built")
+    return path
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library."""
+    out_dir = BUILD_ROOT / _digest()
+    lib_path = out_dir / "libvitcap_kernels.so"
+    t0 = time.perf_counter()
+    log = ""
+    if not lib_path.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        cu = [str(p) for p in _sources() if p.suffix == ".cu"]
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{log}")
+        os.replace(tmp, lib_path)            # atomic: no half-written library
+        (out_dir / "nvcc.log").write_text(log)
+    elif (out_dir / "nvcc.log").exists():
+        log = (out_dir / "nvcc.log").read_text()
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    build_info.update(seconds=time.perf_counter() - t0, path=str(lib_path),
+                      ptxas=[ln.strip() for ln in log.splitlines()
+                             if "registers" in ln or "spill" in ln])
+    return lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed with cudaError_t {rc}")
