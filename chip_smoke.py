@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive vitcap_tpu_torch's main path once on one NVIDIA GPU.
+"""Drive vitcap_tpu_torch's main paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -7,20 +7,30 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
 1. host facts: card name and power limit, CUDA, nvcc, Triton;
 2. build the CUDA kernels from vitcap_tpu_torch/csrc;
 3. each kernel vs its plain PyTorch version on the card, at the flagship
-   shapes (ViT-B/16-384, B=64), in bf16 and f32: max abs error and times;
-4. the fused ViT and BERT blocks vs the plain PyTorch blocks;
-5. the main path: a CaptionServer (batch 64, bf16, random weights from a
-   seed) answers 3 x 64 uint8 384x384 requests from client threads; each
-   batch must launch exactly 72 gemm, 36 layer_norm and 18 attention
-   kernels; prints greedy captions/s;
-6. whole-path parity: greedy at flagship width in f32, B=2, on the card
-   (kernels) and on the CPU (plain versions);
-7. where one flagship greedy batch (B=64, bf16) spends its time: host-clock
-   times of encode, prefill and decode loop, the device's busy time and
-   idle share (torch.profiler), and device time by kernel.
+   shapes (ViT-B/16-384, B=64), in bf16 and f32: max abs error, times, the
+   bound (the least time the card could take) and the time of one
+   PyTorch call computing the same function (the yardstick); decode_attention
+   at the greedy (64 rows) and beam-3 (192 rows) geometries, S=628, A=20,
+   t=10;
+4. the fused ViT and BERT blocks vs the plain PyTorch blocks, and one
+   fused decode step of the 4 decoder layers vs its plain version;
+5. the greedy path: a CaptionServer (batch 64, bf16, random weights from a
+   seed, eager decode engine) answers 3 x 64 uint8 384x384 requests from
+   client threads; each batch must launch exactly 72 gemm, 36 layer_norm,
+   18 attention and no decode_attention kernels; prints greedy captions/s;
+5b. the beam path: the same with beam-3 on the fused decode engine
+   (VITCAP_DECODE_FUSED=1); each batch must launch exactly 4 x 19
+   decode_attention kernels beside its gemm and layer_norm launches; prints
+   beam-3 captions/s, then greedy captions/s on the fused engine;
+6. whole-path parity in f32, B=2, on the card (kernels) and on the CPU
+   (plain versions): greedy and beam-3 ids under both engines;
+7. where a flagship batch (B=64, bf16) spends its time, for greedy on each
+   engine and beam-3 on the fused one: host-clock times of encode, prefill
+   and decode loop, the device's busy time and idle share
+   (torch.profiler), and device time by kernel.
 
 The measurements are also written to chiprun_out/chip_smoke.json (and the
-profile's tables to chiprun_out/profile_greedy.txt).
+profiles' tables to chiprun_out/profile_<run>.txt).
 
 The line before the last is the card as nvidia-smi names it, with its
 power limit; the last line is {"ok": true, "device": {...}}.  Without a
@@ -30,9 +40,11 @@ and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
+import os
 import subprocess
 import sys
 import threading
@@ -41,6 +53,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
@@ -49,19 +62,35 @@ SEED = 0
 F32_TOL = 1e-4               # f32 kernels vs plain: exact arithmetic,
                              # only the summation order differs
 BF16_TOL = 2e-2              # bf16: of the output's scale
-PER_BATCH = {"gemm": 72, "layer_norm": 36, "attention": 18}
+# H100 SXM peaks (NVIDIA's data sheet, dense): the bound of a kernel is
+# the larger of its operations over the peak of their type and its bytes
+# (each input read once, each output written once) over the HBM rate
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+HBM_BYTES_S = 3.35e12
+STEPS = 19                   # decode steps of a 20-token caption
+ENCODE = {"gemm": 72, "layer_norm": 36, "attention": 18}   # per batch
+PER_BATCH = dict(ENCODE, decode_attention=0)
+FUSED_PER_BATCH = {"gemm": 72 + 4 * 4 * STEPS,
+                   "layer_norm": 36 + 4 * 2 * STEPS, "attention": 18,
+                   "decode_attention": 4 * STEPS}
 SOURCES = {
     "gemm": ("vitcap_tpu_torch/csrc/gemm.cu",
              "vitcap_tpu/ops/fused_block.py:150 _qkv_kernel, :235 "
-             "_tail_kernel, :534 _bert_qkv_kernel, :604 _bert_tail_kernel"),
+             "_tail_kernel, :534 _bert_qkv_kernel, :604 _bert_tail_kernel; "
+             "the dense products of vitcap_tpu/ops/decode_step.py:115 "
+             "_kernel"),
     "layer_norm": ("vitcap_tpu_torch/csrc/layer_norm.cu",
                    "vitcap_tpu/ops/fused_block.py:150 _qkv_kernel (LN1), "
                    ":235 _tail_kernel (LN2), :604 _bert_tail_kernel "
-                   "(post-LNs)"),
+                   "(post-LNs); the post-LNs of "
+                   "vitcap_tpu/ops/decode_step.py:115 _kernel"),
     "attention": ("vitcap_tpu_torch/csrc/attention.cu",
                   "vitcap_tpu/ops/fused_block.py:194 _attn_pairbd_kernel "
                   "(:167 perhead), :542 _bert_attn_pairbd_kernel "
                   "(:577 perhead)"),
+    "decode_attention": ("vitcap_tpu_torch/csrc/decode_attention.cu",
+                         "vitcap_tpu/ops/decode_step.py:115 _kernel "
+                         "(attention half; fused_decode_step :237)"),
 }
 
 
@@ -83,6 +112,13 @@ def cuda_ms(fn, reps: int) -> float:
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def bound(flops: float, nbytes: float, dn: str):
+    """(bound ms, 'operations' or 'bytes') on an H100 SXM."""
+    t_ops = flops / PEAK_FLOPS[dn] * 1e3
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def compare(name, out, ref, dtype):
@@ -126,13 +162,21 @@ def phase_build():
     log(f"[build] {_build.build_info['seconds']:.1f} s -> "
         f"{_build.build_info['path']}")
     info = _build.build_info["ptxas"]          # ptxas -v, per kernel
-    spills = [ln for ln in info if "spill" in ln and " 0 bytes spill s" not in ln]
-    regs = [int(ln.split("Used ")[1].split()[0]) for ln in info
-            if "Used " in ln]
-    log(f"[build] ptxas: {len(regs)} kernels, max {max(regs, default=0)} "
-        f"registers, {len(spills)} with spills")
-    for ln in spills:
-        log(f"[build] ptxas spill: {ln}")
+    spills = [k for k in info if k["spill_bytes"]]
+    log(f"[build] ptxas: {len(info)} kernels, max "
+        f"{max((k['registers'] for k in info), default=0)} registers, "
+        f"{len(spills)} with spills")
+    for k in spills:
+        log(f"[build] ptxas spill: {k['spill_bytes']} bytes, "
+            f"{k['registers']} registers: {k['name'][:90]}")
+
+
+def _row(rows, kernel, case, dn, shape, err, ms, pms, lms, flops, nbytes):
+    b_ms, b_by = bound(flops, nbytes, dn)
+    rows.append(dict(kernel=kernel, case=case, dtype=dn, shape=shape,
+                     max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms,
+                     flops=flops, bytes=nbytes, bound_ms=b_ms,
+                     bound_by=b_by))
 
 
 def phase_kernels(dev, rows):
@@ -159,6 +203,7 @@ def phase_kernels(dev, rows):
     ]
     for dtype in (torch.bfloat16, torch.float32):
         dn = "bf16" if dtype == torch.bfloat16 else "f32"
+        es = 2 if dtype == torch.bfloat16 else 4
         for name, K, N, epi in gemm_cases:
             a = [rnd(M, K, dtype=dtype) for _ in range(2)]
             w = rnd(N, K, scale=0.02, dtype=dtype)
@@ -178,9 +223,13 @@ def phase_kernels(dev, rows):
                                          f"outputs bit-equal")
             ms = cuda_ms(lambda i: gemm(a[i % 2], w, b, **kw), 10)
             pms = cuda_ms(lambda i: gemm_plain(a[i % 2], w, b, **kw), 10)
-            rows.append(dict(kernel="gemm", case=name, dtype=dn,
-                             shape=f"M={M} K={K} N={N}", max_abs_err=err,
-                             ms=ms, plain_ms=pms))
+            bd = b.to(dtype)
+            lms = cuda_ms(lambda i: F.linear(a[i % 2], w, bd), 10)
+            out_es = 4 if epi.get("out_f32") else es
+            nbytes = (es * (M * K + N * K + (M * N if r is not None else 0))
+                      + 4 * N + out_es * M * N)
+            _row(rows, "gemm", name, dn, f"M={M} K={K} N={N}", err, ms, pms,
+                 lms, 2.0 * M * K * N, nbytes)
         for name, idt in (("ln", dtype), ("post-ln f32-in", torch.float32)):
             x = [rnd(M, H, scale=3.0, dtype=idt) + 1 for _ in range(2)]
             gm, bt = rnd(H) + 1, rnd(H)
@@ -191,9 +240,12 @@ def phase_kernels(dev, rows):
                          10)
             pms = cuda_ms(lambda i: layer_norm_plain(x[i % 2], gm, bt, 1e-6,
                                                      dtype), 10)
-            rows.append(dict(kernel="layer_norm", case=name, dtype=dn,
-                             shape=f"rows={M} H={H}", max_abs_err=err,
-                             ms=ms, plain_ms=pms))
+            gl, bl = gm.to(idt), bt.to(idt)     # F.layer_norm: one dtype
+            lms = cuda_ms(lambda i: F.layer_norm(x[i % 2], (H,), gl, bl,
+                                                 1e-6), 10)
+            in_es = 4 if idt == torch.float32 else 2
+            _row(rows, "layer_norm", name, dn, f"rows={M} H={H}", err, ms,
+                 pms, lms, 8.0 * M * H, M * H * (in_es + es) + 8 * H)
         for name, Bn, L, Lp, with_bias in (("vit", B, 577, 592, False),
                                            ("bert-prefill", B, 628, 640,
                                             True),
@@ -210,15 +262,124 @@ def phase_kernels(dev, rows):
             ms = cuda_ms(lambda i: attention(slab[i % 2], 12, L, bias), 5)
             pms = cuda_ms(lambda i: attention_plain(slab[i % 2], 12, L,
                                                     bias), 5)
-            rows.append(dict(kernel="attention", case=name, dtype=dn,
-                             shape=f"B={Bn} L={L} Lp={Lp} heads=12x64",
-                             max_abs_err=err, ms=ms, plain_ms=pms))
+            # yardstick: SDPA on the slab's q/k/v with the same float mask
+            mask = torch.zeros(Bn, 1, Lp, Lp, device=dev, dtype=dtype)
+            mask[..., L:] = float("-inf")
+            if bias is not None:
+                mask = mask + bias.to(dtype)
+            qkv = [s.view(Bn, Lp, 3, 12, 64).permute(2, 0, 3, 1, 4)
+                   for s in slab]
+            lms = cuda_ms(lambda i: F.scaled_dot_product_attention(
+                qkv[i % 2][0], qkv[i % 2][1], qkv[i % 2][2],
+                attn_mask=mask), 5)
+            nbytes = es * Bn * Lp * 4 * H + (4 * Bn * Lp * Lp if with_bias
+                                             else 0)
+            _row(rows, "attention", name, dn,
+                 f"B={Bn} L={L} Lp={Lp} heads=12x64", err, ms, pms, lms,
+                 4.0 * Bn * 12 * Lp * L * 64, nbytes)
+            del mask, qkv
         del a, w, r, x, slab
         torch.cuda.empty_cache()
     for r in rows:
         log(f"[kernel] {r['kernel']:10s} {r['case']:20s} {r['dtype']:4s} "
             f"{r['shape']:32s} err {r['max_abs_err']:.3e}  "
-            f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms")
+            f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+            f"library {r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+
+
+def _decode_attention_inputs(dev, dtype, nb, t, S=628, A=20, H=768, g=None):
+    """Flagship-width decode_attention inputs for B images of nb beams:
+    window qkv, caption caches with history before slot t-1, context K/V,
+    a per-image od validity (50 od slots, 3 + 4*i of them valid)."""
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(dev, dtype)
+    Bb = B * nb
+    cap_k, cap_v = rnd(Bb, A, H), rnd(Bb, A, H)
+    valid = torch.ones(B, S, dtype=torch.bool)
+    for i in range(B):
+        valid[i, 3 + 4 * (i % 12):50] = False
+    bias = torch.where(valid, 0.0, -10000.0).float().to(dev)
+    return dict(qkv=rnd(Bb, 2, 3 * H), cap_k=cap_k, cap_v=cap_v,
+                ctx_k=rnd(B, S, H), ctx_v=rnd(B, S, H), bias=bias)
+
+
+def _sdpa_decode_inputs(d, t, nh=12):
+    """The same attention as one SDPA call: per row, keys = the caption
+    slots < t (prev's at t-1), the MASK row's own key, the image's context
+    (repeated per beam), under one float mask.  Built outside the timing."""
+    Bb, _, H3 = d["qkv"].shape
+    H = H3 // 3
+    nb = Bb // d["ctx_k"].shape[0]
+    hd = H // nh
+    q, kw, vw = d["qkv"].split(H, dim=-1)
+    ck, cv = d["cap_k"][:, :t].clone(), d["cap_v"][:, :t].clone()
+    ck[:, t - 1], cv[:, t - 1] = kw[:, 0], vw[:, 0]
+
+    def keys(cap, own, ctx):
+        a = torch.cat([cap, own[:, 1:2],
+                       ctx.repeat_interleave(nb, dim=0)], dim=1)
+        return a.view(Bb, -1, nh, hd).transpose(1, 2).contiguous()
+    S = d["ctx_k"].shape[1]
+    mask = torch.zeros(Bb, 1, 2, t + 1 + S, device=q.device, dtype=q.dtype)
+    mask[:, :, 0, t] = float("-inf")                 # prev: no MASK key
+    mask[:, :, :, t + 1:] = d["bias"].repeat_interleave(nb, 0)[:, None, None]
+    return (q.reshape(Bb, 2, nh, hd).transpose(1, 2).contiguous(),
+            keys(ck, kw, d["ctx_k"]), keys(cv, vw, d["ctx_v"]), mask)
+
+
+def phase_decode_attention(dev, rows):
+    """decode_attention vs its plain version at the greedy (nb=1) and
+    beam-3 geometries, S=628, A=20, t=10, bf16 and f32."""
+    from vitcap_tpu_torch.ops.decode_step import (decode_attention,
+                                                  decode_attention_plain)
+    g = torch.Generator().manual_seed(SEED + 5)
+    nh, S, A, t, H = 12, 628, 20, 10, 768
+    t_dev = torch.tensor([t], dtype=torch.int32, device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = "bf16" if dtype == torch.bfloat16 else "f32"
+        es = 2 if dtype == torch.bfloat16 else 4
+        for case, nb in (("greedy", 1), ("beam3", 3)):
+            d = _decode_attention_inputs(dev, dtype, nb, t, S, A, H, g)
+            Bb = B * nb
+            caps = [d["cap_k"].clone(), d["cap_v"].clone()]
+            sdpa = _sdpa_decode_inputs(d, t)
+            args = (d["ctx_k"], d["ctx_v"], d["bias"])
+            out = decode_attention(d["qkv"], *caps, *args, t_dev, nh)
+            ref = decode_attention_plain(d["qkv"], d["cap_k"], d["cap_v"],
+                                         *args, t, nh)
+            err = compare(f"decode_attention {case} {dn}", out, ref, dtype)
+            if not (torch.equal(caps[0], d["cap_k"])
+                    and torch.equal(caps[1], d["cap_v"])):
+                raise AssertionError(f"decode_attention {case} {dn}: "
+                                     f"caption caches differ from plain")
+            lib = F.scaled_dot_product_attention(*sdpa[:3],
+                                                 attn_mask=sdpa[3])
+            lib_err = (lib.transpose(1, 2).reshape(Bb, 2, H).float()
+                       - ref.float()).abs().max().item()
+            ms = cuda_ms(lambda i: decode_attention(d["qkv"], *caps, *args,
+                                                    t_dev, nh), 20)
+            pms = cuda_ms(lambda i: decode_attention_plain(
+                d["qkv"], *caps, *args, t, nh), 5)
+            lms = cuda_ms(lambda i: F.scaled_dot_product_attention(
+                *sdpa[:3], attn_mask=sdpa[3]), 20)
+            # context K/V and bias once, the caption slots < t-1 of every
+            # row, the window, the prev slot's k/v written, the output
+            nbytes = (es * (2 * B * S * H + 2 * Bb * (t - 1) * H
+                            + Bb * 2 * 3 * H + 2 * Bb * H + Bb * 2 * H)
+                      + 4 * B * S)
+            flops = 4.0 * Bb * 2 * (S + t) * H
+            _row(rows, "decode_attention", case, dn,
+                 f"B={B} nb={nb} S={S} A={A} t={t} heads=12x64", err, ms,
+                 pms, lms, flops, nbytes)
+            r = rows[-1]
+            log(f"[decode_attention] {case:6s} {dn:4s} err {err:.3e} "
+                f"(SDPA vs plain {lib_err:.3e})  kernel {ms:.4f} ms  "
+                f"plain {pms:.4f} ms  SDPA {lms:.4f} ms  bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
+                f"{nbytes / 1e6:.1f} MB)")
+            del d, caps, sdpa, out, ref, lib
+            torch.cuda.empty_cache()
 
 
 def phase_blocks(dev, rows):
@@ -271,28 +432,118 @@ def phase_blocks(dev, rows):
     torch.cuda.empty_cache()
 
 
-def phase_main_path(dev, smi):
+def phase_decode_step(dev, rows):
+    """One fused decode step of the 4 flagship decoder layers (28
+    launches) vs fused_decode_step_plain, greedy and beam-3, bf16 and f32;
+    the bound counts the context K/V of 4 layers and the layer weights."""
+    from vitcap_tpu_torch import ops
+    from vitcap_tpu_torch.models.config import ModelConfig
+    from vitcap_tpu_torch.models.vitcap import init_params
+    from vitcap_tpu_torch.ops.decode_step import (fused_decode_step,
+                                                  fused_decode_step_plain,
+                                                  pack_decode_layers)
+    cfg = ModelConfig(num_hidden_layers=1, split_blocks=1)
+    model = init_params(cfg, torch.Generator().manual_seed(SEED), dev)
+    g = torch.Generator().manual_seed(SEED + 6)
+    nL, H, S, A, t = cfg.decoder_layers, cfg.hidden_size, 628, 20, 10
+    t_dev = torch.tensor(t, dtype=torch.int32, device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = "bf16" if dtype == torch.bfloat16 else "f32"
+        es = 2 if dtype == torch.bfloat16 else 4
+        packed = pack_decode_layers(model, dtype)
+        w_bytes = sum(v.numel() * v.element_size() for v in packed.values())
+        for case, nb in (("greedy", 1), ("beam3", 3)):
+            Bb = B * nb
+
+            def rnd(*shape):
+                return torch.randn(*shape, generator=g).to(dev, dtype)
+            ctx_k, ctx_v = rnd(nL, B, S, H), rnd(nL, B, S, H)
+            bias = torch.zeros(B, S, device=dev)
+            bias[:, 10:50] = -10000.0
+            cap_k, cap_v = rnd(nL, Bb, A, H), rnd(nL, Bb, A, H)
+            x = rnd(Bb, 2, H)
+            args = (packed, ctx_k, ctx_v, bias)
+            kw = dict(num_heads=cfg.num_attention_heads,
+                      eps=cfg.bert_layer_norm_eps)
+            caps = [cap_k.clone(), cap_v.clone()]
+            ops.reset_counts()
+            out = fused_decode_step(*args, *caps, x, t_dev, **kw)
+            counts = ops.launch_counts()
+            if counts != {"gemm": 4 * nL, "layer_norm": 2 * nL,
+                          "attention": 0, "decode_attention": nL}:
+                raise AssertionError(f"fused step launches {counts}")
+            ref = fused_decode_step_plain(*args, cap_k, cap_v, x, t, **kw)
+            err = compare(f"fused_decode_step {case} {dn}", out, ref, dtype)
+            for got, want in zip(caps, (cap_k, cap_v)):
+                compare(f"fused_decode_step {case} {dn} caches", got, want,
+                        dtype)
+            ms = cuda_ms(lambda i: fused_decode_step(*args, *caps, x, t_dev,
+                                                     **kw), 10)
+            pms = cuda_ms(lambda i: fused_decode_step_plain(
+                *args, cap_k, cap_v, x, t, **kw), 3)
+            nbytes = es * nL * (2 * B * S * H) + w_bytes
+            b_ms, b_by = bound(0.0, nbytes, dn)
+            rows.append(dict(kernel="fused_decode_step", case=case, dtype=dn,
+                             shape=f"B={B} nb={nb} S={S} nL={nL} t={t}",
+                             max_abs_err=err, ms=ms, plain_ms=pms,
+                             bytes=nbytes, bound_ms=b_ms, bound_by=b_by))
+            log(f"[step] fused_decode_step {case:6s} {dn:4s} err {err:.3e}"
+                f"  kernels {ms:.4f} ms  plain {pms:.4f} ms  bound "
+                f"{b_ms:.4f} ms ({nbytes / 1e6:.1f} MB: context K/V + "
+                f"weights)")
+            del ctx_k, ctx_v, cap_k, cap_v, caps, out, ref
+            torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+
+
+def _flagship(dev):
+    from vitcap_tpu_torch.models.config import ModelConfig
+    from vitcap_tpu_torch.models.vitcap import init_params
+    cfg = ModelConfig(dtype="bfloat16")
+    return cfg, init_params(cfg, torch.Generator().manual_seed(SEED), dev)
+
+
+def _opts(cfg, **kw):
+    from vitcap_tpu_torch.models import decode as TD
+    return TD.DecodeOptions(max_length=cfg.max_gen_length,
+                            od_labels_start_posid=cfg.max_seq_a_len, **kw)
+
+
+@contextlib.contextmanager
+def _engine(fused: bool):
+    """Select the decode engine for a block, as a user does: through
+    VITCAP_DECODE_FUSED."""
+    old = os.environ.get("VITCAP_DECODE_FUSED")
+    os.environ["VITCAP_DECODE_FUSED"] = "1" if fused else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("VITCAP_DECODE_FUSED")
+        else:
+            os.environ["VITCAP_DECODE_FUSED"] = old
+
+
+def _serve(dev, smi, cfg, model, opts, label, per_batch):
+    """A CaptionServer (batch B) answers 3 x B uint8 requests from 8 client
+    threads; every batch must launch exactly `per_batch` kernels.  Returns
+    the launch counts of the run (set to 0 just before it) and its rates."""
     from vitcap_tpu_torch import ops
     from vitcap_tpu_torch.data.tokenization import CaptionDecoder
     from vitcap_tpu_torch.models import decode as TD
-    from vitcap_tpu_torch.models.config import ModelConfig
-    from vitcap_tpu_torch.models.vitcap import init_params
     from vitcap_tpu_torch.serving import CaptionServer
-    cfg = ModelConfig(dtype="bfloat16")
-    model = init_params(cfg, torch.Generator().manual_seed(SEED), dev)
     rs = np.random.RandomState(SEED)
     images = rs.randint(0, 256, (3, B, cfg.img_size, cfg.img_size, 3)) \
         .astype(np.uint8)
     od_len = cfg.max_seq_len - cfg.max_seq_a_len
-    opts = TD.DecodeOptions(max_length=cfg.max_gen_length,
-                            od_labels_start_posid=cfg.max_seq_a_len)
     # warm-up batch outside the counted run (allocator, library handles)
     TD.generate(model, torch.from_numpy(images[0]).to(dev),
                 torch.zeros(B, od_len, dtype=torch.long, device=dev), None,
                 torch.full((B,), cfg.max_seq_a_len, device=dev), cfg, opts)
     torch.cuda.synchronize()
 
-    results, per_batch, round_s = [], [], []
+    results, batches, round_s = [], [], []
     server = CaptionServer(model, cfg, opts, tokenizer=CaptionDecoder(),
                            batch_size=B, max_delay_s=1.0)
     ops.reset_counts()
@@ -312,40 +563,70 @@ def phase_main_path(dev, smi):
                 t.start()
             for t in threads:
                 t.join(timeout=60)
+            if any(t.is_alive() for t in threads):
+                raise AssertionError(f"{label}: a client thread hung")
             results += [f.result(timeout=300) for f in futs]
             round_s.append(time.perf_counter() - t_round)
             after = ops.launch_counts()
-            per_batch.append({k: after[k] - before[k] for k in after})
+            batches.append({k: after[k] - before[k] for k in after})
     finally:
         server.close()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = ops.launch_counts()
     stats = server.stats()
-    log(f"[main] batches {stats['batches']} requests {stats['requests']} "
-        f"launches per batch {per_batch}")
+    log(f"[{label}] batches {stats['batches']} requests {stats['requests']} "
+        f"launches per batch {batches}")
     if stats["batches"] != 3:
-        raise AssertionError(f"expected 3 batches of {B}, got {stats}")
-    for d in per_batch:
-        if d != PER_BATCH:
-            raise AssertionError(f"launches per batch {d} != {PER_BATCH}")
+        raise AssertionError(f"{label}: expected 3 batches of {B}, got "
+                             f"{stats}")
+    for d in batches:
+        if d != per_batch:
+            raise AssertionError(f"{label}: launches per batch {d} != "
+                                 f"{per_batch}")
     for r in results:
         if not (isinstance(r["caption"], str) and 0.0 < r["conf"] <= 1.0):
-            raise AssertionError(f"bad result {r}")
+            raise AssertionError(f"{label}: bad result {r}")
     rate = len(results) / seconds
-    log(f"[main] example captions (random weights): "
+    log(f"[{label}] example captions (random weights): "
         f"{[r['caption'][:40] for r in results[:2]]}")
-    log(f"[main] greedy captions/s {rate:.2f} (B={B}, bf16, "
+    log(f"[{label}] captions/s {rate:.2f} (B={B}, bf16, "
         f"{cfg.max_gen_length} steps, {len(results)} requests in "
         f"{seconds:.3f} s, first batch included) on {smi}")
-    log(f"[main] seconds per round of {B} requests: {round_s}")
-    del model, server
-    torch.cuda.empty_cache()
+    log(f"[{label}] seconds per round of {B} requests: {round_s}")
     return counts, {"captions_per_s": rate, "seconds": seconds,
-                    "round_seconds": round_s}
+                    "round_seconds": round_s, "launches_per_batch": batches}
+
+
+def phase_main_path(dev, smi):
+    """Greedy on the eager engine (the default engine's path)."""
+    cfg, model = _flagship(dev)
+    with _engine(fused=False):
+        counts, out = _serve(dev, smi, cfg, model, _opts(cfg), "greedy",
+                             PER_BATCH)
+    del model
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def phase_beam_path(dev, smi):
+    """Beam-3 on the fused engine (this slice's main path), then greedy on
+    the fused engine."""
+    cfg, model = _flagship(dev)
+    with _engine(fused=True):
+        counts, beam = _serve(dev, smi, cfg, model, _opts(cfg, num_beams=3),
+                              "beam3-fused", FUSED_PER_BATCH)
+        _, greedy = _serve(dev, smi, cfg, model, _opts(cfg), "greedy-fused",
+                           FUSED_PER_BATCH)
+    del model
+    torch.cuda.empty_cache()
+    return counts, {"beam3_fused": beam, "greedy_fused": greedy}
 
 
 def phase_parity(dev):
+    """f32, B=2, card vs CPU: tag logits, context K/V and first-step
+    logits within 1e-3 relative; greedy and beam-3 ids equal, under both
+    engines."""
     from vitcap_tpu_torch.models import decode as TD
     from vitcap_tpu_torch.models.config import ModelConfig
     from vitcap_tpu_torch.models.vitcap import init_params
@@ -357,110 +638,101 @@ def phase_parity(dev):
                                                  cfg.img_size, 3))
                             .astype(np.uint8))
     od_len = cfg.max_seq_len - cfg.max_seq_a_len
-    opts = TD.DecodeOptions(max_length=cfg.max_gen_length,
-                            od_labels_start_posid=cfg.max_seq_a_len)
+    greedy, beam = _opts(cfg), _opts(cfg, num_beams=3, num_keep_best=2)
 
-    def run(model, d):
+    def run(model, d, layout):
         od = torch.zeros(2, od_len, dtype=torch.long, device=d)
-        sl = torch.full((2,), cfg.max_seq_a_len + 3, device=d)
+        sl = torch.tensor([cfg.max_seq_a_len + 3, cfg.max_seq_a_len + 40],
+                          device=d)
         ctx = TD.build_decode_context(model, imgs.to(d), od, None, sl, cfg,
-                                      opts)
+                                      greedy, layout=layout)
         with torch.inference_mode():   # first decode step, as generate runs it
-            dw = TD._decode_params_cast(model, cfg)
-            step_ctx = dict(ctx, ctx_k=[k.float() for k in ctx["ctx_k"]],
-                            ctx_v=[v.float() for v in ctx["ctx_v"]])
-            ck, cv = TD._init_caps(2, cfg.decoder_layers, opts.max_length,
-                                   cfg.hidden_size, cfg.compute_dtype,
-                                   cfg.num_attention_heads, d)
-            first = TD.decode_step(dw, ck, cv, step_ctx,
-                                   torch.full((2,), cfg.cls_token_id,
-                                              device=d), 1, cfg)
-        out = TD.generate_greedy(model, None, None, None, None, cfg, opts,
-                                 ctx=ctx)
-        return {"tag_logits": ctx["tag_logits"],
-                "ctx_k": torch.stack(ctx["ctx_k"]),
-                "ctx_v": torch.stack(ctx["ctx_v"]),
-                "first_logits": first, "ids": out["ids"]}
+            init, step, _ = TD._decode_engine(model, ctx, cfg, greedy, 2)
+            first, _ = step(init(), torch.full((2,), cfg.cls_token_id,
+                                               device=d), 1)
+        k, v = ctx["ctx_k"], ctx["ctx_v"]
+        if layout == "heads":
+            k, v = torch.stack(k), torch.stack(v)
+        return {"tag_logits": ctx["tag_logits"], "ctx_k": k, "ctx_v": v,
+                "first_logits": first,
+                "greedy": TD.generate_greedy(model, None, None, None, None,
+                                             cfg, greedy, ctx=ctx)["ids"],
+                "beam3": TD.generate_beam(model, None, None, None, None, cfg,
+                                          beam, ctx=ctx)["ids"]}
 
-    ref = run(cpu_model, "cpu")
-    got = run(gpu_model, dev)
-    torch.cuda.synchronize()
-    for key in ("tag_logits", "ctx_k", "ctx_v", "first_logits"):
-        a, b = got[key].float().cpu(), ref[key].float()
-        rel = ((a - b).abs().max() / b.abs().max()).item()
-        log(f"[parity] {key:12s} max rel err {rel:.3e}")
-        if not (torch.isfinite(a).all() and rel <= 1e-3):
-            raise AssertionError(f"parity {key}: rel err {rel:.3e} > 1e-3")
-    agree = (got["ids"].cpu() == ref["ids"]).float().mean().item()
-    log(f"[parity] greedy id agreement GPU vs CPU: {agree:.4f} "
-        f"({ref['ids'].numel()} ids)")
+    for layout in ("heads", "flat"):
+        ref = run(cpu_model, "cpu", layout)
+        got = run(gpu_model, dev, layout)
+        torch.cuda.synchronize()
+        for key in ("tag_logits", "ctx_k", "ctx_v", "first_logits"):
+            a, b = got[key].float().cpu(), ref[key].float()
+            rel = ((a - b).abs().max() / b.abs().max()).item()
+            log(f"[parity] {layout:5s} {key:12s} max rel err {rel:.3e}")
+            if not (torch.isfinite(a).all() and rel <= 1e-3):
+                raise AssertionError(f"parity {layout} {key}: rel err "
+                                     f"{rel:.3e} > 1e-3")
+        for key in ("greedy", "beam3"):
+            same = torch.equal(got[key].cpu(), ref[key])
+            log(f"[parity] {layout:5s} {key} ids GPU == CPU: {same} "
+                f"({ref[key].numel()} ids)")
+            if not same:
+                raise AssertionError(f"parity {layout} {key}: ids differ")
 
 
 def summarise(rows, counts):
-    """The per-kernel JSON entries: launches from the main path, the largest
-    error of any check, and "ms"/"plain_ms" for one fused ViT block's
-    launches of the kernel at B=64 bf16."""
-    per_vit_block = {"qkv": 1, "proj+res": 1, "fc1+gelu": 1, "fc2+res": 1,
-                     "ln": 2, "vit": 1}
+    """The per-kernel JSON entries.  launches: the beam path's run
+    (phase 5b).  max_abs_err: the largest of any check of the kernel.
+    ms / plain_ms / library_ms / bound_ms: for gemm, layer_norm and
+    attention, the sum over one fused ViT block's launches at B=64 bf16
+    (4 gemm, 2 layer_norm, 1 attention); for decode_attention, one launch
+    at the beam-3 geometry, bf16.  bound_by: the kind that contributes most
+    to bound_ms."""
+    per_launch = {"gemm": {"qkv": 1, "proj+res": 1, "fc1+gelu": 1,
+                           "fc2+res": 1},
+                  "layer_norm": {"ln": 2}, "attention": {"vit": 1},
+                  "decode_attention": {"beam3": 1}}
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         mine = [r for r in rows if r["kernel"] == name]
-        main = [(r, per_vit_block[r["case"]]) for r in mine
-                if r["dtype"] == "bf16" and r["case"] in per_vit_block]
+        main = [(r, per_launch[name][r["case"]]) for r in mine
+                if r["dtype"] == "bf16" and r["case"] in per_launch[name]]
+        by = {}
+        for r, n in main:
+            by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + r["bound_ms"] * n
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": counts[name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": sum(r["ms"] * n for r, n in main),
             "plain_ms": sum(r["plain_ms"] * n for r, n in main),
+            "bound_ms": sum(by.values()),
+            "bound_by": max(by, key=by.get),
+            "library_ms": sum(r["library_ms"] * n for r, n in main),
         })
     return kernels
 
 
-def phase_profile(dev):
-    """One flagship greedy batch (B=64, bf16): host-clock phase times
-    (median of 3, synchronised), then the same batch under torch.profiler:
-    device busy time (the union of kernel and copy intervals), idle share
-    against the unprofiled wall time, and device time by kernel."""
+def _profile_batch(name, fn, wall_prefill, reps=3):
+    """Host-clock batch time (median of reps, synchronised), then one batch
+    under torch.profiler: device busy time (the union of kernel and copy
+    intervals), idle share against the unprofiled wall time, device time
+    by kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from vitcap_tpu_torch.models import decode as TD
-    from vitcap_tpu_torch.models import vitcap as TM
-    from vitcap_tpu_torch.models.config import ModelConfig
-    cfg = ModelConfig(dtype="bfloat16")
-    model = TM.init_params(cfg, torch.Generator().manual_seed(SEED), dev)
-    rs = np.random.RandomState(SEED + 3)
-    imgs = torch.from_numpy(rs.randint(0, 256, (B, cfg.img_size,
-                                                 cfg.img_size, 3))
-                            .astype(np.uint8)).to(dev)
-    od = torch.zeros(B, cfg.max_seq_len - cfg.max_seq_a_len,
-                     dtype=torch.long, device=dev)
-    sl = torch.full((B,), cfg.max_seq_a_len, device=dev)
-    opts = TD.DecodeOptions(max_length=cfg.max_gen_length,
-                            od_labels_start_posid=cfg.max_seq_a_len)
-    stages = {
-        "encode": lambda: TM.encode_images(model, imgs, cfg),
-        "encode+prefill": lambda: TD.build_decode_context(
-            model, imgs, od, None, sl, cfg, opts),
-        "batch": lambda: TD.generate(model, imgs, od, None, sl, cfg, opts),
-    }
     for _ in range(2):
-        stages["batch"]()
+        fn()
     torch.cuda.synchronize()
-    wall = {}
-    for name, fn in stages.items():
-        ts = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            ts.append((time.perf_counter() - t0) * 1e3)
-        wall[name] = sorted(ts)[1]
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    wall = sorted(ts)[len(ts) // 2]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        stages["batch"]()
+        fn()
         torch.cuda.synchronize()
         prof_wall = (time.perf_counter() - t0) * 1e3
     spans = sorted((e.time_range.start, e.time_range.end)
@@ -476,22 +748,63 @@ def phase_profile(dev):
             ms, n = by_kernel.get(e.name, (0.0, 0))
             by_kernel[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])
-    out = {"wall_ms": wall, "decode_loop_ms": wall["batch"]
-           - wall["encode+prefill"], "profiled_wall_ms": prof_wall,
-           "device_busy_ms": busy, "idle_share": 1.0 - busy / wall["batch"],
+    out = {"batch_ms": wall, "encode_prefill_ms": wall_prefill,
+           "decode_loop_ms": wall - wall_prefill, "profiled_wall_ms":
+           prof_wall, "device_busy_ms": busy, "device_events": len(spans),
+           "idle_share": 1.0 - busy / wall,
            "kernels": [{"name": k, "ms": ms, "count": n}
                        for k, (ms, n) in top]}
-    log(f"[profile] wall ms (median of 3): {wall}; decode loop "
-        f"{out['decode_loop_ms']:.3f}")
-    log(f"[profile] device busy {busy:.3f} ms of {wall['batch']:.3f} ms "
+    log(f"[profile] {name}: batch {wall:.3f} ms (median of {reps}), encode "
+        f"+ prefill {wall_prefill:.3f} ms, decode loop "
+        f"{out['decode_loop_ms']:.3f} ms")
+    log(f"[profile] {name}: device busy {busy:.3f} ms of {wall:.3f} ms "
         f"wall: idle share {out['idle_share']:.4f} (profiled wall "
         f"{prof_wall:.3f} ms, {len(spans)} device events)")
-    for k, (ms, n) in top[:10]:
-        log(f"[profile] {ms:9.3f} ms {n:6d}x {k[:90]}")
+    for k, (ms, n) in top[:8]:
+        log(f"[profile] {name}: {ms:9.3f} ms {n:6d}x {k[:80]}")
     OUT.mkdir(exist_ok=True)
-    (OUT / "profile_greedy.txt").write_text(
+    (OUT / f"profile_{name}.txt").write_text(
         prof.key_averages().table(sort_by="self_cuda_time_total",
                                   row_limit=40, max_name_column_width=90))
+    return out
+
+
+def phase_profile(dev):
+    """Flagship batches (B=64, bf16): greedy on the eager engine, greedy
+    and beam-3 on the fused engine.  Encode once; encode + prefill per
+    engine (the layouts differ), median of 3 each."""
+    from vitcap_tpu_torch.models import decode as TD
+    from vitcap_tpu_torch.models import vitcap as TM
+    cfg, model = _flagship(dev)
+    rs = np.random.RandomState(SEED + 3)
+    imgs = torch.from_numpy(rs.randint(0, 256, (B, cfg.img_size,
+                                                 cfg.img_size, 3))
+                            .astype(np.uint8)).to(dev)
+    od = torch.zeros(B, cfg.max_seq_len - cfg.max_seq_a_len,
+                     dtype=torch.long, device=dev)
+    sl = torch.full((B,), cfg.max_seq_a_len, device=dev)
+
+    def median_ms(fn):
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return sorted(ts)[1]
+
+    out = {"encode_ms": median_ms(lambda: TM.encode_images(model, imgs,
+                                                           cfg))}
+    log(f"[profile] encode {out['encode_ms']:.3f} ms")
+    for name, fused, opts in (("greedy_eager", False, _opts(cfg)),
+                              ("greedy_fused", True, _opts(cfg)),
+                              ("beam3_fused", True,
+                               _opts(cfg, num_beams=3))):
+        with _engine(fused):
+            prefill = median_ms(lambda: TD.build_decode_context(
+                model, imgs, od, None, sl, cfg, opts))
+            out[name] = _profile_batch(name, lambda: TD.generate(
+                model, imgs, od, None, sl, cfg, opts), prefill)
     del model
     torch.cuda.empty_cache()
     return out
@@ -511,17 +824,28 @@ def main() -> int:
     phase_build()
     rows = []
     phase_kernels(dev, rows)
+    phase_decode_attention(dev, rows)
     phase_blocks(dev, rows)
-    counts, main_path = phase_main_path(dev, smi)
+    phase_decode_step(dev, rows)
+    greedy_counts, greedy = phase_main_path(dev, smi)
+    counts, beam = phase_beam_path(dev, smi)
+    log(f"[beam] beam-3 fused {beam['beam3_fused']['captions_per_s']:.2f} "
+        f"captions/s; greedy fused "
+        f"{beam['greedy_fused']['captions_per_s']:.2f} vs greedy eager "
+        f"{greedy['captions_per_s']:.2f} captions/s (B={B}, bf16) on {smi}")
     phase_parity(dev)
     prof = phase_profile(dev)
 
+    for name, n in counts.items():
+        if n == 0:
+            raise AssertionError(f"{name}: no launch on the beam path")
     kernels = summarise(rows, counts)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(
-        {"card": smi, "rows": rows, "main_path": main_path,
-         "launches": counts, "profile": prof}, indent=1))
+        {"card": smi, "rows": rows, "greedy_path": greedy,
+         "greedy_launches": greedy_counts, "beam_path": beam,
+         "launches": counts, "profile": prof, "kernels": kernels}, indent=1))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

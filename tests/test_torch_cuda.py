@@ -18,6 +18,12 @@ from vitcap_tpu_torch.models import layers as TL
 from vitcap_tpu_torch.models.config import tiny_config
 from vitcap_tpu_torch.models.vitcap import init_params
 from vitcap_tpu_torch.ops.attention import attention, attention_plain
+from vitcap_tpu_torch.ops.decode_step import (decode_attention,
+                                              decode_attention_plain,
+                                              fused_decode_step,
+                                              fused_decode_step_plain,
+                                              pack_decode_context,
+                                              pack_decode_layers)
 from vitcap_tpu_torch.ops.fused_block import fused_bert_block, fused_vit_block
 from vitcap_tpu_torch.ops.gemm import gemm, gemm_plain
 from vitcap_tpu_torch.ops.layer_norm import layer_norm, layer_norm_plain
@@ -54,6 +60,11 @@ def test_wrappers_refuse_devices_without_a_kernel():
         layer_norm(a, torch.ones(8), torch.zeros(8), 1e-6, torch.float32)
     with pytest.raises(RuntimeError):
         attention(torch.empty(1, 4, 24, device="meta"), 2, 4)
+    m = torch.empty(2, 5, 8, device="meta")
+    with pytest.raises(RuntimeError):
+        decode_attention(torch.empty(2, 2, 24, device="meta"), m, m, m, m,
+                         torch.empty(2, 5, device="meta"),
+                         torch.empty(1, dtype=torch.int32, device="meta"), 2)
 
 
 @pytest.mark.cuda
@@ -120,7 +131,7 @@ def test_cuda_greedy_runs_the_kernels_and_matches_cpu(cuda):
     batch, so 24 gemm, 12 layer_norm and 6 attention launches; f32 ids
     equal the CPU run's (plain versions)."""
     cfg = tiny_config(img_size=128)
-    cpu_model = init_params(cfg, torch.Generator().manual_seed(0))
+    cpu_model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     gpu_model = init_params(cfg, torch.Generator().manual_seed(0), cuda)
     rs = np.random.RandomState(0)
     imgs = torch.from_numpy(rs.randint(0, 256, (2, 128, 128, 3))
@@ -140,6 +151,139 @@ def test_cuda_greedy_runs_the_kernels_and_matches_cpu(cuda):
     out = run(gpu_model, cuda)
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"gemm": 24, "layer_norm": 12,
-                                   "attention": 6}
+                                   "attention": 6, "decode_attention": 0}
     assert torch.equal(out["ids"].cpu(), ref["ids"])
     _close(out["tag_logits"], ref["tag_logits"], torch.float32)
+
+
+def _decode_inputs(dev, dtype, B, nb, H, S, A, nL=None, seed=0):
+    """Random flat-layout decode inputs: window qkv (or hidden state when
+    nL is given), caption caches with history, context K/V, a per-image
+    od validity."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(dev, dtype)
+    lead = () if nL is None else (nL,)
+    valid = torch.rand(B, S, generator=g) > 0.3
+    valid[:, -1] = True
+    return dict(ctx_k=rnd(*lead, B, S, H), ctx_v=rnd(*lead, B, S, H),
+                cap_k=rnd(*lead, B * nb, A, H), cap_v=rnd(*lead, B * nb, A, H),
+                valid=valid.to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,nb,S", [(8, 1, 70), (64, 1, 70), (64, 3, 70),
+                                     (128, 8, 70), (32, 10, 70),
+                                     (64, 4, 2000)])
+def test_cuda_decode_attention_matches_plain(cuda, dtype, hd, nb, S):
+    """Output and the in-place caption-cache write, every head size the
+    kernel is built for, one to ten beams per image (more than 16 window
+    rows take a second pass over V), a context long enough to need more
+    than 48 KB of shared memory, t at both ends."""
+    B, nh, A = 3, 2, 6
+    H = nh * hd
+    for t in (1, 4, A):
+        d = _decode_inputs(cuda, dtype, B, nb, H, S, A, seed=t)
+        g = torch.Generator().manual_seed(100 + t)
+        qkv = torch.randn(B * nb, 2, 3 * H, generator=g).to(cuda, dtype)
+        bias = torch.where(d["valid"], 0.0, -10000.0).float().contiguous()
+        caps = [d["cap_k"].clone(), d["cap_v"].clone()]
+        ref = decode_attention_plain(qkv, d["cap_k"], d["cap_v"],
+                                     d["ctx_k"], d["ctx_v"], bias, t, nh)
+        ops.reset_counts()
+        out = decode_attention(qkv, *caps, d["ctx_k"], d["ctx_v"], bias,
+                               torch.tensor([t], dtype=torch.int32,
+                                            device=cuda), nh)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["decode_attention"] == 1
+        _close(out, ref, dtype)
+        assert torch.equal(caps[0], d["cap_k"])
+        assert torch.equal(caps[1], d["cap_v"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_fused_decode_step_matches_plain(cuda, dtype):
+    """Two layers, 3 beams per image, H=128 in 2 heads: 7 launches per
+    layer (4 gemm, 1 decode_attention, 2 layer_norm)."""
+    cfg = tiny_config(hidden_size=128, num_attention_heads=2,
+                      intermediate_size=512)
+    model = init_params(cfg, torch.Generator().manual_seed(0), cuda)
+    packed = pack_decode_layers(model, dtype)
+    B, nb, S, A, t = 2, 3, 45, 6, 3
+    d = _decode_inputs(cuda, dtype, B, nb, 128, S, A, nL=2)
+    k, v, bias = pack_decode_context(list(d["ctx_k"]), list(d["ctx_v"]),
+                                     d["valid"])
+    x = torch.randn(B * nb, 2, 128, generator=torch.Generator()
+                    .manual_seed(1)).to(cuda, dtype)
+    caps = [d["cap_k"].clone(), d["cap_v"].clone()]
+    ref = fused_decode_step_plain(packed, k, v, bias, d["cap_k"], d["cap_v"],
+                                  x, t, num_heads=2, eps=1e-12)
+    ops.reset_counts()
+    out = fused_decode_step(packed, k, v, bias, *caps, x,
+                            torch.tensor(t, dtype=torch.int32, device=cuda),
+                            num_heads=2, eps=1e-12)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"gemm": 8, "layer_norm": 4,
+                                   "attention": 0, "decode_attention": 2}
+    _close(out, ref, dtype)
+    _close(caps[0], d["cap_k"], dtype)
+    _close(caps[1], d["cap_v"], dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_engines_match_cpu(cuda, monkeypatch):
+    """tiny_config, f32: greedy and beam-3 ids on the card equal the CPU
+    run's under both engines; the fused engine launches one
+    decode_attention per layer and step."""
+    cfg = tiny_config(img_size=128)
+    cpu_model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    gpu_model = init_params(cfg, torch.Generator().manual_seed(0), cuda)
+    rs = np.random.RandomState(1)
+    imgs = torch.from_numpy(rs.randint(0, 256, (2, 128, 128, 3))
+                            .astype(np.uint8))
+    od_len = cfg.max_seq_len - cfg.max_seq_a_len
+    A = cfg.max_gen_length
+
+    def run(model, dev, opts):
+        return TD.generate(model, imgs.to(dev),
+                           torch.zeros(2, od_len, dtype=torch.long,
+                                       device=dev), None,
+                           torch.full((2,), cfg.max_seq_a_len + 2,
+                                      device=dev), cfg, opts)
+    for engine in ("0", "1"):
+        monkeypatch.setenv("VITCAP_DECODE_FUSED", engine)
+        for nb in (1, 3):
+            opts = TD.DecodeOptions(max_length=A, num_beams=nb,
+                                    num_keep_best=min(nb, 2),
+                                    od_labels_start_posid=cfg.max_seq_a_len)
+            ref = run(cpu_model, "cpu", opts)
+            ops.reset_counts()
+            out = run(gpu_model, cuda, opts)
+            torch.cuda.synchronize()
+            want = cfg.decoder_layers * (A - 1) if engine == "1" else 0
+            assert ops.launch_counts()["decode_attention"] == want
+            assert torch.equal(out["ids"].cpu(), ref["ids"])
+            _close(out["logprobs"], ref["logprobs"], torch.float32)
+
+
+@pytest.mark.cuda
+def test_cuda_caption_server_samples_on_the_card(cuda):
+    """Sampled greedy and sampled beam-3 requests: the server's generator
+    lives on the card and every request resolves with a caption."""
+    from vitcap_tpu_torch.serving import CaptionServer
+    cfg = tiny_config(img_size=128)
+    model = init_params(cfg, torch.Generator().manual_seed(0), cuda)
+    img = np.random.RandomState(2).randint(0, 256, (128, 128, 3)) \
+        .astype(np.uint8)
+    for nb in (1, 3):
+        opts = TD.DecodeOptions(max_length=cfg.max_gen_length, num_beams=nb,
+                                do_sample=True, top_k=20, top_p=0.9,
+                                od_labels_start_posid=cfg.max_seq_a_len)
+        with CaptionServer(model, cfg, opts, batch_size=2) as server:
+            out = server.caption(img, timeout=120)
+            assert server._generator.device.type == "cuda"
+        assert out["ids"][0] == cfg.cls_token_id
+        assert np.isfinite(out["logprob"])

@@ -25,6 +25,7 @@ from vitcap_tpu_torch.models import decode as TD
 from vitcap_tpu_torch.models import vitcap as TM
 from vitcap_tpu_torch.ops import fused_block as TF
 from vitcap_tpu_torch.ops.attention import attention
+from vitcap_tpu_torch.ops.decode_step import decode_attention
 from vitcap_tpu_torch.ops.gemm import gemm
 from vitcap_tpu_torch.ops.layer_norm import layer_norm
 from vitcap_tpu_torch.solver.checkpoint_bridge import load_jax_params
@@ -112,8 +113,12 @@ def test_wrappers_count_only_kernel_launches():
     gemm(x, torch.randn(8, 16))
     layer_norm(x, torch.ones(16), torch.zeros(16), 1e-6, torch.float32)
     attention(torch.randn(1, 4, 24), 2, 4)
+    decode_attention(torch.randn(2, 2, 24), torch.zeros(2, 3, 8),
+                     torch.zeros(2, 3, 8), torch.randn(1, 5, 8),
+                     torch.randn(1, 5, 8), torch.zeros(1, 5),
+                     torch.tensor(1, dtype=torch.int32), 2)
     assert ops.launch_counts() == {"gemm": 0, "layer_norm": 0,
-                                   "attention": 0}
+                                   "attention": 0, "decode_attention": 0}
 
 
 def test_pad_len_rule():

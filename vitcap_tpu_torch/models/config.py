@@ -80,7 +80,7 @@ class ModelConfig:
     scores_dtype: str = "auto"           # 'auto' = compute dtype, 'f32' = exact
     remat: Any = "auto"                  # training knob (not ported yet)
     train_fused_blocks: bool = False     # training knob (not ported yet)
-    kv_cache_quant: str = "none"         # 'none' | 'int8' (int8 not ported)
+    kv_cache_quant: str = "none"         # 'none' | 'int8' (eager engine)
 
     def __post_init__(self):
         if self.split_blocks > self.num_hidden_layers:

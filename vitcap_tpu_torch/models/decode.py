@@ -1,28 +1,42 @@
-"""Greedy caption decoding with a prefilled context cache, the port of the
-greedy half of vitcap_tpu/models/decode.py.
+"""Caption decoding with a prefilled context cache: greedy, sampling and
+beam search, the port of vitcap_tpu/models/decode.py.
 
 - the vision trunk + tag head run once per image (build_decode_context);
 - the fusion decoder's static context (od/tag slots, tagger-CLS, visual
   tokens) is prefilled once into per-layer K/V caches: three fused BERT
   layers, plus the K/V projections of every layer (the last layer's body
-  feeds nothing and is skipped);
+  feeds nothing and is skipped); one copy per image, shared by its beams
+  and return sequences;
 - each step runs the decoder layers over the 2-token window
   [prev@t-1, MASK@t] against the caption cache, itself and the context,
-  and writes prev's K/V into the caption cache (in place).
+  and writes prev's K/V into the caption cache (in place); beam reorder
+  gathers only the small caption caches.
 
-The step runs eagerly in PyTorch, as the TPU package runs it as plain XLA
-by default.  Beam search, sampling, repetition penalty, several return
-sequences and the int8 context cache are not ported yet and raise.
+Two engines run the step behind one (init, step, reorder) interface,
+selected as the TPU package selects them (_pick_layout):
+- 'heads' (the default): the step in eager PyTorch over per-layer
+  (B, nH, S, hd) caches, f32 context copies or the int8 context cache
+  (cfg.kv_cache_quant='int8');
+- 'flat' (VITCAP_DECODE_FUSED=1): ops/decode_step.fused_decode_step over
+  (nL, B, S, H) caches, 28 kernel launches per step on a CUDA device, its
+  plain version on the CPU.  int8 caches win over it, with a warning.
+
+Sampling draws from explicit torch.Generators, whose streams differ from
+the TPU package's jax.random streams (same distributions).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+import logging
+import os
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..ops.decode_step import (fused_decode_step, pack_decode_context,
+                               pack_decode_layers)
 from ..ops.fused_block import pad_len
 from . import vitcap as M
 from .config import ModelConfig
@@ -102,18 +116,86 @@ def build_context_embeddings(model: M.ViTCAP, images: torch.Tensor,
             "tag_logits": enc["tag_logits"], "pred_topk": enc["pred_topk"]}
 
 
+NEG_INF = -1e9  # beam bookkeeping sentinel (the reference uses -1e9 / -1e5)
+
+
+def _use_fused_decode() -> bool:
+    """The fused engine (ops/decode_step.py) is opt-in, as in the TPU
+    package: VITCAP_DECODE_FUSED=1 (or =interpret, the TPU package's CPU
+    spelling, which selects the same engine here)."""
+    return os.environ.get("VITCAP_DECODE_FUSED", "0").lower() in (
+        "1", "interpret")
+
+
+def _pick_layout(cfg: ModelConfig) -> str:
+    """'flat' when the fused engine is asked for, else 'heads'.  int8
+    context caches exist only in the 'heads' layout: the int8 option wins
+    over the fused engine, with a warning, rather than being dropped."""
+    if _use_fused_decode():
+        if cfg.kv_cache_quant != "none":
+            logging.warning(
+                "kv_cache_quant=%s is unsupported by the fused decode "
+                "engine; using the eager engine with quantized caches",
+                cfg.kv_cache_quant)
+            return "heads"
+        return "flat"
+    return "heads"
+
+
+def _quantize_cache_proj(a: torch.Tensor, nH: int, hd: int
+                         ) -> Dict[str, torch.Tensor]:
+    """Per-(image, head) absmax int8 quantization of a (B, S, nH*hd)
+    projection -> {'q8': (B, nH, S, hd) int8, 'scale': (B, nH, 1, 1) f32}."""
+    B, S, _ = a.shape
+    a4 = a.reshape(B, S, nH, hd).float()
+    absmax = a4.abs().amax(dim=(1, 3))                        # (B, nH)
+    scale = absmax.clamp_min(1e-8) / 127.0
+    q8 = torch.clamp(torch.round(a4 / scale[:, None, :, None]), -127, 127)
+    return {"q8": q8.to(torch.int8).transpose(1, 2).contiguous(),
+            "scale": scale[:, :, None, None]}
+
+
+def _quantize_rows(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row absmax int8 quantization over the last axis (the q and
+    probability operands of the int8 products)."""
+    scale = a.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+    q8 = torch.clamp(torch.round(a / scale), -127, 127).to(torch.int8)
+    return q8, scale
+
+
+def _int8_sum_dtype(n: int) -> torch.dtype:
+    """A float type whose sums of n int8 x int8 products are exact integers
+    (f32 while n * 127^2 < 2^24), standing in for the int32 accumulator."""
+    return torch.float32 if n * 127 * 127 < 2 ** 24 else torch.float64
+
+
 @torch.inference_mode()
 def build_decode_context(model: M.ViTCAP, images: torch.Tensor,
                          od_ids: torch.Tensor,
                          od_token_type_ids: Optional[torch.Tensor],
                          seq_len: torch.Tensor, cfg: ModelConfig,
-                         opts: DecodeOptions) -> Dict[str, Any]:
+                         opts: DecodeOptions,
+                         layout: Optional[str] = None) -> Dict[str, Any]:
     """build_context_embeddings + the decoder K/V prefill over the static
-    context, in the 'heads' layout: per-layer (B, nH, S_ctx, hd) lists.
+    context.
+
+    layout=None picks as _pick_layout(cfg) does.
+    'heads': per-layer (B, nH, S_ctx, hd) lists (int8 dicts under
+    kv_cache_quant='int8') for the eager engine.
+    'flat': (nL, B, S_ctx, H) K/V and the (B, S_ctx) additive f32 context
+    bias (ops/decode_step.pack_decode_context) for the fused engine.
 
     The prefill runs padded to pad_len(S_ctx): padded key columns get the
     reference's -10000 mask, padded query rows are garbage and are sliced
     off with the caches."""
+    if layout is None:
+        layout = _pick_layout(cfg)
+    if layout not in ("heads", "flat"):
+        raise ValueError(f"layout={layout!r}: 'heads' or 'flat'")
+    if cfg.kv_cache_quant not in ("none", "int8"):
+        raise ValueError(f"kv_cache_quant={cfg.kv_cache_quant!r}: 'none' or "
+                         f"'int8'")
+    quant = layout == "heads" and cfg.kv_cache_quant == "int8"
     ce = build_context_embeddings(model, images, od_ids, od_token_type_ids,
                                   seq_len, cfg, opts)
     ctx, ctx_valid, od_len = ce["ctx"], ce["ctx_valid"], ce["od_len"]
@@ -134,27 +216,54 @@ def build_decode_context(model: M.ViTCAP, images: torch.Tensor,
     bias = F.pad(bias, (0, 0, 0, pad))
     bias = F.pad(bias, (0, pad), value=NEG_MASK_VALUE)
 
-    def to_heads(a):
+    def cache(a):
+        a = a[:, :S_ctx]
+        if layout == "flat":
+            return a.contiguous()
+        if quant:
+            return _quantize_cache_proj(a, nH, hd)
         return a.reshape(B, S_ctx, nH, hd).transpose(1, 2).contiguous()
 
-    ctx_k: List[torch.Tensor] = []
-    ctx_v: List[torch.Tensor] = []
+    ctx_k: List[Any] = []
+    ctx_v: List[Any] = []
     layers = model.bert.decoder.layer
     for li, layer in enumerate(layers):
         ps = layer.attention.self
-        ctx_k.append(to_heads(dense(ps.key, x)[:, :S_ctx]))
-        ctx_v.append(to_heads(dense(ps.value, x)[:, :S_ctx]))
+        ctx_k.append(cache(dense(ps.key, x)))
+        ctx_v.append(cache(dense(ps.value, x)))
         if li + 1 < len(layers):
             x = bert_layer(layer, x, bias, nH, cfg.bert_layer_norm_eps,
                            scores_dtype=cfg.attention_scores_dtype)
-    return {"ctx_k": ctx_k, "ctx_v": ctx_v, "ctx_valid": ctx_valid,
-            "tag_logits": ce["tag_logits"], "pred_topk": ce["pred_topk"]}
+    out = {"ctx_valid": ctx_valid, "tag_logits": ce["tag_logits"],
+           "pred_topk": ce["pred_topk"]}
+    if layout == "flat":
+        k, v, cbias = pack_decode_context(ctx_k, ctx_v, ctx_valid)
+        out.update(ctx_k=k, ctx_v=v, ctx_bias=cbias)
+    else:
+        out.update(ctx_k=ctx_k, ctx_v=ctx_v)
+    return out
+
+
+def _ctx_layout(ctx: Dict[str, Any]) -> str:
+    return "flat" if "ctx_bias" in ctx else "heads"
+
+
+def _ctx_batch(ctx: Dict[str, Any]) -> int:
+    return ctx["ctx_valid"].shape[0]
+
+
+def _step_params(model: M.ViTCAP, cfg: ModelConfig) -> Dict[str, Any]:
+    """What both engines read around the decoder layers: the embeddings,
+    the word embeddings in the compute dtype, the LM head."""
+    return {"embeddings": model.bert.embeddings,
+            "word": M.word_embedding_weight(model).to(cfg.compute_dtype),
+            "head": model.cls.predictions}
 
 
 def _decode_params_cast(model: M.ViTCAP, cfg: ModelConfig) -> Dict[str, Any]:
-    """The weights the decode step touches, cast to the compute dtype once
-    (LayerNorms stay f32) and with q/k/v merged into one (3H, H) matrix per
-    layer."""
+    """_step_params plus the decoder layers' weights for the eager step,
+    cast to the compute dtype once (LayerNorms stay f32) and with q/k/v
+    merged into one (3H, H) matrix per layer."""
     dt = cfg.compute_dtype
     layers = []
     for layer in model.bert.decoder.layer:
@@ -172,13 +281,11 @@ def _decode_params_cast(model: M.ViTCAP, cfg: ModelConfig) -> Dict[str, Any]:
             "out2_b": layer.output.dense.bias.to(dt),
             "ln2": layer.output.LayerNorm,
         })
-    return {"layers": layers, "embeddings": model.bert.embeddings,
-            "word": M.word_embedding_weight(model).to(dt),
-            "head": model.cls.predictions}
+    return dict(_step_params(model, cfg), layers=layers)
 
 
 # ---------------------------------------------------------------------------
-# cached decode step
+# the eager ('heads') step
 # ---------------------------------------------------------------------------
 
 def _lin(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -187,19 +294,20 @@ def _lin(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _decode_attention(lw: Dict[str, Any], x_win: torch.Tensor,
                       cap_k: torch.Tensor, cap_v: torch.Tensor,
-                      ctx_k: torch.Tensor, ctx_v: torch.Tensor,
-                      ctx_valid: torch.Tensor, t: int, num_heads: int
-                      ) -> torch.Tensor:
+                      ctx_k: Any, ctx_v: Any, ctx_valid: torch.Tensor,
+                      t: int, num_heads: int) -> torch.Tensor:
     """Window [prev@t-1, MASK@t] attention against the caption cache (slots
     <= t-1), the MASK row's own K/V, and the context cache (per od
     validity).  cap_* (Bb, h, A, d) are updated in place at slot t-1;
-    ctx_* are per-image (B, h, S, d) f32 copies shared by the Bb rows."""
+    ctx_* are per-image (B, h, S, d) f32 copies shared by the Bb rows, or
+    int8 dicts {'q8': float copy of the int8 values, 'scale'}."""
     Bb, W, H = x_win.shape
-    B = ctx_k.shape[0]
+    quant = isinstance(ctx_k, dict)
+    k_arr = ctx_k["q8"] if quant else ctx_k
+    B, _, S, _ = k_arr.shape
     nb = Bb // B
     hd = H // num_heads
     A = cap_k.shape[2]
-    S = ctx_k.shape[2]
     dt = x_win.dtype
     q, k_win, v_win = _lin(x_win, lw["qkv_w"], lw["qkv_b"]).split(H, dim=-1)
 
@@ -213,8 +321,15 @@ def _decode_attention(lw: Dict[str, Any], x_win: torch.Tensor,
     qf = qh.float()
     s_cap = qf @ cap_k.float().transpose(-1, -2)                 # (Bb,h,W,A)
     s_self = (qf * kh_win[:, :, 1:2].float()).sum(-1, keepdim=True)
-    s_ctx = torch.einsum("bnhqd,bhkd->bnhqk",
-                         qf.reshape(B, nb, num_heads, W, hd), ctx_k)
+    q5 = qf.reshape(B, nb, num_heads, W, hd)
+    if quant:
+        # int8 x int8 products summed exactly (as the TPU's int32 dot),
+        # rescaled per q row and per (image, head)
+        q8, q_scale = _quantize_rows(q5)
+        s32 = torch.einsum("bnhqd,bhkd->bnhqk", q8.to(k_arr.dtype), k_arr)
+        s_ctx = s32.float() * q_scale * ctx_k["scale"][:, None, :, :, 0:1]
+    else:
+        s_ctx = torch.einsum("bnhqd,bhkd->bnhqk", q5, ctx_k)
     s_ctx = s_ctx.reshape(Bb, num_heads, W, S)
 
     scale = hd ** -0.5
@@ -237,9 +352,17 @@ def _decode_attention(lw: Dict[str, Any], x_win: torch.Tensor,
 
     out = e_cap.to(dt).float() @ cap_v.float()
     out = out + e_self * vh_win[:, :, 1:2].float()
-    o_ctx = torch.einsum(
-        "bnhqk,bhkd->bnhqd",
-        e_ctx.reshape(B, nb, num_heads, W, S).to(dt).float(), ctx_v)
+    e_ctx5 = e_ctx.reshape(B, nb, num_heads, W, S)
+    if quant:
+        # the per-row absmax of e equals that of e / l, so these are the
+        # int8 bits of the quantized probabilities
+        p8, p_scale = _quantize_rows(e_ctx5)
+        o32 = torch.einsum("bnhqk,bhkd->bnhqd", p8.to(ctx_v["q8"].dtype),
+                           ctx_v["q8"])
+        o_ctx = o32.float() * p_scale * ctx_v["scale"][:, None, :, :, 0:1]
+    else:
+        o_ctx = torch.einsum("bnhqk,bhkd->bnhqd", e_ctx5.to(dt).float(),
+                             ctx_v)
     out = out + o_ctx.reshape(Bb, num_heads, W, hd)
     out = (out * inv).to(dt)
     return out.transpose(1, 2).reshape(Bb, W, H)
@@ -271,19 +394,26 @@ def _window_embeddings(dw: Dict[str, Any], prev_tok: torch.Tensor, t: int,
                       cfg.bert_layer_norm_eps)
 
 
+def _logits(dw: Dict[str, Any], x_win: torch.Tensor,
+            cfg: ModelConfig) -> torch.Tensor:
+    """f32 caption logits (Bb, V) read at the MASK row."""
+    tied = dw["word"] if cfg.tie_weights else None
+    return lm_head(dw["head"], x_win[:, 1], cfg.bert_layer_norm_eps,
+                   tied).float()
+
+
 def decode_step(dw: Dict[str, Any], cap_k: List[torch.Tensor],
                 cap_v: List[torch.Tensor], ctx: Dict[str, Any],
                 prev_tok: torch.Tensor, t: int, cfg: ModelConfig
                 ) -> torch.Tensor:
-    """One MASK-probe step: f32 logits (Bb, V); the caches are updated in
-    place.  ctx['ctx_k'/'ctx_v'] are the f32 copies made by the caller."""
+    """One eager MASK-probe step: f32 logits (Bb, V); the caches are
+    updated in place.  ctx['ctx_k'/'ctx_v'] are the engine's f32 (or int8
+    float) copies."""
     x = _window_embeddings(dw, prev_tok, t, cfg)
     for li, lw in enumerate(dw["layers"]):
         x = _decode_layer(lw, x, cap_k[li], cap_v[li], ctx["ctx_k"][li],
                           ctx["ctx_v"][li], ctx["ctx_valid"], t, cfg)
-    tied = dw["word"] if cfg.tie_weights else None
-    logits = lm_head(dw["head"], x[:, 1], cfg.bert_layer_norm_eps, tied)
-    return logits.float()
+    return _logits(dw, x, cfg)
 
 
 def _init_caps(B: int, n_layers: int, A: int, H: int, dtype: torch.dtype,
@@ -297,6 +427,81 @@ def _init_caps(B: int, n_layers: int, A: int, H: int, dtype: torch.dtype,
     return zeros(), zeros()
 
 
+# ---------------------------------------------------------------------------
+# the two engines
+# ---------------------------------------------------------------------------
+
+Engine = Tuple[Callable[[], Any], Callable[..., Tuple[torch.Tensor, Any]],
+               Callable[[Any, torch.Tensor], Any]]
+
+
+def _decode_engine(model: M.ViTCAP, ctx: Dict[str, Any], cfg: ModelConfig,
+                   opts: DecodeOptions, Bb: int) -> Engine:
+    """(init, step, reorder) over either context layout.
+
+    init() -> caches; step(caches, prev (Bb,), t) -> (f32 logits (Bb, V),
+    caches), the caches updated in place; reorder(caches, flat_idx) ->
+    caches gathered by row (beam reorder)."""
+    A = opts.max_length
+    H = cfg.hidden_size
+    nL = cfg.decoder_layers
+    dt = cfg.compute_dtype
+    dev = ctx["ctx_valid"].device
+
+    if _ctx_layout(ctx) == "flat":
+        dw = _step_params(model, cfg)
+        packed = pack_decode_layers(model, dt)
+        ts = torch.arange(A, dtype=torch.int32, device=dev)  # t on the device
+
+        def init():
+            z = torch.zeros(nL, Bb, A, H, dtype=dt, device=dev)
+            return z, torch.zeros_like(z)
+
+        def step(caches, prev, t):
+            cap_k, cap_v = caches
+            x = _window_embeddings(dw, prev, t, cfg)
+            x = fused_decode_step(packed, ctx["ctx_k"], ctx["ctx_v"],
+                                  ctx["ctx_bias"], cap_k, cap_v, x, ts[t],
+                                  num_heads=cfg.num_attention_heads,
+                                  eps=cfg.bert_layer_norm_eps)
+            return _logits(dw, x, cfg), caches
+
+        def reorder(caches, flat_idx):
+            return tuple(c.index_select(1, flat_idx) for c in caches)
+
+        return init, step, reorder
+
+    dw = _decode_params_cast(model, cfg)
+    S = ctx["ctx_valid"].shape[1]
+
+    def step_cache(c):
+        # f32 copies made once: the step's context scores and outputs
+        # accumulate in f32 over compute-dtype values, as on the TPU
+        if isinstance(c, dict):
+            return {"q8": c["q8"].to(_int8_sum_dtype(max(S, H))),
+                    "scale": c["scale"]}
+        return c.float()
+    step_ctx = dict(ctx, ctx_k=[step_cache(c) for c in ctx["ctx_k"]],
+                    ctx_v=[step_cache(c) for c in ctx["ctx_v"]])
+
+    def init():
+        return _init_caps(Bb, nL, A, H, dt, cfg.num_attention_heads, dev)
+
+    def step(caches, prev, t):
+        cap_k, cap_v = caches
+        return decode_step(dw, cap_k, cap_v, step_ctx, prev, t, cfg), caches
+
+    def reorder(caches, flat_idx):
+        return tuple([c.index_select(0, flat_idx) for c in cs]
+                     for cs in caches)
+
+    return init, step, reorder
+
+
+# ---------------------------------------------------------------------------
+# decode options: top-k, repetition penalty, sampling filter
+# ---------------------------------------------------------------------------
+
 def exact_top_k(x: torch.Tensor, k: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k over the last axis, values descending, ties to the lower
@@ -306,25 +511,66 @@ def exact_top_k(x: torch.Tensor, k: int
     return vals[..., :k], idx[..., :k]
 
 
-# ---------------------------------------------------------------------------
-# greedy
-# ---------------------------------------------------------------------------
+def apply_repetition_penalty(logits: torch.Tensor, seen: torch.Tensor,
+                             penalty: float) -> torch.Tensor:
+    """CTRL-style repetition penalty: for every vocab id already in the
+    row's prefix (`seen`, a (Bb, V) bool mask including BOS, and PAD once a
+    row has finished), divide positive logits by `penalty` and multiply
+    negative ones."""
+    pen = torch.where(logits < 0, logits * penalty, logits / penalty)
+    return torch.where(seen, pen, logits)
 
-def check_supported(cfg: ModelConfig, opts: DecodeOptions) -> None:
-    unsupported = []
-    if opts.num_beams > 1:
-        unsupported.append("beam search (num_beams > 1)")
-    if opts.do_sample:
-        unsupported.append("sampling (do_sample)")
-    if opts.repetition_penalty != 1.0:
-        unsupported.append("repetition_penalty != 1")
-    if opts.num_return_sequences > 1:
-        unsupported.append("num_return_sequences > 1")
-    if cfg.kv_cache_quant != "none":
-        unsupported.append(f"kv_cache_quant={cfg.kv_cache_quant}")
-    if unsupported:
-        raise NotImplementedError("not ported yet: " + ", ".join(unsupported))
 
+def _seen_init(Bb: int, V: int, first_token: int, device) -> torch.Tensor:
+    seen = torch.zeros(Bb, V, dtype=torch.bool, device=device)
+    seen[:, first_token] = True
+    return seen
+
+
+def _seen_add(seen: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
+    seen[torch.arange(seen.shape[0], device=seen.device), tok] = True
+    return seen
+
+
+def top_k_top_p_filtering(logits: torch.Tensor, top_k: int = 0,
+                          top_p: float = 1.0,
+                          min_tokens_to_keep: int = 1) -> torch.Tensor:
+    """The reference's sampling filter: logits outside the top k, or
+    outside the smallest set whose probability exceeds top_p, become
+    NEG_INF (at least min_tokens_to_keep survive)."""
+    V = logits.shape[-1]
+    if top_k > 0:
+        k = max(top_k, min_tokens_to_keep)
+        kth = torch.sort(logits, dim=-1).values[..., V - k, None]
+        logits = torch.where(logits < kth, NEG_INF, logits)
+    if top_p < 1.0:
+        sorted_logits, sort_idx = torch.sort(logits, dim=-1, descending=True,
+                                             stable=True)
+        cum = torch.softmax(sorted_logits, dim=-1).cumsum(dim=-1)
+        remove = cum > top_p
+        remove = torch.cat([torch.zeros_like(remove[..., :1]),
+                            remove[..., :-1]], dim=-1)
+        remove[..., :min_tokens_to_keep] = False
+        scatter = torch.zeros_like(remove).scatter(-1, sort_idx, remove)
+        logits = torch.where(scatter, NEG_INF, logits)
+    return logits
+
+
+def _gumbel(shape, gen: torch.Generator, device) -> torch.Tensor:
+    u = torch.rand(shape, generator=gen, device=device)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+
+
+def _generator(rng: Optional[torch.Generator], device) -> torch.Generator:
+    """The caller's generator, or one seeded 0 on the tensors' device (the
+    TPU package's PRNGKey(0) default)."""
+    return rng if rng is not None else \
+        torch.Generator(device=device).manual_seed(0)
+
+
+# ---------------------------------------------------------------------------
+# greedy / sampling (no beam)
+# ---------------------------------------------------------------------------
 
 @torch.inference_mode()
 def generate_greedy(model: M.ViTCAP, images: torch.Tensor,
@@ -332,25 +578,27 @@ def generate_greedy(model: M.ViTCAP, images: torch.Tensor,
                     od_token_type_ids: Optional[torch.Tensor],
                     seq_len: torch.Tensor, cfg: ModelConfig,
                     opts: DecodeOptions,
+                    rng: Optional[torch.Generator] = None,
                     ctx: Optional[Dict[str, Any]] = None
                     ) -> Dict[str, torch.Tensor]:
-    """Greedy decode.  Returns ids (B, 1, max_length), logprobs (B, 1),
-    per-step token logprobs (B, A-1), raw argmax tokens, tag logits and the
-    selected concept ids."""
-    check_supported(cfg, opts)
+    """No-beam decode, greedy or sampled.  Returns ids (B[, nrs], 1 or
+    nrs, max_length), logprobs, per-step token logprobs (Bb, A-1), the raw
+    argmax/sampled tokens, tag logits and the selected concept ids.  `ctx`
+    (build_decode_context) may be given to reuse a context."""
     A = opts.max_length
+    nrs = opts.num_return_sequences
     if ctx is None:
         ctx = build_decode_context(model, images, od_ids, od_token_type_ids,
                                    seq_len, cfg, opts)
-    dw = _decode_params_cast(model, cfg)
-    # f32 context caches, made once: the step's context scores and outputs
-    # accumulate in f32 over compute-dtype products, as on the TPU
-    step_ctx = dict(ctx, ctx_k=[k.float() for k in ctx["ctx_k"]],
-                    ctx_v=[v.float() for v in ctx["ctx_v"]])
-    Bb = ctx["ctx_valid"].shape[0]
+    B = _ctx_batch(ctx)
+    Bb = B * nrs
     dev = ctx["ctx_valid"].device
-    cap_k, cap_v = _init_caps(Bb, cfg.decoder_layers, A, cfg.hidden_size,
-                              cfg.compute_dtype, cfg.num_attention_heads, dev)
+    init, engine_step, _ = _decode_engine(model, ctx, cfg, opts, Bb)
+    caches = init()
+    gen = _generator(rng, dev) if opts.do_sample else None
+    rep_pen = float(opts.repetition_penalty)
+    seen = (_seen_init(Bb, cfg.vocab_size, cfg.cls_token_id, dev)
+            if rep_pen != 1.0 else None)
 
     tokens = torch.full((Bb, A), cfg.pad_token_id, dtype=torch.long,
                         device=dev)
@@ -360,28 +608,208 @@ def generate_greedy(model: M.ViTCAP, images: torch.Tensor,
     cnt = torch.zeros(Bb, device=dev)
     scores, raw = [], []
     for t in range(1, A):
-        logits = decode_step(dw, cap_k, cap_v, step_ctx, tokens[:, t - 1], t,
-                             cfg)
-        nxt = logits.argmax(-1)                      # first maximum
+        logits, caches = engine_step(caches, tokens[:, t - 1], t)
+        if seen is not None:
+            logits = apply_repetition_penalty(logits, seen, rep_pen)
+        if opts.do_sample:
+            lg = logits / opts.temperature if opts.temperature != 1.0 \
+                else logits
+            lg = top_k_top_p_filtering(lg, opts.top_k, opts.top_p)
+            nxt = (lg + _gumbel(lg.shape, gen, dev)).argmax(-1)
+        else:
+            lg = logits
+            nxt = logits.argmax(-1)                  # first maximum
         # log_softmax at one index: (x - m) - log(sum(exp(x - m)))
-        m = logits.amax(-1, keepdim=True)
-        shifted = logits.gather(1, nxt[:, None]) - m
-        lse = torch.log(torch.exp(logits - m).sum(-1, keepdim=True))
+        m = lg.amax(-1, keepdim=True)
+        shifted = lg.gather(1, nxt[:, None]) - m
+        lse = torch.log(torch.exp(lg - m).sum(-1, keepdim=True))
         score = (shifted - lse)[:, 0]
         add = torch.where(unfin > 0, nxt, cfg.pad_token_id)
         tokens[:, t] = add
         sum_lp = sum_lp + score * unfin
         cnt = cnt + unfin
         unfin = unfin * (add != cfg.sep_token_id).float()
+        if seen is not None:
+            seen = _seen_add(seen, add)
         scores.append(score)
         raw.append(nxt)
     # force EOS on rows unfinished at max length
     tokens[:, A - 1] = torch.where(unfin > 0, cfg.sep_token_id,
                                    tokens[:, A - 1])
     logprobs = sum_lp / cnt.clamp_min(1.0)
-    return {"ids": tokens[:, None, :], "logprobs": logprobs[:, None],
+    ids, lp = tokens[:, None, :], logprobs[:, None]
+    if nrs > 1:
+        ids, lp = ids.reshape(B, nrs, A), lp.reshape(B, nrs)
+    return {"ids": ids, "logprobs": lp,
             "step_scores": torch.stack(scores, dim=1),
             "raw_tokens": torch.stack(raw, dim=1),
+            "tag_logits": ctx["tag_logits"], "pred_topk": ctx["pred_topk"]}
+
+
+# ---------------------------------------------------------------------------
+# beam search
+# ---------------------------------------------------------------------------
+
+def sample_beam_candidates(logits: torch.Tensor, beam_scores: torch.Tensor,
+                           gen: torch.Generator, nb: int,
+                           opts: DecodeOptions
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sampled-beam candidate draw.  Per beam row: temperature and the
+    top-k/top-p filter (min_tokens_to_keep=2), then 2 words drawn without
+    replacement (Gumbel top-2); a candidate's score is that beam's filtered
+    log-softmax at the word plus the beam's score.
+
+    Returns (cand_score, cand_idx), each (B, 2*nb).  cand_idx is
+    `word + V*beam` exactly as the reference builds it: the words are laid
+    out interleaved [b0d0, b0d1, b1d0, ...] but the beam offsets are tiled
+    [0, V, .., (nb-1)V, 0, V, ..], so for nb > 1 candidate j extends beam
+    j % nb's prefix while carrying beam j // 2's score.  That is the
+    reference's observable behaviour and is kept."""
+    Bb, V = logits.shape
+    B = Bb // nb
+    lg = logits / opts.temperature if opts.temperature != 1.0 else logits
+    lg = top_k_top_p_filtering(lg, opts.top_k, opts.top_p,
+                               min_tokens_to_keep=2)
+    _, draws = exact_top_k(lg + _gumbel(lg.shape, gen, lg.device), 2)
+    dscore = torch.log_softmax(lg, dim=-1).gather(1, draws) \
+        + beam_scores.reshape(Bb)[:, None]
+    words = draws.reshape(B, 2 * nb)
+    offs = (torch.arange(nb, device=words.device) * V).repeat(2)[None]
+    return dscore.reshape(B, 2 * nb), words + offs
+
+
+@torch.inference_mode()
+def generate_beam(model: M.ViTCAP, images: torch.Tensor,
+                  od_ids: torch.Tensor,
+                  od_token_type_ids: Optional[torch.Tensor],
+                  seq_len: torch.Tensor, cfg: ModelConfig,
+                  opts: DecodeOptions,
+                  rng: Optional[torch.Generator] = None,
+                  ctx: Optional[Dict[str, Any]] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """Beam search with the reference's semantics: 2 candidates per beam;
+    EOS candidates (and at the last step every candidate) go to a
+    num_keep_best-sized hypothesis store scored sum_logprob / len^penalty;
+    a batch row is done once its store is full and no candidate can beat
+    its worst entry; done rows freeze.  do_sample=True takes the
+    sampled-beam branch (sample_beam_candidates).  Returns ids (B, K, A)
+    and logprobs (B, K), K = num_keep_best."""
+    A = opts.max_length
+    nb = opts.num_beams
+    K = opts.num_keep_best
+    lp_pow = opts.length_penalty
+    if ctx is None:
+        ctx = build_decode_context(model, images, od_ids, od_token_type_ids,
+                                   seq_len, cfg, opts)
+    B = _ctx_batch(ctx)
+    Bb = B * nb
+    dev = ctx["ctx_valid"].device
+    init, engine_step, reorder = _decode_engine(model, ctx, cfg, opts, Bb)
+    caches = init()
+    gen = _generator(rng, dev) if opts.do_sample else None
+    rep_pen = float(opts.repetition_penalty)
+    seen = (_seen_init(Bb, cfg.vocab_size, cfg.cls_token_id, dev)
+            if rep_pen != 1.0 else None)
+    pad, n_cand = cfg.pad_token_id, 2 * nb
+    rows = torch.arange(B, device=dev)[:, None]
+
+    def full(shape, value, dtype=torch.float32):
+        return torch.full(shape, value, dtype=dtype, device=dev)
+
+    tokens = full((B, nb, A), pad, torch.long)
+    tokens[:, :, 0] = cfg.cls_token_id
+    beam_scores = full((B, nb), NEG_INF)
+    beam_scores[:, 0] = 0.0
+    hs = full((B, K), NEG_INF)                     # hypothesis store
+    ht = full((B, K, A), pad, torch.long)
+    hl = full((B, K), 0, torch.long)
+    hn = full((B,), 0, torch.long)
+    done = full((B,), False, torch.bool)
+
+    for t in range(1, A):
+        logits, caches = engine_step(caches, tokens[:, :, t - 1].reshape(Bb),
+                                     t)
+        if seen is not None:
+            logits = apply_repetition_penalty(logits, seen, rep_pen)
+        V = logits.shape[-1]
+        if opts.do_sample:
+            cand_score, cand_idx = sample_beam_candidates(
+                logits, beam_scores, gen, nb, opts)
+        else:
+            total = torch.log_softmax(logits, dim=-1).view(B, nb, V) \
+                + beam_scores[..., None]
+            cand_score, cand_idx = exact_top_k(total.view(B, nb * V), n_cand)
+        cand_beam = cand_idx // V
+        cand_word = cand_idx % V
+
+        # done check before this step's insertions (the reference's order);
+        # the reference normalizes by (max_length - 1), not the length
+        best_possible = cand_score.amax(1) / (float(A - 1) ** lp_pow)
+        done = done | ((hn >= K) & (best_possible <= hs.amin(-1)))
+
+        final = t == A - 1
+        to_hyp = (torch.ones_like(cand_word, dtype=torch.bool) if final
+                  else cand_word == cfg.sep_token_id)
+        # candidates are scanned in order until nb non-EOS ones are taken;
+        # EOS candidates before that cut go to the store
+        not_hyp = (~to_hyp).long()
+        before_cut = (torch.ones_like(to_hyp) if final
+                      else (not_hyp.cumsum(1) - not_hyp) < nb)
+        take_hyp = to_hyp & before_cut & ~done[:, None]
+
+        # insert: the K best of (store + taken candidates), one stable sort
+        # (existing entries win exact ties, as the reference's strict `>`)
+        cand_tokens = tokens.gather(
+            1, cand_beam[..., None].expand(B, n_cand, A))
+        cand_len = full((B, n_cand), t, torch.long)
+        norm = torch.where(take_hyp,
+                           cand_score / (cand_len.float() ** lp_pow),
+                           NEG_INF)
+        all_s = torch.cat([hs, norm], dim=1)
+        order = torch.sort(all_s, dim=1, descending=True,
+                           stable=True).indices[:, :K]
+        hs = all_s.gather(1, order)
+        hl = torch.cat([hl, cand_len], dim=1).gather(1, order)
+        ht = torch.cat([ht, cand_tokens], dim=1).gather(
+            1, order[..., None].expand(B, K, A))
+        hn = (hn + take_hyp.sum(1)).clamp_max(K)
+
+        # next beams: the first nb candidates that stay out of the store
+        keep = ~to_hyp & before_cut
+        rank = keep.long().cumsum(1) - 1
+        order = torch.sort(torch.where(keep, rank, n_cand + 1), dim=1,
+                           stable=True).indices[:, :nb]
+        new_beam = cand_beam.gather(1, order)
+        new_word = cand_word.gather(1, order)
+        new_score = cand_score.gather(1, order)
+        # done rows freeze (scores 0, PAD), and so do the slots left empty
+        # when fewer than nb candidates were kept (only at the last step)
+        empty = torch.arange(nb, device=dev)[None] >= keep.sum(1)[:, None]
+        frozen = done[:, None] | empty
+        new_beam = torch.where(frozen, 0, new_beam)
+        new_word = torch.where(frozen, pad, new_word)
+        new_score = torch.where(frozen, 0.0, new_score)
+
+        tokens = tokens.gather(1, new_beam[..., None].expand(B, nb, A))
+        tokens[:, :, t] = new_word
+        beam_scores = new_score
+        flat_idx = (rows * nb + new_beam).reshape(Bb)
+        caches = reorder(caches, flat_idx)
+        if seen is not None:
+            # each mask follows its beam's prefix, then takes the new word
+            seen = _seen_add(seen[flat_idx], new_word.reshape(Bb))
+
+    # final selection: the K best hypotheses, EOS written after each
+    order = torch.sort(hs, dim=-1, descending=True, stable=True).indices
+    sel_scores = hs.gather(1, order)
+    sel_tokens = ht.gather(1, order[..., None].expand(B, K, A))
+    sel_len = hl.gather(1, order)[..., None]
+    posn = torch.arange(A, device=dev)[None, None]
+    sel_tokens = torch.where(posn < sel_len, sel_tokens, pad)
+    sel_tokens = torch.where(posn == sel_len, cfg.sep_token_id, sel_tokens)
+    sel_scores = torch.where(torch.arange(K, device=dev)[None]
+                             >= hn[:, None], -1e5, sel_scores)
+    return {"ids": sel_tokens, "logprobs": sel_scores,
             "tag_logits": ctx["tag_logits"], "pred_topk": ctx["pred_topk"]}
 
 
@@ -390,8 +818,30 @@ def generate(model: M.ViTCAP, images: torch.Tensor, od_ids: torch.Tensor,
              seq_len: torch.Tensor, cfg: ModelConfig, opts: DecodeOptions,
              rng: Optional[torch.Generator] = None
              ) -> Dict[str, torch.Tensor]:
-    """Dispatch like the reference `generate`: greedy only so far.  `rng`
-    is the generator sampling would draw from; greedy draws nothing."""
-    check_supported(cfg, opts)
+    """Dispatch like the reference `generate`: beam search for
+    num_beams > 1, else greedy or sampling.  `rng` is the generator
+    sampling draws from (on the images' device; default seed 0)."""
+    if opts.num_beams > 1:
+        return generate_beam(model, images, od_ids, od_token_type_ids,
+                             seq_len, cfg, opts, rng)
     return generate_greedy(model, images, od_ids, od_token_type_ids,
-                           seq_len, cfg, opts)
+                           seq_len, cfg, opts, rng)
+
+
+def prod_generate(model: M.ViTCAP, image: torch.Tensor, cfg: ModelConfig,
+                  opts: Optional[DecodeOptions] = None,
+                  od_ids: Optional[torch.Tensor] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """Production greedy decode of one image (H, W, 3) or a batch, with
+    empty od labels and the default options of cfg."""
+    if opts is None:
+        opts = DecodeOptions(max_length=cfg.max_gen_length,
+                             od_labels_start_posid=cfg.max_seq_a_len)
+    if image.dim() == 3:
+        image = image[None]
+    B = image.shape[0]
+    if od_ids is None:
+        od_ids = torch.zeros(B, cfg.max_seq_len - cfg.max_seq_a_len,
+                             dtype=torch.long, device=image.device)
+    seq_len = torch.full((B,), cfg.max_seq_a_len, device=image.device)
+    return generate_greedy(model, image, od_ids, None, seq_len, cfg, opts)

@@ -6,8 +6,8 @@ decoder, the inference half of vitcap_tpu/models/vitcap.py.
     tagCLS -> pooler -> tag_logit -> sigmoid top-K concept ids
 
 ViTCAP is an nn.Module that only holds parameters; its state_dict() names
-are those vitcap_tpu.solver.checkpoint_bridge.params_to_torch_state_dict
-emits, without the leading 'module.'.  The functions below are the forward
+are those solver.checkpoint_bridge.params_to_torch_state_dict emits,
+without the leading 'module.'.  The functions below are the forward
 pieces, taking the model and tensors.
 """
 
@@ -61,12 +61,13 @@ class ViTCAP(nn.Module):
 
 @torch.no_grad()
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                device="cpu") -> ViTCAP:
+                device="cuda") -> ViTCAP:
     """Random ViTCAP weights, the rule of vitcap_tpu/models/vitcap.py
     init_params: truncated normal at +-2 sigma with std 0.02 for matrices,
     embeddings, cls_token and pos_embed; zero biases; LayerNorm ones and
     zeros.  Values are drawn on the CPU from `generator` (a CPU generator),
-    parameter by parameter in state-dict order, then moved to `device`."""
+    parameter by parameter in state-dict order, then moved to `device`:
+    the card unless the caller asks for another (device="cpu")."""
     model = ViTCAP(cfg, device="meta").to_empty(device=device)
     for mod in model.modules():
         for name, prm in mod.named_parameters(recurse=False):

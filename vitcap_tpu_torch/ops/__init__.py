@@ -1,7 +1,7 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
-Each kernel module (gemm, layer_norm, attention) exposes one wrapper.  The
-wrapper runs the plain PyTorch version for tensors on the CPU and launches
+Each kernel has one wrapper (gemm, layer_norm, attention, and
+decode_step.decode_attention).  The wrapper runs the plain PyTorch version for tensors on the CPU and launches
 the CUDA kernel for tensors on a CUDA device; there is no switch and no
 fallback.  Each wrapper counts its kernel launches in a plain int, so a run
 can show that the main path went through the kernels.
@@ -11,15 +11,17 @@ from __future__ import annotations
 
 from typing import Dict
 
-from . import attention, gemm, layer_norm
+from . import attention, decode_step, gemm, layer_norm
 
-KERNEL_MODULES = (gemm, layer_norm, attention)
+# each kernel's name and the module whose `launches` counts it
+KERNELS = {"gemm": gemm, "layer_norm": layer_norm, "attention": attention,
+           "decode_attention": decode_step}
 
 
 def reset_counts() -> None:
-    for m in KERNEL_MODULES:
+    for m in KERNELS.values():
         m.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return {m.__name__.rsplit(".", 1)[-1]: m.launches for m in KERNEL_MODULES}
+    return {name: m.launches for name, m in KERNELS.items()}

@@ -36,6 +36,10 @@ SIGNATURES = {
     "vc_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
     # slab, bias, out, B, Lp, H, nh, l_actual, scale, dtype, stream
     "vc_attention": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    # qkv, cap_k, cap_v, ctx_k, ctx_v, bias, t, out, B, nb, S, A, H, nh,
+    # scale, dtype, stream
+    "vc_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _F, _I, _P],
 }
 
 
@@ -48,7 +52,8 @@ def dtype_code(dtype) -> int:
     return codes[dtype]
 
 
-# the last build's facts, for chip_smoke.py: seconds, path, ptxas summary
+# the last build's facts, for chip_smoke.py: seconds, path, and per kernel
+# the registers and spill bytes ptxas reports
 build_info: dict = {}
 
 
@@ -101,9 +106,24 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     build_info.update(seconds=time.perf_counter() - t0, path=str(lib_path),
-                      ptxas=[ln.strip() for ln in log.splitlines()
-                             if "registers" in ln or "spill" in ln])
+                      ptxas=_ptxas_kernels(log))
     return lib
+
+
+def _ptxas_kernels(log: str) -> list:
+    """ptxas -v output -> [{'name', 'registers', 'spill_bytes'}], one
+    entry per compiled kernel (mangled names)."""
+    kernels = []
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            kernels.append({"name": ln.split("'")[1], "registers": 0,
+                            "spill_bytes": 0})
+        elif kernels and "bytes spill stores" in ln:
+            kernels[-1]["spill_bytes"] = int(
+                ln.split("bytes spill stores")[0].split(",")[-1])
+        elif kernels and "Used " in ln and "registers" in ln:
+            kernels[-1]["registers"] = int(ln.split("Used ")[1].split()[0])
+    return kernels
 
 
 def check(rc: int, name: str) -> None:

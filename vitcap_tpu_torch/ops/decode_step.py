@@ -1,0 +1,249 @@
+"""The cached decode step over flat caches: decode_attention and
+fused_decode_step, the port of vitcap_tpu/ops/decode_step.py.
+
+Kernel: csrc/decode_attention.cu, the attention half of the TPU kernel
+_kernel (vitcap_tpu/ops/decode_step.py:115, reached through
+fused_decode_step); the source note there says what bounds it on the H100.
+The dense products of that TPU kernel run on the port's gemm kernel and its
+post-LNs on layer_norm, rounded where it rounds:
+- qkv: the f32 product plus the f32 bias, rounded to the compute dtype;
+- out-projection: the f32 product plus the f32 bias plus the residual, in
+  f32; the post-LN reads that f32 sum;
+- fc1: the f32 product plus the bias, rounded, then exact GELU;
+- fc2: the f32 product plus the bias plus the residual, in f32; post-LN.
+So one layer is 7 launches (gemm, decode_attention, gemm, layer_norm, gemm,
+gemm, layer_norm) and one step of 4 layers 28.
+
+Layouts (the 'flat' layout of models/decode.py):
+- caption caches (nL, Bb, A, H) in the compute dtype; Bb = B * nb rows,
+  the beams of an image adjacent; updated in place at slot t-1;
+- context K/V (nL, B, S, H) in the compute dtype, one copy per image,
+  shared by its beams; S is the context length itself (no padding);
+- context bias (B, S) f32: 0 on valid slots, -10000 on invalid od slots;
+- t: the MASK row's position, a one-element int32 tensor on the tensors'
+  device (the kernel reads it there, so the launch needs no host value).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import torch
+
+from . import _build
+from .gemm import gemm, gemm_plain
+from .layer_norm import layer_norm, layer_norm_plain
+
+NEG_MASK_VALUE = -10000.0     # the reference's mask value on invalid slots
+launches = 0
+
+
+# ---------------------------------------------------------------------------
+# packing
+# ---------------------------------------------------------------------------
+
+def pack_decode_layers(model, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """The decoder layers' weights stacked into (nL, ...) tensors in the
+    torch (out, in) layout: q/k/v merged into one (3H, H) matrix, matrices
+    in the compute dtype, biases and LayerNorm parameters f32."""
+    layers = model.bert.decoder.layer
+
+    def stack(get, dt):
+        return torch.stack([get(layer) for layer in layers]).to(dt) \
+            .contiguous()
+
+    def qkv(part):
+        def get(layer):
+            ps = layer.attention.self
+            return torch.cat([getattr(ps.query, part), getattr(ps.key, part),
+                              getattr(ps.value, part)])
+        return get
+
+    f32 = torch.float32
+    return {
+        "wqkv": stack(qkv("weight"), dtype),                 # (nL, 3H, H)
+        "bqkv": stack(qkv("bias"), f32),                     # (nL, 3H)
+        "wo": stack(lambda m: m.attention.output.dense.weight, dtype),
+        "bo": stack(lambda m: m.attention.output.dense.bias, f32),
+        "ln1w": stack(lambda m: m.attention.output.LayerNorm.weight, f32),
+        "ln1b": stack(lambda m: m.attention.output.LayerNorm.bias, f32),
+        "wfc1": stack(lambda m: m.intermediate.dense.weight, dtype),
+        "bfc1": stack(lambda m: m.intermediate.dense.bias, f32),
+        "wfc2": stack(lambda m: m.output.dense.weight, dtype),
+        "bfc2": stack(lambda m: m.output.dense.bias, f32),
+        "ln2w": stack(lambda m: m.output.LayerNorm.weight, f32),
+        "ln2b": stack(lambda m: m.output.LayerNorm.bias, f32),
+    }
+
+
+def pack_decode_context(ctx_k: List[torch.Tensor], ctx_v: List[torch.Tensor],
+                        ctx_valid: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-layer (B, S, H) context K/V and the (B, S) validity ->
+    ((nL, B, S, H), (nL, B, S, H), (B, S) additive f32 bias)."""
+    bias = torch.where(ctx_valid, 0.0, NEG_MASK_VALUE).float().contiguous()
+    return torch.stack(ctx_k), torch.stack(ctx_v), bias
+
+
+# ---------------------------------------------------------------------------
+# decode_attention
+# ---------------------------------------------------------------------------
+
+def decode_attention_plain(qkv: torch.Tensor, cap_k: torch.Tensor,
+                           cap_v: torch.Tensor, ctx_k: torch.Tensor,
+                           ctx_v: torch.Tensor, ctx_bias: torch.Tensor, t,
+                           num_heads: int) -> torch.Tensor:
+    """Plain PyTorch version.  qkv (Bb, 2, 3H): the window's q/k/v;
+    cap_k/v (Bb, A, H), written in place at slot t-1; ctx_k/v (B, S, H);
+    ctx_bias (B, S) f32; t an int or a one-element tensor.  -> (Bb, 2, H)."""
+    Bb, W, H3 = qkv.shape
+    H = H3 // 3
+    B, S, _ = ctx_k.shape
+    nb = Bb // B
+    hd = H // num_heads
+    t = int(t)
+    dt = qkv.dtype
+    q, kw, vw = qkv.split(H, dim=-1)
+    cap_k[:, t - 1] = kw[:, 0]                     # the prev slot
+    cap_v[:, t - 1] = vw[:, 0]
+
+    def heads(a):                                  # (N, L, H) -> (N, h, L, d)
+        return a.reshape(a.shape[0], a.shape[1], num_heads, hd).transpose(1, 2)
+
+    qs = heads(q) * torch.tensor(hd ** -0.5, dtype=dt)   # rounded in dt
+    qf = qs.float()
+    s_cap = qf @ heads(cap_k[:, :t]).float().transpose(-1, -2)   # (Bb,h,2,t)
+    s_self = (qs * heads(kw[:, 1:2])).float().sum(-1, keepdim=True)
+    s_self[:, :, 0] = float("-inf")                # prev does not see MASK
+    kx = heads(ctx_k).float()                      # (B, h, S, d)
+    s_ctx = torch.einsum("bjhwd,bhsd->bjhws",
+                         qf.reshape(B, nb, num_heads, W, hd), kx)
+    s_ctx = (s_ctx + ctx_bias[:, None, None, None, :].float()) \
+        .reshape(Bb, num_heads, W, S)
+    m = torch.maximum(torch.maximum(s_cap.amax(-1, keepdim=True),
+                                    s_ctx.amax(-1, keepdim=True)), s_self)
+    p_cap = torch.exp(s_cap - m)
+    p_self = torch.exp(s_self - m)
+    p_ctx = torch.exp(s_ctx - m)
+    den = p_cap.sum(-1, keepdim=True) + p_self + p_ctx.sum(-1, keepdim=True)
+    o = p_cap.to(dt).float() @ heads(cap_v[:, :t]).float()
+    o = o + p_self * heads(vw[:, 1:2]).float()
+    o_ctx = torch.einsum("bjhws,bhsd->bjhwd",
+                         p_ctx.to(dt).float().reshape(B, nb, num_heads, W, S),
+                         heads(ctx_v).float())
+    o = ((o + o_ctx.reshape(Bb, num_heads, W, hd)) / den).to(dt)
+    return o.transpose(1, 2).reshape(Bb, W, H)
+
+
+def decode_attention(qkv: torch.Tensor, cap_k: torch.Tensor,
+                     cap_v: torch.Tensor, ctx_k: torch.Tensor,
+                     ctx_v: torch.Tensor, ctx_bias: torch.Tensor,
+                     t: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """See decode_attention_plain; on a CUDA device t must be a one-element
+    int32 tensor there, with 1 <= t <= A."""
+    if qkv.device.type == "cpu":
+        return decode_attention_plain(qkv, cap_k, cap_v, ctx_k, ctx_v,
+                                      ctx_bias, t, num_heads)
+    if qkv.device.type != "cuda":
+        raise RuntimeError(f"decode_attention: no kernel for device "
+                           f"{qkv.device}")
+    Bb, W, H3 = qkv.shape
+    H = H3 // 3
+    B, S, _ = ctx_k.shape
+    A = cap_k.shape[1]
+    nb = Bb // B
+    dt = qkv.dtype
+    if W != 2 or H3 != 3 * H or nb < 1 or Bb != B * nb:
+        raise ValueError(f"decode_attention: qkv {tuple(qkv.shape)} against "
+                         f"ctx_k {tuple(ctx_k.shape)}")
+    hd = H // num_heads
+    if H % num_heads or hd not in (8, 16, 32, 64, 128):
+        raise ValueError(f"decode_attention: head dim {hd} not in "
+                         f"8/16/32/64/128")
+    for name, a, shape in (("cap_k", cap_k, (Bb, A, H)),
+                           ("cap_v", cap_v, (Bb, A, H)),
+                           ("ctx_k", ctx_k, (B, S, H)),
+                           ("ctx_v", ctx_v, (B, S, H))):
+        if (a.shape != shape or a.dtype != dt or a.device != qkv.device
+                or not a.is_contiguous() or a.data_ptr() % 16):
+            raise ValueError(f"decode_attention: {name} must be contiguous, "
+                             f"16-byte aligned {shape} {dt}, got "
+                             f"{tuple(a.shape)} {a.dtype}")
+    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
+        raise ValueError("decode_attention: qkv must be contiguous and "
+                         "16-byte aligned")
+    if (ctx_bias.shape != (B, S) or ctx_bias.dtype != torch.float32
+            or ctx_bias.device != qkv.device or not ctx_bias.is_contiguous()):
+        raise ValueError(f"decode_attention: ctx_bias must be contiguous f32 "
+                         f"({B}, {S}), got {tuple(ctx_bias.shape)}")
+    if (not isinstance(t, torch.Tensor) or t.numel() != 1
+            or t.dtype != torch.int32 or t.device != qkv.device):
+        raise ValueError("decode_attention: t must be a one-element int32 "
+                         "tensor on the kernel's device")
+    out = torch.empty((Bb, W, H), dtype=dt, device=qkv.device)
+    lib = _build.library()
+    rc = lib.vc_decode_attention(
+        qkv.data_ptr(), cap_k.data_ptr(), cap_v.data_ptr(), ctx_k.data_ptr(),
+        ctx_v.data_ptr(), ctx_bias.data_ptr(), t.data_ptr(), out.data_ptr(),
+        B, nb, S, A, H, num_heads, float(hd ** -0.5), _build.dtype_code(dt),
+        torch.cuda.current_stream(qkv.device).cuda_stream)
+    _build.check(rc, "decode_attention")
+    global launches
+    launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the fused step
+# ---------------------------------------------------------------------------
+
+def _step(kernels, packed: Dict[str, torch.Tensor], ctx_k: torch.Tensor,
+          ctx_v: torch.Tensor, ctx_bias: torch.Tensor, cap_k: torch.Tensor,
+          cap_v: torch.Tensor, x_win: torch.Tensor, t, num_heads: int,
+          eps: float) -> torch.Tensor:
+    mm, attn, ln = kernels
+    Bb, W, H = x_win.shape
+    dt = x_win.dtype
+    x = x_win.reshape(Bb * W, H).contiguous()
+    for li in range(ctx_k.shape[0]):
+        p = {k: v[li] for k, v in packed.items()}
+        qkv = mm(x, p["wqkv"], p["bqkv"], f32_sum=True)
+        o = attn(qkv.view(Bb, W, 3 * H), cap_k[li], cap_v[li], ctx_k[li],
+                 ctx_v[li], ctx_bias, t, num_heads)
+        y = mm(o.view(Bb * W, H), p["wo"], p["bo"], residual=x, f32_sum=True,
+               out_f32=True)
+        x = ln(y, p["ln1w"], p["ln1b"], eps, dt)
+        h = mm(x, p["wfc1"], p["bfc1"], gelu=True, f32_sum=True)
+        y = mm(h, p["wfc2"], p["bfc2"], residual=x, f32_sum=True,
+               out_f32=True)
+        x = ln(y, p["ln2w"], p["ln2b"], eps, dt)
+    return x.view(Bb, W, H)
+
+
+def fused_decode_step_plain(packed: Dict[str, torch.Tensor],
+                            ctx_k: torch.Tensor, ctx_v: torch.Tensor,
+                            ctx_bias: torch.Tensor, cap_k: torch.Tensor,
+                            cap_v: torch.Tensor, x_win: torch.Tensor, t, *,
+                            num_heads: int, eps: float) -> torch.Tensor:
+    """Plain PyTorch version of fused_decode_step (the plain gemm,
+    decode_attention and layer_norm versions, on any device)."""
+    return _step((gemm_plain, decode_attention_plain, layer_norm_plain),
+                 packed, ctx_k, ctx_v, ctx_bias, cap_k, cap_v, x_win, t,
+                 num_heads, eps)
+
+
+def fused_decode_step(packed: Dict[str, torch.Tensor], ctx_k: torch.Tensor,
+                      ctx_v: torch.Tensor, ctx_bias: torch.Tensor,
+                      cap_k: torch.Tensor, cap_v: torch.Tensor,
+                      x_win: torch.Tensor, t, *, num_heads: int,
+                      eps: float) -> torch.Tensor:
+    """One step of every decoder layer: x_win (Bb, 2, H) in the compute
+    dtype -> (Bb, 2, H); the caption caches are updated in place.
+    packed: pack_decode_layers; ctx_k/v, ctx_bias: pack_decode_context.
+    CPU tensors run fused_decode_step_plain; CUDA tensors the kernels."""
+    if x_win.device.type == "cpu":
+        return fused_decode_step_plain(packed, ctx_k, ctx_v, ctx_bias, cap_k,
+                                       cap_v, x_win, t, num_heads=num_heads,
+                                       eps=eps)
+    return _step((gemm, decode_attention, layer_norm), packed, ctx_k, ctx_v,
+                 ctx_bias, cap_k, cap_v, x_win, t, num_heads, eps)

@@ -2,9 +2,13 @@
 
 `CaptionServer` accepts single-image requests from any number of client
 threads, groups them into fixed-size batches (padding the tail by repeating
-the last row: greedy decode is row-independent, so padding never changes
-real rows), keeps up to `max_in_flight` batches queued on the device so
-host preparation overlaps device work, and resolves each request's Future.
+the last row: greedy, sampled and beam decode are row-independent, so
+padding never changes real rows), keeps up to `max_in_flight` batches
+queued on the device so host preparation overlaps device work, and resolves
+each request's Future.  With num_keep_best > 1 (beams) or
+num_return_sequences > 1 a request resolves with the first of its rows.
+The engine is chosen as generate chooses it (VITCAP_DECODE_FUSED=1: the
+fused decode step).
 
     server = CaptionServer(model, cfg, tokenizer=CaptionDecoder(),
                            batch_size=16)
@@ -35,7 +39,8 @@ class CaptionServer:
 
     model, cfg : the ViTCAP module (its parameters' device is the serving
         device) and its ModelConfig.
-    opts : DecodeOptions (default: greedy at cfg.max_gen_length).
+    opts : DecodeOptions (default: greedy at cfg.max_gen_length); beams,
+        sampling and the other options as generate takes them.
     tokenizer : optional object with decode(ids, skip_special_tokens=True)
         (e.g. data.tokenization.CaptionDecoder); futures then resolve with
         {"caption": str, "conf": float}, else {"ids", "logprob"}.
@@ -44,8 +49,8 @@ class CaptionServer:
         first one before dispatching a partial batch.
     max_in_flight : device batches outstanding before the batcher blocks
         on the oldest.
-    seed : seeds the torch.Generator handed to generate (greedy draws
-        nothing from it).
+    seed : seeds the torch.Generator, on the serving device, that sampling
+        draws from (greedy and plain beam search draw nothing).
     """
 
     def __init__(self, model, cfg, opts=None, tokenizer=None,
@@ -54,7 +59,6 @@ class CaptionServer:
         if opts is None:
             opts = D.DecodeOptions(max_length=cfg.max_gen_length,
                                    od_labels_start_posid=cfg.max_seq_a_len)
-        D.check_supported(cfg, opts)
         self.cfg = cfg
         self.opts = opts
         self.tokenizer = tokenizer
@@ -68,7 +72,7 @@ class CaptionServer:
                                    device=self.device)
         self._seq_len = torch.full((self.batch_size,), cfg.max_seq_a_len,
                                    dtype=torch.long, device=self.device)
-        self._generator = torch.Generator().manual_seed(seed)
+        self._generator = torch.Generator(self.device).manual_seed(seed)
         self._queue: "queue.Queue" = queue.Queue()
         self._closed = threading.Event()
         self.n_requests = 0

@@ -1,19 +1,113 @@
 """Load a vitcap_tpu JAX param tree into the port's ViTCAP module.
 
-The TPU package's bridge (vitcap_tpu.solver.checkpoint_bridge, numpy only)
-already turns its param tree into the reference's torch state dict: names
-like 'module.bert.encoder.blocks.0.attn.qkv.weight' and torch layouts
-(dense (out, in), conv OIHW).  The port's modules carry exactly those names
-without the leading 'module.', and its kernels read the (out, in) layout
-directly, so the layout is converted once here and never per call.
+The param tree (nested dicts and lists of numpy arrays) is flattened to
+'/'-joined paths, each path is named as in the reference's torch state dict
+('module.bert.encoder.blocks.0.attn.qkv.weight') and its array is put in
+the torch layout (dense (out, in), conv OIHW).  The port's modules carry
+exactly those names without the leading 'module.', and its kernels read the
+(out, in) layout directly, so the layout is converted once here and never
+per call.  This is numpy only: the port keeps its own copy of the naming
+rules of vitcap_tpu/solver/checkpoint_bridge.py and imports nothing of the
+JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
+
+Params = Dict[str, Any]
+
+_LEAF_MAP = {
+    "scale": "weight",      # LayerNorm scale
+    "kernel": "weight",     # Dense / Conv kernel (transposed)
+}
+
+
+def flatten_params(params: Params, prefix: str = "") -> Dict[str, Any]:
+    """{'a': {'b': [x, y]}} -> {'a/b/0': x, 'a/b/1': y}."""
+    out: Dict[str, Any] = {}
+    if isinstance(params, dict):
+        for k, v in params.items():
+            out.update(flatten_params(v, f"{prefix}{k}/"))
+    elif isinstance(params, (list, tuple)):
+        for i, v in enumerate(params):
+            out.update(flatten_params(v, f"{prefix}{i}/"))
+    else:
+        out[prefix[:-1]] = params
+    return out
+
+
+def _dense_leaf(torch_parts: List[str], leaf: str) -> Tuple[str, str]:
+    torch_parts = torch_parts + [_LEAF_MAP.get(leaf, leaf)]
+    return ".".join(torch_parts), "linear_t" if leaf == "kernel" else "none"
+
+
+def jax_path_to_torch_name(path: str) -> Tuple[str, str]:
+    """A flattened param path -> (torch name, transform), transform in
+    {'linear_t', 'conv_hwio_to_oihw', 'none'}."""
+    parts = path.split("/")
+    leaf = parts[-1]
+
+    if parts[0] == "image_encoder":
+        # flat image encoder <- the reference's 'image_encoder.module.' ViT
+        torch_parts = ["image_encoder", "module"]
+        if parts[1] == "patch_proj":
+            name = ".".join(torch_parts + ["patch_embed", "proj",
+                                           _LEAF_MAP.get(leaf, leaf)])
+            return name, ("conv_hwio_to_oihw" if leaf == "kernel"
+                          else "none")
+        return ".".join(torch_parts + [parts[1]]), "none"  # cls/pos_embed
+
+    if parts[0] == "encoder":
+        # bert.encoder.{blocks,tag_blocks}.N....
+        return _dense_leaf(["bert", "encoder", parts[1], parts[2]]
+                           + parts[3:-1], leaf)
+
+    if parts[0] in ("embeddings", "extra_embeddings"):
+        if parts[1] in ("word_embeddings", "position_embeddings",
+                        "token_type_embeddings"):
+            # embedding matrices keep the (num, dim) layout
+            return ".".join(["bert", parts[0], parts[1], "weight"]), "none"
+        return _dense_leaf(["bert", parts[0]] + parts[1:-1], leaf)
+
+    if parts[0] in ("pooler", "caption_pooler", "decoder"):
+        return _dense_leaf(["bert", parts[0]] + parts[1:-1], leaf)
+
+    if parts[0] in ("tag_logit", "cls"):
+        head = ["bert", "tag_logit"] if parts[0] == "tag_logit" else ["cls"]
+        if parts[1] == "decoder":
+            if leaf == "bias":
+                return ".".join(head + ["predictions", "bias"]), "none"
+            return (".".join(head + ["predictions", "decoder", "weight"]),
+                    "linear_t")
+        return _dense_leaf(head + ["predictions"] + parts[1:-1], leaf)
+
+    raise KeyError(f"no torch mapping for param path {path!r}")
+
+
+def _apply_transform(arr: np.ndarray, transform: str) -> np.ndarray:
+    """JAX layout -> torch layout: dense (in, out) -> (out, in); conv HWIO
+    -> OIHW."""
+    if transform == "linear_t":
+        return np.ascontiguousarray(arr.T)
+    if transform == "conv_hwio_to_oihw":
+        return np.ascontiguousarray(arr.transpose(3, 2, 0, 1))
+    return arr
+
+
+def params_to_torch_state_dict(params: Params) -> Dict[str, np.ndarray]:
+    """The param tree as a reference-named torch state dict ('module.'
+    prefix on everything but the image encoder)."""
+    out: Dict[str, np.ndarray] = {}
+    for path, arr in flatten_params(params).items():
+        torch_name, transform = jax_path_to_torch_name(path)
+        prefix = "" if torch_name.startswith("image_encoder") else "module."
+        out[prefix + torch_name] = _apply_transform(np.asarray(arr),
+                                                    transform)
+    return out
 
 
 def load_jax_params(model: torch.nn.Module, params_np: Dict[str, Any]
@@ -21,7 +115,6 @@ def load_jax_params(model: torch.nn.Module, params_np: Dict[str, Any]
     """Strictly load `params_np` (the JAX param tree with numpy leaves) into
     `model`, in place; returns the model with gradients off (the port is
     inference-only so far)."""
-    from vitcap_tpu.solver.checkpoint_bridge import params_to_torch_state_dict
     sd = {}
     for name, arr in params_to_torch_state_dict(params_np).items():
         if name.startswith("module."):
