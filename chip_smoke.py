@@ -27,7 +27,16 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
 7. where a flagship batch (B=64, bf16) spends its time, for greedy on each
    engine and beam-3 on the fused one: host-clock times of encode, prefill
    and decode loop, the device's busy time and idle share
-   (torch.profiler), and device time by kernel.
+   (torch.profiler), and device time by kernel;
+8. training (this slice's path): the train kernels (LayerNorm with stats,
+   the gemm's pre-GELU output and dropout epilogue, attention with prob
+   dropout, attention_bwd) vs their plain versions at the flagship train
+   shapes, bf16 and f32, with bounds and yardsticks; the ViT and BERT train
+   blocks forward and backward vs the plain autograd blocks; the flagship
+   train step (B=64, bf16, attention dropout 0.1): img/s, step ms, peak
+   memory, exactly TRAIN_PER_STEP launches per step; one f32 train step
+   GPU vs CPU (loss, every gradient, the updated parameters); the profile
+   of one flagship step.
 
 The measurements are also written to chiprun_out/chip_smoke.json (and the
 profiles' tables to chiprun_out/profile_<run>.txt).
@@ -69,10 +78,17 @@ PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 HBM_BYTES_S = 3.35e12
 STEPS = 19                   # decode steps of a 20-token caption
 ENCODE = {"gemm": 72, "layer_norm": 36, "attention": 18}   # per batch
-PER_BATCH = dict(ENCODE, decode_attention=0)
+PER_BATCH = dict(ENCODE, attention_bwd=0, decode_attention=0)
 FUSED_PER_BATCH = {"gemm": 72 + 4 * 4 * STEPS,
                    "layer_norm": 36 + 4 * 2 * STEPS, "attention": 18,
-                   "decode_attention": 4 * STEPS}
+                   "attention_bwd": 0, "decode_attention": 4 * STEPS}
+# one flagship train step: 15 ViT train blocks (12 trunk + 3 tag) and 4
+# BERT train blocks, each 4 gemm + 2 layer_norm + 1 attention forward and
+# one attention_bwd call (2 launches) backward
+TRAIN_PER_STEP = {"gemm": 76, "layer_norm": 38, "attention": 19,
+                  "attention_bwd": 38, "decode_attention": 0}
+TRAIN_MODES_PER_STEP = {"gemm[pre_out]": 19, "gemm[dropout]": 8,
+                        "layer_norm[stats]": 38, "attention[dropout]": 4}
 SOURCES = {
     "gemm": ("vitcap_tpu_torch/csrc/gemm.cu",
              "vitcap_tpu/ops/fused_block.py:150 _qkv_kernel, :235 "
@@ -91,6 +107,33 @@ SOURCES = {
     "decode_attention": ("vitcap_tpu_torch/csrc/decode_attention.cu",
                          "vitcap_tpu/ops/decode_step.py:115 _kernel "
                          "(attention half; fused_decode_step :237)"),
+}
+# the train kernels and modes: (source, TPU kernel, the row of the bf16
+# kernel phase that the summary line reports)
+TRAIN_SOURCES = {
+    "layer_norm[stats]": ("vitcap_tpu_torch/csrc/layer_norm.cu",
+                          "vitcap_tpu/ops/fused_block.py:1381 "
+                          "_qkv_train_kernel, :1398 _tail_train_stats_kernel "
+                          "(LN stats, K6); :1095 _bert_tail_train_kernel "
+                          "(post-LN stats, K7)", "vit rows"),
+    "gemm[pre_out]": ("vitcap_tpu_torch/csrc/gemm.cu",
+                      "vitcap_tpu/ops/fused_block.py:1398 "
+                      "_tail_train_stats_kernel (pre1, K6); :1095 "
+                      "_bert_tail_train_kernel (pre1, K7)",
+                      "vit fc1+gelu+pre"),
+    "gemm[dropout]": ("vitcap_tpu_torch/csrc/gemm.cu",
+                      "vitcap_tpu/ops/fused_block.py:1095 "
+                      "_bert_tail_train_kernel (hidden dropout, K7)",
+                      "bert out-dense rate 0.0"),
+    "attention[dropout]": ("vitcap_tpu_torch/csrc/attention.cu",
+                           "vitcap_tpu/ops/flash_attention.py:484 "
+                           "_fwd_packed_pair_kernel, :452 _fwd_packed_kernel "
+                           "(flash_fwd_packed_slab :949, K8 forward)",
+                           "bert train"),
+    "attention_bwd": ("vitcap_tpu_torch/csrc/attention_bwd.cu",
+                      "vitcap_tpu/ops/flash_attention.py:530 "
+                      "_bwd_packed_pair_kernel, :600 _bwd_packed_kernel "
+                      "(flash_bwd_packed_slab :882, K8 backward)", "vit"),
 }
 
 
@@ -470,7 +513,8 @@ def phase_decode_step(dev, rows):
             out = fused_decode_step(*args, *caps, x, t_dev, **kw)
             counts = ops.launch_counts()
             if counts != {"gemm": 4 * nL, "layer_norm": 2 * nL,
-                          "attention": 0, "decode_attention": nL}:
+                          "attention": 0, "attention_bwd": 0,
+                          "decode_attention": nL}:
                 raise AssertionError(f"fused step launches {counts}")
             ref = fused_decode_step_plain(*args, cap_k, cap_v, x, t, **kw)
             err = compare(f"fused_decode_step {case} {dn}", out, ref, dtype)
@@ -679,9 +723,438 @@ def phase_parity(dev):
                 raise AssertionError(f"parity {layout} {key}: ids differ")
 
 
-def summarise(rows, counts):
+def _train_batch(cfg, Bn, seed, dev):
+    """A batch of the JAX package's bench training line (bench.py:151-164)
+    from a numpy seed: uint8 images, ids in [999, 9000), captions of
+    max_seq_a_len tokens, 3 masked positions, multi-hot labels at 0.2%."""
+    rs = np.random.RandomState(seed)
+    T, A = cfg.max_seq_len, cfg.max_seq_a_len
+    masked_pos = np.zeros((Bn, T), np.int64)
+    masked_pos[:, 1:4] = 1
+    batch = {
+        "image": rs.randint(0, 256, (Bn, cfg.img_size, cfg.img_size, 3))
+                 .astype(np.uint8),
+        "input_ids": rs.randint(999, 9000, (Bn, T)),
+        "token_type_ids": np.concatenate(
+            [np.zeros((Bn, A), np.int64), np.ones((Bn, T - A), np.int64)], 1),
+        "seq_a_len": np.full((Bn,), A), "seq_len": np.full((Bn,), T),
+        "masked_pos": masked_pos,
+        "masked_ids": rs.randint(999, 9000, (Bn, cfg.max_masked_tokens)),
+        "label": (rs.rand(Bn, cfg.tag_vocab_size) < 0.002)
+                 .astype(np.float32),
+    }
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def _bert_train_bias(Bn, L, Lp, dev):
+    """The flagship decoder's bias at the train shape: 70 text tokens
+    (20 causal caption, 50 od), then tag CLS and 577 visual tokens,
+    padded to Lp (padded keys are masked by l_actual)."""
+    from vitcap_tpu_torch.models import vitcap as TM
+    from vitcap_tpu_torch.models.config import ModelConfig
+    cfg = ModelConfig()
+    A, T = cfg.max_seq_a_len, cfg.max_seq_len
+    mask = TM.seq2seq_text_mask(torch.full((Bn,), A, device=dev),
+                                torch.full((Bn,), T, device=dev), cfg)
+    bias = TM.decoder_bias_from_text_mask(mask, L - T)
+    return F.pad(bias, (0, Lp - L, 0, Lp - L)).contiguous()
+
+
+def _time_pair(fn_kernel, fn_plain, reps=5, plain_reps=3):
+    return cuda_ms(fn_kernel, reps), cuda_ms(fn_plain, plain_reps)
+
+
+def phase_train_kernels(dev, rows):
+    """The train kernels vs their plain versions at the flagship train
+    shapes (B=64), bf16 and f32: LayerNorm with stats (ViT and BERT rows),
+    the gemm's pre-GELU output (ViT fc1), the K7 dropout epilogue (BERT
+    out-dense and fc2, rates 0 and 0.1), attention with prob dropout (BERT,
+    bias, 0.1), and attention_bwd (ViT: no bias, rate 0, l_actual 577;
+    BERT: bias, 0.1, l_actual 648).  Yardsticks: F.layer_norm, F.linear,
+    SDPA with a float mask and dropout_p, and SDPA's backward on a
+    retained graph."""
+    from vitcap_tpu_torch.ops.attention import attention, attention_plain
+    from vitcap_tpu_torch.ops.attention_bwd import (attention_bwd,
+                                                    attention_bwd_plain)
+    from vitcap_tpu_torch.ops.gemm import gemm, gemm_plain
+    from vitcap_tpu_torch.ops.layer_norm import layer_norm, layer_norm_plain
+    g = torch.Generator().manual_seed(SEED + 7)
+    H, nh, hd = 768, 12, 64
+    first = len(rows)
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
+
+    def bits(name, out, ref):
+        if out.dtype == torch.bfloat16:
+            eq = (out == ref).float().mean().item()
+            if eq < 0.99:
+                raise AssertionError(f"{name}: only {eq:.4f} bit-equal")
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = "bf16" if dtype == torch.bfloat16 else "f32"
+        es = 2 if dtype == torch.bfloat16 else 4
+        for case, M in (("vit rows", B * 592), ("bert rows", B * 656)):
+            x = [rnd(M, H, scale=3.0, dtype=dtype) + 1 for _ in range(2)]
+            gm, bt = rnd(H) + 1, rnd(H)
+            out = layer_norm(x[0], gm, bt, 1e-6, dtype, stats=True)
+            ref = layer_norm_plain(x[0], gm, bt, 1e-6, dtype, stats=True)
+            err = max(compare(f"layer_norm[stats] {case} {dn}", o, r,
+                              o.dtype) for o, r in zip(out, ref))
+            ms, pms = _time_pair(
+                lambda i: layer_norm(x[i % 2], gm, bt, 1e-6, dtype,
+                                     stats=True),
+                lambda i: layer_norm_plain(x[i % 2], gm, bt, 1e-6, dtype,
+                                           stats=True), 10, 5)
+            gl, bl = gm.to(dtype), bt.to(dtype)
+            lms = cuda_ms(lambda i: F.layer_norm(x[i % 2], (H,), gl, bl,
+                                                 1e-6), 10)
+            _row(rows, "layer_norm[stats]", case, dn, f"rows={M} H={H}", err,
+                 ms, pms, lms, 8.0 * M * H, M * H * 2 * es + 8 * M + 8 * H)
+            del x
+        # fc1 with the pre-GELU output (K6 / K7)
+        M, K, N = B * 592, 768, 3072
+        a = [rnd(M, K, dtype=dtype) for _ in range(2)]
+        w, b = rnd(N, K, scale=0.02, dtype=dtype), rnd(N, scale=0.02)
+        pre, pre_ref = (torch.empty(M, N, dtype=dtype, device=dev)
+                        for _ in range(2))
+        out = gemm(a[0], w, b, gelu=True, pre_out=pre)
+        ref = gemm_plain(a[0], w, b, gelu=True, pre_out=pre_ref)
+        err = max(compare(f"gemm[pre_out] {dn}", out, ref, dtype),
+                  compare(f"gemm[pre_out] pre {dn}", pre, pre_ref, dtype))
+        bits("gemm[pre_out]", out, ref)
+        bits("gemm[pre_out] pre", pre, pre_ref)
+        ms, pms = _time_pair(
+            lambda i: gemm(a[i % 2], w, b, gelu=True, pre_out=pre),
+            lambda i: gemm_plain(a[i % 2], w, b, gelu=True, pre_out=pre_ref),
+            10, 5)
+        bd = b.to(dtype)
+        lms = cuda_ms(lambda i: F.linear(a[i % 2], w, bd), 10)
+        _row(rows, "gemm[pre_out]", "vit fc1+gelu+pre", dn,
+             f"M={M} K={K} N={N}", err, ms, pms, lms, 2.0 * M * K * N,
+             es * (M * K + N * K + 2 * M * N) + 4 * N)
+        del a, pre, pre_ref, out, ref
+        # the K7 epilogue: bias, hidden dropout, residual
+        M = B * 656
+        for case, K in (("bert out-dense", 768), ("bert fc2", 3072)):
+            a = [rnd(M, K, dtype=dtype) for _ in range(2)]
+            w, b = rnd(H, K, scale=0.02, dtype=dtype), rnd(H, scale=0.02)
+            r = rnd(M, H, dtype=dtype)
+            for rate in (0.0, 0.1):
+                drop = (rate, -1234567, 1, 656)
+                out = gemm(a[0], w, b, residual=r, dropout=drop)
+                ref = gemm_plain(a[0], w, b, residual=r, dropout=drop)
+                name = f"gemm[dropout] {case} rate {rate} {dn}"
+                err = compare(name, out, ref, dtype)
+                bits(name, out, ref)
+                ms, pms = _time_pair(
+                    lambda i: gemm(a[i % 2], w, b, residual=r, dropout=drop),
+                    lambda i: gemm_plain(a[i % 2], w, b, residual=r,
+                                         dropout=drop), 10, 5)
+                bd = b.to(dtype)
+                lms = cuda_ms(lambda i: F.linear(a[i % 2], w, bd), 10)
+                _row(rows, "gemm[dropout]", f"{case} rate {rate}", dn,
+                     f"M={M} K={K} N={H}", err, ms, pms, lms,
+                     2.0 * M * K * H, es * (M * K + H * K + 2 * M * H)
+                     + 4 * H)
+            del a, r
+        # K8 forward (BERT train) and backward (ViT and BERT)
+        for case, L, Lp, with_bias, rate in (
+                ("vit", 577, 592, False, 0.0),
+                ("bert", 648, 656, True, 0.1)):
+            slab = rnd(B, Lp, 3 * H, dtype=dtype)
+            up = rnd(B, Lp, H, dtype=dtype)
+            up[:, L:] = 0.0
+            bias = _bert_train_bias(B, L, Lp, dev) if with_bias else None
+            mask = torch.zeros(B, 1, Lp, Lp, device=dev, dtype=dtype)
+            mask[..., L:] = float("-inf")
+            if bias is not None:
+                mask = mask + bias.to(dtype)
+            if rate > 0:
+                out = attention(slab, nh, L, bias, rate, 4242)
+                ref = attention_plain(slab, nh, L, bias, rate, 4242)
+                err = compare(f"attention[dropout] {case} {dn}", out, ref,
+                              dtype)
+                ms, pms = _time_pair(
+                    lambda i: attention(slab, nh, L, bias, rate, 4242),
+                    lambda i: attention_plain(slab, nh, L, bias, rate, 4242),
+                    5, 2)
+                qkv = slab.view(B, Lp, 3, nh, hd).permute(2, 0, 3, 1, 4)
+                lms = cuda_ms(lambda i: F.scaled_dot_product_attention(
+                    qkv[0], qkv[1], qkv[2], attn_mask=mask, dropout_p=rate),
+                    5)
+                _row(rows, "attention[dropout]", f"{case} train", dn,
+                     f"B={B} L={L} Lp={Lp} heads=12x64 rate={rate}", err, ms,
+                     pms, lms, 4.0 * B * nh * Lp * L * hd,
+                     es * B * Lp * 4 * H + 4 * B * Lp * Lp)
+                del out, ref, qkv
+            got = attention_bwd(slab, up, nh, L, bias, rate, 777)
+            want = attention_bwd_plain(slab, up, nh, L, bias, rate, 777)
+            err = 0.0
+            for part, o, r in zip("qkv", got, want):
+                name = f"attention_bwd {case} d{part} {dn}"
+                err = max(err, compare(name, o, r, dtype))
+                bits(name, o, r)
+            del got, want
+            ms, pms = _time_pair(
+                lambda i: attention_bwd(slab, up, nh, L, bias, rate, 777),
+                lambda i: attention_bwd_plain(slab, up, nh, L, bias, rate,
+                                              777), 3, 2)
+            # yardstick: SDPA's backward on a retained graph (its forward
+            # saved what its backward reads; dropout from its own RNG)
+            qkv = [t.detach().contiguous().requires_grad_(True) for t in
+                   slab.view(B, Lp, 3, nh, hd).permute(2, 0, 3, 1, 4)]
+            o = F.scaled_dot_product_attention(*qkv, attn_mask=mask,
+                                               dropout_p=rate)
+            go = up.view(B, Lp, nh, hd).transpose(1, 2)
+            lms = cuda_ms(lambda i: torch.autograd.grad(
+                o, qkv, go, retain_graph=True), 3)
+            _row(rows, "attention_bwd", case, dn,
+                 f"B={B} L={L} Lp={Lp} heads=12x64 rate={rate} "
+                 f"bias={with_bias}", err, ms, pms, lms,
+                 10.0 * B * nh * Lp * L * hd,
+                 es * B * Lp * 7 * H + (4 * B * Lp * Lp if with_bias else 0))
+            del slab, up, bias, mask, qkv, o
+            torch.cuda.empty_cache()
+    for r in rows[first:]:
+        log(f"[train-kernel] {r['kernel']:18s} {r['case']:26s} "
+            f"{r['dtype']:4s} err {r['max_abs_err']:.3e}  kernel "
+            f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  library "
+            f"{r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+
+
+def phase_train_blocks(dev, rows):
+    """The ViT and BERT train blocks (kernel forward, analytic backward)
+    vs the plain autograd blocks on the card, bf16, B=64 at the flagship
+    train shapes: the output (bf16: 2e-2 of the scale), the input gradient
+    and every parameter gradient (5e-2: cotangents rounded to bf16 at every
+    link; floor of the scale 1e-3 of the block's largest gradient, under
+    which a gradient is bf16 noise of an exact zero, the key bias's), with
+    forward+backward times.  The BERT check runs at rate 0
+    (the plain layer's dropout masks are other bits); its time is also
+    taken at the flagship's prob dropout 0.1."""
+    from vitcap_tpu_torch.models import layers as TL
+    from vitcap_tpu_torch.models.config import ModelConfig
+    from vitcap_tpu_torch.models.vitcap import init_params
+    from vitcap_tpu_torch.ops.fused_block import (split_bert_layer_train,
+                                                  split_vit_block_train)
+    cfg = ModelConfig(num_hidden_layers=1, split_blocks=1, decoder_layers=1)
+    model = init_params(cfg, torch.Generator().manual_seed(SEED), dev)
+    model.requires_grad_(True)
+    blk, layer = model.bert.encoder.blocks[0], model.bert.decoder.layer[0]
+    g = torch.Generator().manual_seed(SEED + 8)
+    H, nh, dt = 768, 12, torch.bfloat16
+    first = len(rows)
+    for name, p, L, Lp in (("vit", blk, 577, 592), ("bert", layer, 648,
+                                                    656)):
+        x = torch.randn(B, Lp, H, generator=g).to(dev, dt)
+        co = torch.randn(B, L, H, generator=g).to(dev)
+        bias = _bert_train_bias(B, L, Lp, dev) if name == "bert" else None
+
+        def kern(rate=0.0):
+            xx = x.detach().requires_grad_(True)
+            if bias is None:
+                o = split_vit_block_train(p, xx, nh, 1e-6, L)
+            else:
+                o = split_bert_layer_train(p, xx, bias, nh, 1e-12, L, 0.0,
+                                           rate, (5, 6))
+            (o[:, :L].float() * co).sum().backward()
+            return o[:, :L], xx.grad[:, :L]
+
+        def plain():
+            xx = x[:, :L].detach().requires_grad_(True)
+            if bias is None:
+                o = TL._vit_block_plain(p, xx, nh, 1e-6)
+            else:
+                o = TL._bert_layer_plain(p, xx, bias[:, :, :L, :L], nh,
+                                         1e-12)
+            (o.float() * co).sum().backward()
+            return o, xx.grad
+
+        params = list(p.parameters())
+        model.zero_grad(set_to_none=True)
+        out, gx = kern()
+        kg = [t.grad.clone() for t in params]
+        model.zero_grad(set_to_none=True)
+        ref, rx = plain()
+        err = compare(f"{name} train block out", out, ref, dt)
+        gerr = 0.0
+        pairs = [(gx, rx)] + [(k_, t.grad) for t, k_ in zip(params, kg)]
+        top = max(w.float().abs().max().item() for _, w in pairs)
+        for got, want in pairs:
+            e = (got.float() - want.float()).abs().max().item()
+            scale = max(want.float().abs().max().item(), 1e-3 * top)
+            if not e <= 5e-2 * scale:
+                raise AssertionError(f"{name} train block grad: {e:.3g} > "
+                                     f"5e-2 of {scale:.3g}")
+            gerr = max(gerr, e / max(scale, 1e-30))
+        rate = 0.1 if bias is not None else 0.0
+        ms = cuda_ms(lambda i: kern(rate), 3)
+        pms = cuda_ms(lambda i: plain(), 3)
+        model.zero_grad(set_to_none=True)
+        rows.append(dict(kernel=f"{name}_train_block", case="fwd+bwd",
+                         dtype="bf16", shape=f"B={B} L={L} Lp={Lp}",
+                         max_abs_err=err, grad_rel_err=gerr, ms=ms,
+                         plain_ms=pms))
+        del x, co, bias, out, gx, ref, rx, kg
+    for r in rows[first:]:
+        log(f"[train-block] {r['kernel']:16s} {r['shape']:20s} err "
+            f"{r['max_abs_err']:.3e} grads {r['grad_rel_err']:.3e} of scale"
+            f"  kernels {r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms "
+            f"(forward + backward)")
+    del model
+    torch.cuda.empty_cache()
+
+
+def _train_step_flops(cfg, Bn):
+    """Operations of one train step, the JAX package's count (bench.py
+    _train_fwd_flops, 3x the forward): trunk and tag blocks over the visual
+    tokens, decoder layers over text + tag CLS + visual, LM and tag heads."""
+    H, V, I = cfg.hidden_size, cfg.num_visual_tokens, cfg.intermediate_size
+
+    def block(tokens):
+        return 2 * (4 * tokens * H * H + 2 * tokens * tokens * H
+                    + 2 * tokens * H * I)
+    L = cfg.max_seq_len + 1 + V
+    fwd = ((cfg.num_hidden_layers + cfg.split_blocks) * block(V)
+           + cfg.decoder_layers * block(L)
+           + 2 * H * cfg.vocab_size * cfg.max_seq_len
+           + 2 * H * cfg.tag_vocab_size)
+    return 3.0 * Bn * fwd
+
+
+def phase_train_step(dev, smi):
+    """The flagship train step (the JAX package's bench training line):
+    ModelConfig(dtype='bfloat16', tag_loss_weight=1.0), B=64, attention
+    dropout 0.1, TrainHyper(base_lr=1e-4, max_iter=1000), no probes; one
+    warm-up step, then 8 timed steps, synchronised, each launching exactly
+    TRAIN_PER_STEP kernels (and TRAIN_MODES_PER_STEP of the train modes).
+    Returns the counts of the timed run, the train state and the step."""
+    from vitcap_tpu_torch import ops
+    from vitcap_tpu_torch.models.config import ModelConfig
+    from vitcap_tpu_torch.models.vitcap import init_params
+    from vitcap_tpu_torch.solver.train_step import (TrainHyper,
+                                                    init_train_state,
+                                                    make_train_step)
+    cfg = ModelConfig(dtype="bfloat16", tag_loss_weight=1.0)
+    model = init_params(cfg, torch.Generator().manual_seed(SEED), dev)
+    state = init_train_state(model, torch.Generator().manual_seed(SEED + 9))
+    step = make_train_step(cfg, TrainHyper(base_lr=1e-4, max_iter=1000))
+    batch = _train_batch(cfg, B, SEED + 10, dev)
+    state, m = step(state, batch, False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    per_step, losses = [], []
+    t0 = time.perf_counter()
+    for _ in range(8):
+        before, mb = ops.launch_counts(), ops.mode_counts()
+        state, m = step(state, batch, False)
+        after, ma = ops.launch_counts(), ops.mode_counts()
+        d = {k: after[k] - before[k] for k in after}
+        d.update({k: ma[k] - mb[k] for k in ma})
+        per_step.append(d)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(ops.launch_counts(), **ops.mode_counts())
+    want = dict(TRAIN_PER_STEP, **TRAIN_MODES_PER_STEP)
+    for d in per_step:
+        if d != want:
+            raise AssertionError(f"train step launches {d} != {want}")
+    losses = [v.item() for v in losses]
+    gnorm = m["grad_norm"].item()
+    if not all(math.isfinite(v) for v in losses + [gnorm]):
+        raise AssertionError(f"train step: loss {losses}, grad_norm {gnorm}")
+    step_ms = seconds / 8 * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rate = B * 8 / seconds
+    flops = _train_step_flops(cfg, B)
+    bound_ms = flops / PEAK_FLOPS["bf16"] * 1e3
+    log(f"[train] launches per step {per_step[0]}")
+    log(f"[train] losses {[round(v, 4) for v in losses]} grad_norm "
+        f"{gnorm:.4f}")
+    log(f"[train] {rate:.2f} img/s, step {step_ms:.3f} ms (B={B}, bf16, "
+        f"attention dropout 0.1, 8 steps after 1 warm-up, host clock around "
+        f"synchronised work), peak memory {peak:.2f} GiB, on {smi}")
+    log(f"[train] step bound {bound_ms:.3f} ms ({flops / 1e12:.2f} TFLOP at "
+        f"the bf16 peak): the step takes {step_ms / bound_ms:.2f}x it")
+    out = {"img_per_s": rate, "step_ms": step_ms, "peak_gib": peak,
+           "step_tflop": flops / 1e12, "step_bound_ms": bound_ms,
+           "losses": losses, "grad_norm": gnorm,
+           "launches_per_step": per_step[0]}
+    return counts, out, (state, step, batch)
+
+
+def phase_train_parity(dev):
+    """One f32 train step on the card vs the CPU: full width, 4 trunk
+    blocks (2 of them forked into the tag branch), 2 decoder layers, B=2,
+    attention dropout 0.1 with the same seeds on both sides.  Loss and
+    grad norm within 1e-4 relative; every gradient within 1e-3 of its
+    leaf's scale (floor: 1e-6 of the largest gradient, under which a leaf
+    is the rounding noise of a gradient that is zero in exact arithmetic);
+    updated parameters: at least 99.9% within 1e-2 lr of the CPU's and all
+    within 2 lr (the first Adam step sends every gradient above ~1e-7 to a
+    +-lr step, so a gradient near zero whose sign the summation order
+    flips moves by 2 lr)."""
+    from vitcap_tpu_torch.models.config import ModelConfig
+    from vitcap_tpu_torch.models.vitcap import draw_layer_seeds, init_params
+    from vitcap_tpu_torch.solver.train_step import (TrainHyper,
+                                                    init_train_state,
+                                                    make_train_step)
+    cfg = ModelConfig(num_hidden_layers=4, split_blocks=2, decoder_layers=2,
+                      tag_loss_weight=1.0)
+    cpu_model = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    seeds = draw_layer_seeds(torch.Generator().manual_seed(SEED + 13),
+                             cfg.decoder_layers)
+    lr = 1e-4
+    res = {}
+    for model, d in ((gpu_model, dev), (cpu_model, "cpu")):
+        state = init_train_state(model, None)
+        step = make_train_step(cfg, TrainHyper(base_lr=lr, max_iter=1000))
+        _, m = step(state, _train_batch(cfg, 2, SEED + 12, d), True, seeds)
+        res[d] = ({k: v.item() for k, v in m.items()},
+                  {n: p.grad.float().cpu() for n, p in
+                   model.named_parameters() if p.grad is not None},
+                  {n: p.detach().float().cpu() for n, p in
+                   model.named_parameters()})
+    torch.cuda.synchronize()
+    (gm, gg, gp), (cm, cg, cp) = res[dev], res["cpu"]
+    for k in ("loss", "masked_loss", "tag_loss", "grad_norm"):
+        rel = abs(gm[k] - cm[k]) / max(abs(cm[k]), 1e-30)
+        log(f"[train-parity] {k:12s} GPU {gm[k]:.7g} CPU {cm[k]:.7g} rel "
+            f"{rel:.3e}")
+        if not rel <= 1e-4:
+            raise AssertionError(f"train parity {k}: rel {rel:.3e}")
+    if gg.keys() != cg.keys():
+        raise AssertionError("train parity: gradient sets differ")
+    top = max(t.abs().max().item() for t in cg.values())
+    worst = 0.0
+    for n in cg:
+        scale = max(cg[n].abs().max().item(), 1e-6 * top)
+        e = (gg[n] - cg[n]).abs().max().item() / scale
+        worst = max(worst, e)
+        if not e <= 1e-3:
+            raise AssertionError(f"train parity grad {n}: {e:.3e} of scale")
+    diff = torch.cat([(gp[n] - cp[n]).abs().flatten() for n in cp])
+    close = (diff <= 1e-2 * lr).float().mean().item()
+    log(f"[train-parity] {len(cg)} gradients, worst {worst:.3e} of their "
+        f"scale; updated parameters: {close:.6f} within 1e-2 lr, max "
+        f"{diff.max().item() / lr:.3e} lr")
+    if not (close >= 0.999 and diff.max().item() <= 2.0 * lr * (1 + 1e-3)):
+        raise AssertionError("train parity: updated parameters differ")
+    return {"grad_worst_rel": worst, "params_close_share": close,
+            "params_max_diff_lr": diff.max().item() / lr, "gpu": gm,
+            "cpu": cm}
+
+
+def summarise(rows, counts, train_counts):
     """The per-kernel JSON entries.  launches: the beam path's run
-    (phase 5b).  max_abs_err: the largest of any check of the kernel.
+    (phase 5b) for the serving kernels; the train step's timed run (8
+    steps) for the train kernels and modes, whose numbers are one launch
+    (call) at the flagship bf16 shape named in TRAIN_SOURCES.  max_abs_err: the largest of any check of the kernel.
     ms / plain_ms / library_ms / bound_ms: for gemm, layer_norm and
     attention, the sum over one fused ViT block's launches at B=64 bf16
     (4 gemm, 2 layer_norm, 1 attention); for decode_attention, one launch
@@ -709,14 +1182,25 @@ def summarise(rows, counts):
             "bound_by": max(by, key=by.get),
             "library_ms": sum(r["library_ms"] * n for r, n in main),
         })
+    for name, (src, replaces, case) in TRAIN_SOURCES.items():
+        mine = [r for r in rows if r["kernel"] == name]
+        r = next(r for r in mine if r["dtype"] == "bf16"
+                 and r["case"] == case)
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": train_counts[name],
+            "max_abs_err": max(x["max_abs_err"] for x in mine),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
     return kernels
 
 
-def _profile_batch(name, fn, wall_prefill, reps=3):
-    """Host-clock batch time (median of reps, synchronised), then one batch
-    under torch.profiler: device busy time (the union of kernel and copy
-    intervals), idle share against the unprofiled wall time, device time
-    by kernel."""
+def _profile(name, fn, reps=3):
+    """Host-clock time of fn (median of reps, synchronised, after two
+    warm-up calls), then one call under torch.profiler: device busy time
+    (the union of kernel and copy intervals), idle share against the
+    unprofiled wall time, device time by kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
@@ -748,15 +1232,11 @@ def _profile_batch(name, fn, wall_prefill, reps=3):
             ms, n = by_kernel.get(e.name, (0.0, 0))
             by_kernel[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])
-    out = {"batch_ms": wall, "encode_prefill_ms": wall_prefill,
-           "decode_loop_ms": wall - wall_prefill, "profiled_wall_ms":
-           prof_wall, "device_busy_ms": busy, "device_events": len(spans),
+    out = {"wall_ms": wall, "profiled_wall_ms": prof_wall,
+           "device_busy_ms": busy, "device_events": len(spans),
            "idle_share": 1.0 - busy / wall,
            "kernels": [{"name": k, "ms": ms, "count": n}
                        for k, (ms, n) in top]}
-    log(f"[profile] {name}: batch {wall:.3f} ms (median of {reps}), encode "
-        f"+ prefill {wall_prefill:.3f} ms, decode loop "
-        f"{out['decode_loop_ms']:.3f} ms")
     log(f"[profile] {name}: device busy {busy:.3f} ms of {wall:.3f} ms "
         f"wall: idle share {out['idle_share']:.4f} (profiled wall "
         f"{prof_wall:.3f} ms, {len(spans)} device events)")
@@ -766,6 +1246,30 @@ def _profile_batch(name, fn, wall_prefill, reps=3):
     (OUT / f"profile_{name}.txt").write_text(
         prof.key_averages().table(sort_by="self_cuda_time_total",
                                   row_limit=40, max_name_column_width=90))
+    return out
+
+
+def _profile_batch(name, fn, wall_prefill, reps=3):
+    """_profile of one decode batch, with its host-clock phases."""
+    out = _profile(name, fn, reps)
+    wall = out["wall_ms"]
+    out.update(batch_ms=wall, encode_prefill_ms=wall_prefill,
+               decode_loop_ms=wall - wall_prefill)
+    log(f"[profile] {name}: batch {wall:.3f} ms (median of {reps}), encode "
+        f"+ prefill {wall_prefill:.3f} ms, decode loop "
+        f"{out['decode_loop_ms']:.3f} ms")
+    return out
+
+
+def phase_train_profile(train):
+    """Where one flagship train step (B=64, bf16) spends its time."""
+    state, step, batch = train
+    box = [state]
+
+    def one():
+        box[0], _ = step(box[0], batch, False)
+    out = _profile("train_step", one)
+    log(f"[profile] train_step: step {out['wall_ms']:.3f} ms (median of 3)")
     return out
 
 
@@ -835,17 +1339,30 @@ def main() -> int:
         f"{greedy['captions_per_s']:.2f} captions/s (B={B}, bf16) on {smi}")
     phase_parity(dev)
     prof = phase_profile(dev)
+    t_train = time.perf_counter()
+    phase_train_kernels(dev, rows)
+    phase_train_blocks(dev, rows)
+    train_counts, train, train_run = phase_train_step(dev, smi)
+    train["parity"] = phase_train_parity(dev)
+    prof["train_step"] = phase_train_profile(train_run)
+    del train_run
+    torch.cuda.empty_cache()
+    log(f"[train] phases took {time.perf_counter() - t_train:.1f} s")
 
     for name, n in counts.items():
-        if n == 0:
+        if n == 0 and name != "attention_bwd":
             raise AssertionError(f"{name}: no launch on the beam path")
-    kernels = summarise(rows, counts)
+    for name, n in train_counts.items():
+        if n == 0 and name != "decode_attention":
+            raise AssertionError(f"{name}: no launch on the train path")
+    kernels = summarise(rows, counts, train_counts)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "rows": rows, "greedy_path": greedy,
          "greedy_launches": greedy_counts, "beam_path": beam,
-         "launches": counts, "profile": prof, "kernels": kernels}, indent=1))
+         "launches": counts, "train": train, "train_launches": train_counts,
+         "profile": prof, "kernels": kernels}, indent=1))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -18,6 +18,7 @@ from vitcap_tpu_torch.models import layers as TL
 from vitcap_tpu_torch.models.config import tiny_config
 from vitcap_tpu_torch.models.vitcap import init_params
 from vitcap_tpu_torch.ops.attention import attention, attention_plain
+from vitcap_tpu_torch.ops.attention_bwd import attention_bwd
 from vitcap_tpu_torch.ops.decode_step import (decode_attention,
                                               decode_attention_plain,
                                               fused_decode_step,
@@ -151,7 +152,8 @@ def test_cuda_greedy_runs_the_kernels_and_matches_cpu(cuda):
     out = run(gpu_model, cuda)
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"gemm": 24, "layer_norm": 12,
-                                   "attention": 6, "decode_attention": 0}
+                                   "attention": 6, "attention_bwd": 0,
+                                   "decode_attention": 0}
     assert torch.equal(out["ids"].cpu(), ref["ids"])
     _close(out["tag_logits"], ref["tag_logits"], torch.float32)
 
@@ -227,7 +229,8 @@ def test_cuda_fused_decode_step_matches_plain(cuda, dtype):
                             num_heads=2, eps=1e-12)
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"gemm": 8, "layer_norm": 4,
-                                   "attention": 0, "decode_attention": 2}
+                                   "attention": 0, "attention_bwd": 0,
+                                   "decode_attention": 2}
     _close(out, ref, dtype)
     _close(caps[0], d["cap_k"], dtype)
     _close(caps[1], d["cap_v"], dtype)
@@ -287,3 +290,138 @@ def test_cuda_caption_server_samples_on_the_card(cuda):
             assert server._generator.device.type == "cuda"
         assert out["ids"][0] == cfg.cls_token_id
         assert np.isfinite(out["logprob"])
+
+
+# ---------------------------------------------------------------------------
+# train kernels (K6, K7, K8 forward and backward) and train blocks
+# ---------------------------------------------------------------------------
+
+def test_attention_bwd_refuses_devices_without_a_kernel():
+    s = torch.empty(1, 4, 24, device="meta")
+    with pytest.raises(RuntimeError):
+        attention_bwd(s, torch.empty(1, 4, 8, device="meta"), 2, 4)
+
+
+def _bits_equal(out, ref):
+    """bf16: the kernels round where the plain versions round, so only f32
+    sums taken in another order may split a rare value by one ulp."""
+    if out.dtype == torch.bfloat16:
+        assert (out == ref).float().mean().item() >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_train_gemm_and_layer_norm_match_plain(cuda, dtype):
+    """LayerNorm with stats; the gemm's pre-GELU output; the K7 dropout
+    epilogue at rates 0 and 0.1 (rows of 48-token images)."""
+    g = torch.Generator().manual_seed(3)
+    M, K, N = 240, 96, 136
+    a = torch.randn(M, K, generator=g).to(cuda, dtype)
+    w = (torch.randn(N, K, generator=g) * 0.1).to(cuda, dtype)
+    b = torch.randn(N, generator=g).to(cuda)
+    r = torch.randn(M, N, generator=g).to(cuda, dtype)
+    x = (torch.randn(M, N, generator=g) * 3 + 1).to(cuda, dtype)
+    got = layer_norm(x, b, b, 1e-6, dtype, stats=True)
+    want = layer_norm_plain(x, b, b, 1e-6, dtype, stats=True)
+    for o, w_ in zip(got, want):
+        _close(o, w_, o.dtype)
+    pre, pre_ref = (torch.empty(M, N, dtype=dtype, device=cuda)
+                    for _ in range(2))
+    out = gemm(a, w, b, gelu=True, pre_out=pre)
+    ref = gemm_plain(a, w, b, gelu=True, pre_out=pre_ref)
+    _close(out, ref, dtype)
+    _close(pre, pre_ref, dtype)
+    _bits_equal(pre, pre_ref)
+    for rate in (0.0, 0.1):
+        drop = (rate, -918273, 1, 48)
+        out = gemm(a, w, b, residual=r, dropout=drop)
+        ref = gemm_plain(a, w, b, residual=r, dropout=drop)
+        _close(out, ref, dtype)
+        _bits_equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nh,hd", [(2, 64), (4, 32), (3, 8)])
+def test_cuda_packed_attention_fwd_bwd_match_plain(cuda, dtype, nh, hd):
+    """K8: forward with prob dropout and backward (two launches), with and
+    without bias, L < Lp; a padded query row with zero upstream gradient
+    takes none."""
+    from vitcap_tpu_torch.ops.attention_bwd import attention_bwd_plain
+    g = torch.Generator().manual_seed(hd)
+    B, L, Lp = 2, 133, 144
+    slab = torch.randn(B, Lp, 3 * nh * hd, generator=g).to(cuda, dtype)
+    up = torch.randn(B, Lp, nh * hd, generator=g)
+    up[:, L:] = 0.0
+    up = up.to(cuda, dtype)
+    bias = torch.where(torch.rand(B, 1, Lp, Lp, generator=g) > 0.3, 0.0,
+                       -10000.0).to(cuda)
+    bias[..., 0] = 0.0
+    for bb in (None, bias):
+        for rate in (0.0, 0.1):
+            _close(attention(slab, nh, L, bb, rate, 77),
+                   attention_plain(slab, nh, L, bb, rate, 77), dtype)
+            ops.reset_counts()
+            got = attention_bwd(slab, up, nh, L, bb, rate, -5)
+            assert ops.launch_counts()["attention_bwd"] == 2
+            want = attention_bwd_plain(slab, up, nh, L, bb, rate, -5)
+            for o, w_ in zip(got, want):
+                _close(o, w_, dtype)
+                _bits_equal(o, w_)
+            assert not got[0][:, L:].float().abs().any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_train_blocks_match_cpu(cuda, dtype):
+    """One ViT and one BERT train block (with hidden and prob dropout),
+    forward and backward on the card against the same Functions on the
+    CPU (plain versions): outputs and every gradient."""
+    from vitcap_tpu_torch.ops.fused_block import (split_bert_layer_train,
+                                                  split_vit_block_train)
+    cfg = tiny_config(hidden_size=128, num_attention_heads=2,
+                      intermediate_size=512)
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    gpu = init_params(cfg, torch.Generator().manual_seed(0), cuda)
+    for m in (cpu, gpu):
+        m.requires_grad_(True)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 144, 128, generator=gen).to(dtype)
+    bias = torch.zeros(2, 1, 144, 144)
+    bias[:, :, 20:, :20] = -10000.0
+
+    def run(model, dev):
+        xx = x.to(dev).requires_grad_(True)
+        o1 = split_vit_block_train(model.bert.encoder.blocks[0], xx, 2, 1e-6,
+                                   130)
+        o2 = split_bert_layer_train(model.bert.decoder.layer[0], o1,
+                                    bias.to(dev), 2, 1e-12, 130, 0.2, 0.1,
+                                    (11, -12))
+        (o2[:, :130].float() ** 2).sum().backward()
+        return o2, xx.grad, {n: p.grad for n, p in model.named_parameters()
+                             if p.grad is not None}
+
+    ops.reset_counts()
+    out, gx, grads = run(gpu, cuda)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"gemm": 8, "layer_norm": 4,
+                                   "attention": 2, "attention_bwd": 4,
+                                   "decode_attention": 0}
+    ref, rx, rgrads = run(cpu, "cpu")
+    _close(out, ref, dtype)
+    assert grads.keys() == rgrads.keys() and len(grads) == 28
+    # bf16 gradients: the cotangents are rounded to bf16 at every link of
+    # two blocks' backwards, so a one-ulp split of one value (f32 sums in
+    # another order) travels; 5e-2 of each tensor's scale, with a floor of
+    # 1e-3 of the largest gradient (the key bias's gradient is zero in exact
+    # arithmetic and rounding noise here)
+    pairs = [(gx, rx)] + [(grads[n], rgrads[n]) for n in grads]
+    top = max(w.float().abs().max().item() for _, w in pairs)
+    for got, want in pairs:
+        if dtype == torch.float32:
+            _close(got, want, dtype)
+        else:
+            got, want = got.float().cpu(), want.float().cpu()
+            err = (got - want).abs().max().item()
+            assert err <= 5e-2 * max(want.abs().max().item(), 1e-3 * top), \
+                err

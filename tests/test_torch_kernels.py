@@ -118,7 +118,8 @@ def test_wrappers_count_only_kernel_launches():
                      torch.randn(1, 5, 8), torch.zeros(1, 5),
                      torch.tensor(1, dtype=torch.int32), 2)
     assert ops.launch_counts() == {"gemm": 0, "layer_norm": 0,
-                                   "attention": 0, "decode_attention": 0}
+                                   "attention": 0, "attention_bwd": 0,
+                                   "decode_attention": 0}
 
 
 def test_pad_len_rule():

@@ -13,6 +13,14 @@
 // the unnormalised probabilities rounded to the compute dtype for the
 // product with v, and the output divided by max(l, 1e-30).
 //
+// Attention-prob dropout (the train forward, vitcap_tpu/ops/
+// flash_attention.py:452 _fwd_packed_kernel / :484 _fwd_packed_pair_kernel,
+// K8): the unnormalised exp(s - m) of a dropped (query, key) pair is 0 and
+// a kept one is multiplied by 1 / (1 - rate) in f32 before the rounding;
+// the row sum l stays the undropped one.  The keep bit is
+// vc_dropout_keep(query row, key column, seed, b * nh + h), the bits the
+// backward (attention_bwd.cu) regenerates.
+//
 // What bounds it on the H100: at Lp = 592, hd = 64 the work is
 // 4 * Lp^2 * hd flops per (image, head) against only 3 * Lp * hd inputs,
 // so it is compute-bound, and the exp/max work of the softmax is the second
@@ -77,7 +85,8 @@ template <int HDP, int KT>
 __global__ void __launch_bounds__(TC_THREADS)
     attention_tc_kernel(const bf16* __restrict__ slab,
                         const float* __restrict__ bias, bf16* __restrict__ out,
-                        int Lp, int H, int hd, int l_actual, float scale) {
+                        int Lp, int H, int hd, int l_actual, float scale,
+                        Dropout drop) {
   using S = TcSmem<HDP, KT>;
   constexpr int LD = S::LD, LS = S::LS, LP = S::LP;
   constexpr int HALF = KT / 2;  // score columns per lane
@@ -91,6 +100,7 @@ __global__ void __launch_bounds__(TC_THREADS)
   // softmax ownership: lane -> (row, half of the key tile)
   const int row = lane / 2, c0 = (lane % 2) * HALF;
   const int qrow = q0 + warp * 16 + row;
+  const unsigned salt = b * gridDim.y + h;  // global head b * nh + h
   const float* brow = (bias && qrow < Lp)
                           ? bias + ((size_t)b * Lp + qrow) * Lp
                           : nullptr;
@@ -161,8 +171,14 @@ __global__ void __launch_bounds__(TC_THREADS)
     float s[HALF];
     scores(k0, s);
 #pragma unroll
-    for (int c = 0; c < HALF; ++c)
-      pw[row * LP + c0 + c] = __float2bfloat16(expf(s[c] - m));
+    for (int c = 0; c < HALF; ++c) {
+      float p = expf(s[c] - m);
+      if (drop.on)
+        p = vc_dropout_keep(qrow, k0 + c0 + c, drop.seed, salt, drop.thresh)
+                ? p * drop.inv
+                : 0.0f;
+      pw[row * LP + c0 + c] = __float2bfloat16(p);
+    }
     __syncwarp();
 #pragma unroll
     for (int j = 0; j < KT / 16; ++j) {
@@ -207,12 +223,14 @@ template <int HDP>
 __global__ void __launch_bounds__(ATT_Q)
     attention_kernel(const float* __restrict__ slab,
                      const float* __restrict__ bias, float* __restrict__ out,
-                     int Lp, int H, int hd, int l_actual, float scale) {
+                     int Lp, int H, int hd, int l_actual, float scale,
+                     Dropout drop) {
   __shared__ __align__(16) float Ks[ATT_K][HDP];
   __shared__ __align__(16) float Vs[ATT_K][HDP];
   const int b = blockIdx.z, h = blockIdx.y;
   const int row = blockIdx.x * ATT_Q + threadIdx.x;
   const bool active = row < Lp;
+  const unsigned salt = b * gridDim.y + h;
   const size_t ld = 3 * (size_t)H;
   const float* base = slab + (size_t)b * Lp * ld;
   const float* brow =
@@ -264,8 +282,12 @@ __global__ void __launch_bounds__(ATT_Q)
       }
 #pragma unroll
       for (int j = 0; j < ATT_CH; ++j) {
-        const float p = expf(s[j] - m);
+        float p = expf(s[j] - m);
         l += p;
+        if (drop.on)
+          p = vc_dropout_keep(row, k0 + c0 + j, drop.seed, salt, drop.thresh)
+                  ? p * drop.inv
+                  : 0.0f;
 #pragma unroll
         for (int d = 0; d < HDP; ++d) o[d] = fmaf(p, Vs[c0 + j][d], o[d]);
       }
@@ -284,26 +306,28 @@ __global__ void __launch_bounds__(ATT_Q)
 template <int HDP>
 static void launch_cc(const void* slab, const float* bias, void* out, int B,
                       int Lp, int H, int nh, int l_actual, float scale,
-                      cudaStream_t s) {
+                      Dropout drop, cudaStream_t s) {
   dim3 grid((Lp + ATT_Q - 1) / ATT_Q, nh, B);
   attention_kernel<HDP><<<grid, ATT_Q, 0, s>>>(
       static_cast<const float*>(slab), bias, static_cast<float*>(out), Lp, H,
-      H / nh, l_actual, scale);
+      H / nh, l_actual, scale, drop);
 }
 
 template <int HDP, int KT>
 static void launch_tc(const void* slab, const float* bias, void* out, int B,
                       int Lp, int H, int nh, int l_actual, float scale,
-                      cudaStream_t s) {
+                      Dropout drop, cudaStream_t s) {
   dim3 grid((Lp + TC_Q - 1) / TC_Q, nh, B);
   attention_tc_kernel<HDP, KT><<<grid, TC_THREADS, 0, s>>>(
       static_cast<const bf16*>(slab), bias, static_cast<bf16*>(out), Lp, H,
-      H / nh, l_actual, scale);
+      H / nh, l_actual, scale, drop);
 }
 
 extern "C" int vc_attention(const void* slab, const void* bias, void* out,
                             int B, int Lp, int H, int nh, int l_actual,
-                            float scale, int dtype, void* stream) {
+                            float scale, unsigned seed, unsigned thresh,
+                            float inv, int dtype, void* stream) {
+  const Dropout drop{seed, thresh, inv, thresh != 0u || inv != 1.0f};
   if (nh <= 0 || H % nh) return (int)cudaErrorInvalidValue;
   const int hd = H / nh;
   if (hd % 8 || hd > 128 || H % 8) return (int)cudaErrorInvalidValue;
@@ -311,18 +335,20 @@ extern "C" int vc_attention(const void* slab, const void* bias, void* out,
   const float* bf = static_cast<const float*>(bias);
   if (dtype == VC_BF16) {
     if (hd <= 64)
-      launch_tc<64, 64>(slab, bf, out, B, Lp, H, nh, l_actual, scale, s);
+      launch_tc<64, 64>(slab, bf, out, B, Lp, H, nh, l_actual, scale, drop,
+                        s);
     else
-      launch_tc<128, 32>(slab, bf, out, B, Lp, H, nh, l_actual, scale, s);
+      launch_tc<128, 32>(slab, bf, out, B, Lp, H, nh, l_actual, scale, drop,
+                         s);
   } else if (dtype == VC_F32) {
     if (hd <= 16)
-      launch_cc<16>(slab, bf, out, B, Lp, H, nh, l_actual, scale, s);
+      launch_cc<16>(slab, bf, out, B, Lp, H, nh, l_actual, scale, drop, s);
     else if (hd <= 32)
-      launch_cc<32>(slab, bf, out, B, Lp, H, nh, l_actual, scale, s);
+      launch_cc<32>(slab, bf, out, B, Lp, H, nh, l_actual, scale, drop, s);
     else if (hd <= 64)
-      launch_cc<64>(slab, bf, out, B, Lp, H, nh, l_actual, scale, s);
+      launch_cc<64>(slab, bf, out, B, Lp, H, nh, l_actual, scale, drop, s);
     else
-      launch_cc<128>(slab, bf, out, B, Lp, H, nh, l_actual, scale, s);
+      launch_cc<128>(slab, bf, out, B, Lp, H, nh, l_actual, scale, drop, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -27,3 +27,29 @@ template <>
 __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, like torch's cast
 }
+
+// Dropout keep bit at lattice point (r, c): murmur3-fmix32 over the
+// coordinates, the seed (an int32 bit-cast to uint32) and a salt, all
+// arithmetic mod 2^32; keep iff the hash >= thresh = min(rate * 2^32,
+// 2^32 - 1).  Bit for bit vitcap_tpu/ops/flash_attention.py:40
+// _dropout_keep, and vitcap_tpu_torch/ops/dropout.py keep_mask.
+__device__ __forceinline__ bool vc_dropout_keep(unsigned r, unsigned c,
+                                                unsigned seed, unsigned salt,
+                                                unsigned thresh) {
+  unsigned x = r * 0x9E3779B9u + c * 0x85EBCA6Bu + seed + salt * 0xC2B2AE35u;
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x >= thresh;
+}
+
+// the dropout parameters a kernel takes: rate 0 is thresh 0 (every bit
+// kept) and inv 1
+struct Dropout {
+  unsigned seed;
+  unsigned thresh;
+  float inv;  // 1 / (1 - rate), in f32
+  int on;     // rate > 0
+};

@@ -6,7 +6,15 @@
 //   rounded) are added in the compute dtype, and GELU reads that value;
 // - f32_sum (_bert_tail_kernel): the bias and the residual are added to the
 //   f32 product; GELU reads the sum rounded to the compute dtype; out_f32
-//   stores the f32 sum for the post-LayerNorm.
+//   stores the f32 sum for the post-LayerNorm;
+// - bias_first (_bert_tail_train_kernel, K7, the BERT train tail): the
+//   product and the bias are each rounded and added in the compute dtype,
+//   then hidden dropout (keep ? t * round(1 / (1 - rate)) : 0, in the
+//   compute dtype; keep bit vc_dropout_keep(row % rows_per_image, column,
+//   seed, 2 * image + which)), then the residual is added in the compute
+//   dtype.
+// `pre`, when given, also stores the value GELU reads (the pre-GELU fc1
+// output that the train backwards of K6 and K7 keep).
 //
 // Replaces the matrix products inside the TPU kernels of
 // vitcap_tpu/ops/fused_block.py: _qkv_kernel (qkv), _tail_kernel (proj,
@@ -34,10 +42,15 @@ struct Epilogue {
   const float* bias;  // (N,) f32 or null
   const void* res;    // (M, N) in the compute dtype, or null
   void* out;          // (M, N) compute dtype, or f32 when out_f32
+  void* pre;          // (M, N) compute dtype: the value GELU reads, or null
   int M, N;
   int gelu;
   int f32_sum;
   int out_f32;
+  int bias_first;     // the K7 order, with hidden dropout when drop.on
+  Dropout drop;
+  unsigned which;     // dropout salt = 2 * image + which
+  int rows_per_image;
 };
 
 template <typename T>
@@ -59,10 +72,22 @@ __device__ __forceinline__ void epi_store(const Epilogue& e, int row, int col,
     if (e.bias) v += e.bias[col];
     if (e.gelu) v = gelu_erf(rnd<T>(v));
     if (res) v += to_f32(res[idx]);
+  } else if (e.bias_first) {
+    v = rnd<T>(v);
+    if (e.bias) v = rnd<T>(v + rnd<T>(e.bias[col]));
+    if (e.drop.on) {
+      const int img = row / e.rows_per_image;
+      v = vc_dropout_keep(row - img * e.rows_per_image, col, e.drop.seed,
+                          2u * img + e.which, e.drop.thresh)
+              ? rnd<T>(v * rnd<T>(e.drop.inv))
+              : 0.0f;
+    }
+    if (res) v = rnd<T>(to_f32(res[idx]) + v);
   } else {
     v = rnd<T>(v);
     if (res) v = rnd<T>(v + to_f32(res[idx]));
     if (e.bias) v = rnd<T>(v + rnd<T>(e.bias[col]));
+    if (e.pre) static_cast<T*>(e.pre)[idx] = from_f32<T>(v);
     if (e.gelu) v = gelu_erf(v);
   }
   if (e.out_f32)
@@ -221,11 +246,17 @@ __global__ void __launch_bounds__(256)
 }
 
 extern "C" int vc_gemm(const void* a, const void* w, const void* bias,
-                       const void* res, void* out, int M, int N, int K,
-                       int dtype, int gelu, int f32_sum, int out_f32,
+                       const void* res, void* out, void* pre, int M, int N,
+                       int K, int dtype, int gelu, int f32_sum, int out_f32,
+                       int bias_first, unsigned seed, unsigned thresh,
+                       float inv, int which, int rows_per_image,
                        void* stream) {
-  Epilogue e{static_cast<const float*>(bias), res, out, M, N,
-             gelu, f32_sum, out_f32};
+  if (bias_first && (f32_sum || gelu || rows_per_image <= 0))
+    return (int)cudaErrorInvalidValue;
+  Epilogue e{static_cast<const float*>(bias), res, out, pre, M, N, gelu,
+             f32_sum, out_f32, bias_first,
+             Dropout{seed, thresh, inv, thresh != 0u || inv != 1.0f},
+             static_cast<unsigned>(which), rows_per_image};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == VC_BF16) {
     dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);

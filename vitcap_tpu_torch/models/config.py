@@ -1,8 +1,9 @@
 """Static model configuration: the fields and defaults of
 vitcap_tpu.models.config.ModelConfig, with the two dtype properties mapped
-to torch dtypes.  The training-only remat knobs keep their fields (so a
-config.json round-trips between the packages) but have no behaviour here
-yet: this package is inference-only so far.
+to torch dtypes.  `remat` has the TPU package's meaning (use_remat,
+use_remat_fusion); train_fused_blocks keeps its field so a config.json
+round-trips between the packages, but the experiment it selects there is
+not ported (the TPU package records it as slower than the split blocks).
 """
 
 from __future__ import annotations
@@ -78,8 +79,8 @@ class ModelConfig:
     # numerics
     dtype: str = "float32"               # compute dtype: 'float32' | 'bfloat16'
     scores_dtype: str = "auto"           # 'auto' = compute dtype, 'f32' = exact
-    remat: Any = "auto"                  # training knob (not ported yet)
-    train_fused_blocks: bool = False     # training knob (not ported yet)
+    remat: Any = "auto"                  # True | False | 'auto' | 'fusion'
+    train_fused_blocks: bool = False     # TPU-package experiment, unported
     kv_cache_quant: str = "none"         # 'none' | 'int8' (eager engine)
 
     def __post_init__(self):
@@ -92,6 +93,24 @@ class ModelConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
+
+    @property
+    def use_remat(self) -> bool:
+        """Recompute each trunk block in the backward (and each fusion
+        layer, see use_remat_fusion).  'auto' is False: the train blocks'
+        attention backward recomputes the probabilities from the slab and
+        never stores them, so the residuals of a flagship step fit the
+        card, as on the TPU when its kernel backward is active.  'fusion'
+        leaves the trunk alone."""
+        if self.remat in ("auto", "fusion"):
+            return False
+        return bool(self.remat)
+
+    @property
+    def use_remat_fusion(self) -> bool:
+        """Remat of the fusion decoder's layers: use_remat, or 'fusion'
+        (the SCST scoring recipe)."""
+        return self.use_remat or self.remat == "fusion"
 
     @property
     def num_patches(self) -> int:

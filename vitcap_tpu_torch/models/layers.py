@@ -6,19 +6,30 @@ the math lives in the functions below, which take a module and tensors.
 Routing is by shape, as in the TPU package: a bias-free ViT block or a
 biased self-attention BERT layer with at least 64 tokens goes to the fused
 block (ops/fused_block.py), on every device; the device of the tensors then
-decides between the CUDA kernels and their plain versions.
+decides between the CUDA kernels and their plain versions.  A gradient-
+carrying call (grad mode on and the input or a parameter requiring grad),
+or one with dropout seeds, is a train call: it takes the train blocks
+(split_vit_block_train, split_bert_layer_train) where the token axis is
+16-aligned (ops.fused_block.train_lp, the one predicate), else the plain
+autograd layers below.
+
+Dropout: the train blocks draw their masks from int32 seeds through the
+counter hash (ops/dropout.py), the TPU kernels' bits; the plain layers and
+the embeddings draw Bernoulli masks from a torch.Generator.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.fused_block import fused_bert_block, fused_vit_block
+from ..ops.fused_block import (fused_bert_block, fused_vit_block,
+                               split_bert_layer_train, split_vit_block_train,
+                               train_lp)
 from ..ops.layer_norm import layer_norm_plain
 
 NEG_MASK_VALUE = -10000.0  # the reference's (1 - m) * -10000 mask value
@@ -113,11 +124,41 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)                     # exact (erf)
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with a Bernoulli mask from `generator`; the
+    identity at rate 0 or without a generator (deterministic)."""
+    if rate == 0.0 or generator is None:
+        return x
+    keep = torch.rand(x.shape, generator=generator,
+                      device=generator.device).to(x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
+def _seed_generator(seeds: Optional[Sequence[int]]):
+    """The plain layers' generator for a layer's dropout seeds."""
+    if seeds is None:
+        return None
+    return torch.Generator(device="cpu").manual_seed(
+        (int(seeds[0]) & 0xFFFFFFFF) << 32 | (int(seeds[1]) & 0xFFFFFFFF))
+
+
+def _train_call(p, x: torch.Tensor, seeds=None) -> bool:
+    """Gradient-carrying (grad mode on, input or a parameter requiring
+    grad) or dropout-active: the train route."""
+    if seeds is not None:
+        return True
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in p.parameters()))
+
+
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
         bias: Optional[torch.Tensor] = None,
-        scores_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        scores_dtype: Optional[torch.dtype] = None,
+        dropout_rate: float = 0.0,
+        generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """q (B, Lq, H), k/v (B, Lk, H), bias (B, 1|nh, Lq, Lk) additive ->
-    (B, Lq, H).  No dropout: inference only."""
+    (B, Lq, H); attention-prob dropout from `generator` when given."""
     B, Lq, H = q.shape
     Lk = k.shape[1]
     hd = H // num_heads
@@ -137,6 +178,7 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
         if bias is not None:
             scores = scores + bias.float()
         probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    probs = dropout(probs, dropout_rate, generator)
     out = probs @ vh
     return out.transpose(1, 2).reshape(B, Lq, H)
 
@@ -162,10 +204,14 @@ def vit_block(p: ViTBlock, x: torch.Tensor, num_heads: int, ln_eps: float,
               bias: Optional[torch.Tensor] = None, scores_dtype=None,
               l_actual: int = 0) -> torch.Tensor:
     """One pre-norm ViT block.  Bias-free with L >= 64 -> fused block (the
-    gate of vitcap_tpu/models/layers.py vit_block).  l_actual > 0: x is
-    pre-padded with that many valid rows, valid only on the fused path."""
+    gate of vitcap_tpu/models/layers.py vit_block); a train call takes the
+    train block when L is 16-aligned.  l_actual > 0: x is pre-padded with
+    that many valid rows, valid only on the fused and train blocks."""
     if bias is None and x.shape[1] >= 64:
-        return fused_vit_block(p, x, num_heads, ln_eps, l_actual)
+        if not _train_call(p, x):
+            return fused_vit_block(p, x, num_heads, ln_eps, l_actual)
+        if train_lp(x.shape[1]) == x.shape[1]:
+            return split_vit_block_train(p, x, num_heads, ln_eps, l_actual)
     if l_actual:
         raise ValueError("pre-padded input (l_actual > 0) needs the fused "
                          "block path")
@@ -249,8 +295,12 @@ def vision_embed(p, images: torch.Tensor, patch_size: int,
 def bert_embeddings(p: BertEmbeddings, input_ids: torch.Tensor,
                     position_ids: Optional[torch.Tensor],
                     token_type_ids: Optional[torch.Tensor], ln_eps: float,
-                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """word + position + type embeddings -> LN (no dropout: inference)."""
+                    dtype: torch.dtype = torch.float32,
+                    dropout_rate: float = 0.0,
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
+    """word + position + type embeddings -> LN -> dropout (from
+    `generator`; none without one)."""
     B, L = input_ids.shape
     if position_ids is None:
         position_ids = torch.arange(L, device=input_ids.device).expand(B, L)
@@ -259,29 +309,57 @@ def bert_embeddings(p: BertEmbeddings, input_ids: torch.Tensor,
     emb = (p.word_embeddings.weight[input_ids]
            + p.position_embeddings.weight[position_ids]
            + p.token_type_embeddings.weight[token_type_ids]).to(dtype)
-    return layer_norm(p.LayerNorm, emb, ln_eps)
+    return dropout(layer_norm(p.LayerNorm, emb, ln_eps), dropout_rate,
+                   generator)
 
 
 def _bert_layer_plain(p: BertLayer, x: torch.Tensor, bias: torch.Tensor,
-                      num_heads: int, ln_eps: float,
-                      scores_dtype=None) -> torch.Tensor:
+                      num_heads: int, ln_eps: float, scores_dtype=None,
+                      hidden_dropout: float = 0.0, attn_dropout: float = 0.0,
+                      generator: Optional[torch.Generator] = None
+                      ) -> torch.Tensor:
     ps = p.attention.self
     attn = mha(dense(ps.query, x), dense(ps.key, x), dense(ps.value, x),
-               num_heads, bias, scores_dtype)
-    attn = dense(p.attention.output.dense, attn)
+               num_heads, bias, scores_dtype, attn_dropout, generator)
+    attn = dropout(dense(p.attention.output.dense, attn), hidden_dropout,
+                   generator)
     x = layer_norm(p.attention.output.LayerNorm, attn + x, ln_eps)
     out = dense(p.output.dense, gelu(dense(p.intermediate.dense, x)))
+    out = dropout(out, hidden_dropout, generator)
     return layer_norm(p.output.LayerNorm, out + x, ln_eps)
 
 
 def bert_layer(p: BertLayer, x: torch.Tensor, bias: torch.Tensor,
-               num_heads: int, ln_eps: float,
-               scores_dtype=None) -> torch.Tensor:
+               num_heads: int, ln_eps: float, scores_dtype=None,
+               hidden_dropout: float = 0.0, attn_dropout: float = 0.0,
+               seeds: Optional[Sequence[int]] = None,
+               l_actual: int = 0) -> torch.Tensor:
     """Post-norm BERT self-attention layer.  Biased with L >= 64 -> fused
-    block (the gate of vitcap_tpu/models/layers.py bert_layer)."""
+    block (the gate of vitcap_tpu/models/layers.py bert_layer); a train
+    call with a head-broadcast bias and a 16-aligned L takes the train
+    block.  seeds (attn, hidden int32 values): dropout on at the given
+    rates; None: deterministic.  l_actual > 0: x and bias are pre-padded
+    with that many valid rows (train block only)."""
     if bias is not None and x.shape[1] >= 64:
-        return fused_bert_block(p, x, bias, num_heads, ln_eps)
-    return _bert_layer_plain(p, x, bias, num_heads, ln_eps, scores_dtype)
+        if not _train_call(p, x, seeds):
+            if l_actual:
+                raise ValueError("pre-padded input (l_actual > 0) needs "
+                                 "the train block")
+            return fused_bert_block(p, x, bias, num_heads, ln_eps)
+        if bias.shape[1] == 1 and train_lp(x.shape[1]) == x.shape[1]:
+            rates = (0.0, 0.0) if seeds is None else (hidden_dropout,
+                                                      attn_dropout)
+            return split_bert_layer_train(p, x, bias, num_heads, ln_eps,
+                                          l_actual, *rates,
+                                          seeds or (0, 0))
+    if l_actual:
+        raise ValueError("pre-padded input (l_actual > 0) needs the train "
+                         "block")
+    if seeds is None:
+        hidden_dropout = attn_dropout = 0.0
+    return _bert_layer_plain(p, x, bias, num_heads, ln_eps, scores_dtype,
+                             hidden_dropout, attn_dropout,
+                             _seed_generator(seeds))
 
 
 def bert_pooler(p, hidden: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,7 @@
 """ViTCAP model: split-ViT encoder + concept-token branch + BERT fusion
-decoder, the inference half of vitcap_tpu/models/vitcap.py.
+decoder, the port of vitcap_tpu/models/vitcap.py: the encode path, and the
+training and scoring forwards (forward_train, forward_score) with their
+masks, fusion decoder and losses.
 
     PatchEmbed+CLS+pos -> ViTBlocks[0..12) ----------------------> caption tokens
                                \\-(fork at 12-split_blocks)-> TagBlocks[4) -> tagCLS
@@ -13,17 +15,21 @@ pieces, taking the model and tensors.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import math
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from ..ops.fused_block import pad_len
+from ..ops.fused_block import pad_len, train_lp
 from .config import ModelConfig
-from .layers import (BertEmbeddings, BertLayer, LMPredictionHead, ViTBlock,
-                     _Group, _linear, bert_pooler, lm_head, vision_embed,
-                     vit_block, vit_block_cls_only)
+from .layers import (NEG_MASK_VALUE, BertEmbeddings, BertLayer,
+                     LMPredictionHead, ViTBlock, _Group, _linear, _train_call,
+                     bert_embeddings, bert_layer, bert_pooler, lm_head,
+                     vision_embed, vit_block, vit_block_cls_only)
+from .losses import focal_neg_loss
 
 
 class ViTCAP(nn.Module):
@@ -91,12 +97,21 @@ def split_encoder(model: ViTCAP, visual_in: torch.Tensor, cfg: ModelConfig
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The trunk blocks; fork at depth - split_blocks into the tag branch,
     whose last block computes only the CLS row.  The token axis is padded
-    once (pad_len) for the fused blocks and sliced back at the end.
+    once (pad_len) for the fused or train blocks and sliced back at the
+    end.  cfg.use_remat recomputes each block in the backward
+    (torch.utils.checkpoint) instead of keeping its residuals.
 
     Returns (caption_hidden (B, V, H), tag_cls (B, 1, H))."""
     sd = cfg.attention_scores_dtype
     nh, eps = cfg.num_attention_heads, cfg.vit_layer_norm_eps
+
+    def block(blk, x):
+        if cfg.use_remat and _train_call(blk, x):
+            return checkpoint(vit_block, blk, x, nh, eps, scores_dtype=sd,
+                              l_actual=l_actual, use_reentrant=False)
+        return vit_block(blk, x, nh, eps, scores_dtype=sd, l_actual=l_actual)
     L = visual_in.shape[1]
+    train_lp(L)                            # past 1024 tokens: not ported
     pad = pad_len(L) - L
     l_actual = L if pad else 0
     x = F.pad(visual_in, (0, 0, 0, pad)) if pad else visual_in
@@ -106,10 +121,9 @@ def split_encoder(model: ViTCAP, visual_in: torch.Tensor, cfg: ModelConfig
     for idx, blk in enumerate(enc.blocks):
         if idx == fork_at:
             tag_x = x
-        x = vit_block(blk, x, nh, eps, scores_dtype=sd, l_actual=l_actual)
+        x = block(blk, x)
     for blk in list(enc.tag_blocks)[:-1]:
-        tag_x = vit_block(blk, tag_x, nh, eps, scores_dtype=sd,
-                          l_actual=l_actual)
+        tag_x = block(blk, tag_x)
     if pad:
         x = x[:, :L]
         tag_x = tag_x[:, :L] if tag_x is not None else None
@@ -140,12 +154,12 @@ def select_tags(tag_logits: torch.Tensor, cfg: ModelConfig
     return top_idx, top_prob, n_conf
 
 
-@torch.inference_mode()
-def encode_images(model: ViTCAP, images: torch.Tensor, cfg: ModelConfig
-                  ) -> Dict[str, torch.Tensor]:
+def encode(model: ViTCAP, images: torch.Tensor, cfg: ModelConfig
+           ) -> Dict[str, torch.Tensor]:
     """Vision once: patch embed -> split encoder -> tag logits + selection.
     uint8 images keep their bytes (the normalisation folds into the patch
-    projection); float images are cast to the compute dtype."""
+    projection); float images are cast to the compute dtype.  Gradients
+    flow when the parameters require them (the training forward)."""
     dtype = cfg.compute_dtype
     if images.dtype != torch.uint8:
         images = images.to(dtype)
@@ -159,8 +173,264 @@ def encode_images(model: ViTCAP, images: torch.Tensor, cfg: ModelConfig
             "tag_probs": tag_probs, "n_conf_tags": n_conf}
 
 
+@torch.inference_mode()
+def encode_images(model: ViTCAP, images: torch.Tensor, cfg: ModelConfig
+                  ) -> Dict[str, torch.Tensor]:
+    """encode() for serving, under inference mode."""
+    return encode(model, images, cfg)
+
+
 def caption_logits(model: ViTCAP, hidden: torch.Tensor, cfg: ModelConfig
                    ) -> torch.Tensor:
     tied = word_embedding_weight(model) if cfg.tie_weights else None
     return lm_head(model.cls.predictions, hidden, cfg.bert_layer_norm_eps,
                    decoder_weight=tied)
+
+
+# ---------------------------------------------------------------------------
+# masks
+# ---------------------------------------------------------------------------
+
+def seq2seq_text_mask(seq_a_len: torch.Tensor, seq_len: torch.Tensor,
+                      cfg: ModelConfig) -> torch.Tensor:
+    """(B, T, T) 0/1 mask over the text tokens: causal caption, full
+    od-label block, caption -> od, no od -> caption."""
+    T, A = cfg.max_seq_len, cfg.max_seq_a_len
+    dev = seq_a_len.device
+    i = torch.arange(T, device=dev)[None, :, None]
+    j = torch.arange(T, device=dev)[None, None, :]
+    a = seq_a_len[:, None, None]
+    s = seq_len[:, None, None]
+    cap_i, cap_j = i < a, j < a
+    od_i = (i >= A) & (i < s)
+    od_j = (j >= A) & (j < s)
+    m = (cap_i & cap_j & (j <= i)) | (od_i & od_j) | (cap_i & od_j)
+    return m.float()
+
+
+def decoder_bias_from_text_mask(text_mask: torch.Tensor,
+                                n_ctx: int) -> torch.Tensor:
+    """(B, T, T) text mask -> (B, 1, L, L) additive f32 bias, L = T +
+    n_ctx: the n_ctx trailing tokens (tag CLS + visual) form a block every
+    token attends to and that never attends text."""
+    B, T, _ = text_mask.shape
+    L = T + n_ctx
+    m = torch.zeros(B, L, L, device=text_mask.device)
+    m[:, :T, :T] = text_mask
+    m[:, :, T:] = 1.0
+    return ((1.0 - m) * NEG_MASK_VALUE)[:, None]
+
+
+# ---------------------------------------------------------------------------
+# text side and fusion decoder
+# ---------------------------------------------------------------------------
+
+def embed_text_with_tags(model: ViTCAP, input_ids: torch.Tensor,
+                         token_type_ids: Optional[torch.Tensor],
+                         position_ids: Optional[torch.Tensor],
+                         pred_topk: torch.Tensor, cfg: ModelConfig,
+                         generator: Optional[torch.Generator] = None
+                         ) -> torch.Tensor:
+    """BERT embeddings of the input ids (dropout from `generator`), with
+    the trailing topk slots replaced by the raw tied-weight embeddings of
+    the concept ids (no position, type or LayerNorm on the tags)."""
+    dt = cfg.compute_dtype
+    emb = bert_embeddings(model.bert.embeddings, input_ids, position_ids,
+                          token_type_ids, cfg.bert_layer_norm_eps, dt,
+                          cfg.hidden_dropout_prob, generator)
+    tag_emb = word_embedding_weight(model)[pred_topk].to(dt)
+    return torch.cat([emb[:, :-pred_topk.shape[1]], tag_emb], dim=1)
+
+
+def fusion_decoder(model: ViTCAP, seq: torch.Tensor, bias: torch.Tensor,
+                   cfg: ModelConfig,
+                   layer_seeds: Optional[Sequence[Sequence[int]]] = None
+                   ) -> torch.Tensor:
+    """The BERT decoder layers over seq (B, L, H) under bias (B, 1, L, L).
+    layer_seeds: per layer (attn seed, hidden seed), int32 values; dropout
+    runs at the config's rates when given.  A train call pads the token
+    axis once (648 -> 656 at the flagship; train_lp, the predicate
+    bert_layer routes by) and slices it back after the loop.
+    cfg.use_remat_fusion recomputes each layer in the backward."""
+    nh, eps = cfg.num_attention_heads, cfg.bert_layer_norm_eps
+    layers = model.bert.decoder.layer
+    L = seq.shape[1]
+    l_actual = 0
+    if (len(layers) and bias.shape[1] == 1
+            and _train_call(layers[0], seq, layer_seeds)):
+        Lp = train_lp(L)
+        if Lp > L:
+            seq = F.pad(seq, (0, 0, 0, Lp - L))
+            bias = F.pad(bias, (0, Lp - L, 0, Lp - L))
+            l_actual = L
+
+    def layer_fn(layer, x, seeds):
+        return bert_layer(layer, x, bias, nh, eps, cfg.attention_scores_dtype,
+                          cfg.hidden_dropout_prob,
+                          cfg.attention_probs_dropout_prob, seeds, l_actual)
+    x = seq
+    for li, layer in enumerate(layers):
+        seeds = None if layer_seeds is None else tuple(layer_seeds[li])
+        if cfg.use_remat_fusion and _train_call(layer, x, seeds):
+            x = checkpoint(layer_fn, layer, x, seeds, use_reentrant=False)
+        else:
+            x = layer_fn(layer, x, seeds)
+    return x[:, :L] if l_actual else x
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def label_smoothed_kl(logits: torch.Tensor, target: torch.Tensor,
+                      weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """KLDiv(log_softmax, smoothed one-hot) summed over the classes, the
+    weighted mean over the tokens (the reference BertCaptioningLoss)."""
+    logits = logits.float()
+    n_class = logits.shape[-1]
+    logp = torch.log_softmax(logits, dim=-1)
+    off = eps / (n_class - 1)
+    on = 1.0 - eps
+    ent = (-(on * math.log(on) + (n_class - 1) * off * math.log(off))
+           if eps > 0 else 0.0)
+    logp_t = logp.gather(-1, target[..., None])[..., 0]
+    cross = -(on * logp_t + off * (logp.sum(-1) - logp_t))
+    denom = weight.sum().clamp_min(1.0)
+    return ((cross - ent) * weight).sum() / denom
+
+
+def focal_tag_loss(logits: torch.Tensor, label: torch.Tensor, alpha: float,
+                   gamma: float) -> torch.Tensor:
+    """FocalLossWithLogitsNegLoss summed over (B, V)."""
+    return focal_neg_loss(logits.float(), label, alpha, gamma).sum()
+
+
+def bce_tag_loss(logits: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+    x = logits.float()
+    loss = x.clamp_min(0) - x * label + torch.log1p(torch.exp(-x.abs()))
+    return loss.mean()
+
+
+# ---------------------------------------------------------------------------
+# full forwards
+# ---------------------------------------------------------------------------
+
+def _masked_positions(masked_pos: torch.Tensor, max_masked: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, T) 0/1 -> (B, M) indices of the ones in ascending order, then
+    padding slots, and their validity (a stable argsort of -masked_pos)."""
+    idx = torch.argsort(-masked_pos, dim=-1, stable=True)[:, :max_masked]
+    return idx, masked_pos.gather(-1, idx) > 0
+
+
+def draw_layer_seeds(generator: torch.Generator, n: int):
+    """n (attn, hidden) pairs of int32 dropout seeds from `generator`."""
+    return torch.randint(-2 ** 31, 2 ** 31, (n, 2), generator=generator,
+                         device=generator.device).tolist()
+
+
+def mix_gt_tags(pred_topk: torch.Tensor, label: torch.Tensor, ratio: float,
+                cfg: ModelConfig, generator: torch.Generator) -> torch.Tensor:
+    """The GT-tag curriculum: the first floor((1 - ratio) * min(n_gt, topk))
+    concept slots take the sample's ground-truth tags in a random order
+    (noise uniform in [0.1, 1) from `generator`), the rest keep the
+    predicted tags, and the last slot is SEP.  ratio 1: the predictions."""
+    from .decode import exact_top_k
+    noise = torch.rand(label.shape, generator=generator,
+                       device=generator.device).to(label.device)
+    _, gt_rand = exact_top_k(label * (noise * 0.9 + 0.1), cfg.topk)
+    n_gt = (label > 0).sum(-1)
+    n_mix = torch.floor((1.0 - ratio)
+                        * n_gt.clamp_max(cfg.topk).float()).long()
+    slot = torch.arange(cfg.topk, device=label.device)[None]
+    out = torch.where(slot < n_mix[:, None], gt_rand, pred_topk)
+    out[:, -1] = cfg.sep_token_id
+    return out
+
+
+def forward_train(model: ViTCAP, batch: Dict[str, torch.Tensor],
+                  cfg: ModelConfig,
+                  generator: Optional[torch.Generator] = None,
+                  layer_seeds: Optional[Sequence[Sequence[int]]] = None
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Training forward: (total loss, aux dict), the port of
+    vitcap_tpu/models/vitcap.py forward_train.
+
+    batch: image (B, H, W, 3) NHWC, input_ids (B, T), token_type_ids,
+    seq_a_len (B,), seq_len (B,), masked_pos (B, T), masked_ids (B, M),
+    label (B, tagV) multi-hot, optionally gen_tag_ratio (a float).
+
+    Randomness is explicit: `generator` draws the per-layer decoder dropout
+    seeds, the embedding dropout and the GT-tag curriculum's noise;
+    `layer_seeds` (per decoder layer (attn, hidden)) overrides the drawn
+    seeds, so a caller can hand the JAX package's seeds to both.  Neither
+    given: deterministic."""
+    deterministic = generator is None and layer_seeds is None
+    enc = encode(model, batch["image"], cfg)
+    pred_topk = enc["pred_topk"]
+    if "gen_tag_ratio" in batch and generator is not None:
+        pred_topk = mix_gt_tags(pred_topk, batch["label"],
+                                float(batch["gen_tag_ratio"]), cfg,
+                                generator)
+    if not deterministic and layer_seeds is None:
+        layer_seeds = draw_layer_seeds(generator, cfg.decoder_layers)
+    text_emb = embed_text_with_tags(model, batch["input_ids"],
+                                    batch.get("token_type_ids"), None,
+                                    pred_topk, cfg, generator)
+    dt = text_emb.dtype
+    seq = torch.cat([text_emb, enc["tag_cls"].to(dt), enc["visual"].to(dt)],
+                    dim=1)
+    text_mask = seq2seq_text_mask(batch["seq_a_len"], batch["seq_len"], cfg)
+    bias = decoder_bias_from_text_mask(text_mask,
+                                       seq.shape[1] - cfg.max_seq_len)
+    hidden = fusion_decoder(model, seq, bias, cfg, layer_seeds)
+
+    midx, mvalid = _masked_positions(batch["masked_pos"],
+                                     cfg.max_masked_tokens)
+    gathered = hidden.gather(
+        1, midx[..., None].expand(-1, -1, hidden.shape[-1]))
+    class_logits = caption_logits(model, gathered, cfg)
+    weight = ((batch["masked_ids"] != 0) & mvalid).float()
+    masked_loss = label_smoothed_kl(
+        class_logits.reshape(-1, class_logits.shape[-1]),
+        batch["masked_ids"].reshape(-1), weight.reshape(-1),
+        cfg.label_smoothing)
+    aux = {"masked_loss": masked_loss, "class_logits": class_logits,
+           "tag_logits": enc["tag_logits"], "masked_weight": weight}
+    total = masked_loss
+    if cfg.tag_loss_weight > 0.0 and "label" in batch:
+        if cfg.tag_loss == "focal":
+            tl = focal_tag_loss(enc["tag_logits"], batch["label"],
+                                cfg.focal_alpha, cfg.focal_gamma)
+        else:
+            tl = bce_tag_loss(enc["tag_logits"], batch["label"])
+        aux["tag_loss"] = tl
+        total = total + cfg.tag_loss_weight * tl
+    aux["loss"] = total
+    return total, aux
+
+
+def forward_score(model: ViTCAP, images: torch.Tensor,
+                  input_ids: torch.Tensor,
+                  token_type_ids: Optional[torch.Tensor],
+                  position_ids: Optional[torch.Tensor],
+                  text_mask: torch.Tensor, cfg: ModelConfig
+                  ) -> Dict[str, torch.Tensor]:
+    """Scoring forward: caption logits at every text position, with the
+    encoder outputs.  text_mask (B, Tin, Tin) 0/1 over the given ids."""
+    enc = encode(model, images, cfg)
+    dt = cfg.compute_dtype
+    emb = bert_embeddings(model.bert.embeddings, input_ids, position_ids,
+                          token_type_ids, cfg.bert_layer_norm_eps, dt)
+    k = enc["pred_topk"].shape[1]
+    emb = torch.cat([emb[:, :-k],
+                     word_embedding_weight(model)[enc["pred_topk"]].to(dt)],
+                    dim=1)
+    seq = torch.cat([emb, enc["tag_cls"].to(dt), enc["visual"].to(dt)],
+                    dim=1)
+    Tin = text_mask.shape[1]
+    bias = decoder_bias_from_text_mask(text_mask.float(),
+                                       seq.shape[1] - Tin)
+    hidden = fusion_decoder(model, seq, bias, cfg)
+    return {"class_logits": caption_logits(model, hidden[:, :Tin], cfg),
+            **enc}

@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of vitcap_tpu_torch/csrc.
 
-The sources are compiled with nvcc into one shared library with a plain C
-interface, loaded with ctypes.  The build runs at the first CUDA call into a
+The sources are compiled with nvcc, one process per source, all started
+together, and linked into one shared library with a plain C interface,
+loaded with ctypes.  The build runs at the first CUDA call into a
 directory under the checkout's ``build/`` (listed in .gitignore), keyed by a
 hash of the sources and the flags, so an edited kernel is rebuilt and an
 unchanged one is reused.  A failed build raises with nvcc's output; there is
@@ -23,19 +24,28 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "vitcap_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint
 # C entry points and their argument types (see csrc/*.cu)
 SIGNATURES = {
-    # a, w, bias, res, out, M, N, K, dtype, gelu, f32_sum, out_f32, stream
-    "vc_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, g, b, y, rows, H, eps, in_dtype, out_dtype, stream
-    "vc_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
-    # slab, bias, out, B, Lp, H, nh, l_actual, scale, dtype, stream
-    "vc_attention": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    # a, w, bias, res, out, pre, M, N, K, dtype, gelu, f32_sum, out_f32,
+    # bias_first, seed, thresh, inv, which, rows_per_image, stream
+    "vc_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _U,
+                _U, _F, _I, _I, _P],
+    # x, g, b, y, mean, rsig, rows, H, eps, in_dtype, out_dtype, stream
+    "vc_layer_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
+    # slab, bias, out, B, Lp, H, nh, l_actual, scale, seed, thresh, inv,
+    # dtype, stream
+    "vc_attention": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _U, _U, _F, _I,
+                     _P],
+    # slab, g, bias, dq, dk, dv, mlr, B, Lp, H, nh, l_actual, scale, seed,
+    # thresh, inv, dtype, stream
+    "vc_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                         _U, _U, _F, _I, _P],
     # qkv, cap_k, cap_v, ctx_k, ctx_v, bias, t, out, B, nb, S, A, H, nh,
     # scale, dtype, stream
     "vc_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -86,16 +96,32 @@ def library() -> ctypes.CDLL:
     log = ""
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        cu = [str(p) for p in _sources() if p.suffix == ".cu"]
+        nvcc = _nvcc()
+        jobs = []
+        for src in (p for p in _sources() if p.suffix == ".cu"):
+            obj = str(out_dir / (src.stem + ".o"))
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for cmd, _, proc in jobs:
+            out = proc.communicate()[0]
+            log += out
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+        cmd = [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+               "-o", tmp] + [obj for _, obj, _ in jobs]
         proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{log}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}"
+                               f"{proc.stderr}")
         os.replace(tmp, lib_path)            # atomic: no half-written library
         (out_dir / "nvcc.log").write_text(log)
     elif (out_dir / "nvcc.log").exists():

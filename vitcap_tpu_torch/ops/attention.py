@@ -13,6 +13,13 @@ unnormalised probabilities rounded to the slab's dtype for the product with
 v; the output divided by max(l, 1e-30) and stored in the slab's dtype.
 Padded query rows are computed like any other and are the caller's to
 discard.
+
+With ``rate`` > 0 it is also the train forward of K8
+(vitcap_tpu/ops/flash_attention.py:949 flash_fwd_packed_slab, kernels
+:452 _fwd_packed_kernel / :484 _fwd_packed_pair_kernel): attention-prob
+dropout on the unnormalised exp(s - m), keep bits from ops/dropout.py
+(lattice (query row, key column), salt b * nh + h), kept values times
+1 / (1 - rate) in f32 before the rounding; l stays the undropped sum.
 """
 
 from __future__ import annotations
@@ -21,14 +28,16 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, dropout
 
 NEG = -1e30
 launches = 0
+mode_launches = {"dropout": 0}    # launches with prob dropout
 
 
 def attention_plain(slab: torch.Tensor, num_heads: int, l_actual: int,
-                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    bias: Optional[torch.Tensor] = None, rate: float = 0.0,
+                    seed: int = 0) -> torch.Tensor:
     """Plain PyTorch version: slab (B, Lp, 3H) -> (B, Lp, H)."""
     B, Lp, H3 = slab.shape
     H = H3 // 3
@@ -47,6 +56,10 @@ def attention_plain(slab: torch.Tensor, num_heads: int, l_actual: int,
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
+    if rate > 0.0:
+        keep = dropout.attention_keep(seed, rate, B, num_heads, Lp,
+                                      slab.device)
+        p = torch.where(keep, p * (1.0 / (1.0 - rate)), 0.0)
     # probabilities rounded to the compute dtype for the product with v,
     # as the TPU kernels do
     o = (p.to(slab.dtype).float() @ v) / l.clamp_min(1e-30)
@@ -54,9 +67,13 @@ def attention_plain(slab: torch.Tensor, num_heads: int, l_actual: int,
 
 
 def attention(slab: torch.Tensor, num_heads: int, l_actual: int,
-              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+              bias: Optional[torch.Tensor] = None, rate: float = 0.0,
+              seed: int = 0) -> torch.Tensor:
+    """slab (B, Lp, 3H) -> (B, Lp, H); rate > 0 drops probabilities with
+    the int32 `seed` (ignored at rate 0)."""
+    drop = dropout.kernel_args(rate, seed)
     if slab.device.type == "cpu":
-        return attention_plain(slab, num_heads, l_actual, bias)
+        return attention_plain(slab, num_heads, l_actual, bias, rate, seed)
     if slab.device.type != "cuda":
         raise RuntimeError(f"attention: no kernel for device {slab.device}")
     if slab.dim() != 3 or slab.shape[-1] % 3 or not slab.is_contiguous():
@@ -85,9 +102,11 @@ def attention(slab: torch.Tensor, num_heads: int, l_actual: int,
     rc = lib.vc_attention(slab.data_ptr(),
                           bias.data_ptr() if bias is not None else None,
                           out.data_ptr(), B, Lp, H, num_heads, int(l_actual),
-                          float(hd ** -0.5), _build.dtype_code(slab.dtype),
+                          float(hd ** -0.5), *drop,
+                          _build.dtype_code(slab.dtype),
                           torch.cuda.current_stream(slab.device).cuda_stream)
     _build.check(rc, "attention")
     global launches
     launches += 1
+    mode_launches["dropout"] += rate > 0.0
     return out

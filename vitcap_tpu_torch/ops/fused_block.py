@@ -17,15 +17,32 @@ in it; the BERT tail keeps each sublayer sum in f32 for its post-LayerNorm.
 
 The GEMM weights are cast (and BERT's q/k/v concatenated) once per module
 and compute dtype, not per call; the cache is remade when a parameter is
-replaced or changed in place (a checkpoint load).
+replaced or changed in place (a checkpoint load).  These inference blocks
+have no backward: under grad they raise, and gradient-carrying callers take
+the train blocks below.
+
+split_vit_block_train and split_bert_layer_train are the train blocks, the
+ports of vitcap_tpu/ops/fused_block.py:959 split_vit_block_train and :1225
+split_bert_layer_train: the same kernels forward (LayerNorm with row
+statistics and the gemm's pre-GELU output for K6; for K7 the gemm's
+dropout epilogue; attention with in-kernel prob dropout for K8), saving the
+residuals the TPU package saves, and an analytic backward (torch.autograd.
+Function): the d-GEMMs are plain matrix products with f32 results, as XLA's
+are in the TPU package, and the attention backward is the attention_bwd
+kernel.  Cotangents travel in the compute dtype where the TPU package casts
+them.  They take the f32 parameters and return f32 parameter gradients.
 """
 
 from __future__ import annotations
 
+from typing import Sequence, Tuple
+
 import torch
 import torch.nn.functional as F
 
+from . import dropout
 from .attention import attention
+from .attention_bwd import attention_bwd
 from .gemm import gemm
 from .layer_norm import layer_norm
 
@@ -49,6 +66,32 @@ def _check_lp(Lp: int) -> None:
         raise NotImplementedError(
             f"fused blocks cover Lp <= {MAX_LP}; the q-tiled kernels for "
             f"Lp={Lp} are not ported yet")
+
+
+def train_lp(L: int) -> int:
+    """The one routing predicate of the train blocks: 0 when L < 64 (the
+    plain autograd layers take it), else the padded length pad_len(L) that
+    the train blocks run at, for the callers that hoist the pad
+    (split_encoder, fusion_decoder) and for vit_block / bert_layer.
+    Raises NotImplementedError past MAX_LP, where the TPU package's
+    q-tiled kernels are not ported yet."""
+    if L < 64:
+        return 0
+    Lp = pad_len(L)
+    _check_lp(Lp)
+    return Lp
+
+
+def _refuse_grad(name: str, p, x: torch.Tensor) -> None:
+    """The inference blocks launch kernels with no backward: under grad mode
+    with anything requiring grad they would drop every gradient silently,
+    so they raise instead."""
+    if torch.is_grad_enabled() and (
+            x.requires_grad or any(t.requires_grad for t in p.parameters())):
+        raise RuntimeError(
+            f"{name} has no backward; gradient-carrying callers take "
+            f"split_vit_block_train / split_bert_layer_train (the train "
+            f"route of models.layers)")
 
 
 def _block_weights(p, dt: torch.dtype, build):
@@ -82,6 +125,7 @@ def fused_vit_block(p, x: torch.Tensor, num_heads: int, ln_eps: float,
     """One pre-norm ViT block (bias-free, dropout-free).  p is a ViTBlock
     module.  l_actual > 0: x is already padded to pad_len with that many
     valid rows (the caller hoisted the pad out of its block loop)."""
+    _refuse_grad("fused_vit_block", p, x)
     B, L, H = x.shape
     if l_actual:
         if L % 16:
@@ -111,6 +155,7 @@ def fused_bert_block(p, x: torch.Tensor, bias: torch.Tensor, num_heads: int,
                      ln_eps: float) -> torch.Tensor:
     """One post-norm BERT layer with an additive (B, 1, L, L) attention
     bias (deterministic path).  p is a BertLayer module."""
+    _refuse_grad("fused_bert_block", p, x)
     B, L, H = x.shape
     Lp = pad_len(L)
     _check_lp(Lp)
@@ -134,3 +179,259 @@ def fused_bert_block(p, x: torch.Tensor, bias: torch.Tensor, num_heads: int,
     out = layer_norm(s2, p.output.LayerNorm.weight, p.output.LayerNorm.bias,
                      ln_eps, dt).view(B, Lp, H)
     return out[:, :L] if pad else out
+
+
+# ---------------------------------------------------------------------------
+# train blocks: kernel forward, analytic backward
+# ---------------------------------------------------------------------------
+
+def _mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with f32 sums and an f32 result, the operands in the compute
+    dtype (the TPU package's dot with preferred_element_type=f32)."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+def _ln_bwd(dln: torch.Tensor, xhat: torch.Tensor, rsig: torch.Tensor,
+            scale: torch.Tensor):
+    """Gradients of y = xhat * scale + shift, xhat = (x - mu) * rsig, rows
+    on dim 0: (dx f32, dscale, dshift)."""
+    dscale = (dln * xhat).sum(0)
+    dshift = dln.sum(0)
+    dxhat = dln * scale.float()
+    dx = rsig * (dxhat - dxhat.mean(-1, keepdim=True)
+                 - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    return dx, dscale, dshift
+
+
+def _gelu_grad(x32: torch.Tensor) -> torch.Tensor:
+    """d/dx of exact (erf) GELU, in f32."""
+    cdf = 0.5 * (1.0 + torch.erf(x32 * 0.7071067811865476))
+    pdf = torch.exp(-0.5 * x32 * x32) * 0.3989422804014327
+    return cdf + x32 * pdf
+
+
+def _xhat(x: torch.Tensor, mu: torch.Tensor, rsig: torch.Tensor):
+    return (x.float() - mu[:, None]) * rsig[:, None]
+
+
+def _check_train_shape(name: str, x: torch.Tensor) -> Tuple[int, int, int]:
+    B, Lp, H = x.shape
+    if Lp % 16:
+        raise ValueError(f"{name} needs a 16-aligned token axis (pre-pad "
+                         f"with pad_len)")
+    _check_lp(Lp)
+    return B, Lp, H
+
+
+def _vit_params(p) -> Tuple[torch.Tensor, ...]:
+    return (p.norm1.weight, p.norm1.bias, p.attn.qkv.weight, p.attn.qkv.bias,
+            p.attn.proj.weight, p.attn.proj.bias, p.norm2.weight,
+            p.norm2.bias, p.mlp.fc1.weight, p.mlp.fc1.bias, p.mlp.fc2.weight,
+            p.mlp.fc2.bias)
+
+
+class _SplitViTBlockTrain(torch.autograd.Function):
+    """Forward: K6 (LayerNorm with stats + qkv gemm; proj gemm + residual,
+    LayerNorm with stats, fc1 gemm keeping pre1, fc2 gemm + residual) and
+    K2's attention: 4 gemm, 2 layer_norm, 1 attention launches.  Backward:
+    _sbt_vjp_bwd of the TPU package, with attention_bwd."""
+
+    @staticmethod
+    def forward(ctx, x, num_heads, eps, L, *prm):
+        n1w, n1b, wqkv, bqkv, wp, bp, n2w, n2b, w1, b1, w2, b2 = prm
+        B, Lp, H = x.shape
+        dt = x.dtype
+        x2 = x.contiguous().view(B * Lp, H)
+        ln1, mu1, rs1 = layer_norm(x2, n1w, n1b, eps, dt, stats=True)
+        slab = gemm(ln1, wqkv.to(dt), bqkv).view(B, Lp, 3 * H)
+        attn = attention(slab, num_heads, L)
+        y1 = gemm(attn.view(B * Lp, H), wp.to(dt), bp, residual=x2)
+        ln2, mu2, rs2 = layer_norm(y1, n2w, n2b, eps, dt, stats=True)
+        pre1 = torch.empty((B * Lp, w1.shape[0]), dtype=dt, device=x.device)
+        h = gemm(ln2, w1.to(dt), b1, gelu=True, pre_out=pre1)
+        out = gemm(h, w2.to(dt), b2, residual=y1)
+        ctx.save_for_backward(x2, slab, attn, y1, pre1, mu1, rs1, mu2, rs2,
+                              *prm)
+        ctx.cfg = (num_heads, L)
+        return out.view(B, Lp, H)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x2, slab, attn, y1, pre1, mu1, rs1, mu2, rs2, n1w, n1b, wqkv, bqkv,
+         wp, bp, n2w, n2b, w1, b1, w2, b2) = ctx.saved_tensors
+        num_heads, L = ctx.cfg
+        B, Lp, H3 = slab.shape
+        H = H3 // 3
+        dt = x2.dtype
+        g = g.to(dt).reshape(B * Lp, H)
+        wqkv_d, wp_d, w1_d, w2_d = (w.to(dt) for w in (wqkv, wp, w1, w2))
+
+        # tail: out = y1 + gelu(pre1) @ W2^T + b2
+        h = F.gelu(pre1.float()).to(dt)
+        dw2 = _mm32(g.t(), h)
+        db2 = g.float().sum(0)
+        dpre1 = (_mm32(g, w2_d) * _gelu_grad(pre1.float())).to(dt)
+        xhat2 = _xhat(y1, mu2, rs2)
+        ln2 = (xhat2 * n2w + n2b).to(dt)
+        dw1 = _mm32(dpre1.t(), ln2)
+        db1 = dpre1.float().sum(0)
+        dy1_ln, dn2w, dn2b = _ln_bwd(_mm32(dpre1, w1_d), xhat2,
+                                     rs2[:, None], n2w)
+        dy1 = (g.float() + dy1_ln).to(dt)
+
+        # proj: y1 = x + attn @ Wp^T + bp
+        dattn = _mm32(dy1, wp_d).to(dt)
+        dwp = _mm32(dy1.t(), attn.view(B * Lp, H))
+        dbp = dy1.float().sum(0)
+
+        dq, dk, dv = attention_bwd(slab, dattn.view(B, Lp, H), num_heads, L)
+        dq, dk, dv = (t.view(B * Lp, H) for t in (dq, dk, dv))
+
+        # qkv: slab = LN1(x) @ Wqkv^T + bqkv
+        xhat1 = _xhat(x2, mu1, rs1)
+        ln1 = (xhat1 * n1w + n1b).to(dt)
+        dwqkv = torch.cat([_mm32(d.t(), ln1) for d in (dq, dk, dv)])
+        dbqkv = torch.cat([d.float().sum(0) for d in (dq, dk, dv)])
+        dln1 = (_mm32(dq, wqkv_d[:H]) + _mm32(dk, wqkv_d[H:2 * H])
+                + _mm32(dv, wqkv_d[2 * H:]))
+        dx_ln, dn1w, dn1b = _ln_bwd(dln1, xhat1, rs1[:, None], n1w)
+        dx = (dy1.float() + dx_ln).to(dt).view(B, Lp, H)
+        return (dx, None, None, None, dn1w, dn1b, dwqkv, dbqkv, dwp, dbp,
+                dn2w, dn2b, dw1, db1, dw2, db2)
+
+
+def split_vit_block_train(p, x: torch.Tensor, num_heads: int,
+                          ln_eps: float, l_actual: int = 0) -> torch.Tensor:
+    """Train pre-norm ViT block (bias- and dropout-free) over a 16-aligned
+    x (B, Lp, H) with l_actual valid rows (0: all).  Padded rows carry
+    finite values, are masked as keys, and give and take no gradient when
+    the upstream gradient's padded rows are zero."""
+    B, Lp, H = _check_train_shape("split_vit_block_train", x)
+    return _SplitViTBlockTrain.apply(x, num_heads, ln_eps, l_actual or Lp,
+                                     *_vit_params(p))
+
+
+def _bert_params(p) -> Tuple[torch.Tensor, ...]:
+    ps, po = p.attention.self, p.attention.output
+    return (ps.query.weight, ps.query.bias, ps.key.weight, ps.key.bias,
+            ps.value.weight, ps.value.bias, po.dense.weight, po.dense.bias,
+            po.LayerNorm.weight, po.LayerNorm.bias,
+            p.intermediate.dense.weight, p.intermediate.dense.bias,
+            p.output.dense.weight, p.output.dense.bias,
+            p.output.LayerNorm.weight, p.output.LayerNorm.bias)
+
+
+class _SplitBertLayerTrain(torch.autograd.Function):
+    """Forward: the qkv gemm, attention with bias and prob dropout (K8),
+    then K7: out-dense gemm with the dropout epilogue and residual,
+    LayerNorm with stats, fc1 gemm keeping pre1, fc2 gemm with the dropout
+    epilogue and residual, LayerNorm with stats: 4 gemm, 2 layer_norm, 1
+    attention launches.  Backward: _sblt_vjp_bwd of the TPU package, hidden
+    masks regenerated by ops/dropout.py, attention_bwd with the bias and
+    the prob-dropout seed."""
+
+    @staticmethod
+    def forward(ctx, x, bias, num_heads, eps, L, hidden_rate, attn_rate,
+                seeds, *prm):
+        (wq, bq, wk, bk, wv, bv, wo, bo, l1w, l1b, wi, bi, wo2, bo2, l2w,
+         l2b) = prm
+        B, Lp, H = x.shape
+        dt = x.dtype
+        x2 = x.contiguous().view(B * Lp, H)
+        slab = gemm(x2, torch.cat([wq, wk, wv]).to(dt),
+                    torch.cat([bq, bk, bv])).view(B, Lp, 3 * H)
+        a = attention(slab, num_heads, L, bias, attn_rate, seeds[0])
+        r1 = gemm(a.view(B * Lp, H), wo.to(dt), bo, residual=x2,
+                  dropout=(hidden_rate, seeds[1], 0, Lp))
+        y1, mu1, rs1 = layer_norm(r1, l1w, l1b, eps, dt, stats=True)
+        pre1 = torch.empty((B * Lp, wi.shape[0]), dtype=dt, device=x.device)
+        h = gemm(y1, wi.to(dt), bi, gelu=True, pre_out=pre1)
+        r2 = gemm(h, wo2.to(dt), bo2, residual=y1,
+                  dropout=(hidden_rate, seeds[1], 1, Lp))
+        out, mu2, rs2 = layer_norm(r2, l2w, l2b, eps, dt, stats=True)
+        ctx.save_for_backward(x2, bias, slab, a, r1, y1, pre1, r2, mu1, rs1,
+                              mu2, rs2, *prm)
+        ctx.cfg = (num_heads, L, hidden_rate, attn_rate, seeds)
+        return out.view(B, Lp, H)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x2, bias, slab, a, r1, y1, pre1, r2, mu1, rs1, mu2, rs2, wq, bq, wk,
+         bk, wv, bv, wo, bo, l1w, l1b, wi, bi, wo2, bo2, l2w,
+         l2b) = ctx.saved_tensors
+        num_heads, L, h_rate, a_rate, seeds = ctx.cfg
+        B, Lp, H3 = slab.shape
+        H = H3 // 3
+        dt = x2.dtype
+        wqkv = torch.cat([wq, wk, wv]).to(dt)
+        wo_d, wi_d, wo2_d = (w.to(dt) for w in (wo, wi, wo2))
+
+        def hmask(which, d):
+            """The forward's hidden-dropout chain on a cotangent, in the
+            compute dtype."""
+            if h_rate == 0.0:
+                return d
+            keep = dropout.hidden_keep(seeds[1], which, h_rate, B, Lp, H,
+                                       d.device).view(B * Lp, H)
+            inv = torch.tensor(1.0 / (1.0 - h_rate), dtype=dt,
+                               device=d.device)
+            return torch.where(keep, d, 0.0).to(dt) * inv
+
+        # LN2: out = LN(r2) * s2 + b2, r2 = y1 + dropout(gelu(pre1) @ Wo2^T)
+        xhat2 = _xhat(r2, mu2, rs2)
+        dr2, dl2w, dl2b = _ln_bwd(g.reshape(B * Lp, H).float(), xhat2,
+                                  rs2[:, None], l2w)
+        dr2 = dr2.to(dt)
+        du = hmask(1, dr2)
+        h = F.gelu(pre1.float()).to(dt)
+        dwo2 = _mm32(du.t(), h)
+        dbo2 = du.float().sum(0)
+        dpre1 = (_mm32(du, wo2_d) * _gelu_grad(pre1.float())).to(dt)
+        dwi = _mm32(dpre1.t(), y1)
+        dbi = dpre1.float().sum(0)
+        dy1 = (dr2.float() + _mm32(dpre1, wi_d)).to(dt)
+
+        # LN1: y1 = LN(r1) * s1 + b1, r1 = x + dropout(a @ Wo^T + bo)
+        xhat1 = _xhat(r1, mu1, rs1)
+        dr1, dl1w, dl1b = _ln_bwd(dy1.float(), xhat1, rs1[:, None], l1w)
+        dr1 = dr1.to(dt)
+        dt_ = hmask(0, dr1)
+        da = _mm32(dt_, wo_d).to(dt)
+        dwo = _mm32(dt_.t(), a.view(B * Lp, H))
+        dbo = dt_.float().sum(0)
+
+        dq, dk, dv = attention_bwd(slab, da.view(B, Lp, H), num_heads, L,
+                                   bias, a_rate, seeds[0])
+        dq, dk, dv = (t.view(B * Lp, H) for t in (dq, dk, dv))
+        dwq, dwk, dwv = (_mm32(d.t(), x2) for d in (dq, dk, dv))
+        dbq, dbk, dbv = (d.float().sum(0) for d in (dq, dk, dv))
+        dx = (dr1.float() + _mm32(dq, wqkv[:H]) + _mm32(dk, wqkv[H:2 * H])
+              + _mm32(dv, wqkv[2 * H:])).to(dt).view(B, Lp, H)
+        return (dx, None, None, None, None, None, None, None, dwq, dbq, dwk,
+                dbk, dwv, dbv, dwo, dbo, dl1w, dl1b, dwi, dbi, dwo2, dbo2,
+                dl2w, dl2b)
+
+
+def split_bert_layer_train(p, x: torch.Tensor, bias: torch.Tensor,
+                           num_heads: int, ln_eps: float, l_actual: int = 0,
+                           hidden_rate: float = 0.0, attn_rate: float = 0.0,
+                           seeds: Sequence[int] = (0, 0)) -> torch.Tensor:
+    """Train post-norm BERT layer over a 16-aligned x (B, Lp, H) and its
+    f32 (B, 1, Lp, Lp) bias, l_actual valid rows (0: all); seeds = (attn
+    prob seed, hidden seed), int32 values.  The bias is a mask and takes no
+    gradient: one that requires grad raises (the TPU package returns zeros
+    for it)."""
+    B, Lp, H = _check_train_shape("split_bert_layer_train", x)
+    if bias.requires_grad:
+        raise ValueError("split_bert_layer_train: the attention bias takes "
+                         "no gradient; pass a bias that does not require "
+                         "grad")
+    if bias.shape != (B, 1, Lp, Lp):
+        raise ValueError(f"split_bert_layer_train: bias must be ({B}, 1, "
+                         f"{Lp}, {Lp}), got {tuple(bias.shape)}")
+    seeds = tuple(int(s) for s in seeds)
+    return _SplitBertLayerTrain.apply(
+        x, bias.float().contiguous(), num_heads, ln_eps, l_actual or Lp,
+        float(hidden_rate), float(attn_rate), seeds, *_bert_params(p))

@@ -1,4 +1,6 @@
-"""Load a vitcap_tpu JAX param tree into the port's ViTCAP module.
+"""Load a vitcap_tpu JAX param tree into the port's ViTCAP module, and
+turn the port's tensors (parameters, gradients, Adam moments) back into
+the JAX package's flattened tree.
 
 The param tree (nested dicts and lists of numpy arrays) is flattened to
 '/'-joined paths, each path is named as in the reference's torch state dict
@@ -9,6 +11,10 @@ exactly those names without the leading 'module.', and its kernels read the
 per call.  This is numpy only: the port keeps its own copy of the naming
 rules of vitcap_tpu/solver/checkpoint_bridge.py and imports nothing of the
 JAX package.
+
+The reverse direction (torch_name_to_jax_path, state_to_jax_flat) inverts
+the same rules, so tests can hold the port's gradients and optimizer state
+against the JAX package's leaf by leaf.
 """
 
 from __future__ import annotations
@@ -113,8 +119,8 @@ def params_to_torch_state_dict(params: Params) -> Dict[str, np.ndarray]:
 def load_jax_params(model: torch.nn.Module, params_np: Dict[str, Any]
                     ) -> torch.nn.Module:
     """Strictly load `params_np` (the JAX param tree with numpy leaves) into
-    `model`, in place; returns the model with gradients off (the port is
-    inference-only so far)."""
+    `model`, in place; returns the model with gradients off (training turns
+    them on: solver.train_step.init_train_state)."""
     sd = {}
     for name, arr in params_to_torch_state_dict(params_np).items():
         if name.startswith("module."):
@@ -122,3 +128,58 @@ def load_jax_params(model: torch.nn.Module, params_np: Dict[str, Any]
         sd[name] = torch.from_numpy(np.array(arr, dtype=np.float32))
     model.load_state_dict(sd, strict=True)
     return model.requires_grad_(False)
+
+
+_JAX_LEAF = {"weight": "kernel"}     # a 2-D weight; 1-D weights are 'scale'
+
+
+def torch_name_to_jax_path(name: str, ndim: int) -> Tuple[str, str]:
+    """A port parameter name (no 'module.' prefix) and its rank -> (the
+    flattened JAX path, the torch -> JAX transform: 'linear_t',
+    'conv_oihw_to_hwio' or 'none').  Inverts jax_path_to_torch_name."""
+    parts = name.split(".")
+    leaf = parts[-1]
+
+    def dense(jparts):
+        if leaf == "weight":
+            return ("/".join(jparts + ["kernel" if ndim == 2 else "scale"]),
+                    "linear_t" if ndim == 2 else "none")
+        return "/".join(jparts + [leaf]), "none"
+
+    if parts[0] == "image_encoder":
+        if parts[2] == "patch_embed":
+            if leaf == "weight":
+                return "image_encoder/patch_proj/kernel", "conv_oihw_to_hwio"
+            return "image_encoder/patch_proj/" + leaf, "none"
+        return "image_encoder/" + parts[2], "none"
+    if parts[0] == "cls" or parts[1] == "tag_logit":
+        head = "cls" if parts[0] == "cls" else "tag_logit"
+        rest = parts[2:] if parts[0] == "cls" else parts[3:]
+        if rest == ["bias"]:
+            return head + "/decoder/bias", "none"
+        if rest[0] == "decoder":
+            return head + "/decoder/kernel", "linear_t"
+        return dense([head] + rest[:-1])
+    body = parts[1:]                                   # drop 'bert'
+    if body[0] in ("embeddings", "extra_embeddings") and body[1] in (
+            "word_embeddings", "position_embeddings",
+            "token_type_embeddings"):
+        return "/".join(body[:2]), "none"
+    return dense(body[:-1])
+
+
+def state_to_jax_flat(tensors: Dict[str, torch.Tensor]
+                      ) -> Dict[str, np.ndarray]:
+    """{port parameter name: tensor} (parameters, or gradients or Adam
+    moments keyed by parameter name) -> the JAX package's flattened tree
+    {path: numpy array in the JAX layout}."""
+    out: Dict[str, np.ndarray] = {}
+    for name, t in tensors.items():
+        path, transform = torch_name_to_jax_path(name, t.dim())
+        a = t.detach().float().cpu().numpy()
+        if transform == "linear_t":
+            a = np.ascontiguousarray(a.T)
+        elif transform == "conv_oihw_to_hwio":
+            a = np.ascontiguousarray(a.transpose(2, 3, 1, 0))
+        out[path] = a
+    return out
