@@ -36,7 +36,20 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
    train step (B=64, bf16, attention dropout 0.1): img/s, step ms, peak
    memory, exactly TRAIN_PER_STEP launches per step; one f32 train step
    GPU vs CPU (loss, every gradient, the updated parameters); the profile
-   of one flagship step.
+   of one flagship step;
+9. high resolution (this slice's path): the flagship model built for 384 px
+   (a 577-slot pos-embed, resized bicubically) serving 512x512 uint8 images:
+   1025 visual tokens padded to 1152 and a 1076-token prefill, past 1024
+   where the TPU package runs its q-tiled whole-block kernels (K10).  The
+   kernels at Lp=1152 (B=64, bf16 and f32) and decode_attention over the
+   1076-token context vs their plain versions with bounds and yardsticks;
+   both K10 blocks vs the plain blocks; a
+   CaptionServer answering 3 x 64 requests on the eager and the fused
+   engine (exactly 72 gemm, 36 layer_norm and 18 attention launches per
+   batch, all 18 attention launches long); one batch with
+   token_filter_keep=0.5 (2 of its 18 attention launches long); greedy ids
+   GPU vs CPU in f32 (B=2, full flagship, both engines); the profile of one
+   512-px fused batch.
 
 The measurements are also written to chiprun_out/chip_smoke.json (and the
 profiles' tables to chiprun_out/profile_<run>.txt).
@@ -88,18 +101,24 @@ FUSED_PER_BATCH = {"gemm": 72 + 4 * 4 * STEPS,
 TRAIN_PER_STEP = {"gemm": 76, "layer_norm": 38, "attention": 19,
                   "attention_bwd": 38, "decode_attention": 0}
 TRAIN_MODES_PER_STEP = {"gemm[pre_out]": 19, "gemm[dropout]": 8,
-                        "layer_norm[stats]": 38, "attention[dropout]": 4}
+                        "layer_norm[stats]": 38, "attention[dropout]": 4,
+                        "attention[long]": 0}
+HIGHRES = 512                # phase 9's images, against 384-px weights
+LONG = {"attention[long]": 18}          # per 512-px batch: every block
+FILTERED_LONG = {"attention[long]": 2}  # token_filter_keep=0.5: blocks 0, 1
 SOURCES = {
     "gemm": ("vitcap_tpu_torch/csrc/gemm.cu",
              "vitcap_tpu/ops/fused_block.py:150 _qkv_kernel, :235 "
              "_tail_kernel, :534 _bert_qkv_kernel, :604 _bert_tail_kernel; "
              "the dense products of vitcap_tpu/ops/decode_step.py:115 "
-             "_kernel"),
+             "_kernel and of the K10 kernels :125 _block_kernel, :470 "
+             "_bert_kernel"),
     "layer_norm": ("vitcap_tpu_torch/csrc/layer_norm.cu",
                    "vitcap_tpu/ops/fused_block.py:150 _qkv_kernel (LN1), "
                    ":235 _tail_kernel (LN2), :604 _bert_tail_kernel "
                    "(post-LNs); the post-LNs of "
-                   "vitcap_tpu/ops/decode_step.py:115 _kernel"),
+                   "vitcap_tpu/ops/decode_step.py:115 _kernel; the LNs of "
+                   "K10 (:125 _block_kernel, :470 _bert_kernel)"),
     "attention": ("vitcap_tpu_torch/csrc/attention.cu",
                   "vitcap_tpu/ops/fused_block.py:194 _attn_pairbd_kernel "
                   "(:167 perhead), :542 _bert_attn_pairbd_kernel "
@@ -108,9 +127,9 @@ SOURCES = {
                          "vitcap_tpu/ops/decode_step.py:115 _kernel "
                          "(attention half; fused_decode_step :237)"),
 }
-# the train kernels and modes: (source, TPU kernel, the row of the bf16
-# kernel phase that the summary line reports)
-TRAIN_SOURCES = {
+# the train kernels and the kernels' modes: (source, TPU kernel, the row of
+# the bf16 kernel phase that the summary line reports)
+MODE_SOURCES = {
     "layer_norm[stats]": ("vitcap_tpu_torch/csrc/layer_norm.cu",
                           "vitcap_tpu/ops/fused_block.py:1381 "
                           "_qkv_train_kernel, :1398 _tail_train_stats_kernel "
@@ -130,6 +149,13 @@ TRAIN_SOURCES = {
                            "_fwd_packed_pair_kernel, :452 _fwd_packed_kernel "
                            "(flash_fwd_packed_slab :949, K8 forward)",
                            "bert train"),
+    "attention[long]": ("vitcap_tpu_torch/csrc/attention.cu",
+                        "vitcap_tpu/ops/fused_block.py:125 _block_kernel "
+                        "(_fused_block_fwd :322, pallas_call :361), :470 "
+                        "_bert_kernel (_fused_bert_fwd :701, pallas_call "
+                        ":735): K10, Lp > 1024; its gemm and LayerNorm "
+                        "launches count under gemm and layer_norm",
+                        "vit long"),
     "attention_bwd": ("vitcap_tpu_torch/csrc/attention_bwd.cu",
                       "vitcap_tpu/ops/flash_attention.py:530 "
                       "_bwd_packed_pair_kernel, :600 _bwd_packed_kernel "
@@ -222,28 +248,53 @@ def _row(rows, kernel, case, dn, shape, err, ms, pms, lms, flops, nbytes):
                      bound_by=b_by))
 
 
-def phase_kernels(dev, rows):
+GEMM_CASES = [  # (name, K, N, epilogue)
+    ("qkv", 768, 2304, dict()),
+    ("proj+res", 768, 768, dict(residual=True)),
+    ("fc1+gelu", 768, 3072, dict(gelu=True)),
+    ("fc2+res", 3072, 768, dict(residual=True)),
+    ("bert-out+res f32", 768, 768, dict(residual=True, f32_sum=True,
+                                        out_f32=True)),
+    ("bert-inter+gelu", 768, 3072, dict(gelu=True, f32_sum=True)),
+    ("bert-output+res f32", 3072, 768, dict(residual=True, f32_sum=True,
+                                            out_f32=True)),
+]
+# (kernel name in the rows, case, batch, l_actual, Lp, bias): ViT, the
+# prefill, a ragged small case
+ATTN_CASES = [("attention", "vit", B, 577, 592, False),
+              ("attention", "bert-prefill", B, 628, 640, True),
+              ("attention", "ragged", 3, 70, 80, True)]
+
+
+def _prefill_bias(Bn, S, Lp, dev, od_len=50):
+    """The prefill's additive mask (models/decode.py build_decode_context):
+    od rows see their image's valid od slots (3 + 4 * (i % 12) of 50) and
+    every other token; the other rows see no od slot; padded keys past S
+    take -10000 (l_actual masks them as well)."""
+    allow = torch.ones(Bn, 1, Lp, Lp, dtype=torch.bool)
+    for i in range(Bn):
+        allow[i, :, :od_len, 3 + 4 * (i % 12):od_len] = False
+    allow[:, :, od_len:, :od_len] = False
+    allow[..., S:] = False
+    return torch.where(allow, 0.0, -10000.0).to(dev)
+
+
+def phase_kernels(dev, rows, Lp=592, gemm_cases=GEMM_CASES,
+                  attn_cases=ATTN_CASES, tag=""):
+    """Each kernel vs its plain version, timed beside its bound and its
+    yardstick: the gemms and LayerNorms over B * Lp rows, the attention
+    cases; `tag` is appended to the gemm and LayerNorm case names."""
     from vitcap_tpu_torch.ops.attention import attention, attention_plain
     from vitcap_tpu_torch.ops.gemm import gemm, gemm_plain
     from vitcap_tpu_torch.ops.layer_norm import layer_norm, layer_norm_plain
     g = torch.Generator().manual_seed(SEED)
-    M = B * 592
+    M = B * Lp
     H = 768
+    first = len(rows)
 
     def rnd(*shape, scale=1.0, dtype=torch.float32):
         return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
 
-    gemm_cases = [  # (name, K, N, epilogue)
-        ("qkv", 768, 2304, dict()),
-        ("proj+res", 768, 768, dict(residual=True)),
-        ("fc1+gelu", 768, 3072, dict(gelu=True)),
-        ("fc2+res", 3072, 768, dict(residual=True)),
-        ("bert-out+res f32", 768, 768, dict(residual=True, f32_sum=True,
-                                            out_f32=True)),
-        ("bert-inter+gelu", 768, 3072, dict(gelu=True, f32_sum=True)),
-        ("bert-output+res f32", 3072, 768, dict(residual=True, f32_sum=True,
-                                                out_f32=True)),
-    ]
     for dtype in (torch.bfloat16, torch.float32):
         dn = "bf16" if dtype == torch.bfloat16 else "f32"
         es = 2 if dtype == torch.bfloat16 else 4
@@ -271,8 +322,8 @@ def phase_kernels(dev, rows):
             out_es = 4 if epi.get("out_f32") else es
             nbytes = (es * (M * K + N * K + (M * N if r is not None else 0))
                       + 4 * N + out_es * M * N)
-            _row(rows, "gemm", name, dn, f"M={M} K={K} N={N}", err, ms, pms,
-                 lms, 2.0 * M * K * N, nbytes)
+            _row(rows, "gemm", name + tag, dn, f"M={M} K={K} N={N}", err, ms,
+                 pms, lms, 2.0 * M * K * N, nbytes)
         for name, idt in (("ln", dtype), ("post-ln f32-in", torch.float32)):
             x = [rnd(M, H, scale=3.0, dtype=idt) + 1 for _ in range(2)]
             gm, bt = rnd(H) + 1, rnd(H)
@@ -287,19 +338,12 @@ def phase_kernels(dev, rows):
             lms = cuda_ms(lambda i: F.layer_norm(x[i % 2], (H,), gl, bl,
                                                  1e-6), 10)
             in_es = 4 if idt == torch.float32 else 2
-            _row(rows, "layer_norm", name, dn, f"rows={M} H={H}", err, ms,
-                 pms, lms, 8.0 * M * H, M * H * (in_es + es) + 8 * H)
-        for name, Bn, L, Lp, with_bias in (("vit", B, 577, 592, False),
-                                           ("bert-prefill", B, 628, 640,
-                                            True),
-                                           ("ragged", 3, 70, 80, True)):
+            _row(rows, "layer_norm", name + tag, dn, f"rows={M} H={H}", err,
+                 ms, pms, lms, 8.0 * M * H, M * H * (in_es + es) + 8 * H)
+        for kname, name, Bn, L, Lp, with_bias in attn_cases:
             slab = [rnd(Bn, Lp, 3 * H, dtype=dtype) for _ in range(2)]
-            bias = None
-            if with_bias:      # prefill-like: -10000 on a block of keys
-                bias = torch.zeros(Bn, 1, Lp, Lp, device=dev)
-                bias[:, :, : Lp // 4, Lp // 8: Lp // 4] = -10000.0
-                bias[:, :, :, L:] = -10000.0
-            err = compare(f"attention {name} {dn}",
+            bias = _prefill_bias(Bn, L, Lp, dev) if with_bias else None
+            err = compare(f"{kname} {name} {dn}",
                           attention(slab[0], 12, L, bias),
                           attention_plain(slab[0], 12, L, bias), dtype)
             ms = cuda_ms(lambda i: attention(slab[i % 2], 12, L, bias), 5)
@@ -317,13 +361,14 @@ def phase_kernels(dev, rows):
                 attn_mask=mask), 5)
             nbytes = es * Bn * Lp * 4 * H + (4 * Bn * Lp * Lp if with_bias
                                              else 0)
-            _row(rows, "attention", name, dn,
+            _row(rows, kname, name, dn,
                  f"B={Bn} L={L} Lp={Lp} heads=12x64", err, ms, pms, lms,
                  4.0 * Bn * 12 * Lp * L * 64, nbytes)
-            del mask, qkv
-        del a, w, r, x, slab
+            del mask, qkv, slab, bias
+            torch.cuda.empty_cache()
+        del a, w, r, x
         torch.cuda.empty_cache()
-    for r in rows:
+    for r in rows[first:]:
         log(f"[kernel] {r['kernel']:10s} {r['case']:20s} {r['dtype']:4s} "
             f"{r['shape']:32s} err {r['max_abs_err']:.3e}  "
             f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
@@ -371,13 +416,14 @@ def _sdpa_decode_inputs(d, t, nh=12):
             keys(ck, kw, d["ctx_k"]), keys(cv, vw, d["ctx_v"]), mask)
 
 
-def phase_decode_attention(dev, rows):
+def phase_decode_attention(dev, rows, S=628, tag=""):
     """decode_attention vs its plain version at the greedy (nb=1) and
-    beam-3 geometries, S=628, A=20, t=10, bf16 and f32."""
+    beam-3 geometries, S context tokens (628 at 384 px), A=20, t=10, bf16
+    and f32; `tag` is appended to the case names."""
     from vitcap_tpu_torch.ops.decode_step import (decode_attention,
                                                   decode_attention_plain)
     g = torch.Generator().manual_seed(SEED + 5)
-    nh, S, A, t, H = 12, 628, 20, 10, 768
+    nh, A, t, H = 12, 20, 10, 768
     t_dev = torch.tensor([t], dtype=torch.int32, device=dev)
     for dtype in (torch.bfloat16, torch.float32):
         dn = "bf16" if dtype == torch.bfloat16 else "f32"
@@ -412,11 +458,11 @@ def phase_decode_attention(dev, rows):
                             + Bb * 2 * 3 * H + 2 * Bb * H + Bb * 2 * H)
                       + 4 * B * S)
             flops = 4.0 * Bb * 2 * (S + t) * H
-            _row(rows, "decode_attention", case, dn,
+            _row(rows, "decode_attention", case + tag, dn,
                  f"B={B} nb={nb} S={S} A={A} t={t} heads=12x64", err, ms,
                  pms, lms, flops, nbytes)
             r = rows[-1]
-            log(f"[decode_attention] {case:6s} {dn:4s} err {err:.3e} "
+            log(f"[decode_attention] {case + tag:11s} {dn:4s} err {err:.3e} "
                 f"(SDPA vs plain {lib_err:.3e})  kernel {ms:.4f} ms  "
                 f"plain {pms:.4f} ms  SDPA {lms:.4f} ms  bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
@@ -569,17 +615,22 @@ def _engine(fused: bool):
             os.environ["VITCAP_DECODE_FUSED"] = old
 
 
-def _serve(dev, smi, cfg, model, opts, label, per_batch):
-    """A CaptionServer (batch B) answers 3 x B uint8 requests from 8 client
-    threads; every batch must launch exactly `per_batch` kernels.  Returns
-    the launch counts of the run (set to 0 just before it) and its rates."""
+def _serve(dev, smi, cfg, model, opts, label, per_batch, img=None,
+           modes=None):
+    """A CaptionServer (batch B) answers 3 x B uint8 img x img requests
+    (default: the model's size) from 8 client threads; every batch must
+    launch exactly `per_batch` kernels, and of the kernels' modes exactly
+    `modes` (the others none).  Returns the launch counts of the run (set
+    to 0 just before it) and its rates."""
     from vitcap_tpu_torch import ops
     from vitcap_tpu_torch.data.tokenization import CaptionDecoder
     from vitcap_tpu_torch.models import decode as TD
     from vitcap_tpu_torch.serving import CaptionServer
+    img = img or cfg.img_size
+    want = {**per_batch, **{k: 0 for k in ops.mode_counts()},
+            **(modes or {})}
     rs = np.random.RandomState(SEED)
-    images = rs.randint(0, 256, (3, B, cfg.img_size, cfg.img_size, 3)) \
-        .astype(np.uint8)
+    images = rs.randint(0, 256, (3, B, img, img, 3)).astype(np.uint8)
     od_len = cfg.max_seq_len - cfg.max_seq_a_len
     # warm-up batch outside the counted run (allocator, library handles)
     TD.generate(model, torch.from_numpy(images[0]).to(dev),
@@ -594,7 +645,7 @@ def _serve(dev, smi, cfg, model, opts, label, per_batch):
     t0 = time.perf_counter()
     try:
         for rnd in range(3):
-            before = ops.launch_counts()
+            before = dict(ops.launch_counts(), **ops.mode_counts())
             t_round = time.perf_counter()
             futs = [None] * B
 
@@ -611,13 +662,13 @@ def _serve(dev, smi, cfg, model, opts, label, per_batch):
                 raise AssertionError(f"{label}: a client thread hung")
             results += [f.result(timeout=300) for f in futs]
             round_s.append(time.perf_counter() - t_round)
-            after = ops.launch_counts()
+            after = dict(ops.launch_counts(), **ops.mode_counts())
             batches.append({k: after[k] - before[k] for k in after})
     finally:
         server.close()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    counts, modes_run = ops.launch_counts(), ops.mode_counts()
     stats = server.stats()
     log(f"[{label}] batches {stats['batches']} requests {stats['requests']} "
         f"launches per batch {batches}")
@@ -625,21 +676,22 @@ def _serve(dev, smi, cfg, model, opts, label, per_batch):
         raise AssertionError(f"{label}: expected 3 batches of {B}, got "
                              f"{stats}")
     for d in batches:
-        if d != per_batch:
+        if d != want:
             raise AssertionError(f"{label}: launches per batch {d} != "
-                                 f"{per_batch}")
+                                 f"{want}")
     for r in results:
         if not (isinstance(r["caption"], str) and 0.0 < r["conf"] <= 1.0):
             raise AssertionError(f"{label}: bad result {r}")
     rate = len(results) / seconds
     log(f"[{label}] example captions (random weights): "
         f"{[r['caption'][:40] for r in results[:2]]}")
-    log(f"[{label}] captions/s {rate:.2f} (B={B}, bf16, "
+    log(f"[{label}] captions/s {rate:.2f} (B={B}, bf16, {img}x{img}, "
         f"{cfg.max_gen_length} steps, {len(results)} requests in "
         f"{seconds:.3f} s, first batch included) on {smi}")
     log(f"[{label}] seconds per round of {B} requests: {round_s}")
     return counts, {"captions_per_s": rate, "seconds": seconds,
-                    "round_seconds": round_s, "launches_per_batch": batches}
+                    "round_seconds": round_s, "launches_per_batch": batches,
+                    "mode_launches": modes_run}
 
 
 def phase_main_path(dev, smi):
@@ -1150,11 +1202,12 @@ def phase_train_parity(dev):
             "cpu": cm}
 
 
-def summarise(rows, counts, train_counts):
+def summarise(rows, counts, mode_counts):
     """The per-kernel JSON entries.  launches: the beam path's run
-    (phase 5b) for the serving kernels; the train step's timed run (8
-    steps) for the train kernels and modes, whose numbers are one launch
-    (call) at the flagship bf16 shape named in TRAIN_SOURCES.  max_abs_err: the largest of any check of the kernel.
+    (phase 5b) for the serving kernels; for the kernel modes, the train
+    step's timed run (8 steps) for the train modes and the fused 512-px
+    serving run (phase 9) for attention[long], whose numbers are one
+    launch (call) at the bf16 shape named in MODE_SOURCES.  max_abs_err: the largest of any check of the kernel.
     ms / plain_ms / library_ms / bound_ms: for gemm, layer_norm and
     attention, the sum over one fused ViT block's launches at B=64 bf16
     (4 gemm, 2 layer_norm, 1 attention); for decode_attention, one launch
@@ -1182,13 +1235,13 @@ def summarise(rows, counts, train_counts):
             "bound_by": max(by, key=by.get),
             "library_ms": sum(r["library_ms"] * n for r, n in main),
         })
-    for name, (src, replaces, case) in TRAIN_SOURCES.items():
+    for name, (src, replaces, case) in MODE_SOURCES.items():
         mine = [r for r in rows if r["kernel"] == name]
         r = next(r for r in mine if r["dtype"] == "bf16"
                  and r["case"] == case)
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": train_counts[name],
+            "replaces": replaces, "launches": mode_counts[name],
             "max_abs_err": max(x["max_abs_err"] for x in mine),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -1249,6 +1302,17 @@ def _profile(name, fn, reps=3):
     return out
 
 
+def _median_ms(fn):
+    """Median host-clock ms of 3 synchronised calls of fn."""
+    ts = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return sorted(ts)[1]
+
+
 def _profile_batch(name, fn, wall_prefill, reps=3):
     """_profile of one decode batch, with its host-clock phases."""
     out = _profile(name, fn, reps)
@@ -1287,30 +1351,232 @@ def phase_profile(dev):
     od = torch.zeros(B, cfg.max_seq_len - cfg.max_seq_a_len,
                      dtype=torch.long, device=dev)
     sl = torch.full((B,), cfg.max_seq_a_len, device=dev)
-
-    def median_ms(fn):
-        ts = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            ts.append((time.perf_counter() - t0) * 1e3)
-        return sorted(ts)[1]
-
-    out = {"encode_ms": median_ms(lambda: TM.encode_images(model, imgs,
-                                                           cfg))}
+    out = {"encode_ms": _median_ms(lambda: TM.encode_images(model, imgs,
+                                                            cfg))}
     log(f"[profile] encode {out['encode_ms']:.3f} ms")
     for name, fused, opts in (("greedy_eager", False, _opts(cfg)),
                               ("greedy_fused", True, _opts(cfg)),
                               ("beam3_fused", True,
                                _opts(cfg, num_beams=3))):
         with _engine(fused):
-            prefill = median_ms(lambda: TD.build_decode_context(
+            prefill = _median_ms(lambda: TD.build_decode_context(
                 model, imgs, od, None, sl, cfg, opts))
             out[name] = _profile_batch(name, lambda: TD.generate(
                 model, imgs, od, None, sl, cfg, opts), prefill)
     del model
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: high resolution (512 px against 384-px weights; K10)
+# ---------------------------------------------------------------------------
+
+def _block_work(Bn, Lp, L, es, bias, H=768, I=3072, nh=12):
+    """One block's (operations, bytes): the four products over Lp rows and
+    the attention's two over Lp queries and L keys; x read and the output
+    written, the weights read once, and the f32 (B, 1, Lp, Lp) bias."""
+    flops = 2.0 * Bn * Lp * H * (4 * H + 2 * I) + 4.0 * Bn * nh * Lp * L * (
+        H // nh)
+    nbytes = es * (2 * Bn * Lp * H + H * (4 * H + 2 * I)) + (
+        4 * Bn * Lp * Lp if bias else 0)
+    return flops, nbytes
+
+
+def phase_highres_kernels(dev, rows):
+    """The kernels at the 512-px shapes, B=64, Lp=1152, bf16 and f32: the
+    ViT gemms and LayerNorms over B * 1152 rows, ViT attention (l_actual
+    1025, no bias) and the prefill's (l_actual 1076 = 50 od + tag CLS +
+    1025 visual, its (B, 1, Lp, Lp) f32 bias), each vs its plain version,
+    with its bound and yardstick (F.linear, F.layer_norm, SDPA with the
+    float mask); decode_attention over the 1076-token context."""
+    phase_kernels(dev, rows, Lp=1152, gemm_cases=GEMM_CASES[:4],
+                  attn_cases=[("attention[long]", "vit long", B, 1025, 1152,
+                               False),
+                              ("attention[long]", "bert-prefill long", B,
+                               1076, 1152, True)],
+                  tag=" long")
+    # the decode step's attention over the 512-px context (50 od + tag CLS
+    # + 1025 visual, unpadded)
+    phase_decode_attention(dev, rows, S=1076, tag=" 512px")
+
+
+def phase_highres_blocks(dev, rows):
+    """fused_vit_block at L=1025 and fused_bert_block at L=1076 with the
+    prefill bias (both Lp 1152, B=64), the K10 compositions, vs the plain
+    blocks; chained calls timed, beside the block's bound."""
+    from vitcap_tpu_torch.models import layers as TL
+    from vitcap_tpu_torch.models.config import ModelConfig
+    from vitcap_tpu_torch.models.vitcap import init_params
+    from vitcap_tpu_torch.ops.fused_block import (fused_bert_block,
+                                                  fused_vit_block)
+    cfg = ModelConfig(num_hidden_layers=1, split_blocks=1, decoder_layers=1)
+    model = init_params(cfg, torch.Generator().manual_seed(SEED), dev)
+    blk, layer = model.bert.encoder.blocks[0], model.bert.decoder.layer[0]
+    g = torch.Generator().manual_seed(SEED + 14)
+    H, nh = cfg.hidden_size, cfg.num_attention_heads
+    first = len(rows)
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = "bf16" if dtype == torch.bfloat16 else "f32"
+        for name, L in (("fused_vit_block", 1025), ("fused_bert_block",
+                                                    1076)):
+            x = torch.randn(B, L, H, generator=g).to(dev, dtype)
+            if name == "fused_vit_block":
+                def kern(y):
+                    return fused_vit_block(blk, y, nh, 1e-6)
+
+                def plain(y):
+                    return TL._vit_block_plain(blk, y, nh, 1e-6)
+            else:
+                bias = _prefill_bias(B, L, L, dev)
+
+                def kern(y):
+                    return fused_bert_block(layer, y, bias, nh, 1e-12)
+
+                def plain(y):
+                    return TL._bert_layer_plain(layer, y, bias, nh, 1e-12)
+            err = compare(f"{name} long {dn}", kern(x), plain(x), dtype)
+            ys = [x]
+            ms = cuda_ms(lambda i: ys.append(kern(ys.pop())), 3)
+            ys = [x]
+            pms = cuda_ms(lambda i: ys.append(plain(ys.pop())), 3)
+            flops, nbytes = _block_work(
+                B, 1152, L, 2 if dtype == torch.bfloat16 else 4,
+                name == "fused_bert_block")
+            b_ms, b_by = bound(flops, nbytes, dn)
+            rows.append(dict(kernel=name, case="chain long", dtype=dn,
+                             shape=f"B={B} L={L} Lp=1152", max_abs_err=err,
+                             ms=ms, plain_ms=pms, flops=flops, bytes=nbytes,
+                             bound_ms=b_ms, bound_by=b_by))
+            del x, ys
+            torch.cuda.empty_cache()
+    for r in rows[first:]:
+        log(f"[block] {r['kernel']:16s} {r['dtype']:4s} {r['shape']:22s} "
+            f"err {r['max_abs_err']:.3e}  kernels {r['ms']:.3f} ms  "
+            f"plain {r['plain_ms']:.3f} ms  bound {r['bound_ms']:.3f} ms "
+            f"({r['bound_by']}: {r['flops'] / 1e12:.3f} TFLOP, "
+            f"{r['bytes'] / 1e6:.1f} MB)")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_highres_path(dev, smi):
+    """The 512-px serving path: the flagship built for 384 px serves
+    3 x 64 uint8 512x512 requests on the eager and on the fused engine
+    (exactly 72 gemm, 36 layer_norm and 18 attention launches per batch,
+    all 18 long); one batch with token_filter_keep=0.5 (2 long attention
+    launches of 18); then the profile of one fused 512-px batch.  Returns
+    the fused run's counts (set to 0 just before it) and the results."""
+    from vitcap_tpu_torch import ops
+    from vitcap_tpu_torch.models import decode as TD
+    from vitcap_tpu_torch.models import vitcap as TM
+    cfg, model = _flagship(dev)
+    out = {}
+    with _engine(fused=False):
+        _, out["greedy_eager"] = _serve(dev, smi, cfg, model, _opts(cfg),
+                                        "greedy-512", PER_BATCH,
+                                        img=HIGHRES, modes=LONG)
+    with _engine(fused=True):
+        counts, out["greedy_fused"] = _serve(
+            dev, smi, cfg, model, _opts(cfg), "greedy-fused-512",
+            FUSED_PER_BATCH, img=HIGHRES, modes=LONG)
+    counts = dict(counts, **out["greedy_fused"]["mode_launches"])
+    for name, n in counts.items():
+        if n == 0 and name in ("gemm", "layer_norm", "attention",
+                               "decode_attention", "attention[long]"):
+            raise AssertionError(f"{name}: no launch on the 512-px path")
+
+    rs = np.random.RandomState(SEED + 15)
+    imgs = torch.from_numpy(rs.randint(0, 256, (B, HIGHRES, HIGHRES, 3))
+                            .astype(np.uint8)).to(dev)
+    od = torch.zeros(B, cfg.max_seq_len - cfg.max_seq_a_len,
+                     dtype=torch.long, device=dev)
+    sl = torch.full((B,), cfg.max_seq_a_len, device=dev)
+    fcfg = cfg.replace(token_filter_keep=0.5)
+    with _engine(fused=True):
+        ops.reset_counts()
+        res = TD.generate(model, imgs, od, None, sl, fcfg, _opts(fcfg))
+        torch.cuda.synchronize()
+        got = dict(ops.launch_counts(), **ops.mode_counts())
+        want = {**FUSED_PER_BATCH, **{k: 0 for k in ops.mode_counts()},
+                **FILTERED_LONG}
+        log(f"[highres] token_filter_keep=0.5 batch launches {got}")
+        if got != want:
+            raise AssertionError(f"filtered batch launches {got} != {want}")
+        if res["ids"].shape != (B, 1, cfg.max_gen_length) or not bool(
+                (res["ids"][:, 0, 0] == cfg.cls_token_id).all()):
+            raise AssertionError("filtered batch: bad ids")
+        enc = TM.encode_images(model, imgs, fcfg)
+        if enc["visual"].shape != (B, 513, cfg.hidden_size):
+            raise AssertionError(f"filtered visual {enc['visual'].shape}")
+        out["filtered_launches"] = got
+        opts = _opts(cfg)
+        out["encode_ms"] = _median_ms(lambda: TM.encode_images(model, imgs,
+                                                               cfg))
+        out["filtered_encode_ms"] = _median_ms(
+            lambda: TM.encode_images(model, imgs, fcfg))
+        prefill = _median_ms(lambda: TD.build_decode_context(
+            model, imgs, od, None, sl, cfg, opts))
+        log(f"[profile] 512 px: encode {out['encode_ms']:.3f} ms "
+            f"(filtered 0.5: {out['filtered_encode_ms']:.3f} ms), encode + "
+            f"prefill {prefill:.3f} ms")
+        out["profile_fused"] = _profile_batch(
+            "greedy_fused_512", lambda: TD.generate(model, imgs, od, None,
+                                                    sl, cfg, opts), prefill)
+    log(f"[highres] 512 px greedy captions/s: eager "
+        f"{out['greedy_eager']['captions_per_s']:.2f}, fused "
+        f"{out['greedy_fused']['captions_per_s']:.2f} (B={B}, bf16) on "
+        f"{smi}")
+    del model
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def phase_highres_parity(dev):
+    """f32, B=2, the full flagship built for 384 px on 512x512 images, card
+    vs CPU: tag logits within 1e-3 relative and greedy ids equal on both
+    engines, with 18 long attention launches on the card."""
+    from vitcap_tpu_torch import ops
+    from vitcap_tpu_torch.models import decode as TD
+    from vitcap_tpu_torch.models.config import ModelConfig
+    from vitcap_tpu_torch.models.vitcap import init_params
+    cfg = ModelConfig()
+    cpu_model = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    rs = np.random.RandomState(SEED + 16)
+    imgs = torch.from_numpy(rs.randint(0, 256, (2, HIGHRES, HIGHRES, 3))
+                            .astype(np.uint8))
+    od_len = cfg.max_seq_len - cfg.max_seq_a_len
+    opts = _opts(cfg)
+
+    def run(model, d):
+        return TD.generate(model, imgs.to(d),
+                           torch.zeros(2, od_len, dtype=torch.long, device=d),
+                           None, torch.tensor([cfg.max_seq_a_len + 3,
+                                               cfg.max_seq_a_len + 40],
+                                              device=d), cfg, opts)
+    out = {}
+    for name, fused in (("eager", False), ("fused", True)):
+        with _engine(fused):
+            ref = run(cpu_model, "cpu")
+            ops.reset_counts()
+            got = run(gpu_model, dev)
+            torch.cuda.synchronize()
+        n_long = ops.mode_counts()["attention[long]"]
+        a, b = got["tag_logits"].float().cpu(), ref["tag_logits"].float()
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        same = torch.equal(got["ids"].cpu(), ref["ids"])
+        log(f"[highres-parity] {name:5s} tag_logits max rel err {rel:.3e}; "
+            f"greedy ids GPU == CPU: {same} ({ref['ids'].numel()} ids); "
+            f"long attention launches {n_long}")
+        if not (torch.isfinite(a).all() and rel <= 1e-3):
+            raise AssertionError(f"highres parity {name}: rel {rel:.3e}")
+        if not same:
+            raise AssertionError(f"highres parity {name}: ids differ")
+        if n_long != LONG["attention[long]"]:
+            raise AssertionError(f"highres parity {name}: {n_long} long "
+                                 f"attention launches, not {LONG}")
+        out[name] = {"tag_logits_rel": rel, "ids_equal": same}
     return out
 
 
@@ -1348,21 +1614,29 @@ def main() -> int:
     del train_run
     torch.cuda.empty_cache()
     log(f"[train] phases took {time.perf_counter() - t_train:.1f} s")
+    t_high = time.perf_counter()
+    phase_highres_kernels(dev, rows)
+    phase_highres_blocks(dev, rows)
+    high_counts, high = phase_highres_path(dev, smi)
+    high["parity"] = phase_highres_parity(dev)
+    log(f"[highres] phases took {time.perf_counter() - t_high:.1f} s")
 
     for name, n in counts.items():
         if n == 0 and name != "attention_bwd":
             raise AssertionError(f"{name}: no launch on the beam path")
     for name, n in train_counts.items():
-        if n == 0 and name != "decode_attention":
+        if n == 0 and name not in ("decode_attention", "attention[long]"):
             raise AssertionError(f"{name}: no launch on the train path")
-    kernels = summarise(rows, counts, train_counts)
+    kernels = summarise(rows, counts, dict(
+        train_counts, **{"attention[long]": high_counts["attention[long]"]}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "rows": rows, "greedy_path": greedy,
          "greedy_launches": greedy_counts, "beam_path": beam,
          "launches": counts, "train": train, "train_launches": train_counts,
-         "profile": prof, "kernels": kernels}, indent=1))
+         "profile": prof, "highres": high, "highres_launches": high_counts,
+         "kernels": kernels}, indent=1))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

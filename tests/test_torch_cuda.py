@@ -425,3 +425,51 @@ def test_cuda_train_blocks_match_cpu(cuda, dtype):
             err = (got - want).abs().max().item()
             assert err <= 5e-2 * max(want.abs().max().item(), 1e-3 * top), \
                 err
+
+
+# ---------------------------------------------------------------------------
+# past 1024 padded tokens (K10: 512-px inputs)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_attention_long_matches_plain(cuda, dtype):
+    """Lp = 1152 at the flagship head size: the ViT case (l_actual 1025, no
+    bias) and the prefill case (l_actual 1076, the (B, 1, Lp, Lp) f32 bias
+    with -10000 on od keys for the visual rows); each launch counts as
+    long."""
+    g = torch.Generator().manual_seed(11)
+    B, Lp, nh = 2, 1152, 12
+    slab = torch.randn(B, Lp, 3 * nh * 64, generator=g).to(cuda, dtype)
+    bias = torch.zeros(B, 1, Lp, Lp)
+    bias[:, :, 50:, :50] = -10000.0
+    bias[:, :, :50, 7:50] = -10000.0
+    bias = bias.to(cuda)
+    ops.reset_counts()
+    for L, bb in ((1025, None), (1076, bias)):
+        _close(attention(slab, nh, L, bb), attention_plain(slab, nh, L, bb),
+               dtype)
+    assert ops.mode_counts()["attention[long]"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_fused_blocks_long_match_plain_blocks(cuda, dtype):
+    """Both inference blocks at L = 1025 / 1076 (Lp 1152), H = 128 in 2
+    heads of 64, against the plain blocks on the card."""
+    cfg = tiny_config(hidden_size=128, num_attention_heads=2,
+                      intermediate_size=512)
+    model = init_params(cfg, torch.Generator().manual_seed(0), cuda)
+    g = torch.Generator().manual_seed(2)
+    blk, layer = model.bert.encoder.blocks[0], model.bert.decoder.layer[0]
+    x = torch.randn(2, 1025, 128, generator=g).to(cuda, dtype)
+    ops.reset_counts()
+    _close(fused_vit_block(blk, x, 2, 1e-6),
+           TL._vit_block_plain(blk, x, 2, 1e-6), dtype)
+    xb = torch.randn(2, 1076, 128, generator=g).to(cuda, dtype)
+    bias = torch.zeros(2, 1, 1076, 1076, device=cuda)
+    bias[:, :, 50:, :50] = -10000.0
+    _close(fused_bert_block(layer, xb, bias, 2, 1e-12),
+           TL._bert_layer_plain(layer, xb, bias, 2, 1e-12), dtype)
+    assert ops.launch_counts()["attention"] == 2
+    assert ops.mode_counts()["attention[long]"] == 2

@@ -22,6 +22,7 @@ from vitcap_tpu.ops.flash_attention import _xla_attention
 from vitcap_tpu_torch import ops
 from vitcap_tpu_torch.models import config as TC
 from vitcap_tpu_torch.models import decode as TD
+from vitcap_tpu_torch.models import layers as TL
 from vitcap_tpu_torch.models import vitcap as TM
 from vitcap_tpu_torch.ops import fused_block as TF
 from vitcap_tpu_torch.ops.attention import attention
@@ -217,7 +218,6 @@ def test_fused_bert_block_matches_jax_bf16(width):
 def test_fused_block_weight_cache_follows_loads():
     """bf16 weights are cast once per module; loading new weights into the
     module remakes them."""
-    from vitcap_tpu_torch.models import layers as TL
     _, _, model = _models()
     blk = model.bert.encoder.blocks[0]
     x = torch.randn(2, 70, 32, generator=torch.Generator().manual_seed(0)) \
@@ -235,10 +235,41 @@ def test_fused_block_weight_cache_follows_loads():
 
 
 def test_fused_blocks_refuse_long_inputs():
+    """Only the train blocks stop at 1024 padded tokens; a pre-padded
+    long input must be 128-aligned, as the TPU package's q-tiled kernels
+    need."""
     _, _, model = _models()
+    blk = model.bert.encoder.blocks[0]
     with pytest.raises(NotImplementedError):
-        TF.fused_vit_block(model.bert.encoder.blocks[0],
-                           torch.zeros(1, 1100, 32), 4, 1e-6)
+        TF.split_vit_block_train(blk, torch.zeros(1, 1152, 32), 4, 1e-6)
+    with pytest.raises(NotImplementedError):
+        TF.train_lp(1100)
+    with pytest.raises(ValueError):
+        TF.fused_vit_block(blk, torch.zeros(1, 1040, 32), 4, 1e-6,
+                           l_actual=1030)
+
+
+def test_fused_blocks_accept_long_inputs():
+    """The inference blocks at L = 1100 (Lp 1152) equal the plain blocks."""
+    _, _, model = _models()
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(1, 1100, 32, generator=g)
+    blk, layer = model.bert.encoder.blocks[0], model.bert.decoder.layer[0]
+    out = TF.fused_vit_block(blk, x, 4, 1e-6)
+    ref = TL._vit_block_plain(blk, x, 4, 1e-6)
+    assert out.shape == x.shape
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=2e-5,
+                               atol=2e-5)
+    pre = TF.fused_vit_block(blk, torch.nn.functional.pad(x, (0, 0, 0, 52)),
+                             4, 1e-6, l_actual=1100)
+    np.testing.assert_allclose(pre[:, :1100].numpy(), ref.numpy(),
+                               rtol=2e-5, atol=2e-5)
+    bias = torch.where(torch.rand(1, 1, 1100, 1100, generator=g) > 0.3, 0.0,
+                       -10000.0)
+    out = TF.fused_bert_block(layer, x, bias, 4, 1e-12)
+    ref = TL._bert_layer_plain(layer, x, bias, 4, 1e-12)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=2e-5,
+                               atol=2e-5)
 
 
 # ---------------------------------------------------------------------------

@@ -134,13 +134,13 @@ def test_generate_greedy_matches_jax(setup, interpret):
 
 def test_generate_refuses_unported_options(setup):
     """Every DecodeOptions field is ported (tests/test_torch_decode.py);
-    what generate still refuses: images whose patch grid differs from the
-    pos-embed grid (pos-embed interpolation is not ported yet), and a
-    kv_cache_quant other than 'none' / 'int8'."""
+    what generate still refuses: images whose patch count is not a square
+    (the pos-embed grid cannot be resized to it), and a kv_cache_quant
+    other than 'none' / 'int8'."""
     s = setup
     imgs, od, sl = _torch_inputs(s)
-    with pytest.raises(NotImplementedError):
-        TD.generate(s["model"], imgs[:, :96, :96].contiguous(), od, None, sl,
+    with pytest.raises(ValueError, match="square"):
+        TD.generate(s["model"], imgs[:, :, :96].contiguous(), od, None, sl,
                     s["cfg"], s["opts_t"])
     with pytest.raises(ValueError):
         TD.generate(s["model"], imgs, od, None, sl,

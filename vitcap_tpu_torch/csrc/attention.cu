@@ -34,6 +34,12 @@
 // - f32 (exact f32, no TF32): CUDA cores, one thread per query row with q
 //   and the output accumulator in registers, K/V tiles staged as f32 in
 //   shared memory (broadcast reads), online softmax over chunks of 16 keys.
+// Neither kernel's shared memory nor its grid depends on Lp beyond the
+// number of query tiles, and every offset into the slab, the bias and the
+// output is a size_t product, so the same kernels serve the TPU package's
+// long-sequence whole-block kernels (K10: fused_block.py:125 _block_kernel,
+// :470 _bert_kernel, Lp > 1024, e.g. 1152 at 512 px, B = 64: 85M bias
+// entries).  There the work grows as Lp^2 and stays compute-bound.
 // Head sizes are padded up to a compiled size (64 or 128 on the tensor
 // cores; 16, 32, 64 or 128 on the CUDA cores) with zeros, which leaves the
 // dot products unchanged.

@@ -64,7 +64,8 @@ class ModelConfig:
     focal_gamma: float = 1.0
     tag_loss_weight: float = 0.0
 
-    # attention-aware token filtering (opt-in; not ported yet)
+    # attention-aware token filtering (opt-in): keep this share of the
+    # patch tokens before trunk block token_filter_block
     token_filter_keep: float = 0.0
     token_filter_block: int = 2
 

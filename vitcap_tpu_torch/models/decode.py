@@ -85,13 +85,17 @@ def build_context_embeddings(model: M.ViTCAP, images: torch.Tensor,
                              od_ids: torch.Tensor,
                              od_token_type_ids: Optional[torch.Tensor],
                              seq_len: torch.Tensor, cfg: ModelConfig,
-                             opts: DecodeOptions) -> Dict[str, Any]:
+                             opts: DecodeOptions,
+                             visual_token_idx: Optional[torch.Tensor] = None
+                             ) -> Dict[str, Any]:
     """Vision + tag selection + the context embeddings [od/tag slots,
-    tagCLS, visual] and their validity mask (B, S_ctx)."""
+    tagCLS, visual] and their validity mask (B, S_ctx).  visual_token_idx
+    (B, keep): the visual tokens kept (TokenSample, see
+    vitcap.encode)."""
     B, od_len = od_ids.shape
     dtype = cfg.compute_dtype
     dev = od_ids.device
-    enc = M.encode_images(model, images, cfg)
+    enc = M.encode_images(model, images, cfg, visual_token_idx)
     pos0 = max(opts.od_labels_start_posid, opts.max_length)
     pos = (torch.arange(od_len, device=dev) + pos0).expand(B, od_len)
     if od_token_type_ids is None:
@@ -175,9 +179,10 @@ def build_decode_context(model: M.ViTCAP, images: torch.Tensor,
                          od_token_type_ids: Optional[torch.Tensor],
                          seq_len: torch.Tensor, cfg: ModelConfig,
                          opts: DecodeOptions,
+                         visual_token_idx: Optional[torch.Tensor] = None,
                          layout: Optional[str] = None) -> Dict[str, Any]:
-    """build_context_embeddings + the decoder K/V prefill over the static
-    context.
+    """build_context_embeddings (with visual_token_idx) + the decoder K/V
+    prefill over the static context.
 
     layout=None picks as _pick_layout(cfg) does.
     'heads': per-layer (B, nH, S_ctx, hd) lists (int8 dicts under
@@ -197,7 +202,7 @@ def build_decode_context(model: M.ViTCAP, images: torch.Tensor,
                          f"'int8'")
     quant = layout == "heads" and cfg.kv_cache_quant == "int8"
     ce = build_context_embeddings(model, images, od_ids, od_token_type_ids,
-                                  seq_len, cfg, opts)
+                                  seq_len, cfg, opts, visual_token_idx)
     ctx, ctx_valid, od_len = ce["ctx"], ce["ctx_valid"], ce["od_len"]
     B, S_ctx, _ = ctx.shape
     dev = ctx.device
@@ -579,17 +584,19 @@ def generate_greedy(model: M.ViTCAP, images: torch.Tensor,
                     seq_len: torch.Tensor, cfg: ModelConfig,
                     opts: DecodeOptions,
                     rng: Optional[torch.Generator] = None,
-                    ctx: Optional[Dict[str, Any]] = None
+                    ctx: Optional[Dict[str, Any]] = None,
+                    visual_token_idx: Optional[torch.Tensor] = None
                     ) -> Dict[str, torch.Tensor]:
     """No-beam decode, greedy or sampled.  Returns ids (B[, nrs], 1 or
     nrs, max_length), logprobs, per-step token logprobs (Bb, A-1), the raw
     argmax/sampled tokens, tag logits and the selected concept ids.  `ctx`
-    (build_decode_context) may be given to reuse a context."""
+    (build_decode_context) may be given to reuse a context; else one is
+    built, on the visual_token_idx subset when given."""
     A = opts.max_length
     nrs = opts.num_return_sequences
     if ctx is None:
         ctx = build_decode_context(model, images, od_ids, od_token_type_ids,
-                                   seq_len, cfg, opts)
+                                   seq_len, cfg, opts, visual_token_idx)
     B = _ctx_batch(ctx)
     Bb = B * nrs
     dev = ctx["ctx_valid"].device
@@ -685,22 +692,24 @@ def generate_beam(model: M.ViTCAP, images: torch.Tensor,
                   seq_len: torch.Tensor, cfg: ModelConfig,
                   opts: DecodeOptions,
                   rng: Optional[torch.Generator] = None,
-                  ctx: Optional[Dict[str, Any]] = None
+                  ctx: Optional[Dict[str, Any]] = None,
+                  visual_token_idx: Optional[torch.Tensor] = None
                   ) -> Dict[str, torch.Tensor]:
     """Beam search with the reference's semantics: 2 candidates per beam;
     EOS candidates (and at the last step every candidate) go to a
     num_keep_best-sized hypothesis store scored sum_logprob / len^penalty;
     a batch row is done once its store is full and no candidate can beat
     its worst entry; done rows freeze.  do_sample=True takes the
-    sampled-beam branch (sample_beam_candidates).  Returns ids (B, K, A)
-    and logprobs (B, K), K = num_keep_best."""
+    sampled-beam branch (sample_beam_candidates).  `ctx` and
+    visual_token_idx as in generate_greedy.  Returns ids (B, K, A) and
+    logprobs (B, K), K = num_keep_best."""
     A = opts.max_length
     nb = opts.num_beams
     K = opts.num_keep_best
     lp_pow = opts.length_penalty
     if ctx is None:
         ctx = build_decode_context(model, images, od_ids, od_token_type_ids,
-                                   seq_len, cfg, opts)
+                                   seq_len, cfg, opts, visual_token_idx)
     B = _ctx_batch(ctx)
     Bb = B * nb
     dev = ctx["ctx_valid"].device
@@ -816,16 +825,21 @@ def generate_beam(model: M.ViTCAP, images: torch.Tensor,
 def generate(model: M.ViTCAP, images: torch.Tensor, od_ids: torch.Tensor,
              od_token_type_ids: Optional[torch.Tensor],
              seq_len: torch.Tensor, cfg: ModelConfig, opts: DecodeOptions,
-             rng: Optional[torch.Generator] = None
+             rng: Optional[torch.Generator] = None,
+             visual_token_idx: Optional[torch.Tensor] = None
              ) -> Dict[str, torch.Tensor]:
     """Dispatch like the reference `generate`: beam search for
     num_beams > 1, else greedy or sampling.  `rng` is the generator
-    sampling draws from (on the images' device; default seed 0)."""
+    sampling draws from (on the images' device; default seed 0);
+    visual_token_idx (B, keep) the visual tokens the encoder keeps
+    (TokenSample, vitcap.sample_visual_token_idx)."""
     if opts.num_beams > 1:
         return generate_beam(model, images, od_ids, od_token_type_ids,
-                             seq_len, cfg, opts, rng)
+                             seq_len, cfg, opts, rng,
+                             visual_token_idx=visual_token_idx)
     return generate_greedy(model, images, od_ids, od_token_type_ids,
-                           seq_len, cfg, opts, rng)
+                           seq_len, cfg, opts, rng,
+                           visual_token_idx=visual_token_idx)
 
 
 def prod_generate(model: M.ViTCAP, image: torch.Tensor, cfg: ModelConfig,

@@ -20,7 +20,8 @@ the embeddings draw Bernoulli masks from a torch.Generator.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import math
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -234,6 +235,24 @@ def vit_block_cls_only(p: ViTBlock, x: torch.Tensor, num_heads: int,
     return x0 + vit_mlp(p.mlp, layer_norm(p.norm2, x0, ln_eps))
 
 
+def cls_attention_scores(p: ViTBlock, x: torch.Tensor, num_heads: int,
+                         ln_eps: float) -> torch.Tensor:
+    """CLS-row attention mass of a ViT block over its input, (B, L) f32,
+    averaged over the heads: the token-importance signal of the
+    attention-aware token filter (one query row, no value product)."""
+    B, L, H = x.shape
+    hd = H // num_heads
+    y = layer_norm(p.norm1, x, ln_eps)
+    w = p.attn.qkv.weight.to(x.dtype)
+    b = p.attn.qkv.bias.to(x.dtype)
+    q = y[:, :1] @ w[:H].t() + b[:H]
+    k = y @ w[H:2 * H].t() + b[H:2 * H]
+    qh = q.reshape(B, 1, num_heads, hd).transpose(1, 2).float()
+    kh = k.reshape(B, L, num_heads, hd).transpose(1, 2).float()
+    s = (qh @ kh.transpose(-1, -2)) * (hd ** -0.5)        # (B, h, 1, L)
+    return torch.softmax(s, dim=-1).mean(1)[:, 0]
+
+
 def patch_embed(p: nn.Conv2d, images: torch.Tensor,
                 compute_dtype: Optional[torch.dtype] = None,
                 mean: float = 0.5, std: float = 0.5) -> torch.Tensor:
@@ -273,19 +292,66 @@ def patchify_host(image_hwc: np.ndarray, patch: int) -> np.ndarray:
     return np.ascontiguousarray(x).reshape(gh * gw, patch * patch * C)
 
 
+def interpolate_pos_embed(pos_embed: torch.Tensor,
+                          new_grid: Tuple[int, int],
+                          old_grid: Tuple[int, int]) -> torch.Tensor:
+    """Bicubic resize of a (1, 1 + gh*gw, H) pos-embed's grid part to
+    new_grid, the CLS slot kept (the reference's vision_transformer.py:
+    416-421, F.interpolate bicubic with align_corners=False), computed in
+    f32."""
+    if tuple(new_grid) == tuple(old_grid):
+        return pos_embed
+    H = pos_embed.shape[-1]
+    grid = pos_embed[:, 1:].float().reshape(1, old_grid[0], old_grid[1], H)
+    grid = F.interpolate(grid.permute(0, 3, 1, 2), size=tuple(new_grid),
+                         mode="bicubic", align_corners=False)
+    grid = grid.permute(0, 2, 3, 1).reshape(1, new_grid[0] * new_grid[1], H)
+    return torch.cat([pos_embed[:, :1].float(), grid], dim=1)
+
+
+def _square_grid(n: int, what: str) -> int:
+    g = math.isqrt(n)
+    if g * g != n:
+        raise ValueError(f"pos-embed interpolation needs a square grid; "
+                         f"{what} has {n} patches")
+    return g
+
+
+def _pos_embed_for(p, n_patches: int, dtype: torch.dtype) -> torch.Tensor:
+    """p.pos_embed resized to a square grid of n_patches (interpolated in
+    f32, then cast to dtype).  Without a gradient to carry, the resized
+    table is cached on p, keyed by the parameter's storage and version, the
+    grid and the dtype, so serving resizes once per load."""
+    pe = p.pos_embed
+    old_n = pe.shape[1] - 1
+    if old_n == n_patches:
+        return pe.to(dtype)
+    g_old = _square_grid(old_n, "the pos-embed")
+    g_new = _square_grid(n_patches, "the input")
+    if torch.is_grad_enabled() and pe.requires_grad:
+        return interpolate_pos_embed(pe, (g_new, g_new),
+                                     (g_old, g_old)).to(dtype)
+    stamp = (pe.data_ptr(), pe._version, g_new, dtype)
+    hit = p.__dict__.get("_pos_embed_resized")
+    if hit is None or hit[0] != stamp:
+        with torch.no_grad():
+            hit = (stamp, interpolate_pos_embed(pe, (g_new, g_new),
+                                                (g_old, g_old)).to(dtype))
+        p.__dict__["_pos_embed_resized"] = hit
+    return hit[1]
+
+
 def vision_embed(p, images: torch.Tensor, patch_size: int,
                  compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """patch embed + CLS + pos-embed.  p holds patch_embed.proj, cls_token
-    and pos_embed.  The pos-embed grid must match the input's."""
+    and pos_embed.  A pos-embed made for another square grid is resized
+    bicubically to the input's (interpolate_pos_embed); a token count that
+    is not a square raises ValueError."""
     tokens = patch_embed(p.patch_embed.proj, images, compute_dtype)
     B, N, H = tokens.shape
-    if p.pos_embed.shape[1] - 1 != N:
-        raise NotImplementedError(
-            f"pos-embed holds {p.pos_embed.shape[1] - 1} patches, input has "
-            f"{N}: pos-embed interpolation is not ported yet")
     cls_tok = p.cls_token.to(tokens.dtype).expand(B, 1, H)
     x = torch.cat([cls_tok, tokens], dim=1)
-    return x + p.pos_embed.to(x.dtype)
+    return x + _pos_embed_for(p, N, x.dtype)
 
 
 # ---------------------------------------------------------------------------

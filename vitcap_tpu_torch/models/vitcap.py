@@ -27,8 +27,9 @@ from ..ops.fused_block import pad_len, train_lp
 from .config import ModelConfig
 from .layers import (NEG_MASK_VALUE, BertEmbeddings, BertLayer,
                      LMPredictionHead, ViTBlock, _Group, _linear, _train_call,
-                     bert_embeddings, bert_layer, bert_pooler, lm_head,
-                     vision_embed, vit_block, vit_block_cls_only)
+                     bert_embeddings, bert_layer, bert_pooler,
+                     cls_attention_scores, lm_head, vision_embed, vit_block,
+                     vit_block_cls_only)
 from .losses import focal_neg_loss
 
 
@@ -98,40 +99,68 @@ def split_encoder(model: ViTCAP, visual_in: torch.Tensor, cfg: ModelConfig
     """The trunk blocks; fork at depth - split_blocks into the tag branch,
     whose last block computes only the CLS row.  The token axis is padded
     once (pad_len) for the fused or train blocks and sliced back at the
-    end.  cfg.use_remat recomputes each block in the backward
-    (torch.utils.checkpoint) instead of keeping its residuals.
+    end.  cfg.token_filter_keep > 0 keeps that share of the patch tokens
+    (by CLS attention, _filter_tokens_by_attention) before trunk block
+    cfg.token_filter_block; the pad is then redone for the new length, and
+    the tag branch keeps the length it forked with.  cfg.use_remat
+    recomputes each block in the backward (torch.utils.checkpoint) instead
+    of keeping its residuals.
 
     Returns (caption_hidden (B, V, H), tag_cls (B, 1, H))."""
     sd = cfg.attention_scores_dtype
     nh, eps = cfg.num_attention_heads, cfg.vit_layer_norm_eps
 
-    def block(blk, x):
+    def block(blk, x, l_actual):
         if cfg.use_remat and _train_call(blk, x):
             return checkpoint(vit_block, blk, x, nh, eps, scores_dtype=sd,
                               l_actual=l_actual, use_reentrant=False)
         return vit_block(blk, x, nh, eps, scores_dtype=sd, l_actual=l_actual)
-    L = visual_in.shape[1]
-    train_lp(L)                            # past 1024 tokens: not ported
-    pad = pad_len(L) - L
-    l_actual = L if pad else 0
-    x = F.pad(visual_in, (0, 0, 0, pad)) if pad else visual_in
+
+    def padded(x):
+        """(x padded to pad_len, its true length, the pad)."""
+        L = x.shape[1]
+        pad = pad_len(L) - L
+        return (F.pad(x, (0, 0, 0, pad)) if pad else x), L, pad
+
+    x, L, pad = padded(visual_in)
     fork_at = cfg.num_hidden_layers - cfg.split_blocks
     enc = model.bert.encoder
-    tag_x = None
+    tag_x, tag_L, tag_pad = None, L, pad
     for idx, blk in enumerate(enc.blocks):
+        if cfg.token_filter_keep and idx == cfg.token_filter_block:
+            x, L, pad = padded(_filter_tokens_by_attention(blk, x[:, :L],
+                                                            cfg))
         if idx == fork_at:
-            tag_x = x
-        x = block(blk, x)
+            tag_x, tag_L, tag_pad = x, L, pad
+        x = block(blk, x, L if pad else 0)
     for blk in list(enc.tag_blocks)[:-1]:
-        tag_x = block(blk, tag_x)
+        tag_x = block(blk, tag_x, tag_L if tag_pad else 0)
     if pad:
         x = x[:, :L]
-        tag_x = tag_x[:, :L] if tag_x is not None else None
+    if tag_x is not None and tag_pad:
+        tag_x = tag_x[:, :tag_L]
     if len(enc.tag_blocks):
         tag_cls = vit_block_cls_only(enc.tag_blocks[-1], tag_x, nh, eps, sd)
     else:
         tag_cls = tag_x[:, :1]
     return x, tag_cls
+
+
+def _filter_tokens_by_attention(blk: ViTBlock, x: torch.Tensor,
+                                cfg: ModelConfig) -> torch.Tensor:
+    """Attention-aware token filtering: keep CLS and the
+    ceil(keep * n_patch) patch tokens with the highest CLS attention mass
+    under the upcoming block, in their original order.  Ties go to the
+    lower index (exact_top_k), as lax.top_k sends them."""
+    from .decode import exact_top_k
+    B, L, H = x.shape
+    scores = cls_attention_scores(blk, x, cfg.num_attention_heads,
+                                  cfg.vit_layer_norm_eps)
+    n_keep = int(math.ceil(cfg.token_filter_keep * (L - 1)))
+    _, idx = exact_top_k(scores[:, 1:], n_keep)
+    idx = torch.sort(idx, dim=1).values + 1
+    idx = torch.cat([torch.zeros_like(idx[:, :1]), idx], dim=1)
+    return x.gather(1, idx[..., None].expand(B, idx.shape[1], H))
 
 
 def tag_logits_from_hidden(model: ViTCAP, tag_hidden: torch.Tensor,
@@ -154,17 +183,37 @@ def select_tags(tag_logits: torch.Tensor, cfg: ModelConfig
     return top_idx, top_prob, n_conf
 
 
-def encode(model: ViTCAP, images: torch.Tensor, cfg: ModelConfig
+def sample_visual_token_idx(generator: torch.Generator, batch: int,
+                            n_tokens: int, keep: int) -> torch.Tensor:
+    """TokenSample: a random subset of `keep` of the n_tokens visual tokens
+    per row, token 0 (CLS) always first, the rest in the order of their
+    uniform draws from `generator` (on its device), as the TPU package
+    draws them from jax.random.  Returns (batch, keep) int64 indices."""
+    from .decode import exact_top_k
+    u = torch.rand((batch, n_tokens - 1), generator=generator,
+                   device=generator.device)
+    _, idx = exact_top_k(u, keep - 1)
+    return torch.cat([torch.zeros_like(idx[:, :1]), idx + 1], dim=1)
+
+
+def encode(model: ViTCAP, images: torch.Tensor, cfg: ModelConfig,
+           visual_token_idx: Optional[torch.Tensor] = None
            ) -> Dict[str, torch.Tensor]:
     """Vision once: patch embed -> split encoder -> tag logits + selection.
     uint8 images keep their bytes (the normalisation folds into the patch
-    projection); float images are cast to the compute dtype.  Gradients
-    flow when the parameters require them (the training forward)."""
+    projection); float images are cast to the compute dtype.
+    visual_token_idx (B, keep): the token subset (TokenSample) the trunk
+    runs on, taken after the pos-embed.  Gradients flow when the
+    parameters require them (the training forward)."""
     dtype = cfg.compute_dtype
     if images.dtype != torch.uint8:
         images = images.to(dtype)
     visual_in = vision_embed(model.image_encoder.module, images,
                              cfg.patch_size, compute_dtype=dtype)
+    if visual_token_idx is not None:
+        idx = visual_token_idx.to(visual_in.device).long()
+        visual_in = visual_in.gather(
+            1, idx[..., None].expand(*idx.shape, visual_in.shape[-1]))
     cap_hidden, tag_cls = split_encoder(model, visual_in, cfg)
     tag_logits = tag_logits_from_hidden(model, tag_cls, cfg)
     pred_topk, tag_probs, n_conf = select_tags(tag_logits, cfg)
@@ -174,10 +223,11 @@ def encode(model: ViTCAP, images: torch.Tensor, cfg: ModelConfig
 
 
 @torch.inference_mode()
-def encode_images(model: ViTCAP, images: torch.Tensor, cfg: ModelConfig
+def encode_images(model: ViTCAP, images: torch.Tensor, cfg: ModelConfig,
+                  visual_token_idx: Optional[torch.Tensor] = None
                   ) -> Dict[str, torch.Tensor]:
     """encode() for serving, under inference mode."""
-    return encode(model, images, cfg)
+    return encode(model, images, cfg, visual_token_idx)
 
 
 def caption_logits(model: ViTCAP, hidden: torch.Tensor, cfg: ModelConfig

@@ -30,7 +30,8 @@ def launch_counts() -> Dict[str, int]:
 
 
 def mode_counts() -> Dict[str, int]:
-    """Launches of the train modes of gemm, layer_norm and attention (the
-    K6 / K7 / K8-forward extensions), as 'kernel[mode]'."""
+    """Launches of the modes of gemm, layer_norm and attention (the K6 / K7
+    / K8-forward extensions, and attention past 1024 padded tokens for
+    K10), as 'kernel[mode]'."""
     return {f"{name}[{k}]": n for name, m in KERNELS.items()
             for k, n in getattr(m, "mode_launches", {}).items()}

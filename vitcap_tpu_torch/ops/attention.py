@@ -20,6 +20,10 @@ With ``rate`` > 0 it is also the train forward of K8
 dropout on the unnormalised exp(s - m), keep bits from ops/dropout.py
 (lattice (query row, key column), salt b * nh + h), kept values times
 1 / (1 - rate) in f32 before the rounding; l stays the undropped sum.
+
+Past 1024 padded tokens it is also the attention of K10 (vitcap_tpu/ops/
+fused_block.py:125 _block_kernel and :470 _bert_kernel, whose q-tiled
+softmax is the same function); mode_launches["long"] counts those launches.
 """
 
 from __future__ import annotations
@@ -32,7 +36,10 @@ from . import _build, dropout
 
 NEG = -1e30
 launches = 0
-mode_launches = {"dropout": 0}    # launches with prob dropout
+MAX_LP = 1024       # the TPU package's longest single-q-tile length;
+                    # longer slabs are K10's (its q-tiled kernels)
+mode_launches = {"dropout": 0,    # launches with prob dropout
+                 "long": 0}       # launches with Lp > MAX_LP
 
 
 def attention_plain(slab: torch.Tensor, num_heads: int, l_actual: int,
@@ -109,4 +116,5 @@ def attention(slab: torch.Tensor, num_heads: int, l_actual: int,
     global launches
     launches += 1
     mode_launches["dropout"] += rate > 0.0
+    mode_launches["long"] += Lp > MAX_LP
     return out

@@ -8,8 +8,14 @@ bias | [out-dense + post-LN1 + MLP + post-LN2]).  Each block launches 4 gemm,
 2 layer_norm and 1 attention kernel on a CUDA device; on the CPU the same
 composition runs the kernels' plain versions.
 
-Only single-q-tile lengths (Lp <= 1024) exist here; the TPU package's
-monolithic q-tiled kernels for longer inputs are not ported yet.
+Past 1024 padded tokens (a 512-px image: 1025 tokens, Lp 1152) the same
+composition stands for the TPU package's monolithic q-tiled kernels (K10:
+_block_kernel, reached through _fused_block_fwd, and _bert_kernel, through
+_fused_bert_fwd).  Those compute what the split kernels compute, rounded at
+the same points, with the queries tiled by 128 to bound the TPU's f32 score
+slab; the attention kernel here tiles queries by 64 and streams the keys at
+any length, so nothing of that tiling carries over.  Only the train blocks
+stop at 1024 (train_lp).
 
 Rounding follows the TPU kernels (see ops/gemm.py): the ViT gemms and the
 BERT qkv round each product to the compute dtype and add bias and residual
@@ -41,12 +47,10 @@ import torch
 import torch.nn.functional as F
 
 from . import dropout
-from .attention import attention
+from .attention import MAX_LP, attention
 from .attention_bwd import attention_bwd
 from .gemm import gemm
 from .layer_norm import layer_norm
-
-MAX_LP = 1024
 
 
 def _round_up(x: int, m: int) -> int:
@@ -61,24 +65,24 @@ def pad_len(L: int) -> int:
     return lp if lp <= MAX_LP else _round_up(L, 128)
 
 
-def _check_lp(Lp: int) -> None:
+def _check_train_lp(Lp: int) -> None:
     if Lp > MAX_LP:
         raise NotImplementedError(
-            f"fused blocks cover Lp <= {MAX_LP}; the q-tiled kernels for "
-            f"Lp={Lp} are not ported yet")
+            f"the train blocks cover Lp <= {MAX_LP}; training at Lp={Lp} "
+            f"is not ported yet")
 
 
 def train_lp(L: int) -> int:
     """The one routing predicate of the train blocks: 0 when L < 64 (the
     plain autograd layers take it), else the padded length pad_len(L) that
     the train blocks run at, for the callers that hoist the pad
-    (split_encoder, fusion_decoder) and for vit_block / bert_layer.
-    Raises NotImplementedError past MAX_LP, where the TPU package's
-    q-tiled kernels are not ported yet."""
+    (fusion_decoder) and for vit_block / bert_layer.  Raises
+    NotImplementedError past MAX_LP: the train blocks stop there (the
+    inference blocks do not)."""
     if L < 64:
         return 0
     Lp = pad_len(L)
-    _check_lp(Lp)
+    _check_train_lp(Lp)
     return Lp
 
 
@@ -128,7 +132,7 @@ def fused_vit_block(p, x: torch.Tensor, num_heads: int, ln_eps: float,
     _refuse_grad("fused_vit_block", p, x)
     B, L, H = x.shape
     if l_actual:
-        if L % 16:
+        if L % 16 or (L > MAX_LP and L % 128):
             raise ValueError("pre-padded input must be pad_len-aligned")
         Lp, pad = L, 0
         L = l_actual
@@ -137,7 +141,6 @@ def fused_vit_block(p, x: torch.Tensor, num_heads: int, ln_eps: float,
         pad = Lp - L
         if pad:
             x = F.pad(x, (0, 0, 0, pad))
-    _check_lp(Lp)
     dt = x.dtype
     wqkv, wproj, w1, w2 = _block_weights(p, dt, _vit_weights)
     x2 = x.contiguous().view(B * Lp, H)
@@ -158,7 +161,6 @@ def fused_bert_block(p, x: torch.Tensor, bias: torch.Tensor, num_heads: int,
     _refuse_grad("fused_bert_block", p, x)
     B, L, H = x.shape
     Lp = pad_len(L)
-    _check_lp(Lp)
     pad = Lp - L
     if pad:
         x = F.pad(x, (0, 0, 0, pad))
@@ -221,7 +223,7 @@ def _check_train_shape(name: str, x: torch.Tensor) -> Tuple[int, int, int]:
     if Lp % 16:
         raise ValueError(f"{name} needs a 16-aligned token axis (pre-pad "
                          f"with pad_len)")
-    _check_lp(Lp)
+    _check_train_lp(Lp)
     return B, Lp, H
 
 

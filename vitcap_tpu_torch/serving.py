@@ -87,8 +87,10 @@ class CaptionServer:
     # ------------------------------------------------------------------
 
     def submit(self, image: np.ndarray) -> "Future":
-        """Enqueue one (H, W, 3) model-sized image; returns a Future.
-        uint8 (raw resized RGB bytes) is the recommended feed: the
+        """Enqueue one (H, W, 3) image; returns a Future.  Any size whose
+        patch grid is square serves (the pos-embed is resized to it, e.g.
+        512 px against a 384-px model); the requests of one batch share
+        it.  uint8 (raw resized RGB bytes) is the recommended feed: the
         normalisation folds into the patch projection on the device.  Float
         inputs must already be (x/255 - mean)/std normalised."""
         if self._closed.is_set():
