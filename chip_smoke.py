@@ -28,16 +28,16 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
    engine and beam-3 on the fused one: host-clock times of encode, prefill
    and decode loop, the device's busy time and idle share
    (torch.profiler), and device time by kernel;
-8. training (this slice's path): the train kernels (LayerNorm with stats,
+8. training: the train kernels (LayerNorm with stats,
    the gemm's pre-GELU output and dropout epilogue, attention with prob
    dropout, attention_bwd) vs their plain versions at the flagship train
    shapes, bf16 and f32, with bounds and yardsticks; the ViT and BERT train
-   blocks forward and backward vs the plain autograd blocks; the flagship
+   blocks forward and backward vs the plain blocks; the flagship
    train step (B=64, bf16, attention dropout 0.1): img/s, step ms, peak
    memory, exactly TRAIN_PER_STEP launches per step; one f32 train step
    GPU vs CPU (loss, every gradient, the updated parameters); the profile
    of one flagship step;
-9. high resolution (this slice's path): the flagship model built for 384 px
+9. high resolution: the flagship model built for 384 px
    (a 577-slot pos-embed, resized bicubically) serving 512x512 uint8 images:
    1025 visual tokens padded to 1152 and a 1076-token prefill, past 1024
    where the TPU package runs its q-tiled whole-block kernels (K10).  The
@@ -49,7 +49,21 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
    batch, all 18 attention launches long); one batch with
    token_filter_keep=0.5 (2 of its 18 attention launches long); greedy ids
    GPU vs CPU in f32 (B=2, full flagship, both engines); the profile of one
-   512-px fused batch.
+   512-px fused batch;
+10. 512-px training (this slice's path): the flagship built for 384 px
+   trained on 512x512 images, where every self-attention runs past 1024
+   padded tokens on the plain chain's packed route (K8 on separate q, k,
+   v: ops/flash_attention.py).  The strided attention and attention_bwd
+   kernels at B=64, bf16 and f32 (ViT: views of one (64, 1152, 2304) qkv
+   tensor, l_actual 1025; BERT: separate q, k, v at Lp 1104 with the bias
+   and rate 0.1, l_actual 1096) vs their plain versions, with bounds and
+   yardsticks (SDPA with the float mask and dropout_p, its backward on a
+   retained graph); 6 flagship train steps at B=64 bf16 after one warm-up,
+   each launching exactly TRAIN_512_PER_STEP kernels (19 attention, all
+   non-slab and long; 38 attention_bwd; no gemm or layer_norm): img/s, step
+   ms, peak memory; one f32 train step GPU vs CPU at 512 px (4+2 trunk
+   blocks, 2 decoder layers, B=2, dropout 0.1, same seeds); the profile of
+   one step (idle share, device time by kernel).
 
 The measurements are also written to chiprun_out/chip_smoke.json (and the
 profiles' tables to chiprun_out/profile_<run>.txt).
@@ -102,7 +116,23 @@ TRAIN_PER_STEP = {"gemm": 76, "layer_norm": 38, "attention": 19,
                   "attention_bwd": 38, "decode_attention": 0}
 TRAIN_MODES_PER_STEP = {"gemm[pre_out]": 19, "gemm[dropout]": 8,
                         "layer_norm[stats]": 38, "attention[dropout]": 4,
-                        "attention[long]": 0}
+                        "attention[long]": 0, "attention[non_slab]": 0,
+                        "attention_bwd[dropout]": 8,
+                        "attention_bwd[long]": 0,
+                        "attention_bwd[non_slab]": 0}
+# one 512-px flagship train step: past 1024 padded tokens every
+# self-attention takes the plain chain's packed route (flash_attention_
+# packed): 15 ViT blocks at Lp 1152 (the CLS-only tag block attends from
+# one query, plainly) and 4 decoder layers at Lp 1104 with prob dropout;
+# the dense products and LayerNorms of the plain chain are PyTorch's
+TRAIN_512_PER_STEP = {"gemm": 0, "layer_norm": 0, "attention": 19,
+                      "attention_bwd": 38, "decode_attention": 0}
+TRAIN_512_MODES_PER_STEP = {"gemm[pre_out]": 0, "gemm[dropout]": 0,
+                            "layer_norm[stats]": 0, "attention[dropout]": 4,
+                            "attention[long]": 19, "attention[non_slab]": 19,
+                            "attention_bwd[dropout]": 8,
+                            "attention_bwd[long]": 38,
+                            "attention_bwd[non_slab]": 38}
 HIGHRES = 512                # phase 9's images, against 384-px weights
 LONG = {"attention[long]": 18}          # per 512-px batch: every block
 FILTERED_LONG = {"attention[long]": 2}  # token_filter_keep=0.5: blocks 0, 1
@@ -160,6 +190,20 @@ MODE_SOURCES = {
                       "vitcap_tpu/ops/flash_attention.py:530 "
                       "_bwd_packed_pair_kernel, :600 _bwd_packed_kernel "
                       "(flash_bwd_packed_slab :882, K8 backward)", "vit"),
+    "attention[non_slab]": ("vitcap_tpu_torch/csrc/attention.cu "
+                            "(vitcap_tpu_torch/ops/flash_attention.py)",
+                            "vitcap_tpu/ops/flash_attention.py:670 "
+                            "_flash_fwd_packed (pallas_call :719) -> :484 "
+                            "_fwd_packed_pair_kernel, :452 _fwd_packed_kernel"
+                            " (flash_attention_packed :792, K8 non-slab "
+                            "forward)", "vit 1152"),
+    "attention_bwd[non_slab]": ("vitcap_tpu_torch/csrc/attention_bwd.cu "
+                                "(vitcap_tpu_torch/ops/flash_attention.py)",
+                                "vitcap_tpu/ops/flash_attention.py:734 "
+                                "_flash_bwd_packed (pallas_call :777) -> :530"
+                                " _bwd_packed_pair_kernel, :600 "
+                                "_bwd_packed_kernel (K8 non-slab backward)",
+                                "vit 1152"),
 }
 
 
@@ -775,17 +819,18 @@ def phase_parity(dev):
                 raise AssertionError(f"parity {layout} {key}: ids differ")
 
 
-def _train_batch(cfg, Bn, seed, dev):
+def _train_batch(cfg, Bn, seed, dev, img=None):
     """A batch of the JAX package's bench training line (bench.py:151-164)
-    from a numpy seed: uint8 images, ids in [999, 9000), captions of
-    max_seq_a_len tokens, 3 masked positions, multi-hot labels at 0.2%."""
+    from a numpy seed: uint8 img x img images (default: the model's size),
+    ids in [999, 9000), captions of max_seq_a_len tokens, 3 masked
+    positions, multi-hot labels at 0.2%."""
     rs = np.random.RandomState(seed)
     T, A = cfg.max_seq_len, cfg.max_seq_a_len
+    img = img or cfg.img_size
     masked_pos = np.zeros((Bn, T), np.int64)
     masked_pos[:, 1:4] = 1
     batch = {
-        "image": rs.randint(0, 256, (Bn, cfg.img_size, cfg.img_size, 3))
-                 .astype(np.uint8),
+        "image": rs.randint(0, 256, (Bn, img, img, 3)).astype(np.uint8),
         "input_ids": rs.randint(999, 9000, (Bn, T)),
         "token_type_ids": np.concatenate(
             [np.zeros((Bn, A), np.int64), np.ones((Bn, T - A), np.int64)], 1),
@@ -800,8 +845,9 @@ def _train_batch(cfg, Bn, seed, dev):
 
 def _bert_train_bias(Bn, L, Lp, dev):
     """The flagship decoder's bias at the train shape: 70 text tokens
-    (20 causal caption, 50 od), then tag CLS and 577 visual tokens,
-    padded to Lp (padded keys are masked by l_actual)."""
+    (20 causal caption, 50 od), then tag CLS and the visual tokens (577 at
+    384 px, 1025 at 512 px), padded to Lp (padded keys are masked by
+    l_actual)."""
     from vitcap_tpu_torch.models import vitcap as TM
     from vitcap_tpu_torch.models.config import ModelConfig
     cfg = ModelConfig()
@@ -814,6 +860,22 @@ def _bert_train_bias(Bn, L, Lp, dev):
 
 def _time_pair(fn_kernel, fn_plain, reps=5, plain_reps=3):
     return cuda_ms(fn_kernel, reps), cuda_ms(fn_plain, plain_reps)
+
+
+@contextlib.contextmanager
+def _plain_attention():
+    """models.layers' packed attention route on the kernels' plain PyTorch
+    versions (flash_attention_packed_plain), so a plain block under grad is
+    plain PyTorch throughout: the reference a kernel block is held to."""
+    from vitcap_tpu_torch.models import layers as TL
+    from vitcap_tpu_torch.ops.flash_attention import (
+        flash_attention_packed_plain)
+    kernel = TL.flash_attention_packed
+    TL.flash_attention_packed = flash_attention_packed_plain
+    try:
+        yield
+    finally:
+        TL.flash_attention_packed = kernel
 
 
 def phase_train_kernels(dev, rows):
@@ -978,7 +1040,8 @@ def phase_train_kernels(dev, rows):
 
 def phase_train_blocks(dev, rows):
     """The ViT and BERT train blocks (kernel forward, analytic backward)
-    vs the plain autograd blocks on the card, bf16, B=64 at the flagship
+    vs the plain blocks on the card (autograd, the attention's plain
+    versions: _plain_attention), bf16, B=64 at the flagship
     train shapes: the output (bf16: 2e-2 of the scale), the input gradient
     and every parameter gradient (5e-2: cotangents rounded to bf16 at every
     link; floor of the scale 1e-3 of the block's largest gradient, under
@@ -1016,12 +1079,13 @@ def phase_train_blocks(dev, rows):
 
         def plain():
             xx = x[:, :L].detach().requires_grad_(True)
-            if bias is None:
-                o = TL._vit_block_plain(p, xx, nh, 1e-6)
-            else:
-                o = TL._bert_layer_plain(p, xx, bias[:, :, :L, :L], nh,
-                                         1e-12)
-            (o.float() * co).sum().backward()
+            with _plain_attention():
+                if bias is None:
+                    o = TL._vit_block_plain(p, xx, nh, 1e-6)
+                else:
+                    o = TL._bert_layer_plain(p, xx, bias[:, :, :L, :L], nh,
+                                             1e-12)
+                (o.float() * co).sum().backward()
             return o, xx.grad
 
         params = list(p.parameters())
@@ -1059,11 +1123,13 @@ def phase_train_blocks(dev, rows):
     torch.cuda.empty_cache()
 
 
-def _train_step_flops(cfg, Bn):
+def _train_step_flops(cfg, Bn, img=None):
     """Operations of one train step, the JAX package's count (bench.py
     _train_fwd_flops, 3x the forward): trunk and tag blocks over the visual
-    tokens, decoder layers over text + tag CLS + visual, LM and tag heads."""
-    H, V, I = cfg.hidden_size, cfg.num_visual_tokens, cfg.intermediate_size
+    tokens (of img x img images, default the model's size), decoder layers
+    over text + tag CLS + visual, LM and tag heads."""
+    H, I = cfg.hidden_size, cfg.intermediate_size
+    V = ((img or cfg.img_size) // cfg.patch_size) ** 2 + 1
 
     def block(tokens):
         return 2 * (4 * tokens * H * H + 2 * tokens * tokens * H
@@ -1076,13 +1142,15 @@ def _train_step_flops(cfg, Bn):
     return 3.0 * Bn * fwd
 
 
-def phase_train_step(dev, smi):
+def phase_train_step(dev, smi, img=None, per_step_want=TRAIN_PER_STEP,
+                     modes_want=TRAIN_MODES_PER_STEP, steps=8, tag="train"):
     """The flagship train step (the JAX package's bench training line):
     ModelConfig(dtype='bfloat16', tag_loss_weight=1.0), B=64, attention
-    dropout 0.1, TrainHyper(base_lr=1e-4, max_iter=1000), no probes; one
-    warm-up step, then 8 timed steps, synchronised, each launching exactly
-    TRAIN_PER_STEP kernels (and TRAIN_MODES_PER_STEP of the train modes).
-    Returns the counts of the timed run, the train state and the step."""
+    dropout 0.1, TrainHyper(base_lr=1e-4, max_iter=1000), no probes, on
+    img x img images (default 384); one warm-up step, then `steps` timed
+    steps, synchronised, each launching exactly per_step_want kernels (and
+    modes_want of the kernels' modes).  Returns the counts of the timed run
+    (set to 0 just before it), the results, and the train state and step."""
     from vitcap_tpu_torch import ops
     from vitcap_tpu_torch.models.config import ModelConfig
     from vitcap_tpu_torch.models.vitcap import init_params
@@ -1093,14 +1161,14 @@ def phase_train_step(dev, smi):
     model = init_params(cfg, torch.Generator().manual_seed(SEED), dev)
     state = init_train_state(model, torch.Generator().manual_seed(SEED + 9))
     step = make_train_step(cfg, TrainHyper(base_lr=1e-4, max_iter=1000))
-    batch = _train_batch(cfg, B, SEED + 10, dev)
+    batch = _train_batch(cfg, B, SEED + 10, dev, img)
+    torch.cuda.reset_peak_memory_stats()
     state, m = step(state, batch, False)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
     per_step, losses = [], []
     t0 = time.perf_counter()
-    for _ in range(8):
+    for _ in range(steps):
         before, mb = ops.launch_counts(), ops.mode_counts()
         state, m = step(state, batch, False)
         after, ma = ops.launch_counts(), ops.mode_counts()
@@ -1111,26 +1179,28 @@ def phase_train_step(dev, smi):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = dict(ops.launch_counts(), **ops.mode_counts())
-    want = dict(TRAIN_PER_STEP, **TRAIN_MODES_PER_STEP)
+    want = dict(per_step_want, **modes_want)
     for d in per_step:
         if d != want:
-            raise AssertionError(f"train step launches {d} != {want}")
+            raise AssertionError(f"{tag} step launches {d} != {want}")
     losses = [v.item() for v in losses]
     gnorm = m["grad_norm"].item()
     if not all(math.isfinite(v) for v in losses + [gnorm]):
-        raise AssertionError(f"train step: loss {losses}, grad_norm {gnorm}")
-    step_ms = seconds / 8 * 1e3
+        raise AssertionError(f"{tag} step: loss {losses}, grad_norm {gnorm}")
+    step_ms = seconds / steps * 1e3
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    rate = B * 8 / seconds
-    flops = _train_step_flops(cfg, B)
+    rate = B * steps / seconds
+    flops = _train_step_flops(cfg, B, img)
     bound_ms = flops / PEAK_FLOPS["bf16"] * 1e3
-    log(f"[train] launches per step {per_step[0]}")
-    log(f"[train] losses {[round(v, 4) for v in losses]} grad_norm "
+    img = img or cfg.img_size
+    log(f"[{tag}] launches per step {per_step[0]}")
+    log(f"[{tag}] losses {[round(v, 4) for v in losses]} grad_norm "
         f"{gnorm:.4f}")
-    log(f"[train] {rate:.2f} img/s, step {step_ms:.3f} ms (B={B}, bf16, "
-        f"attention dropout 0.1, 8 steps after 1 warm-up, host clock around "
-        f"synchronised work), peak memory {peak:.2f} GiB, on {smi}")
-    log(f"[train] step bound {bound_ms:.3f} ms ({flops / 1e12:.2f} TFLOP at "
+    log(f"[{tag}] {rate:.2f} img/s, step {step_ms:.3f} ms (B={B}, bf16, "
+        f"{img}x{img}, attention dropout 0.1, {steps} steps after 1 warm-up,"
+        f" host clock around synchronised work), peak memory {peak:.2f} GiB "
+        f"(warm-up included), on {smi}")
+    log(f"[{tag}] step bound {bound_ms:.3f} ms ({flops / 1e12:.2f} TFLOP at "
         f"the bf16 peak): the step takes {step_ms / bound_ms:.2f}x it")
     out = {"img_per_s": rate, "step_ms": step_ms, "peak_gib": peak,
            "step_tflop": flops / 1e12, "step_bound_ms": bound_ms,
@@ -1139,10 +1209,12 @@ def phase_train_step(dev, smi):
     return counts, out, (state, step, batch)
 
 
-def phase_train_parity(dev):
+def phase_train_parity(dev, img=None, attention_want=None, tag="train"):
     """One f32 train step on the card vs the CPU: full width, 4 trunk
     blocks (2 of them forked into the tag branch), 2 decoder layers, B=2,
-    attention dropout 0.1 with the same seeds on both sides.  Loss and
+    img x img images (default 384), attention dropout 0.1 with the same
+    seeds on both sides; attention_want: the card's exact attention and
+    attention_bwd launches and modes, when given.  Loss and
     grad norm within 1e-4 relative; every gradient within 1e-3 of its
     leaf's scale (floor: 1e-6 of the largest gradient, under which a leaf
     is the rounding noise of a gradient that is zero in exact arithmetic);
@@ -1150,6 +1222,7 @@ def phase_train_parity(dev):
     within 2 lr (the first Adam step sends every gradient above ~1e-7 to a
     +-lr step, so a gradient near zero whose sign the summation order
     flips moves by 2 lr)."""
+    from vitcap_tpu_torch import ops
     from vitcap_tpu_torch.models.config import ModelConfig
     from vitcap_tpu_torch.models.vitcap import draw_layer_seeds, init_params
     from vitcap_tpu_torch.solver.train_step import (TrainHyper,
@@ -1166,7 +1239,17 @@ def phase_train_parity(dev):
     for model, d in ((gpu_model, dev), (cpu_model, "cpu")):
         state = init_train_state(model, None)
         step = make_train_step(cfg, TrainHyper(base_lr=lr, max_iter=1000))
-        _, m = step(state, _train_batch(cfg, 2, SEED + 12, d), True, seeds)
+        ops.reset_counts()
+        _, m = step(state, _train_batch(cfg, 2, SEED + 12, d, img), True,
+                    seeds)
+        if d == dev and attention_want is not None:
+            torch.cuda.synchronize()
+            got = dict(ops.launch_counts(), **ops.mode_counts())
+            got = {k: got[k] for k in attention_want}
+            log(f"[{tag}-parity] card launches {got}")
+            if got != attention_want:
+                raise AssertionError(f"{tag} parity launches {got} != "
+                                     f"{attention_want}")
         res[d] = ({k: v.item() for k, v in m.items()},
                   {n: p.grad.float().cpu() for n, p in
                    model.named_parameters() if p.grad is not None},
@@ -1176,12 +1259,12 @@ def phase_train_parity(dev):
     (gm, gg, gp), (cm, cg, cp) = res[dev], res["cpu"]
     for k in ("loss", "masked_loss", "tag_loss", "grad_norm"):
         rel = abs(gm[k] - cm[k]) / max(abs(cm[k]), 1e-30)
-        log(f"[train-parity] {k:12s} GPU {gm[k]:.7g} CPU {cm[k]:.7g} rel "
+        log(f"[{tag}-parity] {k:12s} GPU {gm[k]:.7g} CPU {cm[k]:.7g} rel "
             f"{rel:.3e}")
         if not rel <= 1e-4:
-            raise AssertionError(f"train parity {k}: rel {rel:.3e}")
+            raise AssertionError(f"{tag} parity {k}: rel {rel:.3e}")
     if gg.keys() != cg.keys():
-        raise AssertionError("train parity: gradient sets differ")
+        raise AssertionError(f"{tag} parity: gradient sets differ")
     top = max(t.abs().max().item() for t in cg.values())
     worst = 0.0
     for n in cg:
@@ -1189,14 +1272,15 @@ def phase_train_parity(dev):
         e = (gg[n] - cg[n]).abs().max().item() / scale
         worst = max(worst, e)
         if not e <= 1e-3:
-            raise AssertionError(f"train parity grad {n}: {e:.3e} of scale")
+            raise AssertionError(f"{tag} parity grad {n}: {e:.3e} of "
+                                 f"scale")
     diff = torch.cat([(gp[n] - cp[n]).abs().flatten() for n in cp])
     close = (diff <= 1e-2 * lr).float().mean().item()
-    log(f"[train-parity] {len(cg)} gradients, worst {worst:.3e} of their "
+    log(f"[{tag}-parity] {len(cg)} gradients, worst {worst:.3e} of their "
         f"scale; updated parameters: {close:.6f} within 1e-2 lr, max "
         f"{diff.max().item() / lr:.3e} lr")
     if not (close >= 0.999 and diff.max().item() <= 2.0 * lr * (1 + 1e-3)):
-        raise AssertionError("train parity: updated parameters differ")
+        raise AssertionError(f"{tag} parity: updated parameters differ")
     return {"grad_worst_rel": worst, "params_close_share": close,
             "params_max_diff_lr": diff.max().item() / lr, "gpu": gm,
             "cpu": cm}
@@ -1205,9 +1289,11 @@ def phase_train_parity(dev):
 def summarise(rows, counts, mode_counts):
     """The per-kernel JSON entries.  launches: the beam path's run
     (phase 5b) for the serving kernels; for the kernel modes, the train
-    step's timed run (8 steps) for the train modes and the fused 512-px
-    serving run (phase 9) for attention[long], whose numbers are one
-    launch (call) at the bf16 shape named in MODE_SOURCES.  max_abs_err: the largest of any check of the kernel.
+    step's timed run (8 steps) for the train modes, the fused 512-px
+    serving run (phase 9) for attention[long] and the 512-px train step's
+    timed run (6 steps, phase 10) for the non-slab modes, whose numbers
+    are one launch (call) at the bf16 shape named in MODE_SOURCES.
+    max_abs_err: the largest of any check of the kernel.
     ms / plain_ms / library_ms / bound_ms: for gemm, layer_norm and
     attention, the sum over one fused ViT block's launches at B=64 bf16
     (4 gemm, 2 layer_norm, 1 attention); for decode_attention, one launch
@@ -1325,15 +1411,15 @@ def _profile_batch(name, fn, wall_prefill, reps=3):
     return out
 
 
-def phase_train_profile(train):
+def phase_train_profile(train, name="train_step"):
     """Where one flagship train step (B=64, bf16) spends its time."""
     state, step, batch = train
     box = [state]
 
     def one():
         box[0], _ = step(box[0], batch, False)
-    out = _profile("train_step", one)
-    log(f"[profile] train_step: step {out['wall_ms']:.3f} ms (median of 3)")
+    out = _profile(name, one)
+    log(f"[profile] {name}: step {out['wall_ms']:.3f} ms (median of 3)")
     return out
 
 
@@ -1580,6 +1666,148 @@ def phase_highres_parity(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: 512-px training (K8 on separate q, k, v past 1024 tokens)
+# ---------------------------------------------------------------------------
+
+def phase_train512_kernels(dev, rows):
+    """The attention and attention_bwd kernels as the 512-px train step
+    calls them through flash_attention_packed, B=64, bf16 and f32: ViT
+    (chunk views of one (B, 1152, 2304) qkv tensor, l_actual 1025, no
+    bias, rate 0) and BERT (separate contiguous q, k, v (B, 1104, 768), the
+    decoder's (B, 1, 1104, 1104) f32 bias, rate 0.1, l_actual 1096).  The
+    check against the plain versions runs on the first 16 images (their
+    (16, 12, Lp, Lp) f32 scores and the backward's half-dozen of them fit
+    beside the B=64 inputs; the keep bits of those images are the same at
+    any B); the plain time is that of the same B=64 work in four calls of
+    16 images.  Yardsticks: SDPA with the float mask (and dropout_p), and
+    its backward on a retained graph."""
+    from vitcap_tpu_torch.ops.attention import (attention_qkv,
+                                                attention_qkv_plain)
+    from vitcap_tpu_torch.ops.attention_bwd import (attention_bwd_qkv,
+                                                    attention_bwd_qkv_plain)
+    g = torch.Generator().manual_seed(SEED + 17)
+    H, nh, hd, Bc = 768, 12, 64, 16
+    first = len(rows)
+
+    def rnd(*shape, dtype):
+        return torch.randn(*shape, generator=g).to(dev, dtype)
+
+    def chunks(q, k, v, *rest):
+        return [(q[c:c + Bc], k[c:c + Bc], v[c:c + Bc],
+                 *(t[c:c + Bc] if t is not None else None for t in rest))
+                for c in range(0, B, Bc)]
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = "bf16" if dtype == torch.bfloat16 else "f32"
+        es = 2 if dtype == torch.bfloat16 else 4
+        for case, L, Lp, with_bias, rate in (("vit 1152", 1025, 1152, False,
+                                              0.0),
+                                             ("bert 1104", 1096, 1104, True,
+                                              0.1)):
+            if with_bias:
+                q, k, v = (rnd(B, Lp, H, dtype=dtype) for _ in range(3))
+                bias = _bert_train_bias(B, L, Lp, dev)
+            else:
+                q, k, v = rnd(B, Lp, 3 * H, dtype=dtype).chunk(3, dim=-1)
+                bias = None
+            up = rnd(B, Lp, H, dtype=dtype)
+            up[:, L:] = 0.0
+            seed = 4343
+            out = attention_qkv(q, k, v, nh, L, bias, rate, seed)
+            (q16, k16, v16, b16, up16), = chunks(q, k, v, bias, up)[:1]
+            err = compare(f"attention[non_slab] {case} {dn}", out[:Bc],
+                          attention_qkv_plain(q16, k16, v16, nh, L, b16,
+                                              rate, seed), dtype)
+            del out
+            ms = cuda_ms(lambda i: attention_qkv(q, k, v, nh, L, bias, rate,
+                                                 seed), 5)
+            pms = cuda_ms(lambda i: [attention_qkv_plain(
+                qc, kc, vc, nh, L, bc, rate, seed)
+                for qc, kc, vc, bc in chunks(q, k, v, bias)], 2)
+            mask = torch.zeros(B, 1, Lp, Lp, device=dev, dtype=dtype)
+            mask[..., L:] = float("-inf")
+            if bias is not None:
+                mask = mask + bias.to(dtype)
+            heads = [t.unflatten(-1, (nh, hd)).transpose(1, 2)
+                     for t in (q, k, v)]
+            lms = cuda_ms(lambda i: F.scaled_dot_product_attention(
+                *heads, attn_mask=mask, dropout_p=rate), 5)
+            _row(rows, "attention[non_slab]", case, dn,
+                 f"B={B} L={L} Lp={Lp} heads=12x64 rate={rate} "
+                 f"bias={with_bias}", err, ms, pms, lms,
+                 4.0 * B * nh * Lp * L * hd,
+                 es * B * Lp * 4 * H + (4 * B * Lp * Lp if with_bias else 0))
+
+            got = attention_bwd_qkv(q, k, v, up, nh, L, bias, rate, seed)
+            want = attention_bwd_qkv_plain(q16, k16, v16, up16, nh, L, b16,
+                                           rate, seed)
+            err = 0.0
+            for part, o, r in zip("qkv", got, want):
+                name = f"attention_bwd[non_slab] {case} d{part} {dn}"
+                err = max(err, compare(name, o[:Bc], r, dtype))
+                if o.dtype == torch.bfloat16:
+                    eq = (o[:Bc] == r).float().mean().item()
+                    if eq < 0.99:
+                        raise AssertionError(f"{name}: only {eq:.4f} "
+                                             f"bit-equal")
+            del got, want
+            ms = cuda_ms(lambda i: attention_bwd_qkv(q, k, v, up, nh, L, bias,
+                                                     rate, seed), 3)
+            pms = cuda_ms(lambda i: [attention_bwd_qkv_plain(
+                qc, kc, vc, uc, nh, L, bc, rate, seed)
+                for qc, kc, vc, bc, uc in chunks(q, k, v, bias, up)], 2)
+            leaves = [t.detach().contiguous().requires_grad_(True)
+                      for t in heads]
+            o = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                               dropout_p=rate)
+            go = up.view(B, Lp, nh, hd).transpose(1, 2)
+            lms = cuda_ms(lambda i: torch.autograd.grad(
+                o, leaves, go, retain_graph=True), 3)
+            _row(rows, "attention_bwd[non_slab]", case, dn,
+                 f"B={B} L={L} Lp={Lp} heads=12x64 rate={rate} "
+                 f"bias={with_bias}", err, ms, pms, lms,
+                 10.0 * B * nh * Lp * L * hd,
+                 es * B * Lp * 7 * H + (4 * B * Lp * Lp if with_bias else 0))
+            del q, k, v, up, bias, mask, heads, leaves, o, go
+            del q16, k16, v16, b16, up16
+            torch.cuda.empty_cache()
+    for r in rows[first:]:
+        log(f"[train512-kernel] {r['kernel']:24s} {r['case']:10s} "
+            f"{r['dtype']:4s} err {r['max_abs_err']:.3e}  kernel "
+            f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  library "
+            f"{r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+
+
+def phase_train512(dev, smi, rows):
+    """Phase 10: the kernels at the 512-px train shapes, the flagship train
+    step at 512 px (counts set to 0 just before its timed steps), GPU vs
+    CPU in f32 at 512 px, the profile of one step.  Returns the timed run's
+    counts and the results."""
+    phase_train512_kernels(dev, rows)
+    counts, out, run = phase_train_step(
+        dev, smi, img=HIGHRES, per_step_want=TRAIN_512_PER_STEP,
+        modes_want=TRAIN_512_MODES_PER_STEP, steps=6, tag="train512")
+    for name in ("attention", "attention_bwd", "attention[non_slab]",
+                 "attention_bwd[non_slab]"):
+        if counts[name] == 0:
+            raise AssertionError(f"{name}: no launch on the 512-px train "
+                                 f"path")
+    out["profile"] = phase_train_profile(run, "train_step_512")
+    del run
+    torch.cuda.empty_cache()
+    # 4 + 1 ViT blocks (the CLS-only tag block is plain) and 2 decoder
+    # layers, all past 1024 padded tokens
+    out["parity"] = phase_train_parity(
+        dev, img=HIGHRES, tag="train512",
+        attention_want={"attention": 7, "attention[non_slab]": 7,
+                        "attention[long]": 7, "attention[dropout]": 2,
+                        "attention_bwd": 14, "attention_bwd[non_slab]": 14,
+                        "gemm": 0, "layer_norm": 0})
+    return counts, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1620,15 +1848,23 @@ def main() -> int:
     high_counts, high = phase_highres_path(dev, smi)
     high["parity"] = phase_highres_parity(dev)
     log(f"[highres] phases took {time.perf_counter() - t_high:.1f} s")
+    t_512 = time.perf_counter()
+    train512_counts, train512 = phase_train512(dev, smi, rows)
+    log(f"[train512] phases took {time.perf_counter() - t_512:.1f} s")
 
     for name, n in counts.items():
         if n == 0 and name != "attention_bwd":
             raise AssertionError(f"{name}: no launch on the beam path")
     for name, n in train_counts.items():
-        if n == 0 and name not in ("decode_attention", "attention[long]"):
+        if n == 0 and name not in ("decode_attention", "attention[long]",
+                                   "attention[non_slab]",
+                                   "attention_bwd[long]",
+                                   "attention_bwd[non_slab]"):
             raise AssertionError(f"{name}: no launch on the train path")
     kernels = summarise(rows, counts, dict(
-        train_counts, **{"attention[long]": high_counts["attention[long]"]}))
+        train_counts, **{"attention[long]": high_counts["attention[long]"]},
+        **{k: train512_counts[k] for k in ("attention[non_slab]",
+                                           "attention_bwd[non_slab]")}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(
@@ -1636,6 +1872,7 @@ def main() -> int:
          "greedy_launches": greedy_counts, "beam_path": beam,
          "launches": counts, "train": train, "train_launches": train_counts,
          "profile": prof, "highres": high, "highres_launches": high_counts,
+         "train512": train512, "train512_launches": train512_counts,
          "kernels": kernels}, indent=1))
     log(json.dumps({"kernels": kernels}))
     log(smi)

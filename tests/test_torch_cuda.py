@@ -473,3 +473,81 @@ def test_cuda_fused_blocks_long_match_plain_blocks(cuda, dtype):
            TL._bert_layer_plain(layer, xb, bias, 2, 1e-12), dtype)
     assert ops.launch_counts()["attention"] == 2
     assert ops.mode_counts()["attention[long]"] == 2
+
+
+# ---------------------------------------------------------------------------
+# K8 on separate q, k, v (512-px training)
+# ---------------------------------------------------------------------------
+
+def test_strided_attention_refuses_devices_without_a_kernel():
+    from vitcap_tpu_torch.ops.attention import attention_qkv
+    from vitcap_tpu_torch.ops.attention_bwd import attention_bwd_qkv
+    t = torch.empty(1, 4, 16, device="meta")
+    with pytest.raises(RuntimeError):
+        attention_qkv(t, t, t, 2, 4)
+    with pytest.raises(RuntimeError):
+        attention_bwd_qkv(t, t, t, t, 2, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_strided_attention_long_matches_plain(cuda, dtype):
+    """The attention and attention_bwd kernels on separate q, k, v at the
+    512-px train lengths, 12 heads of 64: the ViT case (chunk views of one
+    (B, 1152, 2304) qkv tensor, l_actual 1025, no bias) and the BERT case
+    (separate q, k, v at Lp 1104, the (B, 1, Lp, Lp) bias, rate 0.1,
+    l_actual 1096), forward and backward against the plain versions; every
+    launch counts as long and non-slab."""
+    from vitcap_tpu_torch.ops.attention import (attention_qkv,
+                                                attention_qkv_plain)
+    from vitcap_tpu_torch.ops.attention_bwd import (attention_bwd_qkv,
+                                                    attention_bwd_qkv_plain)
+    g = torch.Generator().manual_seed(12)
+    B, nh, H = 2, 12, 768
+    qkv = torch.randn(B, 1152, 3 * H, generator=g).to(cuda, dtype)
+    bert = [torch.randn(B, 1104, H, generator=g).to(cuda, dtype)
+            for _ in range(3)]
+    bias = torch.zeros(B, 1, 1104, 1104)
+    bias[:, :, :70, 20:70] = -10000.0
+    bias[:, :, 70:, :70] = -10000.0
+    cases = [(qkv.chunk(3, dim=-1), 1025, None, 0.0),
+             (bert, 1096, bias.to(cuda), 0.1)]
+    ops.reset_counts()
+    for (q, k, v), L, bb, rate in cases:
+        up = torch.randn(q.shape, generator=g)
+        up[:, L:] = 0.0
+        up = up.to(cuda, dtype)
+        _close(attention_qkv(q, k, v, nh, L, bb, rate, 31),
+               attention_qkv_plain(q, k, v, nh, L, bb, rate, 31), dtype)
+        got = attention_bwd_qkv(q, k, v, up, nh, L, bb, rate, 31)
+        want = attention_bwd_qkv_plain(q, k, v, up, nh, L, bb, rate, 31)
+        for o, w_ in zip(got, want):
+            _close(o, w_, dtype)
+            _bits_equal(o, w_)
+    modes = ops.mode_counts()
+    assert ops.launch_counts()["attention"] == 2
+    assert modes["attention[non_slab]"] == modes["attention[long]"] == 2
+    assert modes["attention[dropout]"] == 1
+    assert modes["attention_bwd[non_slab]"] == modes["attention_bwd[long]"] \
+        == 4
+    assert modes["attention_bwd[dropout]"] == 2
+
+
+@pytest.mark.cuda
+def test_cuda_strided_attention_refuses_unaligned_layouts(cuda):
+    """The kernels take any layout with a 16-byte aligned base and strides
+    in 16-byte units; on any other the wrappers raise, never copy."""
+    from vitcap_tpu_torch.ops.attention import attention_qkv
+    from vitcap_tpu_torch.ops.attention_bwd import attention_bwd_qkv
+    buf = torch.randn(2, 80, 3 * 64 + 8, device=cuda).bfloat16()
+    q, k, v = buf[..., :64], buf[..., 64:128], buf[..., 128:192]
+    assert attention_qkv(q, k, v, 1, 80).shape == (2, 80, 64)
+    shifted = buf[..., 1:65]                  # base 2 bytes off
+    with pytest.raises(ValueError, match="16-byte"):
+        attention_qkv(shifted, k, v, 1, 80)
+    odd = torch.randn(2, 80, 68, device=cuda).bfloat16()[..., :64]
+    with pytest.raises(ValueError, match="strides"):
+        attention_bwd_qkv(q, k, odd, q, 1, 80)
+    column_major = v.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="strides"):
+        attention_qkv(q, k, column_major, 1, 80)

@@ -235,15 +235,14 @@ def test_fused_block_weight_cache_follows_loads():
 
 
 def test_fused_blocks_refuse_long_inputs():
-    """Only the train blocks stop at 1024 padded tokens; a pre-padded
-    long input must be 128-aligned, as the TPU package's q-tiled kernels
-    need."""
+    """Only the split train blocks stop at 1024 padded tokens (a train call
+    past it takes the plain chain); a pre-padded long input
+    must be 128-aligned, as the TPU package's q-tiled kernels need."""
     _, _, model = _models()
     blk = model.bert.encoder.blocks[0]
     with pytest.raises(NotImplementedError):
         TF.split_vit_block_train(blk, torch.zeros(1, 1152, 32), 4, 1e-6)
-    with pytest.raises(NotImplementedError):
-        TF.train_lp(1100)
+    assert not TF.takes_split_train(1152)
     with pytest.raises(ValueError):
         TF.fused_vit_block(blk, torch.zeros(1, 1040, 32), 4, 1e-6,
                            l_actual=1030)

@@ -249,19 +249,47 @@ def test_bias_requiring_grad_raises():
                                   1e-12)
 
 
-def test_lp_past_1024_raises():
-    """One predicate routes both train blocks and both pad hoists; past
-    1024 padded tokens it raises rather than running unported kernels."""
-    assert TF.train_lp(63) == 0
-    assert TF.train_lp(577) == 592 and TF.train_lp(648) == 656
-    with pytest.raises(NotImplementedError):
-        TF.train_lp(1100)
+def test_lp_past_1024_takes_the_plain_chain(monkeypatch):
+    """takes_split_train routes a train call: the split train blocks up to
+    1024 padded tokens, the plain chain past it, whose attention is
+    flash_attention_packed on the pre-padded rows (the TPU package's
+    vit_block / bert_layer gates).  fusion_decoder pads a train call to a
+    multiple of 16 at any length (1100 -> 1104).  The split blocks called
+    directly past 1024 still raise."""
+    assert TF.pad_len(577) == 592 and TF.pad_len(1025) == 1152
+    assert TF.takes_split_train(592) and TF.takes_split_train(1024)
+    assert not any(TF.takes_split_train(L) for L in (48, 63, 577, 1040,
+                                                     1104, 1152))
+    calls = []
+    packed = TL.flash_attention_packed
+
+    def counting(q, k, v, bias, seed, nh, rate=0.0, l_actual=0):
+        calls.append((tuple(q.shape), bias is not None, l_actual))
+        return packed(q, k, v, bias, seed, nh, rate, l_actual)
+    monkeypatch.setattr(TL, "flash_attention_packed", counting)
     _, model = _models(2, 16)
-    x = torch.randn(1, 1040, 32)
+    blk = model.bert.encoder.blocks[0]
+    x = torch.randn(1, 1040, 32, requires_grad=True)
+    out = TL.vit_block(blk, x, 2, 1e-6, l_actual=1030)
+    assert calls == [((1, 1040, 32), False, 1030)]
+    (out[:, :1030] ** 2).sum().backward()
+    assert blk.attn.qkv.weight.grad is not None
+    assert not x.grad[:, 1030:].abs().any()
+    calls.clear()
+    cfg = TC.tiny_config(hidden_size=32, num_attention_heads=2,
+                         intermediate_size=128)
+    seq = torch.randn(1, 1100, 32)
+    bias = torch.zeros(1, 1, 1100, 1100)
+    hidden = TM.fusion_decoder(model, seq, bias, cfg)
+    assert hidden.shape == (1, 1100, 32)
+    assert calls == [((1, 1104, 32), True, 1100)] * cfg.decoder_layers
     with pytest.raises(NotImplementedError):
-        TF.split_vit_block_train(model.bert.encoder.blocks[0], x, 2, 1e-6)
+        TF.split_vit_block_train(blk, torch.randn(1, 1040, 32), 2, 1e-6)
     with pytest.raises(NotImplementedError):
-        TL.vit_block(model.bert.encoder.blocks[0], x, 2, 1e-6)
+        TF.split_bert_layer_train(model.bert.decoder.layer[0],
+                                  torch.randn(1, 1104, 32),
+                                  torch.zeros(1, 1, 1104, 1104), 2, 1e-12,
+                                  1100)
 
 
 def test_inference_blocks_raise_under_grad():

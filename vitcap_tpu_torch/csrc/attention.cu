@@ -1,5 +1,10 @@
-// attention: softmax(q . k^T * hd^-0.5 [+ bias]) . v over a fused
-// (B, Lp, 3H) qkv slab, keys at or past l_actual masked, out (B, Lp, H).
+// attention: softmax(q . k^T * hd^-0.5 [+ bias]) . v, keys at or past
+// l_actual masked, out a contiguous (B, Lp, H).  q, k and v are three
+// (B, Lp, H) operands, each read by base pointer, batch stride and row
+// stride (Operand, common.cuh): a fused (B, Lp, 3H) qkv slab is the case
+// q = slab, k = slab + H, v = slab + 2H with row stride 3H; the packed
+// train route (flash_attention_packed) passes separate q, k, v tensors or
+// views of one.  One kernel body per dtype serves both.
 //
 // Replaces the attention TPU kernels of vitcap_tpu/ops/fused_block.py:
 // _attn_pairbd_kernel / _attn_perhead_kernel (ViT, no bias) and
@@ -15,9 +20,11 @@
 //
 // Attention-prob dropout (the train forward, vitcap_tpu/ops/
 // flash_attention.py:452 _fwd_packed_kernel / :484 _fwd_packed_pair_kernel,
-// K8): the unnormalised exp(s - m) of a dropped (query, key) pair is 0 and
-// a kept one is multiplied by 1 / (1 - rate) in f32 before the rounding;
-// the row sum l stays the undropped one.  The keep bit is
+// K8, reached through flash_fwd_packed_slab :949 on the slab and
+// _flash_fwd_packed :670 on separate q, k, v): the unnormalised exp(s - m)
+// of a dropped (query, key) pair is 0 and a kept one is multiplied by
+// 1 / (1 - rate) in f32 before the rounding; the row sum l stays the
+// undropped one.  The keep bit is
 // vc_dropout_keep(query row, key column, seed, b * nh + h), the bits the
 // backward (attention_bwd.cu) regenerates.
 //
@@ -35,11 +42,12 @@
 //   and the output accumulator in registers, K/V tiles staged as f32 in
 //   shared memory (broadcast reads), online softmax over chunks of 16 keys.
 // Neither kernel's shared memory nor its grid depends on Lp beyond the
-// number of query tiles, and every offset into the slab, the bias and the
-// output is a size_t product, so the same kernels serve the TPU package's
+// number of query tiles, and every offset into the operands, the bias and
+// the output is a size_t product, so the same kernels serve the TPU package's
 // long-sequence whole-block kernels (K10: fused_block.py:125 _block_kernel,
 // :470 _bert_kernel, Lp > 1024, e.g. 1152 at 512 px, B = 64: 85M bias
-// entries).  There the work grows as Lp^2 and stays compute-bound.
+// entries), and 512-px training on separate q, k, v (Lp 1152 and 1104).
+// There the work grows as Lp^2 and stays compute-bound.
 // Head sizes are padded up to a compiled size (64 or 128 on the tensor
 // cores; 16, 32, 64 or 128 on the CUDA cores) with zeros, which leaves the
 // dot products unchanged.
@@ -81,15 +89,15 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
     const int r = i / chunks, c = (i % chunks) * 8;
     uint4 val = make_uint4(0, 0, 0, 0);
     if (r0 + r < valid && c < hd)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * ld_src +
-                                            c);
+      val = __ldg(reinterpret_cast<const uint4*>(
+          src + (size_t)(r0 + r) * ld_src + c));
     *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
   }
 }
 
 template <int HDP, int KT>
 __global__ void __launch_bounds__(TC_THREADS)
-    attention_tc_kernel(const bf16* __restrict__ slab,
+    attention_tc_kernel(Operand<bf16> q, Operand<bf16> k, Operand<bf16> v,
                         const float* __restrict__ bias, bf16* __restrict__ out,
                         int Lp, int H, int hd, int l_actual, float scale,
                         Dropout drop) {
@@ -99,8 +107,9 @@ __global__ void __launch_bounds__(TC_THREADS)
   __shared__ __align__(128) S sm;
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * TC_Q;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t ld = 3 * (size_t)H;
-  const bf16* base = slab + (size_t)b * Lp * ld;
+  const bf16* qh = q.head(b, h, hd);
+  const bf16* kh = k.head(b, h, hd);
+  const bf16* vh = v.head(b, h, hd);
   float* sw = sm.s[warp];
   bf16* pw = reinterpret_cast<bf16*>(sw);  // probabilities, row stride LP
   // softmax ownership: lane -> (row, half of the key tile)
@@ -111,7 +120,7 @@ __global__ void __launch_bounds__(TC_THREADS)
                           ? bias + ((size_t)b * Lp + qrow) * Lp
                           : nullptr;
 
-  load_rows<HDP, LD>(sm.q, base + h * hd, ld, q0, TC_Q, Lp, hd);
+  load_rows<HDP, LD>(sm.q, qh, q.sr, q0, TC_Q, Lp, hd);
   __syncthreads();
   wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
       qf[HDP / 16];
@@ -137,9 +146,9 @@ __global__ void __launch_bounds__(TC_THREADS)
 #pragma unroll
     for (int c = 0; c < HALF; ++c) {
       const int kg = k0 + c0 + c;
-      float v = sw[row * LS + c0 + c] * scale;
-      if (brow && kg < l_actual) v += brow[kg];
-      s[c] = kg < l_actual ? v : -INFINITY;
+      float sv = sw[row * LS + c0 + c] * scale;
+      if (brow && kg < l_actual) sv += brow[kg];
+      s[c] = kg < l_actual ? sv : -INFINITY;
     }
     __syncwarp();
   };
@@ -148,7 +157,7 @@ __global__ void __launch_bounds__(TC_THREADS)
   float m = -INFINITY, l = 0.0f;
   for (int k0 = 0; k0 < l_actual; k0 += KT) {
     __syncthreads();
-    load_rows<HDP, LD>(sm.k, base + H + h * hd, ld, k0, KT, l_actual, hd);
+    load_rows<HDP, LD>(sm.k, kh, k.sr, k0, KT, l_actual, hd);
     __syncthreads();
     float s[HALF];
     scores(k0, s);
@@ -171,8 +180,8 @@ __global__ void __launch_bounds__(TC_THREADS)
   for (int n = 0; n < HDP / 16; ++n) wmma::fill_fragment(of[n], 0.0f);
   for (int k0 = 0; k0 < l_actual; k0 += KT) {
     __syncthreads();
-    load_rows<HDP, LD>(sm.k, base + H + h * hd, ld, k0, KT, l_actual, hd);
-    load_rows<HDP, LD>(sm.v, base + 2 * H + h * hd, ld, k0, KT, l_actual, hd);
+    load_rows<HDP, LD>(sm.k, kh, k.sr, k0, KT, l_actual, hd);
+    load_rows<HDP, LD>(sm.v, vh, v.sr, k0, KT, l_actual, hd);
     __syncthreads();
     float s[HALF];
     scores(k0, s);
@@ -227,7 +236,7 @@ constexpr int ATT_CH = 16;  // keys per online-softmax chunk
 
 template <int HDP>
 __global__ void __launch_bounds__(ATT_Q)
-    attention_kernel(const float* __restrict__ slab,
+    attention_kernel(Operand<float> qo, Operand<float> ko, Operand<float> vo,
                      const float* __restrict__ bias, float* __restrict__ out,
                      int Lp, int H, int hd, int l_actual, float scale,
                      Dropout drop) {
@@ -237,15 +246,16 @@ __global__ void __launch_bounds__(ATT_Q)
   const int row = blockIdx.x * ATT_Q + threadIdx.x;
   const bool active = row < Lp;
   const unsigned salt = b * gridDim.y + h;
-  const size_t ld = 3 * (size_t)H;
-  const float* base = slab + (size_t)b * Lp * ld;
+  const float* qh = qo.head(b, h, hd);
+  const float* kh = ko.head(b, h, hd);
+  const float* vh = vo.head(b, h, hd);
   const float* brow =
       (bias && active) ? bias + ((size_t)b * Lp + row) * Lp : nullptr;
 
   float q[HDP], o[HDP];
 #pragma unroll
   for (int d = 0; d < HDP; ++d) {
-    q[d] = (active && d < hd) ? base[row * ld + h * hd + d] : 0.0f;
+    q[d] = (active && d < hd) ? qh[(size_t)row * qo.sr + d] : 0.0f;
     o[d] = 0.0f;
   }
   float m = -INFINITY, l = 0.0f;
@@ -256,8 +266,8 @@ __global__ void __launch_bounds__(ATT_Q)
       const int r = i / HDP, d = i % HDP, kr = k0 + r;
       float kv = 0.0f, vv = 0.0f;
       if (kr < l_actual && d < hd) {
-        kv = base[kr * ld + H + h * hd + d];
-        vv = base[kr * ld + 2 * H + h * hd + d];
+        kv = kh[(size_t)kr * ko.sr + d];
+        vv = vh[(size_t)kr * vo.sr + d];
       }
       Ks[r][d] = kv;
       Vs[r][d] = vv;
@@ -310,29 +320,34 @@ __global__ void __launch_bounds__(ATT_Q)
 // ---------------------------------------------------------------------------
 
 template <int HDP>
-static void launch_cc(const void* slab, const float* bias, void* out, int B,
-                      int Lp, int H, int nh, int l_actual, float scale,
+static void launch_cc(const Operand<float>* qkv, const float* bias, void* out,
+                      int B, int Lp, int H, int nh, int l_actual, float scale,
                       Dropout drop, cudaStream_t s) {
   dim3 grid((Lp + ATT_Q - 1) / ATT_Q, nh, B);
   attention_kernel<HDP><<<grid, ATT_Q, 0, s>>>(
-      static_cast<const float*>(slab), bias, static_cast<float*>(out), Lp, H,
-      H / nh, l_actual, scale, drop);
+      qkv[0], qkv[1], qkv[2], bias, static_cast<float*>(out), Lp, H, H / nh,
+      l_actual, scale, drop);
 }
 
 template <int HDP, int KT>
-static void launch_tc(const void* slab, const float* bias, void* out, int B,
-                      int Lp, int H, int nh, int l_actual, float scale,
+static void launch_tc(const Operand<bf16>* qkv, const float* bias, void* out,
+                      int B, int Lp, int H, int nh, int l_actual, float scale,
                       Dropout drop, cudaStream_t s) {
   dim3 grid((Lp + TC_Q - 1) / TC_Q, nh, B);
   attention_tc_kernel<HDP, KT><<<grid, TC_THREADS, 0, s>>>(
-      static_cast<const bf16*>(slab), bias, static_cast<bf16*>(out), Lp, H,
-      H / nh, l_actual, scale, drop);
+      qkv[0], qkv[1], qkv[2], bias, static_cast<bf16*>(out), Lp, H, H / nh,
+      l_actual, scale, drop);
 }
 
-extern "C" int vc_attention(const void* slab, const void* bias, void* out,
-                            int B, int Lp, int H, int nh, int l_actual,
-                            float scale, unsigned seed, unsigned thresh,
-                            float inv, int dtype, void* stream) {
+// q, k, v: base pointers with batch and row strides in elements (the
+// wrapper checks alignment); out: contiguous (B, Lp, H)
+extern "C" int vc_attention(const void* q, long long q_sb, long long q_sr,
+                            const void* k, long long k_sb, long long k_sr,
+                            const void* v, long long v_sb, long long v_sr,
+                            const void* bias, void* out, int B, int Lp, int H,
+                            int nh, int l_actual, float scale, unsigned seed,
+                            unsigned thresh, float inv, int dtype,
+                            void* stream) {
   const Dropout drop{seed, thresh, inv, thresh != 0u || inv != 1.0f};
   if (nh <= 0 || H % nh) return (int)cudaErrorInvalidValue;
   const int hd = H / nh;
@@ -340,21 +355,28 @@ extern "C" int vc_attention(const void* slab, const void* bias, void* out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* bf = static_cast<const float*>(bias);
   if (dtype == VC_BF16) {
+    const Operand<bf16> ops[3] = {
+        {static_cast<const bf16*>(q), q_sb, q_sr},
+        {static_cast<const bf16*>(k), k_sb, k_sr},
+        {static_cast<const bf16*>(v), v_sb, v_sr}};
     if (hd <= 64)
-      launch_tc<64, 64>(slab, bf, out, B, Lp, H, nh, l_actual, scale, drop,
-                        s);
+      launch_tc<64, 64>(ops, bf, out, B, Lp, H, nh, l_actual, scale, drop, s);
     else
-      launch_tc<128, 32>(slab, bf, out, B, Lp, H, nh, l_actual, scale, drop,
+      launch_tc<128, 32>(ops, bf, out, B, Lp, H, nh, l_actual, scale, drop,
                          s);
   } else if (dtype == VC_F32) {
+    const Operand<float> ops[3] = {
+        {static_cast<const float*>(q), q_sb, q_sr},
+        {static_cast<const float*>(k), k_sb, k_sr},
+        {static_cast<const float*>(v), v_sb, v_sr}};
     if (hd <= 16)
-      launch_cc<16>(slab, bf, out, B, Lp, H, nh, l_actual, scale, drop, s);
+      launch_cc<16>(ops, bf, out, B, Lp, H, nh, l_actual, scale, drop, s);
     else if (hd <= 32)
-      launch_cc<32>(slab, bf, out, B, Lp, H, nh, l_actual, scale, drop, s);
+      launch_cc<32>(ops, bf, out, B, Lp, H, nh, l_actual, scale, drop, s);
     else if (hd <= 64)
-      launch_cc<64>(slab, bf, out, B, Lp, H, nh, l_actual, scale, drop, s);
+      launch_cc<64>(ops, bf, out, B, Lp, H, nh, l_actual, scale, drop, s);
     else
-      launch_cc<128>(slab, bf, out, B, Lp, H, nh, l_actual, scale, drop, s);
+      launch_cc<128>(ops, bf, out, B, Lp, H, nh, l_actual, scale, drop, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -1,12 +1,17 @@
-// attention_bwd: the gradient of softmax attention over a fused (B, Lp, 3H)
-// qkv slab (with the optional additive (B, 1, Lp, Lp) f32 bias and
-// attention-prob dropout) with respect to q, k and v, given the upstream
-// gradient g (B, Lp, H).  Outputs dq, dk, dv (B, Lp, H) in the slab's dtype.
+// attention_bwd: the gradient of softmax attention (with the optional
+// additive (B, 1, Lp, Lp) f32 bias and attention-prob dropout) with respect
+// to q, k and v, given the upstream gradient g.  q, k, v and g are (B, Lp,
+// H) operands read by base pointer, batch stride and row stride (Operand,
+// common.cuh): a fused (B, Lp, 3H) qkv slab is q = slab, k = slab + H,
+// v = slab + 2H with row stride 3H, the packed train route passes separate
+// tensors or views.  Outputs dq, dk, dv are contiguous (B, Lp, H) in the
+// operands' dtype.
 //
 // Replaces the one-pass recompute backward of K8,
-// vitcap_tpu/ops/flash_attention.py:882 flash_bwd_packed_slab with its
-// kernels :530 _bwd_packed_pair_kernel / :600 _bwd_packed_kernel.  Their
-// math, per (image, head):
+// vitcap_tpu/ops/flash_attention.py:882 flash_bwd_packed_slab (the slab)
+// and :734 _flash_bwd_packed (separate q, k, v), with their kernels :530
+// _bwd_packed_pair_kernel / :600 _bwd_packed_kernel.  Their math, per
+// (image, head):
 //   s = q k^T * scale + bias, keys >= l_actual masked;
 //   p = exp(s - max) / max(l, 1e-30)        (f32, the undropped softmax)
 //   pd = keep ? p / (1 - rate) : 0          (dropout regenerated)
@@ -30,6 +35,10 @@
 // (b) key-major, one block per (64-key tile, head, image): a loop over the
 //     query tiles that recomputes p from m and l, regenerates the mask,
 //     and accumulates dv and dk in registers.
+// Shared memory and registers do not depend on Lp; the grids have
+// ceil(Lp / 64) tiles and every offset is a size_t product, so the same
+// kernels serve 512-px training (Lp 1152 with l_actual 1025, Lp 1104 with
+// the bias; the work grows as Lp^2).
 // bf16 runs on the tensor cores (WMMA bf16 16x16x16, head dims padded to
 // 64); f32 on the CUDA cores in exact f32 (no TF32), one thread per row.
 #include <math.h>
@@ -71,8 +80,8 @@ __device__ __forceinline__ void load_head_rows(bf16* dst, const bf16* src,
     const int r = i / chunks, c = (i % chunks) * 8;
     uint4 val = make_uint4(0, 0, 0, 0);
     if (r0 + r < valid && c < hd)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * ld_src +
-                                            c);
+      val = __ldg(reinterpret_cast<const uint4*>(
+          src + (size_t)(r0 + r) * ld_src + c));
     *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
   }
 }
@@ -154,8 +163,9 @@ struct QSmem {
 // (a): dq and the row statistics (m, l, r) of one (64-query tile, head,
 // image)
 __global__ void __launch_bounds__(NTH)
-    attn_bwd_q_tc(const bf16* __restrict__ slab, const bf16* __restrict__ g,
-                  const float* __restrict__ bias, bf16* __restrict__ dq,
+    attn_bwd_q_tc(Operand<bf16> q, Operand<bf16> k, Operand<bf16> v,
+                  Operand<bf16> g, const float* __restrict__ bias,
+                  bf16* __restrict__ dq,
                   float* __restrict__ mlr, int Lp, int H, int hd,
                   int l_actual, float scale, Dropout drop) {
   constexpr int LS = KT + 4, LPB = KT + 8, HALF = KT / 2;
@@ -168,15 +178,15 @@ __global__ void __launch_bounds__(NTH)
   const int row = lane / 2, c0 = (lane % 2) * HALF;
   const int qrow = q0 + warp * 16 + row;
   const unsigned salt = b * nh + h;
-  const size_t ld = 3 * (size_t)H;
-  const bf16* base = slab + (size_t)b * Lp * ld;
+  const bf16* kh = k.head(b, h, hd);
+  const bf16* vh = v.head(b, h, hd);
   const float* brow =
       (bias && qrow < Lp) ? bias + ((size_t)b * Lp + qrow) * Lp : nullptr;
   float* sw = sm.s[warp];
   bf16* dsw = reinterpret_cast<bf16*>(sw);
 
-  load_head_rows(sm.q, base + h * hd, ld, q0, QB, Lp, hd);
-  load_head_rows(sm.g, g + (size_t)b * Lp * H + h * hd, H, q0, QB, Lp, hd);
+  load_head_rows(sm.q, q.head(b, h, hd), q.sr, q0, QB, Lp, hd);
+  load_head_rows(sm.g, g.head(b, h, hd), g.sr, q0, QB, Lp, hd);
   __syncthreads();
   FragA qf[HDP / 16], gf[HDP / 16];
 #pragma unroll
@@ -187,9 +197,8 @@ __global__ void __launch_bounds__(NTH)
 
   auto load_kv = [&](int k0, bool with_v) {
     __syncthreads();
-    load_head_rows(sm.k, base + H + h * hd, ld, k0, KT, l_actual, hd);
-    if (with_v)
-      load_head_rows(sm.v, base + 2 * H + h * hd, ld, k0, KT, l_actual, hd);
+    load_head_rows(sm.k, kh, k.sr, k0, KT, l_actual, hd);
+    if (with_v) load_head_rows(sm.v, vh, v.sr, k0, KT, l_actual, hd);
     __syncthreads();
   };
   auto scores = [&](int k0, float* s) {
@@ -197,9 +206,9 @@ __global__ void __launch_bounds__(NTH)
 #pragma unroll
     for (int c = 0; c < HALF; ++c) {
       const int kg = k0 + c0 + c;
-      float v = s[c] * scale;
-      if (brow && kg < l_actual) v += brow[kg];
-      s[c] = kg < l_actual ? v : -INFINITY;
+      float sv = s[c] * scale;
+      if (brow && kg < l_actual) sv += brow[kg];
+      s[c] = kg < l_actual ? sv : -INFINITY;
     }
   };
 
@@ -284,8 +293,8 @@ struct KSmem {
 
 // (b): dk and dv of one (64-key tile, head, image)
 __global__ void __launch_bounds__(NTH)
-    attn_bwd_kv_tc(const bf16* __restrict__ slab, const bf16* __restrict__ g,
-                   const float* __restrict__ bias,
+    attn_bwd_kv_tc(Operand<bf16> q, Operand<bf16> k, Operand<bf16> v,
+                   Operand<bf16> g, const float* __restrict__ bias,
                    const float* __restrict__ mlr, bf16* __restrict__ dk,
                    bf16* __restrict__ dv, int Lp, int H, int hd,
                    int l_actual, float scale, Dropout drop) {
@@ -300,9 +309,8 @@ __global__ void __launch_bounds__(NTH)
   const int row = lane / 2, c0 = (lane % 2) * HALF;
   const int key = kb0 + warp * 16 + row;
   const unsigned salt = b * nh + h;
-  const size_t ld = 3 * (size_t)H;
-  const bf16* base = slab + (size_t)b * Lp * ld;
-  const bf16* gb = g + (size_t)b * Lp * H + h * hd;
+  const bf16* qh = q.head(b, h, hd);
+  const bf16* gh = g.head(b, h, hd);
   const size_t plane = (size_t)gridDim.z * nh * Lp;
   const float* mrow = mlr + ((size_t)b * nh + h) * Lp;
   float* sw = sm.s[warp];
@@ -313,13 +321,13 @@ __global__ void __launch_bounds__(NTH)
 
   // this warp's 16 keys and values as A fragments, staged through qg
   FragA kf[HDP / 16], vf[HDP / 16];
-  load_head_rows(sm.qg, base + H + h * hd, ld, kb0, KB, l_actual, hd);
+  load_head_rows(sm.qg, k.head(b, h, hd), k.sr, kb0, KB, l_actual, hd);
   __syncthreads();
 #pragma unroll
   for (int kk = 0; kk < HDP / 16; ++kk)
     wmma::load_matrix_sync(kf[kk], sm.qg + warp * 16 * LD + kk * 16, LD);
   __syncthreads();
-  load_head_rows(sm.qg, base + 2 * H + h * hd, ld, kb0, KB, l_actual, hd);
+  load_head_rows(sm.qg, v.head(b, h, hd), v.sr, kb0, KB, l_actual, hd);
   __syncthreads();
 #pragma unroll
   for (int kk = 0; kk < HDP / 16; ++kk)
@@ -334,8 +342,8 @@ __global__ void __launch_bounds__(NTH)
   const bool key_ok = key < l_actual;
   for (int t0 = 0; t0 < Lp; t0 += QT) {
     __syncthreads();
-    load_head_rows(qs, base + h * hd, ld, t0, QT, Lp, hd);
-    load_head_rows(gs, gb, H, t0, QT, Lp, hd);
+    load_head_rows(qs, qh, q.sr, t0, QT, Lp, hd);
+    load_head_rows(gs, gh, g.sr, t0, QT, Lp, hd);
     for (int i = threadIdx.x; i < QT; i += blockDim.x) {
       const bool ok = t0 + i < Lp;
       sm.m[i] = ok ? mrow[t0 + i] : 0.0f;
@@ -351,9 +359,9 @@ __global__ void __launch_bounds__(NTH)
       const int qi = c0 + c, qg = t0 + qi;
       float p = 0.0f, d = dp[c], pd = 0.0f;
       if (key_ok && qg < Lp) {
-        float v = s[c] * scale;
-        if (bias) v += bias[((size_t)b * Lp + qg) * Lp + key];
-        p = expf(v - sm.m[qi]) / fmaxf(sm.l[qi], 1e-30f);
+        float sv = s[c] * scale;
+        if (bias) sv += bias[((size_t)b * Lp + qg) * Lp + key];
+        p = expf(sv - sm.m[qi]) / fmaxf(sm.l[qi], 1e-30f);
         pd = p;
         if (drop.on) {
           const bool keep =
@@ -387,8 +395,9 @@ constexpr int FT = 16;   // rows of the other side per shared-memory tile
 // conflict-free), dq in registers, K/V tiles of FT keys
 template <int D>
 __global__ void __launch_bounds__(FR)
-    attn_bwd_q_f32(const float* __restrict__ slab, const float* __restrict__ g,
-                   const float* __restrict__ bias, float* __restrict__ dq,
+    attn_bwd_q_f32(Operand<float> q, Operand<float> k, Operand<float> v,
+                   Operand<float> g, const float* __restrict__ bias,
+                   float* __restrict__ dq,
                    float* __restrict__ mlr, int Lp, int H, int hd,
                    int l_actual, float scale, Dropout drop) {
   __shared__ float qs[D][FR], gs[D][FR], ks[FT][D], vs[FT][D];
@@ -396,22 +405,24 @@ __global__ void __launch_bounds__(FR)
   const int t = threadIdx.x, qrow = blockIdx.x * FR + t;
   const bool active = qrow < Lp;
   const unsigned salt = b * nh + h;
-  const size_t ld = 3 * (size_t)H;
-  const float* base = slab + (size_t)b * Lp * ld;
+  const float* qh = q.head(b, h, hd);
+  const float* kh = k.head(b, h, hd);
+  const float* vh = v.head(b, h, hd);
+  const float* gh = g.head(b, h, hd);
   const float* brow =
       (bias && active) ? bias + ((size_t)b * Lp + qrow) * Lp : nullptr;
   for (int d = 0; d < D; ++d) {
     const bool ok = active && d < hd;
-    qs[d][t] = ok ? base[qrow * ld + h * hd + d] : 0.0f;
-    gs[d][t] = ok ? g[((size_t)b * Lp + qrow) * H + h * hd + d] : 0.0f;
+    qs[d][t] = ok ? qh[(size_t)qrow * q.sr + d] : 0.0f;
+    gs[d][t] = ok ? gh[(size_t)qrow * g.sr + d] : 0.0f;
   }
   auto load = [&](int k0) {
     __syncthreads();
     for (int i = t; i < FT * D; i += FR) {
       const int r = i / D, d = i % D, kr = k0 + r;
       const bool ok = kr < l_actual && d < hd;
-      ks[r][d] = ok ? base[kr * ld + H + h * hd + d] : 0.0f;
-      vs[r][d] = ok ? base[kr * ld + 2 * H + h * hd + d] : 0.0f;
+      ks[r][d] = ok ? kh[(size_t)kr * k.sr + d] : 0.0f;
+      vs[r][d] = ok ? vh[(size_t)kr * v.sr + d] : 0.0f;
     }
     __syncthreads();
   };
@@ -419,9 +430,9 @@ __global__ void __launch_bounds__(FR)
     float acc = 0.0f;
 #pragma unroll
     for (int d = 0; d < D; ++d) acc = fmaf(qs[d][t], ks[j][d], acc);
-    float v = acc * scale;
-    if (brow) v += brow[k0 + j];
-    return v;
+    float sv = acc * scale;
+    if (brow) sv += brow[k0 + j];
+    return sv;
   };
   auto dprod = [&](int k0, int j) {
     float acc = 0.0f;
@@ -439,12 +450,12 @@ __global__ void __launch_bounds__(FR)
     load(k0);
     const int nt = min(FT, l_actual - k0);
     for (int j = 0; j < nt; ++j) {
-      const float v = score(k0, j);
-      if (v > m) {
-        l *= expf(m - v);
-        m = v;
+      const float sv = score(k0, j);
+      if (sv > m) {
+        l *= expf(m - sv);
+        m = sv;
       }
-      l += expf(v - m);
+      l += expf(sv - m);
     }
   }
   const float den = fmaxf(l, 1e-30f);
@@ -482,9 +493,8 @@ __global__ void __launch_bounds__(FR)
 // registers, q/g tiles of FT query rows with their m, l, r
 template <int D>
 __global__ void __launch_bounds__(FR)
-    attn_bwd_kv_f32(const float* __restrict__ slab,
-                    const float* __restrict__ g,
-                    const float* __restrict__ bias,
+    attn_bwd_kv_f32(Operand<float> q, Operand<float> k, Operand<float> v,
+                    Operand<float> g, const float* __restrict__ bias,
                     const float* __restrict__ mlr, float* __restrict__ dk,
                     float* __restrict__ dv, int Lp, int H, int hd,
                     int l_actual, float scale, Dropout drop) {
@@ -494,14 +504,14 @@ __global__ void __launch_bounds__(FR)
   const int t = threadIdx.x, key = blockIdx.x * FR + t;
   const bool key_ok = key < l_actual;
   const unsigned salt = b * nh + h;
-  const size_t ld = 3 * (size_t)H;
-  const float* base = slab + (size_t)b * Lp * ld;
+  const float* qh = q.head(b, h, hd);
+  const float* gh = g.head(b, h, hd);
   const size_t plane = (size_t)gridDim.z * nh * Lp;
   const float* mrow = mlr + ((size_t)b * nh + h) * Lp;
   for (int d = 0; d < D; ++d) {
     const bool ok = key_ok && d < hd;
-    ks[d][t] = ok ? base[key * ld + H + h * hd + d] : 0.0f;
-    vs[d][t] = ok ? base[key * ld + 2 * H + h * hd + d] : 0.0f;
+    ks[d][t] = ok ? k.head(b, h, hd)[(size_t)key * k.sr + d] : 0.0f;
+    vs[d][t] = ok ? v.head(b, h, hd)[(size_t)key * v.sr + d] : 0.0f;
   }
   float ak[D], av[D];
 #pragma unroll
@@ -511,8 +521,8 @@ __global__ void __launch_bounds__(FR)
     for (int i = t; i < FT * D; i += FR) {
       const int r = i / D, d = i % D, qr = t0 + r;
       const bool ok = qr < Lp && d < hd;
-      qt[r][d] = ok ? base[qr * ld + h * hd + d] : 0.0f;
-      gt[r][d] = ok ? g[((size_t)b * Lp + qr) * H + h * hd + d] : 0.0f;
+      qt[r][d] = ok ? qh[(size_t)qr * q.sr + d] : 0.0f;
+      gt[r][d] = ok ? gh[(size_t)qr * g.sr + d] : 0.0f;
     }
     for (int i = t; i < FT; i += FR) {
       const bool ok = t0 + i < Lp;
@@ -559,30 +569,31 @@ __global__ void __launch_bounds__(FR)
 }
 
 template <int D>
-void launch_f32(const void* slab, const void* g, const float* bias, void* dq,
+void launch_f32(const Operand<float>* in, const float* bias, void* dq,
                 void* dk, void* dv, float* mlr, int B, int Lp, int H, int nh,
                 int l_actual, float scale, Dropout drop, cudaStream_t s) {
   const dim3 grid((Lp + FR - 1) / FR, nh, B);
-  const float* sl = static_cast<const float*>(slab);
-  const float* gg = static_cast<const float*>(g);
-  attn_bwd_q_f32<D><<<grid, FR, 0, s>>>(sl, gg, bias, static_cast<float*>(dq),
-                                        mlr, Lp, H, H / nh, l_actual, scale,
-                                        drop);
+  attn_bwd_q_f32<D><<<grid, FR, 0, s>>>(in[0], in[1], in[2], in[3], bias,
+                                        static_cast<float*>(dq), mlr, Lp, H,
+                                        H / nh, l_actual, scale, drop);
   attn_bwd_kv_f32<D><<<grid, FR, 0, s>>>(
-      sl, gg, bias, mlr, static_cast<float*>(dk), static_cast<float*>(dv),
-      Lp, H, H / nh, l_actual, scale, drop);
+      in[0], in[1], in[2], in[3], bias, mlr, static_cast<float*>(dk),
+      static_cast<float*>(dv), Lp, H, H / nh, l_actual, scale, drop);
 }
 
 }  // namespace
 
 // Two launches: (a) then (b), on one stream; mlr is (3, B, nh, Lp) f32
-// scratch that (a) writes and (b) reads.
-extern "C" int vc_attention_bwd(const void* slab, const void* g,
-                                const void* bias, void* dq, void* dk,
-                                void* dv, void* mlr, int B, int Lp, int H,
-                                int nh, int l_actual, float scale,
-                                unsigned seed, unsigned thresh, float inv,
-                                int dtype, void* stream) {
+// scratch that (a) writes and (b) reads.  q, k, v, g: base pointers with
+// batch and row strides in elements (the wrapper checks alignment); dq,
+// dk, dv: contiguous (B, Lp, H).
+extern "C" int vc_attention_bwd(
+    const void* q, long long q_sb, long long q_sr, const void* k,
+    long long k_sb, long long k_sr, const void* v, long long v_sb,
+    long long v_sr, const void* g, long long g_sb, long long g_sr,
+    const void* bias, void* dq, void* dk, void* dv, void* mlr, int B, int Lp,
+    int H, int nh, int l_actual, float scale, unsigned seed, unsigned thresh,
+    float inv, int dtype, void* stream) {
   if (nh <= 0 || H % nh) return (int)cudaErrorInvalidValue;
   const int hd = H / nh;
   if (hd % 8 || hd > HDP) return (int)cudaErrorInvalidValue;
@@ -591,24 +602,30 @@ extern "C" int vc_attention_bwd(const void* slab, const void* g,
   const float* bf = static_cast<const float*>(bias);
   float* m = static_cast<float*>(mlr);
   if (dtype == VC_BF16) {
-    const bf16* sl = static_cast<const bf16*>(slab);
-    const bf16* gg = static_cast<const bf16*>(g);
+    const Operand<bf16> in[4] = {{static_cast<const bf16*>(q), q_sb, q_sr},
+                                 {static_cast<const bf16*>(k), k_sb, k_sr},
+                                 {static_cast<const bf16*>(v), v_sb, v_sr},
+                                 {static_cast<const bf16*>(g), g_sb, g_sr}};
     attn_bwd_q_tc<<<dim3((Lp + QB - 1) / QB, nh, B), NTH, 0, s>>>(
-        sl, gg, bf, static_cast<bf16*>(dq), m, Lp, H, hd, l_actual, scale,
-        drop);
+        in[0], in[1], in[2], in[3], bf, static_cast<bf16*>(dq), m, Lp, H, hd,
+        l_actual, scale, drop);
     attn_bwd_kv_tc<<<dim3((Lp + KB - 1) / KB, nh, B), NTH, 0, s>>>(
-        sl, gg, bf, m, static_cast<bf16*>(dk), static_cast<bf16*>(dv), Lp, H,
-        hd, l_actual, scale, drop);
+        in[0], in[1], in[2], in[3], bf, m, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), Lp, H, hd, l_actual, scale, drop);
   } else if (dtype == VC_F32) {
+    const Operand<float> in[4] = {{static_cast<const float*>(q), q_sb, q_sr},
+                                  {static_cast<const float*>(k), k_sb, k_sr},
+                                  {static_cast<const float*>(v), v_sb, v_sr},
+                                  {static_cast<const float*>(g), g_sb, g_sr}};
     if (hd <= 16)
-      launch_f32<16>(slab, g, bf, dq, dk, dv, m, B, Lp, H, nh, l_actual,
-                     scale, drop, s);
+      launch_f32<16>(in, bf, dq, dk, dv, m, B, Lp, H, nh, l_actual, scale,
+                     drop, s);
     else if (hd <= 32)
-      launch_f32<32>(slab, g, bf, dq, dk, dv, m, B, Lp, H, nh, l_actual,
-                     scale, drop, s);
+      launch_f32<32>(in, bf, dq, dk, dv, m, B, Lp, H, nh, l_actual, scale,
+                     drop, s);
     else
-      launch_f32<64>(slab, g, bf, dq, dk, dv, m, B, Lp, H, nh, l_actual,
-                     scale, drop, s);
+      launch_f32<64>(in, bf, dq, dk, dv, m, B, Lp, H, nh, l_actual, scale,
+                     drop, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -53,3 +53,18 @@ struct Dropout {
   float inv;  // 1 / (1 - rate), in f32
   int on;     // rate > 0
 };
+
+// A (B, L, H) operand read by base pointer and strides, in elements:
+// element (b, row, col) at p[b * sb + row * sr + col], head h's columns
+// starting at h * hd.  A fused (B, Lp, 3H) qkv slab is three of them
+// (p = slab, slab + H, slab + 2H; sb = 3 * H * Lp, sr = 3 * H); separate
+// q, k, v tensors or views of one are others.  The wrappers check that p
+// and every head's first column are 16-byte aligned.
+template <typename T>
+struct Operand {
+  const T* p;
+  long long sb, sr;
+  __device__ __forceinline__ const T* head(int b, int h, int hd) const {
+    return p + (size_t)b * sb + (size_t)h * hd;
+  }
+};

@@ -8,14 +8,26 @@ biased self-attention BERT layer with at least 64 tokens goes to the fused
 block (ops/fused_block.py), on every device; the device of the tensors then
 decides between the CUDA kernels and their plain versions.  A gradient-
 carrying call (grad mode on and the input or a parameter requiring grad),
-or one with dropout seeds, is a train call: it takes the train blocks
+or one with dropout seeds, is a train call: it takes the split train blocks
 (split_vit_block_train, split_bert_layer_train) where the token axis is
-16-aligned (ops.fused_block.train_lp, the one predicate), else the plain
-autograd layers below.
+16-aligned and at most 1024 (ops.fused_block.takes_split_train), else the
+plain chain below (_vit_block_plain, _bert_layer_plain).
 
-Dropout: the train blocks draw their masks from int32 seeds through the
-counter hash (ops/dropout.py), the TPU kernels' bits; the plain layers and
-the embeddings draw Bernoulli masks from a torch.Generator.
+mha routes as the TPU package's does (vitcap_tpu/models/layers.py:130-157):
+a train self-attention (Lq == Lk >= 64) with no bias or a head-broadcast
+(B, 1, L, L) one takes the packed route, ops.flash_attention.
+flash_attention_packed (the attention and attention_bwd kernels on
+separate q, k, v), at any length: 512-px training past 1024 padded tokens
+and the plain layers at an unaligned length.  Only that route takes a
+pre-padded input (l_actual > 0).  Every other call runs the plain
+attention below (inference outside the fused blocks, fewer than 64 tokens,
+cross-attention, a per-head bias).
+
+Dropout: the split train blocks and the packed route draw their masks
+from int32 seeds through the counter hash (ops/dropout.py), the TPU
+kernels' bits; the plain attention's and hidden dropout of the plain
+layers, and the embeddings', draw Bernoulli masks from a torch.Generator
+(the TPU package's jax.random.bernoulli there).
 """
 
 from __future__ import annotations
@@ -28,9 +40,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.flash_attention import flash_attention_packed
 from ..ops.fused_block import (fused_bert_block, fused_vit_block,
                                split_bert_layer_train, split_vit_block_train,
-                               train_lp)
+                               takes_split_train)
 from ..ops.layer_norm import layer_norm_plain
 
 NEG_MASK_VALUE = -10000.0  # the reference's (1 - m) * -10000 mask value
@@ -157,12 +170,30 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
         bias: Optional[torch.Tensor] = None,
         scores_dtype: Optional[torch.dtype] = None,
         dropout_rate: float = 0.0,
-        generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        generator: Optional[torch.Generator] = None,
+        seed: Optional[int] = None, l_actual: int = 0) -> torch.Tensor:
     """q (B, Lq, H), k/v (B, Lk, H), bias (B, 1|nh, Lq, Lk) additive ->
-    (B, Lq, H); attention-prob dropout from `generator` when given."""
+    (B, Lq, H).  seed (an int32 value): a dropout-active train call.  A
+    train call (seed given, or q, k or v carrying a gradient) with Lq == Lk
+    >= 64 and a bias that is None or (B, 1, L, L) takes the packed route
+    (flash_attention_packed; dropout from `seed` at dropout_rate,
+    scores_dtype ignored, as in the TPU package); any other call the plain
+    attention below, with dropout from `generator` when given.
+    l_actual > 0: q, k, v are pre-padded with that many valid rows, which
+    only the packed route takes."""
     B, Lq, H = q.shape
     Lk = k.shape[1]
     hd = H // num_heads
+    train = seed is not None or (torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v)))
+    if (train and Lq == Lk and Lq >= 64
+            and (bias is None or bias.shape[1] == 1)):
+        rate = dropout_rate if seed is not None else 0.0
+        return flash_attention_packed(q, k, v, bias, seed or 0, num_heads,
+                                      rate, l_actual)
+    if l_actual:
+        raise ValueError("pre-padded mha (l_actual > 0) needs the packed "
+                         "train route")
 
     def heads(a, L):
         return a.reshape(B, L, num_heads, hd).transpose(1, 2)
@@ -194,10 +225,13 @@ def vit_mlp(p, x: torch.Tensor) -> torch.Tensor:
 
 def _vit_block_plain(p: ViTBlock, x: torch.Tensor, num_heads: int,
                      ln_eps: float, bias: Optional[torch.Tensor] = None,
-                     scores_dtype=None) -> torch.Tensor:
+                     scores_dtype=None, l_actual: int = 0) -> torch.Tensor:
+    """The plain chain (the TPU package's _vit_block_xla): the products on
+    every row, the attention through mha's routing."""
     y = layer_norm(p.norm1, x, ln_eps)
     q, k, v = dense(p.attn.qkv, y).chunk(3, dim=-1)
-    x = x + dense(p.attn.proj, mha(q, k, v, num_heads, bias, scores_dtype))
+    x = x + dense(p.attn.proj, mha(q, k, v, num_heads, bias, scores_dtype,
+                                   l_actual=l_actual))
     return x + vit_mlp(p.mlp, layer_norm(p.norm2, x, ln_eps))
 
 
@@ -206,17 +240,18 @@ def vit_block(p: ViTBlock, x: torch.Tensor, num_heads: int, ln_eps: float,
               l_actual: int = 0) -> torch.Tensor:
     """One pre-norm ViT block.  Bias-free with L >= 64 -> fused block (the
     gate of vitcap_tpu/models/layers.py vit_block); a train call takes the
-    train block when L is 16-aligned.  l_actual > 0: x is pre-padded with
-    that many valid rows, valid only on the fused and train blocks."""
+    split train block when L is 16-aligned and at most 1024
+    (takes_split_train), else the plain chain, whose attention is the
+    packed route.  l_actual > 0: x is pre-padded with that many valid rows
+    (the fused block, the split train block, or the plain chain's packed
+    attention)."""
     if bias is None and x.shape[1] >= 64:
         if not _train_call(p, x):
             return fused_vit_block(p, x, num_heads, ln_eps, l_actual)
-        if train_lp(x.shape[1]) == x.shape[1]:
+        if takes_split_train(x.shape[1]):
             return split_vit_block_train(p, x, num_heads, ln_eps, l_actual)
-    if l_actual:
-        raise ValueError("pre-padded input (l_actual > 0) needs the fused "
-                         "block path")
-    return _vit_block_plain(p, x, num_heads, ln_eps, bias, scores_dtype)
+    return _vit_block_plain(p, x, num_heads, ln_eps, bias, scores_dtype,
+                            l_actual)
 
 
 def vit_block_cls_only(p: ViTBlock, x: torch.Tensor, num_heads: int,
@@ -382,11 +417,17 @@ def bert_embeddings(p: BertEmbeddings, input_ids: torch.Tensor,
 def _bert_layer_plain(p: BertLayer, x: torch.Tensor, bias: torch.Tensor,
                       num_heads: int, ln_eps: float, scores_dtype=None,
                       hidden_dropout: float = 0.0, attn_dropout: float = 0.0,
-                      generator: Optional[torch.Generator] = None
-                      ) -> torch.Tensor:
+                      seeds: Optional[Sequence[int]] = None,
+                      l_actual: int = 0) -> torch.Tensor:
+    """The plain chain (the TPU package's _bert_layer_xla).  seeds (attn,
+    hidden int32 values): dropout on; the packed attention draws its keep
+    bits from seeds[0] through the counter hash, the other dropouts
+    Bernoulli masks from a generator seeded by both (_seed_generator)."""
     ps = p.attention.self
+    generator = _seed_generator(seeds)
     attn = mha(dense(ps.query, x), dense(ps.key, x), dense(ps.value, x),
-               num_heads, bias, scores_dtype, attn_dropout, generator)
+               num_heads, bias, scores_dtype, attn_dropout, generator,
+               None if seeds is None else int(seeds[0]), l_actual)
     attn = dropout(dense(p.attention.output.dense, attn), hidden_dropout,
                    generator)
     x = layer_norm(p.attention.output.LayerNorm, attn + x, ln_eps)
@@ -402,30 +443,28 @@ def bert_layer(p: BertLayer, x: torch.Tensor, bias: torch.Tensor,
                l_actual: int = 0) -> torch.Tensor:
     """Post-norm BERT self-attention layer.  Biased with L >= 64 -> fused
     block (the gate of vitcap_tpu/models/layers.py bert_layer); a train
-    call with a head-broadcast bias and a 16-aligned L takes the train
-    block.  seeds (attn, hidden int32 values): dropout on at the given
-    rates; None: deterministic.  l_actual > 0: x and bias are pre-padded
-    with that many valid rows (train block only)."""
+    call with a head-broadcast bias takes the split train block when L is
+    16-aligned and at most 1024 (takes_split_train, the gate of :526-528),
+    else the plain chain, whose attention is the packed route.  seeds
+    (attn, hidden int32 values): dropout on at the given rates; None:
+    deterministic.  l_actual > 0: x and bias are pre-padded with that many
+    valid rows (a train call only)."""
     if bias is not None and x.shape[1] >= 64:
         if not _train_call(p, x, seeds):
             if l_actual:
                 raise ValueError("pre-padded input (l_actual > 0) needs "
-                                 "the train block")
+                                 "a train call")
             return fused_bert_block(p, x, bias, num_heads, ln_eps)
-        if bias.shape[1] == 1 and train_lp(x.shape[1]) == x.shape[1]:
+        if bias.shape[1] == 1 and takes_split_train(x.shape[1]):
             rates = (0.0, 0.0) if seeds is None else (hidden_dropout,
                                                       attn_dropout)
             return split_bert_layer_train(p, x, bias, num_heads, ln_eps,
                                           l_actual, *rates,
                                           seeds or (0, 0))
-    if l_actual:
-        raise ValueError("pre-padded input (l_actual > 0) needs the train "
-                         "block")
     if seeds is None:
         hidden_dropout = attn_dropout = 0.0
     return _bert_layer_plain(p, x, bias, num_heads, ln_eps, scores_dtype,
-                             hidden_dropout, attn_dropout,
-                             _seed_generator(seeds))
+                             hidden_dropout, attn_dropout, seeds, l_actual)
 
 
 def bert_pooler(p, hidden: torch.Tensor) -> torch.Tensor:

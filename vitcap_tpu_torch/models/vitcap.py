@@ -23,7 +23,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.fused_block import pad_len, train_lp
+from ..ops.fused_block import pad_len
 from .config import ModelConfig
 from .layers import (NEG_MASK_VALUE, BertEmbeddings, BertLayer,
                      LMPredictionHead, ViTBlock, _Group, _linear, _train_call,
@@ -98,8 +98,9 @@ def split_encoder(model: ViTCAP, visual_in: torch.Tensor, cfg: ModelConfig
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The trunk blocks; fork at depth - split_blocks into the tag branch,
     whose last block computes only the CLS row.  The token axis is padded
-    once (pad_len) for the fused or train blocks and sliced back at the
-    end.  cfg.token_filter_keep > 0 keeps that share of the patch tokens
+    once (pad_len: 577 -> 592, 1025 -> 1152) for the fused blocks, the
+    split train blocks or, past 1024, the plain chain's packed attention,
+    all of which mask the padded keys, and sliced back at the end.  cfg.token_filter_keep > 0 keeps that share of the patch tokens
     (by CLS attention, _filter_tokens_by_attention) before trunk block
     cfg.token_filter_block; the pad is then redone for the new length, and
     the tag branch keeps the length it forked with.  cfg.use_remat
@@ -298,17 +299,20 @@ def fusion_decoder(model: ViTCAP, seq: torch.Tensor, bias: torch.Tensor,
                    ) -> torch.Tensor:
     """The BERT decoder layers over seq (B, L, H) under bias (B, 1, L, L).
     layer_seeds: per layer (attn seed, hidden seed), int32 values; dropout
-    runs at the config's rates when given.  A train call pads the token
-    axis once (648 -> 656 at the flagship; train_lp, the predicate
-    bert_layer routes by) and slices it back after the loop.
+    runs at the config's rates when given.  A train call of at least 64
+    tokens pads the token axis once to a multiple of 16 (the rule of
+    vitcap_tpu/models/vitcap.py:414-424: 648 -> 656 at 384 px, 1096 ->
+    1104 at 512 px) and slices it back after the loop; bert_layer then
+    takes the split train block up to 1024 padded tokens and the plain
+    chain with the packed attention past it, both masking the padded keys.
     cfg.use_remat_fusion recomputes each layer in the backward."""
     nh, eps = cfg.num_attention_heads, cfg.bert_layer_norm_eps
     layers = model.bert.decoder.layer
     L = seq.shape[1]
     l_actual = 0
-    if (len(layers) and bias.shape[1] == 1
+    if (len(layers) and L >= 64 and bias.shape[1] == 1
             and _train_call(layers[0], seq, layer_seeds)):
-        Lp = train_lp(L)
+        Lp = (L + 15) // 16 * 16
         if Lp > L:
             seq = F.pad(seq, (0, 0, 0, Lp - L))
             bias = F.pad(bias, (0, Lp - L, 0, Lp - L))

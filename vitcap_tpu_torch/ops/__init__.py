@@ -1,10 +1,13 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
-Each kernel has one wrapper (gemm, layer_norm, attention,
-attention_bwd.attention_bwd and decode_step.decode_attention).  The wrapper runs the plain PyTorch version for tensors on the CPU and launches
-the CUDA kernel for tensors on a CUDA device; there is no switch and no
-fallback.  Each wrapper counts its kernel launches in a plain int, so a run
-can show that the main path went through the kernels.
+Each kernel has its wrappers (gemm, layer_norm, attention and
+attention_qkv, attention_bwd.attention_bwd and attention_bwd_qkv,
+decode_step.decode_attention; flash_attention.flash_attention_packed is
+the autograd Function over the two attention kernels).  A wrapper runs the
+plain PyTorch version for tensors on the CPU and launches the CUDA kernel
+for tensors on a CUDA device; there is no switch and no fallback.  Each
+wrapper counts its kernel launches in a plain int, so a run can show that
+the main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -30,8 +33,9 @@ def launch_counts() -> Dict[str, int]:
 
 
 def mode_counts() -> Dict[str, int]:
-    """Launches of the modes of gemm, layer_norm and attention (the K6 / K7
-    / K8-forward extensions, and attention past 1024 padded tokens for
-    K10), as 'kernel[mode]'."""
+    """Launches of the kernels' modes, as 'kernel[mode]': gemm's and
+    layer_norm's K6 / K7 extensions; attention's and attention_bwd's prob
+    dropout, lengths past 1024 padded tokens (K10, 512-px training) and
+    launches on separate q, k, v (K8 non-slab)."""
     return {f"{name}[{k}]": n for name, m in KERNELS.items()
             for k, n in getattr(m, "mode_launches", {}).items()}

@@ -14,8 +14,11 @@ _block_kernel, reached through _fused_block_fwd, and _bert_kernel, through
 _fused_bert_fwd).  Those compute what the split kernels compute, rounded at
 the same points, with the queries tiled by 128 to bound the TPU's f32 score
 slab; the attention kernel here tiles queries by 64 and streams the keys at
-any length, so nothing of that tiling carries over.  Only the train blocks
-stop at 1024 (train_lp).
+any length, so nothing of that tiling carries over.  The split train blocks
+cover 16-aligned lengths up to 1024, as the TPU package's do: a train call
+past 1024 takes the plain chain of models.layers, whose attention is the
+packed route (ops/flash_attention.py).  takes_split_train says which of
+the two a train call takes.
 
 Rounding follows the TPU kernels (see ops/gemm.py): the ViT gemms and the
 BERT qkv round each product to the compute dtype and add bias and residual
@@ -65,25 +68,13 @@ def pad_len(L: int) -> int:
     return lp if lp <= MAX_LP else _round_up(L, 128)
 
 
-def _check_train_lp(Lp: int) -> None:
-    if Lp > MAX_LP:
-        raise NotImplementedError(
-            f"the train blocks cover Lp <= {MAX_LP}; training at Lp={Lp} "
-            f"is not ported yet")
-
-
-def train_lp(L: int) -> int:
-    """The one routing predicate of the train blocks: 0 when L < 64 (the
-    plain autograd layers take it), else the padded length pad_len(L) that
-    the train blocks run at, for the callers that hoist the pad
-    (fusion_decoder) and for vit_block / bert_layer.  Raises
-    NotImplementedError past MAX_LP: the train blocks stop there (the
-    inference blocks do not)."""
-    if L < 64:
-        return 0
-    Lp = pad_len(L)
-    _check_train_lp(Lp)
-    return Lp
+def takes_split_train(L: int) -> bool:
+    """Whether a train call of L tokens takes the split train blocks: L at
+    least 64, 16-aligned and at most MAX_LP (the gates of
+    vitcap_tpu/models/layers.py:248 and :526-528).  Any other train call
+    takes the plain chain of models.layers, whose self-attention is the
+    packed route from 64 tokens on."""
+    return 64 <= L <= MAX_LP and L % 16 == 0
 
 
 def _refuse_grad(name: str, p, x: torch.Tensor) -> None:
@@ -223,7 +214,11 @@ def _check_train_shape(name: str, x: torch.Tensor) -> Tuple[int, int, int]:
     if Lp % 16:
         raise ValueError(f"{name} needs a 16-aligned token axis (pre-pad "
                          f"with pad_len)")
-    _check_train_lp(Lp)
+    if Lp > MAX_LP:
+        raise NotImplementedError(
+            f"the split train blocks cover Lp <= {MAX_LP}, as the TPU "
+            f"package's do; a train call at Lp={Lp} takes the plain chain "
+            f"(models.layers, packed attention)")
     return B, Lp, H
 
 
