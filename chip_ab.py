@@ -1,0 +1,85 @@
+#!/usr/bin/env python3
+"""Compare the attention kernels of two checkouts on one NVIDIA GPU.
+
+    python3 chip_ab.py PARENT_TREE . . PARENT_TREE
+
+Runs each tree's chip_smoke.py kernel phases, one process per argument and
+in the order given (parent, change, change, parent puts both on the same
+card in turns): phase 3 (phase_kernels: the slab attention at the ViT, the
+prefill and a ragged shape), phase 8 (phase_train_kernels: attention with
+prob dropout and attention_bwd) and phase 10 (phase_train512_kernels: the
+strided kernels on separate q, k, v past 1024 tokens).  Each process builds
+its tree's kernels into that tree's build/ directory.  Prints one line per
+attention row and run, and writes every row to chiprun_out/chip_ab.json.
+Exits non-zero without a CUDA device or when any check of a phase fails.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+OUT = ROOT / "chiprun_out"
+
+
+def worker(tree: str) -> None:
+    """In this process: the kernel phases of `tree`'s chip_smoke.py; the
+    rows as one JSON line on stdout."""
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_ab: no CUDA device")
+    sys.path.insert(0, str(Path(tree).resolve()))
+    import chip_smoke as cs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    cs.phase_build()
+    rows = []
+    cs.phase_kernels(dev, rows)
+    cs.phase_train_kernels(dev, rows)
+    cs.phase_train512_kernels(dev, rows)
+    print("ROWS " + json.dumps(rows), flush=True)
+
+
+def main() -> int:
+    trees = sys.argv[1:]
+    if not trees:
+        print(__doc__, file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(f"[ab] card: {smi}", flush=True)
+    runs = []
+    for i, tree in enumerate(trees):
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--worker", tree], capture_output=True,
+                              text=True, env=dict(os.environ))
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            raise SystemExit(f"chip_ab: run {i} ({tree}) failed")
+        line = next(ln for ln in proc.stdout.splitlines()
+                    if ln.startswith("ROWS "))
+        rows = json.loads(line[5:])
+        runs.append({"run": i, "tree": tree, "rows": rows})
+        for r in rows:
+            if r["kernel"].startswith("attention"):
+                print(f"[ab] run {i} {tree:24s} {r['kernel']:24s} "
+                      f"{r['case']:14s} {r['dtype']:4s} {r['ms']:.4f} ms",
+                      flush=True)
+    OUT.mkdir(exist_ok=True)
+    (OUT / "chip_ab.json").write_text(json.dumps(
+        {"card": smi, "runs": runs}, indent=1))
+    print(smi)
+    return 0
+
+
+if __name__ == "__main__":
+    if sys.argv[1:2] == ["--worker"]:
+        worker(sys.argv[2])
+        sys.exit(0)
+    sys.exit(main())

@@ -50,7 +50,7 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
    token_filter_keep=0.5 (2 of its 18 attention launches long); greedy ids
    GPU vs CPU in f32 (B=2, full flagship, both engines); the profile of one
    512-px fused batch;
-10. 512-px training (this slice's path): the flagship built for 384 px
+10. 512-px training: the flagship built for 384 px
    trained on 512x512 images, where every self-attention runs past 1024
    padded tokens on the plain chain's packed route (K8 on separate q, k,
    v: ops/flash_attention.py).  The strided attention and attention_bwd
@@ -63,7 +63,18 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
    non-slab and long; 38 attention_bwd; no gemm or layer_norm): img/s, step
    ms, peak memory; one f32 train step GPU vs CPU at 512 px (4+2 trunk
    blocks, 2 decoder layers, B=2, dropout 0.1, same seeds); the profile of
-   one step (idle share, device time by kernel).
+   one step (idle share, device time by kernel);
+11. K9 on mha's inference route, K11 and K12: flash_attention's kernels
+   at B=64, 12 heads of 64, bf16 and f32 (L 577 with no bias, a (B, 1, L,
+   L) and a per-head (B, 12, L, L) bias; L 1025, the online mode, with no
+   bias and the per-head one), forward and, at 577, the attention_bwd pair
+   vs their plain versions with bounds and SDPA yardsticks (past 1024 the
+   backward is autograd through the f32 attention: timed); fused_vit_attn
+   at 577 and 1025 (its backward on 16 images) and tail_train at 577 vs
+   their plain versions; the entry points as a user reaches them with
+   exact launches per call (a no-grad vit_block with a bias and a no-grad
+   bert_layer without one each launch one K9 forward); K9 and K11 GPU vs
+   CPU in f32.
 
 The measurements are also written to chiprun_out/chip_smoke.json (and the
 profiles' tables to chiprun_out/profile_<run>.txt).
@@ -119,7 +130,9 @@ TRAIN_MODES_PER_STEP = {"gemm[pre_out]": 19, "gemm[dropout]": 8,
                         "attention[long]": 0, "attention[non_slab]": 0,
                         "attention_bwd[dropout]": 8,
                         "attention_bwd[long]": 0,
-                        "attention_bwd[non_slab]": 0}
+                        "attention_bwd[non_slab]": 0,
+                        "attention[heads]": 0, "attention[online]": 0,
+                        "attention_bwd[heads]": 0}
 # one 512-px flagship train step: past 1024 padded tokens every
 # self-attention takes the plain chain's packed route (flash_attention_
 # packed): 15 ViT blocks at Lp 1152 (the CLS-only tag block attends from
@@ -132,7 +145,9 @@ TRAIN_512_MODES_PER_STEP = {"gemm[pre_out]": 0, "gemm[dropout]": 0,
                             "attention[long]": 19, "attention[non_slab]": 19,
                             "attention_bwd[dropout]": 8,
                             "attention_bwd[long]": 38,
-                            "attention_bwd[non_slab]": 38}
+                            "attention_bwd[non_slab]": 38,
+                            "attention[heads]": 0, "attention[online]": 0,
+                            "attention_bwd[heads]": 0}
 HIGHRES = 512                # phase 9's images, against 384-px weights
 LONG = {"attention[long]": 18}          # per 512-px batch: every block
 FILTERED_LONG = {"attention[long]": 2}  # token_filter_keep=0.5: blocks 0, 1
@@ -204,6 +219,35 @@ MODE_SOURCES = {
                                 " _bwd_packed_pair_kernel, :600 "
                                 "_bwd_packed_kernel (K8 non-slab backward)",
                                 "vit 1152"),
+    "attention[heads]": ("vitcap_tpu_torch/csrc/attention.cu "
+                         "(vitcap_tpu_torch/ops/flash_attention.py "
+                         "flash_attention)",
+                         "vitcap_tpu/ops/flash_attention.py:189 "
+                         "_flash_fwd_onepass (pallas_call :237) -> :165 "
+                         "_onepass_kernel (flash_attention :846, K9 "
+                         "forward, Lp <= 1024)", "577 head"),
+    "attention[online]": ("vitcap_tpu_torch/csrc/attention.cu "
+                          "(attention_tc_online_kernel)",
+                          "vitcap_tpu/ops/flash_attention.py:251 "
+                          "_flash_fwd_pallas (pallas_call :309) -> :129 "
+                          "_kernel (flash_attention :846, K9 forward past "
+                          "1024)", "1025 head"),
+    "attention_bwd[heads]": ("vitcap_tpu_torch/csrc/attention_bwd.cu "
+                             "(vitcap_tpu_torch/ops/flash_attention.py "
+                             "flash_attention)",
+                             "vitcap_tpu/ops/flash_attention.py:372 "
+                             "_flash_bwd_onepass (pallas_call :426) -> :324 "
+                             "_bwd_onepass_kernel (K9 backward, Lp <= "
+                             "1024)", "577 head"),
+    "fused_vit_attn": ("vitcap_tpu_torch/ops/fused_block.py fused_vit_attn "
+                       "(csrc/layer_norm.cu, gemm.cu, attention.cu)",
+                       "vitcap_tpu/ops/fused_block.py:383 _fused_fwd "
+                       "(pallas_call :402) -> :56 _kernel (fused_vit_attn "
+                       ":430, K11)", "577"),
+    "tail_train": ("vitcap_tpu_torch/ops/fused_block.py tail_train "
+                   "(csrc/gemm.cu, layer_norm.cu)",
+                   "vitcap_tpu/ops/fused_block.py:831 _tail_train_kernel "
+                   "(K12)", "577"),
 }
 
 
@@ -516,6 +560,13 @@ def phase_decode_attention(dev, rows, S=628, tag=""):
 
 
 def phase_blocks(dev, rows):
+    """The fused ViT and BERT blocks vs the plain blocks (their attention
+    on its plain version: _plain_attention), chained calls timed."""
+    with _plain_attention():
+        _phase_blocks(dev, rows)
+
+
+def _phase_blocks(dev, rows):
     from vitcap_tpu_torch.models import layers as TL
     from vitcap_tpu_torch.models.config import ModelConfig
     from vitcap_tpu_torch.models.vitcap import init_params
@@ -864,18 +915,20 @@ def _time_pair(fn_kernel, fn_plain, reps=5, plain_reps=3):
 
 @contextlib.contextmanager
 def _plain_attention():
-    """models.layers' packed attention route on the kernels' plain PyTorch
-    versions (flash_attention_packed_plain), so a plain block under grad is
-    plain PyTorch throughout: the reference a kernel block is held to."""
+    """models.layers' attention routes on the kernels' plain PyTorch
+    versions (flash_attention_packed_plain for train calls,
+    flash_attention_plain for calls that carry no gradient), so a plain
+    block is plain PyTorch throughout: the reference a kernel block is
+    held to."""
     from vitcap_tpu_torch.models import layers as TL
-    from vitcap_tpu_torch.ops.flash_attention import (
-        flash_attention_packed_plain)
-    kernel = TL.flash_attention_packed
-    TL.flash_attention_packed = flash_attention_packed_plain
+    from vitcap_tpu_torch.ops import flash_attention as FA
+    kernels = (TL.flash_attention_packed, TL.flash_attention)
+    TL.flash_attention_packed = FA.flash_attention_packed_plain
+    TL.flash_attention = FA.flash_attention_plain
     try:
         yield
     finally:
-        TL.flash_attention_packed = kernel
+        TL.flash_attention_packed, TL.flash_attention = kernels
 
 
 def phase_train_kernels(dev, rows):
@@ -1490,7 +1543,13 @@ def phase_highres_kernels(dev, rows):
 def phase_highres_blocks(dev, rows):
     """fused_vit_block at L=1025 and fused_bert_block at L=1076 with the
     prefill bias (both Lp 1152, B=64), the K10 compositions, vs the plain
-    blocks; chained calls timed, beside the block's bound."""
+    blocks (their attention on its plain version: _plain_attention);
+    chained calls timed, beside the block's bound."""
+    with _plain_attention():
+        _phase_highres_blocks(dev, rows)
+
+
+def _phase_highres_blocks(dev, rows):
     from vitcap_tpu_torch.models import layers as TL
     from vitcap_tpu_torch.models.config import ModelConfig
     from vitcap_tpu_torch.models.vitcap import init_params
@@ -1808,6 +1867,392 @@ def phase_train512(dev, smi, rows):
     return counts, out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: K9 on mha's inference route, K11 and K12
+# ---------------------------------------------------------------------------
+
+# (L, bias): K9 at the trunk length (one-pass; no bias, the head-broadcast
+# (B, 1, L, L) one and a per-head (B, 12, L, L) one) and past 1024 (the
+# online mode)
+K9_CASES = [(577, None), (577, "bcast"), (577, "head"), (1025, None),
+            (1025, "head")]
+K9_HEADS = {None: 0, "bcast": 1, "head": 12}
+BC = 16                      # images of phase 11's backward and path checks
+
+
+def _bits(name, out, ref):
+    """bf16: the share of values bit-equal to the plain version, at least
+    0.99 (the kernels round where the plain versions round)."""
+    if out.dtype != torch.bfloat16:
+        return None
+    eq = (out == ref).float().mean().item()
+    if eq < 0.99:
+        raise AssertionError(f"{name}: only {eq:.4f} bit-equal")
+    return eq
+
+
+def _k9_bias(Bn, heads, L, dev, gd):
+    """An additive f32 (Bn, heads, L, L) bias, made on the card: -10000 on
+    about a fifth of the keys, N(0, 0.5) elsewhere, key 0 always seen."""
+    b = torch.where(torch.rand(Bn, heads, L, L, device=dev, generator=gd)
+                    > 0.2, 0.0, -10000.0)
+    b += 0.5 * torch.randn(Bn, heads, L, L, device=dev, generator=gd)
+    b[..., 0] = 0.0
+    return b
+
+
+def phase_flash_kernels(dev, rows):
+    """K9's kernels as flash_attention calls them, B=64, 12 heads of 64,
+    bf16 and f32, on the per-head views of (B, L, 768) tensors that mha
+    passes: the forward (K9_CASES; the online mode at 1025) and, at 577,
+    the attention_bwd pair (attention_bwd_heads) vs their plain versions,
+    with bounds and SDPA yardsticks (the float mask; the backward on a
+    retained graph).  Past 1024 the backward is autograd through the f32
+    attention (no kernel; the plain version is the same code): timed, with
+    the bias taking no gradient."""
+    from vitcap_tpu_torch.ops.attention import heads_view
+    from vitcap_tpu_torch.ops.attention_bwd import (
+        attention_bwd_heads, attention_bwd_heads_plain)
+    from vitcap_tpu_torch.ops.flash_attention import (flash_attention,
+                                                      flash_attention_plain)
+    gd = torch.Generator(device=dev).manual_seed(SEED + 21)
+    H, nh, hd = 768, 12, 64
+    first = len(rows)
+
+    def per_head(dtype, L):
+        return heads_view(torch.randn(B, L, H, device=dev, generator=gd)
+                          .to(dtype), nh)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = "bf16" if dtype == torch.bfloat16 else "f32"
+        es = 2 if dtype == torch.bfloat16 else 4
+        for L, kind in K9_CASES:
+            heads = K9_HEADS[kind]
+            kname = "attention[online]" if L > 1024 else "attention[heads]"
+            case = f"{L} {kind or 'none'}"
+            q, k, v = (per_head(dtype, L=L) for _ in range(3))
+            bias = _k9_bias(B, heads, L, dev, gd) if heads else None
+            mask = None if bias is None else bias.to(dtype)
+            with torch.no_grad():
+                out = flash_attention(q, k, v, bias)
+                ref = flash_attention_plain(q, k, v, bias)
+                err = compare(f"{kname} {case} {dn}", out, ref, dtype)
+                eq = _bits(f"{kname} {case}", out, ref)
+                del out, ref
+                ms = cuda_ms(lambda i: flash_attention(q, k, v, bias), 5)
+                pms = cuda_ms(lambda i: flash_attention_plain(q, k, v, bias),
+                              2)
+                lms = cuda_ms(lambda i: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask), 5)
+            _row(rows, kname, case, dn, f"B={B} L={L} heads=12x64 "
+                 f"bias={kind}", err, ms, pms, lms, 4.0 * B * nh * L * L * hd,
+                 es * B * L * 4 * H + 4 * B * heads * L * L)
+            rows[-1]["bit_equal"] = eq
+            up = per_head(dtype, L=L)
+            if L <= 1024:
+                got = attention_bwd_heads(q, k, v, up, bias)
+                want = attention_bwd_heads_plain(q, k, v, up, L, bias)
+                err = 0.0
+                for part, o, r in zip("qkv", got, want):
+                    name = f"attention_bwd[heads] {case} d{part} {dn}"
+                    err = max(err, compare(name, o, r, dtype))
+                    _bits(name, o, r)
+                del got, want
+                ms = cuda_ms(lambda i: attention_bwd_heads(q, k, v, up,
+                                                           bias), 3)
+                pms = cuda_ms(lambda i: attention_bwd_heads_plain(
+                    q, k, v, up, L, bias), 2)
+                bname = "attention_bwd[heads]"
+            else:
+                # autograd through the f32 attention, on the kernel's route
+                # and the plain one (the same code past 1024)
+                timed = []
+                for fn in (flash_attention, flash_attention_plain):
+                    leaves = [t.detach().requires_grad_(True)
+                              for t in (q, k, v)]
+                    o = fn(*leaves, bias)
+                    timed.append(cuda_ms(lambda i: torch.autograd.grad(
+                        o, leaves, up, retain_graph=True), 2))
+                    del o, leaves
+                ms, pms = timed
+                err = 0.0
+                bname = "flash_attention bwd[f32]"
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            o = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+            lms = cuda_ms(lambda i: torch.autograd.grad(
+                o, leaves, up, retain_graph=True), 3)
+            _row(rows, bname, case, dn, f"B={B} L={L} heads=12x64 "
+                 f"bias={kind}", err, ms, pms, lms,
+                 10.0 * B * nh * L * L * hd,
+                 es * B * L * 7 * H + 4 * B * heads * L * L)
+            del q, k, v, up, bias, mask, leaves, o
+            torch.cuda.empty_cache()
+    for r in rows[first:]:
+        log(f"[flash-kernel] {r['kernel']:24s} {r['case']:10s} "
+            f"{r['dtype']:4s} err {r['max_abs_err']:.3e}  kernel "
+            f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  library "
+            f"{r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+
+
+def _vit_attn_weights(blk):
+    return (blk.norm1.weight, blk.norm1.bias, blk.attn.qkv.weight,
+            blk.attn.qkv.bias, blk.attn.proj.weight, blk.attn.proj.bias)
+
+
+def _tail_weights(blk):
+    return (blk.attn.proj.weight, blk.attn.proj.bias, blk.norm2.weight,
+            blk.norm2.bias, blk.mlp.fc1.weight, blk.mlp.fc1.bias,
+            blk.mlp.fc2.weight, blk.mlp.fc2.bias)
+
+
+def phase_fused_attn_kernels(dev, rows):
+    """K11 (fused_vit_attn: LN1, the qkv gemm, attention, the proj gemm
+    with the residual) at L 577 and 1025 and K12 (tail_train) at L 577,
+    B=64, bf16 and f32, vs their plain versions, beside their bounds (no
+    single PyTorch call computes either: no yardstick).  K11's backward
+    (the plain chain recomputed under autograd, its attention the packed
+    route) on the first BC images vs the same chain on the plain
+    attention: timed, gradients within the tolerance."""
+    from vitcap_tpu_torch.models import layers as TL
+    from vitcap_tpu_torch.ops.fused_block import (fused_vit_attn_plain,
+                                                  tail_train,
+                                                  tail_train_plain,
+                                                  vit_attention_residual)
+    torch.manual_seed(SEED + 22)
+    H, nh, hd, I = 768, 12, 64, 3072
+    blk = TL.ViTBlock(H, I, device=dev).requires_grad_(False)
+    gd = torch.Generator(device=dev).manual_seed(SEED + 23)
+    w_attn, w_tail = _vit_attn_weights(blk), _tail_weights(blk)
+    first = len(rows)
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = "bf16" if dtype == torch.bfloat16 else "f32"
+        es = 2 if dtype == torch.bfloat16 else 4
+        for L in (577, 1025):
+            M = B * L
+            x = torch.randn(B, L, H, device=dev, generator=gd).to(dtype)
+            with torch.no_grad():
+                out = vit_attention_residual(blk, x, nh, 1e-6)
+                ref = fused_vit_attn_plain(x, *w_attn, nh, 1e-6)
+                err = compare(f"fused_vit_attn {L} {dn}", out, ref, dtype)
+                eq = _bits(f"fused_vit_attn {L}", out, ref)
+                del out, ref
+                ms = cuda_ms(lambda i: vit_attention_residual(blk, x, nh,
+                                                              1e-6), 5)
+                pms = cuda_ms(lambda i: fused_vit_attn_plain(
+                    x, *w_attn, nh, 1e-6), 2)
+            _row(rows, "fused_vit_attn", str(L), dn,
+                 f"B={B} L={L} H={H} heads=12x64", err, ms, pms, None,
+                 2.0 * M * H * 4 * H + 4.0 * B * nh * L * L * hd,
+                 es * (2 * M * H + 4 * H * H) + 4 * 8 * H)
+            rows[-1]["bit_equal"] = eq
+            # the backward on BC images: the kernels' route vs all plain
+            xs = x[:BC].clone()
+            up = torch.randn(BC, L, H, device=dev, generator=gd).to(dtype)
+            res, timed = [], []
+            for plain in (False, True):
+                blk.requires_grad_(True)
+                xt = xs.clone().requires_grad_(True)
+                ctx = _plain_attention() if plain else contextlib.nullcontext()
+                with ctx:
+                    o = (fused_vit_attn_plain(xt, *w_attn, nh, 1e-6) if plain
+                         else vit_attention_residual(blk, xt, nh, 1e-6))
+                    leaves = [xt, blk.attn.qkv.weight, blk.attn.proj.weight]
+                    res.append(torch.autograd.grad(o, leaves, up,
+                                                   retain_graph=True))
+                    timed.append(cuda_ms(lambda i: torch.autograd.grad(
+                        o, leaves, up, retain_graph=True), 2))
+                blk.requires_grad_(False)
+                del o, xt, leaves
+            err = max(compare(f"fused_vit_attn bwd {L} {n} {dn}", a, b,
+                              dtype)
+                      for n, a, b in zip(("dx", "dWqkv", "dWproj"), *res))
+            _row(rows, "fused_vit_attn[bwd]", str(L), dn,
+                 f"B={BC} L={L} H={H} heads=12x64", err, timed[0],
+                 timed[1], None,
+                 2.0 * (2.0 * BC * L * H * 4 * H) + 10.0 * BC * nh * L * L
+                 * hd, es * (4 * BC * L * H + 4 * H * H))
+            del x, xs, up, res
+            torch.cuda.empty_cache()
+        L, M = 577, B * 577
+        x, attn = (torch.randn(B, L, H, device=dev, generator=gd).to(dtype)
+                   for _ in range(2))
+        with torch.no_grad():
+            got = tail_train(x, attn, *w_tail, 1e-6)
+            want = tail_train_plain(x, attn, *w_tail, 1e-6)
+            err = 0.0
+            for part, o, r in zip(("out", "y1", "pre1"), got, want):
+                err = max(err, compare(f"tail_train {part} {dn}", o, r,
+                                       dtype))
+                _bits(f"tail_train {part}", o, r)
+            del got, want
+            ms = cuda_ms(lambda i: tail_train(x, attn, *w_tail, 1e-6), 5)
+            pms = cuda_ms(lambda i: tail_train_plain(x, attn, *w_tail, 1e-6),
+                          2)
+        _row(rows, "tail_train", str(L), dn, f"B={B} L={L} H={H} I={I}",
+             err, ms, pms, None, 2.0 * M * (H * H + 2 * H * I),
+             es * (4 * M * H + M * I + H * H + 2 * H * I) + 4 * (5 * H + I))
+        del x, attn
+        torch.cuda.empty_cache()
+    for r in rows[first:]:
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
+        log(f"[fused-attn] {r['kernel']:20s} {r['case']:5s} {r['dtype']:4s} "
+            f"err {r['max_abs_err']:.3e}  kernels {r['ms']:.4f} ms  plain "
+            f"{r['plain_ms']:.4f} ms  library {lib}  bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+def _all_counts():
+    from vitcap_tpu_torch import ops
+    return dict(ops.launch_counts(), **ops.mode_counts(),
+                **ops.call_counts())
+
+
+def phase_flash_path(dev):
+    """The K9, K11 and K12 entry points as a user reaches them, at the
+    flagship width (768, 12 heads of 64), BC images of bf16: a no-grad
+    vit_block with a (B, 1, L, L) bias and a no-grad bert_layer without
+    one (mha's inference route at 577), a no-grad vit_block with a
+    per-head bias at 1025 (the online mode), flash_attention forward and
+    backward at 577 with a per-head bias that requires grad (its gradient
+    zero, as in the TPU package), vit_attention_residual forward and
+    backward, tail_train.  Counts set to 0 just before, read just after;
+    each call must launch exactly its kernels.  Returns the counts."""
+    from vitcap_tpu_torch import ops
+    from vitcap_tpu_torch.models import layers as TL
+    from vitcap_tpu_torch.models.config import ModelConfig
+    from vitcap_tpu_torch.models.vitcap import init_params
+    from vitcap_tpu_torch.ops.attention import heads_view
+    from vitcap_tpu_torch.ops.flash_attention import flash_attention
+    from vitcap_tpu_torch.ops.fused_block import (tail_train,
+                                                  vit_attention_residual)
+    cfg = ModelConfig(num_hidden_layers=1, split_blocks=1, decoder_layers=1)
+    model = init_params(cfg, torch.Generator().manual_seed(SEED), dev)
+    blk, layer = model.bert.encoder.blocks[0], model.bert.decoder.layer[0]
+    H, nh = cfg.hidden_size, cfg.num_attention_heads
+    gd = torch.Generator(device=dev).manual_seed(SEED + 24)
+    dt = torch.bfloat16
+
+    def rnd(L):
+        return torch.randn(BC, L, H, device=dev, generator=gd).to(dt)
+    x577, x1025 = rnd(577), rnd(1025)
+    bcast = _k9_bias(BC, 1, 577, dev, gd)
+    head1025 = _k9_bias(BC, nh, 1025, dev, gd)
+    head577 = _k9_bias(BC, nh, 577, dev, gd).requires_grad_(True)
+    qkv = [heads_view(rnd(577), nh).detach().requires_grad_(True)
+           for _ in range(3)]
+    up = heads_view(rnd(577), nh)
+
+    def flash_fwd_bwd():
+        flash_attention(*qkv, head577).backward(up)
+        if head577.grad is None or head577.grad.any():
+            raise AssertionError("flash_attention at 577: the bias "
+                                 "gradient must be zeros")
+
+    def k11_fwd_bwd():
+        xt = x577.clone().requires_grad_(True)
+        vit_attention_residual(blk, xt, nh, 1e-6).backward(x577)
+
+    k9 = {"attention": 1, "attention[heads]": 1}
+    calls = [
+        ("vit_block, no grad, (B, 1, L, L) bias, L 577",
+         lambda: TL.vit_block(blk, x577, nh, 1e-6, bcast), True, k9),
+        ("bert_layer, no grad, no bias, L 577",
+         lambda: TL.bert_layer(layer, x577, None, nh, 1e-12), True, k9),
+        ("vit_block, no grad, per-head bias, L 1025",
+         lambda: TL.vit_block(blk, x1025, nh, 1e-6, head1025), True,
+         dict(k9, **{"attention[online]": 1, "attention[long]": 1})),
+        ("flash_attention forward + backward, per-head bias, L 577",
+         flash_fwd_bwd, False,
+         dict(k9, **{"attention_bwd": 2, "attention_bwd[heads]": 2})),
+        ("vit_attention_residual forward + backward, L 577", k11_fwd_bwd,
+         False, {"layer_norm": 1, "gemm": 2, "attention": 2,
+                 "attention[non_slab]": 1, "attention_bwd": 2,
+                 "attention_bwd[non_slab]": 2, "fused_vit_attn": 1}),
+        ("tail_train, L 577",
+         lambda: tail_train(x577, rnd(577), *_tail_weights(blk), 1e-6), True,
+         {"gemm": 3, "gemm[pre_out]": 1, "layer_norm": 1, "tail_train": 1}),
+    ]
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    for name, fn, no_grad, want in calls:
+        before = _all_counts()
+        with torch.no_grad() if no_grad else contextlib.nullcontext():
+            fn()
+        torch.cuda.synchronize()
+        after = _all_counts()
+        d = {k: after[k] - before[k] for k in after}
+        want = {k: want.get(k, 0) for k in d}
+        if d != want:
+            raise AssertionError(f"{name}: launches {d} != {want}")
+        log(f"[flash-path] {name}: "
+            f"{ {k: n for k, n in d.items() if n} }")
+    counts = _all_counts()
+    del model, blk, layer, x577, x1025, bcast, head1025, head577, qkv, up
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_flash_parity(dev):
+    """K9 and K11 on the card vs the CPU (their plain versions) in f32 at
+    the flagship width, 2 images: flash_attention at L 577 with a
+    per-head bias and at 1025 with a (B, 1, L, L) one, forward and the q,
+    k, v gradients; vit_attention_residual at L 577 and 1025, forward and
+    the x, Wqkv and Wproj gradients.  Each within F32_TOL of its scale."""
+    from vitcap_tpu_torch.models import layers as TL
+    from vitcap_tpu_torch.ops.flash_attention import flash_attention
+    from vitcap_tpu_torch.ops.fused_block import vit_attention_residual
+    g = torch.Generator().manual_seed(SEED + 25)
+    worst = 0.0
+    for L, heads in ((577, 12), (1025, 1)):
+        qkv = [torch.randn(2, 12, L, 64, generator=g) for _ in range(3)]
+        bias = torch.where(torch.rand(2, heads, L, L, generator=g) > 0.2,
+                           0.0, -10000.0)
+        up = torch.randn(2, 12, L, 64, generator=g)
+        res = []
+        for d in (dev, "cpu"):
+            leaves = [t.to(d).requires_grad_(True) for t in qkv]
+            o = flash_attention(*leaves, bias.to(d))
+            o.backward(up.to(d))
+            res.append([o.detach().cpu()] + [t.grad.cpu() for t in leaves])
+        for n, a, b in zip(("out", "dq", "dk", "dv"), *res):
+            worst = max(worst, compare(f"flash_attention GPU vs CPU {L} {n}",
+                                       a, b, torch.float32))
+    torch.manual_seed(SEED + 26)
+    cpu_blk = TL.ViTBlock(768, 3072)
+    gpu_blk = copy.deepcopy(cpu_blk).to(dev)
+    for L in (577, 1025):
+        x = torch.randn(2, L, 768, generator=g)
+        up = torch.randn(2, L, 768, generator=g)
+        res = []
+        for blk, d in ((gpu_blk, dev), (cpu_blk, "cpu")):
+            blk.zero_grad(set_to_none=True)
+            xt = x.to(d).requires_grad_(True)
+            o = vit_attention_residual(blk, xt, 12, 1e-6)
+            o.backward(up.to(d))
+            res.append([o.detach().cpu(), xt.grad.cpu(),
+                        blk.attn.qkv.weight.grad.cpu(),
+                        blk.attn.proj.weight.grad.cpu()])
+        for n, a, b in zip(("out", "dx", "dWqkv", "dWproj"), *res):
+            scale = max(b.abs().max().item(), 1e-30)
+            e = (a - b).abs().max().item() / scale
+            worst = max(worst, e)
+            if not e <= F32_TOL:
+                raise AssertionError(f"fused_vit_attn GPU vs CPU {L} {n}: "
+                                     f"{e:.3e} of scale")
+    log(f"[flash-parity] K9 and K11, f32, GPU vs CPU: worst {worst:.3e}")
+    return {"worst": worst}
+
+
+def phase_flash(dev, rows):
+    """Phase 11: the kernels, the path with exact counts, GPU vs CPU."""
+    phase_flash_kernels(dev, rows)
+    phase_fused_attn_kernels(dev, rows)
+    counts = phase_flash_path(dev)
+    return counts, phase_flash_parity(dev)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1851,6 +2296,9 @@ def main() -> int:
     t_512 = time.perf_counter()
     train512_counts, train512 = phase_train512(dev, smi, rows)
     log(f"[train512] phases took {time.perf_counter() - t_512:.1f} s")
+    t_flash = time.perf_counter()
+    flash_counts, flash_parity = phase_flash(dev, rows)
+    log(f"[flash] phases took {time.perf_counter() - t_flash:.1f} s")
 
     for name, n in counts.items():
         if n == 0 and name != "attention_bwd":
@@ -1859,12 +2307,18 @@ def main() -> int:
         if n == 0 and name not in ("decode_attention", "attention[long]",
                                    "attention[non_slab]",
                                    "attention_bwd[long]",
-                                   "attention_bwd[non_slab]"):
+                                   "attention_bwd[non_slab]",
+                                   "attention[heads]", "attention[online]",
+                                   "attention_bwd[heads]"):
             raise AssertionError(f"{name}: no launch on the train path")
     kernels = summarise(rows, counts, dict(
         train_counts, **{"attention[long]": high_counts["attention[long]"]},
         **{k: train512_counts[k] for k in ("attention[non_slab]",
-                                           "attention_bwd[non_slab]")}))
+                                           "attention_bwd[non_slab]")},
+        **{k: flash_counts[k] for k in ("attention[heads]",
+                                        "attention[online]",
+                                        "attention_bwd[heads]",
+                                        "fused_vit_attn", "tail_train")}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(
@@ -1873,6 +2327,7 @@ def main() -> int:
          "launches": counts, "train": train, "train_launches": train_counts,
          "profile": prof, "highres": high, "highres_launches": high_counts,
          "train512": train512, "train512_launches": train512_counts,
+         "flash_launches": flash_counts, "flash_parity": flash_parity,
          "kernels": kernels}, indent=1))
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -41,6 +41,17 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.fixture
+def plain_attention(monkeypatch):
+    """models.layers' attention routes on their plain versions, so a plain
+    block on the card launches no kernel: the reference a fused block is
+    held to."""
+    from vitcap_tpu_torch.ops import flash_attention as FA
+    monkeypatch.setattr(TL, "flash_attention", FA.flash_attention_plain)
+    monkeypatch.setattr(TL, "flash_attention_packed",
+                        FA.flash_attention_packed_plain)
+
+
 def _close(out, ref, dtype):
     """f32: 1e-4 (at least absolute); bf16: 2e-2 of the output's scale."""
     out, ref = out.float().cpu(), ref.float().cpu()
@@ -111,7 +122,8 @@ def test_cuda_attention_matches_plain(cuda, dtype, hd):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_fused_blocks_match_plain_blocks(cuda, dtype):
+def test_cuda_fused_blocks_match_plain_blocks(cuda, plain_attention,
+                                             dtype):
     cfg = tiny_config(hidden_size=128, num_attention_heads=2,
                       intermediate_size=512)
     model = init_params(cfg, torch.Generator().manual_seed(0), cuda)
@@ -454,9 +466,11 @@ def test_cuda_attention_long_matches_plain(cuda, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_fused_blocks_long_match_plain_blocks(cuda, dtype):
+def test_cuda_fused_blocks_long_match_plain_blocks(cuda, plain_attention,
+                                                  dtype):
     """Both inference blocks at L = 1025 / 1076 (Lp 1152), H = 128 in 2
-    heads of 64, against the plain blocks on the card."""
+    heads of 64, against the plain blocks on the card (their attention on
+    its plain version: only the fused blocks launch kernels)."""
     cfg = tiny_config(hidden_size=128, num_attention_heads=2,
                       intermediate_size=512)
     model = init_params(cfg, torch.Generator().manual_seed(0), cuda)
@@ -551,3 +565,105 @@ def test_cuda_strided_attention_refuses_unaligned_layouts(cuda):
     column_major = v.transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError, match="strides"):
         attention_qkv(q, k, column_major, 1, 80)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_matches_plain(cuda, dtype):
+    """K9: flash_attention's kernels against flash_attention_plain on the
+    card, 4 heads of 64, bias None, (B, 1, L, L) and (B, nH, L, L): at
+    L 200 (one-pass forward, the attention_bwd pair backward with a zero
+    bias gradient) on contiguous (B, nH, L, dh) tensors, and at L 1030
+    (the online forward, the f32 autograd backward) on the per-head views
+    of (B, L, H) tensors that mha passes.  Counts: one attention launch per
+    forward, all through attention_heads, the online ones past 1024; two
+    attention_bwd launches per one-pass backward."""
+    from vitcap_tpu_torch.ops.attention import heads_view
+    from vitcap_tpu_torch.ops.flash_attention import (flash_attention,
+                                                      flash_attention_plain)
+    g = torch.Generator().manual_seed(21)
+    B, nh, hd = 2, 4, 64
+    ops.reset_counts()
+    for L in (200, 1030):
+        for kind in (None, 1, nh):
+            if L == 200:
+                qkv = [torch.randn(B, nh, L, hd, generator=g).to(cuda, dtype)
+                       for _ in range(3)]
+            else:
+                qkv = [heads_view(torch.randn(B, L, nh * hd, generator=g)
+                                  .to(cuda, dtype), nh) for _ in range(3)]
+            bias = None
+            if kind is not None:
+                bias = torch.where(torch.rand(B, kind, L, L, generator=g)
+                                   > 0.2, 0.0, -10000.0)
+                bias[..., 0] = 0.0
+                bias = bias.to(cuda).requires_grad_(True)
+            up = torch.randn(B, nh, L, hd, generator=g).to(cuda, dtype)
+            outs = []
+            for fn in (flash_attention, flash_attention_plain):
+                leaves = [t.detach().requires_grad_(True) for t in qkv]
+                if bias is not None:
+                    bias.grad = None
+                o = fn(*leaves, bias)
+                o.backward(up)
+                outs.append([o] + [t.grad for t in leaves]
+                            + [None if bias is None else bias.grad])
+            for o, w_ in zip(outs[0][:4], outs[1][:4]):
+                _close(o, w_, dtype)
+                _bits_equal(o, w_)
+            if bias is not None and L == 200:
+                assert not outs[0][4].any()
+            elif bias is not None:
+                _close(outs[0][4], outs[1][4], torch.float32)
+    modes = ops.mode_counts()
+    assert ops.launch_counts()["attention"] == 6
+    assert modes["attention[heads]"] == 6 and modes["attention[online]"] == 3
+    assert ops.launch_counts()["attention_bwd"] == 6
+    assert modes["attention_bwd[heads]"] == 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_fused_vit_attn_and_tail_train_match_plain(cuda, dtype):
+    """K11 (fused_vit_attn: LN1, qkv gemm, attention, proj gemm with the
+    residual) and K12 (tail_train) against their plain versions at L 90
+    and 1030, 2 heads of 64; K11's backward (the plain chain, its
+    attention the packed route) gives the same gradients either way.  Each
+    CUDA call is four launches and one call count."""
+    from vitcap_tpu_torch.ops.fused_block import (fused_vit_attn_plain,
+                                                  tail_train,
+                                                  tail_train_plain,
+                                                  vit_attention_residual)
+    torch.manual_seed(0)
+    blk = TL.ViTBlock(128, 512, device=cuda)
+    g = torch.Generator().manual_seed(22)
+    ops.reset_counts()
+    for L in (90, 1030):
+        x = torch.randn(2, L, 128, generator=g).to(cuda, dtype)
+        up = torch.randn(2, L, 128, generator=g).to(cuda, dtype)
+        outs = []
+        for plain in (False, True):
+            xt = x.clone().requires_grad_(True)
+            blk.zero_grad(set_to_none=True)
+            if plain:
+                o = fused_vit_attn_plain(
+                    xt, blk.norm1.weight, blk.norm1.bias,
+                    blk.attn.qkv.weight, blk.attn.qkv.bias,
+                    blk.attn.proj.weight, blk.attn.proj.bias, 2, 1e-6)
+            else:
+                o = vit_attention_residual(blk, xt, 2, 1e-6)
+            o.backward(up)
+            outs.append([o, xt.grad, blk.attn.qkv.weight.grad])
+        _close(outs[0][0], outs[1][0], dtype)
+        _bits_equal(outs[0][0], outs[1][0])
+        for a, b in zip(outs[0][1:], outs[1][1:]):
+            assert torch.equal(a, b)
+        w = (blk.attn.proj.weight, blk.attn.proj.bias, blk.norm2.weight,
+             blk.norm2.bias, blk.mlp.fc1.weight, blk.mlp.fc1.bias,
+             blk.mlp.fc2.weight, blk.mlp.fc2.bias)
+        with torch.no_grad():
+            for o, ref in zip(tail_train(x, up, *w, 1e-6),
+                              tail_train_plain(x, up, *w, 1e-6)):
+                _close(o, ref, dtype)
+                _bits_equal(o, ref)
+    assert ops.call_counts() == {"fused_vit_attn": 2, "tail_train": 2}

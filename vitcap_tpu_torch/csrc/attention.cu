@@ -1,16 +1,26 @@
 // attention: softmax(q . k^T * hd^-0.5 [+ bias]) . v, keys at or past
-// l_actual masked, out a contiguous (B, Lp, H).  q, k and v are three
-// (B, Lp, H) operands, each read by base pointer, batch stride and row
-// stride (Operand, common.cuh): a fused (B, Lp, 3H) qkv slab is the case
-// q = slab, k = slab + H, v = slab + 2H with row stride 3H; the packed
-// train route (flash_attention_packed) passes separate q, k, v tensors or
-// views of one.  One kernel body per dtype serves both.
+// l_actual masked, out a contiguous (B, Lp, H) with head h at columns
+// [h * hd, (h + 1) * hd).  q, k and v are three per-head operands, each
+// read by base pointer and batch, head and row strides (Operand,
+// common.cuh): a fused (B, Lp, 3H) qkv slab is the case q = slab,
+// k = slab + H, v = slab + 2H with row stride 3H and head stride hd; the
+// packed train route (flash_attention_packed) passes separate q, k, v
+// tensors or views of one; flash_attention (K9) passes (B, nH, L, dh)
+// tensors or their views.  One kernel body per dtype serves them all.
+// The bias is (B, 1 | nH, Lp, Lp) f32 (Bias, common.cuh; head stride 0
+// for the head-broadcast one).
 //
 // Replaces the attention TPU kernels of vitcap_tpu/ops/fused_block.py:
 // _attn_pairbd_kernel / _attn_perhead_kernel (ViT, no bias) and
 // _bert_attn_pairbd_kernel / _bert_attn_perhead_kernel (BERT prefill, with
 // the additive head-broadcast (B, 1, Lp, Lp) f32 bias).  The TPU kernels'
 // pair-blockdiagonal packing is an MXU trick and is not carried over.
+// It is also the forward of K9, vitcap_tpu/ops/flash_attention.py:846
+// flash_attention: up to 1024 padded tokens its one-pass kernel (:189
+// _flash_fwd_onepass, :165 _onepass_kernel) computes this same function
+// (any bias: none, (B, 1, L, L) or per head (B, nH, L, L)); past 1024 its
+// q-tiled kernel (:251 _flash_fwd_pallas, :129 _kernel) computes another
+// one, which the `online` mode below reproduces.
 //
 // Math, as on the TPU: f32 scores, scale applied after the dot, bias added,
 // keys >= l_actual masked (they contribute exactly 0: exp(-1e30 - m)
@@ -48,6 +58,19 @@
 // :470 _bert_kernel, Lp > 1024, e.g. 1152 at 512 px, B = 64: 85M bias
 // entries), and 512-px training on separate q, k, v (Lp 1152 and 1104).
 // There the work grows as Lp^2 and stays compute-bound.
+// Online mode (K9 past 1024 padded tokens, vitcap_tpu/ops/
+// flash_attention.py:129 _kernel): q is pre-scaled in its own dtype
+// (round(q * round(scale)), exact at hd 64 where the scale is 2^-3, one
+// rounding at hd 32), the scores are q . k^T with no further scale, and
+// the softmax runs online over key tiles of 128 from key 0: per tile
+// m' = max(m, rowmax(s)), p = exp(s - m') rounded to the operand dtype for
+// the product with v, corr = exp(m - m'), l = l * corr + sum(p) and
+// acc = acc * corr + p . v in f32 (m starts at -1e30).  bf16: WMMA
+// accumulators have no row layout to rescale, so each tile's p . v lands
+// in a fresh fragment, is staged in shared memory, and the lanes update
+// an f32 accumulator there in the TPU kernel's order (dynamic shared
+// memory, 111 KB at head dim 64).  f32: the CUDA-core kernel with the
+// pre-scaled q (its online chunks of 16 keys only reorder f32 sums).
 // Head sizes are padded up to a compiled size (64 or 128 on the tensor
 // cores; 16, 32, 64 or 128 on the CUDA cores) with zeros, which leaves the
 // dot products unchanged.
@@ -98,7 +121,7 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
 template <int HDP, int KT>
 __global__ void __launch_bounds__(TC_THREADS)
     attention_tc_kernel(Operand<bf16> q, Operand<bf16> k, Operand<bf16> v,
-                        const float* __restrict__ bias, bf16* __restrict__ out,
+                        Bias bias, bf16* __restrict__ out,
                         int Lp, int H, int hd, int l_actual, float scale,
                         Dropout drop) {
   using S = TcSmem<HDP, KT>;
@@ -107,18 +130,16 @@ __global__ void __launch_bounds__(TC_THREADS)
   __shared__ __align__(128) S sm;
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * TC_Q;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const bf16* qh = q.head(b, h, hd);
-  const bf16* kh = k.head(b, h, hd);
-  const bf16* vh = v.head(b, h, hd);
+  const bf16* qh = q.head(b, h);
+  const bf16* kh = k.head(b, h);
+  const bf16* vh = v.head(b, h);
   float* sw = sm.s[warp];
   bf16* pw = reinterpret_cast<bf16*>(sw);  // probabilities, row stride LP
   // softmax ownership: lane -> (row, half of the key tile)
   const int row = lane / 2, c0 = (lane % 2) * HALF;
   const int qrow = q0 + warp * 16 + row;
   const unsigned salt = b * gridDim.y + h;  // global head b * nh + h
-  const float* brow = (bias && qrow < Lp)
-                          ? bias + ((size_t)b * Lp + qrow) * Lp
-                          : nullptr;
+  const float* brow = qrow < Lp ? bias.row(b, h, qrow, Lp) : nullptr;
 
   load_rows<HDP, LD>(sm.q, qh, q.sr, q0, TC_Q, Lp, hd);
   __syncthreads();
@@ -237,25 +258,27 @@ constexpr int ATT_CH = 16;  // keys per online-softmax chunk
 template <int HDP>
 __global__ void __launch_bounds__(ATT_Q)
     attention_kernel(Operand<float> qo, Operand<float> ko, Operand<float> vo,
-                     const float* __restrict__ bias, float* __restrict__ out,
-                     int Lp, int H, int hd, int l_actual, float scale,
-                     Dropout drop) {
+                     Bias bias, float* __restrict__ out, int Lp, int H,
+                     int hd, int l_actual, float scale, Dropout drop,
+                     int online) {
   __shared__ __align__(16) float Ks[ATT_K][HDP];
   __shared__ __align__(16) float Vs[ATT_K][HDP];
   const int b = blockIdx.z, h = blockIdx.y;
   const int row = blockIdx.x * ATT_Q + threadIdx.x;
   const bool active = row < Lp;
   const unsigned salt = b * gridDim.y + h;
-  const float* qh = qo.head(b, h, hd);
-  const float* kh = ko.head(b, h, hd);
-  const float* vh = vo.head(b, h, hd);
-  const float* brow =
-      (bias && active) ? bias + ((size_t)b * Lp + row) * Lp : nullptr;
+  const float* qh = qo.head(b, h);
+  const float* kh = ko.head(b, h);
+  const float* vh = vo.head(b, h);
+  const float* brow = active ? bias.row(b, h, row, Lp) : nullptr;
 
+  // online mode: q pre-scaled (one f32 rounding), no scale after the dot
+  const float qscale = online ? scale : 1.0f;
+  const float sscale = online ? 1.0f : scale;
   float q[HDP], o[HDP];
 #pragma unroll
   for (int d = 0; d < HDP; ++d) {
-    q[d] = (active && d < hd) ? qh[(size_t)row * qo.sr + d] : 0.0f;
+    q[d] = (active && d < hd) ? qh[(size_t)row * qo.sr + d] * qscale : 0.0f;
     o[d] = 0.0f;
   }
   float m = -INFINITY, l = 0.0f;
@@ -283,7 +306,7 @@ __global__ void __launch_bounds__(ATT_Q)
         float acc = 0.0f;
 #pragma unroll
         for (int d = 0; d < HDP; ++d) acc = fmaf(q[d], Ks[c0 + j][d], acc);
-        float sv = acc * scale;
+        float sv = acc * sscale;
         if (brow && c0 + j < nt) sv += brow[k0 + c0 + j];
         sv = (c0 + j < nt) ? sv : -INFINITY;
         s[j] = sv;
@@ -316,69 +339,247 @@ __global__ void __launch_bounds__(ATT_Q)
 }
 
 // ---------------------------------------------------------------------------
+// bf16 online mode: K9's q-tiled kernel past 1024 padded tokens
+// ---------------------------------------------------------------------------
+
+constexpr int ON_KT = 128;        // the TPU kernel's key tile (TK)
+constexpr float ON_NEG = -1e30f;  // its mask value and running-max start
+
+// dynamic shared memory layout (byte offsets, each 128-byte aligned)
+template <int HDP>
+struct OnSmem {
+  static constexpr int LD = HDP + 8;     // bf16 operand row stride
+  static constexpr int LS = ON_KT + 4;   // f32 score / staging row stride
+  static constexpr int LP = ON_KT + 8;   // bf16 probability row stride
+  static constexpr size_t Q = 0;
+  static constexpr size_t K = Q + (size_t)TC_Q * LD * 2;
+  static constexpr size_t V = K + (size_t)ON_KT * LD * 2;
+  static constexpr size_t S = V + (size_t)ON_KT * LD * 2;   // 4 warps
+  static constexpr size_t P = S + (size_t)4 * 16 * LS * 4;
+  static constexpr size_t A = P + (size_t)4 * 16 * LP * 2;
+  static constexpr size_t BYTES = A + (size_t)4 * 16 * HDP * 4;
+  static_assert(HDP <= LS, "the p . v staging must fit a score row");
+};
+
+template <int HDP>
+__global__ void __launch_bounds__(TC_THREADS)
+    attention_tc_online_kernel(Operand<bf16> q, Operand<bf16> k,
+                               Operand<bf16> v, Bias bias,
+                               bf16* __restrict__ out, int Lp, int H, int hd,
+                               int l_actual, float scale) {
+  using S = OnSmem<HDP>;
+  constexpr int LD = S::LD, LS = S::LS, LP = S::LP, KT = ON_KT;
+  constexpr int HALF = KT / 2, DHALF = HDP / 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem + S::Q);
+  bf16* ks = reinterpret_cast<bf16*>(smem + S::K);
+  bf16* vs = reinterpret_cast<bf16*>(smem + S::V);
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * TC_Q;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* sw = reinterpret_cast<float*>(smem + S::S) + warp * 16 * LS;
+  bf16* pw = reinterpret_cast<bf16*>(smem + S::P) + warp * 16 * LP;
+  float* aw = reinterpret_cast<float*>(smem + S::A) + warp * 16 * HDP;
+  // lane -> (row, half of the key tile and of the head columns)
+  const int row = lane / 2, half = lane % 2;
+  const int c0 = half * HALF, d0 = half * DHALF;
+  const int qrow = q0 + warp * 16 + row;
+  const float* brow = qrow < Lp ? bias.row(b, h, qrow, Lp) : nullptr;
+  const bf16* kh = k.head(b, h);
+  const bf16* vh = v.head(b, h);
+
+  // q pre-scaled in bf16: round(q * round(scale)) (the product of two
+  // bf16 values is exact in f32, so this is the bf16 multiply)
+  const float sc = __bfloat162float(__float2bfloat16(scale));
+  load_rows<HDP, LD>(qs, q.head(b, h), q.sr, q0, TC_Q, Lp, hd);
+  for (int i = lane; i < 16 * HDP; i += 32) aw[i] = 0.0f;
+  __syncthreads();
+  for (int i = threadIdx.x; i < TC_Q * HDP; i += blockDim.x) {
+    bf16* e = qs + (i / HDP) * LD + i % HDP;
+    *e = __float2bfloat16(__bfloat162float(*e) * sc);
+  }
+  __syncthreads();
+  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
+      qf[HDP / 16];
+#pragma unroll
+  for (int kk = 0; kk < HDP / 16; ++kk)
+    wmma::load_matrix_sync(qf[kk], qs + warp * 16 * LD + kk * 16, LD);
+
+  float m = ON_NEG, l = 0.0f;
+  for (int k0 = 0; k0 < l_actual; k0 += KT) {
+    __syncthreads();
+    load_rows<HDP, LD>(ks, kh, k.sr, k0, KT, l_actual, hd);
+    load_rows<HDP, LD>(vs, vh, v.sr, k0, KT, l_actual, hd);
+    __syncthreads();
+    // s = (pre-scaled q) . k^T -> this warp's scratch
+#pragma unroll
+    for (int j = 0; j < KT / 16; ++j) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+      wmma::fill_fragment(acc, 0.0f);
+#pragma unroll
+      for (int kk = 0; kk < HDP / 16; ++kk) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
+        wmma::load_matrix_sync(kf, ks + j * 16 * LD + kk * 16, LD);
+        wmma::mma_sync(acc, qf[kk], kf, acc);
+      }
+      wmma::store_matrix_sync(sw + j * 16, acc, LS, wmma::mem_row_major);
+    }
+    __syncwarp();
+    // + bias, keys >= l_actual at -1e30; the tile's row max
+    float tm = ON_NEG;
+    for (int c = 0; c < HALF; ++c) {
+      const int kg = k0 + c0 + c;
+      float sv = sw[row * LS + c0 + c];
+      if (brow && kg < l_actual) sv += brow[kg];
+      sv = kg < l_actual ? sv : ON_NEG;
+      sw[row * LS + c0 + c] = sv;
+      tm = fmaxf(tm, sv);
+    }
+    tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 1));
+    const float mn = fmaxf(m, tm);
+    const float corr = expf(m - mn);
+    float part = 0.0f;
+    for (int c = 0; c < HALF; ++c) {
+      const float p = expf(sw[row * LS + c0 + c] - mn);
+      part += p;
+      pw[row * LP + c0 + c] = __float2bfloat16(p);
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    l = __fadd_rn(__fmul_rn(l, corr), part);
+    m = mn;
+    __syncwarp();
+    // this tile's p . v in fresh fragments, staged over the scores
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> pv[HDP / 16];
+#pragma unroll
+    for (int n = 0; n < HDP / 16; ++n) wmma::fill_fragment(pv[n], 0.0f);
+#pragma unroll
+    for (int j = 0; j < KT / 16; ++j) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf;
+      wmma::load_matrix_sync(pf, pw + j * 16, LP);
+#pragma unroll
+      for (int n = 0; n < HDP / 16; ++n) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
+        wmma::load_matrix_sync(vf, vs + j * 16 * LD + n * 16, LD);
+        wmma::mma_sync(pv[n], pf, vf, pv[n]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < HDP / 16; ++n)
+      wmma::store_matrix_sync(sw + n * 16, pv[n], LS, wmma::mem_row_major);
+    __syncwarp();
+    // acc = acc * corr + p . v, in f32 as the TPU kernel orders it
+    for (int c = 0; c < DHALF; ++c)
+      aw[row * HDP + d0 + c] =
+          __fadd_rn(__fmul_rn(aw[row * HDP + d0 + c], corr),
+                    sw[row * LS + d0 + c]);
+    __syncwarp();
+  }
+
+  const float den = fmaxf(l, 1e-30f);
+  for (int c = 0; c < DHALF; ++c) {
+    const int col = d0 + c;
+    if (qrow < Lp && col < hd)
+      out[((size_t)b * Lp + qrow) * H + h * hd + col] =
+          __float2bfloat16(aw[row * HDP + col] / den);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // dispatch
 // ---------------------------------------------------------------------------
 
 template <int HDP>
-static void launch_cc(const Operand<float>* qkv, const float* bias, void* out,
-                      int B, int Lp, int H, int nh, int l_actual, float scale,
-                      Dropout drop, cudaStream_t s) {
+static int launch_cc(const Operand<float>* qkv, Bias bias, void* out, int B,
+                     int Lp, int H, int nh, int l_actual, float scale,
+                     Dropout drop, int online, cudaStream_t s) {
   dim3 grid((Lp + ATT_Q - 1) / ATT_Q, nh, B);
   attention_kernel<HDP><<<grid, ATT_Q, 0, s>>>(
       qkv[0], qkv[1], qkv[2], bias, static_cast<float*>(out), Lp, H, H / nh,
-      l_actual, scale, drop);
+      l_actual, scale, drop, online);
+  return 0;
 }
 
 template <int HDP, int KT>
-static void launch_tc(const Operand<bf16>* qkv, const float* bias, void* out,
-                      int B, int Lp, int H, int nh, int l_actual, float scale,
-                      Dropout drop, cudaStream_t s) {
+static int launch_tc(const Operand<bf16>* qkv, Bias bias, void* out, int B,
+                     int Lp, int H, int nh, int l_actual, float scale,
+                     Dropout drop, cudaStream_t s) {
   dim3 grid((Lp + TC_Q - 1) / TC_Q, nh, B);
   attention_tc_kernel<HDP, KT><<<grid, TC_THREADS, 0, s>>>(
       qkv[0], qkv[1], qkv[2], bias, static_cast<bf16*>(out), Lp, H, H / nh,
       l_actual, scale, drop);
+  return 0;
 }
 
-// q, k, v: base pointers with batch and row strides in elements (the
-// wrapper checks alignment); out: contiguous (B, Lp, H)
-extern "C" int vc_attention(const void* q, long long q_sb, long long q_sr,
-                            const void* k, long long k_sb, long long k_sr,
-                            const void* v, long long v_sb, long long v_sr,
-                            const void* bias, void* out, int B, int Lp, int H,
-                            int nh, int l_actual, float scale, unsigned seed,
-                            unsigned thresh, float inv, int dtype,
-                            void* stream) {
+template <int HDP>
+static int launch_online(const Operand<bf16>* qkv, Bias bias, void* out,
+                         int B, int Lp, int H, int nh, int l_actual,
+                         float scale, cudaStream_t s) {
+  constexpr size_t bytes = OnSmem<HDP>::BYTES;
+  const cudaError_t e = cudaFuncSetAttribute(
+      attention_tc_online_kernel<HDP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((Lp + TC_Q - 1) / TC_Q, nh, B);
+  attention_tc_online_kernel<HDP><<<grid, TC_THREADS, bytes, s>>>(
+      qkv[0], qkv[1], qkv[2], bias, static_cast<bf16*>(out), Lp, H, H / nh,
+      l_actual, scale);
+  return 0;
+}
+
+// q, k, v: base pointers with batch, head and row strides in elements;
+// bias: base pointer (or null) with batch and head strides, rows of Lp
+// (the wrapper checks alignment and shapes); out: contiguous (B, Lp, H).
+// online: K9's online softmax past 1024 (no dropout).
+extern "C" int vc_attention(
+    const void* q, long long q_sb, long long q_sh, long long q_sr,
+    const void* k, long long k_sb, long long k_sh, long long k_sr,
+    const void* v, long long v_sb, long long v_sh, long long v_sr,
+    const void* bias, long long bias_sb, long long bias_sh, void* out, int B,
+    int Lp, int H, int nh, int l_actual, float scale, unsigned seed,
+    unsigned thresh, float inv, int online, int dtype, void* stream) {
   const Dropout drop{seed, thresh, inv, thresh != 0u || inv != 1.0f};
   if (nh <= 0 || H % nh) return (int)cudaErrorInvalidValue;
   const int hd = H / nh;
   if (hd % 8 || hd > 128 || H % 8) return (int)cudaErrorInvalidValue;
+  if (online && drop.on) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* bf = static_cast<const float*>(bias);
+  const Bias bs{static_cast<const float*>(bias), bias_sb, bias_sh};
+  int rc = 0;
   if (dtype == VC_BF16) {
     const Operand<bf16> ops[3] = {
-        {static_cast<const bf16*>(q), q_sb, q_sr},
-        {static_cast<const bf16*>(k), k_sb, k_sr},
-        {static_cast<const bf16*>(v), v_sb, v_sr}};
-    if (hd <= 64)
-      launch_tc<64, 64>(ops, bf, out, B, Lp, H, nh, l_actual, scale, drop, s);
+        {static_cast<const bf16*>(q), q_sb, q_sh, q_sr},
+        {static_cast<const bf16*>(k), k_sb, k_sh, k_sr},
+        {static_cast<const bf16*>(v), v_sb, v_sh, v_sr}};
+    if (online)
+      rc = hd <= 64 ? launch_online<64>(ops, bs, out, B, Lp, H, nh,
+                                        l_actual, scale, s)
+                    : launch_online<128>(ops, bs, out, B, Lp, H, nh,
+                                         l_actual, scale, s);
+    else if (hd <= 64)
+      rc = launch_tc<64, 64>(ops, bs, out, B, Lp, H, nh, l_actual, scale,
+                             drop, s);
     else
-      launch_tc<128, 32>(ops, bf, out, B, Lp, H, nh, l_actual, scale, drop,
-                         s);
+      rc = launch_tc<128, 32>(ops, bs, out, B, Lp, H, nh, l_actual, scale,
+                              drop, s);
   } else if (dtype == VC_F32) {
     const Operand<float> ops[3] = {
-        {static_cast<const float*>(q), q_sb, q_sr},
-        {static_cast<const float*>(k), k_sb, k_sr},
-        {static_cast<const float*>(v), v_sb, v_sr}};
+        {static_cast<const float*>(q), q_sb, q_sh, q_sr},
+        {static_cast<const float*>(k), k_sb, k_sh, k_sr},
+        {static_cast<const float*>(v), v_sb, v_sh, v_sr}};
     if (hd <= 16)
-      launch_cc<16>(ops, bf, out, B, Lp, H, nh, l_actual, scale, drop, s);
+      rc = launch_cc<16>(ops, bs, out, B, Lp, H, nh, l_actual, scale, drop,
+                         online, s);
     else if (hd <= 32)
-      launch_cc<32>(ops, bf, out, B, Lp, H, nh, l_actual, scale, drop, s);
+      rc = launch_cc<32>(ops, bs, out, B, Lp, H, nh, l_actual, scale, drop,
+                         online, s);
     else if (hd <= 64)
-      launch_cc<64>(ops, bf, out, B, Lp, H, nh, l_actual, scale, drop, s);
+      rc = launch_cc<64>(ops, bs, out, B, Lp, H, nh, l_actual, scale, drop,
+                         online, s);
     else
-      launch_cc<128>(ops, bf, out, B, Lp, H, nh, l_actual, scale, drop, s);
+      rc = launch_cc<128>(ops, bs, out, B, Lp, H, nh, l_actual, scale, drop,
+                          online, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  if (rc) return rc;
   return (int)cudaGetLastError();
 }

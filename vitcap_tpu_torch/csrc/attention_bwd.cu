@@ -1,17 +1,20 @@
 // attention_bwd: the gradient of softmax attention (with the optional
-// additive (B, 1, Lp, Lp) f32 bias and attention-prob dropout) with respect
-// to q, k and v, given the upstream gradient g.  q, k, v and g are (B, Lp,
-// H) operands read by base pointer, batch stride and row stride (Operand,
-// common.cuh): a fused (B, Lp, 3H) qkv slab is q = slab, k = slab + H,
-// v = slab + 2H with row stride 3H, the packed train route passes separate
+// additive (B, 1 | nH, Lp, Lp) f32 bias and attention-prob dropout) with
+// respect to q, k and v, given the upstream gradient g.  q, k, v and g are
+// per-head operands read by base pointer and batch, head and row strides
+// (Operand, common.cuh): a fused (B, Lp, 3H) qkv slab is q = slab,
+// k = slab + H, v = slab + 2H with row stride 3H, the packed train route
+// passes separate tensors or views, flash_attention (K9) (B, nH, L, dh)
 // tensors or views.  Outputs dq, dk, dv are contiguous (B, Lp, H) in the
-// operands' dtype.
+// operands' dtype, head h at columns [h * hd, (h + 1) * hd).
 //
 // Replaces the one-pass recompute backward of K8,
 // vitcap_tpu/ops/flash_attention.py:882 flash_bwd_packed_slab (the slab)
 // and :734 _flash_bwd_packed (separate q, k, v), with their kernels :530
-// _bwd_packed_pair_kernel / :600 _bwd_packed_kernel.  Their math, per
-// (image, head):
+// _bwd_packed_pair_kernel / :600 _bwd_packed_kernel, and the one-pass
+// backward of K9 up to 1024 padded tokens, :372 _flash_bwd_onepass (:324
+// _bwd_onepass_kernel: the same math at rate 0, with a per-head bias or
+// none).  Their math, per (image, head):
 //   s = q k^T * scale + bias, keys >= l_actual masked;
 //   p = exp(s - max) / max(l, 1e-30)        (f32, the undropped softmax)
 //   pd = keep ? p / (1 - rate) : 0          (dropout regenerated)
@@ -164,8 +167,7 @@ struct QSmem {
 // image)
 __global__ void __launch_bounds__(NTH)
     attn_bwd_q_tc(Operand<bf16> q, Operand<bf16> k, Operand<bf16> v,
-                  Operand<bf16> g, const float* __restrict__ bias,
-                  bf16* __restrict__ dq,
+                  Operand<bf16> g, Bias bias, bf16* __restrict__ dq,
                   float* __restrict__ mlr, int Lp, int H, int hd,
                   int l_actual, float scale, Dropout drop) {
   constexpr int LS = KT + 4, LPB = KT + 8, HALF = KT / 2;
@@ -178,15 +180,14 @@ __global__ void __launch_bounds__(NTH)
   const int row = lane / 2, c0 = (lane % 2) * HALF;
   const int qrow = q0 + warp * 16 + row;
   const unsigned salt = b * nh + h;
-  const bf16* kh = k.head(b, h, hd);
-  const bf16* vh = v.head(b, h, hd);
-  const float* brow =
-      (bias && qrow < Lp) ? bias + ((size_t)b * Lp + qrow) * Lp : nullptr;
+  const bf16* kh = k.head(b, h);
+  const bf16* vh = v.head(b, h);
+  const float* brow = qrow < Lp ? bias.row(b, h, qrow, Lp) : nullptr;
   float* sw = sm.s[warp];
   bf16* dsw = reinterpret_cast<bf16*>(sw);
 
-  load_head_rows(sm.q, q.head(b, h, hd), q.sr, q0, QB, Lp, hd);
-  load_head_rows(sm.g, g.head(b, h, hd), g.sr, q0, QB, Lp, hd);
+  load_head_rows(sm.q, q.head(b, h), q.sr, q0, QB, Lp, hd);
+  load_head_rows(sm.g, g.head(b, h), g.sr, q0, QB, Lp, hd);
   __syncthreads();
   FragA qf[HDP / 16], gf[HDP / 16];
 #pragma unroll
@@ -294,7 +295,7 @@ struct KSmem {
 // (b): dk and dv of one (64-key tile, head, image)
 __global__ void __launch_bounds__(NTH)
     attn_bwd_kv_tc(Operand<bf16> q, Operand<bf16> k, Operand<bf16> v,
-                   Operand<bf16> g, const float* __restrict__ bias,
+                   Operand<bf16> g, Bias bias,
                    const float* __restrict__ mlr, bf16* __restrict__ dk,
                    bf16* __restrict__ dv, int Lp, int H, int hd,
                    int l_actual, float scale, Dropout drop) {
@@ -309,8 +310,9 @@ __global__ void __launch_bounds__(NTH)
   const int row = lane / 2, c0 = (lane % 2) * HALF;
   const int key = kb0 + warp * 16 + row;
   const unsigned salt = b * nh + h;
-  const bf16* qh = q.head(b, h, hd);
-  const bf16* gh = g.head(b, h, hd);
+  const bf16* qh = q.head(b, h);
+  const bf16* gh = g.head(b, h);
+  const float* bh = bias.row(b, h, 0, Lp);  // null without a bias
   const size_t plane = (size_t)gridDim.z * nh * Lp;
   const float* mrow = mlr + ((size_t)b * nh + h) * Lp;
   float* sw = sm.s[warp];
@@ -321,13 +323,13 @@ __global__ void __launch_bounds__(NTH)
 
   // this warp's 16 keys and values as A fragments, staged through qg
   FragA kf[HDP / 16], vf[HDP / 16];
-  load_head_rows(sm.qg, k.head(b, h, hd), k.sr, kb0, KB, l_actual, hd);
+  load_head_rows(sm.qg, k.head(b, h), k.sr, kb0, KB, l_actual, hd);
   __syncthreads();
 #pragma unroll
   for (int kk = 0; kk < HDP / 16; ++kk)
     wmma::load_matrix_sync(kf[kk], sm.qg + warp * 16 * LD + kk * 16, LD);
   __syncthreads();
-  load_head_rows(sm.qg, v.head(b, h, hd), v.sr, kb0, KB, l_actual, hd);
+  load_head_rows(sm.qg, v.head(b, h), v.sr, kb0, KB, l_actual, hd);
   __syncthreads();
 #pragma unroll
   for (int kk = 0; kk < HDP / 16; ++kk)
@@ -360,7 +362,7 @@ __global__ void __launch_bounds__(NTH)
       float p = 0.0f, d = dp[c], pd = 0.0f;
       if (key_ok && qg < Lp) {
         float sv = s[c] * scale;
-        if (bias) sv += bias[((size_t)b * Lp + qg) * Lp + key];
+        if (bh) sv += bh[(size_t)qg * Lp + key];
         p = expf(sv - sm.m[qi]) / fmaxf(sm.l[qi], 1e-30f);
         pd = p;
         if (drop.on) {
@@ -396,8 +398,7 @@ constexpr int FT = 16;   // rows of the other side per shared-memory tile
 template <int D>
 __global__ void __launch_bounds__(FR)
     attn_bwd_q_f32(Operand<float> q, Operand<float> k, Operand<float> v,
-                   Operand<float> g, const float* __restrict__ bias,
-                   float* __restrict__ dq,
+                   Operand<float> g, Bias bias, float* __restrict__ dq,
                    float* __restrict__ mlr, int Lp, int H, int hd,
                    int l_actual, float scale, Dropout drop) {
   __shared__ float qs[D][FR], gs[D][FR], ks[FT][D], vs[FT][D];
@@ -405,12 +406,11 @@ __global__ void __launch_bounds__(FR)
   const int t = threadIdx.x, qrow = blockIdx.x * FR + t;
   const bool active = qrow < Lp;
   const unsigned salt = b * nh + h;
-  const float* qh = q.head(b, h, hd);
-  const float* kh = k.head(b, h, hd);
-  const float* vh = v.head(b, h, hd);
-  const float* gh = g.head(b, h, hd);
-  const float* brow =
-      (bias && active) ? bias + ((size_t)b * Lp + qrow) * Lp : nullptr;
+  const float* qh = q.head(b, h);
+  const float* kh = k.head(b, h);
+  const float* vh = v.head(b, h);
+  const float* gh = g.head(b, h);
+  const float* brow = active ? bias.row(b, h, qrow, Lp) : nullptr;
   for (int d = 0; d < D; ++d) {
     const bool ok = active && d < hd;
     qs[d][t] = ok ? qh[(size_t)qrow * q.sr + d] : 0.0f;
@@ -494,7 +494,7 @@ __global__ void __launch_bounds__(FR)
 template <int D>
 __global__ void __launch_bounds__(FR)
     attn_bwd_kv_f32(Operand<float> q, Operand<float> k, Operand<float> v,
-                    Operand<float> g, const float* __restrict__ bias,
+                    Operand<float> g, Bias bias,
                     const float* __restrict__ mlr, float* __restrict__ dk,
                     float* __restrict__ dv, int Lp, int H, int hd,
                     int l_actual, float scale, Dropout drop) {
@@ -504,14 +504,15 @@ __global__ void __launch_bounds__(FR)
   const int t = threadIdx.x, key = blockIdx.x * FR + t;
   const bool key_ok = key < l_actual;
   const unsigned salt = b * nh + h;
-  const float* qh = q.head(b, h, hd);
-  const float* gh = g.head(b, h, hd);
+  const float* qh = q.head(b, h);
+  const float* gh = g.head(b, h);
+  const float* bh = bias.row(b, h, 0, Lp);  // null without a bias
   const size_t plane = (size_t)gridDim.z * nh * Lp;
   const float* mrow = mlr + ((size_t)b * nh + h) * Lp;
   for (int d = 0; d < D; ++d) {
     const bool ok = key_ok && d < hd;
-    ks[d][t] = ok ? k.head(b, h, hd)[(size_t)key * k.sr + d] : 0.0f;
-    vs[d][t] = ok ? v.head(b, h, hd)[(size_t)key * v.sr + d] : 0.0f;
+    ks[d][t] = ok ? k.head(b, h)[(size_t)key * k.sr + d] : 0.0f;
+    vs[d][t] = ok ? v.head(b, h)[(size_t)key * v.sr + d] : 0.0f;
   }
   float ak[D], av[D];
 #pragma unroll
@@ -542,7 +543,7 @@ __global__ void __launch_bounds__(FR)
         dp = fmaf(vs[d][t], gt[j][d], dp);
       }
       s *= scale;
-      if (bias) s += bias[((size_t)b * Lp + qg) * Lp + key];
+      if (bh) s += bh[(size_t)qg * Lp + key];
       const float p = expf(s - sm_m[j]) / fmaxf(sm_l[j], 1e-30f);
       float pd = p;
       if (drop.on) {
@@ -569,7 +570,7 @@ __global__ void __launch_bounds__(FR)
 }
 
 template <int D>
-void launch_f32(const Operand<float>* in, const float* bias, void* dq,
+void launch_f32(const Operand<float>* in, Bias bias, void* dq,
                 void* dk, void* dv, float* mlr, int B, int Lp, int H, int nh,
                 int l_actual, float scale, Dropout drop, cudaStream_t s) {
   const dim3 grid((Lp + FR - 1) / FR, nh, B);
@@ -585,27 +586,31 @@ void launch_f32(const Operand<float>* in, const float* bias, void* dq,
 
 // Two launches: (a) then (b), on one stream; mlr is (3, B, nh, Lp) f32
 // scratch that (a) writes and (b) reads.  q, k, v, g: base pointers with
-// batch and row strides in elements (the wrapper checks alignment); dq,
-// dk, dv: contiguous (B, Lp, H).
+// batch, head and row strides in elements; bias: base pointer (or null)
+// with batch and head strides, rows of Lp (the wrapper checks alignment
+// and shapes); dq, dk, dv: contiguous (B, Lp, H).
 extern "C" int vc_attention_bwd(
-    const void* q, long long q_sb, long long q_sr, const void* k,
-    long long k_sb, long long k_sr, const void* v, long long v_sb,
-    long long v_sr, const void* g, long long g_sb, long long g_sr,
-    const void* bias, void* dq, void* dk, void* dv, void* mlr, int B, int Lp,
-    int H, int nh, int l_actual, float scale, unsigned seed, unsigned thresh,
-    float inv, int dtype, void* stream) {
+    const void* q, long long q_sb, long long q_sh, long long q_sr,
+    const void* k, long long k_sb, long long k_sh, long long k_sr,
+    const void* v, long long v_sb, long long v_sh, long long v_sr,
+    const void* g, long long g_sb, long long g_sh, long long g_sr,
+    const void* bias, long long bias_sb, long long bias_sh, void* dq,
+    void* dk, void* dv, void* mlr, int B, int Lp, int H, int nh,
+    int l_actual, float scale, unsigned seed, unsigned thresh, float inv,
+    int dtype, void* stream) {
   if (nh <= 0 || H % nh) return (int)cudaErrorInvalidValue;
   const int hd = H / nh;
   if (hd % 8 || hd > HDP) return (int)cudaErrorInvalidValue;
   const Dropout drop{seed, thresh, inv, thresh != 0u || inv != 1.0f};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* bf = static_cast<const float*>(bias);
+  const Bias bf{static_cast<const float*>(bias), bias_sb, bias_sh};
   float* m = static_cast<float*>(mlr);
   if (dtype == VC_BF16) {
-    const Operand<bf16> in[4] = {{static_cast<const bf16*>(q), q_sb, q_sr},
-                                 {static_cast<const bf16*>(k), k_sb, k_sr},
-                                 {static_cast<const bf16*>(v), v_sb, v_sr},
-                                 {static_cast<const bf16*>(g), g_sb, g_sr}};
+    const Operand<bf16> in[4] = {
+        {static_cast<const bf16*>(q), q_sb, q_sh, q_sr},
+        {static_cast<const bf16*>(k), k_sb, k_sh, k_sr},
+        {static_cast<const bf16*>(v), v_sb, v_sh, v_sr},
+        {static_cast<const bf16*>(g), g_sb, g_sh, g_sr}};
     attn_bwd_q_tc<<<dim3((Lp + QB - 1) / QB, nh, B), NTH, 0, s>>>(
         in[0], in[1], in[2], in[3], bf, static_cast<bf16*>(dq), m, Lp, H, hd,
         l_actual, scale, drop);
@@ -613,10 +618,11 @@ extern "C" int vc_attention_bwd(
         in[0], in[1], in[2], in[3], bf, m, static_cast<bf16*>(dk),
         static_cast<bf16*>(dv), Lp, H, hd, l_actual, scale, drop);
   } else if (dtype == VC_F32) {
-    const Operand<float> in[4] = {{static_cast<const float*>(q), q_sb, q_sr},
-                                  {static_cast<const float*>(k), k_sb, k_sr},
-                                  {static_cast<const float*>(v), v_sb, v_sr},
-                                  {static_cast<const float*>(g), g_sb, g_sr}};
+    const Operand<float> in[4] = {
+        {static_cast<const float*>(q), q_sb, q_sh, q_sr},
+        {static_cast<const float*>(k), k_sb, k_sh, k_sr},
+        {static_cast<const float*>(v), v_sb, v_sh, v_sr},
+        {static_cast<const float*>(g), g_sb, g_sh, g_sr}};
     if (hd <= 16)
       launch_f32<16>(in, bf, dq, dk, dv, m, B, Lp, H, nh, l_actual, scale,
                      drop, s);

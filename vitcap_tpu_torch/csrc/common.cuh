@@ -54,17 +54,34 @@ struct Dropout {
   int on;     // rate > 0
 };
 
-// A (B, L, H) operand read by base pointer and strides, in elements:
-// element (b, row, col) at p[b * sb + row * sr + col], head h's columns
-// starting at h * hd.  A fused (B, Lp, 3H) qkv slab is three of them
-// (p = slab, slab + H, slab + 2H; sb = 3 * H * Lp, sr = 3 * H); separate
-// q, k, v tensors or views of one are others.  The wrappers check that p
-// and every head's first column are 16-byte aligned.
+// A per-head operand read by base pointer and strides, in elements:
+// element (b, h, row, col) of head h's (row, col) at
+// p[b * sb + h * sh + row * sr + col].  A (B, L, H) tensor with head h at
+// columns [h * hd, (h + 1) * hd) is the case sh = hd: a fused (B, Lp, 3H)
+// qkv slab is three of them (p = slab, slab + H, slab + 2H; sb = 3 * H *
+// Lp, sr = 3 * H); separate q, k, v tensors or views of one are others.
+// A (B, nH, L, dh) tensor (the per-head layout of
+// vitcap_tpu/ops/flash_attention.py flash_attention, K9) is sh = L * dh,
+// sr = dh when contiguous, or any transposed view of a (B, L, H) one.  The
+// wrappers check that p and every stride are 16-byte aligned.
 template <typename T>
 struct Operand {
   const T* p;
-  long long sb, sr;
-  __device__ __forceinline__ const T* head(int b, int h, int hd) const {
-    return p + (size_t)b * sb + (size_t)h * hd;
+  long long sb, sh, sr;
+  __device__ __forceinline__ const T* head(int b, int h) const {
+    return p + (size_t)b * sb + (size_t)h * sh;
+  }
+};
+
+// An additive f32 attention bias (B, 1 | nH, Lp, Lp), rows contiguous:
+// row `row` of image b and head h at p + b * sb + h * sh + row * Lp; sh = 0
+// broadcasts one (B, 1, Lp, Lp) mask over the heads.  p null: no bias.
+struct Bias {
+  const float* p;
+  long long sb, sh;
+  __device__ __forceinline__ const float* row(int b, int h, int r,
+                                              int Lp) const {
+    return p ? p + (size_t)b * sb + (size_t)h * sh + (size_t)r * Lp
+             : nullptr;
   }
 };

@@ -3,7 +3,8 @@ vitcap_tpu.models.config.ModelConfig, with the two dtype properties mapped
 to torch dtypes.  `remat` has the TPU package's meaning (use_remat,
 use_remat_fusion); train_fused_blocks keeps its field so a config.json
 round-trips between the packages, but the experiment it selects there is
-not ported (the TPU package records it as slower than the split blocks).
+not ported (the TPU package records it as slower than the split blocks):
+forward_train and make_train_step raise ValueError when it is True.
 """
 
 from __future__ import annotations

@@ -13,15 +13,19 @@ or one with dropout seeds, is a train call: it takes the split train blocks
 16-aligned and at most 1024 (ops.fused_block.takes_split_train), else the
 plain chain below (_vit_block_plain, _bert_layer_plain).
 
-mha routes as the TPU package's does (vitcap_tpu/models/layers.py:130-157):
-a train self-attention (Lq == Lk >= 64) with no bias or a head-broadcast
-(B, 1, L, L) one takes the packed route, ops.flash_attention.
-flash_attention_packed (the attention and attention_bwd kernels on
-separate q, k, v), at any length: 512-px training past 1024 padded tokens
-and the plain layers at an unaligned length.  Only that route takes a
-pre-padded input (l_actual > 0).  Every other call runs the plain
-attention below (inference outside the fused blocks, fewer than 64 tokens,
-cross-attention, a per-head bias).
+mha routes as the TPU package's does (vitcap_tpu/models/layers.py:130-170
+with its kernels engaged): a train self-attention (Lq == Lk >= 64) with no
+bias or a head-broadcast (B, 1, L, L) one takes the packed route,
+ops.flash_attention.flash_attention_packed (the attention and
+attention_bwd kernels on separate q, k, v), at any length: 512-px
+training past 1024 padded tokens and the plain layers at an unaligned
+length.  Only that route takes a pre-padded input (l_actual > 0).  A
+self-attention that carries no gradient (Lq == Lk >= 64, no dropout, any
+bias) takes ops.flash_attention.flash_attention (K9) on the per-head view
+of q, k, v, as the TPU package does inside ops.inference_mode(): a
+vit_block with a bias, a bert_layer without one.  Every other call runs
+the plain attention below (fewer than 64 tokens, cross-attention, a train
+call with a per-head bias, generator dropout).
 
 Dropout: the split train blocks and the packed route draw their masks
 from int32 seeds through the counter hash (ops/dropout.py), the TPU
@@ -40,7 +44,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.flash_attention import flash_attention_packed
+from ..ops.attention import heads_view, merge_heads
+from ..ops.flash_attention import flash_attention, flash_attention_packed
 from ..ops.fused_block import (fused_bert_block, fused_vit_block,
                                split_bert_layer_train, split_vit_block_train,
                                takes_split_train)
@@ -176,9 +181,11 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
     (B, Lq, H).  seed (an int32 value): a dropout-active train call.  A
     train call (seed given, or q, k or v carrying a gradient) with Lq == Lk
     >= 64 and a bias that is None or (B, 1, L, L) takes the packed route
-    (flash_attention_packed; dropout from `seed` at dropout_rate,
-    scores_dtype ignored, as in the TPU package); any other call the plain
-    attention below, with dropout from `generator` when given.
+    (flash_attention_packed; dropout from `seed` at dropout_rate); a call
+    that carries no gradient, with Lq == Lk >= 64 and no dropout, takes
+    flash_attention (K9) with any bias; scores_dtype is ignored on both,
+    as in the TPU package.  Any other call takes the plain attention below,
+    with dropout from `generator` when given.
     l_actual > 0: q, k, v are pre-padded with that many valid rows, which
     only the packed route takes."""
     B, Lq, H = q.shape
@@ -194,11 +201,13 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
     if l_actual:
         raise ValueError("pre-padded mha (l_actual > 0) needs the packed "
                          "train route")
+    if (not train and Lq == Lk and Lq >= 64
+            and (dropout_rate == 0.0 or generator is None)):
+        out = flash_attention(*(heads_view(t, num_heads) for t in (q, k, v)),
+                              bias)
+        return merge_heads(out)
 
-    def heads(a, L):
-        return a.reshape(B, L, num_heads, hd).transpose(1, 2)
-
-    qh, kh, vh = heads(q, Lq), heads(k, Lk), heads(v, Lk)
+    qh, kh, vh = (heads_view(t, num_heads) for t in (q, k, v))
     if scores_dtype is not None and scores_dtype != torch.float32:
         qh = qh * torch.tensor(hd ** -0.5, dtype=qh.dtype)
         scores = (qh.float() @ kh.float().transpose(-1, -2)).to(scores_dtype)

@@ -402,6 +402,18 @@ def mix_gt_tags(pred_topk: torch.Tensor, label: torch.Tensor, ratio: float,
     return out
 
 
+def check_train_config(cfg: ModelConfig) -> None:
+    """Refuse a config whose train path is not ported: train_fused_blocks
+    selects the TPU package's train-time fused-block experiment
+    (vitcap_tpu/models/vitcap.py:218-253), which the port leaves out."""
+    if cfg.train_fused_blocks:
+        raise ValueError(
+            "train_fused_blocks=True selects the TPU package's train-time "
+            "fused-block experiment (inference kernels' rounding with an "
+            "XLA backward), which is not ported; set it to False (the "
+            "split train blocks)")
+
+
 def forward_train(model: ViTCAP, batch: Dict[str, torch.Tensor],
                   cfg: ModelConfig,
                   generator: Optional[torch.Generator] = None,
@@ -418,7 +430,9 @@ def forward_train(model: ViTCAP, batch: Dict[str, torch.Tensor],
     seeds, the embedding dropout and the GT-tag curriculum's noise;
     `layer_seeds` (per decoder layer (attn, hidden)) overrides the drawn
     seeds, so a caller can hand the JAX package's seeds to both.  Neither
-    given: deterministic."""
+    given: deterministic.  cfg.train_fused_blocks=True raises ValueError
+    (check_train_config)."""
+    check_train_config(cfg)
     deterministic = generator is None and layer_seeds is None
     enc = encode(model, batch["image"], cfg)
     pred_topk = enc["pred_topk"]

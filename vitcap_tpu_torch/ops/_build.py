@@ -31,7 +31,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint
 _L = ctypes.c_longlong
-_OPERAND = [_P, _L, _L]   # base pointer, batch and row strides (elements)
+_OPERAND = [_P, _L, _L, _L]   # base pointer, batch, head and row strides
+_BIAS = [_P, _L, _L]          # base pointer (or null), batch and head strides
 # C entry points and their argument types (see csrc/*.cu)
 SIGNATURES = {
     # a, w, bias, res, out, pre, M, N, K, dtype, gelu, f32_sum, out_f32,
@@ -40,14 +41,16 @@ SIGNATURES = {
                 _U, _F, _I, _I, _P],
     # x, g, b, y, mean, rsig, rows, H, eps, in_dtype, out_dtype, stream
     "vc_layer_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
-    # q, q_sb, q_sr, k, k_sb, k_sr, v, v_sb, v_sr, bias, out, B, Lp, H, nh,
-    # l_actual, scale, seed, thresh, inv, dtype, stream
-    "vc_attention": [*_OPERAND * 3, _P, _P, _I, _I, _I, _I, _I, _F, _U, _U,
-                     _F, _I, _P],
-    # q, k, v, g (each pointer, batch stride, row stride), bias, dq, dk, dv,
-    # mlr, B, Lp, H, nh, l_actual, scale, seed, thresh, inv, dtype, stream
-    "vc_attention_bwd": [*_OPERAND * 4, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                         _I, _F, _U, _U, _F, _I, _P],
+    # q, k, v (each pointer, batch, head and row strides), bias (pointer,
+    # batch and head strides), out, B, Lp, H, nh, l_actual, scale, seed,
+    # thresh, inv, online, dtype, stream
+    "vc_attention": [*_OPERAND * 3, *_BIAS, _P, _I, _I, _I, _I, _I, _F, _U,
+                     _U, _F, _I, _I, _P],
+    # q, k, v, g (each pointer, batch, head and row strides), bias (pointer,
+    # batch and head strides), dq, dk, dv, mlr, B, Lp, H, nh, l_actual,
+    # scale, seed, thresh, inv, dtype, stream
+    "vc_attention_bwd": [*_OPERAND * 4, *_BIAS, _P, _P, _P, _P, _I, _I, _I,
+                         _I, _I, _F, _U, _U, _F, _I, _P],
     # qkv, cap_k, cap_v, ctx_k, ctx_v, bias, t, out, B, nb, S, A, H, nh,
     # scale, dtype, stream
     "vc_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -24,6 +24,14 @@ Rounding follows the TPU kernels (see ops/gemm.py): the ViT gemms and the
 BERT qkv round each product to the compute dtype and add bias and residual
 in it; the BERT tail keeps each sublayer sum in f32 for its post-LayerNorm.
 
+fused_vit_attn (with vit_attention_residual, its adapter for a ViTBlock)
+is K11, vitcap_tpu/ops/fused_block.py:430: the attention half of the ViT
+block, LN1 + qkv | attention | proj + residual, with a backward that
+recomputes the plain chain as the TPU package's does.  tail_train is K12,
+:831 _tail_train_kernel: the block's tail that also returns y1 and the
+pre-GELU fc1 output, the same code as the train block's forward tail.
+ops.call_counts() counts their CUDA calls.
+
 The GEMM weights are cast (and BERT's q/k/v concatenated) once per module
 and compute dtype, not per call; the cache is remade when a parameter is
 replaced or changed in place (a checkpoint load).  These inference blocks
@@ -50,10 +58,17 @@ import torch
 import torch.nn.functional as F
 
 from . import dropout
-from .attention import MAX_LP, attention
+from .attention import MAX_LP, attention, attention_plain
 from .attention_bwd import attention_bwd
-from .gemm import gemm
-from .layer_norm import layer_norm
+from .gemm import gemm, gemm_plain
+from .layer_norm import layer_norm, layer_norm_plain
+
+# the kernels a composition launches, and their plain versions
+KERNELS = (gemm, layer_norm, attention)
+PLAIN = (gemm_plain, layer_norm_plain, attention_plain)
+# CUDA calls of the compositions that stand for one TPU kernel each
+# (fused_vit_attn: K11, 4 launches; tail_train: K12, 4 launches)
+calls = {"fused_vit_attn": 0, "tail_train": 0}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -115,6 +130,36 @@ def _bert_weights(p, dt):
             p.output.dense.weight.to(dt))
 
 
+def _vit_attention(ops, x2, B, L, num_heads, eps, n1w, n1b, wqkv, bqkv):
+    """LN1, the qkv gemm (K1) and attention (K2) of a ViT block over x2
+    (B * Lp, H) with L valid tokens per image -> the attention output (B *
+    Lp, H).  ops: KERNELS or PLAIN."""
+    gemm_, layer_norm_, attention_ = ops
+    H = x2.shape[1]
+    ln1 = layer_norm_(x2, n1w, n1b, eps, x2.dtype)
+    slab = gemm_(ln1, wqkv, bqkv)
+    return attention_(slab.view(B, -1, 3 * H), num_heads, L).reshape(-1, H)
+
+
+def _vit_tail(ops, x2, attn, eps, wp, bp, n2w, n2b, w1, b1, w2, b2,
+              stats=False, keep_pre=False):
+    """K3's tail over rows: y1 = x2 + proj(attn); LN2 (its f32 row
+    statistics too when `stats`); fc1 + GELU (the pre-GELU fc1 output kept
+    when `keep_pre`); out = y1 + fc2.  -> (out, y1, pre1, mu2, rs2), the
+    last three None when not asked for.  ops: KERNELS or PLAIN."""
+    gemm_, layer_norm_ = ops[:2]
+    dt = x2.dtype
+    y1 = gemm_(attn, wp, bp, residual=x2)
+    if stats:
+        ln2, mu2, rs2 = layer_norm_(y1, n2w, n2b, eps, dt, stats=True)
+    else:
+        ln2, mu2, rs2 = layer_norm_(y1, n2w, n2b, eps, dt), None, None
+    pre1 = (torch.empty((y1.shape[0], w1.shape[0]), dtype=dt,
+                        device=y1.device) if keep_pre else None)
+    h = gemm_(ln2, w1, b1, gelu=True, pre_out=pre1)
+    return gemm_(h, w2, b2, residual=y1), y1, pre1, mu2, rs2
+
+
 def fused_vit_block(p, x: torch.Tensor, num_heads: int, ln_eps: float,
                     l_actual: int = 0) -> torch.Tensor:
     """One pre-norm ViT block (bias-free, dropout-free).  p is a ViTBlock
@@ -132,16 +177,13 @@ def fused_vit_block(p, x: torch.Tensor, num_heads: int, ln_eps: float,
         pad = Lp - L
         if pad:
             x = F.pad(x, (0, 0, 0, pad))
-    dt = x.dtype
-    wqkv, wproj, w1, w2 = _block_weights(p, dt, _vit_weights)
+    wqkv, wproj, w1, w2 = _block_weights(p, x.dtype, _vit_weights)
     x2 = x.contiguous().view(B * Lp, H)
-    ln1 = layer_norm(x2, p.norm1.weight, p.norm1.bias, ln_eps, dt)
-    slab = gemm(ln1, wqkv, p.attn.qkv.bias)
-    attn = attention(slab.view(B, Lp, 3 * H), num_heads, L)
-    x1 = gemm(attn.view(B * Lp, H), wproj, p.attn.proj.bias, residual=x2)
-    ln2 = layer_norm(x1, p.norm2.weight, p.norm2.bias, ln_eps, dt)
-    h = gemm(ln2, w1, p.mlp.fc1.bias, gelu=True)
-    out = gemm(h, w2, p.mlp.fc2.bias, residual=x1).view(B, Lp, H)
+    attn = _vit_attention(KERNELS, x2, B, L, num_heads, ln_eps,
+                          p.norm1.weight, p.norm1.bias, wqkv, p.attn.qkv.bias)
+    out = _vit_tail(KERNELS, x2, attn, ln_eps, wproj, p.attn.proj.bias,
+                    p.norm2.weight, p.norm2.bias, w1, p.mlp.fc1.bias, w2,
+                    p.mlp.fc2.bias)[0].view(B, Lp, H)
     return out[:, :L] if pad else out
 
 
@@ -172,6 +214,149 @@ def fused_bert_block(p, x: torch.Tensor, bias: torch.Tensor, num_heads: int,
     out = layer_norm(s2, p.output.LayerNorm.weight, p.output.LayerNorm.bias,
                      ln_eps, dt).view(B, Lp, H)
     return out[:, :L] if pad else out
+
+
+# ---------------------------------------------------------------------------
+# the attention half-block (K11) and the train tail (K12)
+# ---------------------------------------------------------------------------
+
+class _FusedViTAttn(torch.autograd.Function):
+    """Forward: K11 as LN1, the qkv gemm, attention and the proj gemm with
+    the residual (4 launches on CUDA).  Backward: the TPU package's
+    _vjp_bwd (vitcap_tpu/ops/fused_block.py:448), autograd through the
+    plain chain of its _xla_reference (:418): products in the compute
+    dtype, the attention through models.layers mha (a train call: the
+    packed route from 64 tokens on)."""
+
+    @staticmethod
+    def forward(ctx, x, lns, lnb, wqkv, bqkv, wproj, bproj, num_heads, eps,
+                plain):
+        B, L, H = x.shape
+        dt = x.dtype
+        ops = PLAIN if plain else KERNELS
+        x2 = x.contiguous().view(B * L, H)
+        attn = _vit_attention(ops, x2, B, L, num_heads, eps, lns, lnb,
+                              wqkv.to(dt), bqkv)
+        out = ops[0](attn, wproj.to(dt), bproj, residual=x2).view(B, L, H)
+        if not plain and x.is_cuda:
+            calls["fused_vit_attn"] += 1
+        ctx.save_for_backward(x, lns, lnb, wqkv, bqkv, wproj, bproj)
+        ctx.cfg = (num_heads, eps)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..models.layers import mha
+        num_heads, eps = ctx.cfg
+        leaves = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        x, lns, lnb, wqkv, bqkv, wproj, bproj = leaves
+        dt = x.dtype
+        with torch.enable_grad():
+            ln = layer_norm_plain(x, lns, lnb, eps, dt)
+            qkv = ln @ wqkv.to(dt).t() + bqkv.to(dt)
+            o = mha(*qkv.chunk(3, dim=-1), num_heads)
+            out = x + o @ wproj.to(dt).t() + bproj.to(dt)
+            wrt = [t for t in leaves if t.requires_grad]
+            got = iter(torch.autograd.grad(out, wrt, g.to(dt)))
+        return (*(next(got) if t.requires_grad else None for t in leaves),
+                None, None, None)
+
+
+def _fused_vit_attn(x, lns, lnb, wqkv, bqkv, wproj, bproj, num_heads, eps,
+                    plain):
+    if x.dim() != 3:
+        raise ValueError(f"fused_vit_attn: x must be (B, L, H), got "
+                         f"{tuple(x.shape)}")
+    return _FusedViTAttn.apply(x, lns, lnb, wqkv, bqkv, wproj, bproj,
+                               num_heads, eps, plain)
+
+
+def fused_vit_attn(x: torch.Tensor, lns: torch.Tensor, lnb: torch.Tensor,
+                   wqkv: torch.Tensor, bqkv: torch.Tensor,
+                   wproj: torch.Tensor, bproj: torch.Tensor, num_heads: int,
+                   eps: float) -> torch.Tensor:
+    """x + proj(attention(LN1(x))), the attention half of a pre-norm ViT
+    block: the port of vitcap_tpu/ops/fused_block.py:430 fused_vit_attn
+    (K11, _fused_fwd :383, kernel :56).  x (B, L, H) in the compute dtype;
+    lns, lnb (H,); wqkv (3H, H), bqkv (3H,), wproj (H, H), bproj (H,) in
+    the torch Linear layout (out, in), any float dtype (cast to x's).
+
+    Its rounding is _kernel's: LN1 with f32 statistics, the qkv product
+    rounded then + bias in the compute dtype, the attention of K2 (at any
+    length: the TPU kernel's q-tiles past 1024 keep a one-pass softmax over
+    all keys), the proj product rounded, then + x, then + bproj, each in
+    the compute dtype.  The TPU function pads L to pad_len and masks the
+    padded keys; the kernels here run at L itself, which gives the same
+    values.  Differentiable (the backward recomputes the plain chain)."""
+    return _fused_vit_attn(x, lns, lnb, wqkv, bqkv, wproj, bproj, num_heads,
+                           eps, False)
+
+
+def fused_vit_attn_plain(x, lns, lnb, wqkv, bqkv, wproj, bproj,
+                         num_heads: int, eps: float) -> torch.Tensor:
+    """fused_vit_attn on the kernels' plain PyTorch versions, on any
+    device: the reference the composition is held to."""
+    return _fused_vit_attn(x, lns, lnb, wqkv, bqkv, wproj, bproj, num_heads,
+                           eps, True)
+
+
+def vit_attention_residual(p, x: torch.Tensor, num_heads: int,
+                           ln_eps: float) -> torch.Tensor:
+    """fused_vit_attn over a ViTBlock module's norm1 and attn parameters
+    (vitcap_tpu/ops/fused_block.py:459, the param-tree adapter)."""
+    return fused_vit_attn(x, p.norm1.weight, p.norm1.bias, p.attn.qkv.weight,
+                          p.attn.qkv.bias, p.attn.proj.weight,
+                          p.attn.proj.bias, num_heads, ln_eps)
+
+
+def _tail_train(x, attn, wproj, bproj, ln2s, ln2b, wfc1, bfc1, wfc2, bfc2,
+                eps, plain):
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, attn, wproj, bproj, ln2s, ln2b, wfc1,
+                                      bfc1, wfc2, bfc2)):
+        raise RuntimeError("tail_train has no backward (the TPU kernel has "
+                           "none); split_vit_block_train is the train block")
+    if x.shape != attn.shape or x.dtype != attn.dtype:
+        raise ValueError(f"tail_train: x {tuple(x.shape)} {x.dtype} and "
+                         f"attn {tuple(attn.shape)} {attn.dtype} differ")
+    H = x.shape[-1]
+    dt = x.dtype
+    out, y1, pre1, _, _ = _vit_tail(
+        PLAIN if plain else KERNELS, x.reshape(-1, H).contiguous(),
+        attn.reshape(-1, H).contiguous(), eps, wproj.to(dt), bproj, ln2s,
+        ln2b, wfc1.to(dt), bfc1, wfc2.to(dt), bfc2, keep_pre=True)
+    if not plain and x.is_cuda:
+        calls["tail_train"] += 1
+    lead = x.shape[:-1]
+    return out.view(*lead, H), y1.view(*lead, H), pre1.view(*lead, -1)
+
+
+def tail_train(x: torch.Tensor, attn: torch.Tensor, wproj: torch.Tensor,
+               bproj: torch.Tensor, ln2s: torch.Tensor, ln2b: torch.Tensor,
+               wfc1: torch.Tensor, bfc1: torch.Tensor, wfc2: torch.Tensor,
+               bfc2: torch.Tensor, eps: float):
+    """K12, vitcap_tpu/ops/fused_block.py:831 _tail_train_kernel: the tail
+    of a ViT block that also returns what an analytic backward needs.  x,
+    attn (..., H) in the compute dtype (the block input and the attention
+    output); weights in the torch Linear layout (out, in) -> (out, y1,
+    pre1): y1 = x + proj(attn) (+ bproj), the LN2 input; pre1 the fc1
+    output before GELU; out = y1 + fc2(GELU(pre1)).  Rounded as the TPU
+    kernel rounds (each product rounded, then residual and bias added in
+    the compute dtype); GELU is the exact erf, where the TPU kernel uses
+    the Abramowitz-Stegun form (|err| <= 1.5e-7).  The same code is the
+    forward tail of split_vit_block_train (K6), which also keeps the LN2
+    statistics.  Forward only, as in the TPU package: under grad with an
+    input that requires grad it raises."""
+    return _tail_train(x, attn, wproj, bproj, ln2s, ln2b, wfc1, bfc1, wfc2,
+                       bfc2, eps, False)
+
+
+def tail_train_plain(x, attn, wproj, bproj, ln2s, ln2b, wfc1, bfc1, wfc2,
+                     bfc2, eps: float):
+    """tail_train on the kernels' plain PyTorch versions, on any device."""
+    return _tail_train(x, attn, wproj, bproj, ln2s, ln2b, wfc1, bfc1, wfc2,
+                       bfc2, eps, True)
 
 
 # ---------------------------------------------------------------------------
@@ -244,11 +429,9 @@ class _SplitViTBlockTrain(torch.autograd.Function):
         ln1, mu1, rs1 = layer_norm(x2, n1w, n1b, eps, dt, stats=True)
         slab = gemm(ln1, wqkv.to(dt), bqkv).view(B, Lp, 3 * H)
         attn = attention(slab, num_heads, L)
-        y1 = gemm(attn.view(B * Lp, H), wp.to(dt), bp, residual=x2)
-        ln2, mu2, rs2 = layer_norm(y1, n2w, n2b, eps, dt, stats=True)
-        pre1 = torch.empty((B * Lp, w1.shape[0]), dtype=dt, device=x.device)
-        h = gemm(ln2, w1.to(dt), b1, gelu=True, pre_out=pre1)
-        out = gemm(h, w2.to(dt), b2, residual=y1)
+        out, y1, pre1, mu2, rs2 = _vit_tail(
+            KERNELS, x2, attn.view(B * Lp, H), eps, wp.to(dt), bp, n2w, n2b,
+            w1.to(dt), b1, w2.to(dt), b2, stats=True, keep_pre=True)
         ctx.save_for_backward(x2, slab, attn, y1, pre1, mu1, rs1, mu2, rs2,
                               *prm)
         ctx.cfg = (num_heads, L)

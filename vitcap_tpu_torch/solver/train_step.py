@@ -81,7 +81,9 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper,
     (state, metrics).  The parameters' .grad keep the step's unclipped
     gradients until the next step.  loss_fn(model, batch, cfg, generator,
     layer_seeds) -> (loss, aux); defaults to forward_train.  layer_seeds,
-    when given, are the decoder's per-layer dropout seeds for this step."""
+    when given, are the decoder's per-layer dropout seeds for this step.
+    cfg.train_fused_blocks=True raises ValueError (not ported)."""
+    M.check_train_config(cfg)
     if loss_fn is None:
         loss_fn = M.forward_train
     schedule = SCHEDULES[hyper.scheduler_type](hyper.warmup_steps,
