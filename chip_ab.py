@@ -7,11 +7,17 @@ Runs each tree's chip_smoke.py kernel phases, one process per argument and
 in the order given (parent, change, change, parent puts both on the same
 card in turns): phase 3 (phase_kernels: the slab attention at the ViT, the
 prefill and a ragged shape), phase 8 (phase_train_kernels: attention with
-prob dropout and attention_bwd) and phase 10 (phase_train512_kernels: the
-strided kernels on separate q, k, v past 1024 tokens).  Each process builds
-its tree's kernels into that tree's build/ directory.  Prints one line per
-attention row and run, and writes every row to chiprun_out/chip_ab.json.
-Exits non-zero without a CUDA device or when any check of a phase fails.
+prob dropout and attention_bwd), phase 9 (phase_highres_kernels: the slab
+attention past 1024 tokens, rows attention[long], beside the gemm,
+LayerNorm and decode_attention rows at 512 px), phase 10
+(phase_train512_kernels: the strided kernels on separate q, k, v past 1024
+tokens) and phase 11 (phase_flash_kernels: K9's forward on per-head views,
+rows attention[heads] at 577 and attention[online] at 1025, and its
+backward).  Each process builds its tree's kernels into that tree's build/
+directory.  Prints one line per attention row and run, then each attention
+row's times across the runs, and writes every row to
+chiprun_out/chip_ab.json.  Exits non-zero without a CUDA device or when any
+check of a phase fails.
 """
 
 from __future__ import annotations
@@ -41,7 +47,9 @@ def worker(tree: str) -> None:
     rows = []
     cs.phase_kernels(dev, rows)
     cs.phase_train_kernels(dev, rows)
+    cs.phase_highres_kernels(dev, rows)
     cs.phase_train512_kernels(dev, rows)
+    cs.phase_flash_kernels(dev, rows)
     print("ROWS " + json.dumps(rows), flush=True)
 
 
@@ -71,6 +79,16 @@ def main() -> int:
                 print(f"[ab] run {i} {tree:24s} {r['kernel']:24s} "
                       f"{r['case']:14s} {r['dtype']:4s} {r['ms']:.4f} ms",
                       flush=True)
+    print("[ab] ms per run, in the order given", flush=True)
+    by_run = [{(r["kernel"], r["case"], r["dtype"]): r["ms"]
+               for r in run["rows"]} for run in runs]
+    for r in runs[0]["rows"]:
+        if r["kernel"].startswith("attention"):
+            key = (r["kernel"], r["case"], r["dtype"])
+            ms = " / ".join(f"{t[key]:.4f}" if key in t else "-"
+                            for t in by_run)
+            print(f"[ab] {r['kernel']:24s} {r['case']:18s} {r['dtype']:4s} "
+                  f"{ms}", flush=True)
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_ab.json").write_text(json.dumps(
         {"card": smi, "runs": runs}, indent=1))

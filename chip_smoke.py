@@ -5,11 +5,14 @@
 
 Phases (each prints its lines; any failure raises, so the exit code is not 0):
 1. host facts: card name and power limit, CUDA, nvcc, Triton;
-2. build the CUDA kernels from vitcap_tpu_torch/csrc;
+2. build the CUDA kernels from vitcap_tpu_torch/csrc; print the bf16
+   attention kernels' launch configuration (registers, local bytes, shared
+   memory per block, resident blocks per SM);
 3. each kernel vs its plain PyTorch version on the card, at the flagship
    shapes (ViT-B/16-384, B=64), in bf16 and f32: max abs error, times, the
    bound (the least time the card could take) and the time of one
-   PyTorch call computing the same function (the yardstick); decode_attention
+   PyTorch call computing the same function (the yardstick); bf16
+   attention at least 99% bit-equal to its plain version; decode_attention
    at the greedy (64 rows) and beam-3 (192 rows) geometries, S=628, A=20,
    t=10;
 4. the fused ViT and BERT blocks vs the plain PyTorch blocks, and one
@@ -164,7 +167,8 @@ SOURCES = {
                    "(post-LNs); the post-LNs of "
                    "vitcap_tpu/ops/decode_step.py:115 _kernel; the LNs of "
                    "K10 (:125 _block_kernel, :470 _bert_kernel)"),
-    "attention": ("vitcap_tpu_torch/csrc/attention.cu",
+    "attention": ("vitcap_tpu_torch/csrc/attention.cu "
+                  "(attention_wgmma_kernel)",
                   "vitcap_tpu/ops/fused_block.py:194 _attn_pairbd_kernel "
                   "(:167 perhead), :542 _bert_attn_pairbd_kernel "
                   "(:577 perhead)"),
@@ -189,12 +193,14 @@ MODE_SOURCES = {
                       "vitcap_tpu/ops/fused_block.py:1095 "
                       "_bert_tail_train_kernel (hidden dropout, K7)",
                       "bert out-dense rate 0.0"),
-    "attention[dropout]": ("vitcap_tpu_torch/csrc/attention.cu",
+    "attention[dropout]": ("vitcap_tpu_torch/csrc/attention.cu "
+                           "(attention_wgmma_kernel)",
                            "vitcap_tpu/ops/flash_attention.py:484 "
                            "_fwd_packed_pair_kernel, :452 _fwd_packed_kernel "
                            "(flash_fwd_packed_slab :949, K8 forward)",
                            "bert train"),
-    "attention[long]": ("vitcap_tpu_torch/csrc/attention.cu",
+    "attention[long]": ("vitcap_tpu_torch/csrc/attention.cu "
+                        "(attention_wgmma_kernel)",
                         "vitcap_tpu/ops/fused_block.py:125 _block_kernel "
                         "(_fused_block_fwd :322, pallas_call :361), :470 "
                         "_bert_kernel (_fused_bert_fwd :701, pallas_call "
@@ -206,7 +212,8 @@ MODE_SOURCES = {
                       "_bwd_packed_pair_kernel, :600 _bwd_packed_kernel "
                       "(flash_bwd_packed_slab :882, K8 backward)", "vit"),
     "attention[non_slab]": ("vitcap_tpu_torch/csrc/attention.cu "
-                            "(vitcap_tpu_torch/ops/flash_attention.py)",
+                            "(attention_wgmma_kernel; "
+                            "vitcap_tpu_torch/ops/flash_attention.py)",
                             "vitcap_tpu/ops/flash_attention.py:670 "
                             "_flash_fwd_packed (pallas_call :719) -> :484 "
                             "_fwd_packed_pair_kernel, :452 _fwd_packed_kernel"
@@ -220,14 +227,15 @@ MODE_SOURCES = {
                                 "_bwd_packed_kernel (K8 non-slab backward)",
                                 "vit 1152"),
     "attention[heads]": ("vitcap_tpu_torch/csrc/attention.cu "
-                         "(vitcap_tpu_torch/ops/flash_attention.py "
+                         "(attention_wgmma_kernel; "
+                         "vitcap_tpu_torch/ops/flash_attention.py "
                          "flash_attention)",
                          "vitcap_tpu/ops/flash_attention.py:189 "
                          "_flash_fwd_onepass (pallas_call :237) -> :165 "
                          "_onepass_kernel (flash_attention :846, K9 "
                          "forward, Lp <= 1024)", "577 head"),
     "attention[online]": ("vitcap_tpu_torch/csrc/attention.cu "
-                          "(attention_tc_online_kernel)",
+                          "(attention_wgmma_online_kernel)",
                           "vitcap_tpu/ops/flash_attention.py:251 "
                           "_flash_fwd_pallas (pallas_call :309) -> :129 "
                           "_kernel (flash_attention :846, K9 forward past "
@@ -314,7 +322,9 @@ def phase_host():
 
 
 def phase_build():
-    from vitcap_tpu_torch.ops import _build
+    """Build the kernels; print ptxas's registers and spills, and the bf16
+    attention kernels' launch configuration (returned)."""
+    from vitcap_tpu_torch.ops import _build, attention
     _build.library()
     log(f"[build] {_build.build_info['seconds']:.1f} s -> "
         f"{_build.build_info['path']}")
@@ -326,6 +336,13 @@ def phase_build():
     for k in spills:
         log(f"[build] ptxas spill: {k['spill_bytes']} bytes, "
             f"{k['registers']} registers: {k['name'][:90]}")
+    launch = attention.kernel_info()         # the bf16 attention kernels
+    for k in launch:
+        log(f"[build] launch {k['name']}: {k['threads']} threads, "
+            f"{k['registers']} registers, {k['local_bytes']} local (spill) "
+            f"bytes, {k['shared_bytes']} shared bytes per block, "
+            f"{k['blocks_per_sm']} blocks per SM")
+    return launch
 
 
 def _row(rows, kernel, case, dn, shape, err, ms, pms, lms, flops, nbytes):
@@ -431,9 +448,11 @@ def phase_kernels(dev, rows, Lp=592, gemm_cases=GEMM_CASES,
         for kname, name, Bn, L, Lp, with_bias in attn_cases:
             slab = [rnd(Bn, Lp, 3 * H, dtype=dtype) for _ in range(2)]
             bias = _prefill_bias(Bn, L, Lp, dev) if with_bias else None
-            err = compare(f"{kname} {name} {dn}",
-                          attention(slab[0], 12, L, bias),
-                          attention_plain(slab[0], 12, L, bias), dtype)
+            out = attention(slab[0], 12, L, bias)
+            ref = attention_plain(slab[0], 12, L, bias)
+            err = compare(f"{kname} {name} {dn}", out, ref, dtype)
+            eq = _bits(f"{kname} {name}", out, ref)
+            del out, ref
             ms = cuda_ms(lambda i: attention(slab[i % 2], 12, L, bias), 5)
             pms = cuda_ms(lambda i: attention_plain(slab[i % 2], 12, L,
                                                     bias), 5)
@@ -452,6 +471,7 @@ def phase_kernels(dev, rows, Lp=592, gemm_cases=GEMM_CASES,
             _row(rows, kname, name, dn,
                  f"B={Bn} L={L} Lp={Lp} heads=12x64", err, ms, pms, lms,
                  4.0 * Bn * 12 * Lp * L * 64, nbytes)
+            rows[-1]["bit_equal"] = eq
             del mask, qkv, slab, bias
             torch.cuda.empty_cache()
         del a, w, r, x
@@ -1042,6 +1062,7 @@ def phase_train_kernels(dev, rows):
                 ref = attention_plain(slab, nh, L, bias, rate, 4242)
                 err = compare(f"attention[dropout] {case} {dn}", out, ref,
                               dtype)
+                eq = _bits(f"attention[dropout] {case}", out, ref)
                 ms, pms = _time_pair(
                     lambda i: attention(slab, nh, L, bias, rate, 4242),
                     lambda i: attention_plain(slab, nh, L, bias, rate, 4242),
@@ -1054,6 +1075,7 @@ def phase_train_kernels(dev, rows):
                      f"B={B} L={L} Lp={Lp} heads=12x64 rate={rate}", err, ms,
                      pms, lms, 4.0 * B * nh * Lp * L * hd,
                      es * B * Lp * 4 * H + 4 * B * Lp * Lp)
+                rows[-1]["bit_equal"] = eq
                 del out, ref, qkv
             got = attention_bwd(slab, up, nh, L, bias, rate, 777)
             want = attention_bwd_plain(slab, up, nh, L, bias, rate, 777)
@@ -1775,10 +1797,11 @@ def phase_train512_kernels(dev, rows):
             seed = 4343
             out = attention_qkv(q, k, v, nh, L, bias, rate, seed)
             (q16, k16, v16, b16, up16), = chunks(q, k, v, bias, up)[:1]
-            err = compare(f"attention[non_slab] {case} {dn}", out[:Bc],
-                          attention_qkv_plain(q16, k16, v16, nh, L, b16,
-                                              rate, seed), dtype)
-            del out
+            ref = attention_qkv_plain(q16, k16, v16, nh, L, b16, rate, seed)
+            err = compare(f"attention[non_slab] {case} {dn}", out[:Bc], ref,
+                          dtype)
+            eq = _bits(f"attention[non_slab] {case}", out[:Bc], ref)
+            del out, ref
             ms = cuda_ms(lambda i: attention_qkv(q, k, v, nh, L, bias, rate,
                                                  seed), 5)
             pms = cuda_ms(lambda i: [attention_qkv_plain(
@@ -1797,6 +1820,7 @@ def phase_train512_kernels(dev, rows):
                  f"bias={with_bias}", err, ms, pms, lms,
                  4.0 * B * nh * Lp * L * hd,
                  es * B * Lp * 4 * H + (4 * B * Lp * Lp if with_bias else 0))
+            rows[-1]["bit_equal"] = eq
 
             got = attention_bwd_qkv(q, k, v, up, nh, L, bias, rate, seed)
             want = attention_bwd_qkv_plain(q16, k16, v16, up16, nh, L, b16,
@@ -2264,7 +2288,7 @@ def main() -> int:
     dev = torch.device("cuda:0")
     t_start = time.perf_counter()
     smi = phase_host()
-    phase_build()
+    attention_launch = phase_build()
     rows = []
     phase_kernels(dev, rows)
     phase_decode_attention(dev, rows)
@@ -2322,7 +2346,8 @@ def main() -> int:
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(
-        {"card": smi, "rows": rows, "greedy_path": greedy,
+        {"card": smi, "attention_launch": attention_launch, "rows": rows,
+         "greedy_path": greedy,
          "greedy_launches": greedy_counts, "beam_path": beam,
          "launches": counts, "train": train, "train_launches": train_counts,
          "profile": prof, "highres": high, "highres_launches": high_counts,

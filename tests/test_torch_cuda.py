@@ -116,8 +116,102 @@ def test_cuda_attention_matches_plain(cuda, dtype, hd):
                        -10000.0).to(cuda)
     bias[..., 0] = 0.0                     # every row sees a key
     for bb in (None, bias):
-        _close(attention(slab, nh, L, bb), attention_plain(slab, nh, L, bb),
-               dtype)
+        out, ref = attention(slab, nh, L, bb), attention_plain(slab, nh, L, bb)
+        _close(out, ref, dtype)
+        _bits_equal(out, ref)
+
+
+def _bf16_attention_case(cuda, online, L, Lp, hd, bias_heads, rate=0.0,
+                         nh=2, B=2, seed=0):
+    """One bf16 attention call against its plain version on the card: the
+    two-pass function over a (B, Lp, 3H) slab with l_actual L, or the
+    online one over per-head (B, nH, L, hd) views (Lp = L); bias None
+    (bias_heads None) or (B, bias_heads, Lp, Lp).  Within 2e-2 of the
+    output's scale and at least 99% of values bit-equal."""
+    from vitcap_tpu_torch.ops.attention import (attention_heads,
+                                                attention_heads_plain,
+                                                heads_view)
+    g = torch.Generator().manual_seed(seed)
+    slab = torch.randn(B, Lp, 3 * nh * hd, generator=g).to(cuda,
+                                                           torch.bfloat16)
+    bias = None
+    if bias_heads is not None:
+        bias = torch.where(torch.rand(B, bias_heads, Lp, Lp, generator=g)
+                           > 0.3, 0.0, -10000.0)
+        bias += 0.5 * torch.randn(B, bias_heads, Lp, Lp, generator=g)
+        bias[..., 0] = 0.0
+        bias = bias.to(cuda)
+    ops.reset_counts()
+    if online:
+        q, k, v = (heads_view(t, nh) for t in slab.split(nh * hd, dim=-1))
+        out = attention_heads(q, k, v, bias, online=True)
+        ref = attention_heads_plain(q, k, v, L, bias, online=True)
+        assert ops.mode_counts()["attention[online]"] == 1
+    else:
+        out = attention(slab, nh, L, bias, rate, 1234)
+        ref = attention_plain(slab, nh, L, bias, rate, 1234)
+    assert ops.launch_counts()["attention"] == 1
+    _close(out, ref, torch.bfloat16)
+    _bits_equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("online", [False, True])
+@pytest.mark.parametrize("past", [0, 1])
+@pytest.mark.parametrize("L", [1, 63, 64, 65, 127, 128, 129])
+def test_cuda_bf16_attention_ragged_lengths(cuda, online, past, L):
+    """The wgmma kernels at l_actual on both sides of a key tile's edge
+    (and one tile further), Lp not a multiple of 64 (two-pass: Lp = L + 5),
+    with no bias, a (B, 1, Lp, Lp) and a per-head bias; the two-pass
+    function also with prob dropout."""
+    L += past * (128 if online else 64)
+    Lp = L if online else L + 5
+    for bias_heads in (None, 1, 2):
+        _bf16_attention_case(cuda, online, L, Lp, 64, bias_heads, seed=L)
+    if not online:
+        _bf16_attention_case(cuda, False, L, Lp, 64, 1, rate=0.1, seed=L)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("online", [False, True])
+@pytest.mark.parametrize("hd", [8, 40, 64, 128])
+def test_cuda_bf16_attention_head_dims(cuda, online, hd):
+    """Every head size runs on the tensor cores, padded to 64 or 128 with
+    zeros, in both modes and with each bias kind (and dropout)."""
+    L = 200 if online else 150
+    for bias_heads in (None, 1, 3):
+        _bf16_attention_case(cuda, online, L, L if online else 171, hd,
+                             bias_heads, nh=3, seed=hd)
+    if not online:
+        _bf16_attention_case(cuda, False, L, 171, hd, 3, rate=0.2, nh=3,
+                             seed=hd)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_online_attention_long_per_head_bias(cuda):
+    """K9's online mode at L 1030 (nine 128-key tiles, the last ragged)
+    with a per-head bias and without one."""
+    for bias_heads in (4, None):
+        _bf16_attention_case(cuda, True, 1030, 1030, 64, bias_heads, nh=4,
+                             seed=7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,Lp", [(70, 80), (1030, 1100)])
+def test_cuda_bf16_attention_padded_rows_stay_apart(cuda, L, Lp):
+    """Padded query rows and padded keys (at and past l_actual) are the
+    caller's to fill: any values there leave the valid rows' outputs
+    unchanged, bit for bit."""
+    g = torch.Generator().manual_seed(L)
+    nh, hd = 2, 64
+    slab = torch.randn(2, Lp, 3 * nh * hd, generator=g)
+    bias = torch.randn(2, 1, Lp, Lp, generator=g)
+    noisy = slab.clone()
+    noisy[:, L:] = 1e4 * torch.randn(2, Lp - L, 3 * nh * hd, generator=g)
+    outs = [attention(s.to(cuda, torch.bfloat16), nh, L, bias.to(cuda))
+            for s in (slab, noisy)]
+    assert torch.equal(outs[0][:, :L], outs[1][:, :L])
+    assert torch.isfinite(outs[1][:, :L].float()).all()
 
 
 @pytest.mark.cuda

@@ -10,241 +10,659 @@
 // The bias is (B, 1 | nH, Lp, Lp) f32 (Bias, common.cuh; head stride 0
 // for the head-broadcast one).
 //
-// Replaces the attention TPU kernels of vitcap_tpu/ops/fused_block.py:
-// _attn_pairbd_kernel / _attn_perhead_kernel (ViT, no bias) and
-// _bert_attn_pairbd_kernel / _bert_attn_perhead_kernel (BERT prefill, with
-// the additive head-broadcast (B, 1, Lp, Lp) f32 bias).  The TPU kernels'
-// pair-blockdiagonal packing is an MXU trick and is not carried over.
-// It is also the forward of K9, vitcap_tpu/ops/flash_attention.py:846
-// flash_attention: up to 1024 padded tokens its one-pass kernel (:189
-// _flash_fwd_onepass, :165 _onepass_kernel) computes this same function
-// (any bias: none, (B, 1, L, L) or per head (B, nH, L, L)); past 1024 its
-// q-tiled kernel (:251 _flash_fwd_pallas, :129 _kernel) computes another
-// one, which the `online` mode below reproduces.
+// What each kernel replaces:
+// - attention_wgmma_kernel (bf16, two passes over the keys) replaces the
+//   attention TPU kernels of vitcap_tpu/ops/fused_block.py:
+//   _attn_pairbd_kernel / _attn_perhead_kernel (ViT, no bias, K2) and
+//   _bert_attn_pairbd_kernel / _bert_attn_perhead_kernel (BERT prefill,
+//   with the additive head-broadcast (B, 1, Lp, Lp) f32 bias, K4b); past
+//   1024 padded tokens the attention of K10 (fused_block.py:125
+//   _block_kernel, :470 _bert_kernel, whose q-tiled softmax is the same
+//   function); with prob dropout the train forward of K8
+//   (vitcap_tpu/ops/flash_attention.py:452 _fwd_packed_kernel / :484
+//   _fwd_packed_pair_kernel, reached through flash_fwd_packed_slab :949 on
+//   the slab and _flash_fwd_packed :670 on separate q, k, v); and K9's
+//   forward up to 1024 padded tokens (flash_attention.py:846
+//   flash_attention -> :189 _flash_fwd_onepass, :165 _onepass_kernel; any
+//   bias: none, (B, 1, L, L) or per head).  The TPU kernels'
+//   pair-blockdiagonal packing is an MXU trick and is not carried over.
+// - attention_wgmma_online_kernel (bf16, the `online` mode) replaces K9's
+//   q-tiled kernel past 1024 padded tokens (flash_attention.py:251
+//   _flash_fwd_pallas -> :129 _kernel), which computes another function.
+// - attention_kernel (f32, exact f32 on the CUDA cores, no TF32) serves
+//   both functions in f32.
 //
-// Math, as on the TPU: f32 scores, scale applied after the dot, bias added,
-// keys >= l_actual masked (they contribute exactly 0: exp(-1e30 - m)
-// underflows, so these kernels stop at l_actual), f32 softmax statistics,
-// the unnormalised probabilities rounded to the compute dtype for the
-// product with v, and the output divided by max(l, 1e-30).
+// Math of the two-pass function, as on the TPU: f32 scores, scale applied
+// after the dot, bias added, keys >= l_actual masked (they contribute
+// exactly 0: exp(-1e30 - m) underflows, so the kernels stop at l_actual),
+// the max and the sum over the whole row, the unnormalised probabilities
+// exp(s - m) rounded to the compute dtype for the product with v, and the
+// output divided by max(l, 1e-30).  Attention-prob dropout (K8): the
+// exp(s - m) of a dropped (query, key) pair is 0 and a kept one is
+// multiplied by 1 / (1 - rate) in f32 before the rounding; the row sum l
+// stays the undropped one.  The keep bit is vc_dropout_keep(query row, key
+// column, seed, b * nh + h), the bits the backward (attention_bwd.cu)
+// regenerates.
+// Online function (K9 past 1024): q pre-scaled in its own dtype
+// (round(q * round(scale)), exact at hd 64 where the scale is 2^-3), the
+// scores q . k^T with no further scale, and the softmax online over key
+// tiles of 128 from key 0: per tile m' = max(m, rowmax(s)), p = exp(s - m')
+// rounded to the operand dtype for the product with v, corr = exp(m - m'),
+// l = l * corr + sum(p) and acc = acc * corr + p . v in f32, in that order
+// with no contraction (m starts at -1e30, masked keys at -1e30).
 //
-// Attention-prob dropout (the train forward, vitcap_tpu/ops/
-// flash_attention.py:452 _fwd_packed_kernel / :484 _fwd_packed_pair_kernel,
-// K8, reached through flash_fwd_packed_slab :949 on the slab and
-// _flash_fwd_packed :670 on separate q, k, v): the unnormalised exp(s - m)
-// of a dropped (query, key) pair is 0 and a kept one is multiplied by
-// 1 / (1 - rate) in f32 before the rounding; the row sum l stays the
-// undropped one.  The keep bit is
-// vc_dropout_keep(query row, key column, seed, b * nh + h), the bits the
-// backward (attention_bwd.cu) regenerates.
+// What bounds them on the H100: 4 * Lp * L * hd flops per (image, head)
+// (2 for q . k^T, 2 for p . v) against 4 * Lp * hd operand elements: at
+// Lp 592 and hd 64 about 300 flops a byte, on the compute side of the
+// card's balance point, and more so as Lp grows; the exp, max and sum of
+// the softmax are the second cost, on the CUDA cores.  The two-pass kernel
+// runs q . k^T twice (1.5x the tensor-core work of one pass), the price of
+// rounding p against the row's final max.  A bias adds its f32 bytes
+// (B * nH * Lp^2 * 4 per head, or B * Lp^2 * 4 once when broadcast): the
+// per-head bias makes K9 bound by bytes.
 //
-// What bounds it on the H100: at Lp = 592, hd = 64 the work is
-// 4 * Lp^2 * hd flops per (image, head) against only 3 * Lp * hd inputs,
-// so it is compute-bound, and the exp/max work of the softmax is the second
-// cost.  Two kernels, one block per (q-tile, head, image) each:
-// - bf16 (the main path): tensor cores through WMMA bf16 16x16x16
-//   fragments.  Four warps own 16 query rows each and share K/V tiles in
-//   shared memory.  Two passes over the keys: the first finds each row's max
-//   and sum, the second forms exp(s - max) once, so the output accumulator
-//   stays in registers with no rescaling (the score product runs twice;
-//   tensor-core flops are the cheap resource here).
-// - f32 (exact f32, no TF32): CUDA cores, one thread per query row with q
-//   and the output accumulator in registers, K/V tiles staged as f32 in
-//   shared memory (broadcast reads), online softmax over chunks of 16 keys.
-// Neither kernel's shared memory nor its grid depends on Lp beyond the
-// number of query tiles, and every offset into the operands, the bias and
-// the output is a size_t product, so the same kernels serve the TPU package's
-// long-sequence whole-block kernels (K10: fused_block.py:125 _block_kernel,
-// :470 _bert_kernel, Lp > 1024, e.g. 1152 at 512 px, B = 64: 85M bias
-// entries), and 512-px training on separate q, k, v (Lp 1152 and 1104).
-// There the work grows as Lp^2 and stays compute-bound.
-// Online mode (K9 past 1024 padded tokens, vitcap_tpu/ops/
-// flash_attention.py:129 _kernel): q is pre-scaled in its own dtype
-// (round(q * round(scale)), exact at hd 64 where the scale is 2^-3, one
-// rounding at hd 32), the scores are q . k^T with no further scale, and
-// the softmax runs online over key tiles of 128 from key 0: per tile
-// m' = max(m, rowmax(s)), p = exp(s - m') rounded to the operand dtype for
-// the product with v, corr = exp(m - m'), l = l * corr + sum(p) and
-// acc = acc * corr + p . v in f32 (m starts at -1e30).  bf16: WMMA
-// accumulators have no row layout to rescale, so each tile's p . v lands
-// in a fresh fragment, is staged in shared memory, and the lanes update
-// an f32 accumulator there in the TPU kernel's order (dynamic shared
-// memory, 111 KB at head dim 64).  f32: the CUDA-core kernel with the
-// pre-scaled q (its online chunks of 16 keys only reorder f32 sums).
-// Head sizes are padded up to a compiled size (64 or 128 on the tensor
-// cores; 16, 32, 64 or 128 on the CUDA cores) with zeros, which leaves the
-// dot products unchanged.
+// What the design does about it (bf16): a block of two warpgroups (256
+// threads), each 64 query rows of one head, the two sharing every K and V
+// tile, and both products on wgmma.  S = q . k^T is wgmma.m64n64k16 with
+// q and the key tile in shared memory and S in registers; the softmax,
+// the mask (on the tile that holds l_actual only), the bias, the dropout
+// and the online correction run on each thread's own accumulator rows
+// (rows 16 * warp + lane / 4 and that row + 8 of its warpgroup; a row's
+// max and sum take two shuffles in the group of four lanes); the
+// probabilities are converted in place to bf16 pairs, which is the
+// A-operand layout of o += p . v, so p never leaves the registers, and v
+// is the transposed B operand from shared memory.  No score, probability
+// or accumulator goes through shared memory.  K and V tiles stream through
+// a two-stage ring of cp.async copies written in the 128-byte swizzle the
+// wgmma descriptors name (a head-dim row of 64 bf16 is one 128-byte line;
+// hd 128 is two panels of 64 columns), so the next tile loads while the
+// current one is in the products; pass 1 of the two-pass kernel loads only
+// K.  Pass 1 finds the row max (without a bias, of the raw products,
+// scaled once: rounding is monotonic); pass 2 forms p = exp(s - m) once,
+// sums l from it (the undropped sum, as the plain version sums it) and
+// multiplies by v, so the output accumulator needs no rescaling.  exp is
+// ex2.approx of x * log2(e) (vc_exp).  The bias is read in the
+// accumulator's own layout (each group of four lanes reads 32 contiguous
+// bytes of one row as float2s) into registers, issued before the tile's
+// q . k^T so its latency hides behind it, and the grid runs the heads
+// fastest, so the 12 heads that read one head-broadcast bias tile run back
+// to back and find it in L2.  The online kernel runs each 128-key tile's
+// p . v into fresh register accumulators and folds them into the output
+// accumulator as acc * corr + pv per element.  Head sizes are padded with
+// zeros to 64 or 128 (16, 32, 64 or 128 on the CUDA cores), which leaves
+// the dot products unchanged; ragged l_actual and Lp are masked in the
+// kernel.
+//
+// f32: CUDA cores, one thread per query row with q and the output
+// accumulator in registers, K/V tiles staged as f32 in shared memory
+// (broadcast reads), online softmax over chunks of 16 keys (exact
+// arithmetic, only the order of the f32 sums differs); in the online mode
+// with the pre-scaled q (its chunks only reorder f32 sums).  Neither
+// kernel's shared memory nor its grid depends on Lp beyond the number of
+// query tiles, and every offset into the operands, the bias and the
+// output is a size_t product, so the same kernels serve the long
+// sequences (K10 at Lp 1152, B = 64: 85M bias entries) and 512-px
+// training on separate q, k, v (Lp 1152 and 1104).
 #include <math.h>
-#include <mma.h>
+#include <stdint.h>
+#include <stdio.h>
+
+#include <atomic>
 
 #include "common.cuh"
 
-using namespace nvcuda;
-
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (WMMA), two-pass softmax
+// bf16: wgmma, two warpgroups of 64 query rows a block, the softmax in
+// registers
 // ---------------------------------------------------------------------------
 
-constexpr int TC_Q = 64;      // query rows per block: 4 warps x 16
-constexpr int TC_THREADS = 128;
+constexpr int WG_ROWS = 64;      // query rows per warpgroup (wgmma's M)
+constexpr int WG_GROUPS = 2;     // warpgroups per block, sharing K and V
+constexpr int WG_Q = WG_ROWS * WG_GROUPS;  // query rows per block
+constexpr int WG_THREADS = 128 * WG_GROUPS;
+constexpr int WG_KT = 64;         // keys per tile of the two-pass kernel
+constexpr int ON_KT = 128;        // the online mode's key tile (the TPU TK)
+constexpr float ON_NEG = -1e30f;  // its mask value and running-max start
 
+// exp(x) as 2^(x log2 e) on the special-function unit (relative error
+// about 2^-22, results below 2^-126 flushed to 0): one multiply and one
+// MUFU.EX2 where expf takes about ten instructions.  It may differ from
+// expf in the last bits; the bf16 outputs stay at least 99% bit-equal to
+// the plain version's (chip_smoke.py checks every bf16 row).
+__device__ __forceinline__ float vc_exp(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
+}
+
+// Dynamic shared memory, each tile 1024-byte aligned (the swizzle repeats
+// every 8 rows of 128 bytes): the block's WG_Q q rows, then two stages of
+// K, then two of V, each tile HDP / 64 panels of rows x 128 bytes.
 template <int HDP, int KT>
-struct TcSmem {
-  static constexpr int LD = HDP + 8;  // bf16 row stride (bank skew)
-  static constexpr int LS = KT + 4;   // f32 score row stride
-  static constexpr int LP = KT + 8;   // bf16 probability row stride
-  bf16 q[TC_Q * LD];
-  bf16 k[KT * LD];
-  bf16 v[KT * LD];
-  float s[4][16 * LS];  // per warp: scores, then bf16 probabilities in place
-  static_assert(16 * LP * sizeof(bf16) <= 16 * LS * sizeof(float),
-                "probabilities must fit in the score scratch");
+struct WgSmem {
+  static constexpr uint32_t Q = WG_Q * HDP * 2;
+  static constexpr uint32_t T = KT * HDP * 2;
+  static constexpr size_t BYTES = Q + 4 * T + 1024;  // + base alignment
 };
 
-// rows [r0, r0 + nrows) of one head's hd columns -> smem tile, zero-filled
-// beyond `valid` rows and beyond hd columns
-template <int HDP, int LD>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          size_t ld_src, int r0, int nrows,
-                                          int valid, int hd) {
-  const int chunks = HDP / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < nrows * chunks; i += blockDim.x) {
-    const int r = i / chunks, c = (i % chunks) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < valid && c < hd)
-      val = __ldg(reinterpret_cast<const uint4*>(
-          src + (size_t)(r0 + r) * ld_src + c));
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  // bytes 0: the 16 bytes at dst are zero-filled, nothing is read
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// generic-proxy writes (cp.async, st.shared) -> visible to wgmma's reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accesses to an accumulator across the
+// asynchronous wgmma that reads and writes it
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// wgmma shared-memory matrix descriptor in the 128-byte swizzle: start
+// address, leading and stride byte offsets (each >> 4), layout type 1 in
+// bits 62-63
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+#define WG_D8(o)                                                       \
+  "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]),          \
+      "+f"(d[o + 4]), "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
+#define WG_REGS32                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
+  "%28, %29, %30, %31}"
+
+// d (+)= A . B, 64 x 64 x 16, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d += A . B, 64 x 64 x 16, A from registers (four bf16 pairs per thread),
+// B MN-major (transposed) in shared memory
+__device__ __forceinline__ void wgmma_rs_t(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// rows [r0, r0 + ROWS) of one head's hd columns -> the swizzled tile at
+// shared address dst by cp.async, zero-filled past `valid` rows and past
+// hd columns.  Row r's 16-byte chunk c of panel c / 8 lands at
+// r * 128 + ((c % 8) ^ (r % 8)) * 16 of that panel.
+template <int HDP, int ROWS>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
+                                          long long sr, int r0, int valid,
+                                          int hd) {
+  constexpr int CH = HDP / 8;  // 16-byte chunks per row
+#pragma unroll
+  for (int it = 0; it < ROWS * CH / WG_THREADS; ++it) {
+    const int i = it * WG_THREADS + threadIdx.x;
+    const int r = i / CH, c = i % CH;
+    const bool ok = r0 + r < valid && c * 8 < hd;
+    const bf16* p = ok ? src + (size_t)(r0 + r) * sr + c * 8 : src;
+    cp_async16(dst + (c / 8) * (ROWS * 128) + r * 128 +
+                   (((c % 8) ^ (r % 8)) << 4),
+               p, ok ? 16 : 0);
   }
 }
 
+// s[n] = this warpgroup's 64 q rows (at sqw, in panels of WG_Q rows) .
+// keys [64 n, 64 n + 64) of the K tile (KT x HDP at sk), both K-major: a
+// k-step of 16 columns is 32 bytes into a panel's 128-byte line, 8-row
+// groups 1024 bytes apart
 template <int HDP, int KT>
-__global__ void __launch_bounds__(TC_THREADS)
-    attention_tc_kernel(Operand<bf16> q, Operand<bf16> k, Operand<bf16> v,
-                        Bias bias, bf16* __restrict__ out,
-                        int Lp, int H, int hd, int l_actual, float scale,
-                        Dropout drop) {
-  using S = TcSmem<HDP, KT>;
-  constexpr int LD = S::LD, LS = S::LS, LP = S::LP;
-  constexpr int HALF = KT / 2;  // score columns per lane
-  __shared__ __align__(128) S sm;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * TC_Q;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const bf16* qh = q.head(b, h);
+__device__ __forceinline__ void qk_product(float (&s)[KT / 64][32],
+                                           uint32_t sqw, uint32_t sk) {
+#pragma unroll
+  for (int n = 0; n < KT / 64; ++n) fence_regs(s[n]);
+  wg_fence();
+#pragma unroll
+  for (int n = 0; n < KT / 64; ++n)
+#pragma unroll
+    for (int kk = 0; kk < HDP / 16; ++kk) {
+      const uint32_t col = (kk % 4) * 32;
+      wgmma_ss(s[n],
+               desc_sw128(sqw + (kk / 4) * (WG_Q * 128) + col, 16, 1024),
+               desc_sw128(sk + (kk / 4) * (KT * 128) + n * 64 * 128 + col,
+                          16, 1024),
+               kk > 0);
+    }
+  wg_commit();
+  wg_wait0();
+#pragma unroll
+  for (int n = 0; n < KT / 64; ++n) fence_regs(s[n]);
+}
+
+// d += p . V[:, 64 np : 64 np + 64] over the tile's KT keys: p in
+// registers (k-step ks: four bf16 pairs), V (KT x HDP at sv) the MN-major
+// B operand: a k-step of 16 keys is 16 rows (2048 bytes) on, 8-key groups
+// 1024 bytes apart, panels of 64 columns KT * 128 bytes apart
+template <int KT>
+__device__ __forceinline__ void pv_product(float (&d)[32],
+                                           const uint32_t (&p)[KT / 16][4],
+                                           uint32_t sv, int np) {
+#pragma unroll
+  for (int ks = 0; ks < KT / 16; ++ks)
+    wgmma_rs_t(d, p[ks],
+               desc_sw128(sv + np * (KT * 128) + ks * 16 * 128, KT * 128,
+                          1024));
+}
+
+// The accumulator layout of a 64 x 64 wgmma tile: thread (warp w of the
+// warpgroup, lane ln) holds d[4 j + 2 i + c] = element (row 16 w + ln / 4
+// + 8 i, column 8 j + 2 (ln % 4) + c), j < 8, i, c < 2.  The A operand of
+// a 16-column k-step takes the same pairs: columns 16 kk .. 16 kk + 15
+// are d[8 kk .. 8 kk + 7], packed two by two.
+
+// this thread's f32 bias at keys kc + 8 jj + {0, 1} (jj < KT / 8) of its
+// rows i = 0, 1: bv[i][2 jj + c]; 0 at and past l_actual (checked on the
+// EDGE tile only).  A group of four lanes reads 32 contiguous bytes of one
+// row (float2s when the rows are 8-byte aligned).
+template <int KT, bool EDGE>
+__device__ __forceinline__ void load_bias(float (&bv)[2][KT / 4],
+                                          const float* const (&brow)[2],
+                                          int kc, int l_actual, bool vec) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int jj = 0; jj < KT / 8; ++jj) {
+      const int kg = kc + 8 * jj;
+      float2 x = make_float2(0.0f, 0.0f);
+      if (brow[i] && (!EDGE || kg < l_actual)) {
+        if (vec) {
+          x = __ldg(reinterpret_cast<const float2*>(brow[i] + kg));
+        } else {
+          x.x = __ldg(brow[i] + kg);
+          if (!EDGE || kg + 1 < l_actual) x.y = __ldg(brow[i] + kg + 1);
+        }
+      }
+      bv[i][2 * jj] = x.x;
+      bv[i][2 * jj + 1] = x.y;
+    }
+}
+
+template <int KT>
+__device__ __forceinline__ void load_bias(float (&bv)[2][KT / 4],
+                                          const float* const (&brow)[2],
+                                          int kc, int l_actual, bool vec,
+                                          bool edge) {
+  if (edge)
+    load_bias<KT, true>(bv, brow, kc, l_actual, vec);
+  else
+    load_bias<KT, false>(bv, brow, kc, l_actual, vec);
+}
+
+// s = s [* scale] [+ bias], keys at or past l_actual set to `neg` (on the
+// EDGE tile only); the products and sums rounded one by one, as the plain
+// version's separate operations round them
+template <int KT, bool SCALE, bool BIAS, bool EDGE>
+__device__ __forceinline__ void finish_scores(float (&s)[KT / 64][32],
+                                              const float (&bv)[2][KT / 4],
+                                              float scale, int kc,
+                                              int l_actual, float neg) {
+#pragma unroll
+  for (int n = 0; n < KT / 64; ++n)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int j = e / 4, i = (e / 2) % 2, c = e % 2;
+      float x = s[n][e];
+      if (SCALE) x = __fmul_rn(x, scale);
+      if (BIAS) x = __fadd_rn(x, bv[i][2 * (8 * n + j) + c]);
+      s[n][e] = !EDGE || kc + 64 * n + 8 * j + c < l_actual ? x : neg;
+    }
+}
+
+template <int KT, bool SCALE, bool BIAS>
+__device__ __forceinline__ void finish_scores(float (&s)[KT / 64][32],
+                                              const float (&bv)[2][KT / 4],
+                                              float scale, int kc,
+                                              int l_actual, float neg,
+                                              bool edge) {
+  if (edge)
+    finish_scores<KT, SCALE, BIAS, true>(s, bv, scale, kc, l_actual, neg);
+  else
+    finish_scores<KT, SCALE, BIAS, false>(s, bv, scale, kc, l_actual, neg);
+}
+
+// max over the row of the accumulator tile: own values, then the group of
+// four lanes
+template <int KT>
+__device__ __forceinline__ float row_max(const float (&s)[KT / 64][32],
+                                         int i, float init) {
+  float x = init;
+#pragma unroll
+  for (int n = 0; n < KT / 64; ++n)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      x = fmaxf(x, fmaxf(s[n][4 * j + 2 * i], s[n][4 * j + 2 * i + 1]));
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x: low half
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// o / max(l, 1e-30) -> rows row0, row0 + 8 (those below Lp), columns below
+// hd of head h in the (B, Lp, H) output, as bf16 pairs
+template <int NP>
+__device__ __forceinline__ void store_out(const float (&o)[NP][32],
+                                          const float (&l)[2],
+                                          bf16* __restrict__ out, int b,
+                                          int h, int Lp, int H, int hd,
+                                          int row0, int cq) {
+  const float den[2] = {fmaxf(l[0], 1e-30f), fmaxf(l[1], 1e-30f)};
+#pragma unroll
+  for (int np = 0; np < NP; ++np)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = np * 64 + 8 * j + cq;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = row0 + 8 * i;
+        if (col < hd && r < Lp)
+          *reinterpret_cast<__nv_bfloat162*>(
+              out + ((size_t)b * Lp + r) * H + h * hd + col) =
+              __floats2bfloat162_rn(o[np][4 * j + 2 * i] / den[i],
+                                    o[np][4 * j + 2 * i + 1] / den[i]);
+      }
+    }
+}
+
+// the bias rows of this thread's two query rows (null past Lp or without a
+// bias) and whether they can be read as float2s
+struct BiasRows {
+  const float* row[2];
+  bool vec;
+  __device__ __forceinline__ BiasRows(const Bias& bias, int b, int h,
+                                      int row0, int Lp) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      row[i] = row0 + 8 * i < Lp ? bias.row(b, h, row0 + 8 * i, Lp)
+                                 : nullptr;
+    vec = !(Lp & 1) && !(reinterpret_cast<uintptr_t>(bias.p) & 7) &&
+          !(bias.sb & 1) && !(bias.sh & 1);
+  }
+};
+
+// A block: WG_GROUPS warpgroups, each 64 consecutive query rows of one
+// head, sharing the K and V tiles.  The thread's place in it.
+struct WgThread {
+  int wg, row0, cq;  // warpgroup, first of its two rows, first column
+  __device__ __forceinline__ WgThread(int q0) {
+    const int lane = threadIdx.x % 32;
+    wg = threadIdx.x / 128;
+    row0 = q0 + wg * WG_ROWS + (threadIdx.x / 32 % 4) * 16 + lane / 4;
+    cq = 2 * (lane % 4);
+  }
+};
+
+// Two passes over the keys: steps 0 .. nt - 1 find the row max over K
+// tiles, steps nt .. 2 nt - 1 form p = exp(s - m), sum l and multiply by
+// the V tiles.  K and V tiles load one step ahead through the two-stage
+// ring.
+template <int HDP, bool BIAS>
+__global__ void __launch_bounds__(WG_THREADS)
+    attention_wgmma_kernel(Operand<bf16> q, Operand<bf16> k, Operand<bf16> v,
+                           Bias bias, bf16* __restrict__ out, int Lp, int H,
+                           int hd, int l_actual, float scale, Dropout drop) {
+  constexpr int KT = WG_KT, NP = HDP / 64;
+  using S = WgSmem<HDP, KT>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sk = sq + S::Q, sv = sk + 2 * S::T;
+  const int h = blockIdx.x, q0 = blockIdx.y * WG_Q, b = blockIdx.z;
+  const WgThread me(q0);
+  const uint32_t sqw = sq + me.wg * (WG_ROWS * 128);
+  const unsigned salt = b * gridDim.x + h;  // global head b * nh + h
   const bf16* kh = k.head(b, h);
   const bf16* vh = v.head(b, h);
-  float* sw = sm.s[warp];
-  bf16* pw = reinterpret_cast<bf16*>(sw);  // probabilities, row stride LP
-  // softmax ownership: lane -> (row, half of the key tile)
-  const int row = lane / 2, c0 = (lane % 2) * HALF;
-  const int qrow = q0 + warp * 16 + row;
-  const unsigned salt = b * gridDim.y + h;  // global head b * nh + h
-  const float* brow = qrow < Lp ? bias.row(b, h, qrow, Lp) : nullptr;
+  const BiasRows br(bias, b, h, me.row0, Lp);
+  const int nt = (l_actual + KT - 1) / KT;
 
-  load_rows<HDP, LD>(sm.q, qh, q.sr, q0, TC_Q, Lp, hd);
-  __syncthreads();
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-      qf[HDP / 16];
-#pragma unroll
-  for (int kk = 0; kk < HDP / 16; ++kk)
-    wmma::load_matrix_sync(qf[kk], sm.q + warp * 16 * LD + kk * 16, LD);
-
-  // this warp's scores for keys [k0, k0 + KT) -> its f32 scratch
-  auto scores = [&](int k0, float* s) {
-#pragma unroll
-    for (int j = 0; j < KT / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < HDP / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-        wmma::load_matrix_sync(kf, sm.k + j * 16 * LD + kk * 16, LD);
-        wmma::mma_sync(acc, qf[kk], kf, acc);
-      }
-      wmma::store_matrix_sync(sw + j * 16, acc, LS, wmma::mem_row_major);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int c = 0; c < HALF; ++c) {
-      const int kg = k0 + c0 + c;
-      float sv = sw[row * LS + c0 + c] * scale;
-      if (brow && kg < l_actual) sv += brow[kg];
-      s[c] = kg < l_actual ? sv : -INFINITY;
-    }
-    __syncwarp();
+  auto issue = [&](int step) {
+    if (step >= 2 * nt) return;
+    const int k0 = (step < nt ? step : step - nt) * KT;
+    const uint32_t st = (step & 1) * S::T;
+    load_tile<HDP, KT>(sk + st, kh, k.sr, k0, l_actual, hd);
+    if (step >= nt) load_tile<HDP, KT>(sv + st, vh, v.sr, k0, l_actual, hd);
   };
+  load_tile<HDP, WG_Q>(sq, q.head(b, h), q.sr, q0, Lp, hd);
+  issue(0);
+  cp_commit();
 
-  // pass 1: row max and sum of exp over all valid keys
-  float m = -INFINITY, l = 0.0f;
-  for (int k0 = 0; k0 < l_actual; k0 += KT) {
-    __syncthreads();
-    load_rows<HDP, LD>(sm.k, kh, k.sr, k0, KT, l_actual, hd);
-    __syncthreads();
-    float s[HALF];
-    scores(k0, s);
-    float tm = -INFINITY;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  float o[NP][32];
 #pragma unroll
-    for (int c = 0; c < HALF; ++c) tm = fmaxf(tm, s[c]);
-    tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 1));
-    const float mn = fmaxf(m, tm);  // finite from the first tile on
-    float part = 0.0f;
+  for (int np = 0; np < NP; ++np)
 #pragma unroll
-    for (int c = 0; c < HALF; ++c) part += expf(s[c] - mn);
-    l = l * expf(m - mn) + part;
-    m = mn;
-  }
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
+    for (int e = 0; e < 32; ++e) o[np][e] = 0.0f;
 
-  // pass 2: o = sum_k exp(s - m) v, probabilities rounded to bf16
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> of[HDP / 16];
-#pragma unroll
-  for (int n = 0; n < HDP / 16; ++n) wmma::fill_fragment(of[n], 0.0f);
-  for (int k0 = 0; k0 < l_actual; k0 += KT) {
+  for (int step = 0; step < 2 * nt; ++step) {
+    const bool pass2 = step >= nt;
+    const int k0 = (pass2 ? step - nt : step) * KT, kc = k0 + me.cq;
+    const bool edge = k0 + KT > l_actual;  // the tile holds masked keys
+    const uint32_t st = (step & 1) * S::T;
+    issue(step + 1);
+    cp_commit();
+    float bv[2][KT / 4];  // issued before the product, to hide its latency
+    if (BIAS) load_bias<KT>(bv, br.row, kc, l_actual, br.vec, edge);
+    cp_wait<1>();  // this step's K (and V)
+    fence_async_smem();
     __syncthreads();
-    load_rows<HDP, LD>(sm.k, kh, k.sr, k0, KT, l_actual, hd);
-    load_rows<HDP, LD>(sm.v, vh, v.sr, k0, KT, l_actual, hd);
-    __syncthreads();
-    float s[HALF];
-    scores(k0, s);
+    float s[KT / 64][32];
+    qk_product<HDP, KT>(s, sqw, sk + st);
+    if (!pass2 && !BIAS) {
+      // max(round(s * scale)) = round(max(s) * scale) for scale > 0
+      finish_scores<KT, false, false>(s, bv, scale, kc, l_actual, -INFINITY,
+                                      edge);
 #pragma unroll
-    for (int c = 0; c < HALF; ++c) {
-      float p = expf(s[c] - m);
-      if (drop.on)
-        p = vc_dropout_keep(qrow, k0 + c0 + c, drop.seed, salt, drop.thresh)
-                ? p * drop.inv
-                : 0.0f;
-      pw[row * LP + c0 + c] = __float2bfloat16(p);
+      for (int i = 0; i < 2; ++i)
+        m[i] = fmaxf(m[i], __fmul_rn(row_max<KT>(s, i, -INFINITY), scale));
+      __syncthreads();  // the stage is free for the load two steps on
+      continue;
     }
-    __syncwarp();
+    finish_scores<KT, true, BIAS>(s, bv, scale, kc, l_actual, -INFINITY,
+                                  edge);
+    if (!pass2) {
 #pragma unroll
-    for (int j = 0; j < KT / 16; ++j) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf;
-      wmma::load_matrix_sync(pf, pw + j * 16, LP);
+      for (int i = 0; i < 2; ++i) m[i] = row_max<KT>(s, i, m[i]);
+    } else {
+      uint32_t p[KT / 16][4];
 #pragma unroll
-      for (int n = 0; n < HDP / 16; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-        wmma::load_matrix_sync(vf, sm.v + j * 16 * LD + n * 16, LD);
-        wmma::mma_sync(of[n], pf, vf, of[n]);
-      }
+      for (int n = 0; n < KT / 64; ++n)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            float e0 = vc_exp(__fsub_rn(s[n][4 * j + 2 * i], m[i]));
+            float e1 = vc_exp(__fsub_rn(s[n][4 * j + 2 * i + 1], m[i]));
+            l[i] += e0 + e1;
+            if (drop.on) {
+              const unsigned r = me.row0 + 8 * i, c = kc + 64 * n + 8 * j;
+              e0 = vc_dropout_keep(r, c, drop.seed, salt, drop.thresh)
+                       ? e0 * drop.inv : 0.0f;
+              e1 = vc_dropout_keep(r, c + 1, drop.seed, salt, drop.thresh)
+                       ? e1 * drop.inv : 0.0f;
+            }
+            p[4 * n + j / 2][2 * (j % 2) + i] = pack_bf16(e0, e1);
+          }
+#pragma unroll
+      for (int np = 0; np < NP; ++np) fence_regs(o[np]);
+      wg_fence();
+#pragma unroll
+      for (int np = 0; np < NP; ++np) pv_product<KT>(o[np], p, sv + st, np);
+      wg_commit();
+      wg_wait0();
+#pragma unroll
+      for (int np = 0; np < NP; ++np) fence_regs(o[np]);
     }
-    __syncwarp();
+    __syncthreads();  // the stage is free for the load two steps on
+  }
+  l[0] = quad_sum(l[0]);
+  l[1] = quad_sum(l[1]);
+  store_out<NP>(o, l, out, b, h, Lp, H, hd, me.row0, me.cq);
+}
+
+// K9's q-tiled function past 1024: one pass over 128-key tiles, each with
+// its own running max; the tile's p . v lands in fresh accumulators and
+// is folded in as acc * corr + pv.
+template <int HDP, bool BIAS>
+__global__ void __launch_bounds__(WG_THREADS)
+    attention_wgmma_online_kernel(Operand<bf16> q, Operand<bf16> k,
+                                  Operand<bf16> v, Bias bias,
+                                  bf16* __restrict__ out, int Lp, int H,
+                                  int hd, int l_actual, float scale) {
+  constexpr int KT = ON_KT, NP = HDP / 64;
+  using S = WgSmem<HDP, KT>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sk = sq + S::Q, sv = sk + 2 * S::T;
+  const int h = blockIdx.x, q0 = blockIdx.y * WG_Q, b = blockIdx.z;
+  const WgThread me(q0);
+  const uint32_t sqw = sq + me.wg * (WG_ROWS * 128);
+  const bf16* kh = k.head(b, h);
+  const bf16* vh = v.head(b, h);
+  const BiasRows br(bias, b, h, me.row0, Lp);
+  const int nt = (l_actual + KT - 1) / KT;
+
+  auto issue = [&](int t) {
+    if (t >= nt) return;
+    const uint32_t st = (t & 1) * S::T;
+    load_tile<HDP, KT>(sk + st, kh, k.sr, t * KT, l_actual, hd);
+    load_tile<HDP, KT>(sv + st, vh, v.sr, t * KT, l_actual, hd);
+  };
+  load_tile<HDP, WG_Q>(sq, q.head(b, h), q.sr, q0, Lp, hd);
+  cp_commit();
+  issue(0);
+  cp_commit();
+  // q pre-scaled in bf16: round(q * round(scale)) (the product of two
+  // bf16 values is exact in f32, so this is the bf16 multiply); the
+  // elementwise pass does not care about the swizzle
+  cp_wait<1>();
+  __syncthreads();
+  {
+    const float sc = __bfloat162float(__float2bfloat16(scale));
+    unsigned char* qs = smem_raw + (sq - smem_u32(smem_raw));
+    for (int i = threadIdx.x; i < (int)(S::Q / 16); i += WG_THREADS) {
+      uint4 w = *reinterpret_cast<uint4*>(qs + 16 * i);
+      __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&w);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        e[c] = __floats2bfloat162_rn(__low2float(e[c]) * sc,
+                                     __high2float(e[c]) * sc);
+      *reinterpret_cast<uint4*>(qs + 16 * i) = w;
+    }
   }
 
-  // epilogue: stage each 16x16 output fragment, divide by the row sum
-  const float den = fmaxf(l, 1e-30f);
+  float m[2] = {ON_NEG, ON_NEG}, l[2] = {0.0f, 0.0f};
+  float o[NP][32];
 #pragma unroll
-  for (int n = 0; n < HDP / 16; ++n) {
-    wmma::store_matrix_sync(sw, of[n], 16, wmma::mem_row_major);
-    __syncwarp();
+  for (int np = 0; np < NP; ++np)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int col = n * 16 + (lane % 2) * 8 + c;
-      if (qrow < Lp && col < hd)
-        out[((size_t)b * Lp + qrow) * H + h * hd + col] =
-            __float2bfloat16(sw[row * 16 + (lane % 2) * 8 + c] / den);
+    for (int e = 0; e < 32; ++e) o[np][e] = 0.0f;
+
+  for (int t = 0; t < nt; ++t) {
+    const int kc = t * KT + me.cq;
+    const bool edge = (t + 1) * KT > l_actual;
+    const uint32_t st = (t & 1) * S::T;
+    issue(t + 1);
+    cp_commit();
+    float bv[2][KT / 4];  // issued before the product, to hide its latency
+    if (BIAS) load_bias<KT>(bv, br.row, kc, l_actual, br.vec, edge);
+    cp_wait<1>();  // this tile's K and V
+    fence_async_smem();
+    __syncthreads();
+    float s[KT / 64][32];
+    qk_product<HDP, KT>(s, sqw, sk + st);
+    finish_scores<KT, false, BIAS>(s, bv, 1.0f, kc, l_actual, ON_NEG, edge);
+    float corr[2], part[2] = {0.0f, 0.0f};
+    uint32_t p[KT / 16][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float mn = fmaxf(m[i], row_max<KT>(s, i, ON_NEG));
+      corr[i] = vc_exp(__fsub_rn(m[i], mn));
+      m[i] = mn;
     }
-    __syncwarp();
+#pragma unroll
+    for (int n = 0; n < KT / 64; ++n)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float e0 = vc_exp(__fsub_rn(s[n][4 * j + 2 * i], m[i]));
+          const float e1 = vc_exp(__fsub_rn(s[n][4 * j + 2 * i + 1], m[i]));
+          part[i] += e0 + e1;
+          p[4 * n + j / 2][2 * (j % 2) + i] = pack_bf16(e0, e1);
+        }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      l[i] = __fadd_rn(__fmul_rn(l[i], corr[i]), quad_sum(part[i]));
+#pragma unroll
+    for (int np = 0; np < NP; ++np) {
+      float pv[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) pv[e] = 0.0f;
+      fence_regs(pv);
+      wg_fence();
+      pv_product<KT>(pv, p, sv + st, np);
+      wg_commit();
+      wg_wait0();
+      fence_regs(pv);
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        o[np][e] = __fadd_rn(__fmul_rn(o[np][e], corr[(e / 2) % 2]), pv[e]);
+    }
+    __syncthreads();  // the stage is free for the load two tiles on
   }
+  store_out<NP>(o, l, out, b, h, Lp, H, hd, me.row0, me.cq);
 }
 
 // ---------------------------------------------------------------------------
@@ -339,151 +757,6 @@ __global__ void __launch_bounds__(ATT_Q)
 }
 
 // ---------------------------------------------------------------------------
-// bf16 online mode: K9's q-tiled kernel past 1024 padded tokens
-// ---------------------------------------------------------------------------
-
-constexpr int ON_KT = 128;        // the TPU kernel's key tile (TK)
-constexpr float ON_NEG = -1e30f;  // its mask value and running-max start
-
-// dynamic shared memory layout (byte offsets, each 128-byte aligned)
-template <int HDP>
-struct OnSmem {
-  static constexpr int LD = HDP + 8;     // bf16 operand row stride
-  static constexpr int LS = ON_KT + 4;   // f32 score / staging row stride
-  static constexpr int LP = ON_KT + 8;   // bf16 probability row stride
-  static constexpr size_t Q = 0;
-  static constexpr size_t K = Q + (size_t)TC_Q * LD * 2;
-  static constexpr size_t V = K + (size_t)ON_KT * LD * 2;
-  static constexpr size_t S = V + (size_t)ON_KT * LD * 2;   // 4 warps
-  static constexpr size_t P = S + (size_t)4 * 16 * LS * 4;
-  static constexpr size_t A = P + (size_t)4 * 16 * LP * 2;
-  static constexpr size_t BYTES = A + (size_t)4 * 16 * HDP * 4;
-  static_assert(HDP <= LS, "the p . v staging must fit a score row");
-};
-
-template <int HDP>
-__global__ void __launch_bounds__(TC_THREADS)
-    attention_tc_online_kernel(Operand<bf16> q, Operand<bf16> k,
-                               Operand<bf16> v, Bias bias,
-                               bf16* __restrict__ out, int Lp, int H, int hd,
-                               int l_actual, float scale) {
-  using S = OnSmem<HDP>;
-  constexpr int LD = S::LD, LS = S::LS, LP = S::LP, KT = ON_KT;
-  constexpr int HALF = KT / 2, DHALF = HDP / 2;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem + S::Q);
-  bf16* ks = reinterpret_cast<bf16*>(smem + S::K);
-  bf16* vs = reinterpret_cast<bf16*>(smem + S::V);
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * TC_Q;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* sw = reinterpret_cast<float*>(smem + S::S) + warp * 16 * LS;
-  bf16* pw = reinterpret_cast<bf16*>(smem + S::P) + warp * 16 * LP;
-  float* aw = reinterpret_cast<float*>(smem + S::A) + warp * 16 * HDP;
-  // lane -> (row, half of the key tile and of the head columns)
-  const int row = lane / 2, half = lane % 2;
-  const int c0 = half * HALF, d0 = half * DHALF;
-  const int qrow = q0 + warp * 16 + row;
-  const float* brow = qrow < Lp ? bias.row(b, h, qrow, Lp) : nullptr;
-  const bf16* kh = k.head(b, h);
-  const bf16* vh = v.head(b, h);
-
-  // q pre-scaled in bf16: round(q * round(scale)) (the product of two
-  // bf16 values is exact in f32, so this is the bf16 multiply)
-  const float sc = __bfloat162float(__float2bfloat16(scale));
-  load_rows<HDP, LD>(qs, q.head(b, h), q.sr, q0, TC_Q, Lp, hd);
-  for (int i = lane; i < 16 * HDP; i += 32) aw[i] = 0.0f;
-  __syncthreads();
-  for (int i = threadIdx.x; i < TC_Q * HDP; i += blockDim.x) {
-    bf16* e = qs + (i / HDP) * LD + i % HDP;
-    *e = __float2bfloat16(__bfloat162float(*e) * sc);
-  }
-  __syncthreads();
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-      qf[HDP / 16];
-#pragma unroll
-  for (int kk = 0; kk < HDP / 16; ++kk)
-    wmma::load_matrix_sync(qf[kk], qs + warp * 16 * LD + kk * 16, LD);
-
-  float m = ON_NEG, l = 0.0f;
-  for (int k0 = 0; k0 < l_actual; k0 += KT) {
-    __syncthreads();
-    load_rows<HDP, LD>(ks, kh, k.sr, k0, KT, l_actual, hd);
-    load_rows<HDP, LD>(vs, vh, v.sr, k0, KT, l_actual, hd);
-    __syncthreads();
-    // s = (pre-scaled q) . k^T -> this warp's scratch
-#pragma unroll
-    for (int j = 0; j < KT / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < HDP / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-        wmma::load_matrix_sync(kf, ks + j * 16 * LD + kk * 16, LD);
-        wmma::mma_sync(acc, qf[kk], kf, acc);
-      }
-      wmma::store_matrix_sync(sw + j * 16, acc, LS, wmma::mem_row_major);
-    }
-    __syncwarp();
-    // + bias, keys >= l_actual at -1e30; the tile's row max
-    float tm = ON_NEG;
-    for (int c = 0; c < HALF; ++c) {
-      const int kg = k0 + c0 + c;
-      float sv = sw[row * LS + c0 + c];
-      if (brow && kg < l_actual) sv += brow[kg];
-      sv = kg < l_actual ? sv : ON_NEG;
-      sw[row * LS + c0 + c] = sv;
-      tm = fmaxf(tm, sv);
-    }
-    tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 1));
-    const float mn = fmaxf(m, tm);
-    const float corr = expf(m - mn);
-    float part = 0.0f;
-    for (int c = 0; c < HALF; ++c) {
-      const float p = expf(sw[row * LS + c0 + c] - mn);
-      part += p;
-      pw[row * LP + c0 + c] = __float2bfloat16(p);
-    }
-    part += __shfl_xor_sync(0xffffffffu, part, 1);
-    l = __fadd_rn(__fmul_rn(l, corr), part);
-    m = mn;
-    __syncwarp();
-    // this tile's p . v in fresh fragments, staged over the scores
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> pv[HDP / 16];
-#pragma unroll
-    for (int n = 0; n < HDP / 16; ++n) wmma::fill_fragment(pv[n], 0.0f);
-#pragma unroll
-    for (int j = 0; j < KT / 16; ++j) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf;
-      wmma::load_matrix_sync(pf, pw + j * 16, LP);
-#pragma unroll
-      for (int n = 0; n < HDP / 16; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-        wmma::load_matrix_sync(vf, vs + j * 16 * LD + n * 16, LD);
-        wmma::mma_sync(pv[n], pf, vf, pv[n]);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < HDP / 16; ++n)
-      wmma::store_matrix_sync(sw + n * 16, pv[n], LS, wmma::mem_row_major);
-    __syncwarp();
-    // acc = acc * corr + p . v, in f32 as the TPU kernel orders it
-    for (int c = 0; c < DHALF; ++c)
-      aw[row * HDP + d0 + c] =
-          __fadd_rn(__fmul_rn(aw[row * HDP + d0 + c], corr),
-                    sw[row * LS + d0 + c]);
-    __syncwarp();
-  }
-
-  const float den = fmaxf(l, 1e-30f);
-  for (int c = 0; c < DHALF; ++c) {
-    const int col = d0 + c;
-    if (qrow < Lp && col < hd)
-      out[((size_t)b * Lp + qrow) * H + h * hd + col] =
-          __float2bfloat16(aw[row * HDP + col] / den);
-  }
-}
-
-// ---------------------------------------------------------------------------
 // dispatch
 // ---------------------------------------------------------------------------
 
@@ -498,31 +771,72 @@ static int launch_cc(const Operand<float>* qkv, Bias bias, void* out, int B,
   return 0;
 }
 
-template <int HDP, int KT>
-static int launch_tc(const Operand<bf16>* qkv, Bias bias, void* out, int B,
+// Lets `kernel` take `bytes` of dynamic shared memory (needed above 48 KB),
+// once per device: `done` holds one bit per device, a static of the
+// caller's template instance.
+static cudaError_t allow_smem(const void* kernel, size_t bytes,
+                              std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (done.load() & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+  if (e == cudaSuccess) done.fetch_or(bit);
+  return e;
+}
+
+// the bf16 kernels' grid: heads fastest, then query tiles, then images
+static dim3 wg_grid(int B, int Lp, int nh) {
+  return dim3(nh, (Lp + WG_Q - 1) / WG_Q, B);
+}
+
+template <int HDP, bool BIAS>
+static int launch_wg(const Operand<bf16>* qkv, Bias bias, void* out, int B,
                      int Lp, int H, int nh, int l_actual, float scale,
                      Dropout drop, cudaStream_t s) {
-  dim3 grid((Lp + TC_Q - 1) / TC_Q, nh, B);
-  attention_tc_kernel<HDP, KT><<<grid, TC_THREADS, 0, s>>>(
-      qkv[0], qkv[1], qkv[2], bias, static_cast<bf16*>(out), Lp, H, H / nh,
-      l_actual, scale, drop);
+  constexpr size_t bytes = WgSmem<HDP, WG_KT>::BYTES;
+  static std::atomic<unsigned long long> done{0};
+  const cudaError_t e = allow_smem(
+      (const void*)attention_wgmma_kernel<HDP, BIAS>, bytes, done);
+  if (e != cudaSuccess) return (int)e;
+  attention_wgmma_kernel<HDP, BIAS>
+      <<<wg_grid(B, Lp, nh), WG_THREADS, bytes, s>>>(
+          qkv[0], qkv[1], qkv[2], bias, static_cast<bf16*>(out), Lp, H,
+          H / nh, l_actual, scale, drop);
+  return 0;
+}
+
+template <int HDP, bool BIAS>
+static int launch_online(const Operand<bf16>* qkv, Bias bias, void* out,
+                         int B, int Lp, int H, int nh, int l_actual,
+                         float scale, cudaStream_t s) {
+  constexpr size_t bytes = WgSmem<HDP, ON_KT>::BYTES;
+  static std::atomic<unsigned long long> done{0};
+  const cudaError_t e = allow_smem(
+      (const void*)attention_wgmma_online_kernel<HDP, BIAS>, bytes, done);
+  if (e != cudaSuccess) return (int)e;
+  attention_wgmma_online_kernel<HDP, BIAS>
+      <<<wg_grid(B, Lp, nh), WG_THREADS, bytes, s>>>(
+          qkv[0], qkv[1], qkv[2], bias, static_cast<bf16*>(out), Lp, H,
+          H / nh, l_actual, scale);
   return 0;
 }
 
 template <int HDP>
-static int launch_online(const Operand<bf16>* qkv, Bias bias, void* out,
-                         int B, int Lp, int H, int nh, int l_actual,
-                         float scale, cudaStream_t s) {
-  constexpr size_t bytes = OnSmem<HDP>::BYTES;
-  const cudaError_t e = cudaFuncSetAttribute(
-      attention_tc_online_kernel<HDP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((Lp + TC_Q - 1) / TC_Q, nh, B);
-  attention_tc_online_kernel<HDP><<<grid, TC_THREADS, bytes, s>>>(
-      qkv[0], qkv[1], qkv[2], bias, static_cast<bf16*>(out), Lp, H, H / nh,
-      l_actual, scale);
-  return 0;
+static int launch_bf16(const Operand<bf16>* ops, Bias bs, void* out, int B,
+                       int Lp, int H, int nh, int l_actual, float scale,
+                       Dropout drop, int online, cudaStream_t s) {
+  if (online)
+    return bs.p ? launch_online<HDP, true>(ops, bs, out, B, Lp, H, nh,
+                                           l_actual, scale, s)
+                : launch_online<HDP, false>(ops, bs, out, B, Lp, H, nh,
+                                            l_actual, scale, s);
+  return bs.p ? launch_wg<HDP, true>(ops, bs, out, B, Lp, H, nh, l_actual,
+                                     scale, drop, s)
+              : launch_wg<HDP, false>(ops, bs, out, B, Lp, H, nh, l_actual,
+                                      scale, drop, s);
 }
 
 // q, k, v: base pointers with batch, head and row strides in elements;
@@ -549,17 +863,10 @@ extern "C" int vc_attention(
         {static_cast<const bf16*>(q), q_sb, q_sh, q_sr},
         {static_cast<const bf16*>(k), k_sb, k_sh, k_sr},
         {static_cast<const bf16*>(v), v_sb, v_sh, v_sr}};
-    if (online)
-      rc = hd <= 64 ? launch_online<64>(ops, bs, out, B, Lp, H, nh,
-                                        l_actual, scale, s)
-                    : launch_online<128>(ops, bs, out, B, Lp, H, nh,
-                                         l_actual, scale, s);
-    else if (hd <= 64)
-      rc = launch_tc<64, 64>(ops, bs, out, B, Lp, H, nh, l_actual, scale,
-                             drop, s);
-    else
-      rc = launch_tc<128, 32>(ops, bs, out, B, Lp, H, nh, l_actual, scale,
-                              drop, s);
+    rc = hd <= 64 ? launch_bf16<64>(ops, bs, out, B, Lp, H, nh, l_actual,
+                                    scale, drop, online, s)
+                  : launch_bf16<128>(ops, bs, out, B, Lp, H, nh, l_actual,
+                                     scale, drop, online, s);
   } else if (dtype == VC_F32) {
     const Operand<float> ops[3] = {
         {static_cast<const float*>(q), q_sb, q_sh, q_sr},
@@ -582,4 +889,58 @@ extern "C" int vc_attention(
   }
   if (rc) return rc;
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// launch configuration of the bf16 kernels, for the measurement scripts
+// ---------------------------------------------------------------------------
+
+struct WgKernel {
+  const char* name;
+  const void* fn;
+  size_t smem;  // dynamic shared memory per block
+};
+
+#define WG_KERNEL(kernel, HDP, BIAS, KT)                                 \
+  {#kernel "<" #HDP ", " #BIAS ">", (const void*)kernel<HDP, BIAS>,       \
+   WgSmem<HDP, KT>::BYTES}
+static const WgKernel WG_KERNELS[] = {
+    WG_KERNEL(attention_wgmma_kernel, 64, false, WG_KT),
+    WG_KERNEL(attention_wgmma_kernel, 64, true, WG_KT),
+    WG_KERNEL(attention_wgmma_kernel, 128, false, WG_KT),
+    WG_KERNEL(attention_wgmma_kernel, 128, true, WG_KT),
+    WG_KERNEL(attention_wgmma_online_kernel, 64, false, ON_KT),
+    WG_KERNEL(attention_wgmma_online_kernel, 64, true, ON_KT),
+    WG_KERNEL(attention_wgmma_online_kernel, 128, false, ON_KT),
+    WG_KERNEL(attention_wgmma_online_kernel, 128, true, ON_KT),
+};
+#undef WG_KERNEL
+
+// Kernel `index` of the bf16 kernels: its name into name[0 .. len), and
+// info = {threads per block, registers per thread, local (spill) bytes per
+// thread, shared bytes per block (static + dynamic), resident blocks per
+// SM} on the current device.  Returns -1 past the last kernel, else a
+// cudaError_t.
+extern "C" int vc_attention_kernel_info(int index, char* name, int len,
+                                        int* info) {
+  if (index < 0 || index >= (int)(sizeof(WG_KERNELS) / sizeof(WgKernel)))
+    return -1;
+  const WgKernel& kn = WG_KERNELS[index];
+  snprintf(name, len, "%s", kn.name);
+  cudaError_t e = cudaFuncSetAttribute(
+      kn.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kn.smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes a;
+  e = cudaFuncGetAttributes(&a, kn.fn);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kn.fn,
+                                                    WG_THREADS, kn.smem);
+  if (e != cudaSuccess) return (int)e;
+  info[0] = WG_THREADS;
+  info[1] = a.numRegs;
+  info[2] = (int)a.localSizeBytes;
+  info[3] = (int)(a.sharedSizeBytes + kn.smem);
+  info[4] = blocks;
+  return 0;
 }

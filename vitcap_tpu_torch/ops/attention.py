@@ -41,11 +41,13 @@ of ONLINE_TK with each tile's probabilities rounded against that tile's
 running max (attention_heads_plain says it line for line).
 mode_launches counts the launches with dropout, past MAX_LP, through
 attention_qkv ("non_slab"), through attention_heads ("heads") and in the
-online mode.
+online mode.  kernel_info() reads the bf16 kernels' launch configuration
+(registers, spills, shared memory, resident blocks per SM) on the card.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -232,6 +234,27 @@ def _attention(q, k, v, l_actual, bias, rate, seed, online, mode):
     if mode != "slab":
         mode_launches[mode] += 1
     return heads_view(out, nh)
+
+
+def kernel_info() -> list:
+    """The bf16 kernels' launch configuration on the current CUDA device,
+    one dict per compiled kernel: name, threads per block, registers per
+    thread, local (spill) bytes per thread, shared bytes per block and
+    resident blocks per SM (cudaFuncGetAttributes and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    lib = _build.library()
+    keys = ("threads", "registers", "local_bytes", "shared_bytes",
+            "blocks_per_sm")
+    kernels = []
+    while True:
+        name = ctypes.create_string_buffer(96)
+        info = (ctypes.c_int * len(keys))()
+        rc = lib.vc_attention_kernel_info(len(kernels), name, len(name),
+                                          info)
+        if rc == -1:
+            return kernels
+        _build.check(rc, "attention kernel_info")
+        kernels.append({"name": name.value.decode(), **dict(zip(keys, info))})
 
 
 def check_heads(name: str, H: int, num_heads: int) -> None:
