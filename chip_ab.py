@@ -13,28 +13,59 @@ LayerNorm and decode_attention rows at 512 px), phase 10
 (phase_train512_kernels: the strided kernels on separate q, k, v past 1024
 tokens) and phase 11 (phase_flash_kernels: K9's forward on per-head views,
 rows attention[heads] at 577 and attention[online] at 1025, and its
-backward).  Each process builds its tree's kernels into that tree's build/
+backward).  Then the flagship train step at 384 px and at 512 px (B=64,
+bf16, attention dropout 0.1), each built and checked by the tree's own
+phase_train_step (one warm-up step and its timed steps, with their exact
+launch counts; the parity checks are skipped), then STEPS more steps timed
+one by one (host clock around synchronised work): the median is the
+step's ms.  Each process builds its tree's kernels into that tree's build/
 directory.  Prints one line per attention row and run, then each attention
-row's times across the runs, and writes every row to
-chiprun_out/chip_ab.json.  Exits non-zero without a CUDA device or when any
-check of a phase fails.
+row's and each train step's times across the runs, and writes every row
+to chiprun_out/chip_ab.json.  Exits non-zero without a CUDA device or when
+any check of a phase fails.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
+STEPS = 6                     # train steps timed one by one per size
+
+
+def train_step_ms(cs, dev, smi, img=None):
+    """The tree's flagship train step at img x img (default 384): built,
+    warmed up and checked by its phase_train_step, then STEPS steps timed
+    one by one; (median ms, the phase's own mean ms)."""
+    import torch
+    kw = {}
+    if img is not None:
+        kw = dict(img=img, per_step_want=cs.TRAIN_512_PER_STEP,
+                  modes_want=cs.TRAIN_512_MODES_PER_STEP, steps=STEPS,
+                  tag="train512")
+    _, out, (state, step, batch) = cs.phase_train_step(dev, smi, **kw)
+    times = []
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        state, _ = step(state, batch, False)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return statistics.median(times), out["step_ms"]
 
 
 def worker(tree: str) -> None:
-    """In this process: the kernel phases of `tree`'s chip_smoke.py; the
-    rows as one JSON line on stdout."""
+    """In this process: the kernel phases of `tree`'s chip_smoke.py and
+    its train steps at 384 and 512 px; the rows as one JSON line on
+    stdout."""
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_ab: no CUDA device")
@@ -50,6 +81,12 @@ def worker(tree: str) -> None:
     cs.phase_highres_kernels(dev, rows)
     cs.phase_train512_kernels(dev, rows)
     cs.phase_flash_kernels(dev, rows)
+    torch.cuda.empty_cache()
+    smi = cs.phase_host()
+    for case, img in (("384 px", None), ("512 px", cs.HIGHRES)):
+        med, mean = train_step_ms(cs, dev, smi, img)
+        rows.append(dict(kernel="train_step", case=case, dtype="bf16",
+                         ms=med, phase_mean_ms=mean))
     print("ROWS " + json.dumps(rows), flush=True)
 
 
@@ -75,7 +112,7 @@ def main() -> int:
         rows = json.loads(line[5:])
         runs.append({"run": i, "tree": tree, "rows": rows})
         for r in rows:
-            if r["kernel"].startswith("attention"):
+            if r["kernel"].startswith(("attention", "train_step")):
                 print(f"[ab] run {i} {tree:24s} {r['kernel']:24s} "
                       f"{r['case']:14s} {r['dtype']:4s} {r['ms']:.4f} ms",
                       flush=True)
@@ -83,7 +120,7 @@ def main() -> int:
     by_run = [{(r["kernel"], r["case"], r["dtype"]): r["ms"]
                for r in run["rows"]} for run in runs]
     for r in runs[0]["rows"]:
-        if r["kernel"].startswith("attention"):
+        if r["kernel"].startswith(("attention", "train_step")):
             key = (r["kernel"], r["case"], r["dtype"])
             ms = " / ".join(f"{t[key]:.4f}" if key in t else "-"
                             for t in by_run)

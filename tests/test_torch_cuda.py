@@ -477,6 +477,109 @@ def test_cuda_packed_attention_fwd_bwd_match_plain(cuda, dtype, nh, hd):
             assert not got[0][:, L:].float().abs().any()
 
 
+def _round16(n):
+    return (n + 15) // 16 * 16
+
+
+def _bf16_attention_bwd_case(cuda, L, Lp, hd, bias_heads, rate=0.0,
+                             layout="slab", nh=2, B=2, seed=0):
+    """One bf16 attention_bwd call against its plain version on the card:
+    l_actual L, q, k, v read from a (B, Lp, 3H) slab, from separate (B, Lp,
+    H) tensors ("qkv") or as per-head (B, nH, L, hd) views of (B, L, H)
+    tensors ("heads", Lp = L, no dropout); an upstream gradient that is
+    nonzero on every row, so query rows in [L, Lp) count in dk and dv as in
+    the plain version; bias None or (B, bias_heads, Lp, Lp).  Two launches;
+    within 2e-2 of each output's scale and at least 99% of values
+    bit-equal; a second call gives the same bits; dk and dv are zero at
+    keys in [L, Lp)."""
+    from vitcap_tpu_torch.ops.attention import heads_view, merge_heads
+    from vitcap_tpu_torch.ops.attention_bwd import (attention_bwd_heads,
+                                                    attention_bwd_heads_plain,
+                                                    attention_bwd_plain,
+                                                    attention_bwd_qkv,
+                                                    attention_bwd_qkv_plain)
+    g = torch.Generator().manual_seed(seed)
+    H = nh * hd
+    slab = torch.randn(B, Lp, 3 * H, generator=g).to(cuda, torch.bfloat16)
+    up = torch.randn(B, Lp, H, generator=g).to(cuda, torch.bfloat16)
+    bias = None
+    if bias_heads is not None:
+        bias = torch.where(torch.rand(B, bias_heads, Lp, Lp, generator=g)
+                           > 0.3, 0.0, -10000.0)
+        bias += 0.5 * torch.randn(B, bias_heads, Lp, Lp, generator=g)
+        bias[..., 0] = 0.0
+        bias = bias.to(cuda)
+    if layout == "slab":
+        def run():
+            return attention_bwd(slab, up, nh, L, bias, rate, 4321)
+        want = attention_bwd_plain(slab, up, nh, L, bias, rate, 4321)
+    elif layout == "qkv":
+        q, k, v = (t.contiguous() for t in slab.split(H, dim=-1))
+
+        def run():
+            return attention_bwd_qkv(q, k, v, up, nh, L, bias, rate, 4321)
+        want = attention_bwd_qkv_plain(q, k, v, up, nh, L, bias, rate, 4321)
+    else:
+        assert L == Lp and rate == 0.0
+        q, k, v, u = (heads_view(t, nh)
+                      for t in (*slab.split(H, dim=-1), up))
+
+        def run():
+            return tuple(merge_heads(t)
+                         for t in attention_bwd_heads(q, k, v, u, bias))
+        want = tuple(merge_heads(t) for t in attention_bwd_heads_plain(
+            q, k, v, u, L, bias))
+    ops.reset_counts()
+    got = run()
+    assert ops.launch_counts()["attention_bwd"] == 2
+    again = run()
+    for o, o2, w_ in zip(got, again, want):
+        _close(o, w_, torch.bfloat16)
+        _bits_equal(o, w_)
+        assert torch.equal(o, o2)
+    for o in got[1:]:
+        assert not o[:, L:].float().abs().any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("past", [0, 16])
+@pytest.mark.parametrize("L", [1, 63, 64, 65, 127, 128, 129])
+def test_cuda_bf16_attention_bwd_ragged_lengths(cuda, past, L):
+    """The wgmma backward at l_actual on both sides of a 64-row tile's edge,
+    Lp = round_up(L, 16) and 16 past it, with no bias, a (B, 1, Lp, Lp) and
+    a per-head bias, and with prob dropout."""
+    Lp = _round16(L) + past
+    for bias_heads in (None, 1, 2):
+        _bf16_attention_bwd_case(cuda, L, Lp, 64, bias_heads, seed=L + past)
+    _bf16_attention_bwd_case(cuda, L, Lp, 64, 1, rate=0.1, seed=L)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["slab", "qkv", "heads"])
+@pytest.mark.parametrize("hd", [8, 40, 64])
+def test_cuda_bf16_attention_bwd_head_dims(cuda, layout, hd):
+    """Head sizes 8-64 padded with zeros to 64, on each operand layout the
+    kernels read by stride, with each bias kind (and dropout where the
+    entry point takes it)."""
+    L, Lp = (150, 150) if layout == "heads" else (150, 176)
+    for bias_heads in (None, 1, 3):
+        _bf16_attention_bwd_case(cuda, L, Lp, hd, bias_heads, layout=layout,
+                                 nh=3, seed=hd)
+    if layout != "heads":
+        _bf16_attention_bwd_case(cuda, L, Lp, hd, 3, rate=0.2, layout=layout,
+                                 nh=3, seed=hd)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_attention_bwd_long_bias_dropout(cuda):
+    """The 512-px decoder's shape: Lp 1104, l_actual 1096, separate q, k, v,
+    a (B, 1, Lp, Lp) bias and rate 0.1 (and a per-head bias at rate 0)."""
+    _bf16_attention_bwd_case(cuda, 1096, 1104, 64, 1, rate=0.1, layout="qkv",
+                             B=1, seed=11)
+    _bf16_attention_bwd_case(cuda, 1096, 1104, 64, 2, layout="slab", B=1,
+                             seed=12)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_train_blocks_match_cpu(cuda, dtype):

@@ -71,7 +71,8 @@
 // max and sum take two shuffles in the group of four lanes); the
 // probabilities are converted in place to bf16 pairs, which is the
 // A-operand layout of o += p . v, so p never leaves the registers, and v
-// is the transposed B operand from shared memory.  No score, probability
+// is the transposed B operand from shared memory (the building blocks,
+// shared with attention_bwd.cu, are in wgmma.cuh).  No score, probability
 // or accumulator goes through shared memory.  K and V tiles stream through
 // a two-stage ring of cp.async copies written in the 128-byte swizzle the
 // wgmma descriptors name (a head-dim row of 64 bf16 is one 128-byte line;
@@ -103,37 +104,16 @@
 // output is a size_t product, so the same kernels serve the long
 // sequences (K10 at Lp 1152, B = 64: 85M bias entries) and 512-px
 // training on separate q, k, v (Lp 1152 and 1104).
-#include <math.h>
-#include <stdint.h>
-#include <stdio.h>
-
-#include <atomic>
-
-#include "common.cuh"
+#include "wgmma.cuh"
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma, two warpgroups of 64 query rows a block, the softmax in
 // registers
 // ---------------------------------------------------------------------------
 
-constexpr int WG_ROWS = 64;      // query rows per warpgroup (wgmma's M)
-constexpr int WG_GROUPS = 2;     // warpgroups per block, sharing K and V
-constexpr int WG_Q = WG_ROWS * WG_GROUPS;  // query rows per block
-constexpr int WG_THREADS = 128 * WG_GROUPS;
 constexpr int WG_KT = 64;         // keys per tile of the two-pass kernel
 constexpr int ON_KT = 128;        // the online mode's key tile (the TPU TK)
 constexpr float ON_NEG = -1e30f;  // its mask value and running-max start
-
-// exp(x) as 2^(x log2 e) on the special-function unit (relative error
-// about 2^-22, results below 2^-126 flushed to 0): one multiply and one
-// MUFU.EX2 where expf takes about ten instructions.  It may differ from
-// expf in the last bits; the bf16 outputs stay at least 99% bit-equal to
-// the plain version's (chip_smoke.py checks every bf16 row).
-__device__ __forceinline__ float vc_exp(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
-  return y;
-}
 
 // Dynamic shared memory, each tile 1024-byte aligned (the swizzle repeats
 // every 8 rows of 128 bytes): the block's WG_Q q rows, then two stages of
@@ -144,251 +124,6 @@ struct WgSmem {
   static constexpr uint32_t T = KT * HDP * 2;
   static constexpr size_t BYTES = Q + 4 * T + 1024;  // + base alignment
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int bytes) {
-  // bytes 0: the 16 bytes at dst are zero-filled, nothing is read
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-// generic-proxy writes (cp.async, st.shared) -> visible to wgmma's reads
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keeps the compiler from moving accesses to an accumulator across the
-// asynchronous wgmma that reads and writes it
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// wgmma shared-memory matrix descriptor in the 128-byte swizzle: start
-// address, leading and stride byte offsets (each >> 4), layout type 1 in
-// bits 62-63
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr >> 4) & 0x3FFF) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-#define WG_D8(o)                                                       \
-  "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]),          \
-      "+f"(d[o + 4]), "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
-#define WG_REGS32                                                      \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
-  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "  \
-  "%28, %29, %30, %31}"
-
-// d (+)= A . B, 64 x 64 x 16, A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
-                                         uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d += A . B, 64 x 64 x 16, A from registers (four bf16 pairs per thread),
-// B MN-major (transposed) in shared memory
-__device__ __forceinline__ void wgmma_rs_t(float (&d)[32],
-                                           const uint32_t (&a)[4],
-                                           uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// rows [r0, r0 + ROWS) of one head's hd columns -> the swizzled tile at
-// shared address dst by cp.async, zero-filled past `valid` rows and past
-// hd columns.  Row r's 16-byte chunk c of panel c / 8 lands at
-// r * 128 + ((c % 8) ^ (r % 8)) * 16 of that panel.
-template <int HDP, int ROWS>
-__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
-                                          long long sr, int r0, int valid,
-                                          int hd) {
-  constexpr int CH = HDP / 8;  // 16-byte chunks per row
-#pragma unroll
-  for (int it = 0; it < ROWS * CH / WG_THREADS; ++it) {
-    const int i = it * WG_THREADS + threadIdx.x;
-    const int r = i / CH, c = i % CH;
-    const bool ok = r0 + r < valid && c * 8 < hd;
-    const bf16* p = ok ? src + (size_t)(r0 + r) * sr + c * 8 : src;
-    cp_async16(dst + (c / 8) * (ROWS * 128) + r * 128 +
-                   (((c % 8) ^ (r % 8)) << 4),
-               p, ok ? 16 : 0);
-  }
-}
-
-// s[n] = this warpgroup's 64 q rows (at sqw, in panels of WG_Q rows) .
-// keys [64 n, 64 n + 64) of the K tile (KT x HDP at sk), both K-major: a
-// k-step of 16 columns is 32 bytes into a panel's 128-byte line, 8-row
-// groups 1024 bytes apart
-template <int HDP, int KT>
-__device__ __forceinline__ void qk_product(float (&s)[KT / 64][32],
-                                           uint32_t sqw, uint32_t sk) {
-#pragma unroll
-  for (int n = 0; n < KT / 64; ++n) fence_regs(s[n]);
-  wg_fence();
-#pragma unroll
-  for (int n = 0; n < KT / 64; ++n)
-#pragma unroll
-    for (int kk = 0; kk < HDP / 16; ++kk) {
-      const uint32_t col = (kk % 4) * 32;
-      wgmma_ss(s[n],
-               desc_sw128(sqw + (kk / 4) * (WG_Q * 128) + col, 16, 1024),
-               desc_sw128(sk + (kk / 4) * (KT * 128) + n * 64 * 128 + col,
-                          16, 1024),
-               kk > 0);
-    }
-  wg_commit();
-  wg_wait0();
-#pragma unroll
-  for (int n = 0; n < KT / 64; ++n) fence_regs(s[n]);
-}
-
-// d += p . V[:, 64 np : 64 np + 64] over the tile's KT keys: p in
-// registers (k-step ks: four bf16 pairs), V (KT x HDP at sv) the MN-major
-// B operand: a k-step of 16 keys is 16 rows (2048 bytes) on, 8-key groups
-// 1024 bytes apart, panels of 64 columns KT * 128 bytes apart
-template <int KT>
-__device__ __forceinline__ void pv_product(float (&d)[32],
-                                           const uint32_t (&p)[KT / 16][4],
-                                           uint32_t sv, int np) {
-#pragma unroll
-  for (int ks = 0; ks < KT / 16; ++ks)
-    wgmma_rs_t(d, p[ks],
-               desc_sw128(sv + np * (KT * 128) + ks * 16 * 128, KT * 128,
-                          1024));
-}
-
-// The accumulator layout of a 64 x 64 wgmma tile: thread (warp w of the
-// warpgroup, lane ln) holds d[4 j + 2 i + c] = element (row 16 w + ln / 4
-// + 8 i, column 8 j + 2 (ln % 4) + c), j < 8, i, c < 2.  The A operand of
-// a 16-column k-step takes the same pairs: columns 16 kk .. 16 kk + 15
-// are d[8 kk .. 8 kk + 7], packed two by two.
-
-// this thread's f32 bias at keys kc + 8 jj + {0, 1} (jj < KT / 8) of its
-// rows i = 0, 1: bv[i][2 jj + c]; 0 at and past l_actual (checked on the
-// EDGE tile only).  A group of four lanes reads 32 contiguous bytes of one
-// row (float2s when the rows are 8-byte aligned).
-template <int KT, bool EDGE>
-__device__ __forceinline__ void load_bias(float (&bv)[2][KT / 4],
-                                          const float* const (&brow)[2],
-                                          int kc, int l_actual, bool vec) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int jj = 0; jj < KT / 8; ++jj) {
-      const int kg = kc + 8 * jj;
-      float2 x = make_float2(0.0f, 0.0f);
-      if (brow[i] && (!EDGE || kg < l_actual)) {
-        if (vec) {
-          x = __ldg(reinterpret_cast<const float2*>(brow[i] + kg));
-        } else {
-          x.x = __ldg(brow[i] + kg);
-          if (!EDGE || kg + 1 < l_actual) x.y = __ldg(brow[i] + kg + 1);
-        }
-      }
-      bv[i][2 * jj] = x.x;
-      bv[i][2 * jj + 1] = x.y;
-    }
-}
-
-template <int KT>
-__device__ __forceinline__ void load_bias(float (&bv)[2][KT / 4],
-                                          const float* const (&brow)[2],
-                                          int kc, int l_actual, bool vec,
-                                          bool edge) {
-  if (edge)
-    load_bias<KT, true>(bv, brow, kc, l_actual, vec);
-  else
-    load_bias<KT, false>(bv, brow, kc, l_actual, vec);
-}
-
-// s = s [* scale] [+ bias], keys at or past l_actual set to `neg` (on the
-// EDGE tile only); the products and sums rounded one by one, as the plain
-// version's separate operations round them
-template <int KT, bool SCALE, bool BIAS, bool EDGE>
-__device__ __forceinline__ void finish_scores(float (&s)[KT / 64][32],
-                                              const float (&bv)[2][KT / 4],
-                                              float scale, int kc,
-                                              int l_actual, float neg) {
-#pragma unroll
-  for (int n = 0; n < KT / 64; ++n)
-#pragma unroll
-    for (int e = 0; e < 32; ++e) {
-      const int j = e / 4, i = (e / 2) % 2, c = e % 2;
-      float x = s[n][e];
-      if (SCALE) x = __fmul_rn(x, scale);
-      if (BIAS) x = __fadd_rn(x, bv[i][2 * (8 * n + j) + c]);
-      s[n][e] = !EDGE || kc + 64 * n + 8 * j + c < l_actual ? x : neg;
-    }
-}
-
-template <int KT, bool SCALE, bool BIAS>
-__device__ __forceinline__ void finish_scores(float (&s)[KT / 64][32],
-                                              const float (&bv)[2][KT / 4],
-                                              float scale, int kc,
-                                              int l_actual, float neg,
-                                              bool edge) {
-  if (edge)
-    finish_scores<KT, SCALE, BIAS, true>(s, bv, scale, kc, l_actual, neg);
-  else
-    finish_scores<KT, SCALE, BIAS, false>(s, bv, scale, kc, l_actual, neg);
-}
-
-// max over the row of the accumulator tile: own values, then the group of
-// four lanes
-template <int KT>
-__device__ __forceinline__ float row_max(const float (&s)[KT / 64][32],
-                                         int i, float init) {
-  float x = init;
-#pragma unroll
-  for (int n = 0; n < KT / 64; ++n)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      x = fmaxf(x, fmaxf(s[n][4 * j + 2 * i], s[n][4 * j + 2 * i + 1]));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x: low half
-  return *reinterpret_cast<uint32_t*>(&h);
-}
 
 // o / max(l, 1e-30) -> rows row0, row0 + 8 (those below Lp), columns below
 // hd of head h in the (B, Lp, H) output, as bf16 pairs
@@ -415,34 +150,6 @@ __device__ __forceinline__ void store_out(const float (&o)[NP][32],
       }
     }
 }
-
-// the bias rows of this thread's two query rows (null past Lp or without a
-// bias) and whether they can be read as float2s
-struct BiasRows {
-  const float* row[2];
-  bool vec;
-  __device__ __forceinline__ BiasRows(const Bias& bias, int b, int h,
-                                      int row0, int Lp) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      row[i] = row0 + 8 * i < Lp ? bias.row(b, h, row0 + 8 * i, Lp)
-                                 : nullptr;
-    vec = !(Lp & 1) && !(reinterpret_cast<uintptr_t>(bias.p) & 7) &&
-          !(bias.sb & 1) && !(bias.sh & 1);
-  }
-};
-
-// A block: WG_GROUPS warpgroups, each 64 consecutive query rows of one
-// head, sharing the K and V tiles.  The thread's place in it.
-struct WgThread {
-  int wg, row0, cq;  // warpgroup, first of its two rows, first column
-  __device__ __forceinline__ WgThread(int q0) {
-    const int lane = threadIdx.x % 32;
-    wg = threadIdx.x / 128;
-    row0 = q0 + wg * WG_ROWS + (threadIdx.x / 32 % 4) * 16 + lane / 4;
-    cq = 2 * (lane % 4);
-  }
-};
 
 // Two passes over the keys: steps 0 .. nt - 1 find the row max over K
 // tiles, steps nt .. 2 nt - 1 form p = exp(s - m), sum l and multiply by
@@ -771,22 +478,6 @@ static int launch_cc(const Operand<float>* qkv, Bias bias, void* out, int B,
   return 0;
 }
 
-// Lets `kernel` take `bytes` of dynamic shared memory (needed above 48 KB),
-// once per device: `done` holds one bit per device, a static of the
-// caller's template instance.
-static cudaError_t allow_smem(const void* kernel, size_t bytes,
-                              std::atomic<unsigned long long>& done) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
-  if (done.load() & bit) return cudaSuccess;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)bytes);
-  if (e == cudaSuccess) done.fetch_or(bit);
-  return e;
-}
-
 // the bf16 kernels' grid: heads fastest, then query tiles, then images
 static dim3 wg_grid(int B, int Lp, int nh) {
   return dim3(nh, (Lp + WG_Q - 1) / WG_Q, B);
@@ -895,15 +586,9 @@ extern "C" int vc_attention(
 // launch configuration of the bf16 kernels, for the measurement scripts
 // ---------------------------------------------------------------------------
 
-struct WgKernel {
-  const char* name;
-  const void* fn;
-  size_t smem;  // dynamic shared memory per block
-};
-
 #define WG_KERNEL(kernel, HDP, BIAS, KT)                                 \
   {#kernel "<" #HDP ", " #BIAS ">", (const void*)kernel<HDP, BIAS>,       \
-   WgSmem<HDP, KT>::BYTES}
+   WG_THREADS, WgSmem<HDP, KT>::BYTES}
 static const WgKernel WG_KERNELS[] = {
     WG_KERNEL(attention_wgmma_kernel, 64, false, WG_KT),
     WG_KERNEL(attention_wgmma_kernel, 64, true, WG_KT),
@@ -916,31 +601,10 @@ static const WgKernel WG_KERNELS[] = {
 };
 #undef WG_KERNEL
 
-// Kernel `index` of the bf16 kernels: its name into name[0 .. len), and
-// info = {threads per block, registers per thread, local (spill) bytes per
-// thread, shared bytes per block (static + dynamic), resident blocks per
-// SM} on the current device.  Returns -1 past the last kernel, else a
-// cudaError_t.
+// Kernel `index` of the bf16 kernels and its launch configuration
+// (wg_kernel_info, wgmma.cuh); -1 past the last kernel.
 extern "C" int vc_attention_kernel_info(int index, char* name, int len,
                                         int* info) {
-  if (index < 0 || index >= (int)(sizeof(WG_KERNELS) / sizeof(WgKernel)))
-    return -1;
-  const WgKernel& kn = WG_KERNELS[index];
-  snprintf(name, len, "%s", kn.name);
-  cudaError_t e = cudaFuncSetAttribute(
-      kn.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kn.smem);
-  if (e != cudaSuccess) return (int)e;
-  cudaFuncAttributes a;
-  e = cudaFuncGetAttributes(&a, kn.fn);
-  if (e != cudaSuccess) return (int)e;
-  int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kn.fn,
-                                                    WG_THREADS, kn.smem);
-  if (e != cudaSuccess) return (int)e;
-  info[0] = WG_THREADS;
-  info[1] = a.numRegs;
-  info[2] = (int)a.localSizeBytes;
-  info[3] = (int)(a.sharedSizeBytes + kn.smem);
-  info[4] = blocks;
-  return 0;
+  return wg_kernel_info(WG_KERNELS, sizeof(WG_KERNELS) / sizeof(WgKernel),
+                        index, name, len, info);
 }

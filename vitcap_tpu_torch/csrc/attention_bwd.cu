@@ -25,365 +25,502 @@
 // keep bit is vc_dropout_keep(query row, key column, seed, b * nh + h), the
 // bits the forward (attention.cu) used.
 //
-// What bounds it on the H100: per (image, head) the work is about
-// 10 Lp^2 hd flops (5 products; this design recomputes s three and dp two
-// extra times) against 7 Lp hd values moved, far above the card's
-// ops-per-byte line, so the tensor cores' rate bounds the bf16 path.  The
-// TPU kernel holds a whole (Lp x Lp) score block per head in VMEM; a Hopper
-// block cannot, and dk/dv sum over every query while dq sums over every
-// key.  So two kernels, deterministic, with no atomics:
-// (a) query-major, one block per (64-query tile, head, image): three
-//     passes over the keys (row max and sum; r; then ds and dq), writing
-//     dq and the f32 row statistics m, l, r;
-// (b) key-major, one block per (64-key tile, head, image): a loop over the
-//     query tiles that recomputes p from m and l, regenerates the mask,
-//     and accumulates dv and dk in registers.
-// Shared memory and registers do not depend on Lp; the grids have
-// ceil(Lp / 64) tiles and every offset is a size_t product, so the same
-// kernels serve 512-px training (Lp 1152 with l_actual 1025, Lp 1104 with
-// the bias; the work grows as Lp^2).
-// bf16 runs on the tensor cores (WMMA bf16 16x16x16, head dims padded to
-// 64); f32 on the CUDA cores in exact f32 (no TF32), one thread per row.
-#include <math.h>
-#include <mma.h>
-
-#include "common.cuh"
-
-using namespace nvcuda;
+// What bounds it on the H100: per (image, head) five products of Lp x L x
+// hd (s, dp, dv, dq, dk), 10 Lp L hd flops against 7 Lp hd operand values
+// (about 400 flops a byte at Lp 592, hd 64), far on the compute side of
+// the card's balance point.  Beside the tensor cores, every (query, key)
+// pair costs CUDA-core work in each kernel that forms p (the scale, the
+// bias, exp, the dropout hash, p (dp - r), the bf16 packing), and the bias
+// costs its bytes once per pass that forms s (B nH Lp L 4 bytes per pass,
+// from L2 when it is broadcast over the heads).  The TPU kernel holds a
+// whole (Lp x Lp) score block per head in VMEM; a Hopper block cannot, and
+// dk/dv sum over every query while dq sums over every key, so two kernels,
+// deterministic, with no atomics.
+//
+// What the design does about it (bf16): every product is
+// wgmma.m64n64k16 (wgmma.cuh) with the accumulators in registers, and no
+// score, dS or accumulator goes through shared memory.  The time is set by
+// how well the tensor-core and CUDA-core phases of different blocks
+// overlap, so a block is one warpgroup (128 threads) of 64 rows of one
+// head, (a) holds three blocks per SM (__launch_bounds__(128, 3)) and (b)
+// two, with no spills, 50-51 KB of shared memory a block.  Tried on the
+// H100 against this design and slower on the flagship rows (PERF.md):
+// blocks of two warpgroups sharing each streamed tile, as the forward has
+// them (one block per SM, its warpgroups in lockstep at every tile's
+// barrier); (a) at two blocks per SM (the biased rows); separate waits for
+// S and dP, to overlap one product with the other's CUDA-core work; and
+// keeping (a)'s keep bits in shared memory between its passes.  Without a
+// bias the exponent is one fma of the raw product (exp_offset), which was
+// faster on those rows.
+// (a) query-major (dq and the f32 row statistics m, l, r): a statistics
+//     pass over 64-key tiles forms S = q k^T and dP = g v^T (q, g and the
+//     K, V tiles K-major in shared memory, the two products behind one
+//     wait) and keeps m, l and r_acc = sum dp exp(s - m) online, both sums
+//     rescaled by exp(m_old - m_new) when the max grows, r = r_acc / l at
+//     the end (the TPU's r = sum dp p, not rowsum(g o)); a second pass
+//     recomputes S and dP, forms ds = round(p (dp - r)) in place in the
+//     accumulator registers as bf16 pairs, which are the A operand of
+//     dq += ds K, the same K tile read MN-major.  5 products (6 before).
+// (b) key-major (dk and dv), over 64-query tiles: S^T = k q^T and dP^T =
+//     v g^T, p from the tile's m and 1 / max(l, 1e-30) (staged per query
+//     column in shared memory, with r, one step ahead), the keep bits
+//     regenerated, pd and ds as bf16 A fragments, dv += pd^T G and
+//     dk += ds^T Q with G and Q read MN-major; dk and dv stay f32 register
+//     accumulators over the whole loop.  4 products.
+// The streamed tiles (K, V in (a); Q, G in (b)) load one step ahead
+// through a two-stage ring of cp.async copies in the 128-byte swizzle; exp
+// is ex2.approx (vc_exp) and each row takes one reciprocal of max(l,
+// 1e-30); the mask runs on the tile that holds l_actual only; the grid
+// runs the heads fastest, so the heads that read one head-broadcast bias
+// run back to back and find it in L2.  (a) reads the bias as the forward
+// does (a group of four lanes reads 32 contiguous bytes of one query
+// row).  (b) needs it transposed (keys down the accumulator's rows) and
+// reads it with the keys along the lanes: one load instruction of a warp
+// reads four runs of 8 consecutive keys, 32 bytes of each of four query
+// rows, so every 32-byte sector it touches is used whole when Lp is a
+// multiple of 8 (the train lengths), with no staging through shared
+// memory and no extra pass.  A (b) block whose keys all lie at or past
+// l_actual only writes zeros; keys in [l_actual, Lp) get written zeros in
+// dk and dv, and query rows in [l_actual, Lp) count in dk and dv as in the
+// plain version.  Shared memory and registers do not depend on Lp; the
+// grids have ceil(Lp / 64) blocks per head and every offset is a size_t
+// product, so the same kernels serve 512-px training (Lp 1152 with
+// l_actual 1025, Lp 1104 with the bias).  Head dims of 8-64 are padded
+// with zeros to 64.
+// f32 runs on the CUDA cores in exact f32 (no TF32), one thread per row.
+#include "wgmma.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (WMMA)
+// bf16: wgmma, one warpgroup of 64 rows a block
 // ---------------------------------------------------------------------------
 
-constexpr int HDP = 64;        // head dims padded to 64
-constexpr int LD = HDP + 8;    // bf16 row stride of the operand tiles
-constexpr int NTH = 128;       // 4 warps
-constexpr int QB = 64;         // (a): query rows per block, 16 per warp
-constexpr int KT = 32;         // (a): keys per tile
-constexpr int KB = 64;         // (b): keys per block, 16 per warp
-constexpr int QT = 32;         // (b): query rows per tile
+constexpr int BW_HD = 64;        // head dims padded to 64 (one 128-byte line)
+constexpr int BW_T = 64;         // keys per tile of (a), queries of (b)
+constexpr int BW_ROWS = WG_ROWS;  // a block's own rows: one warpgroup
+constexpr int BW_THREADS = 128;
 
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-    FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
-    FragBt;  // B given as rows of B^T (a [n][k] tile)
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-    FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-// rows [r0, r0 + nrows) of one head's hd columns -> smem tile of stride LD,
-// zero beyond `valid` rows and beyond hd columns
-__device__ __forceinline__ void load_head_rows(bf16* dst, const bf16* src,
-                                               size_t ld_src, int r0,
-                                               int nrows, int valid, int hd) {
-  constexpr int chunks = HDP / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < nrows * chunks; i += blockDim.x) {
-    const int r = i / chunks, c = (i % chunks) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < valid && c < hd)
-      val = __ldg(reinterpret_cast<const uint4*>(
-          src + (size_t)(r0 + r) * ld_src + c));
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
-
-// a (16 x HDP, fragments) . bt^T for the NT rows of bt (a [n][d] smem tile)
-// -> this warp's f32 scratch (stride ls), then each lane's `half` values of
-// its (row = lane / 2, columns c0 = (lane % 2) * half ...) into out
-template <int NT>
-__device__ __forceinline__ void product_nt(const FragA* a, const bf16* bt,
-                                           float* sw, int ls, float* out) {
-  constexpr int HALF = NT / 2;
-  const int lane = threadIdx.x % 32;
-  const int row = lane / 2, c0 = (lane % 2) * HALF;
-#pragma unroll
-  for (int j = 0; j < NT / 16; ++j) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < HDP / 16; ++kk) {
-      FragBt bf;
-      wmma::load_matrix_sync(bf, bt + j * 16 * LD + kk * 16, LD);
-      wmma::mma_sync(acc, a[kk], bf, acc);
-    }
-    wmma::store_matrix_sync(sw + j * 16, acc, ls, wmma::mem_row_major);
-  }
-  __syncwarp();
-#pragma unroll
-  for (int c = 0; c < HALF; ++c) out[c] = sw[row * ls + c0 + c];
-  __syncwarp();
-}
-
-// acc[n] += a (16 x NT, bf16 smem, stride la) . b (NT x HDP smem tile)
-template <int NT>
-__device__ __forceinline__ void product_nn(FragC* acc, const bf16* a, int la,
-                                           const bf16* b) {
-#pragma unroll
-  for (int j = 0; j < NT / 16; ++j) {
-    FragA af;
-    wmma::load_matrix_sync(af, a + j * 16, la);
-#pragma unroll
-    for (int n = 0; n < HDP / 16; ++n) {
-      FragB bf;
-      wmma::load_matrix_sync(bf, b + j * 16 * LD + n * 16, LD);
-      wmma::mma_sync(acc[n], af, bf, acc[n]);
-    }
-  }
-}
-
-// stores acc (16 x HDP) * mul to rows [r0, r0 + 16) of one head's columns
-// of out (stride H), rows < nrows and columns < hd only
-__device__ __forceinline__ void store_rows(const FragC* acc, float* sw,
-                                           float mul, bf16* out, size_t ld,
-                                           int r0, int nrows, int hd) {
-  const int lane = threadIdx.x % 32;
-  const int row = lane / 2, half = (lane % 2) * 8;
-#pragma unroll
-  for (int n = 0; n < HDP / 16; ++n) {
-    wmma::store_matrix_sync(sw, acc[n], 16, wmma::mem_row_major);
-    __syncwarp();
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int col = n * 16 + half + c;
-      if (r0 + row < nrows && col < hd)
-        out[(size_t)(r0 + row) * ld + col] =
-            __float2bfloat16(sw[row * 16 + half + c] * mul);
-    }
-    __syncwarp();
-  }
-}
-
-struct QSmem {
-  bf16 q[QB * LD];
-  bf16 g[QB * LD];
-  bf16 k[KT * LD];
-  bf16 v[KT * LD];
-  float s[4][16 * (KT + 4)];  // per warp: f32 products, then bf16 ds
+// Dynamic shared memory of both kernels, each tile 1024-byte aligned: the
+// block's own BW_ROWS rows of two operands ((a): q, g; (b): k, v), then two
+// stages of each streamed operand ((a): K, V; (b): Q, G).
+struct BwdSmem {
+  static constexpr uint32_t ROWS = BW_ROWS * BW_HD * 2;
+  static constexpr uint32_t T = BW_T * BW_HD * 2;
+  static constexpr size_t BYTES = 2 * ROWS + 4 * T + 1024;  // + alignment
 };
 
-// (a): dq and the row statistics (m, l, r) of one (64-query tile, head,
-// image)
-__global__ void __launch_bounds__(NTH)
-    attn_bwd_q_tc(Operand<bf16> q, Operand<bf16> k, Operand<bf16> v,
-                  Operand<bf16> g, Bias bias, bf16* __restrict__ dq,
-                  float* __restrict__ mlr, int Lp, int H, int hd,
-                  int l_actual, float scale, Dropout drop) {
-  constexpr int LS = KT + 4, LPB = KT + 8, HALF = KT / 2;
-  static_assert(16 * LPB * sizeof(bf16) <= 16 * LS * sizeof(float),
-                "ds must fit in the product scratch");
-  __shared__ __align__(128) QSmem sm;
-  const int b = blockIdx.z, h = blockIdx.y, nh = gridDim.y;
-  const int q0 = blockIdx.x * QB;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row = lane / 2, c0 = (lane % 2) * HALF;
-  const int qrow = q0 + warp * 16 + row;
+// acc * mul -> rows row0, row0 + 8 (those below Lp), columns below hd of
+// head h in the contiguous (B, Lp, H) output, as bf16 pairs
+__device__ __forceinline__ void store_rows(const float (&acc)[32], float mul,
+                                           bf16* __restrict__ out, int b,
+                                           int h, int Lp, int H, int hd,
+                                           int row0, int cq) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = 8 * j + cq;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row0 + 8 * i;
+      if (col < hd && r < Lp)
+        *reinterpret_cast<__nv_bfloat162*>(
+            out + ((size_t)b * Lp + r) * H + h * hd + col) =
+            __floats2bfloat162_rn(__fmul_rn(acc[4 * j + 2 * i], mul),
+                                  __fmul_rn(acc[4 * j + 2 * i + 1], mul));
+    }
+  }
+}
+
+// dp with the dropout applied: keep ? dp / (1 - rate) : 0
+__device__ __forceinline__ float dropped(float x, bool keep,
+                                         const Dropout& drop) {
+  return keep ? __fmul_rn(x, drop.inv) : 0.0f;
+}
+
+// Without a bias the exponent is one fma of the raw product: exp(s scale -
+// m) / l = 2^(s (scale log2 e) + nb) with the row's offset nb = -(m log2 e
+// + log2 max(l, 1e-30)).  It moves p by a few f32 ulps against the plain
+// version's separate operations; the bf16 outputs stay at least 99%
+// bit-equal.
+__device__ __forceinline__ float exp_offset(float m, float l) {
+  return -(m * VC_LOG2E + __log2f(fmaxf(l, 1e-30f)));
+}
+
+// (a): dq and the row statistics (m, l, r) of one (64-query block, head,
+// image).  Steps 0 .. nt - 1 are the statistics pass over the 64-key
+// tiles, steps nt .. 2 nt - 1 the ds . K pass; K and V tiles load one step
+// ahead through the two-stage ring.  Three blocks per SM (at most 168
+// registers a thread).
+template <bool BIAS>
+__global__ void __launch_bounds__(BW_THREADS, 3)
+    attn_bwd_q_wgmma(Operand<bf16> q, Operand<bf16> k, Operand<bf16> v,
+                     Operand<bf16> g, Bias bias, bf16* __restrict__ dq,
+                     float* __restrict__ mlr, int Lp, int H, int hd,
+                     int l_actual, float scale, Dropout drop) {
+  constexpr int KT = BW_T;
+  using S = BwdSmem;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sg = sq + S::ROWS, sk = sg + S::ROWS, sv = sk + 2 * S::T;
+  const int h = blockIdx.x, q0 = blockIdx.y * BW_ROWS, b = blockIdx.z;
+  const int nh = gridDim.x;
+  const WgThread me(q0);
   const unsigned salt = b * nh + h;
-  const bf16* kh = k.head(b, h);
-  const bf16* vh = v.head(b, h);
-  const float* brow = qrow < Lp ? bias.row(b, h, qrow, Lp) : nullptr;
-  float* sw = sm.s[warp];
-  bf16* dsw = reinterpret_cast<bf16*>(sw);
+  const int nt = (l_actual + KT - 1) / KT;
 
-  load_head_rows(sm.q, q.head(b, h), q.sr, q0, QB, Lp, hd);
-  load_head_rows(sm.g, g.head(b, h), g.sr, q0, QB, Lp, hd);
-  __syncthreads();
-  FragA qf[HDP / 16], gf[HDP / 16];
-#pragma unroll
-  for (int kk = 0; kk < HDP / 16; ++kk) {
-    wmma::load_matrix_sync(qf[kk], sm.q + warp * 16 * LD + kk * 16, LD);
-    wmma::load_matrix_sync(gf[kk], sm.g + warp * 16 * LD + kk * 16, LD);
-  }
-
-  auto load_kv = [&](int k0, bool with_v) {
-    __syncthreads();
-    load_head_rows(sm.k, kh, k.sr, k0, KT, l_actual, hd);
-    if (with_v) load_head_rows(sm.v, vh, v.sr, k0, KT, l_actual, hd);
-    __syncthreads();
+  // the head and bias row pointers are formed where they are used: held
+  // across the loop they cost the registers of a third block per SM
+  auto issue = [&](int step) {
+    if (step >= 2 * nt) return;
+    const int k0 = (step < nt ? step : step - nt) * KT;
+    const uint32_t st = (step & 1) * S::T;
+    load_tile<BW_HD, KT, BW_THREADS>(sk + st, k.head(b, h), k.sr, k0,
+                                     l_actual, hd);
+    load_tile<BW_HD, KT, BW_THREADS>(sv + st, v.head(b, h), v.sr, k0,
+                                     l_actual, hd);
   };
-  auto scores = [&](int k0, float* s) {
-    product_nt<KT>(qf, sm.k, sw, LS, s);
+  load_tile<BW_HD, BW_ROWS, BW_THREADS>(sq, q.head(b, h), q.sr, q0, Lp, hd);
+  load_tile<BW_HD, BW_ROWS, BW_THREADS>(sg, g.head(b, h), g.sr, q0, Lp, hd);
+  issue(0);
+  cp_commit();
+
+  // m, l and r_acc of rows row0, row0 + 8 (l and r_acc over this thread's
+  // columns until the end of the statistics pass), then 1 / max(l, 1e-30)
+  // and, without a bias, the exponent's offset nb (exp_offset)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  float r[2] = {0.0f, 0.0f}, inv[2] = {0.0f, 0.0f}, nb[2] = {0.0f, 0.0f};
+  const float sl2e = scale * VC_LOG2E;
+  float acc[32];
 #pragma unroll
-    for (int c = 0; c < HALF; ++c) {
-      const int kg = k0 + c0 + c;
-      float sv = s[c] * scale;
-      if (brow && kg < l_actual) sv += brow[kg];
-      s[c] = kg < l_actual ? sv : -INFINITY;
+  for (int e = 0; e < 32; ++e) acc[e] = 0.0f;
+
+  for (int step = 0; step < 2 * nt; ++step) {
+    const bool pass2 = step >= nt;
+    const int k0 = (pass2 ? step - nt : step) * KT, kc = k0 + me.cq;
+    const bool edge = k0 + KT > l_actual;  // the tile holds masked keys
+    const uint32_t st = (step & 1) * S::T;
+    issue(step + 1);
+    cp_commit();
+    float bv[2][KT / 4];  // issued before the products, to hide its latency
+    if (BIAS) {
+      const BiasRows br(bias, b, h, me.row0, Lp);
+      load_bias<KT>(bv, br.row, kc, l_actual, br.vec, edge);
     }
-  };
-
-  // pass 1: row max and sum over the valid keys
-  float m = -INFINITY, l = 0.0f;
-  for (int k0 = 0; k0 < l_actual; k0 += KT) {
-    load_kv(k0, false);
-    float s[HALF];
-    scores(k0, s);
-    float tm = -INFINITY;
+    cp_wait<1>();  // this step's K and V
+    fence_async_smem();
+    __syncthreads();
+    float s[1][32], dp[1][32];
+    fence_regs(s[0]);
+    fence_regs(dp[0]);
+    wg_fence();
+    ss_issue<BW_HD, KT, BW_ROWS>(s, sq, sk + st);
+    ss_issue<BW_HD, KT, BW_ROWS>(dp, sg, sv + st);
+    wg_commit();
+    wg_wait0();
+    fence_regs(s[0]);
+    fence_regs(dp[0]);
+    // with a bias s scale + bias, rounded as the plain version rounds it;
+    // without one the raw products (the scale goes into the exponent)
+    finish_scores<KT, BIAS, BIAS>(s, bv, scale, kc, l_actual, -INFINITY,
+                                  edge);
+    if (!pass2) {
 #pragma unroll
-    for (int c = 0; c < HALF; ++c) tm = fmaxf(tm, s[c]);
-    tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 1));
-    const float mn = fmaxf(m, tm);
-    float part = 0.0f;
+      for (int i = 0; i < 2; ++i) {
+        // max(round(s scale)) = round(max(s) scale) for scale > 0
+        const float mn =
+            BIAS ? row_max<KT>(s, i, m[i])
+                 : fmaxf(m[i],
+                         __fmul_rn(row_max<KT>(s, i, -INFINITY), scale));
+        const float corr = vc_exp(__fsub_rn(m[i], mn));  // 0 on tile 0
+        m[i] = mn;
+        nb[i] = -(mn * VC_LOG2E);
+        l[i] = __fmul_rn(l[i], corr);
+        r[i] = __fmul_rn(r[i], corr);
+      }
 #pragma unroll
-    for (int c = 0; c < HALF; ++c) part += expf(s[c] - mn);
-    l = l * expf(m - mn) + part;
-    m = mn;
-  }
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
-  const float den = fmaxf(l, 1e-30f);
-
-  // p and the dropped dp of this lane's tile entries
-  auto p_dp = [&](int k0, float* p, float* dp) {
-    scores(k0, p);
-    product_nt<KT>(gf, sm.v, sw, LS, dp);
+      for (int e = 0; e < 32; ++e) {
+        const int j = e / 4, i = (e / 2) % 2, c = e % 2;
+        const float x = BIAS ? vc_exp(__fsub_rn(s[0][e], m[i]))
+                             : vc_exp2(fmaf(s[0][e], sl2e, nb[i]));
+        float d = dp[0][e];
+        if (drop.on)
+          d = dropped(d,
+                      vc_dropout_keep(me.row0 + 8 * i, kc + 8 * j + c,
+                                      drop.seed, salt, drop.thresh),
+                      drop);
+        l[i] = __fadd_rn(l[i], x);
+        r[i] = __fmaf_rn(d, x, r[i]);
+      }
+    } else {
+      uint32_t ds[KT / 16][4];
 #pragma unroll
-    for (int c = 0; c < HALF; ++c) {
-      p[c] = expf(p[c] - m) / den;
-      if (drop.on)
-        dp[c] = vc_dropout_keep(qrow, k0 + c0 + c, drop.seed, salt,
-                                drop.thresh)
-                    ? dp[c] * drop.inv
-                    : 0.0f;
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float y[2];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int e = 4 * j + 2 * i + c;
+            const float p =
+                BIAS ? __fmul_rn(vc_exp(__fsub_rn(s[0][e], m[i])), inv[i])
+                     : vc_exp2(fmaf(s[0][e], sl2e, nb[i]));
+            float d = dp[0][e];
+            if (drop.on)
+              d = dropped(d,
+                          vc_dropout_keep(me.row0 + 8 * i, kc + 8 * j + c,
+                                          drop.seed, salt, drop.thresh),
+                          drop);
+            y[c] = __fmul_rn(p, __fsub_rn(d, r[i]));
+          }
+          ds[j / 2][2 * (j % 2) + i] = pack_bf16(y[0], y[1]);
+        }
+      fence_regs(acc);
+      wg_fence();
+      pv_product<KT>(acc, ds, sk + st, 0);
+      wg_commit();
+      wg_wait0();
+      fence_regs(acc);
     }
-  };
-
-  // pass 2: r = sum_k dp p
-  float r = 0.0f;
-  for (int k0 = 0; k0 < l_actual; k0 += KT) {
-    load_kv(k0, true);
-    float p[HALF], dp[HALF];
-    p_dp(k0, p, dp);
+    if (step == nt - 1) {  // the statistics are complete
 #pragma unroll
-    for (int c = 0; c < HALF; ++c) r += dp[c] * p[c];
-  }
-  r += __shfl_xor_sync(0xffffffffu, r, 1);
-
-  // pass 3: ds = round(p (dp - r)), dq += ds k
-  FragC dqf[HDP / 16];
-#pragma unroll
-  for (int n = 0; n < HDP / 16; ++n) wmma::fill_fragment(dqf[n], 0.0f);
-  for (int k0 = 0; k0 < l_actual; k0 += KT) {
-    load_kv(k0, true);
-    float p[HALF], dp[HALF];
-    p_dp(k0, p, dp);
-#pragma unroll
-    for (int c = 0; c < HALF; ++c)
-      dsw[row * LPB + c0 + c] = __float2bfloat16(p[c] * (dp[c] - r));
-    __syncwarp();
-    product_nn<KT>(dqf, dsw, LPB, sm.k);
-    __syncwarp();
+      for (int i = 0; i < 2; ++i) {
+        l[i] = quad_sum(l[i]);
+        inv[i] = 1.0f / fmaxf(l[i], 1e-30f);
+        nb[i] = exp_offset(m[i], l[i]);
+        r[i] = __fmul_rn(quad_sum(r[i]), inv[i]);
+      }
+    }
+    __syncthreads();  // the stage is free for the load two steps on
   }
 
-  store_rows(dqf, sw, scale, dq + (size_t)b * Lp * H + h * hd, H,
-             q0 + warp * 16, Lp, hd);
-  if (lane % 2 == 0 && qrow < Lp) {
-    const size_t i = ((size_t)b * nh + h) * Lp + qrow;
+  store_rows(acc, scale, dq, b, h, Lp, H, hd, me.row0, me.cq);
+  if (me.cq == 0) {
     const size_t plane = (size_t)gridDim.z * nh * Lp;
-    mlr[i] = m;
-    mlr[plane + i] = l;
-    mlr[2 * plane + i] = r;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = me.row0 + 8 * i;
+      if (row < Lp) {
+        const size_t at = ((size_t)b * nh + h) * Lp + row;
+        mlr[at] = m[i];
+        mlr[plane + at] = l[i];
+        mlr[2 * plane + at] = r[i];
+      }
+    }
   }
 }
 
-struct KSmem {
-  bf16 qg[2 * QT * LD];  // q rows, then g rows; first the K and V staging
-  float m[QT], l[QT], r[QT];
-  float s[4][16 * (QT + 8)];  // per warp: f32 products, then bf16 pd, ds
-};
+// (b)'s bias: this thread's f32 bias at queries qc + 8 j + c (j < QT / 8,
+// c < 2) of its keys key[i]: bv[i][2 j + c], from the head's (query, key)
+// rows at bh (rows of Lp); 0 at queries past Lp and at masked keys (checked
+// on an EDGE tile only).  Consecutive lane groups hold consecutive keys, so
+// one load instruction of a warp reads four runs of 8 keys (32 bytes), one
+// run per query row.
+template <int QT, bool EDGE>
+__device__ __forceinline__ void load_bias_t(float (&bv)[2][QT / 4],
+                                            const float* bh, int Lp, int qc,
+                                            const int (&key)[2],
+                                            const bool (&kok)[2]) {
+#pragma unroll
+  for (int j = 0; j < QT / 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int qq = qc + 8 * j + c;
+      const float* row = bh + (size_t)qq * Lp;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        bv[i][2 * j + c] =
+            !EDGE || (qq < Lp && kok[i]) ? __ldg(row + key[i]) : 0.0f;
+    }
+}
 
-// (b): dk and dv of one (64-key tile, head, image)
-__global__ void __launch_bounds__(NTH)
-    attn_bwd_kv_tc(Operand<bf16> q, Operand<bf16> k, Operand<bf16> v,
-                   Operand<bf16> g, Bias bias,
-                   const float* __restrict__ mlr, bf16* __restrict__ dk,
-                   bf16* __restrict__ dv, int Lp, int H, int hd,
-                   int l_actual, float scale, Dropout drop) {
-  constexpr int LS = QT + 8, LPB = QT + 8, HALF = QT / 2;
-  static_assert(2 * 16 * LPB * sizeof(bf16) <= 16 * LS * sizeof(float),
-                "pd and ds must fit in the product scratch");
-  static_assert(2 * QT >= KB, "K/V staging needs KB rows");
-  __shared__ __align__(128) KSmem sm;
-  const int b = blockIdx.z, h = blockIdx.y, nh = gridDim.y;
-  const int kb0 = blockIdx.x * KB;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row = lane / 2, c0 = (lane % 2) * HALF;
-  const int key = kb0 + warp * 16 + row;
+template <int QT>
+__device__ __forceinline__ void load_bias_t(float (&bv)[2][QT / 4],
+                                            const float* bh, int Lp, int qc,
+                                            const int (&key)[2],
+                                            const bool (&kok)[2],
+                                            bool edge) {
+  if (edge)
+    load_bias_t<QT, true>(bv, bh, Lp, qc, key, kok);
+  else
+    load_bias_t<QT, false>(bv, bh, Lp, qc, key, kok);
+}
+
+// (b): dk and dv of one (64-key block, head, image), over the 64-query
+// tiles of the head; Q and G tiles load one step ahead through the
+// two-stage ring, the tile's m, 1 / max(l, 1e-30) and r with them.  A
+// block whose keys all lie at or past l_actual only writes its zeros.
+template <bool BIAS>
+__global__ void __launch_bounds__(BW_THREADS)
+    attn_bwd_kv_wgmma(Operand<bf16> q, Operand<bf16> k, Operand<bf16> v,
+                      Operand<bf16> g, Bias bias,
+                      const float* __restrict__ mlr, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, int Lp, int H, int hd,
+                      int l_actual, float scale, Dropout drop) {
+  constexpr int QT = BW_T;
+  using S = BwdSmem;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(16) float stats[2][3][QT];  // per stage: m, 1/l, r
+  const uint32_t sk = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sv = sk + S::ROWS, sq = sv + S::ROWS, sg = sq + 2 * S::T;
+  const int h = blockIdx.x, kb0 = blockIdx.y * BW_ROWS, b = blockIdx.z;
+  const int nh = gridDim.x;
+  const WgThread me(kb0);  // rows are keys: row0 is the first of two keys
+  float dka[32], dva[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) dka[e] = dva[e] = 0.0f;
+  if (kb0 >= l_actual) {
+    store_rows(dka, scale, dk, b, h, Lp, H, hd, me.row0, me.cq);
+    store_rows(dva, 1.0f, dv, b, h, Lp, H, hd, me.row0, me.cq);
+    return;
+  }
   const unsigned salt = b * nh + h;
   const bf16* qh = q.head(b, h);
   const bf16* gh = g.head(b, h);
   const float* bh = bias.row(b, h, 0, Lp);  // null without a bias
   const size_t plane = (size_t)gridDim.z * nh * Lp;
   const float* mrow = mlr + ((size_t)b * nh + h) * Lp;
-  float* sw = sm.s[warp];
-  bf16* pdw = reinterpret_cast<bf16*>(sw);
-  bf16* dsw = pdw + 16 * LPB;
-  bf16* qs = sm.qg;
-  bf16* gs = sm.qg + QT * LD;
+  const int nt = (Lp + QT - 1) / QT;
+  const bool kedge = kb0 + BW_ROWS > l_actual;  // the block holds masked keys
+  const float sl2e = scale * VC_LOG2E;
+  const int key[2] = {me.row0, me.row0 + 8};
+  const bool kok[2] = {key[0] < l_actual, key[1] < l_actual};
+  const int ti = threadIdx.x;
 
-  // this warp's 16 keys and values as A fragments, staged through qg
-  FragA kf[HDP / 16], vf[HDP / 16];
-  load_head_rows(sm.qg, k.head(b, h), k.sr, kb0, KB, l_actual, hd);
-  __syncthreads();
-#pragma unroll
-  for (int kk = 0; kk < HDP / 16; ++kk)
-    wmma::load_matrix_sync(kf[kk], sm.qg + warp * 16 * LD + kk * 16, LD);
-  __syncthreads();
-  load_head_rows(sm.qg, v.head(b, h), v.sr, kb0, KB, l_actual, hd);
-  __syncthreads();
-#pragma unroll
-  for (int kk = 0; kk < HDP / 16; ++kk)
-    wmma::load_matrix_sync(vf[kk], sm.qg + warp * 16 * LD + kk * 16, LD);
-
-  FragC dkf[HDP / 16], dvf[HDP / 16];
-#pragma unroll
-  for (int n = 0; n < HDP / 16; ++n) {
-    wmma::fill_fragment(dkf[n], 0.0f);
-    wmma::fill_fragment(dvf[n], 0.0f);
-  }
-  const bool key_ok = key < l_actual;
-  for (int t0 = 0; t0 < Lp; t0 += QT) {
-    __syncthreads();
-    load_head_rows(qs, qh, q.sr, t0, QT, Lp, hd);
-    load_head_rows(gs, gh, g.sr, t0, QT, Lp, hd);
-    for (int i = threadIdx.x; i < QT; i += blockDim.x) {
-      const bool ok = t0 + i < Lp;
-      sm.m[i] = ok ? mrow[t0 + i] : 0.0f;
-      sm.l[i] = ok ? mrow[plane + t0 + i] : 1.0f;
-      sm.r[i] = ok ? mrow[2 * plane + t0 + i] : 0.0f;
+  auto issue = [&](int t) {
+    if (t >= nt) return;
+    const uint32_t st = (t & 1) * S::T;
+    load_tile<BW_HD, QT, BW_THREADS>(sq + st, qh, q.sr, t * QT, Lp, hd);
+    load_tile<BW_HD, QT, BW_THREADS>(sg + st, gh, g.sr, t * QT, Lp, hd);
+  };
+  // query tile t's statistics: read at the top of a step, stored to their
+  // stage at its end (without a bias the exponent's offset in m's place,
+  // exp_offset); rows past Lp get 1/l = 0 (offset -inf) and r = 0, so
+  // p = 0
+  float nx[3] = {0.0f, 0.0f, 0.0f};
+  auto fetch = [&](int t) {
+    const int qi = t * QT + ti;
+    if (t < nt && ti < QT && qi < Lp) {
+      nx[0] = mrow[qi];
+      nx[1] = mrow[plane + qi];
+      nx[2] = mrow[2 * plane + qi];
     }
+  };
+  auto stash = [&](int t) {
+    const int qi = t * QT + ti;
+    if (t < nt && ti < QT) {
+      const bool ok = qi < Lp;
+      stats[t & 1][0][ti] = !ok ? (BIAS ? 0.0f : -INFINITY)
+                                : BIAS ? nx[0] : exp_offset(nx[0], nx[1]);
+      stats[t & 1][1][ti] = ok ? 1.0f / fmaxf(nx[1], 1e-30f) : 0.0f;
+      stats[t & 1][2][ti] = ok ? nx[2] : 0.0f;
+    }
+  };
+  load_tile<BW_HD, BW_ROWS, BW_THREADS>(sk, k.head(b, h), k.sr, kb0,
+                                        l_actual, hd);
+  load_tile<BW_HD, BW_ROWS, BW_THREADS>(sv, v.head(b, h), v.sr, kb0,
+                                        l_actual, hd);
+  issue(0);
+  cp_commit();
+  fetch(0);
+  stash(0);
+
+  for (int t = 0; t < nt; ++t) {
+    const int q0 = t * QT, qc = q0 + me.cq;
+    const bool qedge = q0 + QT > Lp;  // the tile holds rows past Lp
+    const uint32_t st = (t & 1) * S::T;
+    issue(t + 1);
+    cp_commit();
+    fetch(t + 1);
+    float bv[2][QT / 4];  // issued before the products, to hide its latency
+    if (BIAS) load_bias_t<QT>(bv, bh, Lp, qc, key, kok, qedge || kedge);
+    cp_wait<1>();  // this step's Q and G
+    fence_async_smem();
     __syncthreads();
-    float s[HALF], dp[HALF];
-    product_nt<QT>(kf, qs, sw, LS, s);   // s^T: (key, query)
-    product_nt<QT>(vf, gs, sw, LS, dp);  // dp^T
+    float s[1][32], dp[1][32];
+    fence_regs(s[0]);
+    fence_regs(dp[0]);
+    wg_fence();
+    ss_issue<BW_HD, QT, BW_ROWS>(s, sk, sq + st);
+    ss_issue<BW_HD, QT, BW_ROWS>(dp, sv, sg + st);
+    wg_commit();
+    wg_wait0();
+    fence_regs(s[0]);
+    fence_regs(dp[0]);
+    const float(&sm)[3][QT] = stats[t & 1];
+    uint32_t pd[QT / 16][4], ds[QT / 16][4];
 #pragma unroll
-    for (int c = 0; c < HALF; ++c) {
-      const int qi = c0 + c, qg = t0 + qi;
-      float p = 0.0f, d = dp[c], pd = 0.0f;
-      if (key_ok && qg < Lp) {
-        float sv = s[c] * scale;
-        if (bh) sv += bh[(size_t)qg * Lp + key];
-        p = expf(sv - sm.m[qi]) / fmaxf(sm.l[qi], 1e-30f);
-        pd = p;
-        if (drop.on) {
-          const bool keep =
-              vc_dropout_keep(qg, key, drop.seed, salt, drop.thresh);
-          d = keep ? d * drop.inv : 0.0f;
-          pd = keep ? p * drop.inv : 0.0f;
+    for (int j = 0; j < 8; ++j) {
+      const int col = 8 * j + me.cq;
+      const float2 mm = *reinterpret_cast<const float2*>(&sm[0][col]);
+      const float2 il = *reinterpret_cast<const float2*>(&sm[1][col]);
+      const float2 rr = *reinterpret_cast<const float2*>(&sm[2][col]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float yp[2], yd[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = 4 * j + 2 * i + c;
+          float p;
+          if (BIAS) {
+            const float x =
+                __fadd_rn(__fmul_rn(s[0][e], scale), bv[i][2 * j + c]);
+            p = __fmul_rn(vc_exp(__fsub_rn(x, c ? mm.y : mm.x)),
+                          c ? il.y : il.x);
+          } else {
+            p = vc_exp2(fmaf(s[0][e], sl2e, c ? mm.y : mm.x));
+          }
+          if (kedge && !kok[i]) p = 0.0f;
+          float d = dp[0][e], pdv = p;
+          if (drop.on) {
+            const bool keep = vc_dropout_keep(q0 + col + c, key[i],
+                                              drop.seed, salt, drop.thresh);
+            d = dropped(d, keep, drop);
+            pdv = dropped(p, keep, drop);
+          }
+          yp[c] = pdv;
+          yd[c] = __fmul_rn(p, __fsub_rn(d, c ? rr.y : rr.x));
         }
+        pd[j / 2][2 * (j % 2) + i] = pack_bf16(yp[0], yp[1]);
+        ds[j / 2][2 * (j % 2) + i] = pack_bf16(yd[0], yd[1]);
       }
-      pdw[row * LPB + qi] = __float2bfloat16(pd);
-      dsw[row * LPB + qi] = __float2bfloat16(p * (d - sm.r[qi]));
     }
-    __syncwarp();
-    product_nn<QT>(dvf, pdw, LPB, gs);
-    product_nn<QT>(dkf, dsw, LPB, qs);
-    __syncwarp();
+    fence_regs(dka);
+    fence_regs(dva);
+    wg_fence();
+    pv_product<QT>(dva, pd, sg + st, 0);
+    pv_product<QT>(dka, ds, sq + st, 0);
+    wg_commit();
+    wg_wait0();
+    fence_regs(dka);
+    fence_regs(dva);
+    stash(t + 1);
+    __syncthreads();  // the stages are free for the loads two steps on
   }
-  store_rows(dkf, sw, scale, dk + (size_t)b * Lp * H + h * hd, H,
-             kb0 + warp * 16, Lp, hd);
-  store_rows(dvf, sw, 1.0f, dv + (size_t)b * Lp * H + h * hd, H,
-             kb0 + warp * 16, Lp, hd);
+  store_rows(dka, scale, dk, b, h, Lp, H, hd, me.row0, me.cq);
+  store_rows(dva, 1.0f, dv, b, h, Lp, H, hd, me.row0, me.cq);
+}
+
+template <bool BIAS>
+int launch_bf16(const Operand<bf16>* in, Bias bias, void* dq, void* dk,
+                void* dv, float* mlr, int B, int Lp, int H, int nh,
+                int l_actual, float scale, Dropout drop, cudaStream_t s) {
+  static std::atomic<unsigned long long> done_q{0}, done_kv{0};
+  cudaError_t e = allow_smem((const void*)attn_bwd_q_wgmma<BIAS>,
+                             BwdSmem::BYTES, done_q);
+  if (e == cudaSuccess)
+    e = allow_smem((const void*)attn_bwd_kv_wgmma<BIAS>, BwdSmem::BYTES,
+                   done_kv);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(nh, (Lp + BW_ROWS - 1) / BW_ROWS, B);  // heads fastest
+  attn_bwd_q_wgmma<BIAS><<<grid, BW_THREADS, BwdSmem::BYTES, s>>>(
+      in[0], in[1], in[2], in[3], bias, static_cast<bf16*>(dq), mlr, Lp, H,
+      H / nh, l_actual, scale, drop);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  attn_bwd_kv_wgmma<BIAS><<<grid, BW_THREADS, BwdSmem::BYTES, s>>>(
+      in[0], in[1], in[2], in[3], bias, mlr, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), Lp, H, H / nh, l_actual, scale, drop);
+  return 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -600,7 +737,7 @@ extern "C" int vc_attention_bwd(
     int dtype, void* stream) {
   if (nh <= 0 || H % nh) return (int)cudaErrorInvalidValue;
   const int hd = H / nh;
-  if (hd % 8 || hd > HDP) return (int)cudaErrorInvalidValue;
+  if (hd % 8 || hd > BW_HD) return (int)cudaErrorInvalidValue;
   const Dropout drop{seed, thresh, inv, thresh != 0u || inv != 1.0f};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Bias bf{static_cast<const float*>(bias), bias_sb, bias_sh};
@@ -611,12 +748,12 @@ extern "C" int vc_attention_bwd(
         {static_cast<const bf16*>(k), k_sb, k_sh, k_sr},
         {static_cast<const bf16*>(v), v_sb, v_sh, v_sr},
         {static_cast<const bf16*>(g), g_sb, g_sh, g_sr}};
-    attn_bwd_q_tc<<<dim3((Lp + QB - 1) / QB, nh, B), NTH, 0, s>>>(
-        in[0], in[1], in[2], in[3], bf, static_cast<bf16*>(dq), m, Lp, H, hd,
-        l_actual, scale, drop);
-    attn_bwd_kv_tc<<<dim3((Lp + KB - 1) / KB, nh, B), NTH, 0, s>>>(
-        in[0], in[1], in[2], in[3], bf, m, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), Lp, H, hd, l_actual, scale, drop);
+    const int rc =
+        bf.p ? launch_bf16<true>(in, bf, dq, dk, dv, m, B, Lp, H, nh,
+                                 l_actual, scale, drop, s)
+             : launch_bf16<false>(in, bf, dq, dk, dv, m, B, Lp, H, nh,
+                                  l_actual, scale, drop, s);
+    if (rc) return rc;
   } else if (dtype == VC_F32) {
     const Operand<float> in[4] = {
         {static_cast<const float*>(q), q_sb, q_sh, q_sr},
@@ -636,4 +773,27 @@ extern "C" int vc_attention_bwd(
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// launch configuration of the bf16 kernels, for the measurement scripts
+// ---------------------------------------------------------------------------
+
+#define BW_KERNEL(kernel, BIAS)                                          \
+  {#kernel "<" #BIAS ">", (const void*)kernel<BIAS>, BW_THREADS,           \
+   BwdSmem::BYTES}
+static const WgKernel BW_KERNELS[] = {
+    BW_KERNEL(attn_bwd_q_wgmma, false),
+    BW_KERNEL(attn_bwd_q_wgmma, true),
+    BW_KERNEL(attn_bwd_kv_wgmma, false),
+    BW_KERNEL(attn_bwd_kv_wgmma, true),
+};
+#undef BW_KERNEL
+
+// Kernel `index` of the bf16 kernels and its launch configuration
+// (wg_kernel_info, wgmma.cuh); -1 past the last kernel.
+extern "C" int vc_attention_bwd_kernel_info(int index, char* name, int len,
+                                            int* info) {
+  return wg_kernel_info(BW_KERNELS, sizeof(BW_KERNELS) / sizeof(WgKernel),
+                        index, name, len, info);
 }

@@ -55,10 +55,13 @@ SIGNATURES = {
     # scale, dtype, stream
     "vc_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _F, _I, _P],
-    # index, name buffer, its length, int[5] (threads, registers, local
-    # bytes, shared bytes per block, resident blocks per SM)
+    # (both *_kernel_info) index, name buffer, its length, int[5]
+    # (threads, registers, local bytes, shared bytes per block, resident
+    # blocks per SM)
     "vc_attention_kernel_info": [_I, ctypes.c_char_p, _I,
                                  ctypes.POINTER(_I)],
+    "vc_attention_bwd_kernel_info": [_I, ctypes.c_char_p, _I,
+                                     ctypes.POINTER(_I)],
 }
 
 

@@ -236,25 +236,31 @@ def _attention(q, k, v, l_actual, bias, rate, seed, online, mode):
     return heads_view(out, nh)
 
 
-def kernel_info() -> list:
-    """The bf16 kernels' launch configuration on the current CUDA device,
-    one dict per compiled kernel: name, threads per block, registers per
-    thread, local (spill) bytes per thread, shared bytes per block and
-    resident blocks per SM (cudaFuncGetAttributes and
+def launch_info(entry: str) -> list:
+    """The launch configuration of the bf16 kernels that the C function
+    `entry` (vc_attention_kernel_info, vc_attention_bwd_kernel_info) lists,
+    on the current CUDA device: one dict per compiled kernel with its name,
+    threads per block, registers per thread, local (spill) bytes per
+    thread, shared bytes per block and resident blocks per SM
+    (cudaFuncGetAttributes and
     cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
-    lib = _build.library()
+    fn = getattr(_build.library(), entry)
     keys = ("threads", "registers", "local_bytes", "shared_bytes",
             "blocks_per_sm")
     kernels = []
     while True:
         name = ctypes.create_string_buffer(96)
         info = (ctypes.c_int * len(keys))()
-        rc = lib.vc_attention_kernel_info(len(kernels), name, len(name),
-                                          info)
+        rc = fn(len(kernels), name, len(name), info)
         if rc == -1:
             return kernels
-        _build.check(rc, "attention kernel_info")
+        _build.check(rc, entry)
         kernels.append({"name": name.value.decode(), **dict(zip(keys, info))})
+
+
+def kernel_info() -> list:
+    """The bf16 attention kernels' launch configuration (launch_info)."""
+    return launch_info("vc_attention_kernel_info")
 
 
 def check_heads(name: str, H: int, num_heads: int) -> None:

@@ -1,7 +1,8 @@
 """attention_bwd: dq, dk, dv of attention over q, k, v read by stride.
 
 Kernel: csrc/attention_bwd.cu (two launches per call: a query-major kernel
-for dq and the f32 row statistics, then a key-major kernel for dk and dv).
+for dq and the f32 row statistics, then a key-major kernel for dk and dv;
+in bf16 both on wgmma).
 It replaces the backward of K8, vitcap_tpu/ops/flash_attention.py:882
 flash_bwd_packed_slab (the slab) and :734 _flash_bwd_packed (separate q,
 k, v), kernels :530 _bwd_packed_pair_kernel / :600 _bwd_packed_kernel, and
@@ -21,6 +22,7 @@ forward's keep bits regenerated (ops/dropout.py); dv from the dropped p
 rounded to the operands' dtype; dp = g v^T, dropped; r = sum(dp p); ds =
 p (dp - r) rounded to that dtype; dq = ds k * scale, dk = ds^T q * scale.
 A padded query row with a zero upstream gradient contributes nothing.
+kernel_info() reads the bf16 kernels' launch configuration on the card.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ import torch
 
 from . import _build, dropout
 from .attention import (MAX_LP, bias_args, check_head_dim, check_heads,
-                        heads_view, merge_heads, operand_args, split_slab)
+                        heads_view, launch_info, merge_heads, operand_args,
+                        split_slab)
 
 NEG = -1e30
 launches = 0              # kernel launches (two per CUDA call)
@@ -138,6 +141,12 @@ def _attention_bwd(q, k, v, g, l_actual, bias, rate, seed, mode) -> Grads:
     if mode != "slab":
         mode_launches[mode] += 2
     return tuple(heads_view(t, nh) for t in (dq, dk, dv))
+
+
+def kernel_info() -> list:
+    """The bf16 attention_bwd kernels' launch configuration on the current
+    CUDA device (ops.attention.launch_info)."""
+    return launch_info("vc_attention_bwd_kernel_info")
 
 
 def attention_bwd(slab: torch.Tensor, g: torch.Tensor, num_heads: int,
