@@ -6,15 +6,18 @@
 Phases (each prints its lines; any failure raises, so the exit code is not 0):
 1. host facts: card name and power limit, CUDA, nvcc, Triton;
 2. build the CUDA kernels from vitcap_tpu_torch/csrc; print the bf16
-   attention and attention_bwd kernels' launch configuration (registers,
-   local bytes, shared memory per block, resident blocks per SM);
+   gemm, attention and attention_bwd kernels' launch configuration
+   (registers, local bytes, shared memory per block, resident blocks per
+   SM);
 3. each kernel vs its plain PyTorch version on the card, at the flagship
    shapes (ViT-B/16-384, B=64), in bf16 and f32: max abs error, times, the
    bound (the least time the card could take) and the time of one
-   PyTorch call computing the same function (the yardstick); bf16
-   attention at least 99% bit-equal to its plain version; decode_attention
-   at the greedy (64 rows) and beam-3 (192 rows) geometries, S=628, A=20,
-   t=10;
+   PyTorch call computing the same function (the yardstick); bf16 gemm
+   and attention at least 99% bit-equal to their plain versions; the gemm
+   at the fused decode step's four products (M = 128 greedy and 384
+   beam-3 rows, bf16, timed per call from a CUDA graph of many calls);
+   decode_attention at the greedy (64 rows) and beam-3 (192 rows)
+   geometries, S=628, A=20, t=10;
 4. the fused ViT and BERT blocks vs the plain PyTorch blocks, and one
    fused decode step of the 4 decoder layers vs its plain version;
 5. the greedy path: a CaptionServer (batch 64, bf16, random weights from a
@@ -323,8 +326,9 @@ def phase_host():
 
 def phase_build():
     """Build the kernels; print ptxas's registers and spills, and the bf16
-    attention and attention_bwd kernels' launch configuration (returned)."""
-    from vitcap_tpu_torch.ops import _build, attention, attention_bwd
+    gemm, attention and attention_bwd kernels' launch configuration
+    (returned)."""
+    from vitcap_tpu_torch.ops import _build, attention, attention_bwd, gemm
     _build.library()
     log(f"[build] {_build.build_info['seconds']:.1f} s -> "
         f"{_build.build_info['path']}")
@@ -336,7 +340,8 @@ def phase_build():
     for k in spills:
         log(f"[build] ptxas spill: {k['spill_bytes']} bytes, "
             f"{k['registers']} registers: {k['name'][:90]}")
-    launch = attention.kernel_info() + attention_bwd.kernel_info()
+    launch = (gemm.kernel_info() + attention.kernel_info()
+              + attention_bwd.kernel_info())
     for k in launch:
         log(f"[build] launch {k['name']}: {k['threads']} threads, "
             f"{k['registers']} registers, {k['local_bytes']} local (spill) "
@@ -364,6 +369,17 @@ GEMM_CASES = [  # (name, K, N, epilogue)
     ("bert-output+res f32", 3072, 768, dict(residual=True, f32_sum=True,
                                             out_f32=True)),
 ]
+# the fused decode step's four products (ops/decode_step.py _step), all
+# f32 sums, at its greedy and beam-3 rows (64 images x a 2-token window)
+DECODE_GEMM_CASES = [  # (name, K, N, epilogue)
+    ("qkv", 768, 2304, dict(f32_sum=True)),
+    ("out+res f32", 768, 768, dict(residual=True, f32_sum=True,
+                                   out_f32=True)),
+    ("fc1+gelu", 768, 3072, dict(gelu=True, f32_sum=True)),
+    ("fc2+res f32", 3072, 768, dict(residual=True, f32_sum=True,
+                                    out_f32=True)),
+]
+DECODE_GEMM_ROWS = {"greedy": B * 2, "beam3": B * 3 * 2}
 # (kernel name in the rows, case, batch, l_actual, Lp, bias): ViT, the
 # prefill, a ragged small case
 ATTN_CASES = [("attention", "vit", B, 577, 592, False),
@@ -482,6 +498,81 @@ def phase_kernels(dev, rows, Lp=592, gemm_cases=GEMM_CASES,
             f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
             f"library {r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']})")
+
+
+def graph_ms(fn, reps: int = 50) -> float:
+    """Mean device ms per call of `reps` calls of fn captured in one CUDA
+    graph and replayed (after a warm-up call and a warm-up replay): the
+    time of a kernel too short for back-to-back launches from the host to
+    keep the card busy."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def phase_decode_gemm(dev, rows):
+    """The gemm at the fused decode step's four products (bf16, M = 128
+    greedy and 384 beam-3 rows) vs its plain version: bf16 outputs at
+    least 99% bit-equal, f32 outputs within 1e-5 of their scale; kernel,
+    plain and F.linear times per call from CUDA graphs (graph_ms)."""
+    from vitcap_tpu_torch.ops.gemm import gemm, gemm_plain
+    g = torch.Generator().manual_seed(SEED + 11)
+    dt, es = torch.bfloat16, 2
+    first = len(rows)
+
+    def rnd(*shape, scale=1.0, dtype=dt):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
+
+    for run, M in DECODE_GEMM_ROWS.items():
+        for name, K, N, epi in DECODE_GEMM_CASES:
+            a, w = rnd(M, K), rnd(N, K, scale=0.02)
+            b = rnd(N, scale=0.02, dtype=torch.float32)
+            r = rnd(M, N) if epi.get("residual") else None
+            kw = dict(epi, residual=r)
+            out, ref = gemm(a, w, b, **kw), gemm_plain(a, w, b, **kw)
+            err = compare(f"gemm decode {name} {run}", out, ref, dt)
+            eq = (out == ref).float().mean().item()
+            if out.dtype == torch.bfloat16 and eq < 0.99:
+                raise AssertionError(f"gemm decode {name} {run}: only "
+                                     f"{eq:.4f} of outputs bit-equal")
+            scale = ref.abs().max().item()
+            if out.dtype == torch.float32 and err > 1e-5 * scale:
+                raise AssertionError(f"gemm decode {name} {run}: f32 err "
+                                     f"{err:.3g} > {1e-5 * scale:.3g}")
+            ms = graph_ms(lambda: gemm(a, w, b, **kw))
+            pms = graph_ms(lambda: gemm_plain(a, w, b, **kw))
+            bd = b.to(dt)
+            lms = graph_ms(lambda: F.linear(a, w, bd))
+            out_es = 4 if epi.get("out_f32") else es
+            nbytes = (es * (M * K + N * K + (M * N if r is not None else 0))
+                      + 4 * N + out_es * M * N)
+            _row(rows, "gemm", f"decode {name} {run}", "bf16",
+                 f"M={M} K={K} N={N}", err, ms, pms, lms, 2.0 * M * K * N,
+                 nbytes)
+            rows[-1]["bit_equal"] = eq
+    for r in rows[first:]:
+        log(f"[kernel] gemm {r['case']:24s} {r['shape']:30s} err "
+            f"{r['max_abs_err']:.3e}  bit-equal {r['bit_equal']:.6f}  kernel "
+            f"{r['ms'] * 1e3:.2f} us  plain {r['plain_ms'] * 1e3:.2f} us  "
+            f"F.linear {r['library_ms'] * 1e3:.2f} us  bound "
+            f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
 
 
 def _decode_attention_inputs(dev, dtype, nb, t, S=628, A=20, H=768, g=None):
@@ -2292,9 +2383,10 @@ def main() -> int:
     dev = torch.device("cuda:0")
     t_start = time.perf_counter()
     smi = phase_host()
-    attention_launch = phase_build()
+    kernel_launch = phase_build()
     rows = []
     phase_kernels(dev, rows)
+    phase_decode_gemm(dev, rows)
     phase_decode_attention(dev, rows)
     phase_blocks(dev, rows)
     phase_decode_step(dev, rows)
@@ -2350,7 +2442,7 @@ def main() -> int:
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(
-        {"card": smi, "attention_launch": attention_launch, "rows": rows,
+        {"card": smi, "kernel_launch": kernel_launch, "rows": rows,
          "greedy_path": greedy,
          "greedy_launches": greedy_counts, "beam_path": beam,
          "launches": counts, "train": train, "train_launches": train_counts,

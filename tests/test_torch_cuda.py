@@ -103,6 +103,128 @@ def test_cuda_gemm_and_layer_norm_match_plain(cuda, dtype):
         gemm(a[:, :90].contiguous(), w[:, :90].contiguous())   # K % 8
 
 
+def _gemm_inputs(dev, M, K, N, seed):
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randn(M, K, generator=g).to(dev, torch.bfloat16)
+    w = (torch.randn(N, K, generator=g) * 0.05).to(dev, torch.bfloat16)
+    b = (torch.randn(N, generator=g) * 0.1).to(dev)
+    r = torch.randn(M, N, generator=g).to(dev, torch.bfloat16)
+    return a, w, b, r
+
+
+def _gemm_modes(r, rows_per_image):
+    """Every epilogue mode of ops.gemm: (name, keyword arguments)."""
+    return [("default", {}), ("gelu", dict(gelu=True)),
+            ("residual", dict(residual=r)),
+            ("pre_out", dict(gelu=True, pre_out=True)),
+            ("f32_sum", dict(f32_sum=True)),
+            ("f32_sum gelu", dict(f32_sum=True, gelu=True)),
+            ("f32_sum residual", dict(f32_sum=True, residual=r)),
+            ("f32_sum residual out_f32",
+             dict(f32_sum=True, residual=r, out_f32=True)),
+            ("out_f32", dict(out_f32=True)),
+            ("dropout 0", dict(residual=r,
+                               dropout=(0.0, 5, 0, rows_per_image))),
+            ("dropout 0.1", dict(residual=r,
+                                 dropout=(0.1, -918273, 1, rows_per_image)))]
+
+
+def _check_gemm_modes(a, w, b, r, rows_per_image):
+    """Each mode against gemm_plain: rounded outputs (bf16, or the bf16
+    value stored as f32 by out_f32 without f32_sum) and the pre-GELU store
+    at least 99% bit-equal and close; f32 sums within 1e-5 of their scale
+    (only the order of the f32 sums differs)."""
+    from vitcap_tpu_torch.ops.gemm import plan
+    M, N = a.shape[0], w.shape[0]
+    for name, kw in _gemm_modes(r, rows_per_image):
+        pre = pre_ref = None
+        if kw.pop("pre_out", False):
+            pre, pre_ref = (torch.empty(M, N, dtype=a.dtype, device=a.device)
+                            for _ in range(2))
+        out = gemm(a, w, b, pre_out=pre, **kw)
+        ref = gemm_plain(a, w, b, pre_out=pre_ref, **kw)
+        where = (name, tuple(a.shape), N, plan(M, N, a.shape[1]))
+        assert out.dtype == ref.dtype and out.shape == (M, N), where
+        if kw.get("f32_sum") and out.dtype == torch.float32:
+            err = (out - ref).abs().max().item()
+            assert err <= 1e-5 * ref.abs().max().item(), where
+        else:
+            _close(out, ref, torch.bfloat16)
+            assert (out == ref).float().mean().item() >= 0.99, where
+        if pre is not None:
+            _close(pre, pre_ref, torch.bfloat16)
+            assert (pre == pre_ref).float().mean().item() >= 0.99, where
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 64, 128, 130, 384])
+def test_cuda_bf16_gemm_modes_small_m(cuda, M):
+    """gemm_split_kernel (K split over a cluster) at the decode step's and
+    smaller row counts, every epilogue mode, the four products' widths."""
+    from vitcap_tpu_torch.ops.gemm import plan
+    for K, N in ((768, 2304), (768, 768), (768, 3072), (3072, 768)):
+        assert plan(M, N, K) > 0
+        a, w, b, r = _gemm_inputs(cuda, M, K, N, M + K + N)
+        _check_gemm_modes(a, w, b, r, 1 if M % 2 else 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [96, 768, 3072])
+def test_cuda_bf16_gemm_modes_ragged_wide(cuda, K):
+    """gemm_wide_kernel where M cuts a 128-row tile (2000 = 15 x 128 + 80),
+    N cuts a 256-column tile (2312) and, at 96, K cuts a 64-deep step;
+    K = 3072 runs the 4-stage ring round 12 times."""
+    from vitcap_tpu_torch.ops.gemm import plan
+    M, N = 2000, 2312
+    assert plan(M, N, K) == 0
+    a, w, b, r = _gemm_inputs(cuda, M, K, N, K)
+    _check_gemm_modes(a, w, b, r, 400)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows_per_image,images", [(592, 2), (1104, 5)])
+def test_cuda_bf16_gemm_dropout_rows_per_image(cuda, rows_per_image, images):
+    """The K7 dropout epilogue where tiles cross image boundaries (592 and
+    1104 rows are not multiples of 64 or 128): 2 x 592 rows take the split
+    kernel, 5 x 1104 the wide one."""
+    from vitcap_tpu_torch.ops.gemm import plan
+    M, K, N = rows_per_image * images, 768, 768
+    assert (plan(M, N, K) == 0) == (rows_per_image == 1104)
+    a, w, b, r = _gemm_inputs(cuda, M, K, N, rows_per_image)
+    for rate in (0.0, 0.1):
+        drop = (rate, 1234567, 1, rows_per_image)
+        out = gemm(a, w, b, residual=r, dropout=drop)
+        ref = gemm_plain(a, w, b, residual=r, dropout=drop)
+        _close(out, ref, torch.bfloat16)
+        assert (out == ref).float().mean().item() >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(128, 3072, 768), (384, 768, 2304),
+                                   (2000, 3072, 768)])
+def test_cuda_bf16_gemm_deterministic(cuda, M, K, N):
+    """Two calls give the same bits: the split kernel adds its ranks'
+    partials in rank order, the wide kernel splits nothing."""
+    a, w, b, r = _gemm_inputs(cuda, M, K, N, 1)
+    for kw in (dict(f32_sum=True, residual=r, out_f32=True),
+               dict(gelu=True)):
+        assert torch.equal(gemm(a, w, b, **kw), gemm(a, w, b, **kw))
+
+
+@pytest.mark.cuda
+def test_cuda_gemm_kernel_info(cuda):
+    """Both bf16 gemm kernels are compiled per epilogue kind, without
+    spills, and fit on an SM."""
+    from vitcap_tpu_torch.ops import gemm as G
+    info = G.kernel_info()
+    names = [k["name"] for k in info]
+    assert len(info) == 10
+    assert sum(n.startswith("gemm_wide_kernel") for n in names) == 5
+    assert sum(n.startswith("gemm_split_kernel") for n in names) == 5
+    for k in info:
+        assert k["local_bytes"] == 0 and k["blocks_per_sm"] >= 1, k
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", [8, 40, 64, 128])

@@ -1,10 +1,11 @@
 // wgmma building blocks shared by the bf16 attention kernels
-// (attention.cu, attention_bwd.cu): warpgroups of 64 rows,
-// 128-byte-swizzled shared tiles written by cp.async, wgmma.m64n64k16
-// products with the accumulators (and the A operand of the second
-// product) in registers, and the bias, max and sum helpers that run on
-// the accumulator layout.  Head dims are padded with zeros to 64 (one
-// 128-byte line per row) or 128 (two panels of 64 columns).
+// (attention.cu, attention_bwd.cu) and the bf16 gemm (gemm.cu):
+// warpgroups of 64 rows, 128-byte-swizzled shared tiles written by
+// cp.async or TMA, wgmma.m64nNk16 products (N 64, 128) with the
+// accumulators (and the A operand of the attention's second product) in
+// registers, mbarriers, and the bias, max and sum helpers that run on the
+// accumulator layout.  Head dims are padded with zeros to 64 (one 128-byte
+// line per row) or 128 (two panels of 64 columns).
 #pragma once
 
 #include <math.h>
@@ -12,6 +13,8 @@
 #include <stdio.h>
 
 #include <atomic>
+
+#include <cuda.h>  // CUtensorMap (types only: nothing links libcuda)
 
 #include "common.cuh"
 
@@ -67,14 +70,18 @@ __device__ __forceinline__ void wg_fence() {
 __device__ __forceinline__ void wg_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// wait until at most N committed wgmma groups are still in flight
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
+__device__ __forceinline__ void wg_wait0() { wg_wait<0>(); }
 // keeps the compiler from moving accesses to an accumulator across the
 // asynchronous wgmma that reads and writes it
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // wgmma shared-memory matrix descriptor in the 128-byte swizzle: start
@@ -104,6 +111,99 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
       ", %32, %33, p, 1, 1, 0, 0;\n}\n"
       : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
       : "l"(a), "l"(b), "r"(accumulate));
+}
+
+#define WG_D32(o) WG_D8(o), WG_D8(o + 8), WG_D8(o + 16), WG_D8(o + 24)
+#define WG_REGS64 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63}"
+
+// d (+)= A . B, 64 x 128 x 16, A and B K-major in shared memory (the
+// gemm's A rows and W rows); the accumulator layout is the 64 x 64 one's,
+// eight columns per j: d[4 j + 2 i + c] is (row 16 w + ln / 4 + 8 i,
+// column 8 j + 2 (ln % 4) + c), j < 16
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_REGS64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_D32(0), WG_D32(32)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d += A . B over one 64-deep k-step of 128-byte-swizzled K-major tiles:
+// this warpgroup's 64 A rows at sa, the B tile's 128 rows at sb (both
+// 1024-byte aligned, 8-row groups 1024 bytes apart); each 16-deep step is
+// 32 bytes further into the 128-byte lines.  The caller fences, commits
+// and waits.
+__device__ __forceinline__ void ss_kstep(float (&d)[64], uint32_t sa,
+                                         uint32_t sb) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss(d, desc_sw128(sa + kk * 32, 16, 1024),
+             desc_sw128(sb + kk * 32, 16, 1024), 1);
+}
+
+// ---------------------------------------------------------------------------
+// mbarriers, TMA and register reallocation (the gemm's producer/consumer
+// ring)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+// makes the initialised barriers visible to the async proxy (TMA)
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// one arrival that also announces `bytes` of TMA transfers to come
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+// blocks until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, unsigned parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// the box of `map` at element coordinates (c0 innermost, c1) -> shared
+// memory at dst, completion counted in bytes on `bar`; out-of-bounds
+// elements arrive as zeros
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+template <int REGS>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+template <int REGS>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS));
 }
 
 // d += A . B, 64 x 64 x 16, A from registers (four bf16 pairs per thread),

@@ -36,9 +36,9 @@ _BIAS = [_P, _L, _L]          # base pointer (or null), batch and head strides
 # C entry points and their argument types (see csrc/*.cu)
 SIGNATURES = {
     # a, w, bias, res, out, pre, M, N, K, dtype, gelu, f32_sum, out_f32,
-    # bias_first, seed, thresh, inv, which, rows_per_image, stream
+    # bias_first, seed, thresh, inv, which, rows_per_image, split, stream
     "vc_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _U,
-                _U, _F, _I, _I, _P],
+                _U, _F, _I, _I, _I, _P],
     # x, g, b, y, mean, rsig, rows, H, eps, in_dtype, out_dtype, stream
     "vc_layer_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
     # q, k, v (each pointer, batch, head and row strides), bias (pointer,
@@ -55,9 +55,10 @@ SIGNATURES = {
     # scale, dtype, stream
     "vc_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _F, _I, _P],
-    # (both *_kernel_info) index, name buffer, its length, int[5]
+    # (the *_kernel_info) index, name buffer, its length, int[5]
     # (threads, registers, local bytes, shared bytes per block, resident
     # blocks per SM)
+    "vc_gemm_kernel_info": [_I, ctypes.c_char_p, _I, ctypes.POINTER(_I)],
     "vc_attention_kernel_info": [_I, ctypes.c_char_p, _I,
                                  ctypes.POINTER(_I)],
     "vc_attention_bwd_kernel_info": [_I, ctypes.c_char_p, _I,
@@ -168,3 +169,25 @@ def check(rc: int, name: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if rc != 0:
         raise RuntimeError(f"{name} launch failed with cudaError_t {rc}")
+
+
+def launch_info(entry: str) -> list:
+    """The launch configuration of the bf16 kernels that the C function
+    `entry` (vc_gemm_kernel_info, vc_attention_kernel_info,
+    vc_attention_bwd_kernel_info) lists, on the current CUDA device: one
+    dict per compiled kernel with its name, threads per block, registers
+    per thread, local (spill) bytes per thread, shared bytes per block and
+    resident blocks per SM (cudaFuncGetAttributes and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    fn = getattr(library(), entry)
+    keys = ("threads", "registers", "local_bytes", "shared_bytes",
+            "blocks_per_sm")
+    kernels = []
+    while True:
+        name = ctypes.create_string_buffer(96)
+        info = (ctypes.c_int * len(keys))()
+        rc = fn(len(kernels), name, len(name), info)
+        if rc == -1:
+            return kernels
+        check(rc, entry)
+        kernels.append({"name": name.value.decode(), **dict(zip(keys, info))})

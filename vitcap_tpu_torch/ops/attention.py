@@ -47,12 +47,12 @@ online mode.  kernel_info() reads the bf16 kernels' launch configuration
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
 
 from . import _build, dropout
+from ._build import launch_info
 
 NEG = -1e30
 launches = 0
@@ -236,30 +236,9 @@ def _attention(q, k, v, l_actual, bias, rate, seed, online, mode):
     return heads_view(out, nh)
 
 
-def launch_info(entry: str) -> list:
-    """The launch configuration of the bf16 kernels that the C function
-    `entry` (vc_attention_kernel_info, vc_attention_bwd_kernel_info) lists,
-    on the current CUDA device: one dict per compiled kernel with its name,
-    threads per block, registers per thread, local (spill) bytes per
-    thread, shared bytes per block and resident blocks per SM
-    (cudaFuncGetAttributes and
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
-    fn = getattr(_build.library(), entry)
-    keys = ("threads", "registers", "local_bytes", "shared_bytes",
-            "blocks_per_sm")
-    kernels = []
-    while True:
-        name = ctypes.create_string_buffer(96)
-        info = (ctypes.c_int * len(keys))()
-        rc = fn(len(kernels), name, len(name), info)
-        if rc == -1:
-            return kernels
-        _build.check(rc, entry)
-        kernels.append({"name": name.value.decode(), **dict(zip(keys, info))})
-
-
 def kernel_info() -> list:
-    """The bf16 attention kernels' launch configuration (launch_info)."""
+    """The bf16 attention kernels' launch configuration on the current
+    CUDA device (ops._build.launch_info)."""
     return launch_info("vc_attention_kernel_info")
 
 

@@ -32,9 +32,9 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build, dropout
+from ._build import launch_info
 from .attention import (MAX_LP, bias_args, check_head_dim, check_heads,
-                        heads_view, launch_info, merge_heads, operand_args,
-                        split_slab)
+                        heads_view, merge_heads, operand_args, split_slab)
 
 NEG = -1e30
 launches = 0              # kernel launches (two per CUDA call)
@@ -145,7 +145,7 @@ def _attention_bwd(q, k, v, g, l_actual, bias, rate, seed, mode) -> Grads:
 
 def kernel_info() -> list:
     """The bf16 attention_bwd kernels' launch configuration on the current
-    CUDA device (ops.attention.launch_info)."""
+    CUDA device (ops._build.launch_info)."""
     return launch_info("vc_attention_bwd_kernel_info")
 
 

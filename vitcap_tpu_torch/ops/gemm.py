@@ -1,10 +1,18 @@
 """gemm: out = a @ w.T with f32 accumulation and a fused epilogue.
 
-Kernel: csrc/gemm.cu (bf16 on the tensor cores through WMMA, f32 on the
-CUDA cores with no TF32).  It replaces the matrix products inside the TPU
+Kernels: csrc/gemm.cu.  bf16 runs on the tensor cores through wgmma in one
+of two kernels that plan() picks per call from (M, N, K):
+gemm_wide_kernel (persistent, 128 x 128 tiles, a TMA-fed ring, two
+consumer warpgroups taking alternate tiles) for the large-M products of
+the encoder, the prefill and the train forward, and gemm_split_kernel (64
+x 128 tiles, K split over a thread-block cluster, partials added in rank
+order) for the small-M products of the decode step; f32 runs on the CUDA
+cores with no TF32.  It replaces the matrix products inside the TPU
 kernels of vitcap_tpu/ops/fused_block.py (_qkv_kernel, _tail_kernel,
-_bert_qkv_kernel, _bert_tail_kernel); the source note in csrc/gemm.cu says
-what bounds it on the H100 and what its design does about that.
+_bert_qkv_kernel, _bert_tail_kernel and the train kernels K6, K7) and of
+vitcap_tpu/ops/decode_step.py (K5); the source note in csrc/gemm.cu says
+what bounds each regime on the H100 and what the design does about it.
+kernel_info() reads the bf16 kernels' launch configuration on the card.
 
 The epilogue rounds where those TPU kernels round:
 - default (_qkv_kernel, _tail_kernel, _bert_qkv_kernel): the product is
@@ -27,6 +35,7 @@ GELU reads, the pre-GELU fc1 output the train backwards keep (K6 and K7).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -41,6 +50,44 @@ mode_launches = {"pre_out": 0, "dropout": 0}
 
 Dropout = Tuple[float, int, int, int]   # rate, seed, which, rows_per_image
 
+WIDE_TILE = (128, 128)    # a gemm_wide_kernel consumer's tile (rows, columns)
+SPLIT_TILE = (64, 128)    # gemm_split_kernel's
+K_STEP = 64               # both kernels' k-step
+MAX_RANKS = 8             # the portable thread-block cluster size
+H100_SMS = 132
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan(M: int, N: int, K: int, sms: int = H100_SMS) -> int:
+    """The bf16 kernel of an (M, K) . (N, K)^T product on a card of `sms`
+    SMs, the one place the choice is made: 0 is gemm_wide_kernel, taken
+    when its 128 x 128 tiles give both consumer warpgroups of every SM at
+    least one; otherwise the number of blocks (1-8) of gemm_split_kernel's
+    thread-block clusters, each rank summing an equal share of the 64-deep
+    k-steps: at most one block per SM in all (more ranks, or a second
+    block per SM, measured slower at the decode shapes), every rank with
+    at least one k-step."""
+    if _cdiv(M, WIDE_TILE[0]) * _cdiv(N, WIDE_TILE[1]) >= 2 * sms:
+        return 0
+    tiles = _cdiv(M, SPLIT_TILE[0]) * _cdiv(N, SPLIT_TILE[1])
+    nk = max(1, _cdiv(K, K_STEP))
+    ranks = min(MAX_RANKS, nk, max(1, sms // tiles))
+    return _cdiv(nk, _cdiv(nk, ranks))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def kernel_info() -> list:
+    """The bf16 gemm kernels' launch configuration on the current CUDA
+    device (ops._build.launch_info)."""
+    return _build.launch_info("vc_gemm_kernel_info")
+
 
 def gemm_plain(a: torch.Tensor, w: torch.Tensor,
                bias: Optional[torch.Tensor] = None, gelu: bool = False,
@@ -49,8 +96,18 @@ def gemm_plain(a: torch.Tensor, w: torch.Tensor,
                pre_out: Optional[torch.Tensor] = None,
                dropout: Optional[Dropout] = None) -> torch.Tensor:
     """Plain PyTorch version: a (M, K), w (N, K) -> (M, N)."""
-    dt = a.dtype
-    acc = a.float() @ w.float().t()
+    return epilogue_plain(a.float() @ w.float().t(), a.dtype, bias, gelu,
+                          residual, f32_sum, out_f32, pre_out, dropout)
+
+
+def epilogue_plain(acc: torch.Tensor, dt: torch.dtype,
+                   bias: Optional[torch.Tensor] = None, gelu: bool = False,
+                   residual: Optional[torch.Tensor] = None,
+                   f32_sum: bool = False, out_f32: bool = False,
+                   pre_out: Optional[torch.Tensor] = None,
+                   dropout: Optional[Dropout] = None) -> torch.Tensor:
+    """gemm_plain's epilogue on an f32 product `acc` (M, N), rounding to the
+    compute dtype `dt` where the kernels round."""
     if dropout is not None:
         rate, seed, which, rows = dropout
         y = acc.to(dt)
@@ -135,6 +192,9 @@ def gemm(a: torch.Tensor, w: torch.Tensor,
                                                                    0, 1)
     out = torch.empty((M, N), dtype=torch.float32 if out_f32 else a.dtype,
                       device=a.device)
+    index = a.device.index
+    split = plan(M, N, K, _sm_count(torch.cuda.current_device()
+                                    if index is None else index))
     lib = _build.library()
     rc = lib.vc_gemm(a.data_ptr(), w.data_ptr(),
                      bias.data_ptr() if bias is not None else None,
@@ -145,7 +205,7 @@ def gemm(a: torch.Tensor, w: torch.Tensor,
                      int(gelu), int(f32_sum), int(out_f32),
                      int(dropout is not None),
                      *_dropout.kernel_args(rate, seed), int(which), int(rows),
-                     torch.cuda.current_stream(a.device).cuda_stream)
+                     split, torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(rc, "gemm")
     global launches
     launches += 1
