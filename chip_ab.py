@@ -9,16 +9,27 @@ card in turns): phase 3 (phase_kernels: the gemm's encoder products and
 LayerNorm at B * 592 rows, the slab attention at the ViT, the prefill and
 a ragged shape), the gemm at the fused decode step's four products (M =
 128 greedy and 384 beam-3 rows; phase_decode_gemm, this script's own copy
-for a tree that lacks it), phase 8 (phase_train_kernels: gemm[pre_out],
+for a tree that lacks it), the LayerNorm at the step's post-LN shapes
+(the same rows, f32 in, bf16 out; phase_decode_layer_norm, likewise),
+decode_attention at 384 px (the tree's phase_decode_attention: greedy and
+beam-3, back-to-back launches) and, for every tree the same way, bf16
+decode_attention per call from a CUDA graph at 384 and 512 px (greedy and
+beam-3; rows "decode_attention" case "graph ...") and the LayerNorm per
+call from CUDA graphs at the encoder, train and 512-px rows (rows
+"layer_norm" case "graph ..."; back-to-back launches of a kernel this
+short can time the host), phase 8 (phase_train_kernels: gemm[pre_out],
 gemm[dropout], attention with prob dropout and attention_bwd), phase 9
 (phase_highres_kernels: the gemm, LayerNorm and decode_attention rows at
 512 px, the slab attention past 1024 tokens), phase 10
 (phase_train512_kernels: the strided kernels on separate q, k, v past 1024
 tokens) and phase 11 (phase_flash_kernels: K9's forward on per-head views,
 rows attention[heads] at 577 and attention[online] at 1025, and its
-backward).  Then one flagship fused greedy batch at 384 px (B=64, bf16,
-VITCAP_DECODE_FUSED=1; host clock around synchronised work, median of 3
-after a warm-up, encode + prefill timed alone the same way), and the
+backward).  Then three flagship fused batches (B=64, bf16,
+VITCAP_DECODE_FUSED=1): greedy and beam-3 at 384 px, greedy on 512x512
+images against the 384-px weights (host clock around synchronised work,
+median of 3 after warm-ups, encode + prefill timed alone the same way;
+device busy time and idle share from torch.profiler over one more batch,
+the tree's _profile), and the
 flagship train step at 384 px and at 512 px (B=64, bf16, attention
 dropout 0.1), each built and checked by the tree's own phase_train_step
 (one warm-up step and its timed steps, with their exact launch counts;
@@ -45,7 +56,11 @@ ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
 STEPS = 6                     # train steps timed one by one per size
 # the rows printed per run and across the runs
-SHOWN = ("gemm", "attention", "serve", "train_step")
+SHOWN = ("gemm", "attention", "decode_attention", "layer_norm", "serve",
+         "train_step")
+# (case, context keys S, beams) of the CUDA-graph decode_attention rows
+DECODE_GRAPH = (("graph greedy 384", 628, 1), ("graph beam3 384", 628, 3),
+                ("graph greedy 512", 1076, 1), ("graph beam3 512", 1076, 3))
 
 
 def train_step_ms(cs, dev, smi, img=None):
@@ -70,31 +85,108 @@ def train_step_ms(cs, dev, smi, img=None):
     return statistics.median(times), out["step_ms"]
 
 
-def fused_greedy_ms(cs, dev):
-    """One flagship fused greedy batch at 384 px on the tree's model code:
-    (batch ms, encode + prefill ms), each the median of 3 synchronised
-    calls after a warm-up batch."""
+def fused_batches(cs, dev):
+    """Flagship fused batches on the tree's model code: greedy and beam-3
+    at 384 px, greedy on 512x512 images.  Per batch (case, batch ms,
+    encode + prefill ms, device busy ms, idle share): the batch and the
+    prefill each the median of 3 synchronised calls after a warm-up; the
+    busy time and idle share from the tree's _profile (its own median of
+    3, then one profiled batch)."""
     import numpy as np
     import torch
     from vitcap_tpu_torch.models import decode as TD
     cfg, model = cs._flagship(dev)
-    rs = np.random.RandomState(cs.SEED + 3)
-    imgs = torch.from_numpy(rs.randint(0, 256, (cs.B, cfg.img_size,
-                                                 cfg.img_size, 3))
-                            .astype(np.uint8)).to(dev)
-    od = torch.zeros(cs.B, cfg.max_seq_len - cfg.max_seq_a_len,
-                     dtype=torch.long, device=dev)
-    sl = torch.full((cs.B,), cfg.max_seq_a_len, device=dev)
-    opts = cs._opts(cfg)
-    with cs._engine(True):
-        TD.generate(model, imgs, od, None, sl, cfg, opts)
-        prefill = cs._median_ms(lambda: TD.build_decode_context(
-            model, imgs, od, None, sl, cfg, opts))
-        batch = cs._median_ms(lambda: TD.generate(model, imgs, od, None, sl,
-                                                  cfg, opts))
+    out = []
+    for case, img, beams in (("greedy fused 384", cfg.img_size, 1),
+                             ("beam3 fused 384", cfg.img_size, 3),
+                             ("greedy fused 512", cs.HIGHRES, 1)):
+        rs = np.random.RandomState(cs.SEED + 3)
+        imgs = torch.from_numpy(rs.randint(0, 256, (cs.B, img, img, 3))
+                                .astype(np.uint8)).to(dev)
+        od = torch.zeros(cs.B, cfg.max_seq_len - cfg.max_seq_a_len,
+                         dtype=torch.long, device=dev)
+        sl = torch.full((cs.B,), cfg.max_seq_a_len, device=dev)
+        opts = cs._opts(cfg, num_beams=beams) if beams > 1 else cs._opts(cfg)
+        with cs._engine(True):
+            TD.generate(model, imgs, od, None, sl, cfg, opts)
+            prefill = cs._median_ms(lambda: TD.build_decode_context(
+                model, imgs, od, None, sl, cfg, opts))
+            batch = cs._median_ms(lambda: TD.generate(model, imgs, od, None,
+                                                      sl, cfg, opts))
+            prof = cs._profile(f"ab_{case.replace(' ', '_')}",
+                               lambda: TD.generate(model, imgs, od, None, sl,
+                                                   cfg, opts))
+        out.append((case, batch, prefill, prof["device_busy_ms"],
+                    prof["idle_share"]))
+        del imgs
+        torch.cuda.empty_cache()
     del model
     torch.cuda.empty_cache()
-    return batch, prefill
+    return out
+
+
+def layer_norm_graph(own, dev, rows):
+    """The tree's layer_norm per call from a CUDA graph of 50 calls
+    (own.graph_ms) at the rows of phase_kernels, phase_train_kernels and
+    phase_highres_kernels (B=64, H=768): ln and post-ln f32-in at 592 and
+    1152 tokens an image, in bf16 and f32; with stats at 592 and 656
+    tokens; rows "graph ...", checked against the plain version."""
+    import torch
+    from vitcap_tpu_torch.ops.layer_norm import layer_norm, layer_norm_plain
+    g = torch.Generator().manual_seed(own.SEED + 17)
+    H = 768
+    cases = [(f"graph {name}{tag}", M, odt, idt or odt, st)
+             for odt in (torch.bfloat16, torch.float32)
+             for tag, M in (("", own.B * 592), (" long", own.B * 1152))
+             for name, idt, st in (("ln", None, False),
+                                   ("post-ln f32-in", torch.float32,
+                                    False))]
+    cases += [(f"graph stats {name}", own.B * L, odt, odt, True)
+              for odt in (torch.bfloat16, torch.float32)
+              for name, L in (("vit rows", 592), ("bert rows", 656))]
+    for case, M, odt, idt, st in cases:
+        x = (torch.randn(M, H, generator=g) * 3 + 1).to(dev, idt)
+        gm = (torch.randn(H, generator=g) + 1).to(dev)
+        bt = torch.randn(H, generator=g).to(dev)
+        out = layer_norm(x, gm, bt, 1e-6, odt, stats=st)
+        ref = layer_norm_plain(x, gm, bt, 1e-6, odt, stats=st)
+        err = own.compare(f"layer_norm {case}", out[0] if st else out,
+                          ref[0] if st else ref, odt)
+        ms = own.graph_ms(lambda: layer_norm(x, gm, bt, 1e-6, odt,
+                                             stats=st))
+        rows.append(dict(kernel="layer_norm", case=case,
+                         dtype="bf16" if odt == torch.bfloat16 else "f32",
+                         ms=ms, max_abs_err=err))
+        del x, out, ref
+        torch.cuda.empty_cache()
+
+
+def decode_attention_graph(own, dev, rows):
+    """The tree's bf16 decode_attention per call from a CUDA graph of 20
+    calls (own.graph_ms) at DECODE_GRAPH's geometries, own's flagship-
+    width inputs (B=64, 12 heads of 64, A=20, t=10), checked against the
+    plain version within the bf16 tolerance."""
+    import torch
+    from vitcap_tpu_torch.ops.decode_step import (decode_attention,
+                                                  decode_attention_plain)
+    g = torch.Generator().manual_seed(own.SEED + 5)
+    dt, nh, A, t = torch.bfloat16, 12, 20, 10
+    t_dev = torch.tensor([t], dtype=torch.int32, device=dev)
+    for case, S, nb in DECODE_GRAPH:
+        d = own._decode_attention_inputs(dev, dt, nb, t, S, A, 768, g)
+        caps = [d["cap_k"].clone(), d["cap_v"].clone()]
+        args = (d["ctx_k"], d["ctx_v"], d["bias"])
+        out = decode_attention(d["qkv"], *caps, *args, t_dev, nh)
+        ref = decode_attention_plain(d["qkv"], d["cap_k"], d["cap_v"], *args,
+                                     t, nh)
+        err = own.compare(f"decode_attention {case}", out, ref, dt)
+        ms = own.graph_ms(lambda: decode_attention(d["qkv"], *caps, *args,
+                                                   t_dev, nh), 20)
+        rows.append(dict(kernel="decode_attention", case=case, dtype="bf16",
+                         ms=ms, max_abs_err=err,
+                         bit_equal=(out == ref).float().mean().item()))
+        del d, caps, out, ref
+        torch.cuda.empty_cache()
 
 
 def _own_chip_smoke():
@@ -122,20 +214,29 @@ def worker(tree: str) -> None:
     dev = torch.device("cuda:0")
     cs.phase_build()
     rows = []
+    own = _own_chip_smoke()
     cs.phase_kernels(dev, rows)
     decode_gemm = getattr(cs, "phase_decode_gemm", None)
-    (decode_gemm or _own_chip_smoke().phase_decode_gemm)(dev, rows)
+    (decode_gemm or own.phase_decode_gemm)(dev, rows)
+    decode_ln = getattr(cs, "phase_decode_layer_norm", None)
+    (decode_ln or own.phase_decode_layer_norm)(dev, rows)
+    cs.phase_decode_attention(dev, rows)
+    decode_attention_graph(own, dev, rows)
+    layer_norm_graph(own, dev, rows)
     cs.phase_train_kernels(dev, rows)
     cs.phase_highres_kernels(dev, rows)
     cs.phase_train512_kernels(dev, rows)
     cs.phase_flash_kernels(dev, rows)
     torch.cuda.empty_cache()
     smi = cs.phase_host()
-    batch, prefill = fused_greedy_ms(cs, dev)
-    rows.append(dict(kernel="serve", case="greedy fused 384", dtype="bf16",
-                     ms=batch))
-    rows.append(dict(kernel="serve", case="encode+prefill 384",
-                     dtype="bf16", ms=prefill))
+    for case, batch, prefill, busy, idle in fused_batches(cs, dev):
+        rows.append(dict(kernel="serve", case=case, dtype="bf16", ms=batch,
+                         device_busy_ms=busy, idle_share=idle))
+        rows.append(dict(kernel="serve", case=f"encode+prefill "
+                         f"{case.split()[-1]} {case.split()[0]}",
+                         dtype="bf16", ms=prefill))
+        rows.append(dict(kernel="serve", case=f"{case} busy", dtype="bf16",
+                         ms=busy))
     for case, img in (("384 px", None), ("512 px", cs.HIGHRES)):
         med, mean = train_step_ms(cs, dev, smi, img)
         rows.append(dict(kernel="train_step", case=case, dtype="bf16",
@@ -166,9 +267,11 @@ def main() -> int:
         runs.append({"run": i, "tree": tree, "rows": rows})
         for r in rows:
             if r["kernel"].startswith(SHOWN):
+                idle = (f"  idle share {r['idle_share']:.4f}"
+                        if "idle_share" in r else "")
                 print(f"[ab] run {i} {tree:24s} {r['kernel']:24s} "
-                      f"{r['case']:24s} {r['dtype']:4s} {r['ms']:.4f} ms",
-                      flush=True)
+                      f"{r['case']:24s} {r['dtype']:4s} {r['ms']:.4f} ms"
+                      f"{idle}", flush=True)
     print("[ab] ms per run, in the order given", flush=True)
     by_run = [{(r["kernel"], r["case"], r["dtype"]): r["ms"]
                for r in run["rows"]} for run in runs]

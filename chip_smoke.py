@@ -6,7 +6,9 @@
 Phases (each prints its lines; any failure raises, so the exit code is not 0):
 1. host facts: card name and power limit, CUDA, nvcc, Triton;
 2. build the CUDA kernels from vitcap_tpu_torch/csrc; print the bf16
-   gemm, attention and attention_bwd kernels' launch configuration
+   gemm, attention and attention_bwd kernels', the layer_norm kernel's
+   and the decode_attention kernels' (at the 384-px beam-3 and the 512-px
+   greedy geometry, with their cluster plan) launch configuration
    (registers, local bytes, shared memory per block, resident blocks per
    SM);
 3. each kernel vs its plain PyTorch version on the card, at the flagship
@@ -15,9 +17,12 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
    PyTorch call computing the same function (the yardstick); bf16 gemm
    and attention at least 99% bit-equal to their plain versions; the gemm
    at the fused decode step's four products (M = 128 greedy and 384
-   beam-3 rows, bf16, timed per call from a CUDA graph of many calls);
-   decode_attention at the greedy (64 rows) and beam-3 (192 rows)
-   geometries, S=628, A=20, t=10;
+   beam-3 rows, bf16, timed per call from a CUDA graph of many calls)
+   and the LayerNorm at the step's post-LN shapes (the same rows, f32 in,
+   bf16 out, timed the same way); decode_attention at the greedy (64
+   rows) and beam-3 (192 rows) geometries, S=628, A=20, t=10 (bf16 at
+   least 99% bit-equal to the plain version on the cluster kernel; timed
+   back to back and from a CUDA graph);
 4. the fused ViT and BERT blocks vs the plain PyTorch blocks, and one
    fused decode step of the 4 decoder layers vs its plain version;
 5. the greedy path: a CaptionServer (batch 64, bf16, random weights from a
@@ -328,7 +333,8 @@ def phase_build():
     """Build the kernels; print ptxas's registers and spills, and the bf16
     gemm, attention and attention_bwd kernels' launch configuration
     (returned)."""
-    from vitcap_tpu_torch.ops import _build, attention, attention_bwd, gemm
+    from vitcap_tpu_torch.ops import (_build, attention, attention_bwd,
+                                      decode_step, gemm, layer_norm)
     _build.library()
     log(f"[build] {_build.build_info['seconds']:.1f} s -> "
         f"{_build.build_info['path']}")
@@ -341,9 +347,14 @@ def phase_build():
         log(f"[build] ptxas spill: {k['spill_bytes']} bytes, "
             f"{k['registers']} registers: {k['name'][:90]}")
     launch = (gemm.kernel_info() + attention.kernel_info()
-              + attention_bwd.kernel_info())
+              + attention_bwd.kernel_info() + layer_norm.kernel_info()
+              + decode_step.kernel_info(628, 3) + decode_step.kernel_info(1076,
+                                                                           1))
     for k in launch:
-        log(f"[build] launch {k['name']}: {k['threads']} threads, "
+        geo = (f" (S={k['S']} nb={k['nb']}: {k['ranks']} ranks of "
+               f"{k['keys_per_rank']} keys, capacity {k['keys_max']})"
+               if "S" in k else "")
+        log(f"[build] launch {k['name']}{geo}: {k['threads']} threads, "
             f"{k['registers']} registers, {k['local_bytes']} local (spill) "
             f"bytes, {k['shared_bytes']} shared bytes per block, "
             f"{k['blocks_per_sm']} blocks per SM")
@@ -575,6 +586,39 @@ def phase_decode_gemm(dev, rows):
             f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
 
 
+def phase_decode_layer_norm(dev, rows):
+    """The LayerNorm at the fused decode step's post-LN shapes (M = 128
+    greedy and 384 beam-3 rows, H = 768, the f32 sublayer sum in, bf16
+    out) vs its plain version, within the bf16 tolerance (bit-equal share
+    recorded); kernel, plain and F.layer_norm times per call from CUDA
+    graphs (graph_ms)."""
+    from vitcap_tpu_torch.ops.layer_norm import layer_norm, layer_norm_plain
+    g = torch.Generator().manual_seed(SEED + 13)
+    H, dt = 768, torch.bfloat16
+    first = len(rows)
+    for run, M in DECODE_GEMM_ROWS.items():
+        x = (torch.randn(M, H, generator=g) * 3 + 1).to(dev)
+        gm = (torch.randn(H, generator=g) + 1).to(dev)
+        bt = torch.randn(H, generator=g).to(dev)
+        out = layer_norm(x, gm, bt, 1e-12, dt)
+        ref = layer_norm_plain(x, gm, bt, 1e-12, dt)
+        err = compare(f"layer_norm decode {run}", out, ref, dt)
+        eq = (out == ref).float().mean().item()
+        ms = graph_ms(lambda: layer_norm(x, gm, bt, 1e-12, dt))
+        pms = graph_ms(lambda: layer_norm_plain(x, gm, bt, 1e-12, dt))
+        lms = graph_ms(lambda: F.layer_norm(x, (H,), gm, bt, 1e-12))
+        _row(rows, "layer_norm", f"decode post-ln {run}", "bf16",
+             f"rows={M} H={H} f32 in", err, ms, pms, lms, 8.0 * M * H,
+             M * H * (4 + 2) + 8 * H)
+        rows[-1]["bit_equal"] = eq
+    for r in rows[first:]:
+        log(f"[kernel] layer_norm {r['case']:24s} {r['shape']:24s} err "
+            f"{r['max_abs_err']:.3e}  bit-equal {r['bit_equal']:.6f}  kernel "
+            f"{r['ms'] * 1e3:.2f} us  plain {r['plain_ms'] * 1e3:.2f} us  "
+            f"F.layer_norm {r['library_ms'] * 1e3:.2f} us  bound "
+            f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
+
+
 def _decode_attention_inputs(dev, dtype, nb, t, S=628, A=20, H=768, g=None):
     """Flagship-width decode_attention inputs for B images of nb beams:
     window qkv, caption caches with history before slot t-1, context K/V,
@@ -618,9 +662,12 @@ def _sdpa_decode_inputs(d, t, nh=12):
 def phase_decode_attention(dev, rows, S=628, tag=""):
     """decode_attention vs its plain version at the greedy (nb=1) and
     beam-3 geometries, S context tokens (628 at 384 px), A=20, t=10, bf16
-    and f32; `tag` is appended to the case names."""
+    and f32; `tag` is appended to the case names.  bf16 on the cluster
+    kernel: at least 99% of outputs bit-equal.  ms: back-to-back launches
+    (cuda_ms); graph_ms: per call from a CUDA graph."""
     from vitcap_tpu_torch.ops.decode_step import (decode_attention,
-                                                  decode_attention_plain)
+                                                  decode_attention_plain,
+                                                  plan)
     g = torch.Generator().manual_seed(SEED + 5)
     nh, A, t, H = 12, 20, 10, 768
     t_dev = torch.tensor([t], dtype=torch.int32, device=dev)
@@ -641,11 +688,18 @@ def phase_decode_attention(dev, rows, S=628, tag=""):
                     and torch.equal(caps[1], d["cap_v"])):
                 raise AssertionError(f"decode_attention {case} {dn}: "
                                      f"caption caches differ from plain")
+            eq = (out == ref).float().mean().item()
+            ranks = plan(S, nb, H // nh, A, dtype).ranks
+            if ranks and eq < 0.99:
+                raise AssertionError(f"decode_attention {case} {dn}: only "
+                                     f"{eq:.4f} of outputs bit-equal")
             lib = F.scaled_dot_product_attention(*sdpa[:3],
                                                  attn_mask=sdpa[3])
             lib_err = (lib.transpose(1, 2).reshape(Bb, 2, H).float()
                        - ref.float()).abs().max().item()
             ms = cuda_ms(lambda i: decode_attention(d["qkv"], *caps, *args,
+                                                    t_dev, nh), 20)
+            gms = graph_ms(lambda: decode_attention(d["qkv"], *caps, *args,
                                                     t_dev, nh), 20)
             pms = cuda_ms(lambda i: decode_attention_plain(
                 d["qkv"], *caps, *args, t, nh), 5)
@@ -661,8 +715,10 @@ def phase_decode_attention(dev, rows, S=628, tag=""):
                  f"B={B} nb={nb} S={S} A={A} t={t} heads=12x64", err, ms,
                  pms, lms, flops, nbytes)
             r = rows[-1]
+            r.update(bit_equal=eq, graph_ms=gms, ranks=ranks)
             log(f"[decode_attention] {case + tag:11s} {dn:4s} err {err:.3e} "
-                f"(SDPA vs plain {lib_err:.3e})  kernel {ms:.4f} ms  "
+                f"(SDPA vs plain {lib_err:.3e})  bit-equal {eq:.6f}  "
+                f"ranks {ranks}  kernel {ms:.4f} ms (graph {gms:.4f})  "
                 f"plain {pms:.4f} ms  SDPA {lms:.4f} ms  bound "
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
                 f"{nbytes / 1e6:.1f} MB)")
@@ -2387,6 +2443,7 @@ def main() -> int:
     rows = []
     phase_kernels(dev, rows)
     phase_decode_gemm(dev, rows)
+    phase_decode_layer_norm(dev, rows)
     phase_decode_attention(dev, rows)
     phase_blocks(dev, rows)
     phase_decode_step(dev, rows)

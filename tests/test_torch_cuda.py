@@ -24,7 +24,7 @@ from vitcap_tpu_torch.ops.decode_step import (decode_attention,
                                               fused_decode_step,
                                               fused_decode_step_plain,
                                               pack_decode_context,
-                                              pack_decode_layers)
+                                              pack_decode_layers, plan)
 from vitcap_tpu_torch.ops.fused_block import fused_bert_block, fused_vit_block
 from vitcap_tpu_torch.ops.gemm import gemm, gemm_plain
 from vitcap_tpu_torch.ops.layer_norm import layer_norm, layer_norm_plain
@@ -209,6 +209,39 @@ def test_cuda_bf16_gemm_deterministic(cuda, M, K, N):
     for kw in (dict(f32_sum=True, residual=r, out_f32=True),
                dict(gelu=True)):
         assert torch.equal(gemm(a, w, b, **kw), gemm(a, w, b, **kw))
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_and_layer_norm_kernel_info(cuda):
+    """kernel_info() reads every listed kernel's launch configuration: the
+    kernels fit at least one block an SM at the 384-px beam-3 plan.  Read
+    at a small geometry, it leaves the kernels able to launch at larger
+    ones (f32 and bf16, the simple and the cluster kernel)."""
+    from vitcap_tpu_torch.ops import decode_step as DS
+    from vitcap_tpu_torch.ops import layer_norm as LN
+    ln = LN.kernel_info()
+    assert len(ln) == 4
+    da = DS.kernel_info(628, 3)
+    assert [k["name"].split("<")[0] for k in da] == [
+        "decode_attention_cluster_kernel"] * 2 + [
+        "decode_attention_simple_kernel"] * 2
+    for k in ln + da:
+        assert k["blocks_per_sm"] >= 1 and k["registers"] <= 255, k
+    assert da[0]["ranks"] == 5
+    DS.kernel_info(70, 1, 6)
+    B, nb, nh, S, A, t = 1, 3, 2, 628, 20, 5
+    for dtype in (torch.float32, torch.bfloat16):
+        d = _decode_inputs(cuda, dtype, B, nb, 128, S, A, seed=9)
+        qkv = torch.randn(B * nb, 2, 384, generator=torch.Generator()
+                          .manual_seed(9)).to(cuda, dtype)
+        bias = torch.where(d["valid"], 0.0, -10000.0).float().contiguous()
+        caps = [d["cap_k"].clone(), d["cap_v"].clone()]
+        out = decode_attention(qkv, *caps, d["ctx_k"], d["ctx_v"], bias,
+                               torch.tensor([t], dtype=torch.int32,
+                                            device=cuda), nh)
+        _close(out, decode_attention_plain(qkv, d["cap_k"], d["cap_v"],
+                                           d["ctx_k"], d["ctx_v"], bias, t,
+                                           nh), dtype)
 
 
 @pytest.mark.cuda
@@ -406,12 +439,21 @@ def _decode_inputs(dev, dtype, B, nb, H, S, A, nL=None, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd,nb,S", [(8, 1, 70), (64, 1, 70), (64, 3, 70),
                                      (128, 8, 70), (32, 10, 70),
-                                     (64, 4, 2000)])
+                                     (64, 4, 2000), (64, 10, 70),
+                                     (64, 3, 628), (128, 3, 628),
+                                     (64, 1, 1076), (64, 8, 1076),
+                                     (128, 1, 2000), (64, 1, 200),
+                                     (64, 3, 780)])
 def test_cuda_decode_attention_matches_plain(cuda, dtype, hd, nb, S):
     """Output and the in-place caption-cache write, every head size the
-    kernel is built for, one to ten beams per image (more than 16 window
-    rows take a second pass over V), a context long enough to need more
-    than 48 KB of shared memory, t at both ends."""
+    kernels are built for, one to ten beams per image (more than 16 window
+    rows take a second pass over V, or a second row tile), contexts that
+    take every cluster size plan() picks here (1, 2, 5, 6, 8 ranks) and
+    one that needs more than 48 KB of shared memory, t at both ends; bf16
+    on the cluster kernel at least 99% bit-equal up to the main path's
+    1076 keys (past them, sums of 2000 random products move more values
+    by one ulp: the tensor cores' truncating adds reach the rounded
+    probabilities)."""
     B, nh, A = 3, 2, 6
     H = nh * hd
     for t in (1, 4, A):
@@ -429,8 +471,64 @@ def test_cuda_decode_attention_matches_plain(cuda, dtype, hd, nb, S):
         torch.cuda.synchronize()
         assert ops.launch_counts()["decode_attention"] == 1
         _close(out, ref, dtype)
+        if plan(S, nb, hd, A, dtype).ranks and S <= 1076:
+            assert (out == ref).float().mean().item() >= 0.99
         assert torch.equal(caps[0], d["cap_k"])
         assert torch.equal(caps[1], d["cap_v"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,nb", [(628, 3), (1076, 1)])
+def test_cuda_decode_attention_deterministic_in_a_graph(cuda, S, nb):
+    """The cluster kernel gives the same bits on every call, and a CUDA
+    graph captured at one t serves another: t is read on the card."""
+    B, nh, hd, A = 2, 2, 64, 20
+    H = nh * hd
+    d = _decode_inputs(cuda, torch.bfloat16, B, nb, H, S, A, seed=S)
+    qkv = torch.randn(B * nb, 2, 3 * H, generator=torch.Generator()
+                      .manual_seed(7)).to(cuda, torch.bfloat16)
+    bias = torch.where(d["valid"], 0.0, -10000.0).float().contiguous()
+    t_dev = torch.tensor([3], dtype=torch.int32, device=cuda)
+    caps = [d["cap_k"].clone(), d["cap_v"].clone()]
+    args = (qkv, *caps, d["ctx_k"], d["ctx_v"], bias, t_dev, nh)
+    first = decode_attention(*args)
+    assert torch.equal(decode_attention(*args), first)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_attention(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention(*args)
+    for t in (3, 1, A):
+        t_dev.fill_(t)
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = decode_attention_plain(qkv, d["cap_k"], d["cap_v"],
+                                     d["ctx_k"], d["ctx_v"], bias, t, nh)
+        assert (out == ref).float().mean().item() >= 0.99, t
+        _close(out, ref, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [100, 136, 768, 1032])
+@pytest.mark.parametrize("rows", [1, 7, 131])
+def test_cuda_layer_norm_paths_match_plain(cuda, H, rows):
+    """Both loops of the kernel (vector: H 136, 768; scalar: H 100 not a
+    multiple of 8, 1032 past the registers' 1024), row counts off the
+    block's 4 rows, every dtype pair, with and without stats."""
+    g = torch.Generator().manual_seed(H + rows)
+    w = (torch.randn(H, generator=g) + 1).to(cuda)
+    b = torch.randn(H, generator=g).to(cuda)
+    for in_dt in (torch.float32, torch.bfloat16):
+        x = (torch.randn(rows, H, generator=g) * 3 + 1).to(cuda, in_dt)
+        for out_dt in (torch.float32, torch.bfloat16):
+            got = layer_norm(x, w, b, 1e-6, out_dt, stats=True)
+            want = layer_norm_plain(x, w, b, 1e-6, out_dt, stats=True)
+            for o, w_ in zip(got, want):
+                _close(o, w_, o.dtype)
+            _close(layer_norm(x, w, b, 1e-6, out_dt), want[0], out_dt)
 
 
 @pytest.mark.cuda

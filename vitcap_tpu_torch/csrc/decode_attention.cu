@@ -19,23 +19,615 @@
 //   compute dtype, the MASK row's own term stays f32, the denominator sums
 //   the unrounded f32 values;
 // - the output divided by the denominator, rounded to the compute dtype.
+// The step index t is read from device memory, so a launch does not depend
+// on a host value.
 //
 // What bounds it on the H100: the context K/V, (B, S, H) each, is the
-// traffic (2 * B * S * H elements per layer, 124 MB at the flagship's B=64,
-// S=628, bf16), against about 4 * S * hd flops per query row: far below the
-// card's ops-per-byte line, so device-memory bandwidth bounds it.  Design:
-// one block per (head, image) serves all 2 * nb query rows of that image's
-// beams, so each image's context is read once and not once per beam.  Scores
-// use groups of lanes per key (one 16-byte load per lane, a shuffle reduction
-// inside the group); the f32 scores and probabilities stay in shared memory
-// (2 * nb * S floats, so S up to about 3,500 at nb = 8); the value product
-// gives each warp a share of the keys and each lane a slice of the head
-// dimension, with the per-row sums of 16 rows at a time in registers, then
-// one reduction through shared memory.  The step index t is
-// read from device memory so the launch does not depend on a host value.
+// traffic (2 * B * S * H elements per layer: 124 MB at the flagship's B=64,
+// S=628, bf16; 212 MB at 512 px, S=1076), against about 4 * S * hd flops
+// per window row: far below the card's ops-per-byte line, so device-memory
+// bandwidth bounds it, and the kernel has to keep enough bytes in flight
+// (about 20 KB per SM by Little's law at ~0.8 us of latency) and not wait
+// on its own phases.
+//
+// bf16 at hd 64 and 128 (up to 16 beams): decode_attention_cluster_kernel.
+// Grid (ranks, heads, images), a thread-block cluster of `ranks` blocks
+// (at most 8) per (head, image), each rank a contiguous range of context
+// keys (plan() in ops/decode_step.py picks ranks and the range from the
+// shape, never from t: about 144 keys a rank, 5 ranks at S = 628, 8 at
+// 1076); the last rank also takes the beams' caption keys (slots < t, slot
+// t-1 read from the window), so the caption is one more key range whose
+// scores are masked to their own beam.  A rank:
+// - issues 16-byte cp.async loads of all its K rows, then all its V rows
+//   (three commit groups, zero-filled past its keys), so the V bytes are
+//   in flight while the scores are computed: 33-37 KB a block at the
+//   flagship's shapes (130-146 keys of 256 bytes), four blocks an SM
+//   (54 KB of shared memory each); only the last rank reads t, after its
+//   context loads are issued; the bias and the MASK rows' own k and v go
+//   to shared memory while the rows fly;
+// - computes its scores on the tensor cores, mma.sync m16n8k16 bf16 with
+//   f32 accumulators, transposed: 16 keys as M against the window rows as
+//   N = 8 (an image's beams: 2 rows greedy, 6 beam-3, up to 4 tiles of 8),
+//   so few rows waste little; q and K through ldmatrix from rows padded
+//   by 16 bytes (no bank conflicts); each mma sums its 16 products from
+//   zero and an IEEE add takes it into the running f32 sum; adds the bias
+//   or the caption mask, keeps the scores in shared memory and its
+//   per-row max;
+// - exchanges the per-row maxes with the other ranks: each rank writes
+//   its maxes into every rank's shared memory (distributed shared memory)
+//   and arrives on that rank's mbarrier, then waits on its own while its
+//   V rows land.  No online rescaling: every probability is exp(s -
+//   m_global) (ex2.approx, as the forward attention kernels compute it)
+//   rounded once, as the plain version rounds it;
+// - each warp turns its own scores into bf16 probabilities (the
+//   denominator sums the f32 values: per lane, over a row's lanes, over
+//   the warps in order) and the block forms its partial o^T = V^T P^T on
+//   the tensor cores (V through ldmatrix.trans), the warps splitting the
+//   head dimension;
+// - the last rank adds the MASK row's own term (products rounded, f32
+//   probability) and writes the prev rows' k/v into the caption caches;
+// - every other rank pushes its partial outputs and denominators into the
+//   last rank's shared memory (its dead K rows), each thread arriving on
+//   the last rank's mbarrier after its own writes, and leaves at once; the
+//   last rank sums the partials in rank order, divides, rounds once and
+//   stores 16 bytes at a time.
+// One launch per layer and step, no workspace, the same bits every call.
+// What holds it back on the card (throwaway builds that stamped the
+// global timer at each step): a block spends under half its life waiting
+// for its K rows and the rest in a chain of dependent steps (scores, the
+// exchange, the probabilities, P.V, the push) that four blocks an SM do
+// not hide.
+//
+// f32, and bf16 at hd 8/16/32 (or more than 16 beams, or a context too
+// long for the cluster kernel's shared memory):
+// decode_attention_simple_kernel, the first design: one block per (head,
+// image) serves all 2 * nb window rows, the f32 scores and probabilities
+// in shared memory, CUDA-core products.
 #include <math.h>
 
-#include "common.cuh"
+#include <cooperative_groups.h>
+
+#include "wgmma.cuh"
+
+namespace cg = cooperative_groups;
+
+template <typename T>
+__device__ __forceinline__ float rnd(float x) {  // round to T, back to f32
+  return to_f32(from_f32<T>(x));
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// bf16, hd 64 and 128: the context split over a thread-block cluster
+// ---------------------------------------------------------------------------
+
+constexpr int DC_THREADS = 128;
+constexpr int DC_WARPS = DC_THREADS / 32;
+constexpr int DC_MAX_RANKS = 8;  // the portable cluster size
+constexpr int DC_KEYS = 16;      // keys per group (mma's K of P.V)
+constexpr size_t DC_SMEM_LIMIT = 232448;  // a block's shared bytes, H100
+
+// Shared memory of one block, in bytes, for NR tiles of 8 window rows (R
+// of them used), `kmax` keys (a multiple of 16) and `ranks` ranks;
+// ops/decode_step.py cluster_smem repeats it.  K and V rows, q rows and P rows are padded by 16 bytes (ldmatrix
+// reads eight rows an odd number of 16-byte units apart: no bank
+// conflicts).  Once the scores are formed the K rows are dead, and on the
+// last rank the other ranks push their partial outputs and denominators
+// there.
+struct DcLayout {
+  int kst, sst, pst;  // K/V/q row, score row, P row strides (elements)
+  size_t k, v, q, kvw, bs, s, p, stat, bar, total;  // byte offsets, size
+  __host__ __device__ DcLayout(int hd, int nr, int kmax, int ranks, int R) {
+    const int rows = 8 * nr, prows = rows > 16 ? rows : 16;
+    kst = hd + 8;
+    sst = kmax + 4;
+    pst = kmax + 8;
+    const size_t kbytes = (size_t)kmax * kst * 2;
+    // on the last rank: the other ranks' partial outputs and sums
+    const size_t recv = (size_t)(ranks - 1) * R * (hd + 1) * 4;
+    k = 0;
+    v = k + (kbytes > recv ? kbytes : recv);
+    q = v + kbytes;
+    kvw = q + (size_t)rows * kst * 2;  // the MASK rows' own k, then v
+    bs = kvw + (size_t)rows * hd * 2;  // per key: bias, 0 or -inf
+    s = bs + (size_t)kmax * 4;
+    // the f32 scores, then (once they are probabilities) the partial
+    // outputs: rows x hd floats
+    p = s + (size_t)rows * (sst > hd ? sst : hd) * 4;
+    stat = p + (size_t)prows * pst * 2;
+    // per row: DC_WARPS partial maxes (then sums), local max, sum, self
+    // score, its exp, and every rank's max
+    bar = stat + (size_t)rows * (DC_WARPS + 4 + DC_MAX_RANKS) * 4;
+    total = bar + 16;  // two mbarriers
+  }
+};
+
+// distributed shared memory and cluster-scope barriers (sm_90)
+__device__ __forceinline__ uint32_t cluster_addr(const void* local,
+                                                 int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(smem_u32(local)), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v)
+               : "memory");
+}
+__device__ __forceinline__ void st_cluster(uint32_t addr, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+// one arrival on a cluster rank's mbarrier, releasing this thread's writes
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t addr) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          addr)
+      : "memory");
+}
+// wait for phase 0 of a local mbarrier, acquiring the arrivals' writes
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar) {
+  asm volatile(
+      "{\n.reg .pred p;\nDC_WAIT_%=:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], 0;\n"
+      "@!p bra DC_WAIT_%=;\n}\n" ::"r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// d += a . b for one m16n8k16 step (bf16 operands): the tensor cores sum
+// the 16 products from zero, and the f32 add to d is an IEEE one, so a
+// long sum does not gather the tensor cores' alignment truncation step
+// after step
+__device__ __forceinline__ void mma_add(float (&d)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  float c0, c1, c2, c3;
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %11, %12, %13};\n"
+      : "=f"(c0), "=f"(c1), "=f"(c2), "=f"(c3)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.0f), "f"(0.0f), "f"(0.0f), "f"(0.0f));
+  d[0] += c0;
+  d[1] += c1;
+  d[2] += c2;
+  d[3] += c3;
+}
+
+// Block (rank, h, b) of a cluster of `ranks` blocks along x.  Rank q takes
+// the context keys [q kpr, min(S, (q + 1) kpr)), the last rank those from
+// (ranks - 1) kpr to S and the caption keys c = j t + a of beam j, slot
+// a < t.  kmax: the key capacity of the shared buffers (a multiple of 16,
+// at least every rank's count).  NR: tiles of 8 window rows (2 nb <= 8 NR).
+// The products run transposed, keys (and head columns) as mma's M and
+// the window rows as its N = 8, so an image's few rows waste little:
+// S^T = K q^T per 16 keys, o^T = V^T P^T per 16 head columns.
+template <int HD, int NR>
+__global__ void __launch_bounds__(DC_THREADS, NR == 1 ? 4 : 2)
+    decode_attention_cluster_kernel(const bf16* __restrict__ qkv, bf16* cap_k,
+                                    bf16* cap_v, const bf16* __restrict__ ctx_k,
+                                    const bf16* __restrict__ ctx_v,
+                                    const float* __restrict__ bias,
+                                    const int* __restrict__ t_ptr,
+                                    bf16* __restrict__ out, int nb, int S,
+                                    int A, int H, float scale, int kpr,
+                                    int kmax) {
+  constexpr int U = HD / 8;              // 16-byte units per head row
+  constexpr int RP = 8 * NR;             // window rows, padded
+  constexpr int MTW = HD / 16 / DC_WARPS;  // P.V tiles of 16 columns a warp
+  static_assert(MTW >= 1, "a warp takes at least 16 head columns");
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank(), ranks = (int)cl.num_blocks();
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int R = 2 * nb;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const size_t H3 = 3 * (size_t)H;
+  const bool last = rank == ranks - 1;
+  const int c0 = min(S, rank * kpr);
+  const int nctx = last ? S - c0 : min(S, c0 + kpr) - c0;
+
+  extern __shared__ __align__(16) unsigned char dc_smem[];
+  const DcLayout L(HD, NR, kmax, ranks, R);
+  bf16* ks = reinterpret_cast<bf16*>(dc_smem + L.k);
+  bf16* vs = reinterpret_cast<bf16*>(dc_smem + L.v);
+  bf16* qs = reinterpret_cast<bf16*>(dc_smem + L.q);
+  bf16* kvw = reinterpret_cast<bf16*>(dc_smem + L.kvw);
+  float* bs = reinterpret_cast<float*>(dc_smem + L.bs);
+  float* ss = reinterpret_cast<float*>(dc_smem + L.s);
+  float* part = ss;  // the partial outputs, once the scores are spent
+  bf16* ps = reinterpret_cast<bf16*>(dc_smem + L.p);
+  float* red = reinterpret_cast<float*>(dc_smem + L.stat);
+  float* m_loc = red + DC_WARPS * RP;
+  float* l_loc = m_loc + RP;
+  float* s_self = l_loc + RP;
+  float* p_self = s_self + RP;
+  float* m_all = p_self + RP;  // [rank][row]: pushed by every rank
+  // on the last rank: pushed by rank q < ranks - 1, its partial outputs
+  // [q][row < R][HD] and sums [q][row]
+  float* recv_o = reinterpret_cast<float*>(dc_smem + L.k);
+  float* recv_l = recv_o + (size_t)(ranks - 1) * R * HD;
+  // mbarriers: every rank's maxes are here; (last rank) every other
+  // rank's partials are here
+  uint64_t* mb = reinterpret_cast<uint64_t*>(dc_smem + L.bar);
+  if (tid == 0) {
+    mbar_init(smem_u32(mb), ranks);
+    mbar_init(smem_u32(mb + 1), ranks > 1 ? (ranks - 1) * DC_THREADS : 1);
+    mbar_fence_init();
+  }
+  // every block's barriers initialised before any rank arrives on them
+  // (the matching wait sits before the first remote access)
+  cluster_arrive_relaxed();
+
+  // window rows of image b: row r is window row r % 2 of beam r / 2
+  const bf16* win = qkv + (size_t)b * R * H3 + h * HD;
+  const size_t cap0 = (size_t)b * nb * A * H + h * HD;  // beam 0, slot 0
+  const bf16* kx = ctx_k + ((size_t)b * S + c0) * H + h * HD;
+  const bf16* vx = ctx_v + ((size_t)b * S + c0) * H + h * HD;
+
+  // 1. three cp.async groups: the context's K rows; the caption's K rows
+  //    (last rank: slot t-1 from the window) and the MASK rows' own k and
+  //    v; every V row.  Only the last rank reads t (the MASK row's
+  //    position; prev sits at t - 1), after its context loads are issued,
+  //    so no rank's loads wait on it.
+  for (int i = tid; i < nctx * U; i += DC_THREADS)
+    cp_async16(smem_u32(ks + (i / U) * L.kst + 8 * (i % U)),
+               kx + (size_t)(i / U) * H + 8 * (i % U), 16);
+  cp_commit();
+  const int t = last ? *t_ptr : 1;
+  if (t < 1 || t > A) __trap();
+  const int nk = nctx + (last ? nb * t : 0);
+  const int nkp = (nk + DC_KEYS - 1) / DC_KEYS * DC_KEYS;
+  const int G = nkp / DC_KEYS;
+  // caption key c: beam c / t, slot c % t (slot t-1: the window's prev row)
+  auto cap_src = [&](int c, int part_off, const bf16* cap) -> const bf16* {
+    const int j = c / t, a = c % t;
+    if (a == t - 1) return win + (size_t)2 * j * H3 + part_off;
+    return cap + cap0 + ((size_t)j * A + a) * H;
+  };
+  for (int i = tid; i < (nkp - nctx) * U; i += DC_THREADS) {
+    const int k = nctx + i / U, u = i % U;
+    const bool on = k < nk;
+    cp_async16(smem_u32(ks + k * L.kst + 8 * u),
+               on ? cap_src(k - nctx, H, cap_k) + 8 * u : ctx_k, on ? 16 : 0);
+  }
+  if (last)
+    for (int i = tid; i < 2 * nb * U; i += DC_THREADS) {
+      const int kv = i / (nb * U), j = i / U % nb, u = i % U;
+      cp_async16(smem_u32(kvw + (kv * (RP / 2) + j) * HD + 8 * u),
+                 win + (size_t)(2 * j + 1) * H3 + (1 + kv) * H + 8 * u, 16);
+    }
+  cp_commit();
+  for (int i = tid; i < nkp * U; i += DC_THREADS) {
+    const int k = i / U, u = i % U;
+    const bf16* src = k < nctx ? vx + (size_t)k * H
+                      : k < nk ? cap_src(k - nctx, 2 * H, cap_v)
+                               : ctx_v;
+    cp_async16(smem_u32(vs + k * L.kst + 8 * u), src + (k < nk ? 8 * u : 0),
+               k < nk ? 16 : 0);
+  }
+  cp_commit();
+
+  // 2. while those fly: per key the bias (context), 0 (caption) or -inf
+  //    (past the keys); the scaled q rows (zero rows past R); the last rank
+  //    writes each beam's prev k/v into its caption cache (this launch
+  //    reads slot t-1 from the window, never from the cache)
+  for (int k = tid; k < nkp; k += DC_THREADS)
+    bs[k] = k < nctx ? bias[(size_t)b * S + c0 + k] : k < nk ? 0.0f
+                                                            : -INFINITY;
+  const float sc = rnd<bf16>(scale);
+  for (int i = tid; i < RP * U; i += DC_THREADS) {
+    const int r = i / U, u = i % U;
+    uint4 w = make_uint4(0, 0, 0, 0);
+    if (r < R) {
+      w = *reinterpret_cast<const uint4*>(win + r * H3 + 8 * u);
+      __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(&w);
+#pragma unroll
+      for (int e = 0; e < 4; e++) {
+        const float2 f = __bfloat1622float2(x[e]);
+        x[e] = __floats2bfloat162_rn(rnd<bf16>(f.x * sc),
+                                     rnd<bf16>(f.y * sc));
+      }
+    }
+    *reinterpret_cast<uint4*>(qs + r * L.kst + 8 * u) = w;
+  }
+  if (last) {
+    for (int i = tid; i < 2 * nb * U; i += DC_THREADS) {
+      const int kv = i / (nb * U), j = i / U % nb, u = i % U;
+      const size_t dst = cap0 + ((size_t)j * A + (t - 1)) * H + 8 * u;
+      const uint4 w = *reinterpret_cast<const uint4*>(
+          win + (size_t)2 * j * H3 + (1 + kv) * H + 8 * u);
+      *reinterpret_cast<uint4*>((kv ? cap_v : cap_k) + dst) = w;
+    }
+  }
+  cp_wait<1>();
+  __syncthreads();
+
+  // 3. the MASK rows' own scores (last rank): products rounded, f32 sum
+  if (last) {
+    for (int j = warp; j < nb; j += DC_WARPS) {
+      const int r = 2 * j + 1;
+      float p = 0.0f;
+      for (int d = lane; d < HD; d += 32)
+        p += rnd<bf16>(to_f32(qs[r * L.kst + d]) * to_f32(kvw[j * HD + d]));
+      p = warp_sum(p);
+      if (lane == 0) s_self[r] = p;
+    }
+  }
+
+  // 4. scores S^T = K q^T on the tensor cores, warp w the key groups w,
+  //    w + 4, ...; lane holds keys lane / 4 (+ 8) of a group and rows
+  //    2 (lane % 4) (+ 1) of each row tile
+  const uint32_t ks_a = smem_u32(ks), vs_a = smem_u32(vs);
+  const uint32_t qs_a = smem_u32(qs), ps_a = smem_u32(ps);
+  uint32_t qb[NR][HD / 16][2];  // q as the B operand, 16 columns a step
+#pragma unroll
+  for (int n = 0; n < NR; ++n)
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; kk += 2) {
+      uint32_t x[4];
+      ldsm_x4(x, qs_a + ((8 * n + lane % 8) * L.kst + 16 * kk +
+                         8 * (lane / 8)) * 2);
+      qb[n][kk][0] = x[0];
+      qb[n][kk][1] = x[1];
+      qb[n][kk + 1][0] = x[2];
+      qb[n][kk + 1][1] = x[3];
+    }
+  float mx[NR][2];
+#pragma unroll
+  for (int n = 0; n < NR; ++n) mx[n][0] = mx[n][1] = -INFINITY;
+  const int kl = lane / 4, rl = 2 * (lane % 4);  // a lane's key, row
+#pragma unroll 2
+  for (int g = warp; g < G; g += DC_WARPS) {
+    float c[NR][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t ka[4];
+      ldsm_x4(ka, ks_a + ((g * DC_KEYS + lane % 8 + 8 * (lane / 8 % 2)) *
+                              L.kst + 16 * kk + 8 * (lane / 16)) * 2);
+#pragma unroll
+      for (int n = 0; n < NR; ++n) mma_add(c[n], ka, qb[n][kk][0], qb[n][kk][1]);
+    }
+    const int k0 = g * DC_KEYS + kl;
+    const float b0 = bs[k0], b1 = bs[k0 + 8];
+    // a caption key of another beam is masked
+    const int j0 = k0 >= nctx && k0 < nk ? (k0 - nctx) / t : -1;
+    const int j1 = k0 + 8 >= nctx && k0 + 8 < nk ? (k0 + 8 - nctx) / t : -1;
+#pragma unroll
+    for (int n = 0; n < NR; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = 8 * n + rl + e % 2, k = k0 + 8 * (e / 2);
+        const int j = e / 2 ? j1 : j0;
+        float s = c[n][e] + (e / 2 ? b1 : b0);
+        if (j >= 0 && j != row / 2) s = -INFINITY;
+        mx[n][e % 2] = fmaxf(mx[n][e % 2], s);
+        ss[row * L.sst + k] = s;
+      }
+  }
+#pragma unroll
+  for (int n = 0; n < NR; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float m = mx[n][e];
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1)
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      if (lane < 4) red[warp * RP + 8 * n + rl + e] = m;
+    }
+  __syncthreads();
+  if (tid < RP) {
+    float m = red[tid];
+#pragma unroll
+    for (int w = 1; w < DC_WARPS; ++w) m = fmaxf(m, red[w * RP + tid]);
+    if (last && tid < R && tid % 2) m = fmaxf(m, s_self[tid]);
+    m_loc[tid] = m;
+  }
+  __syncthreads();
+
+  // 5. the global max of every row over the ranks: thread q pushes this
+  //    rank's maxes into rank q's shared memory and arrives on its
+  //    mbarrier; the V rows land meanwhile
+  cluster_wait();  // every block of the cluster has started
+  if (tid < ranks) {
+    const uint32_t dst = cluster_addr(m_all + rank * RP, tid);
+    for (int r = 0; r < R; ++r) st_cluster(dst + 4 * r, m_loc[r]);
+    mbar_arrive_remote(cluster_addr(mb, tid));
+  }
+  cp_wait<0>();
+  mbar_wait_cluster(smem_u32(mb));
+  // rows past R take 0
+  auto row_max = [&](int row) {
+    float m = -INFINITY;
+    for (int q = 0; q < ranks; ++q) m = fmaxf(m, m_all[q * RP + row]);
+    return row < R ? m : 0.0f;
+  };
+
+  // 6. each warp's own scores to probabilities: exp(s - m) rounded to bf16
+  //    for P (zero past the keys), the denominator's share from the f32
+  //    values (per lane, then over the lanes of a row, then over the warps
+  //    in order)
+  float mg[NR][2], ls[NR][2];
+#pragma unroll
+  for (int n = 0; n < NR; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      mg[n][e] = row_max(8 * n + rl + e);
+      ls[n][e] = 0.0f;
+    }
+#pragma unroll 2
+  for (int g = warp; g < G; g += DC_WARPS)
+#pragma unroll
+    for (int n = 0; n < NR; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = 8 * n + rl + e % 2, k = g * DC_KEYS + kl + 8 * (e / 2);
+        const float p = vc_exp(ss[row * L.sst + k] - mg[n][e % 2]);
+        ls[n][e % 2] += p;
+        ps[row * L.pst + k] = __float2bfloat16(p);
+      }
+#pragma unroll
+  for (int n = 0; n < NR; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float l = ls[n][e];
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+      ls[n][e] = l;
+    }
+  if (lane < 4)
+#pragma unroll
+    for (int n = 0; n < NR; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) red[warp * RP + 8 * n + rl + e] = ls[n][e];
+  __syncthreads();
+  if (tid < R) {
+    float l = red[tid];
+#pragma unroll
+    for (int w = 1; w < DC_WARPS; ++w) l += red[w * RP + tid];
+    if (last && tid % 2) {
+      const float pe = vc_exp(s_self[tid] - row_max(tid));
+      p_self[tid] = pe;
+      l += pe;
+    }
+    l_loc[tid] = l;
+  }
+
+  // 7. partial o^T = V^T P^T on the tensor cores: warp w takes the head
+  //    columns [16 MTW w, 16 MTW (w + 1)), every key group
+  {
+    float o[MTW][NR][4] = {};
+    for (int g = 0; g < G; ++g) {
+      uint32_t pb[(NR + 1) / 2 * 2][2];  // P as the B operand, per row tile
+#pragma unroll
+      for (int n = 0; n < NR; n += 2) {
+        uint32_t x[4];
+        ldsm_x4(x, ps_a + ((8 * n + lane % 8 + 8 * (lane / 16)) * L.pst +
+                           g * DC_KEYS + 8 * (lane / 8 % 2)) * 2);
+        pb[n][0] = x[0];
+        pb[n][1] = x[1];
+        pb[n + 1][0] = x[2];
+        pb[n + 1][1] = x[3];
+      }
+#pragma unroll
+      for (int m = 0; m < MTW; ++m) {
+        uint32_t va[4];
+        const int d0 = 16 * (MTW * warp + m);
+        ldsm_x4_t(va, vs_a + ((g * DC_KEYS + lane % 8 + 8 * (lane / 16)) *
+                                  L.kst + d0 + 8 * (lane / 8 % 2)) * 2);
+#pragma unroll
+        for (int n = 0; n < NR; ++n) mma_add(o[m][n], va, pb[n][0], pb[n][1]);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < MTW; ++m)
+#pragma unroll
+      for (int n = 0; n < NR; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = 8 * n + rl + e % 2;
+          const int d = 16 * (MTW * warp + m) + kl + 8 * (e / 2);
+          if (row < R) part[row * HD + d] = o[m][n][e];
+        }
+  }
+  __syncthreads();
+  // 8. + the MASK rows' own value (last rank), f32 probability
+  if (last) {
+    for (int i = tid; i < nb * HD; i += DC_THREADS) {
+      const int j = i / HD, d = i % HD, r = 2 * j + 1;
+      part[r * HD + d] += p_self[r] * to_f32(kvw[((RP / 2) + j) * HD + d]);
+    }
+    __syncthreads();
+  }
+
+  // 9. every other rank pushes its partial outputs and sums into the last
+  //    rank's shared memory (its K rows, dead since its scores), each
+  //    thread arriving on the last rank's mbarrier after its own writes,
+  //    and leaves
+  if (!last) {
+    const uint32_t dst = cluster_addr(recv_o + (size_t)rank * R * HD,
+                                      ranks - 1);
+    for (int i = tid; i < R * HD / 4; i += DC_THREADS)
+      st_cluster(dst + 16 * i, reinterpret_cast<const float4*>(part)[i]);
+    if (tid < R)
+      st_cluster(cluster_addr(recv_l + rank * R + tid, ranks - 1),
+                 l_loc[tid]);
+    mbar_arrive_remote(cluster_addr(mb + 1, ranks - 1));
+    return;
+  }
+
+  // 10. the last rank: the partials summed in rank order (its own last),
+  //     divided, rounded once, stored 16 bytes at a time
+  if (ranks > 1) mbar_wait_cluster(smem_u32(mb + 1));
+  for (int it = tid; it < R * U; it += DC_THREADS) {
+    const int r = it / U, c8 = 8 * (it % U);
+    float4 s0 = make_float4(0.f, 0.f, 0.f, 0.f), s1 = s0;
+    float l = 0.0f;
+    for (int q = 0; q < ranks; ++q) {
+      const float* y = (q < ranks - 1 ? recv_o + (size_t)q * R * HD : part) +
+                       r * HD + c8;
+      const float4 y0 = *reinterpret_cast<const float4*>(y);
+      const float4 y1 = *reinterpret_cast<const float4*>(y + 4);
+      s0.x += y0.x; s0.y += y0.y; s0.z += y0.z; s0.w += y0.w;
+      s1.x += y1.x; s1.y += y1.y; s1.z += y1.z; s1.w += y1.w;
+      l += q < ranks - 1 ? recv_l[q * R + r] : l_loc[r];
+    }
+    uint4 w;
+    __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(&w);
+    x[0] = __floats2bfloat162_rn(s0.x / l, s0.y / l);
+    x[1] = __floats2bfloat162_rn(s0.z / l, s0.w / l);
+    x[2] = __floats2bfloat162_rn(s1.x / l, s1.y / l);
+    x[3] = __floats2bfloat162_rn(s1.z / l, s1.w / l);
+    *reinterpret_cast<uint4*>(out + ((size_t)b * R + r) * H + h * HD + c8) =
+        w;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32, and bf16 at hd 8/16/32: the first design, one block per (head,
+// image).  Scores use groups of lanes per key (one 16-byte load per lane,
+// a shuffle reduction inside the group); the f32 scores and probabilities
+// stay in shared memory (2 * nb * S floats); the value product gives each
+// warp a share of the keys and each lane a slice of the head dimension,
+// with the per-row sums of 16 rows at a time in registers, then one
+// reduction through shared memory.
+// ---------------------------------------------------------------------------
 
 constexpr int DA_THREADS = 128;
 constexpr int DA_WARPS = DA_THREADS / 32;
@@ -60,24 +652,6 @@ __device__ __forceinline__ void load_chunk(const bf16* p, float* f) {
   }
 }
 
-template <typename T>
-__device__ __forceinline__ float rnd(float x) {  // round to T, back to f32
-  return to_f32(from_f32<T>(x));
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 template <int HD>
 struct DaShape {
   static constexpr int VPL = HD >= 32 ? HD / 32 : 1;   // values per lane
@@ -86,13 +660,13 @@ struct DaShape {
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(DA_THREADS)
-    decode_attention_kernel(const T* __restrict__ qkv, T* cap_k, T* cap_v,
-                            const T* __restrict__ ctx_k,
-                            const T* __restrict__ ctx_v,
-                            const float* __restrict__ bias,
-                            const int* __restrict__ t_ptr,
-                            T* __restrict__ out, int nb, int S, int A, int H,
-                            float scale) {
+    decode_attention_simple_kernel(const T* __restrict__ qkv, T* cap_k,
+                                   T* cap_v, const T* __restrict__ ctx_k,
+                                   const T* __restrict__ ctx_v,
+                                   const float* __restrict__ bias,
+                                   const int* __restrict__ t_ptr,
+                                   T* __restrict__ out, int nb, int S, int A,
+                                   int H, float scale) {
   constexpr int EPL = 16 / sizeof(T);  // elements per 16-byte load
   constexpr int LPK = HD / EPL;        // lanes per key in the score loop
   constexpr int KPW = 32 / LPK;        // keys per warp and iteration
@@ -263,16 +837,39 @@ __global__ void __launch_bounds__(DA_THREADS)
   }
 }
 
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
 template <typename T, int HD>
-static int launch(const void* qkv, void* cap_k, void* cap_v,
-                  const void* ctx_k, const void* ctx_v, const float* bias,
-                  const int* t, void* out, int B, int nb, int S, int A, int H,
-                  int nh, float scale, cudaStream_t s) {
-  const int R = 2 * nb;
-  const size_t smem =
-      sizeof(float) * ((size_t)R * HD + (size_t)R * S + (size_t)R * A + 2 * R +
-                       (size_t)DA_WARPS * DaShape<HD>::KPI * R * HD);
-  auto kern = decode_attention_kernel<T, HD>;
+static size_t simple_smem(int nb, int S, int A) {
+  const size_t R = 2 * nb;
+  return sizeof(float) * (R * HD + R * S + R * A + 2 * R +
+                          (size_t)DA_WARPS * DaShape<HD>::KPI * R * HD);
+}
+
+// tiles of 8 window rows for nb beams: 1, 2 or 4 (up to 16 beams)
+static int row_tiles(int nb) { return nb <= 4 ? 1 : nb <= 8 ? 2 : 4; }
+
+static size_t cluster_smem(int hd, int nb, int kmax, int ranks) {
+  return DcLayout(hd, row_tiles(nb), kmax, ranks, 2 * nb).total;
+}
+
+template <int HD>
+static const void* cluster_fn(int nr) {
+  return nr == 1   ? (const void*)decode_attention_cluster_kernel<HD, 1>
+         : nr == 2 ? (const void*)decode_attention_cluster_kernel<HD, 2>
+                   : (const void*)decode_attention_cluster_kernel<HD, 4>;
+}
+
+template <typename T, int HD>
+static int launch_simple(const void* qkv, void* cap_k, void* cap_v,
+                         const void* ctx_k, const void* ctx_v,
+                         const float* bias, const int* t, void* out, int B,
+                         int nb, int S, int A, int H, int nh, float scale,
+                         cudaStream_t s) {
+  const size_t smem = simple_smem<T, HD>(nb, S, A);
+  auto kern = decode_attention_simple_kernel<T, HD>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -286,15 +883,72 @@ static int launch(const void* qkv, void* cap_k, void* cap_v,
   return (int)cudaGetLastError();
 }
 
+template <int HD, int NR>
+static int launch_cluster(const void* qkv, void* cap_k, void* cap_v,
+                          const void* ctx_k, const void* ctx_v,
+                          const float* bias, const int* t, void* out, int B,
+                          int nb, int S, int A, int H, int nh, float scale,
+                          int ranks, int kpr, int kmax, cudaStream_t s) {
+  static std::atomic<unsigned long long> smem_set{0};
+  const size_t smem = cluster_smem(HD, nb, kmax, ranks);
+  if (smem > DC_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  auto kern = decode_attention_cluster_kernel<HD, NR>;
+  const cudaError_t e = allow_smem((const void*)kern, DC_SMEM_LIMIT, smem_set);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ranks, nh, B);
+  cfg.blockDim = dim3(DC_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t le = cudaLaunchKernelEx(
+      &cfg, kern, static_cast<const bf16*>(qkv), static_cast<bf16*>(cap_k),
+      static_cast<bf16*>(cap_v), static_cast<const bf16*>(ctx_k),
+      static_cast<const bf16*>(ctx_v), bias, t, static_cast<bf16*>(out), nb,
+      S, A, H, scale, kpr, kmax);
+  if (le != cudaSuccess) return (int)le;
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+static int dispatch_cluster(const void* qkv, void* cap_k, void* cap_v,
+                            const void* ctx_k, const void* ctx_v,
+                            const float* bias, const int* t, void* out, int B,
+                            int nb, int S, int A, int H, int nh, float scale,
+                            int ranks, int kpr, int kmax, cudaStream_t s) {
+  if (ranks < 1 || ranks > DC_MAX_RANKS || kpr < 1 || kmax % DC_KEYS ||
+      nb > 16)
+    return (int)cudaErrorInvalidValue;
+#define VC_DC_CASE(NR)                                                       \
+  case NR:                                                                   \
+    return launch_cluster<HD, NR>(qkv, cap_k, cap_v, ctx_k, ctx_v, bias, t,  \
+                                  out, B, nb, S, A, H, nh, scale, ranks, kpr, \
+                                  kmax, s);
+  switch (row_tiles(nb)) {
+    VC_DC_CASE(1)
+    VC_DC_CASE(2)
+    default:
+      VC_DC_CASE(4)
+  }
+#undef VC_DC_CASE
+}
+
 template <typename T>
-static int dispatch(int hd, const void* qkv, void* cap_k, void* cap_v,
-                    const void* ctx_k, const void* ctx_v, const float* bias,
-                    const int* t, void* out, int B, int nb, int S, int A,
-                    int H, int nh, float scale, cudaStream_t s) {
-#define VC_DA_CASE(HD)                                                      \
-  case HD:                                                                  \
-    return launch<T, HD>(qkv, cap_k, cap_v, ctx_k, ctx_v, bias, t, out, B, \
-                         nb, S, A, H, nh, scale, s);
+static int dispatch_simple(int hd, const void* qkv, void* cap_k, void* cap_v,
+                           const void* ctx_k, const void* ctx_v,
+                           const float* bias, const int* t, void* out, int B,
+                           int nb, int S, int A, int H, int nh, float scale,
+                           cudaStream_t s) {
+#define VC_DA_CASE(HD)                                                    \
+  case HD:                                                                \
+    return launch_simple<T, HD>(qkv, cap_k, cap_v, ctx_k, ctx_v, bias, t, \
+                                out, B, nb, S, A, H, nh, scale, s);
   switch (hd) {
     VC_DA_CASE(8)
     VC_DA_CASE(16)
@@ -307,21 +961,76 @@ static int dispatch(int hd, const void* qkv, void* cap_k, void* cap_v,
 #undef VC_DA_CASE
 }
 
+// ranks: 0 runs decode_attention_simple_kernel; 1..8 (bf16 at hd 64 or 128
+// only) decode_attention_cluster_kernel with clusters of that many blocks,
+// kpr context keys a rank and kmax keys of shared capacity
+// (ops/decode_step.py plan).
 extern "C" int vc_decode_attention(const void* qkv, void* cap_k, void* cap_v,
                                    const void* ctx_k, const void* ctx_v,
                                    const void* bias, const void* t, void* out,
                                    int B, int nb, int S, int A, int H, int nh,
-                                   float scale, int dtype, void* stream) {
+                                   float scale, int dtype, int ranks, int kpr,
+                                   int kmax, void* stream) {
   if (nb < 1 || H % nh) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* bf = static_cast<const float*>(bias);
   const int* tp = static_cast<const int*>(t);
   const int hd = H / nh;
+  if (ranks > 0) {
+    if (dtype != VC_BF16) return (int)cudaErrorInvalidValue;
+    if (hd == 64)
+      return dispatch_cluster<64>(qkv, cap_k, cap_v, ctx_k, ctx_v, bf, tp,
+                                  out, B, nb, S, A, H, nh, scale, ranks, kpr,
+                                  kmax, s);
+    if (hd == 128)
+      return dispatch_cluster<128>(qkv, cap_k, cap_v, ctx_k, ctx_v, bf, tp,
+                                   out, B, nb, S, A, H, nh, scale, ranks, kpr,
+                                   kmax, s);
+    return (int)cudaErrorInvalidValue;
+  }
   if (dtype == VC_F32)
-    return dispatch<float>(hd, qkv, cap_k, cap_v, ctx_k, ctx_v, bf, tp, out, B,
-                           nb, S, A, H, nh, scale, s);
+    return dispatch_simple<float>(hd, qkv, cap_k, cap_v, ctx_k, ctx_v, bf, tp,
+                                  out, B, nb, S, A, H, nh, scale, s);
   if (dtype == VC_BF16)
-    return dispatch<bf16>(hd, qkv, cap_k, cap_v, ctx_k, ctx_v, bf, tp, out, B,
-                          nb, S, A, H, nh, scale, s);
+    return dispatch_simple<bf16>(hd, qkv, cap_k, cap_v, ctx_k, ctx_v, bf, tp,
+                                 out, B, nb, S, A, H, nh, scale, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Kernel `index` of the cluster kernels (hd 64 and 128, at nb's row
+// tiles) and the simple kernels (hd 64, bf16 and f32), with its launch
+// configuration at a decode geometry (nb beams, S context keys, A caption
+// slots; ranks and kmax, the cluster kernel's key capacity, from plan), as
+// wg_kernel_info (wgmma.cuh) gives it; -1 past the last kernel.
+extern "C" int vc_decode_attention_kernel_info(int index, char* name, int len,
+                                               int* info, int nb, int S,
+                                               int A, int ranks, int kmax) {
+  const int nr = row_tiles(nb);
+  char n64[64], n128[64];
+  snprintf(n64, sizeof(n64), "decode_attention_cluster_kernel<64, %d>", nr);
+  snprintf(n128, sizeof(n128), "decode_attention_cluster_kernel<128, %d>",
+           nr);
+  const WgKernel kernels[] = {
+      {n64, cluster_fn<64>(nr), DC_THREADS,
+       cluster_smem(64, nb, kmax, ranks)},
+      {n128, cluster_fn<128>(nr), DC_THREADS,
+       cluster_smem(128, nb, kmax, ranks)},
+      {"decode_attention_simple_kernel<bf16, 64>",
+       (const void*)decode_attention_simple_kernel<bf16, 64>, DA_THREADS,
+       simple_smem<bf16, 64>(nb, S, A)},
+      {"decode_attention_simple_kernel<float, 64>",
+       (const void*)decode_attention_simple_kernel<float, 64>, DA_THREADS,
+       simple_smem<float, 64>(nb, S, A)},
+  };
+  const int rc = wg_kernel_info(kernels, sizeof(kernels) / sizeof(WgKernel),
+                                index, name, len, info);
+  // wg_kernel_info set the kernel's shared-memory limit to this geometry's;
+  // restore what the launches count on: DC_SMEM_LIMIT for the cluster
+  // kernels (allow_smem sets it once), the default 48 KB for the simple
+  // ones (launch_simple raises it past that per call)
+  if (rc == 0)
+    return (int)cudaFuncSetAttribute(
+        kernels[index].fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        index < 2 ? (int)DC_SMEM_LIMIT : 48 * 1024);
+  return rc;
 }

@@ -39,8 +39,8 @@ SIGNATURES = {
     # bias_first, seed, thresh, inv, which, rows_per_image, split, stream
     "vc_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _U,
                 _U, _F, _I, _I, _I, _P],
-    # x, g, b, y, mean, rsig, rows, H, eps, in_dtype, out_dtype, stream
-    "vc_layer_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
+    # x, g, b, y, mean, rsig, rows, H, eps, in_dtype, out_dtype, vec, stream
+    "vc_layer_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
     # q, k, v (each pointer, batch, head and row strides), bias (pointer,
     # batch and head strides), out, B, Lp, H, nh, l_actual, scale, seed,
     # thresh, inv, online, dtype, stream
@@ -52,9 +52,9 @@ SIGNATURES = {
     "vc_attention_bwd": [*_OPERAND * 4, *_BIAS, _P, _P, _P, _P, _I, _I, _I,
                          _I, _I, _F, _U, _U, _F, _I, _P],
     # qkv, cap_k, cap_v, ctx_k, ctx_v, bias, t, out, B, nb, S, A, H, nh,
-    # scale, dtype, stream
+    # scale, dtype, ranks, keys per rank, key capacity, stream
     "vc_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _I, _F, _I, _P],
+                            _I, _I, _F, _I, _I, _I, _I, _P],
     # (the *_kernel_info) index, name buffer, its length, int[5]
     # (threads, registers, local bytes, shared bytes per block, resident
     # blocks per SM)
@@ -63,6 +63,13 @@ SIGNATURES = {
                                  ctypes.POINTER(_I)],
     "vc_attention_bwd_kernel_info": [_I, ctypes.c_char_p, _I,
                                      ctypes.POINTER(_I)],
+    "vc_layer_norm_kernel_info": [_I, ctypes.c_char_p, _I,
+                                  ctypes.POINTER(_I)],
+    # ... and the decode geometry: nb, S, A, the cluster kernel's ranks and
+    # key capacity
+    "vc_decode_attention_kernel_info": [_I, ctypes.c_char_p, _I,
+                                        ctypes.POINTER(_I), _I, _I, _I, _I,
+                                        _I],
 }
 
 
@@ -171,13 +178,15 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed with cudaError_t {rc}")
 
 
-def launch_info(entry: str) -> list:
-    """The launch configuration of the bf16 kernels that the C function
-    `entry` (vc_gemm_kernel_info, vc_attention_kernel_info,
-    vc_attention_bwd_kernel_info) lists, on the current CUDA device: one
-    dict per compiled kernel with its name, threads per block, registers
-    per thread, local (spill) bytes per thread, shared bytes per block and
-    resident blocks per SM (cudaFuncGetAttributes and
+def launch_info(entry: str, *extra: int) -> list:
+    """The launch configuration of the kernels that the C function `entry`
+    (vc_gemm_kernel_info, vc_attention_kernel_info,
+    vc_attention_bwd_kernel_info, vc_layer_norm_kernel_info;
+    vc_decode_attention_kernel_info with its geometry as `extra`) lists, on
+    the current CUDA device: one dict per compiled kernel with its name,
+    threads per block, registers per thread, local (spill) bytes per
+    thread, shared bytes per block and resident blocks per SM
+    (cudaFuncGetAttributes and
     cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     fn = getattr(library(), entry)
     keys = ("threads", "registers", "local_bytes", "shared_bytes",
@@ -186,7 +195,7 @@ def launch_info(entry: str) -> list:
     while True:
         name = ctypes.create_string_buffer(96)
         info = (ctypes.c_int * len(keys))()
-        rc = fn(len(kernels), name, len(name), info)
+        rc = fn(len(kernels), name, len(name), info, *extra)
         if rc == -1:
             return kernels
         check(rc, entry)

@@ -4,6 +4,13 @@ fused_decode_step, the port of vitcap_tpu/ops/decode_step.py.
 Kernel: csrc/decode_attention.cu, the attention half of the TPU kernel
 _kernel (vitcap_tpu/ops/decode_step.py:115, reached through
 fused_decode_step); the source note there says what bounds it on the H100.
+bf16 at head dims 64 and 128 (up to 16 beams) runs
+decode_attention_cluster_kernel: the context of each (head, image) split
+over a thread-block cluster, whose size and key ranges plan() picks from
+the shape alone (never from t, so a step's launch can be captured in a
+CUDA graph); f32, the other head dims, more beams and contexts too long
+for its shared memory run decode_attention_simple_kernel.  kernel_info()
+reads both kernels' launch configuration on the card.
 The dense products of that TPU kernel run on the port's gemm kernel and its
 post-LNs on layer_norm, rounded where it rounds:
 - qkv: the f32 product plus the f32 bias, rounded to the compute dtype;
@@ -26,7 +33,8 @@ Layouts (the 'flat' layout of models/decode.py):
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import functools
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
@@ -36,6 +44,15 @@ from .layer_norm import layer_norm, layer_norm_plain
 
 NEG_MASK_VALUE = -10000.0     # the reference's mask value on invalid slots
 launches = 0
+
+CLUSTER_HD = (64, 128)        # head dims of decode_attention_cluster_kernel
+MAX_RANKS = 8                 # the portable thread-block cluster size
+KEYS_PER_RANK = 144           # the keys a rank aims at
+KEY_GROUP = 16                # keys per tensor-core group
+ROW_TILE = 8                  # window rows per tensor-core tile (mma's N)
+MAX_CLUSTER_BEAMS = 16        # beams of one image the cluster kernel takes
+CLUSTER_WARPS = 4
+SMEM_LIMIT = 232448           # shared bytes a block can have on the H100
 
 
 # ---------------------------------------------------------------------------
@@ -88,6 +105,83 @@ def pack_decode_context(ctx_k: List[torch.Tensor], ctx_v: List[torch.Tensor],
 # ---------------------------------------------------------------------------
 # decode_attention
 # ---------------------------------------------------------------------------
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class Plan(NamedTuple):
+    """ranks 0: decode_attention_simple_kernel.  Else clusters of `ranks`
+    blocks, rank q taking the context keys [q kpr, (q + 1) kpr), the last
+    rank the rest of the context and the caption; keys_max the keys its
+    shared buffers hold, smem their bytes."""
+    ranks: int
+    keys_per_rank: int = 0
+    keys_max: int = 0
+    smem: int = 0
+
+
+def row_tiles(nb: int) -> int:
+    """decode_attention_cluster_kernel's tiles of 8 window rows for nb
+    beams (2 nb rows): 1, 2 or 4; 0 past MAX_CLUSTER_BEAMS."""
+    R = 2 * nb
+    return next((n for n in (1, 2, 4) if R <= 8 * n), 0)
+
+
+def cluster_smem(hd: int, nb: int, keys_max: int, ranks: int) -> int:
+    """Shared bytes of one decode_attention_cluster_kernel block of a
+    cluster of `ranks` (csrc/decode_attention.cu DcLayout): K rows (on the
+    last rank later the partials the other ranks push) and V rows of
+    keys_max keys, the q rows, the MASK rows' own k and v, a bias per key,
+    the f32 scores (then partial outputs), the bf16 probabilities (at
+    least 16 rows), per-row statistics and every rank's maxes, two
+    mbarriers; K/V/q/P rows padded by 16 bytes."""
+    rows = ROW_TILE * row_tiles(nb)
+    kst, sst, pst = hd + 8, keys_max + 4, keys_max + 8
+    kbytes = keys_max * kst * 2
+    recv = (ranks - 1) * 2 * nb * (hd + 1) * 4
+    return (max(kbytes, recv) + kbytes + rows * kst * 2 + rows * hd * 2
+            + keys_max * 4 + rows * max(sst, hd) * 4
+            + max(16, rows) * pst * 2
+            + rows * (CLUSTER_WARPS + 4 + MAX_RANKS) * 4 + 16)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(S: int, nb: int, hd: int, A: int = 20,
+         dtype: torch.dtype = torch.bfloat16) -> Plan:
+    """The decode_attention kernel and its cluster for S context keys, nb
+    beams per image, head dim hd and A caption slots: bf16 at hd 64 or 128
+    and up to 16 beams takes the cluster kernel, with ranks = ceil((S + nb A) / 144) (1 to 8)
+    sharing the context and the caption's nb A slots about equally (the
+    last rank's range ends the context, then the caption); everything
+    else, or a plan past the block's shared memory, the simple kernel.
+    From the shape alone: t never enters."""
+    if (dtype != torch.bfloat16 or hd not in CLUSTER_HD
+            or nb > MAX_CLUSTER_BEAMS):
+        return Plan(0)
+    total = S + nb * A
+    ranks = min(MAX_RANKS, max(1, _cdiv(total, KEYS_PER_RANK)))
+    kpr = _cdiv(total, ranks)
+    last = max(0, S - (ranks - 1) * kpr) + nb * A
+    kmax = _cdiv(max(kpr, last), KEY_GROUP) * KEY_GROUP
+    smem = cluster_smem(hd, nb, kmax, ranks)
+    if smem > SMEM_LIMIT:
+        return Plan(0)
+    return Plan(ranks, kpr, kmax, smem)
+
+
+def kernel_info(S: int = 628, nb: int = 3, A: int = 20) -> list:
+    """The launch configuration of decode_attention_cluster_kernel (hd 64
+    and 128) and decode_attention_simple_kernel (bf16 and f32, hd 64) at
+    the geometry (S, nb, A) on the current CUDA device, with the plan at
+    hd 64 (ops._build.launch_info)."""
+    p = plan(S, nb, 64, A)
+    info = _build.launch_info("vc_decode_attention_kernel_info", nb, S, A,
+                              p.ranks, p.keys_max)
+    for k in info:
+        k.update(S=S, nb=nb, ranks=p.ranks, keys_per_rank=p.keys_per_rank,
+                 keys_max=p.keys_max)
+    return info
 
 def decode_attention_plain(qkv: torch.Tensor, cap_k: torch.Tensor,
                            cap_v: torch.Tensor, ctx_k: torch.Tensor,
@@ -181,11 +275,13 @@ def decode_attention(qkv: torch.Tensor, cap_k: torch.Tensor,
         raise ValueError("decode_attention: t must be a one-element int32 "
                          "tensor on the kernel's device")
     out = torch.empty((Bb, W, H), dtype=dt, device=qkv.device)
+    p = plan(S, nb, hd, A, dt)
     lib = _build.library()
     rc = lib.vc_decode_attention(
         qkv.data_ptr(), cap_k.data_ptr(), cap_v.data_ptr(), ctx_k.data_ptr(),
         ctx_v.data_ptr(), ctx_bias.data_ptr(), t.data_ptr(), out.data_ptr(),
         B, nb, S, A, H, num_heads, float(hd ** -0.5), _build.dtype_code(dt),
+        p.ranks, p.keys_per_rank, p.keys_max,
         torch.cuda.current_stream(qkv.device).cuda_stream)
     _build.check(rc, "decode_attention")
     global launches
