@@ -449,11 +449,14 @@ def test_cuda_decode_attention_matches_plain(cuda, dtype, hd, nb, S):
     kernels are built for, one to ten beams per image (more than 16 window
     rows take a second pass over V, or a second row tile), contexts that
     take every cluster size plan() picks here (1, 2, 5, 6, 8 ranks) and
-    one that needs more than 48 KB of shared memory, t at both ends; bf16
-    on the cluster kernel at least 99% bit-equal up to the main path's
-    1076 keys (past them, sums of 2000 random products move more values
-    by one ulp: the tensor cores' truncating adds reach the rounded
-    probabilities)."""
+    one that needs more than 48 KB of shared memory, t at both ends.  bf16
+    on the cluster kernel: at least 99% of the outputs bit-equal over 64
+    images, the precondition of PERF.md section 2 (S = 2000 included).
+    A call of 3 images is not held to it: its tensor-core scores differ
+    from the plain version's in a last bit now and then, and a (head, row)
+    pair whose largest probabilities then round otherwise moves about a
+    fifth of its outputs by an ulp, 1-2% of such a call's share at any
+    length (F9, open; chip_smoke.py's sweep reports those shares)."""
     B, nh, A = 3, 2, 6
     H = nh * hd
     for t in (1, 4, A):
@@ -471,10 +474,22 @@ def test_cuda_decode_attention_matches_plain(cuda, dtype, hd, nb, S):
         torch.cuda.synchronize()
         assert ops.launch_counts()["decode_attention"] == 1
         _close(out, ref, dtype)
-        if plan(S, nb, hd, A, dtype).ranks and S <= 1076:
-            assert (out == ref).float().mean().item() >= 0.99
         assert torch.equal(caps[0], d["cap_k"])
         assert torch.equal(caps[1], d["cap_v"])
+    if plan(S, nb, hd, A, dtype).ranks:
+        Bm, t = 64, 4
+        d = _decode_inputs(cuda, dtype, Bm, nb, H, S, A, seed=7)
+        g = torch.Generator().manual_seed(107)
+        qkv = torch.randn(Bm * nb, 2, 3 * H, generator=g).to(cuda, dtype)
+        bias = torch.where(d["valid"], 0.0, -10000.0).float().contiguous()
+        ref = decode_attention_plain(qkv, d["cap_k"], d["cap_v"],
+                                     d["ctx_k"], d["ctx_v"], bias, t, nh)
+        out = decode_attention(qkv, d["cap_k"].clone(), d["cap_v"].clone(),
+                               d["ctx_k"], d["ctx_v"], bias,
+                               torch.tensor([t], dtype=torch.int32,
+                                            device=cuda), nh)
+        _close(out, ref, dtype)
+        assert (out == ref).float().mean().item() >= 0.99
 
 
 @pytest.mark.cuda
@@ -1084,3 +1099,138 @@ def test_cuda_fused_vit_attn_and_tail_train_match_plain(cuda, dtype):
                 _close(o, ref, dtype)
                 _bits_equal(o, ref)
     assert ops.call_counts() == {"fused_vit_attn": 2, "tail_train": 2}
+
+
+# ---------------------------------------------------------------------------
+# checkpointing and SCST on the card
+# ---------------------------------------------------------------------------
+
+def _tiny_train_batch(cfg, dev, seed=0):
+    rs = np.random.RandomState(seed)
+    T, A = cfg.max_seq_len, cfg.max_seq_a_len
+    masked_pos = np.zeros((2, T), np.int64)
+    masked_pos[:, 1:4] = 1
+    b = {"image": rs.randint(0, 256, (2, cfg.img_size, cfg.img_size, 3))
+         .astype(np.uint8),
+         "input_ids": rs.randint(1, cfg.vocab_size, (2, T)),
+         "token_type_ids": np.concatenate(
+             [np.zeros((2, A), np.int64), np.ones((2, T - A), np.int64)], 1),
+         "seq_a_len": np.full((2,), A), "seq_len": np.full((2,), T),
+         "masked_pos": masked_pos,
+         "masked_ids": rs.randint(1, cfg.vocab_size,
+                                  (2, cfg.max_masked_tokens)),
+         "label": (rs.rand(2, cfg.tag_vocab_size) < 0.05).astype(np.float32)}
+    return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_resume_matches_continuation(cuda, tmp_path):
+    """tiny_config(img_size=128) on the card, dropout 0.1: two steps, a
+    snapshot, a restore into a model initialised otherwise (on the card:
+    weights, moments), one step: the parameters and moments match the
+    continued run's as closely as a copy of the run continued alongside."""
+    import copy
+    from vitcap_tpu_torch.solver import checkpointing as CK
+    from vitcap_tpu_torch.solver.optimization import AdamWState
+    from vitcap_tpu_torch.solver.train_step import (TrainHyper, TrainState,
+                                                    init_train_state,
+                                                    make_train_step)
+    cfg = tiny_config(img_size=128, attention_probs_dropout_prob=0.1,
+                      tag_loss_weight=1.0)
+    step = make_train_step(cfg, TrainHyper(base_lr=1e-3, max_iter=20))
+    batch = _tiny_train_batch(cfg, cuda)
+    state = init_train_state(
+        init_params(cfg, torch.Generator().manual_seed(0), cuda),
+        torch.Generator().manual_seed(3))
+    for _ in range(2):
+        state, _ = step(state, batch)
+    ck = CK.Checkpointer(str(tmp_path))
+    ck.save(2, state)
+    model, snap, it = ck.recover_or_load(
+        None, init_params(cfg, torch.Generator().manual_seed(9), cuda))
+    resumed = CK.restore_train_state(snap, model)
+    assert it == 2 and next(model.parameters()).is_cuda
+    assert all(t.is_cuda for t in resumed.opt.mu.values())
+    gen = torch.Generator()
+    gen.set_state(state.generator.get_state())
+    twin = TrainState(copy.deepcopy(state.model), AdamWState(
+        state.opt.step, {n: t.clone() for n, t in state.opt.mu.items()},
+        {n: t.clone() for n, t in state.opt.nu.items()}), gen)
+    runs = [step(s, batch)[0] for s in (state, twin, resumed)]
+    torch.cuda.synchronize()
+
+    def diff(a, b):
+        return max((x - y).abs().max().item() for x, y in zip(
+            [*a.model.parameters(), *a.opt.mu.values(), *a.opt.nu.values()],
+            [*b.model.parameters(), *b.opt.mu.values(), *b.opt.nu.values()]))
+    assert diff(runs[0], runs[2]) <= diff(runs[0], runs[1])
+
+
+@pytest.mark.cuda
+def test_cuda_scst_step_matches_cpu(cuda):
+    """tiny_config(img_size=128), f32: one SCST grad_step on the card and
+    on the CPU given the same sampled ids, raw tokens, advantages and
+    TokenSample indices (loss and grad norm within 1e-4 relative, the
+    updated parameters as chip_smoke.py's train parity holds them);
+    decode_fn on the fused engine
+    launches decode_attention, its greedy ids equal the CPU's."""
+    import copy
+    import os
+    from vitcap_tpu_torch.solver import scst as SC
+    from vitcap_tpu_torch.solver.train_step import (TrainHyper,
+                                                    init_train_state)
+    cfg = tiny_config(img_size=128)
+    opts = TD.DecodeOptions(max_length=cfg.max_gen_length,
+                            od_labels_start_posid=cfg.max_seq_a_len)
+    A, K = cfg.max_gen_length, 2
+    rs = np.random.RandomState(1)
+    ids = rs.randint(1, cfg.vocab_size, (2 * K, A))
+    ids[:, 0] = cfg.cls_token_id
+    ids[ids == cfg.sep_token_id] = 7
+    ids[0, 3], ids[0, 4:] = cfg.sep_token_id, cfg.pad_token_id
+    raw = ids[:, 1:].copy()
+    adv = rs.randn(2 * K).astype(np.float32)
+    vidx = np.stack([np.concatenate([[0], rs.permutation(64)[:45] + 1])
+                     for _ in range(2)])
+    images = rs.randint(0, 256, (2, 128, 128, 3)).astype(np.uint8)
+    od = np.zeros((2, cfg.max_seq_len - cfg.max_seq_a_len), np.int64)
+    cpu_model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    out = {}
+    for model, d in ((copy.deepcopy(cpu_model).to(cuda), cuda),
+                     (cpu_model, "cpu")):
+        batch = {"image": torch.from_numpy(images).to(d),
+                 "od_ids": torch.from_numpy(od).to(d),
+                 "seq_len": torch.full((2,), cfg.max_seq_len, device=d)}
+        dec, grad = SC.make_scst_fns(
+            cfg, opts, SC.ScstConfig(num_return=K, visual_token_ratio=0.7),
+            TrainHyper(base_lr=1e-3, max_iter=20))
+        old = os.environ.get("VITCAP_DECODE_FUSED")
+        os.environ["VITCAP_DECODE_FUSED"] = "1"
+        try:
+            ops.reset_counts()
+            g_ids = SC.make_scst_fns(cfg, opts, SC.ScstConfig(num_return=K),
+                                     TrainHyper())[0](
+                model, batch["image"], batch["od_ids"], None,
+                batch["seq_len"], torch.Generator(device=d).manual_seed(0))[0]
+            n_dec = ops.launch_counts()["decode_attention"]
+        finally:
+            if old is None:
+                os.environ.pop("VITCAP_DECODE_FUSED")
+            else:
+                os.environ["VITCAP_DECODE_FUSED"] = old
+        state = init_train_state(model, None)
+        _, m = grad(state, batch, torch.from_numpy(ids).to(d),
+                    torch.from_numpy(raw).to(d), torch.from_numpy(adv).to(d),
+                    torch.from_numpy(vidx).to(d))
+        out[str(d)] = (g_ids.cpu(), n_dec, {k: v.item() for k, v in m.items()},
+                       [p.detach().cpu() for p in model.parameters()])
+    (gg, gn, gm, gp), (cg, _, cm, cp) = out[str(cuda)], out["cpu"]
+    # greedy and sampled loops, each decoder layer at every step
+    assert gn == 2 * cfg.decoder_layers * (A - 1) and torch.equal(gg, cg)
+    for k in ("scst_loss", "grad_norm", "mean_logprob"):
+        assert abs(gm[k] - cm[k]) <= 1e-4 * abs(cm[k]), k
+    # the first Adam step sends a near-zero gradient whose sign the order
+    # of sums flips to the opposite +-lr step
+    diff = torch.cat([(a - b).abs().flatten() for a, b in zip(gp, cp)])
+    assert (diff <= 1e-2 * 1e-3).float().mean().item() >= 0.999
+    assert diff.max().item() <= 2 * 1e-3 * (1 + 1e-3)

@@ -386,17 +386,20 @@ def _port_sources():
 
 def _banned(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib") or top == "vitcap_tpu"
+    return (top in ("jax", "jaxlib", "flax", "orbax", "optax")
+            or top == "vitcap_tpu")
 
 
 def test_port_sources_import_no_jax():
     """Every module of vitcap_tpu_torch, and chip_smoke.py, parsed with
-    ast: no `import jax`, `from jax...`, `import vitcap_tpu` or
-    `from vitcap_tpu...`, at any depth (vitcap_tpu_torch itself is
-    allowed)."""
+    ast: no `import jax`, `from jax...`, no flax, orbax or optax (which
+    import JAX), no `import vitcap_tpu` or `from vitcap_tpu...`, at any
+    depth (vitcap_tpu_torch itself is allowed)."""
     files = _port_sources()
-    assert len(files) >= 19
-    assert ROOT / "vitcap_tpu_torch" / "ops" / "flash_attention.py" in files
+    assert len(files) >= 29
+    for new in ("solver/checkpointing.py", "solver/scst.py",
+                "evals/metrics.py", "ops/flash_attention.py"):
+        assert ROOT / "vitcap_tpu_torch" / new in files
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -410,6 +413,7 @@ def test_port_sources_import_no_jax():
                     for n in names if _banned(n)]
     assert not bad, bad
     assert not _banned("vitcap_tpu_torch.ops")
+    assert _banned("orbax.checkpoint") and _banned("flax.serialization")
 
 
 def test_checkpoint_bridge_copy_matches_jax_bridge():

@@ -86,16 +86,19 @@ def build_context_embeddings(model: M.ViTCAP, images: torch.Tensor,
                              od_token_type_ids: Optional[torch.Tensor],
                              seq_len: torch.Tensor, cfg: ModelConfig,
                              opts: DecodeOptions,
-                             visual_token_idx: Optional[torch.Tensor] = None
-                             ) -> Dict[str, Any]:
+                             visual_token_idx: Optional[torch.Tensor] = None,
+                             inference: bool = True) -> Dict[str, Any]:
     """Vision + tag selection + the context embeddings [od/tag slots,
     tagCLS, visual] and their validity mask (B, S_ctx).  visual_token_idx
     (B, keep): the visual tokens kept (TokenSample, see
-    vitcap.encode)."""
+    vitcap.encode).  inference=False runs vitcap.encode outside inference
+    mode, so gradients flow into the context (SCST scoring); True runs
+    encode_images, whose tensors cannot enter autograd."""
     B, od_len = od_ids.shape
     dtype = cfg.compute_dtype
     dev = od_ids.device
-    enc = M.encode_images(model, images, cfg, visual_token_idx)
+    enc = (M.encode_images if inference else M.encode)(
+        model, images, cfg, visual_token_idx)
     pos0 = max(opts.od_labels_start_posid, opts.max_length)
     pos = (torch.arange(od_len, device=dev) + pos0).expand(B, od_len)
     if od_token_type_ids is None:
@@ -107,8 +110,9 @@ def build_context_embeddings(model: M.ViTCAP, images: torch.Tensor,
     if topk > od_len:
         raise ValueError(f"topk={topk} concept slots must fit in the od "
                          f"region (od_len={od_len})")
-    od_emb[:, -topk:] = _tag_embeddings(model, enc["pred_topk"], cfg)
-    ctx = torch.cat([od_emb, enc["tag_cls"].to(dtype),
+    ctx = torch.cat([od_emb[:, :od_len - topk],
+                     _tag_embeddings(model, enc["pred_topk"], cfg),
+                     enc["tag_cls"].to(dtype),
                      enc["visual"].to(dtype)], dim=1)      # (B, S_ctx, H)
     S_ctx = ctx.shape[1]
     od_j = torch.arange(od_len, device=dev) + opts.max_length

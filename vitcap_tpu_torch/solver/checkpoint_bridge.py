@@ -15,6 +15,13 @@ JAX package.
 The reverse direction (torch_name_to_jax_path, state_to_jax_flat) inverts
 the same rules, so tests can hold the port's gradients and optimizer state
 against the JAX package's leaf by leaf.
+
+A reference-named torch state dict (a `.pt` checkpoint of the reference,
+or params_to_torch_state_dict's output) loads into the port's ViTCAP
+through load_torch_state_dict and load_params_from_torch, with the
+reference loader's tolerance: names resolve by dot-suffix, so 'module.'
+prefixes do not matter, and tensors of another shape are skipped and
+reported.
 """
 
 from __future__ import annotations
@@ -182,4 +189,77 @@ def state_to_jax_flat(tensors: Dict[str, torch.Tensor]
         elif transform == "conv_oihw_to_hwio":
             a = np.ascontiguousarray(a.transpose(2, 3, 1, 0))
         out[path] = a
+    return out
+
+
+# ---------------------------------------------------------------------------
+# reference-named torch state dicts (.pt) -> the port's ViTCAP
+# ---------------------------------------------------------------------------
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A reference `.pt` checkpoint -> {name: CPU tensor}: the
+    {'model': state_dict, ...} container is unwrapped, a bare state dict
+    is taken as it is; entries that are no tensors are dropped.  Read with
+    weights_only=True: tensors and plain containers only, no pickled code."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    sd = ckpt["model"] if (isinstance(ckpt, dict) and "model" in ckpt
+                           and isinstance(ckpt["model"], dict)) else ckpt
+    return {k: v.detach() for k, v in sd.items()
+            if isinstance(v, torch.Tensor)}
+
+
+def _suffix_match(target: str, keys: List[str]) -> str | None:
+    """The first state-dict key that equals `target` or ends in '.' +
+    target (DDP and wrapper prefixes vary)."""
+    return next((k for k in keys if k == target or k.endswith("." + target)),
+                None)
+
+
+def load_params_from_torch(model: torch.nn.Module, sd: Dict[str, Any],
+                           strict: bool = False
+                           ) -> Tuple[torch.nn.Module, Dict[str, Any]]:
+    """Fill `model`'s parameters, in place, from a reference-named state
+    dict (tensors or numpy arrays in the torch layout): each parameter
+    takes the key that ends in its name (_suffix_match); a key whose shape
+    differs is skipped.  Returns (model, report): 'matched' [(name, key)],
+    'missing' [(name, name)], 'shape_mismatch' [(name, key, key shape,
+    parameter shape)] and 'unused' (the keys no parameter took).
+    strict=True raises ValueError on anything missing or mismatched."""
+    keys = list(sd.keys())
+    report: Dict[str, Any] = {"matched": [], "missing": [],
+                              "shape_mismatch": [], "unused": set(keys)}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            src_key = _suffix_match(name, keys)
+            if src_key is None:
+                report["missing"].append((name, name))
+                continue
+            src = torch.as_tensor(sd[src_key])
+            report["unused"].discard(src_key)
+            if tuple(src.shape) != tuple(p.shape):
+                report["shape_mismatch"].append(
+                    (name, src_key, tuple(src.shape), tuple(p.shape)))
+                continue
+            p.copy_(src)
+            report["matched"].append((name, src_key))
+    if strict and (report["missing"] or report["shape_mismatch"]):
+        raise ValueError(f"strict load failed: missing {report['missing']}, "
+                         f"shape mismatch {report['shape_mismatch']}")
+    return model, report
+
+
+def convert_vit_cls_state_dict_to_caption(sd: Dict[str, Any]
+                                          ) -> Dict[str, Any]:
+    """Re-key a classification-pretrained ViT state dict into the caption
+    checkpoint's names: transformer blocks under 'module.bert.encoder.',
+    the rest (patch embed, cls token, pos embed) under
+    'image_encoder.module.'; leading 'module.' prefixes are dropped first."""
+    out: Dict[str, Any] = {}
+    for k, v in sd.items():
+        while k.startswith("module."):
+            k = k[len("module."):]
+        if k.startswith("blocks."):
+            out["module.bert.encoder." + k] = v
+        else:
+            out["image_encoder.module." + k] = v
     return out
