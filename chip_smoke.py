@@ -109,6 +109,22 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
    memory; one step at visual_token_ratio=0.7 (404 of 577 tokens); one
    f32 grad_step GPU vs CPU (4+2 trunk blocks, 2 decoder layers, B=2,
    the same ids, raw tokens, advantages and TokenSample indices).
+14. the pipelines and the CLI (vitcap_tpu_torch.run): on a synthetic TSV
+   dataset made from the seed (256 train and 128 test JPEGs of 480x400, 5
+   captions and 3 tags an image), pipeline_train_eval_multi at the
+   flagship (bf16, batches of 64, random weights from random_seed): 6
+   train steps with snapshots at 3 and 6, predict (2 batches, eager
+   engine) and evaluate; predict again on the fused engine with the
+   speed breakdown; the same call again, all cached; the eager predict
+   under torch.profiler; a 2-step SCST pass.  Prints train img/s over
+   steps 2-6 beside the bare step's (phase 8), the host gap between
+   steps, snapshot save ms, predict captions/s with pipeline_time,
+   prep_time and the idle share, the .speed.yaml module_time, evaluate
+   seconds and the report (METEOR and SPICE need nltk: where it is
+   missing the report says so and the phase prints it), SCST img/s and
+   the launches per train step and per predict batch.  Then the tiny
+   test configuration in f32 on the card and on the CPU from one port
+   `.ckpt` basemodel: per-step losses within rtol 1e-4, captions equal.
 Phase 3 also runs decode_attention at S = 2000 context keys (hd 64 with 4
 beams, hd 128 with 1), at least 99% bit-equal at B=64, with its share and
 times, and a sweep of small calls (3 images, 8 seeds, 3 t; from 628 to
@@ -3105,6 +3121,474 @@ def phase_scst_parity(dev, Bn=2):
             "cpu": cm}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the pipelines and the CLI (vitcap_tpu_torch.run)
+# ---------------------------------------------------------------------------
+
+PIPE_TRAIN, PIPE_TEST = 256, 128     # synthetic images of each split
+PIPE_HW = (400, 480)                 # their (height, width): not 384
+PIPE_WORDS = ("a an the two three man woman person child dog cat bird "
+              "horse car bus train boat plate table street field beach "
+              "water grass snow tree road red blue white black green "
+              "small large young old sitting standing walking running "
+              "riding holding eating playing looking on in with near "
+              "under of and at").split()
+PIPE_TAGS = ("man woman dog cat bird horse car bus train boat table tree "
+             "grass water street").split()
+PIPE_TEST_DATA = [{"test_data": "synthcoco", "test_split": "test"}]
+TINY_TEST_DATA = [{"test_data": "tinycoco", "test_split": "test"}]
+
+
+def _pipeline_dataset(root, seed, n_train=PIPE_TRAIN, n_test=PIPE_TEST,
+                      hw=PIPE_HW, name="synthcoco"):
+    """A TSV dataset in the reference's layout under root/data/<name>:
+    {train,test}.tsv (key, 0, base64 JPEG of hw), .hw, .caption (5
+    captions of 6-10 vocab words an image), .num_caption and .label (3
+    tags an image), all from `seed`: smooth random images with noise."""
+    import base64
+    import io
+    from PIL import Image
+    from vitcap_tpu_torch.data.tsv import tsv_writer
+    rs = np.random.RandomState(seed)
+    d = os.path.join(root, "data", name)
+    h, w = hw
+    for split, n in (("train", n_train), ("test", n_test)):
+        keys = [f"{split}{i:05d}" for i in range(n)]
+        rows = []
+        for k in keys:
+            small = rs.randint(0, 256, (max(h // 40, 2), max(w // 40, 2), 3))
+            img = np.asarray(Image.fromarray(small.astype(np.uint8)).resize(
+                (w, h), Image.BICUBIC)).astype(np.int16)
+            img = np.clip(img + rs.randint(-12, 13, img.shape), 0, 255)
+            buf = io.BytesIO()
+            Image.fromarray(img.astype(np.uint8)).save(buf, format="JPEG",
+                                                       quality=90)
+            rows.append((k, "0", base64.b64encode(buf.getvalue()).decode()))
+        tsv_writer(rows, f"{d}/{split}.tsv")
+        tsv_writer(((k, json.dumps([{"height": h, "width": w}]))
+                    for k in keys), f"{d}/{split}.hw.tsv")
+        tsv_writer(((k, json.dumps([
+            {"caption": " ".join(rs.choice(PIPE_WORDS, rs.randint(6, 11)))}
+            for _ in range(5)])) for k in keys), f"{d}/{split}.caption.tsv")
+        tsv_writer(((k, "5") for k in keys), f"{d}/{split}.num_caption.tsv")
+        tsv_writer(((k, json.dumps([
+            {"class": t, "conf": 0.9}
+            for t in rs.choice(PIPE_TAGS, 3, replace=False)]))
+            for k in keys), f"{d}/{split}.label.tsv")
+
+
+def _pipeline_param(root, **kw):
+    """The flagship through the pipeline: the shipped
+    VILT-L12-H784-uncased_16_384 text encoder (H 768, 12 heads, MLP 3072,
+    vocab 30522, dropout 0.1) with VitEmb_vit_base_patch16_384 (12 trunk
+    + 4 tag blocks), 4 decoder layers, topk 50, the reference YAML's
+    sequence lengths (70, caption 20, generation 20), bf16,
+    tag_loss_weight 1.0, batches of 64, random weights from random_seed
+    (no basemodel), 8 loader threads."""
+    p = {"data": "synthcoco", "test_data": "synthcoco",
+         "test_split": "test", "net": "flagship", "expid": "phase14",
+         "data_root": os.path.join(root, "data"),
+         "output_root": os.path.join(root, "output"),
+         "train_crop_size": 384, "test_crop_size": 384,
+         "max_seq_length": 70, "max_seq_a_length": 20,
+         "max_gen_length": 20, "topk": 50, "split_blocks": 4,
+         "decoder_layers": 4, "compute_dtype": "bfloat16",
+         "tag_loss_weight": 1.0, "effective_batch_size": B,
+         "test_batch_size": B, "max_iter": 6, "snapshot_steps": 3,
+         "base_lr": 1e-4, "random_seed": SEED, "num_workers": 8,
+         "device": "cuda"}
+    p.update(kw)
+    return p
+
+
+@contextlib.contextmanager
+def _wrapped(owner, name, wrap):
+    """owner.name replaced by wrap(original) inside the block."""
+    orig = getattr(owner, name)
+    setattr(owner, name, wrap(orig))
+    try:
+        yield
+    finally:
+        setattr(owner, name, orig)
+
+
+@contextlib.contextmanager
+def _pipeline_probes(rec, seeded=False):
+    """Inside the block the port's pipelines record into rec: 'steps', each
+    train step (host time at its call and at its return after a
+    synchronise, its launches, its loss); 'batches', the launches of each
+    decode.generate call; 'save_ms' and each timed method's seconds
+    (predict, evaluate; synchronised).  seeded: the train tensorizer and
+    the train transform get fixed-seed RNGs (the pipelines' own are
+    unseeded, as in the JAX package)."""
+    import random
+    from vitcap_tpu_torch.models import decode as TD
+    from vitcap_tpu_torch.pipelines import caption_pipeline as TCP
+    from vitcap_tpu_torch.solver import checkpointing as TCK
+    from vitcap_tpu_torch.solver import train_step as TTS
+    for k in ("steps", "batches", "save_ms", "predict", "evaluate"):
+        rec.setdefault(k, [])
+
+    def make_step(make):
+        def wrapped(*a, **kw):
+            fn = make(*a, **kw)
+
+            def step(state, batch, *rest):
+                t0 = time.perf_counter()
+                (state, m), c = _counted(lambda: fn(state, batch, *rest))
+                torch.cuda.synchronize()
+                rec["steps"].append({"t0": t0, "t1": time.perf_counter(),
+                                     "launches": c, "loss": m["loss"]})
+                return state, m
+            return step
+        return wrapped
+
+    def generate(gen):
+        def wrapped(*a, **kw):
+            out, c = _counted(lambda: gen(*a, **kw))
+            rec["batches"].append(c)
+            return out
+        return wrapped
+
+    def timing(kind, scale=1.0):
+        def wrap(method):
+            def f(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = method(*a, **kw)
+                torch.cuda.synchronize()
+                rec[kind].append((time.perf_counter() - t0) * scale)
+                return out
+            return f
+        return wrap
+
+    def seeded_tensorizer(orig):
+        def f(self):
+            t = orig(self)
+            t.rng = random.Random(SEED + 41)
+            return t
+        return f
+
+    class Transform(TCP.TrainImageTransform):
+        def __init__(self, *a, **kw):
+            kw["seed"] = SEED + 42
+            super().__init__(*a, **kw)
+
+    cls = TCP.CaptionUniPipeline
+    with contextlib.ExitStack() as st:
+        st.enter_context(_wrapped(TTS, "make_train_step", make_step))
+        st.enter_context(_wrapped(TD, "generate", generate))
+        st.enter_context(_wrapped(TCK.Checkpointer, "save",
+                                  timing("save_ms", 1e3)))
+        st.enter_context(_wrapped(cls, "predict", timing("predict")))
+        st.enter_context(_wrapped(cls, "evaluate", timing("evaluate")))
+        if seeded:
+            st.enter_context(_wrapped(cls, "train_caption_tensorizer",
+                                      seeded_tensorizer))
+            st.enter_context(_wrapped(TCP, "TrainImageTransform",
+                                      lambda _: Transform))
+        yield rec
+
+
+def _same_launches(kind, per_call):
+    """The launches every call made (they must be the same), nonzero only."""
+    if not per_call or any(c != per_call[0] for c in per_call):
+        raise AssertionError(f"pipeline {kind} launches differ: {per_call}")
+    return {k: n for k, n in per_call[0].items() if n}
+
+
+def _predict_rows(pip, n):
+    from vitcap_tpu_torch.data.tsv import tsv_reader
+    rows = [(k, json.loads(v)) for k, v in tsv_reader(pip.get_predict_file())]
+    if len(rows) != n:
+        raise AssertionError(f"predict TSV: {len(rows)} rows, not {n}")
+    for k, caps in rows:
+        if not (len(caps) == 1 and isinstance(caps[0]["caption"], str)
+                and math.isfinite(caps[0]["conf"])):
+            raise AssertionError(f"predict row {k}: {caps}")
+    return rows
+
+
+def _read_yaml(path):
+    import yaml
+    with open(path) as f:
+        return yaml.safe_load(f)
+
+
+def _check_report(report):
+    """Bleu_4, ROUGE_L and CIDEr finite; METEOR and SPICE finite, or the
+    report's _impl.not_run says why they did not run."""
+    not_run = report.get("_impl", {}).get("not_run", {})
+    for key in ("Bleu_4", "ROUGE_L", "CIDEr", "METEOR", "SPICE"):
+        if key in not_run and key not in report:
+            continue
+        if not math.isfinite(report[key]):
+            raise AssertionError(f"report {key}: {report}")
+    return not_run
+
+
+def phase_pipeline(dev, smi, bare_img_per_s):
+    """vitcap_tpu_torch.run.pipeline_train_eval_multi on the card at the
+    flagship (_pipeline_param) over a synthetic TSV dataset
+    (_pipeline_dataset: 256 + 128 JPEGs of 480x400), under a temporary
+    directory of build/:
+    a. 6 train steps with snapshots at 3 and 6, predict (2 batches of 64,
+       eager engine), evaluate;
+    b. predict again with VITCAP_DECODE_FUSED=1, force_predict and
+       speed_breakdown (the .speed.yaml's module_time), evaluate;
+    c. the call of a again, which must train nothing, predict nothing,
+       launch nothing and return b's results;
+    d. the eager predict under torch.profiler (_profile: device busy time
+       and idle share over the whole predict, model load included);
+    e. a 2-step SCST pass from the final snapshot (fused engine, corpus
+       CIDEr-D).
+    Launch counts are set to 0 before each run and read after it; every
+    train step and every predict batch of a run must launch the same.
+    Then phase_pipeline_parity.  Returns the counts of a, b and e and the
+    results."""
+    import shutil
+    import tempfile
+    from vitcap_tpu_torch import ops
+    from vitcap_tpu_torch import run as TR
+    from vitcap_tpu_torch.utils import common as UC
+    UC._LOGGING_INITED = True      # the pipelines log to their folders only
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_pipeline_",
+                            dir=ROOT / "build")
+    res, counts = {}, {}
+    try:
+        t0 = time.perf_counter()
+        _pipeline_dataset(root, SEED + 50)
+        res["dataset_s"] = time.perf_counter() - t0
+        param = _pipeline_param(root)
+        pip = TR.create_pipeline(dict(param, **PIPE_TEST_DATA[0]))
+        snap = Path(pip.model_folder)
+
+        # a. train, predict, evaluate
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        with _pipeline_probes({}) as rec:
+            results = TR.pipeline_train_eval_multi(PIPE_TEST_DATA, param)
+        run_s = time.perf_counter() - t0
+        counts["train_predict"] = dict(ops.launch_counts(),
+                                       **ops.mode_counts())
+        for name in ("gemm", "layer_norm", "attention", "attention_bwd"):
+            if counts["train_predict"][name] == 0:
+                raise AssertionError(f"{name}: no launch on the pipeline "
+                                     f"path")
+        for it in (3, 6):
+            if not (snap / f"model_iter_{it:07d}.ckpt").is_file():
+                raise AssertionError(f"pipeline: no snapshot at {it}")
+        steps = rec["steps"]
+        losses = [s["loss"].item() for s in steps]
+        if len(steps) != 6 or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"pipeline train: losses {losses}")
+        per_step = _same_launches("train step",
+                                  [s["launches"] for s in steps])
+        span = steps[5]["t1"] - steps[1]["t0"]
+        rate = B * 5 / span
+        # the same span less the iteration-3 snapshot's save
+        rate_no_save = B * 5 / (span - rec["save_ms"][0] / 1e3)
+        step_ms = [(s["t1"] - s["t0"]) * 1e3 for s in steps]
+        gap_ms = [(steps[i]["t0"] - steps[i - 1]["t1"]) * 1e3
+                  for i in range(1, 6)]
+        rows = _predict_rows(pip, PIPE_TEST)
+        if [k for k, _ in rows] != [f"test{i:05d}" for i in range(PIPE_TEST)]:
+            raise AssertionError("pipeline predict: keys out of order")
+        if len(rec["batches"]) != 2:
+            raise AssertionError(f"predict: {len(rec['batches'])} batches")
+        per_batch = _same_launches("predict batch", rec["batches"])
+        speed = _read_yaml(pip.get_predict_file() + ".speed.yaml")
+        not_run = _check_report(results[0])
+        res["train"] = {"losses": losses, "img_per_s_steps_2_6": rate,
+                        "img_per_s_steps_2_6_less_save": rate_no_save,
+                        "step_ms": step_ms, "host_gap_ms": gap_ms,
+                        "save_ms": rec["save_ms"],
+                        "launches_per_step": per_step,
+                        "bare_step_img_per_s": bare_img_per_s}
+        pred_s = rec["predict"][0]
+        res["predict"] = {"s": pred_s, "captions_per_s": PIPE_TEST / pred_s,
+                          "launches_per_batch": per_batch,
+                          "speed_yaml": speed}
+        res["evaluate"] = {"s": rec["evaluate"][0],
+                           "report": {k: v for k, v in results[0].items()
+                                      if k != "_impl"}, "not_run": not_run}
+        res["run_s"] = run_s
+        log(f"[pipeline] {PIPE_TRAIN} + {PIPE_TEST} JPEGs of {PIPE_HW[1]}x"
+            f"{PIPE_HW[0]} made in {res['dataset_s']:.1f} s; train + "
+            f"predict + evaluate {run_s:.1f} s")
+        log(f"[pipeline] train losses {[round(v, 4) for v in losses]}; "
+            f"launches per step {per_step}")
+        log(f"[pipeline] train {rate:.2f} img/s over steps 2-6, "
+            f"{rate_no_save:.2f} less the iteration-3 snapshot's save (B={B}"
+            f", bf16, dropout 0.1; host clock from step 2's call to step 6's "
+            f"return, each step synchronised at its return); step ms "
+            f"{[round(v, 1) for v in step_ms]}; host gap before steps 2-6 "
+            f"(loader wait + batch copy) {[round(v, 1) for v in gap_ms]} "
+            f"ms; bare step (phase 8) {bare_img_per_s:.2f} img/s; snapshot "
+            f"save ms {[round(v, 1) for v in rec['save_ms']]}; on {smi}")
+        log(f"[pipeline] predict (eager) {PIPE_TEST} captions in "
+            f"{pred_s:.3f} s, model load included: "
+            f"{PIPE_TEST / pred_s:.2f} captions/s; pipeline_time "
+            f"{speed['pipeline_time']}, prep_time {speed['prep_time']}; "
+            f"launches per batch {per_batch}")
+        log(f"[pipeline] evaluate {rec['evaluate'][0]:.3f} s; report "
+            f"{json.dumps(res['evaluate']['report'])}")
+        if not_run:
+            log(f"[pipeline] METEOR and SPICE did not run: "
+                f"{not_run['METEOR']}")
+
+        # b. the fused engine, with the speed breakdown
+        ops.reset_counts()
+        with _engine(fused=True), _pipeline_probes({}) as rec:
+            results_b = TR.pipeline_train_eval_multi(
+                PIPE_TEST_DATA, dict(param, force_predict=1,
+                                     speed_breakdown=1))
+        counts["fused_predict"] = dict(ops.launch_counts(),
+                                       **ops.mode_counts())
+        if counts["fused_predict"]["decode_attention"] == 0:
+            raise AssertionError("decode_attention: no launch on the fused "
+                                 "pipeline predict")
+        if rec["steps"]:
+            raise AssertionError("fused predict run trained")
+        _predict_rows(pip, PIPE_TEST)
+        _check_report(results_b[0])
+        fused_batch = _same_launches("fused predict batch", rec["batches"])
+        speed_b = _read_yaml(pip.get_predict_file() + ".speed.yaml")
+        res["fused_predict"] = {
+            "s": rec["predict"][0],
+            "captions_per_s": PIPE_TEST / rec["predict"][0],
+            "launches_per_batch": fused_batch, "speed_yaml": speed_b,
+            "report": {k: v for k, v in results_b[0].items()
+                       if k != "_impl"}}
+        log(f"[pipeline] predict (fused) {PIPE_TEST} captions in "
+            f"{rec['predict'][0]:.3f} s with the speed breakdown's extra "
+            f"calls; launches per batch {fused_batch}")
+        log(f"[pipeline] .speed.yaml module_time "
+            f"{json.dumps(speed_b['module_time'])}")
+
+        # c. the same call again: everything cached
+        files = {f.name: f.stat().st_mtime for f in snap.iterdir()}
+        ops.reset_counts()
+        with _pipeline_probes({}) as rec:
+            results_c = TR.pipeline_train_eval_multi(PIPE_TEST_DATA, param)
+        cached = dict(ops.launch_counts(), **ops.mode_counts())
+        now = {f.name: f.stat().st_mtime for f in snap.iterdir()}
+        if (results_c != results_b or any(cached.values()) or rec["steps"]
+                or rec["predict"] or rec["evaluate"] or now != files):
+            raise AssertionError(f"pipeline re-run was not cached: "
+                                 f"launches {cached}, files {now != files}")
+        log("[pipeline] re-run: nothing trained, predicted, evaluated or "
+            "launched; the same results")
+
+        # d. where the predict's time goes
+        pd = TR.create_pipeline(dict(param, force_predict=1,
+                                     **PIPE_TEST_DATA[0]))
+        with _engine(fused=False):
+            res["predict_profile"] = _profile("pipeline_predict",
+                                              pd.ensure_predict, reps=1)
+        del pd
+
+        # e. SCST from the final snapshot
+        (snap / "model_iter_0000003.ckpt").unlink()
+        ps = dict(param, expid="phase14_scst", scst=True, max_iter=2,
+                  snapshot_steps=10, log_step=1,
+                  cider_cached_tokens="corpus",
+                  basemodel=str(snap / "model_iter_0000006.ckpt"))
+        ops.reset_counts()
+        with _engine(fused=True):
+            sp = TR.create_pipeline(dict(ps, **PIPE_TEST_DATA[0]))
+            sp.ensure_train()
+        torch.cuda.synchronize()
+        counts["scst"] = dict(ops.launch_counts(), **ops.mode_counts())
+        for name in ("gemm", "layer_norm", "attention", "attention_bwd",
+                     "decode_attention"):
+            if counts["scst"][name] == 0:
+                raise AssertionError(f"{name}: no launch on the pipeline's "
+                                     f"SCST")
+        m = sp.train_meters
+        if not (Path(sp.model_folder) / "model_iter_0000002.ckpt").is_file() \
+                or m.scst_loss.count != 2 \
+                or not math.isfinite(m.scst_loss.global_avg):
+            raise AssertionError("pipeline SCST: snapshot or loss")
+        times = list(m.time.deque)
+        res["scst"] = {"step_s": times, "img_per_s_step_2": B / times[1],
+                       "loss": list(m.scst_loss.deque),
+                       "cider": list(m.cider.deque)}
+        log(f"[pipeline] SCST steps {[round(t, 3) for t in times]} s "
+            f"(the first warms up): {B / times[1]:.2f} img/s in step 2; "
+            f"losses {[round(v, 5) for v in m.scst_loss.deque]}")
+        del sp
+        torch.cuda.empty_cache()
+        res["parity"] = phase_pipeline_parity(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return counts, res
+
+
+def phase_pipeline_parity(root, devices=("cuda", "cpu")):
+    """The tiny test configuration (tests/test_torch_pipeline.py: H 32, 4
+    heads, 2 + 1 trunk blocks, 2 decoder layers, crop 32, 3 steps, dropout
+    0, f32) over a 6-image TSV dataset, once on the card and once on the
+    CPU, from one port `.ckpt` basemodel written once, with seeded host
+    RNGs: per-step losses within rtol 1e-4, the predict TSV's captions
+    equal."""
+    import shutil
+    from vitcap_tpu_torch import run as TR
+    from vitcap_tpu_torch.data.tokenization import DEFAULT_VOCAB
+    from vitcap_tpu_torch.models.vitcap import init_params
+    _pipeline_dataset(root, SEED + 60, n_train=6, n_test=6, hw=(40, 48),
+                      name="tinycoco")
+    enc = os.path.join(root, "tiny_encoder")
+    os.makedirs(enc)
+    with open(os.path.join(enc, "config.json"), "w") as f:
+        json.dump({"hidden_size": 32, "num_attention_heads": 4,
+                   "intermediate_size": 64, "num_hidden_layers": 2,
+                   "max_position_embeddings": 96, "type_vocab_size": 2,
+                   "vocab_size": 30522, "layer_norm_eps": 1e-12,
+                   "attention_probs_dropout_prob": 0.0}, f)
+    shutil.copy(DEFAULT_VOCAB, enc)
+    param = {"data": "tinycoco", "test_data": "tinycoco",
+             "test_split": "test", "net": "tiny", "expid": "parity",
+             "data_root": os.path.join(root, "data"),
+             "text_encoder_type": enc, "train_crop_size": 32,
+             "test_crop_size": 32, "max_seq_length": 26,
+             "max_seq_a_length": 6, "max_gen_length": 6, "topk": 5,
+             "split_blocks": 1, "decoder_layers": 2,
+             "effective_batch_size": 2, "test_batch_size": 4,
+             "max_iter": 3, "snapshot_steps": 2, "log_step": 1,
+             "base_lr": 1e-3, "drop_out": 0.0, "num_workers": 1,
+             "encode": "bert", "tag_loss_weight": 1.0,
+             "compute_dtype": "float32",
+             "basemodel": os.path.join(root, "tiny_base.ckpt")}
+    cfg = TR.create_pipeline(dict(param, device="cpu")).model_cfg
+    model = init_params(cfg, torch.Generator().manual_seed(SEED + 61),
+                        device="cpu")
+    torch.save({"model": model.state_dict()}, param["basemodel"])
+    out = {}
+    for name, device in zip(("gpu", "cpu"), devices):
+        p = dict(param, device=device,
+                 output_root=os.path.join(root, f"tiny_{name}"))
+        with _pipeline_probes({}, seeded=True) as rec:
+            TR.pipeline_train_eval_multi(TINY_TEST_DATA, p)
+        pip = TR.create_pipeline(dict(p, **TINY_TEST_DATA[0]))
+        out[name] = {"losses": [s["loss"].item() for s in rec["steps"]],
+                     "captions": [c[0]["caption"] for _, c in
+                                  _predict_rows(pip, 6)]}
+    gl, cl = out["gpu"]["losses"], out["cpu"]["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
+    if len(gl) != 3 or not rel <= 1e-4:
+        raise AssertionError(f"tiny pipeline losses GPU {gl} vs CPU {cl}")
+    if out["gpu"]["captions"] != out["cpu"]["captions"]:
+        raise AssertionError(f"tiny pipeline captions GPU "
+                             f"{out['gpu']['captions']} vs CPU "
+                             f"{out['cpu']['captions']}")
+    log(f"[pipeline] tiny config f32, GPU vs CPU: losses {gl} vs {cl} "
+        f"(max relative difference {rel:.2e}, rtol 1e-4); the 6 captions "
+        f"equal: {out['gpu']['captions'][:2]}...")
+    return dict(out, max_rel_loss=rel)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3167,6 +3651,9 @@ def main() -> int:
                  "decode_attention"):
         if scst_counts[name] == 0:
             raise AssertionError(f"{name}: no launch on the SCST path")
+    t_pipe = time.perf_counter()
+    pipe_counts, pipe = phase_pipeline(dev, smi, train["img_per_s"])
+    log(f"[pipeline] phase took {time.perf_counter() - t_pipe:.1f} s")
 
     for name, n in counts.items():
         if n == 0 and name != "attention_bwd":
@@ -3198,8 +3685,9 @@ def main() -> int:
          "train512": train512, "train512_launches": train512_counts,
          "flash_launches": flash_counts, "flash_parity": flash_parity,
          "checkpoint": ckpt, "scst": scst, "scst_launches": scst_counts,
-         "decode_attention_sweep": sweep,
-         "kernels": kernels}, indent=1))
+         "decode_attention_sweep": sweep, "pipeline": pipe,
+         "pipeline_launches": pipe_counts, "kernels": kernels},
+        indent=1, default=str))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -1,27 +1,106 @@
-"""CIDEr-D, the port's copy of the scorer in vitcap_tpu/evals/metrics.py
-(CiderD and its n-gram helpers), pure Python and numpy.
+"""Caption metrics: BLEU, CIDEr/CIDEr-D, ROUGE-L, METEOR, SPICE-lite, the
+port's copy of vitcap_tpu/evals/metrics.py: pure Python and numpy, no JVM
+(the reference shells out to Stanford/Java jars).
 
-The SCST reward (solver/scst.py) scores B * (K + 1) captions with it every
-step.  1..4-gram tf-idf vectors (idf = log N - log df), a per-n cosine
-with count clipping and a gaussian length penalty (sigma 6), times 10
-(pyciderevalcap's ciderD_scorer).  Document frequencies come from the
-references of each call (df='corpus') or from a pickle
-{'ref_len', 'document_frequency'} (the cider repo's coco-train-words.p
-format).  The other caption metrics and the JAX package's native C++
-scorer (native/cider.cpp) are not part of this copy.
+Algorithms follow the published pycocoevalcap / cider implementations:
+- BLEU: corpus-level with per-sentence clipped n-gram counts, 'closest'
+  effective reference length, tiny/small smoothing, brevity penalty
+  (pycocoevalcap bleu/bleu_scorer.py).
+- CIDEr-D: 1..4-gram tf-idf vectors (idf = log N - log df), per-n cosine
+  with count clipping and gaussian length penalty sigma=6, x10
+  (pyciderevalcap's ciderD_scorer); document frequencies from the
+  references of each call (df='corpus') or from a pickle
+  {'ref_len', 'document_frequency'} (the cider repo's coco-train-words.p
+  format).  The SCST reward (solver/scst.py) scores B * (K + 1) captions
+  with it every step.  The JAX package's native C++ scorer
+  (native/cider.cpp) is not ported yet.
+- ROUGE-L: LCS F-beta with beta=1.2, max over refs (pycocoevalcap rouge).
+- METEOR and SPICE-lite: evals/meteor.py and evals/spice.py (their
+  stemmer is nltk's Porter stemmer).
 
-Scorers take {id: [hypothesis]} and {id: [references]} of tokenized,
-space-joined strings.
+All scorers take {id: [hyp_sentence]} and {id: [ref_sentences]} of
+pre-tokenized (space-joined) strings, like pycocoevalcap after PTBTokenizer.
 """
 
 from __future__ import annotations
 
+import math
 import pickle
 from collections import Counter, defaultdict
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+def _ngrams(words: List[str], n: int) -> Counter:
+    return Counter(tuple(words[i:i + n]) for i in range(len(words) - n + 1))
+
+
+def _all_ngrams(sentence: str, max_n: int = 4) -> List[Counter]:
+    words = sentence.split()
+    return [_ngrams(words, n + 1) for n in range(max_n)]
+
+
+# ---------------------------------------------------------------------------
+# BLEU
+# ---------------------------------------------------------------------------
+
+def bleu(gts: Dict[str, List[str]], res: Dict[str, List[str]], n: int = 4,
+         option: str = "closest") -> Tuple[List[float], List[List[float]]]:
+    """Returns ([bleu1..bleuN] corpus, per-image lists)."""
+    tiny, small = 1e-15, 1e-9
+    tot_correct = np.zeros(n)
+    tot_guess = np.zeros(n)
+    tot_testlen = 0.0
+    tot_reflen = 0.0
+    per_image: List[List[float]] = []
+
+    for k in gts:
+        hyp = res[k][0].split()
+        refs = [r.split() for r in gts[k]]
+        testlen = len(hyp)
+        rls = [len(r) for r in refs]
+        if option == "shortest":
+            reflen = min(rls)
+        elif option == "average":
+            reflen = sum(rls) / len(rls)
+        else:  # closest
+            reflen = min(rls, key=lambda rl: (abs(rl - testlen), rl))
+        correct = np.zeros(n)
+        guess = np.zeros(n)
+        for i in range(n):
+            hng = _ngrams(hyp, i + 1)
+            best = Counter()
+            for r in refs:
+                rng_ = _ngrams(r, i + 1)
+                for g, c in rng_.items():
+                    best[g] = max(best[g], c)
+            correct[i] = sum(min(c, best[g]) for g, c in hng.items())
+            guess[i] = max(testlen - i, 0)
+        tot_correct += correct
+        tot_guess += guess
+        tot_testlen += testlen
+        tot_reflen += reflen
+
+        b, row = 1.0, []
+        for i in range(n):
+            b *= (correct[i] + tiny) / (guess[i] + small)
+            s = b ** (1.0 / (i + 1))
+            ratio = (testlen + tiny) / (reflen + small)
+            row.append(s * math.exp(1 - 1 / ratio) if ratio < 1 else s)
+        per_image.append(row)
+
+    scores, b = [], 1.0
+    for i in range(n):
+        b *= (tot_correct[i] + tiny) / (tot_guess[i] + small)
+        s = b ** (1.0 / (i + 1))
+        ratio = (tot_testlen + tiny) / (tot_reflen + small)
+        scores.append(float(s * math.exp(1 - 1 / ratio) if ratio < 1 else s))
+    return scores, per_image
+
+
+# ---------------------------------------------------------------------------
+# CIDEr-D
+# ---------------------------------------------------------------------------
 
 def _ngram_counter(sentence: str, n: int = 4) -> Counter:
     """Counts of every 1..n-gram of the sentence's words."""
@@ -98,3 +177,88 @@ class CiderD:
             scores.append(np.mean(score) / len(refs) * 10.0)
         scores = np.array(scores)
         return float(np.mean(scores)), scores
+
+
+def cider(gts, res, n=4, sigma=6.0) -> Tuple[float, np.ndarray]:
+    """Plain CIDEr = CIDEr-D scorer here (pycocoevalcap's Cider differs only
+    in length-penalty/clipping details; COCOEvalCap reports CIDEr from the
+    cider scorer — this implementation follows the -D variant used both for
+    the README metric and for SCST)."""
+    return CiderD(n=n, sigma=sigma).compute_score(gts, res)
+
+
+# ---------------------------------------------------------------------------
+# ROUGE-L
+# ---------------------------------------------------------------------------
+
+def _lcs_len(a: List[str], b: List[str]) -> int:
+    if len(a) < len(b):
+        a, b = b, a
+    prev = [0] * (len(b) + 1)
+    for x in a:
+        cur = [0]
+        for j, y in enumerate(b):
+            cur.append(prev[j] + 1 if x == y else max(cur[j], prev[j + 1]))
+        prev = cur
+    return prev[-1]
+
+
+def rouge_l(gts: Dict[str, List[str]], res: Dict[str, List[str]],
+            beta: float = 1.2) -> Tuple[float, np.ndarray]:
+    scores = []
+    for k in gts:
+        hyp = res[k][0].split()
+        prec, rec = [], []
+        for r in gts[k]:
+            ref = r.split()
+            l = _lcs_len(hyp, ref)
+            prec.append(l / len(hyp) if hyp else 0.0)
+            rec.append(l / len(ref) if ref else 0.0)
+        p, r = max(prec), max(rec)
+        if p != 0 and r != 0:
+            scores.append(((1 + beta ** 2) * p * r) / (r + beta ** 2 * p))
+        else:
+            scores.append(0.0)
+    arr = np.array(scores)
+    return float(np.mean(arr)), arr
+
+
+# ---------------------------------------------------------------------------
+# METEOR (native meteor-1.5: exact/stem/synonym/paraphrase-hook matchers,
+# module weights, content/function word discounting — evals/meteor.py)
+# ---------------------------------------------------------------------------
+
+def meteor(gts: Dict[str, List[str]], res: Dict[str, List[str]],
+           synonym_file: Optional[str] = None,
+           paraphrase_file: Optional[str] = None,
+           use_synonyms: bool = True,
+           use_paraphrases: bool = True) -> Tuple[float, np.ndarray]:
+    from .meteor import meteor as _meteor
+    return _meteor(gts, res, synonym_file=synonym_file,
+                   paraphrase_file=paraphrase_file,
+                   use_synonyms=use_synonyms,
+                   use_paraphrases=use_paraphrases)
+
+
+# ---------------------------------------------------------------------------
+# aggregate scorer (COCOEvalCap-style)
+# ---------------------------------------------------------------------------
+
+def compute_all_metrics(gts: Dict[str, List[str]],
+                        res: Dict[str, List[str]],
+                        stemmed: bool = True) -> Dict[str, float]:
+    """Bleu_1..4, METEOR, ROUGE_L, CIDEr, SPICE.  stemmed=False leaves out
+    METEOR and SPICE, which need the Porter stemmer (evals/coco_eval.py
+    says so in the report)."""
+    out: Dict[str, float] = {}
+    b, _ = bleu(gts, res, 4)
+    for i, s in enumerate(b):
+        out[f"Bleu_{i + 1}"] = s
+    if stemmed:
+        out["METEOR"], _ = meteor(gts, res)
+    out["ROUGE_L"], _ = rouge_l(gts, res)
+    out["CIDEr"], _ = cider(gts, res)
+    if stemmed:
+        from .spice import spice
+        out["SPICE"], _ = spice(gts, res)   # SPICE-lite (evals/spice.py):
+    return out                              # tuple-F1 without the parser

@@ -12,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -166,6 +166,30 @@ class ModelConfig:
         kw = {k: v for k, v in raw.items() if k in known}
         kw.update(overrides)
         return cls(**kw)
+
+
+# The ViT trunks the shipped asset folders (vitcap_tpu/assets/VILT-*) pair
+# with, as (patch_size, hidden_size, depth) from the JAX package's model
+# registry (vitcap_tpu/models/registry.py); the rest of that zoo is
+# ROADMAP.md queue 1, module 13.
+VIT_TRUNKS = {
+    "vit_base_patch16_384": (16, 768, 12),
+    "vit_base_patch16_224": (16, 768, 12),
+    "vit_base_patch32_384": (32, 768, 12),
+}
+
+
+def vit_trunk(image_encoder_type: str) -> Tuple[int, int, int]:
+    """(patch_size, hidden_size, depth) of a 'VitEmb_<timm name>' trunk;
+    a name outside VIT_TRUNKS raises NotImplementedError."""
+    name = image_encoder_type.split("VitEmb_")[-1]
+    if name not in VIT_TRUNKS:
+        raise NotImplementedError(
+            f"image_encoder_type {image_encoder_type!r}: the port knows the "
+            f"trunks {sorted(VIT_TRUNKS)}; the model zoo "
+            f"(vitcap_tpu/models/registry.py) is ROADMAP.md module 13, not "
+            f"ported yet")
+    return VIT_TRUNKS[name]
 
 
 def tiny_config(**kw) -> ModelConfig:

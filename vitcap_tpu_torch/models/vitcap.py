@@ -90,6 +90,60 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return model.requires_grad_(False)
 
 
+@torch.no_grad()
+def init_tag_blocks_from_encoder(model: ViTCAP, cfg: ModelConfig) -> ViTCAP:
+    """Copy the last split_blocks trunk blocks into the tag branch
+    (reference ...bertemb.py:265-267), as real copies: the tag blocks train
+    apart from the trunk.  In place; returns the model."""
+    src = model.bert.encoder.blocks[-cfg.split_blocks:]
+    for dst, blk in zip(model.bert.encoder.tag_blocks, src):
+        dst.load_state_dict({k: v.clone() for k, v in
+                             blk.state_dict().items()})
+    return model
+
+
+@torch.no_grad()
+def resize_word_embeddings(model: ViTCAP, new_size: int,
+                           generator: Optional[torch.Generator] = None
+                           ) -> ViTCAP:
+    """Grow or shrink the (tied) word-embedding table to new_size rows,
+    keeping the existing rows (reference
+    PreTrainedModel.resize_token_embeddings, modeling_utils.py:245-315).
+    New rows are truncated normal (std 0.02, +-2 sigma) from `generator`
+    (a CPU generator), as init_params draws; the LM head's bias gets
+    zeros, its untied decoder new rows.  In place; returns the model (its
+    config's vocab_size is the caller's to update)."""
+    emb = model.bert.embeddings.word_embeddings
+    old = emb.weight
+    old_n, h = old.shape
+    if new_size == old_n:
+        return model
+    n = min(old_n, new_size)
+
+    def grown(t: torch.Tensor, shape) -> torch.Tensor:
+        new = torch.empty(shape)
+        nn.init.trunc_normal_(new, std=0.02, a=-0.04, b=0.04,
+                              generator=generator)
+        new = new.to(device=t.device, dtype=t.dtype)
+        new[:n] = t[:n]
+        return new
+
+    emb.weight = nn.Parameter(grown(old, (new_size, h)),
+                              requires_grad=old.requires_grad)
+    emb.num_embeddings = new_size
+    head = model.cls.predictions
+    bias = torch.zeros(new_size, dtype=head.bias.dtype,
+                       device=head.bias.device)
+    bias[:n] = head.bias[:n]
+    head.bias = nn.Parameter(bias, requires_grad=head.bias.requires_grad)
+    if hasattr(head, "decoder"):
+        w = head.decoder.weight
+        head.decoder.weight = nn.Parameter(grown(w, (new_size, h)),
+                                           requires_grad=w.requires_grad)
+        head.decoder.out_features = new_size
+    return model
+
+
 def word_embedding_weight(model: ViTCAP) -> torch.Tensor:
     return model.bert.embeddings.word_embeddings.weight
 

@@ -1,0 +1,340 @@
+"""Experiment orchestration: the UniPipeline lifecycle, the port of
+vitcap_tpu/pipelines/uni_pipeline.py (reference ViTCAP
+src/pipelines/uni_pipeline.py:91-1130):
+
+- the same experiment layout (`output/<full_expid>/snapshot`,
+  `model_iter_{:07d}`), artifact naming (`<ckpt>.<data>.<split>…predict.tsv`,
+  `<predict>.report`), mtime caching (`worth_create`), `parameters_*.yaml`
+  snapshots, `.speed.yaml` and `.info.yaml`, `30e`-style iteration parsing;
+- pipelines run on the card (`device: cuda`, the default) unless the
+  config says `device: cpu`; asking for the card on a host without one
+  raises, nothing falls back to the CPU;
+- one process: the JAX package's per-rank predict shards and their merge
+  belong to the distributed port (ROADMAP.md module 9), so a run with more
+  than one rank raises.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os.path as op
+from typing import Any, Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+from ..data.dataset import (
+    BatchSampler, DataLoader, DatasetPlusTransform, DistributedSampler,
+    IterationBasedBatchSampler,
+)
+from ..data.tsv import tsv_writer
+from ..utils.common import (
+    Config, ensure_directory, get_mpi_size, init_logging, save_parameters,
+    worth_create, write_to_yaml_file,
+)
+from ..utils.meters import MetricLogger
+
+
+def resolve_device(name: str) -> torch.device:
+    """The pipeline's device: 'cuda' (the default) or 'cpu'.  'cuda' on a
+    host without a card raises RuntimeError."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {name!r}: no CUDA device is available; set "
+            f"'device: cpu' to run the pipeline on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"device {name!r}: 'cuda' or 'cpu'")
+    return dev
+
+
+class UniPipeline:
+    def __init__(self, **kwargs: Any):
+        self._default: Dict[str, Any] = {
+            "snapshot_steps": 5000,
+            "test_batch_size": 1,
+            "effective_batch_size": 8,
+            "data": "Unknown",
+            "net": "Unknown",
+            "expid": "Unknown",
+            "log_step": 100,
+            "test_split": "test",
+            "num_workers": 8,
+            "base_lr": 0.1,
+            "max_iter": 10,
+            "random_seed": 88,
+            "train_crop_size": 224,
+            "test_crop_size": 224,
+            "train_shuffle": True,
+            "weight_decay": 1e-4,
+            "scheduler_type": "linear",
+            "warmup_steps": 0,
+            "max_gen_length": 20,
+            "crop_pct": 1.0,
+            "force_train": False,
+            "force_predict": False,
+            "ignore_predict": False,
+            "ignore_evaluate": False,
+            "test_max_iter": None,
+            "data_root": None,
+            "output_root": "output",
+            "basemodel": None,
+            "train_label_version": None,
+            "monitor_after": False,
+            "device": "cuda",
+        }
+        self.kwargs = kwargs
+        self.cfg = Config(self._default, kwargs)
+        self.full_expid = kwargs.get("full_expid") or "_".join(
+            [self.cfg.data, self.cfg.net, self.cfg.expid])
+        self.output_folder = op.join(self.cfg.output_root, self.full_expid)
+        self.model_folder = op.join(self.output_folder, "snapshot")
+        self.mpi_rank = 0
+        self.mpi_size = get_mpi_size()
+        if self.mpi_size > 1:
+            raise NotImplementedError(
+                f"{self.mpi_size} ranks: the port runs one process; "
+                f"distributed training and the per-rank predict merge are "
+                f"ROADMAP.md module 9 (parallel/ on torch.distributed), not "
+                f"ported yet")
+        self._max_iter: Optional[int] = None
+        self.initialized = False
+
+    @property
+    def device(self) -> torch.device:
+        return resolve_device(self.cfg.device)
+
+    # ------------------------------------------------------------------
+    # config / naming
+    # ------------------------------------------------------------------
+
+    @property
+    def max_iter(self) -> int:
+        if self._max_iter is None:
+            self._max_iter = self.parse_iter(self.cfg.max_iter)
+        return self._max_iter
+
+    def parse_iter(self, i) -> int:
+        """'30e' -> iterations from epochs (reference uni_pipeline.py:253)."""
+        if isinstance(i, str) and i.endswith("e"):
+            n = len(self.get_len_dataset(is_train=True))
+            iter_each_epoch = n / self.cfg.effective_batch_size
+            return int(float(i[:-1]) * iter_each_epoch)
+        return int(i)
+
+    def get_checkpoint_file(self, iteration: Optional[int] = None) -> str:
+        if iteration is None:
+            iteration = self.max_iter
+        path = op.join(self.model_folder, f"model_iter_{iteration:07d}.ckpt")
+        if not op.exists(path):
+            # a released torch checkpoint dropped into the snapshot dir as
+            # model_iter_*.pt evaluates through the bridge
+            pt = op.join(self.model_folder, f"model_iter_{iteration:07d}.pt")
+            if op.exists(pt):
+                return pt
+        return path
+
+    def append_predict_param(self, cc: list) -> None:
+        if self.cfg.test_max_iter is not None:      # speed-test predicate
+            cc.append(f"max_iter{self.cfg.test_max_iter}")
+            cc.append(f"BS{self.cfg.test_batch_size}")
+        if self.cfg.max_gen_length != 20:
+            cc.append(f"max_token{self.cfg.max_gen_length}")
+        if self.cfg.test_crop_size and self.cfg.test_crop_size != 224:
+            cc.append(f"crop{self.cfg.test_crop_size}")
+
+    def get_predict_file(self, model_file: Optional[str] = None) -> str:
+        if model_file is None:
+            model_file = self.get_checkpoint_file()
+        cc = [model_file, self.cfg.test_data, self.cfg.test_split]
+        self.append_predict_param(cc)
+        cc += ["predict", "tsv"]
+        return ".".join(cc)
+
+    def get_evaluate_file(self, predict_file: Optional[str] = None) -> str:
+        if predict_file is None:
+            predict_file = self.get_predict_file()
+        assert predict_file.endswith(".tsv")
+        return op.splitext(predict_file)[0] + ".report"
+
+    def is_train_finished(self) -> bool:
+        return op.exists(self.get_checkpoint_file())
+
+    # ------------------------------------------------------------------
+    # factories (subclass hooks)
+    # ------------------------------------------------------------------
+
+    def get_len_dataset(self, is_train: bool):
+        raise NotImplementedError
+
+    def get_transform(self, is_train: bool):
+        raise NotImplementedError
+
+    def get_dataset(self, is_train: bool):
+        return DatasetPlusTransform(self.get_len_dataset(is_train),
+                                    self.get_transform(is_train))
+
+    def get_data_loader(self, is_train: bool, start_iter: int = 0,
+                        dataset=None):
+        if dataset is None:
+            dataset = self.get_dataset(is_train)
+        if is_train:
+            sampler = DistributedSampler(dataset, 1, 0,
+                                         shuffle=self.cfg.train_shuffle)
+            bs = BatchSampler(sampler, self.cfg.effective_batch_size,
+                              drop_last=True)
+            ibs = IterationBasedBatchSampler(bs, self.max_iter, start_iter)
+            return DataLoader(dataset, ibs,
+                              num_workers=self.cfg.num_workers)
+        sampler = DistributedSampler(dataset, 1, 0, shuffle=False)
+        bs = BatchSampler(sampler, self.cfg.test_batch_size, drop_last=False)
+        return DataLoader(dataset, bs, num_workers=self.cfg.num_workers)
+
+    # ------------------------------------------------------------------
+    # lifecycle
+    # ------------------------------------------------------------------
+
+    def _ensure_initialized(self) -> None:
+        if self.initialized:
+            return
+        ensure_directory(self.output_folder)
+        ensure_directory(self.model_folder)
+        init_logging(self.mpi_rank, self.output_folder)
+        np.random.seed(self.cfg.random_seed)
+        self.initialized = True
+
+    def ensure_train(self):
+        self._ensure_initialized()
+        last = self.get_checkpoint_file()
+        if op.exists(last) and not self.cfg.force_train:
+            logging.info("skip to train: %s exists", last)
+            return
+        save_parameters(self.kwargs, self.output_folder)
+        return self.train()
+
+    def train(self):
+        raise NotImplementedError
+
+    def ensure_predict(self, model_file: Optional[str] = None) -> str:
+        if self.cfg.ignore_predict:
+            return ""
+        self._ensure_initialized()
+        if model_file is None:
+            model_file = self.get_checkpoint_file()
+        predict_file = self.get_predict_file(model_file)
+        if not op.exists(model_file):
+            logging.info("no model file %s; skip predict", model_file)
+            return predict_file
+        if not worth_create(model_file, predict_file) \
+                and not self.cfg.force_predict:
+            logging.info("cached: %s", predict_file)
+            return predict_file
+        self.predict(model_file, predict_file)
+        return predict_file
+
+    def predict(self, model_file: str, predict_file: str) -> str:
+        model = self.load_test_model(model_file)
+        dataset = self.get_dataset(is_train=False)
+        loader = self.get_data_loader(is_train=False, dataset=dataset)
+        meters = MetricLogger()
+        tsv_writer(self.predict_iter(loader, model, meters), predict_file)
+        logging.info(str(meters))
+        # per-prediction speed report (reference .speed.yaml,
+        # uni_pipeline.py:804-805); `module_time` carries the per-stage
+        # device table when the pipeline measured one (`speed_breakdown`)
+        speed = meters.get_info()
+        if getattr(self, "speed_info", None):
+            speed["module_time"] = self.speed_info
+        write_to_yaml_file(speed, predict_file + ".speed.yaml")
+        write_to_yaml_file(self.kwargs, predict_file + ".info.yaml")
+        return predict_file
+
+    def load_test_model(self, model_file: str):
+        raise NotImplementedError
+
+    def predict_iter(self, dataloader, model, meters) -> Iterator:
+        raise NotImplementedError
+
+    def ensure_evaluate(self, predict_file: Optional[str] = None
+                        ) -> Optional[Dict[str, float]]:
+        if self.cfg.ignore_evaluate or self.cfg.ignore_predict:
+            return None
+        self._ensure_initialized()
+        if predict_file is None:
+            predict_file = self.get_predict_file()
+        evaluate_file = self.get_evaluate_file(predict_file)
+        if not worth_create(predict_file, evaluate_file) \
+                and not self.cfg.force_predict:
+            logging.info("cached: %s", evaluate_file)
+            with open(evaluate_file) as f:
+                return json.load(f)
+        return self.evaluate(predict_file, evaluate_file)
+
+    def evaluate(self, predict_file: str, evaluate_file: str):
+        raise NotImplementedError
+
+    # ------------------------------------------------------------------
+    # monitor: evaluate every intermediate checkpoint
+    # ------------------------------------------------------------------
+
+    def intermediate_checkpoints(self):
+        import glob
+        pat = op.join(self.model_folder, "model_iter_*.ckpt")
+        final = self.get_checkpoint_file()
+        for f in sorted(glob.glob(pat)):
+            if f != final:
+                yield f
+
+    def monitor_train(self) -> None:
+        """predict+evaluate each intermediate snapshot, then plot
+        metric-vs-iteration PNGs and export TensorBoard scalars
+        (reference uni_pipeline.py:1021-1079, plot_to_file common.py:449)."""
+        self._ensure_initialized()
+        by_iter: Dict[int, Dict[str, float]] = {}
+        for ckpt in self.intermediate_checkpoints():
+            pf = self.ensure_predict(model_file=ckpt)
+            if pf and op.isfile(pf):
+                rep = self.ensure_evaluate(pf)
+                if rep:
+                    it = int(op.basename(ckpt).split("_")[-1]
+                             .split(".")[0])
+                    by_iter[it] = rep
+        if by_iter:
+            self._plot_and_tensorboard(by_iter)
+
+    def _plot_and_tensorboard(self, by_iter: Dict[int, Dict[str, float]]
+                              ) -> None:
+        iters = sorted(by_iter)
+        metrics = sorted({k for r in by_iter.values() for k in r
+                          if isinstance(r[k], (int, float))})
+        img_dir = op.join(self.output_folder, "images")
+        ensure_directory(img_dir)
+        try:
+            import matplotlib
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+            for m in metrics:
+                xs = [i for i in iters if m in by_iter[i]]
+                ys = [by_iter[i][m] for i in xs]
+                fig, ax = plt.subplots()
+                ax.plot(xs, ys, marker="o")
+                ax.set_xlabel("iteration")
+                ax.set_ylabel(m)
+                ax.grid(True)
+                fig.savefig(op.join(
+                    img_dir,
+                    f"map_{self.cfg.test_data}_{self.cfg.test_split}_{m}.png"))
+                plt.close(fig)
+        except Exception as e:                     # pragma: no cover
+            logging.info("plotting unavailable: %s", e)
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+            with SummaryWriter(op.join(self.output_folder,
+                                       "tensorboard")) as w:
+                for i in iters:
+                    for m, v in by_iter[i].items():
+                        if isinstance(v, (int, float)):
+                            w.add_scalar(m, v, i)
+        except Exception as e:                     # pragma: no cover
+            logging.info("tensorboard unavailable: %s", e)
