@@ -40,6 +40,11 @@ Prints one line per gemm and attention row, serving batch and train step
 per run, then each row's times across the runs, and writes every row to
 chiprun_out/chip_ab.json.  Exits non-zero without a CUDA device or when
 any check of a phase fails.
+
+    python3 chip_ab.py --decode-attention PARENT_TREE . . PARENT_TREE
+
+runs only the build and the CUDA-graph decode_attention rows (DECODE_GRAPH)
+in each process: a quick comparison of that kernel alone.
 """
 
 from __future__ import annotations
@@ -200,10 +205,10 @@ def _own_chip_smoke():
     return mod
 
 
-def worker(tree: str) -> None:
+def worker(tree: str, decode_only: bool = False) -> None:
     """In this process: the kernel phases of `tree`'s chip_smoke.py and
-    its train steps at 384 and 512 px; the rows as one JSON line on
-    stdout."""
+    its train steps at 384 and 512 px (decode_only: the CUDA-graph
+    decode_attention rows alone); the rows as one JSON line on stdout."""
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_ab: no CUDA device")
@@ -215,6 +220,10 @@ def worker(tree: str) -> None:
     cs.phase_build()
     rows = []
     own = _own_chip_smoke()
+    if decode_only:
+        decode_attention_graph(own, dev, rows)
+        print("ROWS " + json.dumps(rows), flush=True)
+        return
     cs.phase_kernels(dev, rows)
     decode_gemm = getattr(cs, "phase_decode_gemm", None)
     (decode_gemm or own.phase_decode_gemm)(dev, rows)
@@ -246,6 +255,8 @@ def worker(tree: str) -> None:
 
 def main() -> int:
     trees = sys.argv[1:]
+    flags = [a for a in trees if a == "--decode-attention"]
+    trees = [a for a in trees if a not in flags]
     if not trees:
         print(__doc__, file=sys.stderr)
         return 2
@@ -256,8 +267,9 @@ def main() -> int:
     runs = []
     for i, tree in enumerate(trees):
         proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                               "--worker", tree], capture_output=True,
-                              text=True, env=dict(os.environ))
+                               "--worker", tree, *flags],
+                              capture_output=True, text=True,
+                              env=dict(os.environ))
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
             raise SystemExit(f"chip_ab: run {i} ({tree}) failed")
@@ -291,6 +303,6 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--worker"]:
-        worker(sys.argv[2])
+        worker(sys.argv[2], "--decode-attention" in sys.argv[3:])
         sys.exit(0)
     sys.exit(main())

@@ -125,6 +125,18 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
    the launches per train step and per predict batch.  Then the tiny
    test configuration in f32 on the card and on the CPU from one port
    `.ckpt` basemodel: per-step losses within rtol 1e-4, captions equal.
+15. constrained beam search (models/cbs.py): decode_attention at 160
+   beams an image (32 FSM states of 5 beams: 10 groups of 16), B=64,
+   S=628, vs its plain version (bf16 on the cluster kernel at least 99%
+   bit-equal, f32 on the simple kernel), with its bound; a CbsDecoder
+   batch of 64 flagship images (bf16, random weights, synthetic
+   detections of 3 vocab-word classes an image) on the eager and the
+   fused engine: captions/s, exact launches (fused: every
+   decode_attention over beam groups), peak memory, the profile (idle
+   share, device time by kernel), each chosen caption replayed on its
+   FSM meeting min(3, 2) constraints; the sparse search against the
+   dense one on the card (the flagship in f32, B=2) and the tiny
+   configuration's CbsDecoder ids on the card and the CPU, both engines.
 Phase 3 also runs decode_attention at S = 2000 context keys (hd 64 with 4
 beams, hd 128 with 1), at least 99% bit-equal at B=64, with its share and
 times, and a sweep of small calls (3 images, 8 seeds, 3 t; from 628 to
@@ -186,7 +198,8 @@ TRAIN_MODES_PER_STEP = {"gemm[pre_out]": 19, "gemm[dropout]": 8,
                         "attention_bwd[long]": 0,
                         "attention_bwd[non_slab]": 0,
                         "attention[heads]": 0, "attention[online]": 0,
-                        "attention_bwd[heads]": 0}
+                        "attention_bwd[heads]": 0,
+                        "decode_attention[groups]": 0}
 # one 512-px flagship train step: past 1024 padded tokens every
 # self-attention takes the plain chain's packed route (flash_attention_
 # packed): 15 ViT blocks at Lp 1152 (the CLS-only tag block attends from
@@ -201,7 +214,8 @@ TRAIN_512_MODES_PER_STEP = {"gemm[pre_out]": 0, "gemm[dropout]": 0,
                             "attention_bwd[long]": 38,
                             "attention_bwd[non_slab]": 38,
                             "attention[heads]": 0, "attention[online]": 0,
-                            "attention_bwd[heads]": 0}
+                            "attention_bwd[heads]": 0,
+                            "decode_attention[groups]": 0}
 HIGHRES = 512                # phase 9's images, against 384-px weights
 LONG = {"attention[long]": 18}          # per 512-px batch: every block
 FILTERED_LONG = {"attention[long]": 2}  # token_filter_keep=0.5: blocks 0, 1
@@ -303,6 +317,13 @@ MODE_SOURCES = {
                        "vitcap_tpu/ops/fused_block.py:383 _fused_fwd "
                        "(pallas_call :402) -> :56 _kernel (fused_vit_attn "
                        ":430, K11)", "577"),
+    "decode_attention[groups]": ("vitcap_tpu_torch/csrc/decode_attention.cu "
+                                 "(decode_attention_cluster_kernel over "
+                                 "beam groups)",
+                                 "vitcap_tpu/ops/decode_step.py:115 _kernel "
+                                 "(attention half; fused_decode_step :237), "
+                                 "as constrained beam search reaches it at "
+                                 "160 beams an image", "cbs160"),
     "tail_train": ("vitcap_tpu_torch/ops/fused_block.py tail_train "
                    "(csrc/gemm.cu, layer_norm.cu)",
                    "vitcap_tpu/ops/fused_block.py:831 _tail_train_kernel "
@@ -3589,6 +3610,314 @@ def phase_pipeline_parity(root, devices=("cuda", "cpu")):
     return dict(out, max_rel_loss=rel)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: constrained beam search (models/cbs.py)
+# ---------------------------------------------------------------------------
+
+CBS_BEAMS = 5                # beam_size = max(num_beams, 5)
+CBS_MAX_CONS = 3             # max_given_constraints: 2^3 main states
+CBS_NB = 2 ** CBS_MAX_CONS * 4 * CBS_BEAMS   # 160 beams an image
+# a CBS batch on the fused engine: the encode and prefill, then 19 steps of
+# 4 layers; every decode_attention launch over 10 beam groups an image
+CBS_MODES = {"decode_attention[groups]": 4 * STEPS}
+CBS_CLASSES = ("dog cat bird horse car bus train boat table bench clock "
+               "kite pizza umbrella zebra lion elephant sheep cow bear "
+               "bicycle laptop bottle chair").split()
+CBS_TWO_WORD = ("cell phone", "teddy bear", "traffic light",
+                "stop sign")
+CBS_DIR = ROOT / "build" / "chip_smoke_cbs"
+
+
+def phase_cbs_kernels(dev, rows, S=628, A=20, t=10):
+    """decode_attention at constrained beam search's 160 beams an image (10
+    groups of 16), B=64, S=628, 12 heads of 64, vs its plain version: bf16
+    on the cluster kernel at least 99% bit-equal, f32 on the simple kernel
+    within F32_TOL; times back to back and from a CUDA graph (bf16), the
+    bound (the context once per image and head, the caption caches, the
+    window in, the prev slot's k/v and the output out), no library
+    yardstick (SDPA would repeat each image's context 160 times)."""
+    from vitcap_tpu_torch import ops
+    from vitcap_tpu_torch.ops.decode_step import (decode_attention,
+                                                  decode_attention_plain,
+                                                  plan)
+    g = torch.Generator().manual_seed(SEED + 15)
+    nh, H, nb = 12, 768, CBS_NB
+    Bb = B * nb
+    t_dev = torch.tensor([t], dtype=torch.int32, device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = "bf16" if dtype == torch.bfloat16 else "f32"
+        es = 2 if dtype == torch.bfloat16 else 4
+        p = plan(S, nb, H // nh, A, dtype)
+        if p.groups != 10 or bool(p.ranks) != (dtype == torch.bfloat16):
+            raise AssertionError(f"decode_attention cbs {dn}: plan {p}")
+        d = _decode_attention_inputs(dev, dtype, nb, t, S, A, H, g)
+        caps = [d["cap_k"].clone(), d["cap_v"].clone()]
+        args = (d["ctx_k"], d["ctx_v"], d["bias"])
+        ops.reset_counts()
+        out = decode_attention(d["qkv"], *caps, *args, t_dev, nh)
+        grouped = ops.mode_counts()["decode_attention[groups]"]
+        ref = decode_attention_plain(d["qkv"], d["cap_k"], d["cap_v"], *args,
+                                     t, nh)
+        err = compare(f"decode_attention cbs {dn}", out, ref, dtype)
+        if not (torch.equal(caps[0], d["cap_k"])
+                and torch.equal(caps[1], d["cap_v"])):
+            raise AssertionError(f"decode_attention cbs {dn}: caption "
+                                 f"caches differ from plain")
+        eq = (out == ref).float().mean().item()
+        if p.ranks and (eq < 0.99 or grouped != 1):
+            raise AssertionError(f"decode_attention cbs {dn}: {eq:.5f} of "
+                                 f"outputs bit-equal, {grouped} grouped "
+                                 f"launches")
+        ms = cuda_ms(lambda i: decode_attention(d["qkv"], *caps, *args,
+                                                t_dev, nh), 10)
+        gms = graph_ms(lambda: decode_attention(d["qkv"], *caps, *args,
+                                                t_dev, nh), 10)
+        pms = cuda_ms(lambda i: decode_attention_plain(
+            d["qkv"], *caps, *args, t, nh), 2)
+        nbytes = (es * (2 * B * S * H + 2 * Bb * (t - 1) * H
+                        + Bb * 2 * 3 * H + 2 * Bb * H + Bb * 2 * H)
+                  + 4 * B * S)
+        flops = 4.0 * Bb * 2 * (S + t) * H
+        _row(rows, "decode_attention[groups]", "cbs160", dn,
+             f"B={B} nb={nb} ({p.groups} groups) S={S} A={A} t={t} "
+             f"heads=12x64", err, ms, pms, None, flops, nbytes)
+        r = rows[-1]
+        r.update(bit_equal=eq, graph_ms=gms, ranks=p.ranks, groups=p.groups)
+        log(f"[cbs] decode_attention {nb} beams ({p.groups} groups, "
+            f"{p.ranks} ranks) {dn} err {err:.3e}  bit-equal {eq:.6f}  "
+            f"kernel {ms:.4f} ms (graph {gms:.4f})  plain {pms:.4f} ms  "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+            f"{nbytes / 1e6:.1f} MB)")
+        del d, caps, out, ref
+        torch.cuda.empty_cache()
+
+
+def _cbs_files(keys, seed, root=CBS_DIR):
+    """Synthetic detections for `keys` from `seed`: per image 3 classes of
+    vocab words (one two-word class in three images of four) in boxes that
+    do not overlap, and a blacklisted `person`, so the filter keeps 3
+    constraints; the class hierarchy (every class a child of the root) and
+    the constraint-to-token and wordform files."""
+    rs = np.random.RandomState(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    classes = list(CBS_CLASSES) + list(CBS_TWO_WORD)
+    with open(root / "boxes.tsv", "w") as f:
+        for i, k in enumerate(keys):
+            names = list(rs.choice(CBS_CLASSES, 3 if i % 4 == 0 else 2,
+                                   replace=False))
+            if i % 4:
+                names.append(CBS_TWO_WORD[i % len(CBS_TWO_WORD)])
+            dets = [{"class": n, "conf": float(0.5 + 0.4 * rs.rand()),
+                     "rect": [60 * j, 0, 60 * j + 50, 50]}
+                    for j, n in enumerate(names)]
+            dets.append({"class": "person", "conf": 0.99,
+                         "rect": [0, 100, 50, 150]})
+            f.write(f"{k}\t{json.dumps(dets)}\n")
+    (root / "hierarchy.json").write_text(json.dumps(
+        {"LabelName": "Entity",
+         "Subcategory": [{"LabelName": c} for c in classes]}))
+    from vitcap_tpu_torch.data.tokenization import CaptionDecoder
+    vocab = CaptionDecoder().vocab
+    words = sorted({w for c in classes for w in c.split()})
+    (root / "c2t.tsv").write_text("".join(f"{w}\t{w}\n" for w in words))
+    (root / "wf.tsv").write_text("".join(
+        f"{w}\t{w},{w}s\n" if f"{w}s" in vocab else f"{w}\t{w}\n"
+        for w in words))
+    return root
+
+
+def _cbs_decoder(root, sparse=True):
+    """A CbsDecoder as the pipeline makes it (_make_cbs_decoder's
+    defaults: NMS 0.85, 3 constraints, 2 to satisfy, 5 beams)."""
+    from vitcap_tpu_torch.data.tokenization import CaptionDecoder
+    from vitcap_tpu_torch.models import cbs as TC
+    tok = CaptionDecoder()
+    return TC.CbsDecoder(
+        tok, TC.ConstraintFilter(str(root / "hierarchy.json"), 0.85,
+                                 CBS_MAX_CONS),
+        TC.FiniteStateMachineBuilder(
+            tok, TC.load_wordforms(str(root / "c2t.tsv")),
+            TC.load_wordforms(str(root / "wf.tsv")), CBS_MAX_CONS),
+        TC.ConstraintBoxesReader(str(root / "boxes.tsv")),
+        min_constraints_to_satisfy=2, beam_size=CBS_BEAMS, sparse=sparse)
+
+
+def _cbs_met(decoder, keys, best, sep):
+    """The constraints each chosen caption meets, replayed on its image's
+    sparse FSM: the main-state bits of the state its words end in (None if
+    a word has no transition)."""
+    from vitcap_tpu_torch.models.cbs import build_sparse_fsm
+    met = []
+    for k, cons, ids in zip(keys, decoder._constraints(keys), best):
+        fsm = build_sparse_fsm(decoder.builder, cons)
+        nexts = {(f, w): t for f, t, w in fsm.edges}
+        s = 0
+        for w in ids.tolist():
+            if w == sep:
+                break
+            if (s, w) in nexts:
+                s = nexts[s, w]
+            elif fsm.default_to[s] >= 0 and w not in fsm.removed[s]:
+                s = int(fsm.default_to[s])
+            else:
+                s = None
+                break
+        met.append(None if s is None or s >= 2 ** CBS_MAX_CONS
+                   else bin(s).count("1"))
+    return met
+
+
+def phase_cbs(dev, smi):
+    """A CbsDecoder predict of 64 flagship images (bf16, random weights
+    from the seed, uint8 384x384 images, synthetic detections: 3
+    constraints an image) on the eager and the fused engine: one warm-up
+    batch, then one batch timed on the host clock (FSM build, dispatch and
+    collect) with its launches (set to 0 just before it; fused: exactly
+    FUSED_PER_BATCH and every decode_attention over beam groups) and its
+    peak memory, then one batch under torch.profiler (device busy time,
+    idle share, device time by kernel); captions/s; every chosen caption
+    replayed on its FSM meets min(n_cons, 2) constraints.  Returns the
+    launch counts of the fused batch and the measurements."""
+    from vitcap_tpu_torch import ops
+    from vitcap_tpu_torch.models.cbs import put
+    cfg, model = _flagship(dev)
+    opts = _opts(cfg)
+    keys = [f"cbs{i:03d}" for i in range(B)]
+    root = _cbs_files(keys, SEED + 15)
+    decoder = _cbs_decoder(root)
+    rs = np.random.RandomState(SEED + 16)
+    imgs = put(rs.randint(0, 256, (B, cfg.img_size, cfg.img_size, 3))
+               .astype(np.uint8), dev)
+    od_len = cfg.max_seq_len - cfg.max_seq_a_len
+    od = torch.zeros(B, od_len, dtype=torch.long, device=dev)
+    tt = torch.ones_like(od)
+    sl = torch.full((B,), cfg.max_seq_a_len, device=dev)
+    t0 = time.perf_counter()
+    _, n_cons = decoder.build_batch_fsm_sparse(keys)
+    fsm_ms = (time.perf_counter() - t0) * 1e3
+    if sorted(set(n_cons.tolist())) != [CBS_MAX_CONS]:
+        raise AssertionError(f"cbs: constraints an image {n_cons}")
+
+    def batch():
+        out, n = decoder.dispatch(model, imgs, od, tt, sl, keys, cfg, opts)
+        return decoder.collect(out, n, cfg)
+
+    res, counts = {"fsm_build_ms": fsm_ms}, {}
+    for name, fused in (("eager", False), ("fused", True)):
+        with _engine(fused):
+            batch()                                   # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_counts()
+            t0 = time.perf_counter()
+            best, best_lp = batch()
+            seconds = time.perf_counter() - t0
+            got = dict(ops.launch_counts(), **ops.mode_counts())
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            want = dict(PER_BATCH if not fused else FUSED_PER_BATCH,
+                        **{k: 0 for k in ops.mode_counts()})
+            want.update(CBS_MODES if fused else {})
+            if got != want:
+                raise AssertionError(f"cbs {name}: launches {got} != {want}")
+            counts[name] = got
+            met = _cbs_met(decoder, keys, best, cfg.sep_token_id)
+            need = [min(int(n), 2) for n in n_cons]
+            if any(m is None or m < k for m, k in zip(met, need)):
+                raise AssertionError(f"cbs {name}: constraints met {met}, "
+                                     f"needed {need}")
+            if not np.isfinite(best_lp).all():
+                raise AssertionError(f"cbs {name}: log-probabilities "
+                                     f"{best_lp}")
+            prof = _profile(f"cbs_{name}", batch, reps=1)
+            caps = [decoder.tokenizer.decode(c.tolist()) for c in best[:3]]
+        res[name] = {"batch_s": seconds, "captions_per_s": B / seconds,
+                     "peak_gib": peak, "launches": got,
+                     "constraints_met": met, "profile": prof}
+        log(f"[cbs] {name}: {B / seconds:.2f} captions/s (B={B}, "
+            f"{CBS_NB} beams an image, bf16, one batch of {seconds:.3f} s "
+            f"on the host clock), peak {peak:.2f} GiB, idle share "
+            f"{prof['idle_share']:.4f}, constraints met "
+            f"{sorted(set(met))} (FSM build {fsm_ms:.1f} ms) on {smi}")
+        log(f"[cbs] {name}: launches {got}")
+        log(f"[cbs] {name}: example captions (random weights): {caps}")
+    del model, imgs
+    torch.cuda.empty_cache()
+    return counts["fused"], res
+
+
+def phase_cbs_parity(dev, Bn=2):
+    """f32: the sparse search against the dense one on the card (the
+    flagship, B=2, the fused engine: decode_attention's simple kernel at
+    160 beams), ids and log-probabilities equal on every live beam; then
+    the tiny test configuration (the shipped vocab) on the card and on the
+    CPU, CbsDecoder.decode's ids equal on both engines."""
+    from vitcap_tpu_torch.models import cbs as TC
+    from vitcap_tpu_torch.models.config import ModelConfig, tiny_config
+    from vitcap_tpu_torch.models.vitcap import init_params
+    keys = [f"cbs{i:03d}" for i in range(Bn)]
+    root = _cbs_files(keys, SEED + 17)
+    out = {}
+    cfg = ModelConfig()                                   # f32
+    model = init_params(cfg, torch.Generator().manual_seed(SEED), dev)
+    rs = np.random.RandomState(SEED + 18)
+    imgs = TC.put(rs.randint(0, 256, (Bn, cfg.img_size, cfg.img_size, 3))
+                  .astype(np.uint8), dev)
+    od = torch.zeros(Bn, cfg.max_seq_len - cfg.max_seq_a_len,
+                     dtype=torch.long, device=dev)
+    sl = torch.full((Bn,), cfg.max_seq_a_len, device=dev)
+    dec = _cbs_decoder(root)
+    fsm, _ = dec.build_batch_fsm(keys)
+    sfsm, _ = dec.build_batch_fsm_sparse(keys)
+    with _engine(True):
+        t0 = time.perf_counter()
+        dense = TC.constrained_beam_search(
+            model, imgs, od, None, sl, TC.put(fsm, dev), cfg, _opts(cfg),
+            beam_size=CBS_BEAMS)
+        torch.cuda.synchronize()
+        out["dense_s"] = time.perf_counter() - t0
+        sparse = TC.constrained_beam_search_sparse(
+            model, imgs, od, None, sl,
+            {k: TC.put(v, dev) for k, v in sfsm.items()}, cfg, _opts(cfg),
+            beam_size=CBS_BEAMS)
+    d_lp, s_lp = dense["logprobs"].cpu(), sparse["logprobs"].cpu()
+    live = d_lp > -1e10
+    same = torch.equal(dense["ids"].cpu()[live], sparse["ids"].cpu()[live])
+    lp_err = (d_lp[live] - s_lp[live]).abs().max().item()
+    log(f"[cbs] f32 B={Bn} sparse vs dense on the card: {int(live.sum())} "
+        f"live beams, ids equal {same}, max lp diff {lp_err:.3e} (dense "
+        f"search {out['dense_s']:.2f} s)")
+    if not (same and lp_err <= 1e-4 and int(live.sum()) >= Bn * CBS_BEAMS):
+        raise AssertionError("cbs: sparse search differs from dense")
+    out.update(live_beams=int(live.sum()), lp_max_diff=lp_err)
+    del model, dense, sparse
+    torch.cuda.empty_cache()
+
+    tcfg = tiny_config(vocab_size=30522)
+    cpu_model = init_params(tcfg, torch.Generator().manual_seed(SEED), "cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    timgs = rs.randint(0, 256, (Bn, tcfg.img_size, tcfg.img_size, 3)) \
+        .astype(np.uint8)
+    tod = rs.randint(1, 30522, (Bn, tcfg.max_seq_len - tcfg.max_seq_a_len))
+    for fused in (False, True):
+        ids = []
+        with _engine(fused):
+            for model, d in ((gpu_model, dev), (cpu_model, "cpu")):
+                args = [TC.put(a, d) for a in
+                        (timgs, tod, np.ones_like(tod),
+                         np.full(Bn, tcfg.max_seq_len))]
+                ids.append(dec.decode(model, *args, keys, tcfg,
+                                      _opts(tcfg))[0])
+        same = np.array_equal(ids[0], ids[1])
+        log(f"[cbs] tiny f32 {'fused' if fused else 'eager'} card vs CPU: "
+            f"ids equal {same}")
+        if not same:
+            raise AssertionError("cbs: tiny card ids differ from the CPU's")
+    out["tiny_card_equals_cpu"] = True
+    import shutil
+    shutil.rmtree(CBS_DIR, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3654,6 +3983,11 @@ def main() -> int:
     t_pipe = time.perf_counter()
     pipe_counts, pipe = phase_pipeline(dev, smi, train["img_per_s"])
     log(f"[pipeline] phase took {time.perf_counter() - t_pipe:.1f} s")
+    t_cbs = time.perf_counter()
+    phase_cbs_kernels(dev, rows)
+    cbs_counts, cbs = phase_cbs(dev, smi)
+    cbs["parity"] = phase_cbs_parity(dev)
+    log(f"[cbs] phases took {time.perf_counter() - t_cbs:.1f} s")
 
     for name, n in counts.items():
         if n == 0 and name != "attention_bwd":
@@ -3664,7 +3998,8 @@ def main() -> int:
                                    "attention_bwd[long]",
                                    "attention_bwd[non_slab]",
                                    "attention[heads]", "attention[online]",
-                                   "attention_bwd[heads]"):
+                                   "attention_bwd[heads]",
+                                   "decode_attention[groups]"):
             raise AssertionError(f"{name}: no launch on the train path")
     kernels = summarise(rows, counts, dict(
         train_counts, **{"attention[long]": high_counts["attention[long]"]},
@@ -3673,7 +4008,9 @@ def main() -> int:
         **{k: flash_counts[k] for k in ("attention[heads]",
                                         "attention[online]",
                                         "attention_bwd[heads]",
-                                        "fused_vit_attn", "tail_train")}))
+                                        "fused_vit_attn", "tail_train")},
+        **{"decode_attention[groups]":
+           cbs_counts["decode_attention[groups]"]}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(
@@ -3686,7 +4023,8 @@ def main() -> int:
          "flash_launches": flash_counts, "flash_parity": flash_parity,
          "checkpoint": ckpt, "scst": scst, "scst_launches": scst_counts,
          "decode_attention_sweep": sweep, "pipeline": pipe,
-         "pipeline_launches": pipe_counts, "kernels": kernels},
+         "pipeline_launches": pipe_counts, "cbs": cbs,
+         "cbs_launches": cbs_counts, "kernels": kernels},
         indent=1, default=str))
     log(json.dumps({"kernels": kernels}))
     log(smi)

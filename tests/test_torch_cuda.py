@@ -493,6 +493,42 @@ def test_cuda_decode_attention_matches_plain(cuda, dtype, hd, nb, S):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_decode_attention_beam_groups_match_plain(cuda, dtype):
+    """160 beams an image, constrained beam search's 32 FSM states of 5
+    beams: 10 groups of 16 beams, each a launch row reading its image's
+    context (bf16 the cluster kernel, f32 the simple one), against the
+    plain version over 4 images at the flagship width (S 628, 12 heads of
+    64, A 20), t at both ends: the caption caches equal, bf16 at least
+    99% of the outputs bit-equal; bf16 launches count as grouped."""
+    B, nb, nh, hd, S, A = 4, 160, 12, 64, 628, 20
+    H = nh * hd
+    p = plan(S, nb, hd, A, dtype)
+    assert p.groups == 10 and bool(p.ranks) == (dtype == torch.bfloat16)
+    for t in (1, A):
+        d = _decode_inputs(cuda, dtype, B, nb, H, S, A, seed=t)
+        g = torch.Generator().manual_seed(200 + t)
+        qkv = torch.randn(B * nb, 2, 3 * H, generator=g).to(cuda, dtype)
+        bias = torch.where(d["valid"], 0.0, -10000.0).float().contiguous()
+        caps = [d["cap_k"].clone(), d["cap_v"].clone()]
+        ref = decode_attention_plain(qkv, d["cap_k"], d["cap_v"],
+                                     d["ctx_k"], d["ctx_v"], bias, t, nh)
+        ops.reset_counts()
+        out = decode_attention(qkv, *caps, d["ctx_k"], d["ctx_v"], bias,
+                               torch.tensor([t], dtype=torch.int32,
+                                            device=cuda), nh)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["decode_attention"] == 1
+        assert ops.mode_counts()["decode_attention[groups]"] == \
+            int(dtype == torch.bfloat16)
+        _close(out, ref, dtype)
+        assert torch.equal(caps[0], d["cap_k"])
+        assert torch.equal(caps[1], d["cap_v"])
+        if dtype == torch.bfloat16:
+            assert (out == ref).float().mean().item() >= 0.99, t
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("S,nb", [(628, 3), (1076, 1)])
 def test_cuda_decode_attention_deterministic_in_a_graph(cuda, S, nb):
     """The cluster kernel gives the same bits on every call, and a CUDA

@@ -83,8 +83,8 @@ def test_plan_at_flagship_shapes(S, nb, hd):
 
 def test_plan_edges():
     """Short contexts take one or two ranks; more than 4 beams more tiles
-    of 8 rows; f32, the small head dims, more than 16 beams and contexts
-    past the block's shared memory the simple kernel."""
+    of 8 rows; more than 16 beams groups of at most 16; f32, the small head
+    dims and contexts past the block's shared memory the simple kernel."""
     assert TDS.plan(13, 3, 64, 6).ranks == 1             # S < 64
     assert TDS.plan(40, 1, 128, 6).ranks == 1
     p = TDS.plan(70, 10, 64, 6)                          # 20 window rows
@@ -93,7 +93,13 @@ def test_plan_edges():
     assert [TDS.row_tiles(nb) for nb in (1, 4, 5, 8, 9, 16, 17)] == [
         1, 1, 2, 2, 4, 4, 0]
     assert TDS.cluster_smem(64, 10, 144, 5) > TDS.cluster_smem(64, 8, 144, 5)
-    assert TDS.plan(100, 17, 64, 6).ranks == 0
+    # more than 16 beams: groups of the largest divisor up to 16, each a
+    # launch row of the cluster kernel (a prime count: groups of one)
+    p = TDS.plan(100, 17, 64, 6)
+    assert p.ranks == 1 and p.groups == 17
+    assert p.smem == TDS.cluster_smem(64, 1, p.keys_max, p.ranks)
+    assert TDS.plan(628, 160, 64, A)[:4] == TDS.plan(628, 16, 64, A)[:4]
+    assert TDS.plan(628, 160, 64, A).groups == 10
     assert TDS.plan(2000, 4, 64, A).ranks == 8           # 260 keys a rank
     assert TDS.plan(628, 3, 64, A, torch.float32).ranks == 0
     for hd in (8, 16, 32):

@@ -403,7 +403,6 @@ def test_scst_two_steps_write_snapshot(root, port_run, tmp_path):
 
 
 @pytest.mark.parametrize("kw, err, words", [
-    ({"use_cbs": True}, NotImplementedError, "module 11"),
     ({"loader": "grain"}, NotImplementedError, "Grain"),
     ({"mesh_data": 2}, NotImplementedError, "module 9"),
     ({"checkpoint_backend": "msgpack"}, ValueError, "one backend"),
@@ -412,7 +411,7 @@ def test_scst_two_steps_write_snapshot(root, port_run, tmp_path):
     ({"jax_profile_dir": "trace"}, NotImplementedError, "profiler"),
     ({"image_encoder_type": "VitEmb_deit_base_patch16_384"},
      NotImplementedError, "module 13"),
-], ids=["use_cbs", "grain", "mesh_data", "msgpack", "orbax", "async",
+], ids=["grain", "mesh_data", "msgpack", "orbax", "async",
         "jax_profile_dir", "zoo_trunk"])
 def test_unported_keys_raise(root, tmp_path, kw, err, words):
     param = _param(root, str(tmp_path), device="cpu", **kw)

@@ -30,9 +30,18 @@
 // (about 20 KB per SM by Little's law at ~0.8 us of latency) and not wait
 // on its own phases.
 //
-// bf16 at hd 64 and 128 (up to 16 beams): decode_attention_cluster_kernel.
-// Grid (ranks, heads, images), a thread-block cluster of `ranks` blocks
-// (at most 8) per (head, image), each rank a contiguous range of context
+// Beam groups: an image's nb beams are taken as `groups` groups of
+// g = nb / groups beams (plan() in ops/decode_step.py: g the largest
+// divisor of nb up to 16, so greedy and beam-3 are one group and
+// constrained beam search's 160 beams ten groups of 16).  A launch row is
+// one group: its window rows, caption caches and outputs are those of
+// rows [z g, (z + 1) g) of the batch, and its context and bias those of
+// image z / groups, which every group of the image reads again (from L2
+// or device memory).
+//
+// bf16 at hd 64 and 128: decode_attention_cluster_kernel.  Grid (ranks,
+// heads, images x groups), a thread-block cluster of `ranks` blocks (at
+// most 8) per (head, beam group), each rank a contiguous range of context
 // keys (plan() in ops/decode_step.py picks ranks and the range from the
 // shape, never from t: about 144 keys a rank, 5 ranks at S = 628, 8 at
 // 1076); the last rank also takes the beams' caption keys (slots < t, slot
@@ -47,7 +56,7 @@
 //   to shared memory while the rows fly;
 // - computes its scores on the tensor cores, mma.sync m16n8k16 bf16 with
 //   f32 accumulators, transposed: 16 keys as M against the window rows as
-//   N = 8 (an image's beams: 2 rows greedy, 6 beam-3, up to 4 tiles of 8),
+//   N = 8 (a group's beams: 2 rows greedy, 6 beam-3, up to 4 tiles of 8),
 //   so few rows waste little; q and K through ldmatrix from rows padded
 //   by 16 bytes (no bank conflicts); each mma sums its 16 products from
 //   zero and an IEEE add takes it into the running f32 sum; adds the bias
@@ -78,11 +87,11 @@
 // exchange, the probabilities, P.V, the push) that four blocks an SM do
 // not hide.
 //
-// f32, and bf16 at hd 8/16/32 (or more than 16 beams, or a context too
-// long for the cluster kernel's shared memory):
-// decode_attention_simple_kernel, the first design: one block per (head,
-// image) serves all 2 * nb window rows, the f32 scores and probabilities
-// in shared memory, CUDA-core products.
+// f32, and bf16 at hd 8/16/32 (or a context too long for the cluster
+// kernel's shared memory): decode_attention_simple_kernel, the first
+// design: one block per (head, beam group) serves the group's 2 g window
+// rows, the f32 scores and probabilities in shared memory, CUDA-core
+// products.
 #include <math.h>
 
 #include <cooperative_groups.h>
@@ -231,13 +240,14 @@ __device__ __forceinline__ void mma_add(float (&d)[4], const uint32_t (&a)[4],
   d[3] += c3;
 }
 
-// Block (rank, h, b) of a cluster of `ranks` blocks along x.  Rank q takes
+// Block (rank, h, b) of a cluster of `ranks` blocks along x: head h of
+// beam group b, the beams [b nb, (b + 1) nb) of image b / groups.  Rank q takes
 // the context keys [q kpr, min(S, (q + 1) kpr)), the last rank those from
 // (ranks - 1) kpr to S and the caption keys c = j t + a of beam j, slot
 // a < t.  kmax: the key capacity of the shared buffers (a multiple of 16,
 // at least every rank's count).  NR: tiles of 8 window rows (2 nb <= 8 NR).
 // The products run transposed, keys (and head columns) as mma's M and
-// the window rows as its N = 8, so an image's few rows waste little:
+// the window rows as its N = 8, so a group's few rows waste little:
 // S^T = K q^T per 16 keys, o^T = V^T P^T per 16 head columns.
 template <int HD, int NR>
 __global__ void __launch_bounds__(DC_THREADS, NR == 1 ? 4 : 2)
@@ -246,16 +256,16 @@ __global__ void __launch_bounds__(DC_THREADS, NR == 1 ? 4 : 2)
                                     const bf16* __restrict__ ctx_v,
                                     const float* __restrict__ bias,
                                     const int* __restrict__ t_ptr,
-                                    bf16* __restrict__ out, int nb, int S,
-                                    int A, int H, float scale, int kpr,
-                                    int kmax) {
+                                    bf16* __restrict__ out, int nb,
+                                    int groups, int S, int A, int H,
+                                    float scale, int kpr, int kmax) {
   constexpr int U = HD / 8;              // 16-byte units per head row
   constexpr int RP = 8 * NR;             // window rows, padded
   constexpr int MTW = HD / 16 / DC_WARPS;  // P.V tiles of 16 columns a warp
   static_assert(MTW >= 1, "a warp takes at least 16 head columns");
   cg::cluster_group cl = cg::this_cluster();
   const int rank = (int)cl.block_rank(), ranks = (int)cl.num_blocks();
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.y, b = blockIdx.z, bc = b / groups;
   const int R = 2 * nb;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const size_t H3 = 3 * (size_t)H;
@@ -295,11 +305,12 @@ __global__ void __launch_bounds__(DC_THREADS, NR == 1 ? 4 : 2)
   // (the matching wait sits before the first remote access)
   cluster_arrive_relaxed();
 
-  // window rows of image b: row r is window row r % 2 of beam r / 2
+  // window rows of group b: row r is window row r % 2 of beam r / 2; the
+  // context is image bc's
   const bf16* win = qkv + (size_t)b * R * H3 + h * HD;
   const size_t cap0 = (size_t)b * nb * A * H + h * HD;  // beam 0, slot 0
-  const bf16* kx = ctx_k + ((size_t)b * S + c0) * H + h * HD;
-  const bf16* vx = ctx_v + ((size_t)b * S + c0) * H + h * HD;
+  const bf16* kx = ctx_k + ((size_t)bc * S + c0) * H + h * HD;
+  const bf16* vx = ctx_v + ((size_t)bc * S + c0) * H + h * HD;
 
   // 1. three cp.async groups: the context's K rows; the caption's K rows
   //    (last rank: slot t-1 from the window) and the MASK rows' own k and
@@ -349,8 +360,8 @@ __global__ void __launch_bounds__(DC_THREADS, NR == 1 ? 4 : 2)
   //    writes each beam's prev k/v into its caption cache (this launch
   //    reads slot t-1 from the window, never from the cache)
   for (int k = tid; k < nkp; k += DC_THREADS)
-    bs[k] = k < nctx ? bias[(size_t)b * S + c0 + k] : k < nk ? 0.0f
-                                                            : -INFINITY;
+    bs[k] = k < nctx ? bias[(size_t)bc * S + c0 + k] : k < nk ? 0.0f
+                                                             : -INFINITY;
   const float sc = rnd<bf16>(scale);
   for (int i = tid; i < RP * U; i += DC_THREADS) {
     const int r = i / U, u = i % U;
@@ -621,7 +632,7 @@ __global__ void __launch_bounds__(DC_THREADS, NR == 1 ? 4 : 2)
 
 // ---------------------------------------------------------------------------
 // f32, and bf16 at hd 8/16/32: the first design, one block per (head,
-// image).  Scores use groups of lanes per key (one 16-byte load per lane,
+// beam group).  Scores use groups of lanes per key (one 16-byte load per lane,
 // a shuffle reduction inside the group); the f32 scores and probabilities
 // stay in shared memory (2 * nb * S floats); the value product gives each
 // warp a share of the keys and each lane a slice of the head dimension,
@@ -665,15 +676,15 @@ __global__ void __launch_bounds__(DA_THREADS)
                                    const T* __restrict__ ctx_v,
                                    const float* __restrict__ bias,
                                    const int* __restrict__ t_ptr,
-                                   T* __restrict__ out, int nb, int S, int A,
-                                   int H, float scale) {
+                                   T* __restrict__ out, int nb, int groups,
+                                   int S, int A, int H, float scale) {
   constexpr int EPL = 16 / sizeof(T);  // elements per 16-byte load
   constexpr int LPK = HD / EPL;        // lanes per key in the score loop
   constexpr int KPW = 32 / LPK;        // keys per warp and iteration
   constexpr int VPL = DaShape<HD>::VPL;
   constexpr int KPI = DaShape<HD>::KPI;
   constexpr int DL = HD / VPL;         // lanes across the head dimension
-  const int h = blockIdx.x, b = blockIdx.y;
+  const int h = blockIdx.x, b = blockIdx.y, bc = b / groups;
   const int R = 2 * nb;
   const int t = *t_ptr;  // the MASK row's position; prev sits at t - 1
   if (t < 1 || t > A) __trap();
@@ -688,7 +699,8 @@ __global__ void __launch_bounds__(DA_THREADS)
   float* den = s_self + R;         // R: softmax denominators
   float* red = den + R;            // (DA_WARPS * KPI) x R x HD partial sums
 
-  // window rows of image b: row r is window row r % 2 of beam r / 2
+  // window rows of group b: row r is window row r % 2 of beam r / 2; the
+  // context is image bc's
   const T* win = qkv + (size_t)b * R * H3;
   const size_t cap0 = (size_t)b * nb * A * H + h * HD;  // beam 0, slot 0
   const float sc = rnd<T>(scale);
@@ -710,8 +722,8 @@ __global__ void __launch_bounds__(DA_THREADS)
   // 2a. context scores: a group of LPK lanes per key
   {
     const int g = lane / LPK, sub = lane % LPK;
-    const T* kb = ctx_k + (size_t)b * S * H + h * HD + sub * EPL;
-    const float* bb = bias + (size_t)b * S;
+    const T* kb = ctx_k + (size_t)bc * S * H + h * HD + sub * EPL;
+    const float* bb = bias + (size_t)bc * S;
     for (int s0 = 0; s0 < S; s0 += DA_WARPS * KPW) {
       const int s = s0 + warp * KPW + g;
       float k[EPL];
@@ -788,7 +800,7 @@ __global__ void __launch_bounds__(DA_THREADS)
   //    up to DA_ROW_CHUNK rows (nb <= 8) call the body once with r0 = 0
   //    folded in, which ran faster than the chunk loop around it.
   const int d0 = (lane % DL) * VPL, sub = lane / DL;
-  const T* vb = ctx_v + (size_t)b * S * H + h * HD + d0;
+  const T* vb = ctx_v + (size_t)bc * S * H + h * HD + d0;
   auto value_rows = [&](int r0, int rn) {
     float acc[DA_ROW_CHUNK][VPL];
 #pragma unroll
@@ -866,8 +878,8 @@ template <typename T, int HD>
 static int launch_simple(const void* qkv, void* cap_k, void* cap_v,
                          const void* ctx_k, const void* ctx_v,
                          const float* bias, const int* t, void* out, int B,
-                         int nb, int S, int A, int H, int nh, float scale,
-                         cudaStream_t s) {
+                         int nb, int groups, int S, int A, int H, int nh,
+                         float scale, cudaStream_t s) {
   const size_t smem = simple_smem<T, HD>(nb, S, A);
   auto kern = decode_attention_simple_kernel<T, HD>;
   if (smem > 48 * 1024) {
@@ -875,11 +887,11 @@ static int launch_simple(const void* qkv, void* cap_k, void* cap_v,
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kern<<<dim3(nh, B), DA_THREADS, smem, s>>>(
+  kern<<<dim3(nh, B * groups), DA_THREADS, smem, s>>>(
       static_cast<const T*>(qkv), static_cast<T*>(cap_k),
       static_cast<T*>(cap_v), static_cast<const T*>(ctx_k),
-      static_cast<const T*>(ctx_v), bias, t, static_cast<T*>(out), nb, S, A,
-      H, scale);
+      static_cast<const T*>(ctx_v), bias, t, static_cast<T*>(out), nb,
+      groups, S, A, H, scale);
   return (int)cudaGetLastError();
 }
 
@@ -887,8 +899,9 @@ template <int HD, int NR>
 static int launch_cluster(const void* qkv, void* cap_k, void* cap_v,
                           const void* ctx_k, const void* ctx_v,
                           const float* bias, const int* t, void* out, int B,
-                          int nb, int S, int A, int H, int nh, float scale,
-                          int ranks, int kpr, int kmax, cudaStream_t s) {
+                          int nb, int groups, int S, int A, int H, int nh,
+                          float scale, int ranks, int kpr, int kmax,
+                          cudaStream_t s) {
   static std::atomic<unsigned long long> smem_set{0};
   const size_t smem = cluster_smem(HD, nb, kmax, ranks);
   if (smem > DC_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
@@ -896,7 +909,7 @@ static int launch_cluster(const void* qkv, void* cap_k, void* cap_v,
   const cudaError_t e = allow_smem((const void*)kern, DC_SMEM_LIMIT, smem_set);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ranks, nh, B);
+  cfg.gridDim = dim3(ranks, nh, B * groups);
   cfg.blockDim = dim3(DC_THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
@@ -911,7 +924,7 @@ static int launch_cluster(const void* qkv, void* cap_k, void* cap_v,
       &cfg, kern, static_cast<const bf16*>(qkv), static_cast<bf16*>(cap_k),
       static_cast<bf16*>(cap_v), static_cast<const bf16*>(ctx_k),
       static_cast<const bf16*>(ctx_v), bias, t, static_cast<bf16*>(out), nb,
-      S, A, H, scale, kpr, kmax);
+      groups, S, A, H, scale, kpr, kmax);
   if (le != cudaSuccess) return (int)le;
   return (int)cudaGetLastError();
 }
@@ -920,16 +933,17 @@ template <int HD>
 static int dispatch_cluster(const void* qkv, void* cap_k, void* cap_v,
                             const void* ctx_k, const void* ctx_v,
                             const float* bias, const int* t, void* out, int B,
-                            int nb, int S, int A, int H, int nh, float scale,
-                            int ranks, int kpr, int kmax, cudaStream_t s) {
+                            int nb, int groups, int S, int A, int H, int nh,
+                            float scale, int ranks, int kpr, int kmax,
+                            cudaStream_t s) {
   if (ranks < 1 || ranks > DC_MAX_RANKS || kpr < 1 || kmax % DC_KEYS ||
       nb > 16)
     return (int)cudaErrorInvalidValue;
-#define VC_DC_CASE(NR)                                                       \
-  case NR:                                                                   \
-    return launch_cluster<HD, NR>(qkv, cap_k, cap_v, ctx_k, ctx_v, bias, t,  \
-                                  out, B, nb, S, A, H, nh, scale, ranks, kpr, \
-                                  kmax, s);
+#define VC_DC_CASE(NR)                                                      \
+  case NR:                                                                  \
+    return launch_cluster<HD, NR>(qkv, cap_k, cap_v, ctx_k, ctx_v, bias, t, \
+                                  out, B, nb, groups, S, A, H, nh, scale,   \
+                                  ranks, kpr, kmax, s);
   switch (row_tiles(nb)) {
     VC_DC_CASE(1)
     VC_DC_CASE(2)
@@ -943,12 +957,12 @@ template <typename T>
 static int dispatch_simple(int hd, const void* qkv, void* cap_k, void* cap_v,
                            const void* ctx_k, const void* ctx_v,
                            const float* bias, const int* t, void* out, int B,
-                           int nb, int S, int A, int H, int nh, float scale,
-                           cudaStream_t s) {
+                           int nb, int groups, int S, int A, int H, int nh,
+                           float scale, cudaStream_t s) {
 #define VC_DA_CASE(HD)                                                    \
   case HD:                                                                \
     return launch_simple<T, HD>(qkv, cap_k, cap_v, ctx_k, ctx_v, bias, t, \
-                                out, B, nb, S, A, H, nh, scale, s);
+                                out, B, nb, groups, S, A, H, nh, scale, s);
   switch (hd) {
     VC_DA_CASE(8)
     VC_DA_CASE(16)
@@ -961,17 +975,21 @@ static int dispatch_simple(int hd, const void* qkv, void* cap_k, void* cap_v,
 #undef VC_DA_CASE
 }
 
-// ranks: 0 runs decode_attention_simple_kernel; 1..8 (bf16 at hd 64 or 128
-// only) decode_attention_cluster_kernel with clusters of that many blocks,
-// kpr context keys a rank and kmax keys of shared capacity
-// (ops/decode_step.py plan).
+// nb beams an image, taken as `groups` groups of nb / groups beams, one
+// launch row each.  ranks: 0 runs decode_attention_simple_kernel; 1..8
+// (bf16 at hd 64 or 128 only) decode_attention_cluster_kernel with
+// clusters of that many blocks, kpr context keys a rank and kmax keys of
+// shared capacity (ops/decode_step.py plan).
 extern "C" int vc_decode_attention(const void* qkv, void* cap_k, void* cap_v,
                                    const void* ctx_k, const void* ctx_v,
                                    const void* bias, const void* t, void* out,
-                                   int B, int nb, int S, int A, int H, int nh,
-                                   float scale, int dtype, int ranks, int kpr,
-                                   int kmax, void* stream) {
-  if (nb < 1 || H % nh) return (int)cudaErrorInvalidValue;
+                                   int B, int nb, int groups, int S, int A,
+                                   int H, int nh, float scale, int dtype,
+                                   int ranks, int kpr, int kmax,
+                                   void* stream) {
+  if (nb < 1 || groups < 1 || nb % groups || H % nh)
+    return (int)cudaErrorInvalidValue;
+  nb /= groups;  // beams of one launch row
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* bf = static_cast<const float*>(bias);
   const int* tp = static_cast<const int*>(t);
@@ -980,20 +998,20 @@ extern "C" int vc_decode_attention(const void* qkv, void* cap_k, void* cap_v,
     if (dtype != VC_BF16) return (int)cudaErrorInvalidValue;
     if (hd == 64)
       return dispatch_cluster<64>(qkv, cap_k, cap_v, ctx_k, ctx_v, bf, tp,
-                                  out, B, nb, S, A, H, nh, scale, ranks, kpr,
-                                  kmax, s);
+                                  out, B, nb, groups, S, A, H, nh, scale,
+                                  ranks, kpr, kmax, s);
     if (hd == 128)
       return dispatch_cluster<128>(qkv, cap_k, cap_v, ctx_k, ctx_v, bf, tp,
-                                   out, B, nb, S, A, H, nh, scale, ranks, kpr,
-                                   kmax, s);
+                                   out, B, nb, groups, S, A, H, nh, scale,
+                                   ranks, kpr, kmax, s);
     return (int)cudaErrorInvalidValue;
   }
   if (dtype == VC_F32)
     return dispatch_simple<float>(hd, qkv, cap_k, cap_v, ctx_k, ctx_v, bf, tp,
-                                  out, B, nb, S, A, H, nh, scale, s);
+                                  out, B, nb, groups, S, A, H, nh, scale, s);
   if (dtype == VC_BF16)
     return dispatch_simple<bf16>(hd, qkv, cap_k, cap_v, ctx_k, ctx_v, bf, tp,
-                                 out, B, nb, S, A, H, nh, scale, s);
+                                 out, B, nb, groups, S, A, H, nh, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

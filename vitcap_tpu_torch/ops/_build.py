@@ -51,10 +51,10 @@ SIGNATURES = {
     # scale, seed, thresh, inv, dtype, stream
     "vc_attention_bwd": [*_OPERAND * 4, *_BIAS, _P, _P, _P, _P, _I, _I, _I,
                          _I, _I, _F, _U, _U, _F, _I, _P],
-    # qkv, cap_k, cap_v, ctx_k, ctx_v, bias, t, out, B, nb, S, A, H, nh,
-    # scale, dtype, ranks, keys per rank, key capacity, stream
+    # qkv, cap_k, cap_v, ctx_k, ctx_v, bias, t, out, B, nb, beam groups,
+    # S, A, H, nh, scale, dtype, ranks, keys per rank, key capacity, stream
     "vc_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _I, _F, _I, _I, _I, _I, _P],
+                            _I, _I, _I, _F, _I, _I, _I, _I, _P],
     # (the *_kernel_info) index, name buffer, its length, int[5]
     # (threads, registers, local bytes, shared bytes per block, resident
     # blocks per SM)
@@ -65,8 +65,8 @@ SIGNATURES = {
                                      ctypes.POINTER(_I)],
     "vc_layer_norm_kernel_info": [_I, ctypes.c_char_p, _I,
                                   ctypes.POINTER(_I)],
-    # ... and the decode geometry: nb, S, A, the cluster kernel's ranks and
-    # key capacity
+    # ... and the decode geometry: the beams of one launch row, S, A, the
+    # cluster kernel's ranks and key capacity
     "vc_decode_attention_kernel_info": [_I, ctypes.c_char_p, _I,
                                         ctypes.POINTER(_I), _I, _I, _I, _I,
                                         _I],

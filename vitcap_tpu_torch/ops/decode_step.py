@@ -4,13 +4,16 @@ fused_decode_step, the port of vitcap_tpu/ops/decode_step.py.
 Kernel: csrc/decode_attention.cu, the attention half of the TPU kernel
 _kernel (vitcap_tpu/ops/decode_step.py:115, reached through
 fused_decode_step); the source note there says what bounds it on the H100.
-bf16 at head dims 64 and 128 (up to 16 beams) runs
-decode_attention_cluster_kernel: the context of each (head, image) split
-over a thread-block cluster, whose size and key ranges plan() picks from
-the shape alone (never from t, so a step's launch can be captured in a
-CUDA graph); f32, the other head dims, more beams and contexts too long
-for its shared memory run decode_attention_simple_kernel.  kernel_info()
-reads both kernels' launch configuration on the card.
+An image's beams run as beam groups of at most 16 (plan(): the largest
+divisor of nb up to MAX_CLUSTER_BEAMS), one launch row each, so any beam
+count launches: greedy and beam-3 are one group, constrained beam
+search's 160 beams ten of 16.  bf16 at head dims 64 and 128 runs
+decode_attention_cluster_kernel: the context of each (head, beam group)
+split over a thread-block cluster, whose size and key ranges plan() picks
+from the shape alone (never from t, so a step's launch can be captured in
+a CUDA graph); f32, the other head dims and contexts too long for its
+shared memory run decode_attention_simple_kernel.  kernel_info() reads
+both kernels' launch configuration on the card.
 The dense products of that TPU kernel run on the port's gemm kernel and its
 post-LNs on layer_norm, rounded where it rounds:
 - qkv: the f32 product plus the f32 bias, rounded to the compute dtype;
@@ -44,13 +47,15 @@ from .layer_norm import layer_norm, layer_norm_plain
 
 NEG_MASK_VALUE = -10000.0     # the reference's mask value on invalid slots
 launches = 0
+# launches of the cluster kernel over more than one beam group an image
+mode_launches = {"groups": 0}
 
 CLUSTER_HD = (64, 128)        # head dims of decode_attention_cluster_kernel
 MAX_RANKS = 8                 # the portable thread-block cluster size
 KEYS_PER_RANK = 144           # the keys a rank aims at
 KEY_GROUP = 16                # keys per tensor-core group
 ROW_TILE = 8                  # window rows per tensor-core tile (mma's N)
-MAX_CLUSTER_BEAMS = 16        # beams of one image the cluster kernel takes
+MAX_CLUSTER_BEAMS = 16        # beams of one launch row (a beam group)
 CLUSTER_WARPS = 4
 SMEM_LIMIT = 232448           # shared bytes a block can have on the H100
 
@@ -111,7 +116,8 @@ def _cdiv(a: int, b: int) -> int:
 
 
 class Plan(NamedTuple):
-    """ranks 0: decode_attention_simple_kernel.  Else clusters of `ranks`
+    """groups: the beam groups of an image, one launch row each.
+    ranks 0: decode_attention_simple_kernel.  Else clusters of `ranks`
     blocks, rank q taking the context keys [q kpr, (q + 1) kpr), the last
     rank the rest of the context and the caption; keys_max the keys its
     shared buffers hold, smem their bytes."""
@@ -119,6 +125,7 @@ class Plan(NamedTuple):
     keys_per_rank: int = 0
     keys_max: int = 0
     smem: int = 0
+    groups: int = 1
 
 
 def row_tiles(nb: int) -> int:
@@ -146,28 +153,37 @@ def cluster_smem(hd: int, nb: int, keys_max: int, ranks: int) -> int:
             + rows * (CLUSTER_WARPS + 4 + MAX_RANKS) * 4 + 16)
 
 
+def group_beams(nb: int) -> int:
+    """The beams of one launch row: the largest divisor of nb that is at
+    most MAX_CLUSTER_BEAMS."""
+    return next(g for g in range(min(nb, MAX_CLUSTER_BEAMS), 0, -1)
+                if nb % g == 0)
+
+
 @functools.lru_cache(maxsize=None)
 def plan(S: int, nb: int, hd: int, A: int = 20,
          dtype: torch.dtype = torch.bfloat16) -> Plan:
     """The decode_attention kernel and its cluster for S context keys, nb
-    beams per image, head dim hd and A caption slots: bf16 at hd 64 or 128
-    and up to 16 beams takes the cluster kernel, with ranks = ceil((S + nb A) / 144) (1 to 8)
-    sharing the context and the caption's nb A slots about equally (the
-    last rank's range ends the context, then the caption); everything
+    beams per image, head dim hd and A caption slots.  The beams run as
+    nb / g groups of g = group_beams(nb) beams.  bf16 at hd 64 or 128
+    takes the cluster kernel, with ranks = ceil((S + g A) / 144) (1 to 8)
+    sharing the context and the group's g A caption slots about equally
+    (the last rank's range ends the context, then the caption); everything
     else, or a plan past the block's shared memory, the simple kernel.
     From the shape alone: t never enters."""
-    if (dtype != torch.bfloat16 or hd not in CLUSTER_HD
-            or nb > MAX_CLUSTER_BEAMS):
-        return Plan(0)
-    total = S + nb * A
+    g = group_beams(nb)
+    groups = nb // g
+    if dtype != torch.bfloat16 or hd not in CLUSTER_HD:
+        return Plan(0, groups=groups)
+    total = S + g * A
     ranks = min(MAX_RANKS, max(1, _cdiv(total, KEYS_PER_RANK)))
     kpr = _cdiv(total, ranks)
-    last = max(0, S - (ranks - 1) * kpr) + nb * A
+    last = max(0, S - (ranks - 1) * kpr) + g * A
     kmax = _cdiv(max(kpr, last), KEY_GROUP) * KEY_GROUP
-    smem = cluster_smem(hd, nb, kmax, ranks)
+    smem = cluster_smem(hd, g, kmax, ranks)
     if smem > SMEM_LIMIT:
-        return Plan(0)
-    return Plan(ranks, kpr, kmax, smem)
+        return Plan(0, groups=groups)
+    return Plan(ranks, kpr, kmax, smem, groups)
 
 
 def kernel_info(S: int = 628, nb: int = 3, A: int = 20) -> list:
@@ -176,12 +192,13 @@ def kernel_info(S: int = 628, nb: int = 3, A: int = 20) -> list:
     the geometry (S, nb, A) on the current CUDA device, with the plan at
     hd 64 (ops._build.launch_info)."""
     p = plan(S, nb, 64, A)
-    info = _build.launch_info("vc_decode_attention_kernel_info", nb, S, A,
-                              p.ranks, p.keys_max)
+    info = _build.launch_info("vc_decode_attention_kernel_info",
+                              nb // p.groups, S, A, p.ranks, p.keys_max)
     for k in info:
-        k.update(S=S, nb=nb, ranks=p.ranks, keys_per_rank=p.keys_per_rank,
-                 keys_max=p.keys_max)
+        k.update(S=S, nb=nb, groups=p.groups, ranks=p.ranks,
+                 keys_per_rank=p.keys_per_rank, keys_max=p.keys_max)
     return info
+
 
 def decode_attention_plain(qkv: torch.Tensor, cap_k: torch.Tensor,
                            cap_v: torch.Tensor, ctx_k: torch.Tensor,
@@ -280,12 +297,14 @@ def decode_attention(qkv: torch.Tensor, cap_k: torch.Tensor,
     rc = lib.vc_decode_attention(
         qkv.data_ptr(), cap_k.data_ptr(), cap_v.data_ptr(), ctx_k.data_ptr(),
         ctx_v.data_ptr(), ctx_bias.data_ptr(), t.data_ptr(), out.data_ptr(),
-        B, nb, S, A, H, num_heads, float(hd ** -0.5), _build.dtype_code(dt),
-        p.ranks, p.keys_per_rank, p.keys_max,
+        B, nb, p.groups, S, A, H, num_heads, float(hd ** -0.5),
+        _build.dtype_code(dt), p.ranks, p.keys_per_rank, p.keys_max,
         torch.cuda.current_stream(qkv.device).cuda_stream)
     _build.check(rc, "decode_attention")
     global launches
     launches += 1
+    if p.ranks and p.groups > 1:
+        mode_launches["groups"] += 1
     return out
 
 

@@ -7,10 +7,11 @@ The same YAML keys drive it.  Training runs the port's make_train_step
 (the split train blocks and their kernels) and snapshots through the
 port's Checkpointer; SCST runs solver.scst; prediction runs
 models.decode.generate on the eager engine, or the fused one with
-VITCAP_DECODE_FUSED=1.  Keys whose machinery is not ported raise, naming
-the ROADMAP.md item: use_cbs (module 11), loader: grain, mesh_data > 1
-(module 9), checkpoint_backend other than 'torch', async_checkpoint,
-jax_profile_dir.
+VITCAP_DECODE_FUSED=1, and with use_cbs models.cbs's constrained beam
+search under detector-given concept words on either engine.  Keys whose
+machinery is not ported raise, naming the ROADMAP.md item: loader: grain,
+mesh_data > 1 (module 9), checkpoint_backend other than 'torch',
+async_checkpoint, jax_profile_dir.
 """
 
 from __future__ import annotations
@@ -98,7 +99,15 @@ class CaptionUniPipeline(UniPipeline):
             "scst": False,
             "scst_num_return": 2,
             "sc_baseline_type": "greedy",
+            # constrained beam search (reference use_cbs path)
             "use_cbs": False,
+            "cbs_boxes_tsv": None,
+            "cbs_hierarchy_json": None,
+            "cbs_constraint2tokens_tsv": None,
+            "cbs_wordforms_tsv": None,
+            "cbs_nms_threshold": 0.85,
+            "cbs_max_constraints": 3,
+            "min_constraints_to_satisfy": 2,
         })
         # re-resolve config with the updated defaults
         self.cfg = Config(self._default, self.kwargs)
@@ -111,9 +120,6 @@ class CaptionUniPipeline(UniPipeline):
         """Raise on the keys whose machinery the port does not have; none
         of them is ignored."""
         c = self.cfg
-        if c.use_cbs:
-            raise _not_ported("use_cbs", "constrained beam search "
-                              "(models/cbs.py, module 11)")
         if c.get("loader") == "grain":
             raise _not_ported("loader: grain", "the Grain loader (a "
                               "JAX-ecosystem loader; the port's loader is "
@@ -593,41 +599,70 @@ class CaptionUniPipeline(UniPipeline):
                               strict=True)
         return model.requires_grad_(False)
 
-    def _put(self, a: np.ndarray) -> torch.Tensor:
-        if a.dtype.kind in "iu" and a.dtype != np.uint8:
-            a = a.astype(np.int64)
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+    def _make_cbs_decoder(self):
+        from ..models.cbs import (CbsDecoder, ConstraintBoxesReader,
+                                  ConstraintFilter, FiniteStateMachineBuilder,
+                                  load_wordforms)
+        return CbsDecoder(
+            self.tokenizer,
+            ConstraintFilter(self.cfg.cbs_hierarchy_json,
+                             float(self.cfg.cbs_nms_threshold),
+                             int(self.cfg.cbs_max_constraints)),
+            FiniteStateMachineBuilder(
+                self.tokenizer,
+                load_wordforms(self.cfg.cbs_constraint2tokens_tsv),
+                load_wordforms(self.cfg.cbs_wordforms_tsv),
+                int(self.cfg.cbs_max_constraints)),
+            ConstraintBoxesReader(self.cfg.cbs_boxes_tsv),
+            min_constraints_to_satisfy=int(
+                self.cfg.min_constraints_to_satisfy),
+            beam_size=max(int(self.cfg.num_beams), 5),
+            # the sparse-FSM search is the production default (few-KB
+            # descriptors against a 31 MB dense adjacency an image);
+            # cbs_sparse: 0 takes the dense search
+            sparse=str(self.cfg.get("cbs_sparse") or "1") != "0")
+
+    def _results(self, keys, ids, confs) -> Iterator:
+        """(key, JSON list of {caption, conf}) rows of a drained batch."""
+        for key, caps, cfs in zip(keys, ids, confs):
+            res = [{"caption": self.tokenizer.decode(
+                        c.tolist(), skip_special_tokens=True),
+                    "conf": float(cf)}
+                   for c, cf in zip(caps, cfs)]
+            yield key, json.dumps(res)
 
     def predict_iter(self, dataloader, model, meters) -> Iterator:
         from ..models import decode as D
+        from ..models.cbs import put
         cfg = self.model_cfg
         opts = self.decode_options()
         A = opts.max_length
         gen = torch.Generator(device=self.device).manual_seed(
             int(self.cfg.random_seed) + 7)
+        cbs = self._make_cbs_decoder() if self.cfg.use_cbs else None
 
         B = int(self.cfg.test_batch_size)
         n_done = 0
         # one-batch software pipeline: launch batch i+1's decode BEFORE
         # reading batch i's ids back, so host-side tokenizer decode + input
-        # prep overlap device compute (the launches are asynchronous; the
-        # ids stay on the card until the drain)
-        pending = None    # (keys, n, device_ids, device_logprobs, t_disp)
+        # prep (and with CBS the FSM build) overlap device compute (the
+        # launches are asynchronous; the ids stay on the card until the
+        # drain)
+        pending = None    # (keys, n, device out, n_cons or None, t_disp)
 
         def drain(p):
-            keys, n, d_ids, d_lp, t_disp = p
-            ids = d_ids[:n].cpu().numpy()
-            confs = np.exp(d_lp[:n].float().cpu().numpy())
+            keys, n, out, n_cons, t_disp = p
+            if cbs is not None:
+                best, best_lp = cbs.collect(out, n_cons, cfg)
+                ids, confs = best[:n, None, :], np.exp(best_lp)[:n, None]
+            else:
+                ids = out[0][:n].cpu().numpy()
+                confs = np.exp(out[1][:n].float().cpu().numpy())
             # dispatch -> fetch-complete: device decode PLUS the
             # overlapped host prep/dispatch of the next batch, hence the
             # meter is named pipeline_time, not decode_time
             meters.update(pipeline_time=time.time() - t_disp)
-            for key, caps, cfs in zip(keys, ids, confs):
-                res = [{"caption": self.tokenizer.decode(
-                            c.tolist(), skip_special_tokens=True),
-                        "conf": float(cf)}
-                       for c, cf in zip(caps, cfs)]
-                yield key, json.dumps(res)
+            yield from self._results(keys[:n], ids, confs)
 
         for batch in dataloader:
             t0 = time.time()
@@ -647,16 +682,25 @@ class CaptionUniPipeline(UniPipeline):
                 tt = np.concatenate([tt, np.repeat(tt[-1:], pad, 0)])
                 seq_len = np.concatenate(
                     [seq_len, np.repeat(seq_len[-1:], pad, 0)])
-            args = (self._put(images), self._put(input_ids[:, A:]),
-                    self._put(tt[:, A:]), self._put(seq_len))
-            out = D.generate(model, *args, cfg, opts, rng=gen)
-            if n_done == 0 and str(self.cfg.get("speed_breakdown")
-                                   or "0") != "0":
-                self._measure_speed_breakdown(model, *args, cfg, opts)
+            keys = list(batch["key"])
+            # pinned, non-blocking copies: this batch's host work (with CBS
+            # its FSM build) overlaps the previous batch's decode
+            args = [put(a, self.device) for a in
+                    (images, input_ids[:, A:], tt[:, A:], seq_len)]
+            if cbs is not None:
+                # the last batch padded with its last key, as its images
+                out, n_cons = cbs.dispatch(model, *args,
+                                           keys + keys[-1:] * (B - n), cfg,
+                                           opts)
+            else:
+                res = D.generate(model, *args, cfg, opts, rng=gen)
+                out, n_cons = (res["ids"], res["logprobs"]), None
+                if n_done == 0 and str(self.cfg.get("speed_breakdown")
+                                       or "0") != "0":
+                    self._measure_speed_breakdown(model, *args, cfg, opts)
             if pending is not None:
                 yield from drain(pending)
-            pending = (list(batch["key"]), n, out["ids"], out["logprobs"],
-                       t0)
+            pending = (keys, n, out, n_cons, t0)
             meters.update(prep_time=time.time() - t0)
             n_done += 1
             if self.cfg.test_max_iter is not None \
