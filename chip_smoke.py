@@ -137,6 +137,25 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
    FSM meeting min(3, 2) constraints; the sparse search against the
    dense one on the card (the flagship in f32, B=2) and the tiny
    configuration's CbsDecoder ids on the card and the CPU, both engines.
+16. data parallelism (parallel/ on torch.distributed) at the flagship,
+   over a synthetic TSV dataset (128 + 128 JPEGs): a. `python -m
+   torch.distributed.run --standalone --nproc_per_node 1 -m
+   vitcap_tpu_torch.run -c dp.yaml` (one rank over NCCL: 2 train steps, a
+   128-image predict, evaluate) and the same YAML with no launcher, each a
+   fresh process with the host RNGs seeded: the final snapshots bit-equal
+   and the predict rows equal; the NCCL all-reduce's ms a step and its
+   bytes; b. two ranks on cuda:0 over Gloo (this script with
+   --dp-worker): the tiny f32 step at 2 x 4 rows equals 1 x 8 in this
+   process, 2 flagship steps at 2 x 32 rows (dropout 0) match 1 x 64
+   (losses within 2e-2, each rank's launches a step those of the 1 x 64
+   step), the Gloo all-reduce ms, and the pipeline's predict at 2 ranks
+   from a's snapshot: the merged rows equal a's, no shard left;
+17. module 12: save_pretrained / from_pretrained of the flagship on the
+   card (every parameter bit-equal, a greedy batch's ids equal, save and
+   load ms, bytes); SCAN at its published configuration (ScanConfig(): 36
+   regions of 2048, embed 1024, a bi-GRU): 5 Adam steps at batch 128,
+   the scores of 1000 images x 5000 captions (ms, peak memory, R@1/5/10)
+   and f32 scores card vs CPU at 8 x 40 within 1e-4.
 Phase 3 also runs decode_attention at S = 2000 context keys (hd 64 with 4
 beams, hd 128 with 1), at least 99% bit-equal at B=64, with its share and
 times, and a sweep of small calls (3 images, 8 seeds, 3 t; from 628 to
@@ -3918,6 +3937,631 @@ def phase_cbs_parity(dev, Bn=2):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: data parallelism (parallel/ on torch.distributed)
+# ---------------------------------------------------------------------------
+
+DP_TRAIN = 128               # phase 16's train images: 2 steps of 64
+DP_TEST = 128                # and its predict: 4 batches of 32 on one rank
+DP_TEST_BATCH = 32           # 2 full batches a rank at 2 ranks
+DP_TIMEOUT = 600             # seconds a phase-16 child may take
+DP_SITE = '''"""Loaded at the start of every Python process of chip_smoke.py phase
+16's children (its directory is first on their PYTHONPATH): the
+pipelines' host RNGs, unseeded in the package as in the JAX package, get
+fixed seeds, so two runs read the same batches; every
+torch.distributed.all_reduce is timed (synchronised, host clock) with
+its bytes, written to $CHIP_SMOKE_DP_TIMES at exit."""
+import atexit
+import json
+import os
+import random
+import time
+
+import torch
+import torch.distributed as dist
+
+from vitcap_tpu_torch.data import tensorizers, transforms
+
+_tensorizer_init = tensorizers.CaptionTensorizer.__init__
+_transform_init = transforms.TrainImageTransform.__init__
+
+
+def _seeded_tensorizer(self, *a, **kw):
+    _tensorizer_init(self, *a, **kw)
+    self.rng = random.Random(%(seed_t)d)
+
+
+def _seeded_transform(self, *a, **kw):
+    kw["seed"] = %(seed_i)d
+    _transform_init(self, *a, **kw)
+
+
+tensorizers.CaptionTensorizer.__init__ = _seeded_tensorizer
+transforms.TrainImageTransform.__init__ = _seeded_transform
+
+_all_reduce = dist.all_reduce
+_timed = []
+
+
+def _sync(t):
+    if t.is_cuda:
+        torch.cuda.synchronize()
+
+
+def _timed_all_reduce(t, *a, **kw):
+    _sync(t)
+    t0 = time.perf_counter()
+    out = _all_reduce(t, *a, **kw)
+    _sync(t)
+    _timed.append({"bytes": t.numel() * t.element_size(),
+                   "ms": (time.perf_counter() - t0) * 1e3,
+                   "backend": dist.get_backend()})
+    return out
+
+
+dist.all_reduce = _timed_all_reduce
+
+
+@atexit.register
+def _dump():
+    path = os.environ.get("CHIP_SMOKE_DP_TIMES")
+    if path and _timed:
+        with open(path + "." + os.environ.get("RANK", "none"), "w") as f:
+            json.dump(_timed, f)
+'''
+
+
+def _dp_tiny_batch(cfg, dev):
+    """8 rows from a numpy seed whose halves mask 1 and 3 tokens a row
+    (the masked loss's normaliser differs between the halves)."""
+    rs = np.random.RandomState(SEED + 62)
+    T, A, n = cfg.max_seq_len, cfg.max_seq_a_len, 8
+    masked_pos = np.zeros((n, T), np.int64)
+    masked_pos[:n // 2, 2] = 1
+    masked_pos[n // 2:, [1, 3, 4]] = 1
+    label = (rs.rand(n, cfg.tag_vocab_size) < 0.05).astype(np.float32)
+    label[:, 5] = 1.0
+    batch = {
+        "image": rs.randint(0, 256, (n, cfg.img_size, cfg.img_size, 3))
+                 .astype(np.uint8),
+        "input_ids": rs.randint(4, cfg.vocab_size, (n, T)),
+        "token_type_ids": np.concatenate(
+            [np.zeros((n, A), np.int64), np.ones((n, T - A), np.int64)], 1),
+        "seq_a_len": np.full((n,), A), "seq_len": np.full((n,), T),
+        "masked_pos": masked_pos,
+        "masked_ids": rs.randint(1, cfg.vocab_size,
+                                 (n, cfg.max_masked_tokens)),
+        "label": label,
+    }
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def _dp_tiny_cfg():
+    from vitcap_tpu_torch.models.config import tiny_config
+    return tiny_config(hidden_dropout_prob=0.0,
+                       attention_probs_dropout_prob=0.0, tag_loss_weight=1.0)
+
+
+def _dp_flagship_cfg():
+    """The bench training line at dropout 0, so the 2 x 32 and 1 x 64 steps
+    draw no masks."""
+    from vitcap_tpu_torch.models.config import ModelConfig
+    return ModelConfig(dtype="bfloat16", tag_loss_weight=1.0,
+                       attention_probs_dropout_prob=0.0,
+                       hidden_dropout_prob=0.0)
+
+
+def _dp_steps(cfg, dev, batch, steps, rank=0, world=1):
+    """`steps` train steps of this rank's rows of `batch` from the seed's
+    weights (replicated from rank 0 in a group): per-step losses, launches
+    and the state."""
+    from vitcap_tpu_torch.models.vitcap import init_params
+    from vitcap_tpu_torch.parallel.mesh import local_rows, replicate_params
+    from vitcap_tpu_torch.solver.train_step import (TrainHyper,
+                                                    init_train_state,
+                                                    make_train_step)
+    model = init_params(cfg, torch.Generator().manual_seed(SEED), dev)
+    replicate_params(model)
+    state = init_train_state(model, None)
+    step = make_train_step(cfg, TrainHyper(base_lr=1e-4, max_iter=1000))
+    mine = local_rows(batch, rank, world)
+    losses, launches = [], []
+    for _ in range(steps):
+        (state, m), c = _counted(lambda: step(state, mine, False))
+        losses.append(m["loss"].item())
+        launches.append({k: n for k, n in c.items() if n})
+    return losses, launches, state
+
+
+def _flat_params(model):
+    return {n: p.detach().float().cpu() for n, p in model.named_parameters()}
+
+
+def dp_worker(rank, world, port, workdir):
+    """One rank of phase 16b (`chip_smoke.py --dp-worker RANK WORLD PORT
+    DIR`), its job in DIR/job.json: joins a Gloo group on the job's device
+    (cuda:0 for both ranks: NCCL refuses two ranks on one card), takes the
+    tiny f32 data-parallel step and 2 steps of the job's flagship config
+    on its rows of the job's batch, then runs the pipeline's predict at
+    `world` ranks; writes DIR/worker_<rank>.json and DIR/tiny_<rank>.pt."""
+    rank, world = int(rank), int(world)
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
+                      WORLD_SIZE=str(world), RANK=str(rank),
+                      LOCAL_RANK=str(rank))
+    sys.path.insert(0, str(ROOT))
+    from vitcap_tpu_torch import run as TR
+    from vitcap_tpu_torch.models.config import ModelConfig
+    from vitcap_tpu_torch.parallel import distributed as PD
+    from vitcap_tpu_torch.solver import train_step as TTS
+    from vitcap_tpu_torch.utils import common as UC
+    UC._LOGGING_INITED = True      # the pipelines log to their folders only
+    with open(os.path.join(workdir, "job.json")) as f:
+        job = json.load(f)
+    dev = torch.device(job["device"])
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    PD.ensure_init_distributed(backend="gloo", device=dev)
+    out = {"rank": rank, "backend": torch.distributed.get_backend()}
+    try:
+        cfg = _dp_tiny_cfg()
+        losses, _, state = _dp_steps(cfg, dev, _dp_tiny_batch(cfg, dev), 1,
+                                     rank, world)
+        out["tiny_loss"] = losses[0]
+        torch.save(_flat_params(state.model),
+                   os.path.join(workdir, f"tiny_{rank}.pt"))
+        del state
+
+        timed = []
+        reduce_grads = TTS.all_reduce_grads
+
+        def timed_reduce(grads, extras=None):
+            sync()
+            t0 = time.perf_counter()
+            res = reduce_grads(grads, extras)
+            sync()
+            timed.append({"ms": (time.perf_counter() - t0) * 1e3,
+                          "bytes": sum(g.numel() * g.element_size()
+                                       for g in grads.values())})
+            return res
+        TTS.all_reduce_grads = timed_reduce
+        cfg = ModelConfig(**job["flagship_cfg"])
+        t0 = time.perf_counter()
+        losses, launches, state = _dp_steps(
+            cfg, dev, _train_batch(cfg, job["rows"], SEED + 61, dev), 2,
+            rank, world)
+        sync()
+        out.update(flagship_losses=losses, flagship_launches=launches,
+                   flagship_s=time.perf_counter() - t0, all_reduce=timed)
+        TTS.all_reduce_grads = reduce_grads
+        del state
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        out["results"] = TR.pipeline_train_eval_multi(PIPE_TEST_DATA,
+                                                      job["pipeline"])
+        out["predict_s"] = time.perf_counter() - t0
+        PD.barrier()
+    finally:
+        PD.shutdown()
+    with open(os.path.join(workdir, f"worker_{rank}.json"), "w") as f:
+        json.dump(out, f, default=str)
+    return 0
+
+
+def _run_children(cmds, env, what, logdir):
+    """Run the commands together, their output to logdir; wait up to
+    DP_TIMEOUT s.  If one fails or the time runs out, kill the rest (a
+    rank left alone would wait in a collective) and raise with the
+    output."""
+    logs = [Path(logdir) / f"{what.replace(' ', '_')}_{i}.log"
+            for i in range(len(cmds))]
+    procs = []
+    for c, lg in zip(cmds, logs):
+        with open(lg, "w") as f:
+            procs.append(subprocess.Popen(c, cwd=str(ROOT), env=env,
+                                          stdout=f, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + DP_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline or any(
+                    p.returncode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [(c, p.returncode, lg.read_text()[-6000:])
+           for c, p, lg in zip(cmds, procs, logs) if p.returncode != 0]
+    if bad:
+        raise AssertionError(f"{what}: " + "\n".join(
+            f"{' '.join(c)} exited {rc}\n{out}" for c, rc, out in bad))
+
+
+def _snapshot_diff(a, b):
+    """Names whose tensors differ between two snapshots (model, both
+    moments), and whether the generators' states and steps agree."""
+    sa = torch.load(a, map_location="cpu", weights_only=True)
+    sb = torch.load(b, map_location="cpu", weights_only=True)
+    bad = [n for n in sa["model"] if not torch.equal(sa["model"][n],
+                                                     sb["model"][n])]
+    for k in ("mu", "nu"):
+        bad += [f"{k} {n}" for n in sa["opt"][k]
+                if not torch.equal(sa["opt"][k][n], sb["opt"][k][n])]
+    same_rest = (sa["opt"]["step"] == sb["opt"]["step"]
+                 and sa["iteration"] == sb["iteration"]
+                 and torch.equal(sa["generator"], sb["generator"]))
+    return bad, same_rest, len(sa["model"])
+
+
+def phase_dp(dev, smi):
+    """Data parallelism at the flagship (384 px, bf16, the pipeline's
+    line), on a synthetic TSV dataset (DP_TRAIN + DP_TEST JPEGs from the
+    seed; the children's host RNGs seeded by DP_SITE, one loader thread):
+    a. one rank over NCCL: `python -m torch.distributed.run --standalone
+       --nproc_per_node 1 -m vitcap_tpu_torch.run -c dp.yaml` (2 train
+       steps, a 128-image predict in batches of 32, evaluate), then the
+       same YAML with no launcher (`-p` names another expid): the final
+       snapshots bit-equal, the predict rows equal; the NCCL all-reduce's
+       ms a step and its bytes;
+    b. two ranks on cuda:0 over Gloo (dp_worker, which makes its group
+       with backend="gloo"): the tiny f32 step at 2 x 4 rows against this
+       process's 1 x 8 (params rtol 2e-4 / atol 1e-6, loss rtol 1e-5); 2
+       flagship steps at 2 x 32 rows against 1 x 64 (dropout 0; losses
+       within 2e-2 relative; each rank's launches a step equal the 1 x 64
+       step's); the pipeline's predict at 2 ranks from a's snapshot: the
+       merged TSV equals a's rows key for key, no shard left.  Two ranks on
+       one card measure the collective's cost, not scaling."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from vitcap_tpu_torch.data.tsv import tsv_reader
+    (ROOT / "build").mkdir(exist_ok=True)
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_dp_", dir=ROOT / "build")
+    res = {}
+    try:
+        t0 = time.perf_counter()
+        _pipeline_dataset(root, SEED + 60, n_train=DP_TRAIN, n_test=DP_TEST)
+        site = Path(root) / "site"
+        site.mkdir()
+        (site / "sitecustomize.py").write_text(
+            DP_SITE % {"seed_t": SEED + 41, "seed_i": SEED + 42})
+        env = dict(os.environ, PYTHONPATH=f"{site}{os.pathsep}{ROOT}",
+                   CHIP_SMOKE_DP_TIMES=str(Path(root) / "times"))
+        env.pop("VITCAP_DECODE_FUSED", None)
+        import yaml
+        param = _pipeline_param(root, expid="dp_nccl", max_iter=2,
+                                snapshot_steps=100, num_workers=1,
+                                test_batch_size=DP_TEST_BATCH)
+        yml = Path(root) / "dp.yaml"
+        yml.write_text(yaml.safe_dump({
+            "type": "pipeline_train_eval_multi",
+            "all_test_data": PIPE_TEST_DATA, "param": param}))
+        res["dataset_s"] = time.perf_counter() - t0
+
+        # a. one rank over NCCL and the run without a launcher, side by
+        # side on the card
+        t0 = time.perf_counter()
+        _run_children([[sys.executable, "-m", "torch.distributed.run",
+                        "--standalone", "--nproc_per_node", "1", "-m",
+                        "vitcap_tpu_torch.run", "-c", str(yml)],
+                       [sys.executable, "-m", "vitcap_tpu_torch.run", "-c",
+                        str(yml), "-p", "param: {expid: dp_plain}"]], env,
+                      "one rank", root)
+        res["one_rank_runs_s"] = time.perf_counter() - t0
+        out = Path(root) / "output"
+        snaps = {e: out / f"synthcoco_flagship_{e}" / "snapshot"
+                 for e in ("dp_nccl", "dp_plain")}
+        final = {e: s / "model_iter_0000002.ckpt" for e, s in snaps.items()}
+        bad, same_rest, n_tensors = _snapshot_diff(final["dp_nccl"],
+                                                   final["dp_plain"])
+        if bad or not same_rest:
+            raise AssertionError(f"dp: 1-rank NCCL snapshot differs from the "
+                                 f"run without a launcher: {bad[:8]}, rest "
+                                 f"same {same_rest}")
+        rows = {}
+        for e, s in snaps.items():
+            preds = list(s.glob("*.predict.tsv"))
+            if len(preds) != 1 or list(s.glob("*predict.tsv_*_*.tsv")):
+                raise AssertionError(f"dp {e}: predict files "
+                                     f"{sorted(p.name for p in s.iterdir())}")
+            rows[e] = [(k, json.loads(v)[0]["caption"])
+                       for k, v in tsv_reader(str(preds[0]))]
+        keys = [f"test{i:05d}" for i in range(DP_TEST)]
+        if [k for k, _ in rows["dp_nccl"]] != keys \
+                or rows["dp_nccl"] != rows["dp_plain"]:
+            raise AssertionError("dp: 1-rank NCCL predict rows differ")
+        nccl = json.loads(Path(str(env["CHIP_SMOKE_DP_TIMES"]) + ".0")
+                          .read_text())
+        grad = [t for t in nccl if t["bytes"] > 1 << 20]
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        if len(grad) != 2 or any(t["backend"] != backend for t in grad):
+            raise AssertionError(f"dp: NCCL all-reduces {nccl}")
+        res["nccl"] = {"all_reduce": nccl, "snapshot_tensors": n_tensors,
+                       "grad_ms": [t["ms"] for t in grad],
+                       "grad_bytes": grad[0]["bytes"]}
+        log(f"[dp] dataset of {DP_TRAIN} + {DP_TEST} JPEGs made in "
+            f"{res['dataset_s']:.1f} s")
+        log(f"[dp] a. 1 rank over NCCL (torchrun) and no launcher, side by "
+            f"side, {res['one_rank_runs_s']:.1f} s (2 flagship steps of {B},"
+            f" a {DP_TEST}-image predict, evaluate; each a fresh process): "
+            f"final snapshots bit-equal ({n_tensors} parameters, both "
+            f"moments, the generator), predict rows equal")
+        log(f"[dp] a. NCCL all-reduce of the gradient bucket, 1 rank: "
+            f"{[round(t, 3) for t in res['nccl']['grad_ms']]} ms a step for "
+            f"{grad[0]['bytes'] / 2 ** 20:.1f} MiB (synchronised, host "
+            f"clock, beside the other run), on {smi}")
+
+        # b. references in this process (no group): 1 x 8 tiny, 1 x 64
+        cfg = _dp_tiny_cfg()
+        ref_loss, _, st = _dp_steps(cfg, dev, _dp_tiny_batch(cfg, dev), 1)
+        ref_tiny = _flat_params(st.model)
+        del st
+        cfg = _dp_flagship_cfg()
+        ref_losses, ref_launch, st = _dp_steps(
+            cfg, dev, _train_batch(cfg, B, SEED + 61, dev), 2)
+        del st
+        torch.cuda.empty_cache()
+
+        # b. two ranks on cuda:0 over Gloo
+        p2 = _pipeline_param(root, expid="dp_gloo", max_iter=2,
+                             num_workers=1, test_batch_size=DP_TEST_BATCH,
+                             device="cuda:0")
+        snap2 = out / "synthcoco_flagship_dp_gloo" / "snapshot"
+        snap2.mkdir(parents=True)
+        (snap2 / "model_iter_0000002.ckpt").symlink_to(final["dp_nccl"])
+        (Path(root) / "job.json").write_text(json.dumps({
+            "device": str(dev), "rows": B, "pipeline": p2,
+            "flagship_cfg": dataclasses.asdict(_dp_flagship_cfg())}))
+        port = str(_free_port())
+        t0 = time.perf_counter()
+        _run_children([[sys.executable, str(ROOT / "chip_smoke.py"),
+                        "--dp-worker", str(r), "2", port, root]
+                       for r in range(2)], env, "2 ranks over Gloo", root)
+        res["gloo_run_s"] = time.perf_counter() - t0
+        w = [json.loads((Path(root) / f"worker_{r}.json").read_text())
+             for r in range(2)]
+        if any(x["backend"] != "gloo" for x in w):
+            raise AssertionError(f"dp: backends {[x['backend'] for x in w]}")
+        tiny = [torch.load(Path(root) / f"tiny_{r}.pt", weights_only=True)
+                for r in range(2)]
+        worst = 0.0
+        for n, want in ref_tiny.items():
+            if not torch.equal(tiny[0][n], tiny[1][n]):
+                raise AssertionError(f"dp: ranks' parameters differ at {n}")
+            torch.testing.assert_close(tiny[0][n], want, rtol=2e-4,
+                                       atol=1e-6, msg=f"dp tiny {n}")
+            worst = max(worst, (tiny[0][n] - want).abs().max().item())
+        if not math.isclose(w[0]["tiny_loss"], ref_loss[0], rel_tol=1e-5):
+            raise AssertionError(f"dp tiny loss {w[0]['tiny_loss']} vs "
+                                 f"{ref_loss[0]}")
+        for x in w:
+            rel = [abs(a - b) / abs(b) for a, b in
+                   zip(x["flagship_losses"], ref_losses)]
+            if max(rel) > 2e-2:
+                raise AssertionError(f"dp flagship losses {x} vs "
+                                     f"{ref_losses}")
+            for c in x["flagship_launches"]:
+                if c != ref_launch[0]:
+                    raise AssertionError(f"dp rank {x['rank']} launches {c}"
+                                         f" != the 1 x {B} step's "
+                                         f"{ref_launch[0]}")
+        preds = list(snap2.glob("*.predict.tsv"))
+        left = list(snap2.glob("*predict.tsv_*_*.tsv"))
+        if len(preds) != 1 or left:
+            raise AssertionError(f"dp 2 ranks: predict files "
+                                 f"{sorted(p.name for p in snap2.iterdir())}")
+        merged = [(k, json.loads(v)[0]["caption"])
+                  for k, v in tsv_reader(str(preds[0]))]
+        if merged != rows["dp_nccl"]:
+            diff = sum(a != b for a, b in zip(merged, rows["dp_nccl"]))
+            raise AssertionError(f"dp: 2-rank merged predict differs from "
+                                 f"the 1-rank rows ({diff} rows, "
+                                 f"{len(merged)} merged)")
+        gloo = [t["ms"] for x in w for t in x["all_reduce"]]
+        res["gloo"] = {"workers": w, "tiny_max_abs_diff": worst,
+                       "ref_losses": ref_losses, "ref_launches": ref_launch,
+                       "grad_ms": gloo}
+        log(f"[dp] b. 2 ranks on cuda:0 over Gloo, {res['gloo_run_s']:.1f} s"
+            f" (2 processes): tiny f32 2 x 4 == 1 x 8 (params max abs diff "
+            f"{worst:.3e}, loss {w[0]['tiny_loss']:.7f} vs "
+            f"{ref_loss[0]:.7f})")
+        log(f"[dp] b. flagship bf16 2 x {B // 2} losses "
+            f"{[round(v, 5) for v in w[0]['flagship_losses']]} vs 1 x {B} "
+            f"{[round(v, 5) for v in ref_losses]}; launches per rank and "
+            f"step {w[0]['flagship_launches'][0]} (== the 1 x {B} step's)")
+        log(f"[dp] b. Gloo all-reduce of the gradient bucket (the card's "
+            f"tensors through the host): {[round(t, 1) for t in gloo]} ms "
+            f"(ranks 0, 1; 2 steps), on {smi}; two ranks on one card "
+            f"measure the collective's cost, not scaling")
+        log(f"[dp] b. predict at 2 ranks (2 x {DP_TEST // 2} images in "
+            f"batches of {DP_TEST_BATCH}): merged rows == the 1-rank rows "
+            f"({len(merged)}), no shard left; rank 0 report "
+            f"{json.dumps({k: v for k, v in w[0]['results'][0].items() if k != '_impl'})}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
+def _free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+# ---------------------------------------------------------------------------
+# phase 17: module 12 (models/pretrained.py, models/scan.py)
+# ---------------------------------------------------------------------------
+
+PRETRAINED_DIR = ROOT / "build" / "chip_smoke_pretrained"
+SCAN_TRAIN_B = 128           # SCAN's training batch (the authors')
+SCAN_IMAGES, SCAN_CAPS = 1000, 5000    # COCO 1K: 5 captions an image
+SCAN_CHUNK = 32              # captions a scoring chunk at 1000 images
+
+
+def phase_pretrained(dev, smi):
+    """save_pretrained from the card and from_pretrained onto it at the
+    flagship: every parameter bit-equal, and one greedy batch (8 images,
+    eager engine) of the reloaded model gives the original's ids."""
+    import shutil
+    from vitcap_tpu_torch import ops
+    from vitcap_tpu_torch.models import decode as TD
+    from vitcap_tpu_torch.models import pretrained as P
+    cfg, model = _flagship(dev)
+    shutil.rmtree(PRETRAINED_DIR, ignore_errors=True)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        P.save_pretrained(str(PRETRAINED_DIR), model, cfg)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        nbytes = (PRETRAINED_DIR / P.WEIGHTS_NAME).stat().st_size
+        t0 = time.perf_counter()
+        model2, cfg2 = P.from_pretrained(str(PRETRAINED_DIR), device=dev)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        shutil.rmtree(PRETRAINED_DIR, ignore_errors=True)
+    if cfg2 != cfg:
+        raise AssertionError("pretrained: config differs")
+    pa, pb = dict(model.named_parameters()), dict(model2.named_parameters())
+    bad = [n for n in pa if pb[n].device != pa[n].device
+           or not torch.equal(pa[n], pb[n])]
+    if pa.keys() != pb.keys() or bad:
+        raise AssertionError(f"pretrained: parameters differ: {bad[:8]}")
+    rs = np.random.RandomState(SEED + 71)
+    n = 8
+    imgs = torch.from_numpy(rs.randint(0, 256, (n, cfg.img_size,
+                                                 cfg.img_size, 3))
+                            .astype(np.uint8)).to(dev)
+    od = torch.from_numpy(rs.randint(999, min(9000, cfg.vocab_size),
+                                     (n, cfg.max_seq_len
+                                      - cfg.max_seq_a_len))).to(dev)
+    sl = torch.full((n,), cfg.max_seq_len, device=dev)
+    ids = []
+    with _engine(fused=False):
+        for m in (model, model2):
+            ops.reset_counts()
+            out = TD.generate(m, imgs, od, None, sl, cfg, _opts(cfg))
+            ids.append(out["ids"].cpu())
+            counts = ops.launch_counts()
+            if not all(counts[k] for k in ("gemm", "layer_norm",
+                                           "attention")):
+                raise AssertionError(f"pretrained greedy launches {counts}")
+    if not torch.equal(ids[0], ids[1]):
+        raise AssertionError("pretrained: greedy ids differ after reload")
+    res = {"save_ms": save_ms, "load_ms": load_ms, "bytes": nbytes,
+           "params": sum(p.numel() for p in pa.values())}
+    log(f"[pretrained] save_pretrained {save_ms:.1f} ms, from_pretrained "
+        f"{load_ms:.1f} ms (init on the card + load), {nbytes / 2 ** 20:.1f} "
+        f"MiB pytorch_model.bin, {res['params']} parameters bit-equal; "
+        f"greedy ids of {n} images equal after the reload; on {smi}")
+    return res
+
+
+def _scan_captions(rs, n, cfg, lmin=8, lmax=30):
+    lens = rs.randint(lmin, lmax + 1, n)
+    ids = rs.randint(1, cfg.vocab_size, (n, lmax))
+    ids[np.arange(lmax)[None] >= lens[:, None]] = 0
+    return torch.from_numpy(ids), torch.from_numpy(lens)
+
+
+def phase_scan(dev, smi):
+    """SCAN at the authors' COCO t2i configuration (ScanConfig()): 36
+    regions of 2048 (non-negative synthetic features), embed 1024, words
+    300, a bi-GRU, captions of 8-30 tokens, all from the seed.  5 Adam
+    steps (lr 2e-4) at batch 128, losses finite; the scores of 1000
+    images x 5000 captions (COCO 1K) in chunks of SCAN_CHUNK captions:
+    ms, peak memory, R@1/5/10; f32 scores card vs CPU at 8 x 40 within
+    1e-4."""
+    import dataclasses
+    from vitcap_tpu_torch.models import scan as S
+    cfg = S.ScanConfig()
+    model = S.init_scan_params(cfg, torch.Generator().manual_seed(SEED), dev)
+    rs = np.random.RandomState(SEED + 72)
+    feats = torch.from_numpy(rs.rand(SCAN_TRAIN_B, 36, cfg.img_dim)
+                             .astype(np.float32)).to(dev)
+    ids, lens = (t.to(dev) for t in _scan_captions(rs, SCAN_TRAIN_B, cfg))
+    opt = torch.optim.Adam(model.parameters(), lr=2e-4)
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = S.scan_forward(model, feats, None, ids, lens, cfg)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"scan losses {losses}")
+    del opt, loss
+    torch.cuda.empty_cache()
+
+    feats = torch.from_numpy(rs.rand(SCAN_IMAGES, 36, cfg.img_dim)
+                             .astype(np.float32)).to(dev)
+    ids, lens = (t.to(dev) for t in _scan_captions(rs, SCAN_CAPS, cfg))
+    score_cfg = dataclasses.replace(cfg, cap_chunk=SCAN_CHUNK)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        img_emb = S.encode_image(model, feats, cfg)
+        cap_emb = S.encode_text(model, ids, lens, cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        scores = S.scan_scores(img_emb, None, cap_emb, lens, score_cfg)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if scores.shape != (SCAN_IMAGES, SCAN_CAPS) \
+            or not torch.isfinite(scores).all():
+        raise AssertionError(f"scan scores {scores.shape}")
+    t3 = time.perf_counter()
+    rec = S.retrieval_metrics(scores)
+    metrics_s = time.perf_counter() - t3
+    del feats, img_emb, cap_emb, scores
+
+    cpu = copy.deepcopy(model).cpu()
+    f8 = rs.rand(8, 36, cfg.img_dim).astype(np.float32)
+    i40, l40 = _scan_captions(rs, 40, cfg)
+    got, ref = [], []
+    with torch.no_grad():
+        for m, d, into in ((model, dev, got), (cpu, "cpu", ref)):
+            ie = S.encode_image(m, torch.from_numpy(f8).to(d), cfg)
+            ce = S.encode_text(m, i40.to(d), l40.to(d), cfg)
+            into.append(S.scan_scores(ie, None, ce, l40.to(d), cfg).cpu())
+    err = (got[0] - ref[0]).abs().max().item()
+    if not err <= 1e-4:
+        raise AssertionError(f"scan f32 card vs CPU: max abs err {err:.3e}")
+    res = {"train_losses": losses, "train_step_ms": step_ms,
+           "train_peak_gib": train_peak,
+           "encode_ms": (t1 - t0) * 1e3, "score_ms": (t2 - t1) * 1e3,
+           "score_peak_gib": peak, "cap_chunk": SCAN_CHUNK,
+           "recall": rec, "metrics_s": metrics_s, "parity_max_abs_err": err}
+    log(f"[scan] 5 Adam steps at batch {SCAN_TRAIN_B} (36 x 2048 regions, "
+        f"bi-GRU, embed 1024): losses {[round(v, 4) for v in losses]}, step "
+        f"ms {[round(v, 1) for v in step_ms]}, peak {train_peak:.2f} GiB")
+    log(f"[scan] {SCAN_IMAGES} images x {SCAN_CAPS} captions (f32, chunks "
+        f"of {SCAN_CHUNK}): encode {res['encode_ms']:.1f} ms, score "
+        f"{res['score_ms']:.1f} ms (synchronised, host clock), peak "
+        f"{peak:.2f} GiB; i2t R@1/5/10 {rec['i2t_R@1']:.2f} / "
+        f"{rec['i2t_R@5']:.2f} / {rec['i2t_R@10']:.2f}, t2i "
+        f"{rec['t2i_R@1']:.2f} / {rec['t2i_R@5']:.2f} / "
+        f"{rec['t2i_R@10']:.2f} (random weights); on {smi}")
+    log(f"[scan] f32 scores card vs CPU at 8 x 40: max abs err {err:.3e}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3988,6 +4632,13 @@ def main() -> int:
     cbs_counts, cbs = phase_cbs(dev, smi)
     cbs["parity"] = phase_cbs_parity(dev)
     log(f"[cbs] phases took {time.perf_counter() - t_cbs:.1f} s")
+    t_dp = time.perf_counter()
+    dp = phase_dp(dev, smi)
+    log(f"[dp] phase took {time.perf_counter() - t_dp:.1f} s")
+    t_m12 = time.perf_counter()
+    module12 = {"pretrained": phase_pretrained(dev, smi),
+                "scan": phase_scan(dev, smi)}
+    log(f"[module12] phases took {time.perf_counter() - t_m12:.1f} s")
 
     for name, n in counts.items():
         if n == 0 and name != "attention_bwd":
@@ -4024,7 +4675,8 @@ def main() -> int:
          "checkpoint": ckpt, "scst": scst, "scst_launches": scst_counts,
          "decode_attention_sweep": sweep, "pipeline": pipe,
          "pipeline_launches": pipe_counts, "cbs": cbs,
-         "cbs_launches": cbs_counts, "kernels": kernels},
+         "cbs_launches": cbs_counts, "dp": dp, "module12": module12,
+         "kernels": kernels},
         indent=1, default=str))
     log(json.dumps({"kernels": kernels}))
     log(smi)
@@ -4035,4 +4687,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:
+        sys.exit(dp_worker(*sys.argv[2:6]))
     sys.exit(main())

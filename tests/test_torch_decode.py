@@ -405,7 +405,9 @@ def test_port_sources_import_no_jax():
                 "data/tensorizers.py", "data/dataset.py", "evals/ptb.py",
                 "evals/meteor.py", "evals/spice.py", "evals/coco_eval.py",
                 "evals/nocaps.py", "pipelines/uni_pipeline.py",
-                "pipelines/caption_pipeline.py", "run.py", "models/cbs.py"):
+                "pipelines/caption_pipeline.py", "run.py", "models/cbs.py",
+                "parallel/distributed.py", "parallel/mesh.py",
+                "models/pretrained.py", "models/scan.py"):
         assert ROOT / "vitcap_tpu_torch" / new in files
     bad = []
     for path in files:

@@ -404,7 +404,7 @@ def test_scst_two_steps_write_snapshot(root, port_run, tmp_path):
 
 @pytest.mark.parametrize("kw, err, words", [
     ({"loader": "grain"}, NotImplementedError, "Grain"),
-    ({"mesh_data": 2}, NotImplementedError, "module 9"),
+    ({"mesh_data": 2}, ValueError, "nproc_per_node 2"),
     ({"checkpoint_backend": "msgpack"}, ValueError, "one backend"),
     ({"checkpoint_backend": "orbax"}, ValueError, "one backend"),
     ({"async_checkpoint": True}, ValueError, "synchronously"),
@@ -421,8 +421,10 @@ def test_unported_keys_raise(root, tmp_path, kw, err, words):
 
 
 def test_more_than_one_rank_raises(root, tmp_path, monkeypatch):
+    """Two ranks under a YAML whose mesh_data says one: mesh_data must be
+    the number of processes (one a device)."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="module 9"):
+    with pytest.raises(ValueError, match="mesh_data: 1 with 2"):
         TR.create_pipeline(_param(root, str(tmp_path), device="cpu"))
 
 

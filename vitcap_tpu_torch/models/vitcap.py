@@ -391,9 +391,13 @@ def fusion_decoder(model: ViTCAP, seq: torch.Tensor, bias: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def label_smoothed_kl(logits: torch.Tensor, target: torch.Tensor,
-                      weight: torch.Tensor, eps: float) -> torch.Tensor:
+                      weight: torch.Tensor, eps: float,
+                      weight_total: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """KLDiv(log_softmax, smoothed one-hot) summed over the classes, the
-    weighted mean over the tokens (the reference BertCaptioningLoss)."""
+    weighted mean over the tokens (the reference BertCaptioningLoss).
+    weight_total: the mean's weight sum (default weight.sum()); under data
+    parallelism the global batch's, so the ranks' losses sum to its mean."""
     logits = logits.float()
     n_class = logits.shape[-1]
     logp = torch.log_softmax(logits, dim=-1)
@@ -403,7 +407,8 @@ def label_smoothed_kl(logits: torch.Tensor, target: torch.Tensor,
            if eps > 0 else 0.0)
     logp_t = logp.gather(-1, target[..., None])[..., 0]
     cross = -(on * logp_t + off * (logp.sum(-1) - logp_t))
-    denom = weight.sum().clamp_min(1.0)
+    denom = (weight.sum() if weight_total is None
+             else weight_total).clamp_min(1.0)
     return ((cross - ent) * weight).sum() / denom
 
 
@@ -423,12 +428,15 @@ def bce_tag_loss(logits: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
 # full forwards
 # ---------------------------------------------------------------------------
 
-def _masked_positions(masked_pos: torch.Tensor, max_masked: int
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B, T) 0/1 -> (B, M) indices of the ones in ascending order, then
-    padding slots, and their validity (a stable argsort of -masked_pos)."""
+def masked_slots(masked_pos: torch.Tensor, masked_ids: torch.Tensor,
+                 max_masked: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, T) 0/1 masked_pos, (B, M) masked_ids -> the (B, M) indices of
+    the masked positions in ascending order, then padding slots (a stable
+    argsort of -masked_pos), and the slots' f32 loss weight: 1 where the
+    slot is a masked position with a nonzero target id."""
     idx = torch.argsort(-masked_pos, dim=-1, stable=True)[:, :max_masked]
-    return idx, masked_pos.gather(-1, idx) > 0
+    valid = masked_pos.gather(-1, idx) > 0
+    return idx, ((masked_ids != 0) & valid).float()
 
 
 def draw_layer_seeds(generator: torch.Generator, n: int):
@@ -485,7 +493,12 @@ def forward_train(model: ViTCAP, batch: Dict[str, torch.Tensor],
     `layer_seeds` (per decoder layer (attn, hidden)) overrides the drawn
     seeds, so a caller can hand the JAX package's seeds to both.  Neither
     given: deterministic.  cfg.train_fused_blocks=True raises ValueError
-    (check_train_config)."""
+    (check_train_config).
+
+    Data parallelism (solver/train_step.py) adds the global batch's
+    masked_weight_total (the masked loss's weight sum) and rows_total (its
+    rows), scalar tensors; the losses are then this rank's shares,
+    which sum over the ranks to the global batch's losses."""
     check_train_config(cfg)
     deterministic = generator is None and layer_seeds is None
     enc = encode(model, batch["image"], cfg)
@@ -507,16 +520,15 @@ def forward_train(model: ViTCAP, batch: Dict[str, torch.Tensor],
                                        seq.shape[1] - cfg.max_seq_len)
     hidden = fusion_decoder(model, seq, bias, cfg, layer_seeds)
 
-    midx, mvalid = _masked_positions(batch["masked_pos"],
-                                     cfg.max_masked_tokens)
+    midx, weight = masked_slots(batch["masked_pos"], batch["masked_ids"],
+                                cfg.max_masked_tokens)
     gathered = hidden.gather(
         1, midx[..., None].expand(-1, -1, hidden.shape[-1]))
     class_logits = caption_logits(model, gathered, cfg)
-    weight = ((batch["masked_ids"] != 0) & mvalid).float()
     masked_loss = label_smoothed_kl(
         class_logits.reshape(-1, class_logits.shape[-1]),
         batch["masked_ids"].reshape(-1), weight.reshape(-1),
-        cfg.label_smoothing)
+        cfg.label_smoothing, batch.get("masked_weight_total"))
     aux = {"masked_loss": masked_loss, "class_logits": class_logits,
            "tag_logits": enc["tag_logits"], "masked_weight": weight}
     total = masked_loss
@@ -526,6 +538,8 @@ def forward_train(model: ViTCAP, batch: Dict[str, torch.Tensor],
                                 cfg.focal_alpha, cfg.focal_gamma)
         else:
             tl = bce_tag_loss(enc["tag_logits"], batch["label"])
+            if "rows_total" in batch:        # the mean over the global rows
+                tl = tl * (batch["label"].shape[0] / batch["rows_total"])
         aux["tag_loss"] = tl
         total = total + cfg.tag_loss_weight * tl
     aux["loss"] = total

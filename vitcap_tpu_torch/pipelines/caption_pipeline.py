@@ -8,10 +8,17 @@ The same YAML keys drive it.  Training runs the port's make_train_step
 port's Checkpointer; SCST runs solver.scst; prediction runs
 models.decode.generate on the eager engine, or the fused one with
 VITCAP_DECODE_FUSED=1, and with use_cbs models.cbs's constrained beam
-search under detector-given concept words on either engine.  Keys whose
-machinery is not ported raise, naming the ROADMAP.md item: loader: grain,
-mesh_data > 1 (module 9), checkpoint_backend other than 'torch',
-async_checkpoint, jax_profile_dir.
+search under detector-given concept words on either engine.
+
+Under `python -m torch.distributed.run --nproc_per_node N` the training is
+data-parallel (solver/train_step.py: each rank takes
+effective_batch_size / N rows of each global batch, and the step is the
+global batch's), only rank 0 snapshots, a SIGTERM stops every rank at
+the same iteration, and each rank predicts its shard of the test set.
+`mesh_data`, the JAX package's data-axis size, must be unset or N.  Keys
+whose machinery is not ported raise, naming the ROADMAP.md item: loader:
+grain, checkpoint_backend other than 'torch', async_checkpoint,
+jax_profile_dir.
 """
 
 from __future__ import annotations
@@ -36,6 +43,8 @@ from ..data.tensorizers import CaptionTaggerTensorizer, CaptionTensorizer
 from ..data.tokenization import BertTokenizer
 from ..data.transforms import TestImageTransform, TrainImageTransform
 from ..models.config import ModelConfig, vit_trunk
+from ..parallel.distributed import any_process
+from ..parallel.mesh import check_mesh_data, rank_seed, replicate_params
 from ..utils.common import Config, asset_path, resolve_asset
 from ..utils.meters import MetricLogger
 
@@ -124,9 +133,7 @@ class CaptionUniPipeline(UniPipeline):
             raise _not_ported("loader: grain", "the Grain loader (a "
                               "JAX-ecosystem loader; the port's loader is "
                               "the thread-pool DataLoader)")
-        if c.mesh_data is not None and int(c.mesh_data) > 1:
-            raise _not_ported(f"mesh_data: {c.mesh_data}", "data "
-                              "parallelism (parallel/, module 9)")
+        check_mesh_data(c.mesh_data, self.mpi_size)
         if c.get("checkpoint_backend") not in (None, "torch"):
             raise ValueError(
                 f"checkpoint_backend={c.get('checkpoint_backend')!r}: the "
@@ -347,7 +354,10 @@ class CaptionUniPipeline(UniPipeline):
         """(TrainState, start iteration): random weights from random_seed,
         then the last snapshot (weights, moments, generator) or the
         basemodel's weights; a fresh XE run copies the last trunk blocks
-        into the tag branch (reference …bertemb.py:265-267)."""
+        into the tag branch (reference …bertemb.py:265-267).  Every rank
+        then takes rank 0's parameters.  The dropout generator is seeded
+        from (random_seed, rank); a snapshot holds rank 0's, so after a
+        resume the other ranks seed theirs from the iteration too."""
         from ..models import vitcap as M
         from ..solver.checkpointing import restore_train_state
         from ..solver.train_step import init_train_state
@@ -357,12 +367,18 @@ class CaptionUniPipeline(UniPipeline):
                               device=dev)
         model, snap, start_iter = ckpt.recover_or_load(self.cfg.basemodel,
                                                        model)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = torch.Generator(device=dev).manual_seed(
+            rank_seed(seed, self.mpi_rank))
         if snap is not None:
-            return restore_train_state(snap, model, gen), start_iter
-        if init_tag_blocks:
-            M.init_tag_blocks_from_encoder(model, cfg)
-        return init_train_state(model, gen), start_iter
+            state = restore_train_state(snap, model, gen)
+            if self.mpi_rank > 0:
+                gen.manual_seed(rank_seed(seed, self.mpi_rank, start_iter))
+        else:
+            if init_tag_blocks:
+                M.init_tag_blocks_from_encoder(model, cfg)
+            state = init_train_state(model, gen)
+        replicate_params(state.model)
+        return state, start_iter
 
     def _train_xe(self):
         from ..solver.checkpointing import Checkpointer
@@ -450,11 +466,27 @@ class CaptionUniPipeline(UniPipeline):
                         iteration, self.max_iter, meters,
                         m.get("lr_mult", 0), m.get("caption_acc", 0), eta)
                 if iteration % snapshot_steps == 0 \
-                        and iteration != self.max_iter:
+                        and iteration != self.max_iter and self.mpi_rank == 0:
                     ckpt.save(iteration, state)
                 t_end = time.time()
-                if preempted["flag"] and iteration < self.max_iter:
-                    ckpt.save(iteration, state)
+                # with more than one rank the stop is collective (a rank
+                # that left would hang its peers in the next all-reduce):
+                # the flag is OR-ed over the ranks every preempt_sync_steps
+                # (default log_step) iterations, the same iterations on
+                # every rank, and a SIGTERM between waits for the next
+                stop = preempted["flag"]
+                if self.mpi_size > 1:
+                    sync_every = int(self.cfg.get("preempt_sync_steps")
+                                     or log_step)
+                    if iteration % sync_every == 0:
+                        stop = any_process(stop)
+                        preempted["flag"] = stop
+                    else:
+                        stop = False
+                if stop and iteration < self.max_iter:
+                    if self.mpi_rank == 0:
+                        ckpt.save(iteration, state)
+                    self._barrier()
                     logging.warning("preemption snapshot at iter %d "
                                     "written; exiting train loop",
                                     iteration)
@@ -465,7 +497,8 @@ class CaptionUniPipeline(UniPipeline):
             # the SIGTERM landed after the last step
             if preempted["flag"] and iteration < self.max_iter:
                 raise SystemExit(143)         # standard SIGTERM exit status
-            ckpt.save(self.max_iter, state)
+            if self.mpi_rank == 0:
+                ckpt.save(self.max_iter, state)
         finally:
             if prev_handler is not None:
                 signal.signal(signal.SIGTERM, prev_handler)
@@ -503,8 +536,8 @@ class CaptionUniPipeline(UniPipeline):
         meters = MetricLogger()
         self.train_meters = meters
         iteration = start_iter
-        sample_gen = torch.Generator(device=dev).manual_seed(
-            int(self.cfg.random_seed) + 1)
+        sample_gen = torch.Generator(device=dev).manual_seed(rank_seed(
+            int(self.cfg.random_seed) + 1, self.mpi_rank))
         t_end = time.time()
         for batch in loader:
             data_time = time.time() - t_end
@@ -534,12 +567,13 @@ class CaptionUniPipeline(UniPipeline):
                 logging.info("scst iter %d/%d %s", iteration, self.max_iter,
                              meters)
             if iteration % int(self.cfg.snapshot_steps) == 0 \
-                    and iteration != self.max_iter:
+                    and iteration != self.max_iter and self.mpi_rank == 0:
                 ckpt.save(iteration, state)
             t_end = time.time()
             if iteration >= self.max_iter:
                 break
-        ckpt.save(self.max_iter, state)
+        if self.mpi_rank == 0:
+            ckpt.save(self.max_iter, state)
         return state
 
     def _to_device_image(self, v) -> torch.Tensor:
@@ -638,7 +672,7 @@ class CaptionUniPipeline(UniPipeline):
         opts = self.decode_options()
         A = opts.max_length
         gen = torch.Generator(device=self.device).manual_seed(
-            int(self.cfg.random_seed) + 7)
+            rank_seed(int(self.cfg.random_seed) + 7, self.mpi_rank))
         cbs = self._make_cbs_decoder() if self.cfg.use_cbs else None
 
         B = int(self.cfg.test_batch_size)

@@ -9,9 +9,14 @@ src/pipelines/uni_pipeline.py:91-1130):
 - pipelines run on the card (`device: cuda`, the default) unless the
   config says `device: cpu`; asking for the card on a host without one
   raises, nothing falls back to the CPU;
-- one process: the JAX package's per-rank predict shards and their merge
-  belong to the distributed port (ROADMAP.md module 9), so a run with more
-  than one rank raises.
+- one process a device under `python -m torch.distributed.run
+  --nproc_per_node N`: each rank runs on cuda:LOCAL_RANK (or the device the
+  config names) in one process group (parallel/distributed.py), trains on
+  its rows of each global batch and predicts its shard of the test set;
+  rank 0 alone saves the parameters and snapshots, writes the
+  `.info.yaml`, merges the per-rank predict shards (concatenated, the
+  sampler's duplicated tail dropped, the dataset's key order restored)
+  and evaluates.
 """
 
 from __future__ import annotations
@@ -28,25 +33,16 @@ from ..data.dataset import (
     BatchSampler, DataLoader, DatasetPlusTransform, DistributedSampler,
     IterationBasedBatchSampler,
 )
-from ..data.tsv import tsv_writer
+from ..data.tsv import (
+    concat_tsv_files, delete_tsv_files, reorder_tsv_keys, tsv_writer,
+)
+from ..parallel import distributed
+from ..parallel.mesh import rank_device
 from ..utils.common import (
-    Config, ensure_directory, get_mpi_size, init_logging, save_parameters,
-    worth_create, write_to_yaml_file,
+    Config, ensure_directory, get_mpi_local_rank, get_mpi_rank, get_mpi_size,
+    init_logging, save_parameters, worth_create, write_to_yaml_file,
 )
 from ..utils.meters import MetricLogger
-
-
-def resolve_device(name: str) -> torch.device:
-    """The pipeline's device: 'cuda' (the default) or 'cpu'.  'cuda' on a
-    host without a card raises RuntimeError."""
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {name!r}: no CUDA device is available; set "
-            f"'device: cpu' to run the pipeline on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"device {name!r}: 'cuda' or 'cpu'")
-    return dev
 
 
 class UniPipeline:
@@ -90,20 +86,16 @@ class UniPipeline:
             [self.cfg.data, self.cfg.net, self.cfg.expid])
         self.output_folder = op.join(self.cfg.output_root, self.full_expid)
         self.model_folder = op.join(self.output_folder, "snapshot")
-        self.mpi_rank = 0
+        self.mpi_rank = get_mpi_rank()
         self.mpi_size = get_mpi_size()
-        if self.mpi_size > 1:
-            raise NotImplementedError(
-                f"{self.mpi_size} ranks: the port runs one process; "
-                f"distributed training and the per-rank predict merge are "
-                f"ROADMAP.md module 9 (parallel/ on torch.distributed), not "
-                f"ported yet")
         self._max_iter: Optional[int] = None
         self.initialized = False
 
     @property
     def device(self) -> torch.device:
-        return resolve_device(self.cfg.device)
+        """'cuda' -> cuda:LOCAL_RANK; 'cuda:N' and 'cpu' as named.  The card
+        on a host without one, or past its count, raises RuntimeError."""
+        return rank_device(self.cfg.device, get_mpi_local_rank())
 
     # ------------------------------------------------------------------
     # config / naming
@@ -180,14 +172,21 @@ class UniPipeline:
         if dataset is None:
             dataset = self.get_dataset(is_train)
         if is_train:
-            sampler = DistributedSampler(dataset, 1, 0,
+            if self.cfg.effective_batch_size % self.mpi_size:
+                raise ValueError(
+                    f"effective_batch_size {self.cfg.effective_batch_size} "
+                    f"does not divide over {self.mpi_size} ranks")
+            sampler = DistributedSampler(dataset, self.mpi_size,
+                                         self.mpi_rank,
                                          shuffle=self.cfg.train_shuffle)
-            bs = BatchSampler(sampler, self.cfg.effective_batch_size,
+            bs = BatchSampler(sampler,
+                              self.cfg.effective_batch_size // self.mpi_size,
                               drop_last=True)
             ibs = IterationBasedBatchSampler(bs, self.max_iter, start_iter)
             return DataLoader(dataset, ibs,
                               num_workers=self.cfg.num_workers)
-        sampler = DistributedSampler(dataset, 1, 0, shuffle=False)
+        sampler = DistributedSampler(dataset, self.mpi_size, self.mpi_rank,
+                                     shuffle=False)
         bs = BatchSampler(sampler, self.cfg.test_batch_size, drop_last=False)
         return DataLoader(dataset, bs, num_workers=self.cfg.num_workers)
 
@@ -198,6 +197,9 @@ class UniPipeline:
     def _ensure_initialized(self) -> None:
         if self.initialized:
             return
+        distributed.ensure_init_distributed(device=self.device)
+        self.mpi_rank = distributed.rank()
+        self.mpi_size = distributed.world_size()
         ensure_directory(self.output_folder)
         ensure_directory(self.model_folder)
         init_logging(self.mpi_rank, self.output_folder)
@@ -210,8 +212,14 @@ class UniPipeline:
         if op.exists(last) and not self.cfg.force_train:
             logging.info("skip to train: %s exists", last)
             return
-        save_parameters(self.kwargs, self.output_folder)
-        return self.train()
+        if self.mpi_rank == 0:
+            save_parameters(self.kwargs, self.output_folder)
+        out = self.train()
+        # every rank leaves training once rank 0's final snapshot is
+        # written: a fast peer would otherwise find no model file and skip
+        # predicting, and the predict merge's barriers would not pair up
+        self._barrier()
+        return out
 
     def train(self):
         raise NotImplementedError
@@ -233,12 +241,21 @@ class UniPipeline:
         self.predict(model_file, predict_file)
         return predict_file
 
+    def get_rank_specific_tsv(self, f: str, rank: int) -> str:
+        return f"{f}_{rank}_{self.mpi_size}.tsv"
+
     def predict(self, model_file: str, predict_file: str) -> str:
+        """Each rank writes its shard (`<predict>_<rank>_<world>.tsv`, with
+        its `.speed.yaml`); between two barriers rank 0 concatenates the
+        shards, drops the sampler's duplicated tail, restores the dataset's
+        key order into `predict_file` and deletes the shards."""
+        sub_file = predict_file if self.mpi_size == 1 else \
+            self.get_rank_specific_tsv(predict_file, self.mpi_rank)
         model = self.load_test_model(model_file)
         dataset = self.get_dataset(is_train=False)
         loader = self.get_data_loader(is_train=False, dataset=dataset)
         meters = MetricLogger()
-        tsv_writer(self.predict_iter(loader, model, meters), predict_file)
+        tsv_writer(self.predict_iter(loader, model, meters), sub_file)
         logging.info(str(meters))
         # per-prediction speed report (reference .speed.yaml,
         # uni_pipeline.py:804-805); `module_time` carries the per-stage
@@ -246,9 +263,22 @@ class UniPipeline:
         speed = meters.get_info()
         if getattr(self, "speed_info", None):
             speed["module_time"] = self.speed_info
-        write_to_yaml_file(speed, predict_file + ".speed.yaml")
-        write_to_yaml_file(self.kwargs, predict_file + ".info.yaml")
+        write_to_yaml_file(speed, sub_file + ".speed.yaml")
+        if self.mpi_rank == 0:
+            write_to_yaml_file(self.kwargs, predict_file + ".info.yaml")
+        self._barrier()
+        if self.mpi_size > 1 and self.mpi_rank == 0:
+            shards = [self.get_rank_specific_tsv(predict_file, i)
+                      for i in range(self.mpi_size)]
+            before = predict_file + ".before.reorder.tsv"
+            concat_tsv_files(shards, before)
+            reorder_tsv_keys(before, dataset.get_keys(), predict_file)
+            delete_tsv_files(shards + [before])
+        self._barrier()
         return predict_file
+
+    def _barrier(self) -> None:
+        distributed.barrier("vitcap_pipeline")
 
     def load_test_model(self, model_file: str):
         raise NotImplementedError
@@ -258,6 +288,9 @@ class UniPipeline:
 
     def ensure_evaluate(self, predict_file: Optional[str] = None
                         ) -> Optional[Dict[str, float]]:
+        """Rank 0 evaluates; the other ranks return None."""
+        if self.mpi_rank != 0:
+            return None
         if self.cfg.ignore_evaluate or self.cfg.ignore_predict:
             return None
         self._ensure_initialized()

@@ -9,6 +9,17 @@ The YAML selects a pipeline function via `type` and a pipeline class via
 (src.pipelines.*) and the JAX package's (vitcap_tpu.pipelines.*) are
 remapped onto vitcap_tpu_torch's, so one YAML drives either package.
 Pipelines run on the card unless the YAML's param says `device: cpu`.
+
+On N cards of a host, the same command under torch's launcher,
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m vitcap_tpu_torch.run -c config.yaml
+
+runs one process a card: every rank runs the pipeline function, rank r on
+cuda:r (LOCAL_RANK), in one NCCL process group made from the launcher's
+MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK; training is data-parallel
+over the global batch of effective_batch_size rows, predict shards are
+merged by rank 0, and rank 0 evaluates (pipelines/uni_pipeline.py).
 """
 
 from __future__ import annotations
@@ -95,10 +106,14 @@ _TYPES = {
 
 
 def main(argv=None):
+    from vitcap_tpu_torch.parallel.distributed import shutdown
     kwargs = parse_general_args(argv)
     logging.info("param: %s", kwargs)
     fn = _TYPES[kwargs.pop("type")]
-    return fn(**kwargs)
+    try:
+        return fn(**kwargs)
+    finally:
+        shutdown()
 
 
 if __name__ == "__main__":

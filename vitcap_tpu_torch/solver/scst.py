@@ -13,8 +13,14 @@ of vitcap_tpu/solver/scst.py.  One step in three phases:
    advantage), then the global-norm clip and the reference AdamW step.
 
 As in the TPU package, sampling runs without dropout and the scoring is
-deterministic.  The port runs eagerly (no jit) and single-process: the
-TPU package's `mesh` argument belongs to the distributed port and raises.
+deterministic.  The port runs eagerly (no jit).  Under a torch.distributed
+process group each rank decodes and rewards its own rows against their
+own ground truth, as each process of the TPU package does, and the
+gradient step is the global batch's: each rank's loss is its share of the
+global mean (the ranks' rows counted by one small all-reduce), and the
+gradients and metric sums are SUMmed before the clip
+(parallel/mesh.py all_reduce_grads).  The TPU package's `mesh` argument is
+a JAX sharding and raises.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from ..models import decode as D
 from ..models import vitcap as M
 from ..models.config import ModelConfig
 from ..models.layers import NEG_MASK_VALUE, bert_embeddings
+from ..parallel.mesh import all_reduce_grads, all_reduce_sum
 from .optimization import (AdamWConfig, adamw_update, caption_param_hypers,
                            clip_by_global_norm, warmup_linear)
 from .train_step import TrainState
@@ -202,9 +209,9 @@ def make_scst_fns(cfg: ModelConfig, opts: D.DecodeOptions,
     hyper: solver.train_step.TrainHyper (base_lr, eps, grad_clip,
     warmup_steps, max_iter, weight_decay, lr_multiplier)."""
     if mesh is not None:
-        raise ValueError("make_scst_fns: mesh belongs to the distributed "
-                         "port (vitcap_tpu/parallel), which is not ported; "
-                         "the port's SCST is single-process")
+        raise ValueError("make_scst_fns: mesh is a JAX sharding; the port's "
+                         "SCST is data-parallel under a torch.distributed "
+                         "process group")
     greedy_opts = dataclasses.replace(opts, num_beams=1, do_sample=False,
                                       num_return_sequences=1)
     sample_opts = dataclasses.replace(opts, num_beams=1, do_sample=True,
@@ -246,15 +253,28 @@ def make_scst_fns(cfg: ModelConfig, opts: D.DecodeOptions,
         params = dict(state.model.named_parameters())
         for p in params.values():
             p.grad = None
+        dp = torch.distributed.is_initialized()
+        if dp:            # this rank's share of the global mean
+            rows = sample_ids.new_tensor([float(sample_ids.shape[0])],
+                                         dtype=torch.float32)
+            share = rows[0] / all_reduce_sum(rows)[0]
         lp = score_caption_logprobs(
             state.model, batch["image"], batch["od_ids"],
             batch.get("od_token_type_ids"), batch["seq_len"], sample_ids,
             score_cfg, opts, target_ids=raw_tokens,
             visual_token_idx=vidx if vidx.shape[1] > 0 else None)
         loss = torch.mean(-lp * advantages)
+        mean_lp = lp.detach().mean()
+        if dp:
+            loss = loss * share
+            mean_lp = mean_lp * share
         loss.backward()
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in params.items()}
+        if dp:
+            grads, sums = all_reduce_grads(
+                grads, torch.stack([loss.detach(), mean_lp]))
+            loss, mean_lp = sums[0], sums[1]
         grads, gnorm = clip_by_global_norm(grads, hyper.grad_clip)
         key = tuple(params)
         if key not in hypers:
@@ -266,7 +286,7 @@ def make_scst_fns(cfg: ModelConfig, opts: D.DecodeOptions,
         opt = adamw_update(grads, state.opt, params, lr_mult, wd, opt_cfg,
                            schedule)
         metrics = {"scst_loss": loss.detach(), "grad_norm": gnorm,
-                   "mean_logprob": lp.detach().mean()}
+                   "mean_logprob": mean_lp}
         return TrainState(state.model, opt, state.generator), metrics
 
     return decode_fn, grad_step
@@ -280,10 +300,12 @@ def scst_train_step(decode_fn: Callable, grad_step: Callable,
     """One SCST iteration: decode, the host's reward, the gradient step.
     tokenizer: anything with decode(ids, skip_special_tokens=True), e.g.
     data.tokenization.CaptionDecoder.  metrics adds 'cider_score', the
-    samples' mean CIDEr-D."""
+    mean CIDEr-D of this rank's samples.  With a process group, batch and
+    gt_captions are this rank's rows."""
     if mesh is not None:
-        raise ValueError("scst_train_step: mesh belongs to the distributed "
-                         "port, which is not ported")
+        raise ValueError("scst_train_step: mesh is a JAX sharding; the "
+                         "port's SCST is data-parallel under a "
+                         "torch.distributed process group")
     greedy_ids, sample_ids, raw_tokens, vidx = decode_fn(
         state.model, batch["image"], batch["od_ids"],
         batch.get("od_token_type_ids"), batch["seq_len"], generator)

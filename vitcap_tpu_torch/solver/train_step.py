@@ -7,6 +7,19 @@ eagerly and updates the model's parameters and the Adam moments in place.
 Dropout randomness comes from the state's explicit torch.Generator (the
 TPU package's train_rng key): each step draws its decoder-layer seeds and
 embedding masks from it.
+
+Under a torch.distributed process group the step is data-parallel and
+equals the TPU package's step over the global (data-sharded) batch: each
+rank runs its own rows, the masked loss is divided by the global batch's
+weight sum (one small all-reduce before the forward) and the BCE tag loss
+by its rows, so that the ranks' losses and gradients sum to the global
+ones; the gradients and the metrics' sums are SUMmed in flat buckets
+after the backward (parallel/mesh.py all_reduce_grads), before the clip,
+so the clip's norm and the AdamW update are the same on every rank.  The
+reported metrics are the global batch's.  Each rank's dropout draws from
+its own generator (the pipeline seeds it from the seed and the rank), so
+with dropout on, the masks differ from the TPU package's one draw over the
+global batch.
 """
 
 from __future__ import annotations
@@ -18,6 +31,7 @@ import torch
 
 from ..models import vitcap as M
 from ..models.config import ModelConfig
+from ..parallel.mesh import all_reduce_grads, all_reduce_sum
 from .optimization import (SCHEDULES, AdamWConfig, AdamWState, adamw_init,
                            adamw_update, caption_param_hypers,
                            clip_by_global_norm)
@@ -53,18 +67,23 @@ def init_train_state(model: torch.nn.Module,
                       generator)
 
 
+def _caption_acc_sums(class_logits: torch.Tensor, masked_ids: torch.Tensor,
+                      weight: torch.Tensor) -> torch.Tensor:
+    """(hits, weight) sums over the weighted masked slots."""
+    hit = (class_logits.argmax(-1) == masked_ids).float() * weight
+    return torch.stack([hit.sum(), weight.sum()])
+
+
 def caption_acc(class_logits: torch.Tensor, masked_ids: torch.Tensor,
                 weight: torch.Tensor) -> torch.Tensor:
     """Train-time caption token accuracy over the weighted masked slots."""
-    hit = (class_logits.argmax(-1) == masked_ids).float() * weight
-    return hit.sum() / weight.sum().clamp_min(1.0)
+    hits, w = _caption_acc_sums(class_logits, masked_ids, weight)
+    return hits / w.clamp_min(1.0)
 
 
-def tag_precision(tag_logits: torch.Tensor, label: torch.Tensor
-                  ) -> torch.Tensor:
-    """Per-sample top-k hit rate, k = the sample's number of positives, in
-    percent, averaged over the samples with a positive (MultiLabelAccuracy).
-    One stable sort of the logits, as the TPU package does."""
+def _tag_precision_sums(tag_logits: torch.Tensor, label: torch.Tensor
+                        ) -> torch.Tensor:
+    """(sum of the per-sample hit rates, samples with a positive)."""
     k = label.sum(1)
     order = torch.argsort(-tag_logits.float(), dim=1, stable=True)
     lab_sorted = (label > 0).gather(1, order)
@@ -72,7 +91,16 @@ def tag_precision(tag_logits: torch.Tensor, label: torch.Tensor
     hits = (lab_sorted & (pos < k[:, None])).sum(1)
     valid = k > 0
     per = torch.where(valid, 100.0 * hits / k.clamp_min(1), 0.0)
-    return per.sum() / valid.sum().clamp_min(1)
+    return torch.stack([per.sum(), valid.sum().float()])
+
+
+def tag_precision(tag_logits: torch.Tensor, label: torch.Tensor
+                  ) -> torch.Tensor:
+    """Per-sample top-k hit rate, k = the sample's number of positives, in
+    percent, averaged over the samples with a positive (MultiLabelAccuracy).
+    One stable sort of the logits, as the TPU package does."""
+    per, valid = _tag_precision_sums(tag_logits, label)
+    return per / valid.clamp_min(1)
 
 
 def make_train_step(cfg: ModelConfig, hyper: TrainHyper,
@@ -82,6 +110,9 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper,
     gradients until the next step.  loss_fn(model, batch, cfg, generator,
     layer_seeds) -> (loss, aux); defaults to forward_train.  layer_seeds,
     when given, are the decoder's per-layer dropout seeds for this step.
+    With a process group the step is data-parallel (module docstring): the
+    batch is this rank's rows, and loss_fn must read the batch's
+    masked_weight_total and rows_total as forward_train does.
     cfg.train_fused_blocks=True raises ValueError (not ported)."""
     M.check_train_config(cfg)
     if loss_fn is None:
@@ -99,6 +130,15 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper,
         params = dict(state.model.named_parameters())
         for p in params.values():
             p.grad = None
+        dp = torch.distributed.is_initialized()
+        if dp:
+            _, w = M.masked_slots(batch["masked_pos"], batch["masked_ids"],
+                                  cfg.max_masked_tokens)
+            rows = torch.tensor([float(batch["input_ids"].shape[0])],
+                                device=w.device)
+            totals = all_reduce_sum(torch.cat([w.sum()[None], rows]))
+            batch = dict(batch, masked_weight_total=totals[0],
+                         rows_total=totals[1])
         loss, aux = loss_fn(state.model, batch, cfg, state.generator,
                             layer_seeds)
         loss.backward()
@@ -106,6 +146,26 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper,
         # the clip's norm and the Adam moments see, as in the TPU package
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in params.items()}
+        sums = {"loss": loss.detach(),
+                "masked_loss": aux.get("masked_loss", loss).detach()}
+        if "tag_loss" in aux:
+            sums["tag_loss"] = aux["tag_loss"].detach()
+        if with_probes:
+            with torch.no_grad():
+                if "class_logits" in aux and "masked_weight" in aux:
+                    sums["caption_acc"] = _caption_acc_sums(
+                        aux["class_logits"], batch["masked_ids"],
+                        aux["masked_weight"])
+                if "tag_logits" in aux and "label" in batch:
+                    sums["tag_precision"] = _tag_precision_sums(
+                        aux["tag_logits"], batch["label"])
+        if dp:
+            flat = torch.cat([v.float().reshape(-1) for v in sums.values()])
+            grads, flat = all_reduce_grads(grads, flat)
+            sums = dict(zip(sums, flat.split([v.numel()
+                                              for v in sums.values()])))
+            sums = {k: v.reshape(()) if v.numel() == 1 else v
+                    for k, v in sums.items()}
         grads, gnorm = clip_by_global_norm(grads, hyper.grad_clip)
         key = tuple(params)
         if key not in hypers:
@@ -119,20 +179,17 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper,
         lr_sched = schedule(state.opt.step)
         opt = adamw_update(grads, state.opt, params, lr_mult, wd, opt_cfg,
                            schedule)
-        metrics = {"loss": loss.detach(), "grad_norm": gnorm,
+        metrics = {"loss": sums["loss"], "grad_norm": gnorm,
                    "lr_mult": torch.tensor(lr_sched),
-                   "masked_loss": aux.get("masked_loss", loss).detach()}
-        if "tag_loss" in aux:
-            metrics["tag_loss"] = aux["tag_loss"].detach()
-        if with_probes:
-            with torch.no_grad():
-                if "class_logits" in aux and "masked_weight" in aux:
-                    metrics["caption_acc"] = caption_acc(
-                        aux["class_logits"], batch["masked_ids"],
-                        aux["masked_weight"])
-                if "tag_logits" in aux and "label" in batch:
-                    metrics["tag_precision"] = tag_precision(
-                        aux["tag_logits"], batch["label"])
+                   "masked_loss": sums["masked_loss"]}
+        if "tag_loss" in sums:
+            metrics["tag_loss"] = sums["tag_loss"]
+        if "caption_acc" in sums:
+            hits, w = sums["caption_acc"]
+            metrics["caption_acc"] = hits / w.clamp_min(1.0)
+        if "tag_precision" in sums:
+            per, valid = sums["tag_precision"]
+            metrics["tag_precision"] = per / valid.clamp_min(1)
         return TrainState(state.model, opt, state.generator), metrics
 
     return step

@@ -312,8 +312,17 @@ def init_logging(rank: int = 0, output_dir: Optional[str] = None) -> None:
         root.addHandler(fh)
 
 
+def get_mpi_rank() -> int:
+    return int(os.environ.get("RANK", os.environ.get("OMPI_COMM_WORLD_RANK", "0")))
+
+
 def get_mpi_size() -> int:
     return int(os.environ.get("WORLD_SIZE",
                               os.environ.get("OMPI_COMM_WORLD_SIZE", "1")))
+
+
+def get_mpi_local_rank() -> int:
+    return int(os.environ.get("LOCAL_RANK",
+                              os.environ.get("OMPI_COMM_WORLD_LOCAL_RANK", "0")))
 
 
