@@ -156,6 +156,20 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
    regions of 2048, embed 1024, a bi-GRU): 5 Adam steps at batch 128,
    the scores of 1000 images x 5000 captions (ms, peak memory, R@1/5/10)
    and f32 scores card vs CPU at 8 x 40 within 1e-4.
+18. the model zoo (models/registry.py create_model, random weights from
+   the seed, bf16, B=64): the kernels at its new shapes vs their plain
+   versions (the gemm at ViT-L/16-384's and ViT-H/14's products, attention
+   at head dims 64, 80 and 96, the last two the HDP=128 instances, the
+   LayerNorm at H 1024 and 1280); vit_large_patch16_384 at 384 and 512 px,
+   vit_huge_patch14_224_in21k, vit_small_patch16_224,
+   vit_base_resnet50_384 and vit_deit_base_distilled_patch16_384: exact
+   launches per batch (attention[hdp128], layer_norm[wide] and
+   attention[long] where the model has them), images/s (median of 5
+   batches by CUDA events), peak memory, idle share, the logits vs the
+   blocks' plain versions on the card (2e-2 of their scale; the plain
+   chain's distance reported); resnet50 and t2t_vit_t_14 (no hand kernel:
+   images/s); f32 card vs CPU at reduced depth (2 blocks of ViT-L and of
+   ViT-H width, a 2-stage resnet50, T2T with 2 body blocks) within 1e-4.
 Phase 3 also runs decode_attention at S = 2000 context keys (hd 64 with 4
 beams, hd 128 with 1), at least 99% bit-equal at B=64, with its share and
 times, and a sweep of small calls (3 images, 8 seeds, 3 t; from 628 to
@@ -218,7 +232,8 @@ TRAIN_MODES_PER_STEP = {"gemm[pre_out]": 19, "gemm[dropout]": 8,
                         "attention_bwd[non_slab]": 0,
                         "attention[heads]": 0, "attention[online]": 0,
                         "attention_bwd[heads]": 0,
-                        "decode_attention[groups]": 0}
+                        "decode_attention[groups]": 0,
+                        "attention[hdp128]": 0, "layer_norm[wide]": 0}
 # one 512-px flagship train step: past 1024 padded tokens every
 # self-attention takes the plain chain's packed route (flash_attention_
 # packed): 15 ViT blocks at Lp 1152 (the CLS-only tag block attends from
@@ -234,7 +249,8 @@ TRAIN_512_MODES_PER_STEP = {"gemm[pre_out]": 0, "gemm[dropout]": 0,
                             "attention_bwd[non_slab]": 38,
                             "attention[heads]": 0, "attention[online]": 0,
                             "attention_bwd[heads]": 0,
-                            "decode_attention[groups]": 0}
+                            "decode_attention[groups]": 0,
+                            "attention[hdp128]": 0, "layer_norm[wide]": 0}
 HIGHRES = 512                # phase 9's images, against 384-px weights
 LONG = {"attention[long]": 18}          # per 512-px batch: every block
 FILTERED_LONG = {"attention[long]": 2}  # token_filter_keep=0.5: blocks 0, 1
@@ -343,6 +359,21 @@ MODE_SOURCES = {
                                  "(attention half; fused_decode_step :237), "
                                  "as constrained beam search reaches it at "
                                  "160 beams an image", "cbs160"),
+    "attention[hdp128]": ("vitcap_tpu_torch/csrc/attention.cu "
+                          "(attention_wgmma_kernel<128, ...>: head dims "
+                          "past 64)",
+                          "vitcap_tpu/ops/fused_block.py:194 "
+                          "_attn_pairbd_kernel (:167 perhead) at head dims "
+                          "80 and 96, reached by vitcap_tpu/models/"
+                          "registry.py vit_forward through layers.vit_block "
+                          "(the model zoo's ViT-H/14 and old ViT-S/16)",
+                          "zoo hd80"),
+    "layer_norm[wide]": ("vitcap_tpu_torch/csrc/layer_norm.cu (the scalar "
+                         "loop, rows past 1024)",
+                         "vitcap_tpu/ops/fused_block.py:150 _qkv_kernel "
+                         "(LN1), :235 _tail_kernel (LN2) at H 1280, reached "
+                         "by vitcap_tpu/models/registry.py vit_forward (the "
+                         "model zoo's ViT-H/14)", "zoo h1280"),
     "tail_train": ("vitcap_tpu_torch/ops/fused_block.py tail_train "
                    "(csrc/gemm.cu, layer_norm.cu)",
                    "vitcap_tpu/ops/fused_block.py:831 _tail_train_kernel "
@@ -1603,8 +1634,10 @@ def summarise(rows, counts, mode_counts):
     (phase 5b) for the serving kernels; for the kernel modes, the train
     step's timed run (8 steps) for the train modes, the fused 512-px
     serving run (phase 9) for attention[long] and the 512-px train step's
-    timed run (6 steps, phase 10) for the non-slab modes, whose numbers
-    are one launch (call) at the bf16 shape named in MODE_SOURCES.
+    timed run (6 steps, phase 10) for the non-slab modes, the zoo's
+    counted batches (phase 18) for attention[hdp128] and
+    layer_norm[wide], whose numbers are one launch (call) at the bf16
+    shape named in MODE_SOURCES.
     max_abs_err: the largest of any check of the kernel.
     ms / plain_ms / library_ms / bound_ms: for gemm, layer_norm and
     attention, the sum over one fused ViT block's launches at B=64 bf16
@@ -4562,6 +4595,384 @@ def phase_scan(dev, smi):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the model zoo (module 13 part 1)
+# ---------------------------------------------------------------------------
+
+ZOO_B = 64                   # images a zoo batch
+ZOO_TIMED = 5                # batches timed with CUDA events (median)
+# (name, image size): the ViT family on the card, bf16
+ZOO_VITS = [("vit_large_patch16_384", 384),
+            ("vit_large_patch16_384", 512),
+            ("vit_huge_patch14_224_in21k", 224),
+            ("vit_small_patch16_224", 224),
+            ("vit_base_resnet50_384", 384),
+            ("vit_deit_base_distilled_patch16_384", 384)]
+ZOO_CNNS = ["resnet50", "t2t_vit_t_14"]
+# the kernel rows at the zoo's new shapes: gemm (name, tokens, K, N,
+# epilogue), attention (name, heads, head dim, L), layer_norm (name, H, L)
+ZOO_GEMMS = [("vit-l qkv", 577, 1024, 3072, {}),
+             ("vit-l proj+res", 577, 1024, 1024, dict(residual=True)),
+             ("vit-l fc1+gelu", 577, 1024, 4096, dict(gelu=True)),
+             ("vit-l fc2+res", 577, 4096, 1024, dict(residual=True)),
+             ("vit-h qkv", 257, 1280, 3840, {}),
+             ("vit-h proj+res", 257, 1280, 1280, dict(residual=True)),
+             ("vit-h fc1+gelu", 257, 1280, 5120, dict(gelu=True)),
+             ("vit-h fc2+res", 257, 5120, 1280, dict(residual=True))]
+ZOO_ATTN = [("attention", "zoo vit-l hd64", 16, 64, 577),
+            ("attention[hdp128]", "zoo hd80", 16, 80, 257),
+            ("attention[hdp128]", "zoo hd96", 8, 96, 197)]
+ZOO_LN = [("layer_norm", "zoo h1024", 1024, 577),
+          ("layer_norm[wide]", "zoo h1280", 1280, 257)]
+
+
+def _zoo_images(n, size, seed, dev):
+    """uint8 images made from the seed, moved to the card and normalised
+    there to [-1, 1] in f32 (the captioner's (x / 255 - 0.5) / 0.5)."""
+    rs = np.random.RandomState(seed)
+    u8 = torch.from_numpy(rs.randint(0, 256, (n, size, size, 3))
+                          .astype(np.uint8)).to(dev)
+    return u8.float().div_(127.5).sub_(1.0)
+
+
+def phase_zoo_kernels(dev, rows, Bn=None):
+    """The kernels at the model zoo's new shapes vs their plain versions,
+    B=64, with bounds and yardsticks: the gemm at ViT-L/16-384's and
+    ViT-H/14's four products (bf16), attention at ViT-L's 16 heads of 64
+    (L 577) and at head dims 80 (ViT-H/14: 16 heads, L 257, Lp 272) and 96
+    (the old ViT-S/16: 8 heads, L 197, Lp 208), the HDP=128 instances, and
+    the LayerNorm at H 1024 and H 1280 (rows wider than the register
+    path), bf16 and f32."""
+    from vitcap_tpu_torch.ops.attention import attention, attention_plain
+    from vitcap_tpu_torch.ops.fused_block import pad_len
+    from vitcap_tpu_torch.ops.gemm import gemm, gemm_plain
+    from vitcap_tpu_torch.ops.layer_norm import layer_norm, layer_norm_plain
+    Bn = Bn or ZOO_B
+    g = torch.Generator().manual_seed(SEED + 40)
+    first = len(rows)
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
+
+    for name, L, K, N, epi in ZOO_GEMMS:
+        M = Bn * pad_len(L)
+        a = [rnd(M, K, dtype=torch.bfloat16) for _ in range(2)]
+        w = rnd(N, K, scale=0.02, dtype=torch.bfloat16)
+        b = rnd(N, scale=0.02)
+        r = (rnd(M, N, dtype=torch.bfloat16) if epi.get("residual")
+             else None)
+        kw = dict(epi, residual=r)
+        out, ref = gemm(a[0], w, b, **kw), gemm_plain(a[0], w, b, **kw)
+        err = compare(f"gemm {name}", out, ref, torch.bfloat16)
+        eq = _bits(f"gemm {name}", out, ref)
+        ms = cuda_ms(lambda i: gemm(a[i % 2], w, b, **kw), 10)
+        pms = cuda_ms(lambda i: gemm_plain(a[i % 2], w, b, **kw), 10)
+        bd = b.to(torch.bfloat16)
+        lms = cuda_ms(lambda i: F.linear(a[i % 2], w, bd), 10)
+        nbytes = 2 * (M * K + N * K + M * N * (2 if r is not None else 1)
+                      ) + 4 * N
+        _row(rows, "gemm", name, "bf16", f"M={M} K={K} N={N}", err, ms, pms,
+             lms, 2.0 * M * K * N, nbytes)
+        rows[-1]["bit_equal"] = eq
+        del a, w, r, out, ref
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = "bf16" if dtype == torch.bfloat16 else "f32"
+        es = 2 if dtype == torch.bfloat16 else 4
+        for kname, name, H, L in ZOO_LN:
+            M = Bn * pad_len(L)
+            x = [rnd(M, H, scale=3.0, dtype=dtype) + 1 for _ in range(2)]
+            gm, bt = rnd(H) + 1, rnd(H)
+            err = compare(f"layer_norm {name} {dn}",
+                          layer_norm(x[0], gm, bt, 1e-6, dtype),
+                          layer_norm_plain(x[0], gm, bt, 1e-6, dtype), dtype)
+            ms = cuda_ms(lambda i: layer_norm(x[i % 2], gm, bt, 1e-6, dtype),
+                         10)
+            pms = cuda_ms(lambda i: layer_norm_plain(x[i % 2], gm, bt, 1e-6,
+                                                     dtype), 10)
+            gl, bl = gm.to(dtype), bt.to(dtype)
+            lms = cuda_ms(lambda i: F.layer_norm(x[i % 2], (H,), gl, bl,
+                                                 1e-6), 10)
+            _row(rows, kname, name, dn, f"rows={M} H={H}", err, ms, pms, lms,
+                 8.0 * M * H, M * H * 2 * es + 8 * H)
+            del x
+        for kname, name, nh, hd, L in ZOO_ATTN:
+            Lp, H = pad_len(L), nh * hd
+            slab = [rnd(Bn, Lp, 3 * H, dtype=dtype) for _ in range(2)]
+            out = attention(slab[0], nh, L)
+            ref = attention_plain(slab[0], nh, L)
+            err = compare(f"{kname} {name} {dn}", out, ref, dtype)
+            eq = _bits(f"{kname} {name}", out, ref)
+            del out, ref
+            ms = cuda_ms(lambda i: attention(slab[i % 2], nh, L), 5)
+            pms = cuda_ms(lambda i: attention_plain(slab[i % 2], nh, L), 3)
+            mask = torch.zeros(Bn, 1, Lp, Lp, device=dev, dtype=dtype)
+            mask[..., L:] = float("-inf")
+            qkv = [s.view(Bn, Lp, 3, nh, hd).permute(2, 0, 3, 1, 4)
+                   for s in slab]
+            lms = cuda_ms(lambda i: F.scaled_dot_product_attention(
+                qkv[i % 2][0], qkv[i % 2][1], qkv[i % 2][2],
+                attn_mask=mask), 5)
+            _row(rows, kname, name, dn,
+                 f"B={Bn} L={L} Lp={Lp} heads={nh}x{hd}", err, ms, pms, lms,
+                 4.0 * Bn * nh * Lp * L * hd, es * Bn * Lp * 4 * H)
+            rows[-1]["bit_equal"] = eq
+            del slab, qkv, mask
+        torch.cuda.empty_cache()
+    for r in rows[first:]:
+        log(f"[zoo-kernel] {r['kernel']:18s} {r['case']:16s} "
+            f"{r['dtype']:4s} {r['shape']:36s} err {r['max_abs_err']:.3e}  "
+            f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+            f"library {r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})"
+            + (f"  bit-equal {r['bit_equal']:.6f}" if r.get("bit_equal")
+               else ""))
+
+
+@contextlib.contextmanager
+def _zoo_plain_versions():
+    """The fused blocks' composition on the kernels' plain versions
+    (ops/fused_block.py PLAIN), on the card: the blocks' plain version,
+    rounding where the kernels round."""
+    from vitcap_tpu_torch.ops import fused_block as FB
+    kernels = FB.KERNELS
+    FB.KERNELS = FB.PLAIN
+    try:
+        yield
+    finally:
+        FB.KERNELS = kernels
+
+
+def _zoo_plain_block(blk, x, num_heads, ln_eps, l_actual=0):
+    """models.layers' plain chain on the valid rows of a pre-padded x."""
+    from vitcap_tpu_torch.models import layers as TL
+    L = l_actual or x.shape[1]
+    y = TL._vit_block_plain(blk, x[:, :L], num_heads, ln_eps)
+    return F.pad(y, (0, 0, 0, x.shape[1] - L)) if L < x.shape[1] else y
+
+
+@contextlib.contextmanager
+def _zoo_plain_blocks():
+    """The zoo's ViT blocks on the plain chain with the attention's plain
+    version: the reference a kernel forward is held to (no launch)."""
+    from vitcap_tpu_torch.models import registry as TR
+    kernel_block = TR.vit_block
+    TR.vit_block = _zoo_plain_block
+    try:
+        with _plain_attention():
+            yield
+    finally:
+        TR.vit_block = kernel_block
+
+
+def _zoo_want(spec, L):
+    """A ViT batch's launches and modes: per block 4 gemm, 2 layer_norm,
+    1 attention; the head dim past 64 and rows past 1024 in their modes,
+    padded lengths past 1024 in attention[long]."""
+    from vitcap_tpu_torch import ops
+    from vitcap_tpu_torch.ops.fused_block import pad_len
+    d = spec.depth
+    want = {"gemm": 4 * d, "layer_norm": 2 * d, "attention": d,
+            "attention_bwd": 0, "decode_attention": 0}
+    want.update({k: 0 for k in ops.mode_counts()})
+    want["attention[hdp128]"] = d if spec.hidden_size // spec.num_heads > 64 \
+        else 0
+    want["layer_norm[wide]"] = 2 * d if spec.hidden_size > 1024 else 0
+    want["attention[long]"] = d if pad_len(L) > 1024 else 0
+    return want
+
+
+def _zoo_vit_flops(spec, L, Bn):
+    """A batch's operations: the blocks' four products over the padded
+    rows and the attention's two over the padded queries and L keys (the
+    stem, patch embedding and head aside)."""
+    from vitcap_tpu_torch.ops.fused_block import pad_len
+    H, I, Lp = spec.hidden_size, spec.intermediate_size, pad_len(L)
+    return spec.depth * (2.0 * Bn * Lp * H * (4 * H + 2 * I)
+                         + 4.0 * Bn * Lp * L * H)
+
+
+def _zoo_batches(fn, n):
+    """Median and all CUDA-event ms of n calls of fn (after a warm-up)."""
+    fn()
+    ts = []
+    for _ in range(n):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        t1.synchronize()
+        ts.append(t0.elapsed_time(t1))
+    return sorted(ts)[len(ts) // 2], ts
+
+
+def phase_zoo(dev, smi, Bn=None):
+    """The model zoo's factory on the card (models/registry.py
+    create_model, random weights from the seed, bf16): a.-c. the ViT
+    family (ZOO_VITS) at B=64: exact launches per batch, images/s (the
+    median of ZOO_TIMED batches by CUDA events), peak memory, the idle
+    share (torch.profiler), the logits against the same model with its
+    blocks on the kernels' plain versions on the card (2e-2 of their
+    scale; the plain chain, which rounds elsewhere, is reported: bf16
+    noise grows over 24-32 blocks); d. resnet50 and t2t_vit_t_14 at B=64,
+    224 px: images/s, no hand-kernel launch."""
+    from vitcap_tpu_torch import ops
+    from vitcap_tpu_torch.models import backbones as TB
+    from vitcap_tpu_torch.models import registry as TR
+    Bn = Bn or ZOO_B
+    out = {"card": smi, "vit": {}, "cnn": {}, "mode_launches": {}}
+    for name, img in ZOO_VITS:
+        tag = f"{name}@{img}"
+        m = TR.create_model(name, dtype=torch.bfloat16, device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(SEED))
+        spec = m.spec
+        stride = (TB.HYBRIDS[spec.hybrid][2] if spec.hybrid
+                  else spec.patch_size)
+        L = (img // stride) ** 2 + spec.num_lead_tokens
+        x = _zoo_images(Bn, img, SEED + 41, dev)
+
+        def batch():
+            return m.apply(m.params, x, head=True)
+        with torch.no_grad():
+            batch()
+            torch.cuda.synchronize()
+            ops.reset_counts()
+            logits = batch()
+            torch.cuda.synchronize()
+            got = dict(ops.launch_counts(), **ops.mode_counts())
+            for k, v in ops.mode_counts().items():
+                out["mode_launches"][k] = out["mode_launches"].get(k, 0) + v
+            want = _zoo_want(spec, L)
+            log(f"[zoo] {tag}: launches per batch "
+                f"{ {k: v for k, v in got.items() if v} }")
+            if got != want:
+                raise AssertionError(f"zoo {tag}: launches {got} != {want}")
+            if logits.shape != (Bn, spec.num_classes) or not torch.isfinite(
+                    logits).all():
+                raise AssertionError(f"zoo {tag}: logits {logits.shape}")
+            torch.cuda.reset_peak_memory_stats()
+            ms, all_ms = _zoo_batches(batch, ZOO_TIMED)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            prof = _profile(f"zoo_{name}_{img}", batch, reps=1)
+            ops.reset_counts()
+            with _zoo_plain_versions():
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                ref = batch()
+                t1.record()
+                t1.synchronize()
+                pms = t0.elapsed_time(t1)
+            if any(ops.launch_counts().values()):
+                raise AssertionError(f"zoo {tag}: the plain blocks launched "
+                                     f"{ops.launch_counts()}")
+            err = compare(f"zoo {tag} logits", logits, ref, torch.bfloat16)
+            # the plain chain (models.layers _vit_block_plain) rounds at
+            # other points: bf16 noise grows over the blocks, reported only
+            with _zoo_plain_blocks():
+                chain = batch()
+            err_chain = (chain.float() - logits.float()).abs().max().item()
+            del chain
+        flops = _zoo_vit_flops(spec, L, Bn)
+        b_ms, _ = bound(flops, 0.0, "bf16")
+        out["vit"][tag] = {
+            "tokens": L, "launches_per_batch": {k: v for k, v in got.items()
+                                                if v},
+            "batch_ms": ms, "batch_ms_all": all_ms,
+            "images_per_s": Bn / ms * 1e3, "plain_batch_ms_once": pms,
+            "peak_gib": peak, "idle_share": prof["idle_share"],
+            "device_busy_ms": prof["device_busy_ms"],
+            "top_kernels": prof["kernels"][:6],
+            "blocks_tflop": flops / 1e12, "blocks_bound_ms": b_ms,
+            "logits_max_abs_err": err,
+            "logits_scale": ref.float().abs().max().item(),
+            "logits_vs_plain_chain_max_abs_err": err_chain}
+        log(f"[zoo] {tag}: {Bn / ms * 1e3:.2f} images/s ({ms:.3f} ms a batch "
+            f"of {Bn}, median of {ZOO_TIMED}; plain blocks {pms:.3f} ms), "
+            f"peak {peak:.2f} GiB, idle share {prof['idle_share']:.4f}, "
+            f"blocks {flops / 1e12:.2f} TFLOP (bound {b_ms:.2f} ms), logits "
+            f"vs the blocks' plain versions err {err:.3e} (scale "
+            f"{out['vit'][tag]['logits_scale']:.3f}; vs the plain chain "
+            f"{err_chain:.3e}) on {smi}")
+        del m, x, logits, ref
+        torch.cuda.empty_cache()
+    for name in ZOO_CNNS:
+        m = TR.create_model(name, dtype=torch.bfloat16, device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(SEED))
+        x = _zoo_images(Bn, 224, SEED + 42, dev)
+
+        def batch():
+            return m.apply(m.params, x, head=True)
+        with torch.no_grad():
+            ops.reset_counts()
+            logits = batch()
+            torch.cuda.synchronize()
+            got = {k: v for k, v in dict(ops.launch_counts(),
+                                         **ops.mode_counts()).items() if v}
+            if got or not torch.isfinite(logits).all():
+                raise AssertionError(f"zoo {name}: hand-kernel launches "
+                                     f"{got}, or non-finite logits")
+            torch.cuda.reset_peak_memory_stats()
+            ms, all_ms = _zoo_batches(batch, ZOO_TIMED)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        out["cnn"][name] = {"batch_ms": ms, "batch_ms_all": all_ms,
+                            "images_per_s": Bn / ms * 1e3, "peak_gib": peak}
+        log(f"[zoo] {name}@224: {Bn / ms * 1e3:.2f} images/s ({ms:.3f} ms a "
+            f"batch of {Bn}, median of {ZOO_TIMED}), peak {peak:.2f} GiB; no "
+            f"hand-kernel launch (cuDNN convolutions and plain PyTorch, as "
+            f"the JAX package computes them outside any Pallas kernel) on "
+            f"{smi}")
+        del m, x, logits
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_zoo_parity(dev, devices=None):
+    """e. f32, the card (kernels; cuDNN without TF32) against the CPU
+    (plain versions), the same weights and images, for each family at a
+    reduced depth: 2 blocks of ViT-L/16-384 width at 384 px and of
+    ViT-H/14 at 224 px (head dim 80), a 2-stage resnet50, t2t_vit_t_14 with
+    2 body blocks; B=2, within 1e-4."""
+    import dataclasses
+    from vitcap_tpu_torch.models import registry as TR
+    devices = devices or (dev, torch.device("cpu"))
+    res = {}
+    cases = [("vit_large_patch16_384", 384, dict(depth=2)),
+             ("vit_huge_patch14_224_in21k", 224, dict(depth=2)),
+             ("resnet50", 224, dict(n_stages=2)),
+             ("t2t_vit_t_14", 224, dict(depth=2))]
+    for name, img, cut in cases:
+        spec = TR.model_spec(name)
+        gen = torch.Generator().manual_seed(SEED + 43)
+        if isinstance(spec, TR.VisionModelSpec):
+            spec = dataclasses.replace(spec, **cut)
+            model = TR.init_vision_params(spec, gen, "cpu")
+            fwd = TR.vit_forward
+        elif isinstance(spec, TR.CnnModelSpec):
+            model = TR.init_cnn_params(spec, gen, "cpu", **cut)
+            spec = dataclasses.replace(spec, num_classes=0)
+            fwd = TR.cnn_forward
+        else:
+            model = TR.init_t2t_vit_params(spec, gen, "cpu", **cut)
+            fwd = TR.t2t_vit_forward
+        x = _zoo_images(2, img, SEED + 44, "cpu")
+        outs = []
+        for d in devices:
+            md = copy.deepcopy(model).to(d)
+            with torch.no_grad():
+                outs.append(fwd(md, x.to(d), spec,
+                                head=bool(spec.num_classes)).float().cpu())
+            del md
+        err = compare(f"zoo parity {name}", outs[0], outs[1], torch.float32)
+        res[name] = {"max_abs_err": err, "cut": cut,
+                     "scale": outs[1].abs().max().item()}
+        log(f"[zoo-parity] {name} {cut} f32 card vs CPU: max abs err "
+            f"{err:.3e} (scale {res[name]['scale']:.3f})")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4639,6 +5050,11 @@ def main() -> int:
     module12 = {"pretrained": phase_pretrained(dev, smi),
                 "scan": phase_scan(dev, smi)}
     log(f"[module12] phases took {time.perf_counter() - t_m12:.1f} s")
+    t_zoo = time.perf_counter()
+    phase_zoo_kernels(dev, rows)
+    zoo = phase_zoo(dev, smi)
+    zoo["parity"] = phase_zoo_parity(dev)
+    log(f"[zoo] phases took {time.perf_counter() - t_zoo:.1f} s")
 
     for name, n in counts.items():
         if n == 0 and name != "attention_bwd":
@@ -4650,7 +5066,8 @@ def main() -> int:
                                    "attention_bwd[non_slab]",
                                    "attention[heads]", "attention[online]",
                                    "attention_bwd[heads]",
-                                   "decode_attention[groups]"):
+                                   "decode_attention[groups]",
+                                   "attention[hdp128]", "layer_norm[wide]"):
             raise AssertionError(f"{name}: no launch on the train path")
     kernels = summarise(rows, counts, dict(
         train_counts, **{"attention[long]": high_counts["attention[long]"]},
@@ -4661,7 +5078,9 @@ def main() -> int:
                                         "attention_bwd[heads]",
                                         "fused_vit_attn", "tail_train")},
         **{"decode_attention[groups]":
-           cbs_counts["decode_attention[groups]"]}))
+           cbs_counts["decode_attention[groups]"]},
+        **{k: zoo["mode_launches"][k] for k in ("attention[hdp128]",
+                                                "layer_norm[wide]")}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(
@@ -4676,6 +5095,7 @@ def main() -> int:
          "decode_attention_sweep": sweep, "pipeline": pipe,
          "pipeline_launches": pipe_counts, "cbs": cbs,
          "cbs_launches": cbs_counts, "dp": dp, "module12": module12,
+         "zoo": zoo,
          "kernels": kernels},
         indent=1, default=str))
     log(json.dumps({"kernels": kernels}))

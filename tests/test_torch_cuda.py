@@ -8,6 +8,8 @@ Without a CUDA device the `cuda` tests skip (chip_smoke.py checks the
 kernels at the flagship shapes); the rest check the wrappers' device rules.
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -1270,3 +1272,45 @@ def test_cuda_scst_step_matches_cpu(cuda):
     diff = torch.cat([(a - b).abs().flatten() for a, b in zip(gp, cp)])
     assert (diff <= 1e-2 * 1e-3).float().mean().item() >= 0.999
     assert diff.max().item() <= 2 * 1e-3 * (1 + 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,img", [("vit_huge_patch14_224_in21k", 112),
+                                      ("vit_small_patch16_224", 128),
+                                      ("vit_deit_base_distilled_patch16_384",
+                                       128)])
+def test_cuda_zoo_vit_runs_the_kernels_and_matches_plain(cuda, monkeypatch,
+                                                         dtype, name, img):
+    """The model zoo's ViT forward (2 blocks of the model's width, 65-66
+    tokens: the fused blocks) on the card launches 4 gemm, 2 layer_norm and
+    1 attention a block, the HDP=128 attention at head dims 80 and 96 and
+    the wide LayerNorm at H 1280; its logits match the same composition
+    on the kernels' plain versions on the card and, in f32, the CPU's."""
+    import dataclasses
+    from vitcap_tpu_torch.models import registry as TR
+    from vitcap_tpu_torch.ops import fused_block as FB
+    spec = dataclasses.replace(TR.model_spec(name), depth=2, img_size=img,
+                               num_classes=10)
+    cpu_model = TR.init_vision_params(spec, torch.Generator().manual_seed(0),
+                                      "cpu")
+    model = copy.deepcopy(cpu_model).to(cuda)
+    g = torch.Generator().manual_seed(1)
+    x = torch.rand(2, img, img, 3, generator=g) * 2 - 1
+    with torch.no_grad():
+        ops.reset_counts()
+        got = TR.vit_forward(model, x.to(cuda), spec, head=True, dtype=dtype)
+        torch.cuda.synchronize()
+        hd = spec.hidden_size // spec.num_heads
+        assert ops.launch_counts() == {"gemm": 8, "layer_norm": 4,
+                                       "attention": 2, "attention_bwd": 0,
+                                       "decode_attention": 0}
+        modes = ops.mode_counts()
+        assert modes["attention[hdp128]"] == (2 if hd > 64 else 0)
+        assert modes["layer_norm[wide]"] == (4 if spec.hidden_size > 1024
+                                             else 0)
+        monkeypatch.setattr(FB, "KERNELS", FB.PLAIN)
+        _close(got, TR.vit_forward(model, x.to(cuda), spec, head=True,
+                                   dtype=dtype), dtype)
+        if dtype == torch.float32:
+            _close(got, TR.vit_forward(cpu_model, x, spec, head=True), dtype)

@@ -396,14 +396,24 @@ def test_resize_word_embeddings_keeps_rows(tied, new):
 
 
 def test_vit_trunk_table_matches_jax_registry():
+    """vit_trunk resolves every ViT of the JAX registry to its spec's
+    (patch, width, depth) through the port's model zoo; another name
+    falls back to patch 32 or 16 as the JAX pipeline does; a zoo name of
+    part 2 raises NotImplementedError, a CNN ValueError."""
     from vitcap_tpu.models import registry as R
-    for name, (patch, hidden, depth) in TC.VIT_TRUNKS.items():
+    vits = [n for n in R.list_models()
+            if isinstance(R.model_spec(n), R.VisionModelSpec)]
+    assert len(vits) == 34
+    for name in vits:
         spec = R.model_spec(name)
-        assert (spec.patch_size, spec.hidden_size, spec.depth) == \
-            (patch, hidden, depth)
-        assert TC.vit_trunk(f"VitEmb_{name}") == (patch, hidden, depth)
-    with pytest.raises(NotImplementedError, match="module 13"):
-        TC.vit_trunk("VitEmb_deit_small_patch16_224")
+        assert TC.vit_trunk(f"VitEmb_{name}") == \
+            (spec.patch_size, spec.hidden_size, spec.depth)
+    assert TC.vit_trunk("VitEmb_my_patch32_trunk") == (32, None, None)
+    assert TC.vit_trunk("VitEmb_my_trunk") == (16, None, None)
+    with pytest.raises(NotImplementedError, match="module 13 part 2"):
+        TC.vit_trunk("VitEmb_efficientnet_b0")
+    with pytest.raises(ValueError, match="no ViT"):
+        TC.vit_trunk("VitEmb_resnet50")
 
 
 def test_flagship_model_cfg_matches_jax():

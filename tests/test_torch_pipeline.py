@@ -409,8 +409,8 @@ def test_scst_two_steps_write_snapshot(root, port_run, tmp_path):
     ({"checkpoint_backend": "orbax"}, ValueError, "one backend"),
     ({"async_checkpoint": True}, ValueError, "synchronously"),
     ({"jax_profile_dir": "trace"}, NotImplementedError, "profiler"),
-    ({"image_encoder_type": "VitEmb_deit_base_patch16_384"},
-     NotImplementedError, "module 13"),
+    ({"image_encoder_type": "VitEmb_efficientnet_b0"},
+     NotImplementedError, "module 13 part 2"),
 ], ids=["grain", "mesh_data", "msgpack", "orbax", "async",
         "jax_profile_dir", "zoo_trunk"])
 def test_unported_keys_raise(root, tmp_path, kw, err, words):

@@ -168,28 +168,24 @@ class ModelConfig:
         return cls(**kw)
 
 
-# The ViT trunks the shipped asset folders (vitcap_tpu/assets/VILT-*) pair
-# with, as (patch_size, hidden_size, depth) from the JAX package's model
-# registry (vitcap_tpu/models/registry.py); the rest of that zoo is
-# ROADMAP.md queue 1, module 13.
-VIT_TRUNKS = {
-    "vit_base_patch16_384": (16, 768, 12),
-    "vit_base_patch16_224": (16, 768, 12),
-    "vit_base_patch32_384": (32, 768, 12),
-}
-
-
-def vit_trunk(image_encoder_type: str) -> Tuple[int, int, int]:
-    """(patch_size, hidden_size, depth) of a 'VitEmb_<timm name>' trunk;
-    a name outside VIT_TRUNKS raises NotImplementedError."""
+def vit_trunk(image_encoder_type: str
+              ) -> Tuple[int, Optional[int], Optional[int]]:
+    """(patch_size, hidden_size, depth) of a 'VitEmb_<timm name>' trunk, by
+    the JAX pipeline's rule (vitcap_tpu/pipelines/caption_pipeline.py
+    model_cfg): a name of the model zoo (models/registry.py) gives its
+    spec's patch, width and depth; any other name patch 32 if it says
+    'patch32', else 16, and no width or depth (the json's stand).  A zoo
+    name that is no ViT raises ValueError; one of the zoo's part 2
+    NotImplementedError."""
+    from . import registry as R
     name = image_encoder_type.split("VitEmb_")[-1]
-    if name not in VIT_TRUNKS:
-        raise NotImplementedError(
-            f"image_encoder_type {image_encoder_type!r}: the port knows the "
-            f"trunks {sorted(VIT_TRUNKS)}; the model zoo "
-            f"(vitcap_tpu/models/registry.py) is ROADMAP.md module 13, not "
-            f"ported yet")
-    return VIT_TRUNKS[name]
+    if R.is_model(name) or name in R.PART2_NAMES:
+        spec = R.model_spec(name)
+        if not isinstance(spec, R.VisionModelSpec):
+            raise ValueError(f"image_encoder_type {image_encoder_type!r}: "
+                             f"{name} is no ViT trunk")
+        return spec.patch_size, spec.hidden_size, spec.depth
+    return (32 if "patch32" in image_encoder_type else 16), None, None
 
 
 def tiny_config(**kw) -> ModelConfig:

@@ -154,6 +154,40 @@ def dropout(x: torch.Tensor, rate: float,
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
+def prune_dense(p: nn.Linear, index, dim: int) -> nn.Linear:
+    """A new Linear keeping only the `index` entries of p along `dim`: the
+    reference's prune_linear_layer (modeling_utils.py:1183-1196), the port
+    of vitcap_tpu/models/layers.py prune_dense.  dim=0 prunes OUTPUT
+    features (weight rows and the bias), dim=1 INPUT features (weight
+    columns; the bias kept)."""
+    if dim not in (0, 1):
+        raise ValueError(f"dim must be 0 or 1, got {dim}")
+    index = torch.as_tensor(index, dtype=torch.long,
+                            device=p.weight.device)
+    w = p.weight.detach().index_select(dim, index)
+    out = nn.Linear(w.shape[1], w.shape[0], bias=p.bias is not None,
+                    device=w.device, dtype=w.dtype)
+    with torch.no_grad():
+        out.weight.copy_(w)
+        if p.bias is not None:
+            out.bias.copy_(p.bias.detach()[index] if dim == 0 else p.bias)
+    return out.requires_grad_(p.weight.requires_grad)
+
+
+def prune_attention_heads(attn, heads, num_heads: int, head_dim: int):
+    """A new group of attn's children with whole heads removed from its
+    query, key and value Linears (a BertSelfAttention group; the sibling
+    output dense is the caller's, through prune_dense(dim=1)): the port of
+    vitcap_tpu/models/layers.py prune_attention_heads.  The caller also
+    shrinks its num_heads."""
+    drop = {int(h) for h in heads}
+    idx = [h * head_dim + d for h in range(num_heads) if h not in drop
+           for d in range(head_dim)]
+    return _Group(**{name: (prune_dense(child, idx, 0)
+                            if name in ("query", "key", "value") else child)
+                     for name, child in attn.named_children()})
+
+
 def _seed_generator(seeds: Optional[Sequence[int]]):
     """The plain layers' generator for a layer's dropout seeds."""
     if seeds is None:
@@ -338,19 +372,21 @@ def patchify_host(image_hwc: np.ndarray, patch: int) -> np.ndarray:
 
 def interpolate_pos_embed(pos_embed: torch.Tensor,
                           new_grid: Tuple[int, int],
-                          old_grid: Tuple[int, int]) -> torch.Tensor:
-    """Bicubic resize of a (1, 1 + gh*gw, H) pos-embed's grid part to
-    new_grid, the CLS slot kept (the reference's vision_transformer.py:
-    416-421, F.interpolate bicubic with align_corners=False), computed in
-    f32."""
+                          old_grid: Tuple[int, int],
+                          lead: int = 1) -> torch.Tensor:
+    """Bicubic resize of a (1, lead + gh*gw, H) pos-embed's grid part to
+    new_grid, the lead slots (CLS, a DeiT distillation token) kept (the
+    reference's vision_transformer.py:416-421, F.interpolate bicubic with
+    align_corners=False), computed in f32."""
     if tuple(new_grid) == tuple(old_grid):
         return pos_embed
     H = pos_embed.shape[-1]
-    grid = pos_embed[:, 1:].float().reshape(1, old_grid[0], old_grid[1], H)
+    grid = pos_embed[:, lead:].float().reshape(1, old_grid[0], old_grid[1],
+                                               H)
     grid = F.interpolate(grid.permute(0, 3, 1, 2), size=tuple(new_grid),
                          mode="bicubic", align_corners=False)
     grid = grid.permute(0, 2, 3, 1).reshape(1, new_grid[0] * new_grid[1], H)
-    return torch.cat([pos_embed[:, :1].float(), grid], dim=1)
+    return torch.cat([pos_embed[:, :lead].float(), grid], dim=1)
 
 
 def _square_grid(n: int, what: str) -> int:
@@ -361,26 +397,29 @@ def _square_grid(n: int, what: str) -> int:
     return g
 
 
-def _pos_embed_for(p, n_patches: int, dtype: torch.dtype) -> torch.Tensor:
-    """p.pos_embed resized to a square grid of n_patches (interpolated in
-    f32, then cast to dtype).  Without a gradient to carry, the resized
-    table is cached on p, keyed by the parameter's storage and version, the
-    grid and the dtype, so serving resizes once per load."""
+def _pos_embed_for(p, n_patches: int, dtype: torch.dtype,
+                   lead: int = 1) -> torch.Tensor:
+    """p.pos_embed (`lead` slots, then a square grid) resized to a square
+    grid of n_patches (interpolated in f32, then cast to dtype).  Without a
+    gradient to carry, the resized table is cached on p, keyed by the
+    parameter's storage and version, the grid and the dtype, so serving
+    resizes once per load."""
     pe = p.pos_embed
-    old_n = pe.shape[1] - 1
+    old_n = pe.shape[1] - lead
     if old_n == n_patches:
         return pe.to(dtype)
     g_old = _square_grid(old_n, "the pos-embed")
     g_new = _square_grid(n_patches, "the input")
     if torch.is_grad_enabled() and pe.requires_grad:
-        return interpolate_pos_embed(pe, (g_new, g_new),
-                                     (g_old, g_old)).to(dtype)
+        return interpolate_pos_embed(pe, (g_new, g_new), (g_old, g_old),
+                                     lead).to(dtype)
     stamp = (pe.data_ptr(), pe._version, g_new, dtype)
     hit = p.__dict__.get("_pos_embed_resized")
     if hit is None or hit[0] != stamp:
         with torch.no_grad():
             hit = (stamp, interpolate_pos_embed(pe, (g_new, g_new),
-                                                (g_old, g_old)).to(dtype))
+                                                (g_old, g_old),
+                                                lead).to(dtype))
         p.__dict__["_pos_embed_resized"] = hit
     return hit[1]
 

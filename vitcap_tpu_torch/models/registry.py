@@ -1,0 +1,748 @@
+"""The model zoo's factory, part 1: the port of vitcap_tpu/models/registry.py
+for its ViT family (ViT, DeiT, distilled DeiT, the in21k checkpoints and the
+CNN-stem hybrids), the ResNet family (models/backbones.py) and T2T-ViT
+(models/t2t_vit.py): 159 of the JAX package's 422 registered names.
+
+    spec = model_spec("vit_large_patch16_384")
+    m = create_model("vit_large_patch16_384", dtype=torch.bfloat16)
+    tokens = m.apply(m.params, images)            # NHWC in, (B, 1+N, H)
+    logits = m.apply(m.params, images, head=True)
+
+The JAX package's other 26 families (263 names: efficientnet, regnet,
+densenet, ...) and the zoo's train mode are ROADMAP.md module 13 part 2: a
+name of theirs raises NotImplementedError from model_spec and
+create_model; a name no registry knows raises ValueError, as there.
+
+The models are nn.Modules holding f32 parameters under the timm torch
+state-dict names, built on the card unless the caller passes device="cpu"
+(from an explicit torch.Generator; default seed 0 on that device), with
+gradients off; `apply` computes in `dtype` (create_model's; f32 by
+default, as in the JAX package).  The ViT's blocks go through
+models/layers.py vit_block: a call that carries no gradient takes the
+fused block (ops/fused_block.py, the gemm, layer_norm and attention
+kernels on the card; past 1024 padded tokens the same composition, K10)
+and the token axis is padded once for all blocks.  The patch embedding,
+the final norm, the heads, the CNN families' convolutions (cuDNN) and
+T2T are plain PyTorch, as the JAX package computes them outside any
+Pallas kernel.
+
+Checkpoints: load_timm_checkpoint / load_cnn_checkpoint /
+load_t2t_vit_checkpoint read a timm-layout torch state dict through
+solver/checkpoint_bridge.py load_torch_state_dict (the ViT loader strips a
+'module.' prefix, resizes a pos-embed of another grid bicubically and keeps
+a zero qkv bias where the checkpoint has none; the conv weights stay
+OIHW, the torch layout the modules hold).  zoo_params_from_jax carries the
+JAX package's param trees across (the tests hold the port to it so).
+
+T2T's qk_scale (F5): as in the JAX package, loading a checkpoint keeps the
+head-dim scale; only an explicit qk_scale= (a spec field, e.g.
+create_model(name, qk_scale=embed ** -0.5) for the released weights)
+overrides it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.fused_block import pad_len
+from ..solver.checkpoint_bridge import load_torch_state_dict
+from .backbones import (HYBRIDS, RESNETS, ResNet, apply_backbone,
+                        resnet_feature_channels, resnet_from_jax,
+                        resnetv2_r50_from_jax)
+from .layers import (ViTBlock, _Group, _pos_embed_for, dense,
+                     interpolate_pos_embed, layer_norm, patch_embed,
+                     vit_block)
+from .t2t_vit import (T2T_VITS, T2TViT, TokenPerformer, sinusoid_pos_embed,
+                      t2t_feature_dim, t2t_vit_from_jax)
+
+_REGISTRY: Dict[str, Callable] = {}
+
+# the JAX package's registered names of the families ported in part 2
+PART2_NAMES = frozenset("""
+adv_inception_v3 cspdarknet53 cspdarknet53_iabn cspresnet50 cspresnet50d
+cspresnet50w cspresnext50 cspresnext50_iabn darknet53 densenet121
+densenet121d densenet161 densenet169 densenet201 densenet264
+densenet264d_iabn densenetblur121d dla102 dla102x dla102x2 dla169 dla34
+dla46_c dla46x_c dla60 dla60_res2net dla60_res2next dla60x dla60x_c dpn107
+dpn131 dpn68 dpn68b dpn92 dpn98 eca_vovnet39b efficientnet_b0
+efficientnet_b1 efficientnet_b1_pruned efficientnet_b2
+efficientnet_b2_pruned efficientnet_b2a efficientnet_b3
+efficientnet_b3_pruned efficientnet_b3a efficientnet_b4 efficientnet_b5
+efficientnet_b6 efficientnet_b7 efficientnet_b8 efficientnet_cc_b0_4e
+efficientnet_cc_b0_8e efficientnet_cc_b1_8e efficientnet_el efficientnet_em
+efficientnet_es efficientnet_l2 efficientnet_lite0 efficientnet_lite1
+efficientnet_lite2 efficientnet_lite3 efficientnet_lite4
+ens_adv_inception_resnet_v2 ese_vovnet19b ese_vovnet19b_dw
+ese_vovnet19b_slim ese_vovnet19b_slim_dw ese_vovnet39b ese_vovnet39b_evos
+ese_vovnet57b ese_vovnet99b ese_vovnet99b_iabn fbnetc_100 gluon_inception_v3
+gluon_xception65 hrnet_w18 hrnet_w18_small hrnet_w18_small_v2 hrnet_w30
+hrnet_w32 hrnet_w40 hrnet_w44 hrnet_w48 hrnet_w64 inception_resnet_v2
+inception_v3 inception_v4 legacy_senet154 legacy_seresnet101
+legacy_seresnet152 legacy_seresnet18 legacy_seresnet34 legacy_seresnet50
+legacy_seresnext101_32x4d legacy_seresnext26_32x4d legacy_seresnext50_32x4d
+mixnet_l mixnet_m mixnet_s mixnet_xl mixnet_xxl mnasnet_050 mnasnet_075
+mnasnet_100 mnasnet_140 mnasnet_a1 mnasnet_b1 mnasnet_small mobilenetv2_100
+mobilenetv2_110d mobilenetv2_120d mobilenetv2_140 mobilenetv3_large_075
+mobilenetv3_large_100 mobilenetv3_rw mobilenetv3_small_075
+mobilenetv3_small_100 nasnetalarge nf_ecaresnet101 nf_ecaresnet26
+nf_ecaresnet50 nf_regnet_b0 nf_regnet_b1 nf_regnet_b2 nf_regnet_b3
+nf_regnet_b4 nf_regnet_b5 nf_resnet101 nf_resnet26 nf_resnet50
+nf_seresnet101 nf_seresnet26 nf_seresnet50 pnasnet5large regnetx_002
+regnetx_004 regnetx_006 regnetx_008 regnetx_016 regnetx_032 regnetx_040
+regnetx_064 regnetx_080 regnetx_120 regnetx_160 regnetx_320 regnety_002
+regnety_004 regnety_006 regnety_008 regnety_016 regnety_032 regnety_040
+regnety_064 regnety_080 regnety_120 regnety_160 regnety_320 resnest101e
+resnest14d resnest200e resnest269e resnest26d resnest50d resnest50d_1s4x24d
+resnest50d_4s2x40d resnetv2_101x1_bitm resnetv2_101x1_bitm_in21k
+resnetv2_101x3_bitm resnetv2_101x3_bitm_in21k resnetv2_152x2_bitm
+resnetv2_152x2_bitm_in21k resnetv2_152x4_bitm resnetv2_152x4_bitm_in21k
+resnetv2_50x1_bitm resnetv2_50x1_bitm_in21k resnetv2_50x3_bitm
+resnetv2_50x3_bitm_in21k rexnet_100 rexnet_130 rexnet_150 rexnet_200
+rexnetr_100 rexnetr_130 rexnetr_150 rexnetr_200 selecsls42 selecsls42b
+selecsls60 selecsls60b selecsls84 semnasnet_050 semnasnet_075 semnasnet_100
+semnasnet_140 skresnet18 skresnet34 skresnet50 skresnet50d skresnext50_32x4d
+spnasnet_100 tf_efficientnet_b0 tf_efficientnet_b0_ap tf_efficientnet_b0_ns
+tf_efficientnet_b1 tf_efficientnet_b1_ap tf_efficientnet_b1_ns
+tf_efficientnet_b2 tf_efficientnet_b2_ap tf_efficientnet_b2_ns
+tf_efficientnet_b3 tf_efficientnet_b3_ap tf_efficientnet_b3_ns
+tf_efficientnet_b4 tf_efficientnet_b4_ap tf_efficientnet_b4_ns
+tf_efficientnet_b5 tf_efficientnet_b5_ap tf_efficientnet_b5_ns
+tf_efficientnet_b6 tf_efficientnet_b6_ap tf_efficientnet_b6_ns
+tf_efficientnet_b7 tf_efficientnet_b7_ap tf_efficientnet_b7_ns
+tf_efficientnet_b8 tf_efficientnet_b8_ap tf_efficientnet_cc_b0_4e
+tf_efficientnet_cc_b0_8e tf_efficientnet_cc_b1_8e tf_efficientnet_el
+tf_efficientnet_em tf_efficientnet_es tf_efficientnet_l2_ns
+tf_efficientnet_l2_ns_475 tf_efficientnet_lite0 tf_efficientnet_lite1
+tf_efficientnet_lite2 tf_efficientnet_lite3 tf_efficientnet_lite4
+tf_inception_v3 tf_mixnet_l tf_mixnet_m tf_mixnet_s tf_mobilenetv3_large_075
+tf_mobilenetv3_large_100 tf_mobilenetv3_large_minimal_100
+tf_mobilenetv3_small_075 tf_mobilenetv3_small_100
+tf_mobilenetv3_small_minimal_100 tresnet_l tresnet_l_448 tresnet_m
+tresnet_m_448 tresnet_xl tresnet_xl_448 tv_densenet121 vovnet39a vovnet57a
+xception xception41 xception65 xception71
+""".split())
+
+_PART2 = ("the model zoo's part 2 (ROADMAP.md queue 1, module 13 part 2: "
+          "the remaining 26 families and the zoo's train mode) is not "
+          "ported yet")
+
+
+@dataclasses.dataclass(frozen=True)
+class VisionModelSpec:
+    """Static ViT description (the ViT hyperparameter grid)."""
+    name: str
+    patch_size: int
+    hidden_size: int
+    depth: int
+    num_heads: int
+    mlp_ratio: float = 4.0
+    img_size: int = 224
+    ln_eps: float = 1e-6
+    num_classes: int = 1000
+    distilled: bool = False        # DeiT distillation token after CLS, a
+                                   # grid + 2 pos-embed, head_dist averaged
+                                   # with head
+    representation_size: int = 0   # in21k: pre_logits Linear + tanh
+    qkv_bias: bool = True          # old-timm small has none: a zero bias
+    hybrid: str = ""               # a CNN stem (a key of HYBRIDS)
+
+    @property
+    def intermediate_size(self) -> int:
+        return int(self.hidden_size * self.mlp_ratio)
+
+    @property
+    def num_lead_tokens(self) -> int:
+        return 2 if self.distilled else 1
+
+    @property
+    def grid(self) -> int:
+        if self.hybrid:
+            return self.img_size // HYBRIDS[self.hybrid][2]
+        return self.img_size // self.patch_size
+
+
+@dataclasses.dataclass(frozen=True)
+class CnnModelSpec:
+    """A standalone ResNet-family classifier (global-avg-pool head)."""
+    name: str
+    variant: str                   # key of backbones.RESNETS
+    num_classes: int = 1000
+    img_size: int = 224            # default cfg only; any size runs
+
+    @property
+    def feature_channels(self) -> int:
+        return resnet_feature_channels(self.variant)
+
+
+@dataclasses.dataclass(frozen=True)
+class T2tVitModelSpec:
+    """A T2T-ViT classifier."""
+    name: str
+    variant: str                   # key of t2t_vit.T2T_VITS
+    num_classes: int = 1000
+    img_size: int = 224
+    qk_scale: float = 0.0          # 0: head_dim ** -0.5 (F5: a checkpoint
+                                   # load keeps it)
+
+    @property
+    def feature_channels(self) -> int:
+        return t2t_feature_dim(self.variant)
+
+
+def register_model(fn: Callable):
+    """Registers fn.__name__ as a model name, fn(**kw) making its spec (timm's
+    @register_model)."""
+    _REGISTRY[fn.__name__] = fn
+    return fn
+
+
+def list_models() -> list:
+    return sorted(_REGISTRY)
+
+
+def is_model(name: str) -> bool:
+    return name in _REGISTRY
+
+
+def model_spec(name: str, **kw):
+    if name in _REGISTRY:
+        return _REGISTRY[name](**kw)
+    if name in PART2_NAMES:
+        raise NotImplementedError(f"model '{name}': {_PART2}")
+    raise ValueError(f"unknown model '{name}'; known: "
+                     f"{', '.join(list_models())}")
+
+
+# ---------------------------------------------------------------------------
+# the ViT / DeiT grid
+# ---------------------------------------------------------------------------
+
+_VITS = {  # name: (patch, hidden, depth, heads, {img and other fields})
+    "vit_tiny_patch16_224": (16, 192, 12, 3, {}),
+    # the old-timm "small": embed 768, depth 8, heads 8, mlp 3, no qkv
+    # bias, LayerNorm eps 1e-5
+    "vit_small_patch16_224": (16, 768, 8, 8, dict(
+        mlp_ratio=3.0, qkv_bias=False, ln_eps=1e-5)),
+    "vit_small_patch16_384": (16, 384, 12, 6, dict(img=384)),
+    "vit_base_patch16_224": (16, 768, 12, 12, {}),
+    "vit_base_patch16_384": (16, 768, 12, 12, dict(img=384)),
+    "vit_base_patch32_224": (32, 768, 12, 12, {}),
+    "vit_base_patch32_384": (32, 768, 12, 12, dict(img=384)),
+    "vit_large_patch16_224": (16, 1024, 24, 16, {}),
+    "vit_large_patch16_384": (16, 1024, 24, 16, dict(img=384)),
+    "vit_large_patch32_384": (32, 1024, 24, 16, dict(img=384)),
+    "vit_large_patch32_224": (32, 1024, 24, 16, {}),
+    "deit_tiny_patch16_224": (16, 192, 12, 3, {}),
+    "deit_small_patch16_224": (16, 384, 12, 6, {}),
+    "deit_base_patch16_224": (16, 768, 12, 12, {}),
+    "deit_base_patch16_384": (16, 768, 12, 12, dict(img=384)),
+    # ImageNet-21k checkpoints: the pre_logits representation head
+    "vit_base_patch16_224_in21k": (16, 768, 12, 12, dict(
+        representation_size=768, num_classes=21843)),
+    "vit_base_patch32_224_in21k": (32, 768, 12, 12, dict(
+        representation_size=768, num_classes=21843)),
+    "vit_large_patch16_224_in21k": (16, 1024, 24, 16, dict(
+        representation_size=1024, num_classes=21843)),
+    "vit_large_patch32_224_in21k": (32, 1024, 24, 16, dict(
+        representation_size=1024, num_classes=21843)),
+    "vit_huge_patch14_224_in21k": (14, 1280, 32, 16, dict(
+        representation_size=1280, num_classes=21843)),
+    # hybrid CNN-stem ViTs (stems in models/backbones.py)
+    "vit_base_resnet50_224_in21k": (16, 768, 12, 12, dict(
+        hybrid="r50_v2", representation_size=768, num_classes=21843)),
+    "vit_base_resnet50_384": (16, 768, 12, 12, dict(img=384,
+                                                     hybrid="r50_v2")),
+    "vit_small_resnet26d_224": (32, 768, 8, 8, dict(mlp_ratio=3.0,
+                                                    hybrid="resnet26d")),
+    "vit_small_resnet50d_s3_224": (16, 768, 8, 8, dict(
+        mlp_ratio=3.0, hybrid="resnet50d_s3")),
+    "vit_base_resnet26d_224": (32, 768, 12, 12, dict(hybrid="resnet26d")),
+    "vit_base_resnet50d_224": (32, 768, 12, 12, dict(hybrid="resnet50d")),
+    # the reference zoo's deit names, distilled ones included
+    "vit_deit_tiny_patch16_224": (16, 192, 12, 3, {}),
+    "vit_deit_small_patch16_224": (16, 384, 12, 6, {}),
+    "vit_deit_base_patch16_224": (16, 768, 12, 12, {}),
+    "vit_deit_base_patch16_384": (16, 768, 12, 12, dict(img=384)),
+    "vit_deit_tiny_distilled_patch16_224": (16, 192, 12, 3, dict(
+        distilled=True)),
+    "vit_deit_small_distilled_patch16_224": (16, 384, 12, 6, dict(
+        distilled=True)),
+    "vit_deit_base_distilled_patch16_224": (16, 768, 12, 12, dict(
+        distilled=True)),
+    "vit_deit_base_distilled_patch16_384": (16, 768, 12, 12, dict(
+        img=384, distilled=True)),
+}
+
+
+def _register_family(names, make):
+    for name in names:
+        spec_fn = make(name)
+        spec_fn.__name__ = name
+        register_model(spec_fn)
+
+
+def _vit_spec_fn(name):
+    patch, hidden, depth, heads, extra = _VITS[name]
+    fields = dict(extra)
+    img = fields.pop("img", 224)
+
+    def spec_fn(**kw):
+        return VisionModelSpec(name=name, patch_size=patch,
+                               hidden_size=hidden, depth=depth,
+                               num_heads=heads, img_size=img,
+                               **{**fields, **kw})
+    return spec_fn
+
+
+def _cnn_spec_fn(name):
+    def spec_fn(**kw):
+        return CnnModelSpec(name=name, variant=name, **kw)
+    return spec_fn
+
+
+def _t2t_spec_fn(name):
+    # the reference registers capitalised names (T2t_vit_t_14) too
+    variant = "t2t" + name[3:]
+
+    def spec_fn(**kw):
+        kw.setdefault("img_size", 224)
+        return T2tVitModelSpec(name=variant, variant=variant, **kw)
+    return spec_fn
+
+
+_register_family(_VITS, _vit_spec_fn)
+_register_family(RESNETS, _cnn_spec_fn)
+_register_family([n for v in T2T_VITS for n in (v, "T2t" + v[3:])],
+                 _t2t_spec_fn)
+
+
+# ---------------------------------------------------------------------------
+# modules and their initialisation
+# ---------------------------------------------------------------------------
+
+class VisionModel(NamedTuple):
+    spec: object
+    params: nn.Module
+    apply: Callable[..., torch.Tensor]
+
+
+class VisionTransformer(nn.Module):
+    """The timm ViT's parameters: patch_embed (.proj, and .backbone for a
+    hybrid), cls_token (dist_token), pos_embed, blocks, norm (pre_logits.fc,
+    head, head_dist)."""
+
+    def __init__(self, spec: VisionModelSpec, device=None):
+        super().__init__()
+        h, p = spec.hidden_size, spec.patch_size
+        if spec.hybrid:
+            make, feat_c, _ = HYBRIDS[spec.hybrid]
+            self.patch_embed = _Group(backbone=make(device),
+                                      proj=nn.Conv2d(feat_c, h, 1,
+                                                     device=device))
+        else:
+            self.patch_embed = _Group(proj=nn.Conv2d(3, h, p, stride=p,
+                                                     device=device))
+        self.cls_token = nn.Parameter(torch.empty(1, 1, h, device=device))
+        if spec.distilled:
+            self.dist_token = nn.Parameter(torch.empty(1, 1, h,
+                                                       device=device))
+        self.pos_embed = nn.Parameter(torch.empty(
+            1, spec.grid ** 2 + spec.num_lead_tokens, h, device=device))
+        self.blocks = nn.ModuleList(ViTBlock(h, spec.intermediate_size,
+                                             device)
+                                    for _ in range(spec.depth))
+        self.norm = nn.LayerNorm(h, eps=spec.ln_eps, device=device)
+        if spec.representation_size:
+            self.pre_logits = _Group(fc=nn.Linear(
+                h, spec.representation_size, device=device))
+        if spec.num_classes:
+            self.head = nn.Linear(spec.representation_size or h,
+                                  spec.num_classes, device=device)
+            if spec.distilled:
+                self.head_dist = nn.Linear(h, spec.num_classes,
+                                           device=device)
+
+
+def _fill_(t: torch.Tensor, generator: torch.Generator, kind: str) -> None:
+    """Fill t from generator (values drawn on the generator's device):
+    'trunc_normal' std 0.02 cut at +-2 sigma, 'kaiming' normal with std
+    sqrt(2 / fan_out) (an OIHW kernel), 'uniform' in +-1 / sqrt(k) (a 1-d
+    conv of width k)."""
+    v = torch.empty(t.shape, device=generator.device)
+    if kind == "trunc_normal":
+        nn.init.trunc_normal_(v, std=0.02, a=-0.04, b=0.04,
+                              generator=generator)
+    elif kind == "kaiming":
+        fan_out = t.shape[0] * math.prod(t.shape[2:])
+        v.normal_(generator=generator).mul_(math.sqrt(2.0 / fan_out))
+    else:
+        bound = 1.0 / math.sqrt(t.shape[-1])
+        v.uniform_(-bound, bound, generator=generator)
+    t.copy_(v)
+
+
+_NORMS = (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm2d)
+
+
+@torch.no_grad()
+def _init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """The JAX package's init rules (its init_vision_params, init_resnet,
+    init_t2t_vit): unit norms with zero shifts and BatchNorm running
+    statistics (0, 1); zero biases; truncated normal linears, pos-embeds
+    and the ViT's patch projection; kaiming-normal (fan out) convs; ECA
+    kernels uniform; zero ViT cls/dist tokens, truncated normal T2T ones;
+    T2T's sinusoid pos-embed and each performer's orthogonal w times
+    sqrt(m).  Random values come from `generator`, not the JAX streams."""
+    vit_proj = (model.patch_embed.proj
+                if isinstance(model, VisionTransformer) else None)
+    for mod in model.modules():
+        if isinstance(mod, nn.BatchNorm2d):
+            mod.running_mean.zero_()
+            mod.running_var.fill_(1.0)
+            mod.num_batches_tracked.zero_()
+        for name, prm in mod.named_parameters(recurse=False):
+            if isinstance(mod, _NORMS):
+                prm.fill_(1.0 if name == "weight" else 0.0)
+            elif name == "bias":
+                prm.zero_()
+            elif isinstance(mod, TokenPerformer) and name == "w":
+                v = torch.empty(prm.shape, device=generator.device)
+                nn.init.orthogonal_(v, generator=generator)
+                prm.copy_(v * math.sqrt(prm.shape[0]))
+            elif isinstance(mod, T2TViT) and name == "pos_embed":
+                prm.copy_(sinusoid_pos_embed(prm.shape[1], prm.shape[2]))
+            elif isinstance(mod, VisionTransformer) and name in (
+                    "cls_token", "dist_token"):
+                prm.zero_()
+            elif isinstance(mod, nn.Conv1d):
+                _fill_(prm, generator, "uniform")
+            elif isinstance(mod, nn.Conv2d) and mod is not vit_proj:
+                _fill_(prm, generator, "kaiming")
+            else:
+                _fill_(prm, generator, "trunc_normal")
+    return model.requires_grad_(False)
+
+
+def _build(make: Callable[[object], nn.Module], device,
+           generator: Optional[torch.Generator]) -> nn.Module:
+    """make(device) on the meta device, moved to `device` and filled."""
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    return _init_(make("meta").to_empty(device=device), generator)
+
+
+def init_vision_params(spec: VisionModelSpec,
+                       generator: Optional[torch.Generator] = None,
+                       device="cuda") -> VisionTransformer:
+    return _build(lambda d: VisionTransformer(spec, d), device, generator)
+
+
+def init_cnn_params(spec: CnnModelSpec,
+                    generator: Optional[torch.Generator] = None,
+                    device="cuda", n_stages: int = 4) -> ResNet:
+    """A ResNet with an `fc` head of spec.num_classes (none at 0);
+    n_stages < 4 cuts the stages (a reduced-depth check)."""
+    return _build(lambda d: ResNet(spec.variant, n_stages, spec.num_classes,
+                                   d), device, generator)
+
+
+def init_t2t_vit_params(spec: T2tVitModelSpec,
+                        generator: Optional[torch.Generator] = None,
+                        device="cuda", depth: int = 0) -> T2TViT:
+    """depth > 0 cuts the body's blocks (a reduced-depth check)."""
+    return _build(lambda d: T2TViT(spec.variant, spec.num_classes, depth, d),
+                  device, generator)
+
+
+# ---------------------------------------------------------------------------
+# forwards
+# ---------------------------------------------------------------------------
+
+def vit_forward(model: VisionTransformer, images: torch.Tensor,
+                spec: VisionModelSpec, head: bool = False,
+                return_attn: bool = False, dtype=torch.float32,
+                token_drop: float = 0.0,
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[torch.Tensor] = None):
+    """NHWC images -> patch tokens (the CNN stem and its 1x1 projection for
+    a hybrid) -> lead tokens (CLS, the DeiT distillation token) + pos-embed
+    (resized bicubically to another grid) -> blocks -> final norm; head=True
+    pools CLS into logits (in21k: through pre_logits; distilled: the mean of
+    head on CLS and head_dist on the distillation token), else all post-norm
+    tokens.  return_attn=True also returns each block's softmax
+    probabilities, (depth, B, heads, L, L) f32.  token_drop > 0 keeps
+    ceil((L - lead) * (1 - token_drop)) patch tokens per image, in order:
+    those of the smallest `noise` values ((B, L - lead) uniform draws,
+    default from `generator`)."""
+    lead = spec.num_lead_tokens
+    x = images.to(dtype)
+    if spec.hybrid:
+        feats = apply_backbone(model.patch_embed.backbone, x)
+        B, gh, gw, C = feats.shape
+        proj = model.patch_embed.proj
+        tokens = (feats.reshape(B, gh * gw, C)
+                  @ proj.weight.view(-1, C).t().to(dtype) + proj.bias.to(dtype))
+    else:
+        tokens = patch_embed(model.patch_embed.proj, x)
+    B, N, H = tokens.shape
+    leads = [model.cls_token] + ([model.dist_token] if spec.distilled else [])
+    x = torch.cat([t.to(tokens.dtype).expand(B, 1, H) for t in leads]
+                  + [tokens], dim=1)
+    x = x + _pos_embed_for(model, N, x.dtype, lead)
+    if token_drop > 0.0:
+        L = x.shape[1]
+        n_keep = max(1, math.ceil((L - lead) * (1.0 - token_drop)))
+        if noise is None:
+            if generator is None:
+                raise ValueError("token_drop needs a generator (or noise)")
+            noise = torch.rand((B, L - lead), generator=generator,
+                               device=generator.device)
+        keep = torch.argsort(noise.to(x.device), dim=1,
+                             stable=True)[:, :n_keep] + lead
+        keep = keep.sort(dim=1).values
+        x = torch.cat([x[:, :lead],
+                       torch.gather(x, 1, keep[..., None].expand(-1, -1, H))],
+                      dim=1)
+    # the token axis padded once for every block (the fused blocks, the
+    # split train blocks and the packed attention mask the padded keys)
+    L = x.shape[1]
+    pad = pad_len(L) - L if L >= 64 else 0
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+    attns = []
+    for blk in model.blocks:
+        if return_attn:
+            attns.append(_block_attn_probs(blk, x[:, :L], spec))
+        x = vit_block(blk, x, spec.num_heads, spec.ln_eps,
+                      l_actual=L if pad else 0)
+    x = layer_norm(model.norm, x[:, :L], spec.ln_eps)
+    if head:
+        if not spec.num_classes:
+            raise ValueError(f"{spec.name}: head=True with num_classes=0")
+        cls = x[:, 0]
+        if spec.representation_size:
+            cls = torch.tanh(dense(model.pre_logits.fc, cls))
+        out = dense(model.head, cls)
+        if spec.distilled:
+            out = (out + dense(model.head_dist, x[:, 1])) / 2
+    else:
+        out = x
+    if return_attn:
+        return out, torch.stack(attns)
+    return out
+
+
+def _block_attn_probs(blk: ViTBlock, x: torch.Tensor,
+                      spec: VisionModelSpec) -> torch.Tensor:
+    """One block's softmax attention probabilities, (B, heads, L, L) f32
+    (visualisation only: the forward never materialises them)."""
+    B, L, H = x.shape
+    nh = spec.num_heads
+    hd = H // nh
+    q, k, _ = dense(blk.attn.qkv, layer_norm(blk.norm1, x, spec.ln_eps)
+                    ).chunk(3, dim=-1)
+    qh = q.reshape(B, L, nh, hd).transpose(1, 2).float()
+    kh = k.reshape(B, L, nh, hd).transpose(1, 2).float()
+    return torch.softmax((qh @ kh.transpose(-1, -2)) * hd ** -0.5, dim=-1)
+
+
+def cnn_forward(model: ResNet, images: torch.Tensor, spec: CnnModelSpec,
+                head: bool = False, dtype=torch.float32) -> torch.Tensor:
+    """head=False: the NHWC feature map; head=True: global average pool +
+    fc logits."""
+    x = apply_backbone(model, images.to(dtype))
+    if not head:
+        return x
+    return dense(model.fc, x.mean(dim=(1, 2)))
+
+
+def t2t_vit_forward(model: T2TViT, images: torch.Tensor,
+                    spec: T2tVitModelSpec, head: bool = False,
+                    dtype=torch.float32) -> torch.Tensor:
+    """head=False: (B, 1 + N, D) post-norm tokens; head=True: CLS logits."""
+    x = model(images.to(dtype).permute(0, 3, 1, 2), spec.qk_scale)
+    if not head:
+        return x
+    return dense(model.head, x[:, 0])
+
+
+# ---------------------------------------------------------------------------
+# the factory
+# ---------------------------------------------------------------------------
+
+def create_model(name: str, pretrained: bool = False,
+                 checkpoint_path: Optional[str] = None,
+                 img_size: Optional[int] = None,
+                 num_classes: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None,
+                 dtype=torch.float32, device="cuda", **spec_kw) -> VisionModel:
+    """timm's factory: the named model with random weights from `generator`
+    (default seed 0 on `device`), or a timm-layout torch checkpoint's
+    (checkpoint_path; pretrained=True requires one: nothing is fetched).
+    img_size, num_classes and any other spec field (spec_kw, e.g. T2T's
+    qk_scale) override the spec.  Returns VisionModel(spec, params, apply):
+    apply(params, images, head=False) computes in `dtype`."""
+    spec = model_spec(name)
+    if img_size is not None and img_size != spec.img_size:
+        spec = dataclasses.replace(spec, img_size=img_size)
+    if num_classes is not None:
+        spec = dataclasses.replace(spec, num_classes=num_classes)
+    if spec_kw:
+        spec = dataclasses.replace(spec, **spec_kw)
+    if pretrained and not checkpoint_path:
+        raise ValueError("pretrained=True needs checkpoint_path (no "
+                         "download)")
+    if isinstance(spec, T2tVitModelSpec):
+        init, load, fwd = (init_t2t_vit_params, load_t2t_vit_checkpoint,
+                           t2t_vit_forward)
+    elif isinstance(spec, CnnModelSpec):
+        init, load, fwd = init_cnn_params, load_cnn_checkpoint, cnn_forward
+    else:
+        init, load, fwd = init_vision_params, load_timm_checkpoint, vit_forward
+    model = init(spec, generator, device)
+    if checkpoint_path:
+        load(model, checkpoint_path, spec)
+
+    def apply(params, images, head=False):
+        return fwd(params, images, spec, head=head, dtype=dtype)
+
+    return VisionModel(spec=spec, params=model, apply=apply)
+
+
+# ---------------------------------------------------------------------------
+# timm torch checkpoints, and the JAX package's param trees
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def load_zoo_state(model: nn.Module, sd: Dict[str, torch.Tensor],
+                   optional=lambda name: False, convert=None) -> nn.Module:
+    """Copy sd[name] (a state dict, or zoo_params_from_jax's) into each of
+    model's parameters and buffers, in place (BatchNorm's
+    num_batches_tracked aside).  A name missing from sd raises
+    KeyError unless optional(name); convert(name, tensor, target) may
+    reshape a tensor first; a shape that still differs raises ValueError."""
+    for name, t in model.state_dict(keep_vars=True).items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        if name not in sd:
+            if optional(name):
+                continue
+            raise KeyError(f"checkpoint has no '{name}'")
+        src = torch.as_tensor(sd[name])
+        if convert is not None:
+            src = convert(name, src, t)
+        if tuple(src.shape) != tuple(t.shape):
+            raise ValueError(f"'{name}': checkpoint {tuple(src.shape)} vs "
+                             f"model {tuple(t.shape)}")
+        t.copy_(src)
+    return model
+
+
+def _resize_pos_embed(pe: torch.Tensor, lead: int, grid: int
+                      ) -> torch.Tensor:
+    """A (1, lead + g*g, H) pos-embed's grid resized to grid x grid."""
+    old = int(round((pe.shape[1] - lead) ** 0.5))
+    return interpolate_pos_embed(pe, (grid, grid), (old, old), lead)
+
+
+def load_timm_checkpoint(model: VisionTransformer, path: str,
+                         spec: VisionModelSpec) -> VisionTransformer:
+    """A timm ViT torch state dict (hybrid stems under
+    patch_embed.backbone.) into `model`, in place: a 'module.' prefix is
+    stripped, a pos-embed of another grid is resized bicubically, an
+    absent qkv bias (old-timm small) stays zero, absent heads (head,
+    head_dist, pre_logits) keep their values."""
+    sd = {k[len("module."):] if k.startswith("module.") else k: v
+          for k, v in load_torch_state_dict(path).items()}
+
+    def optional(name):
+        return (name.split(".")[0] in ("head", "head_dist", "pre_logits")
+                or name.endswith("attn.qkv.bias"))
+
+    def convert(name, src, t):
+        if name == "pos_embed" and src.shape != t.shape:
+            return _resize_pos_embed(src.float(), spec.num_lead_tokens,
+                                     spec.grid)
+        return src
+
+    return load_zoo_state(model, sd, optional, convert)
+
+
+def load_cnn_checkpoint(model: ResNet, path: str,
+                        spec: CnnModelSpec) -> ResNet:
+    """A timm ResNet torch state dict (conv1..., layerN..., fc) into
+    `model`, in place."""
+    return load_zoo_state(model, load_torch_state_dict(path))
+
+
+def load_t2t_vit_checkpoint(model: T2TViT, path: str,
+                            spec: T2tVitModelSpec) -> T2TViT:
+    """A T2T-ViT torch state dict into `model`, in place (the head only if
+    the checkpoint has one).  The attention scale stays spec.qk_scale (F5:
+    0, the head-dim scale, unless the caller asked for another)."""
+    sd = load_torch_state_dict(path)
+    return load_zoo_state(model, sd,
+                       lambda n: n.startswith("head.") and "head.weight"
+                       not in sd)
+
+
+def zoo_params_from_jax(params_np, spec) -> Dict[str, torch.Tensor]:
+    """The JAX package's param tree (numpy leaves) of a ViT, hybrid,
+    ResNet or T2T model -> this port's state dict (f32 CPU tensors): linear
+    kernels transposed to (out, in), HWIO kernels to OIHW."""
+    def t(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32))
+
+    def lin(q, name):
+        return {name + ".weight": t(np.asarray(q["kernel"]).T),
+                name + ".bias": t(q["bias"])}
+
+    def nrm(q, name):
+        return {name + ".weight": t(q["scale"]), name + ".bias": t(q["bias"])}
+
+    if isinstance(spec, CnnModelSpec):
+        sd = resnet_from_jax(params_np["backbone"], spec.variant)
+        if "head" in params_np:
+            sd.update(lin(params_np["head"], "fc"))
+        return sd
+    if isinstance(spec, T2tVitModelSpec):
+        sd = t2t_vit_from_jax(params_np["backbone"], spec.variant)
+        if "head" in params_np:
+            sd.update(lin(params_np["head"], "head"))
+        return sd
+    p = params_np
+    kern = np.asarray(p["patch_proj"]["kernel"])
+    sd = {"patch_embed.proj.weight": t(kern.transpose(3, 2, 0, 1)),
+          "patch_embed.proj.bias": t(p["patch_proj"]["bias"]),
+          "cls_token": t(p["cls_token"]), "pos_embed": t(p["pos_embed"]),
+          **nrm(p["norm"], "norm")}
+    for name in ("dist_token",):
+        if name in p:
+            sd[name] = t(p[name])
+    for name, tname in (("pre_logits", "pre_logits.fc"), ("head", "head"),
+                        ("head_dist", "head_dist")):
+        if name in p:
+            sd.update(lin(p[name], tname))
+    for i, blk in enumerate(p["blocks"]):
+        base = f"blocks.{i}."
+        sd.update({**nrm(blk["norm1"], base + "norm1"),
+                   **lin(blk["attn"]["qkv"], base + "attn.qkv"),
+                   **lin(blk["attn"]["proj"], base + "attn.proj"),
+                   **nrm(blk["norm2"], base + "norm2"),
+                   **lin(blk["mlp"]["fc1"], base + "mlp.fc1"),
+                   **lin(blk["mlp"]["fc2"], base + "mlp.fc2")})
+    if spec.hybrid == "r50_v2":
+        sd.update(resnetv2_r50_from_jax(p["backbone"],
+                                        "patch_embed.backbone."))
+    elif spec.hybrid:
+        sd.update(resnet_from_jax(p["backbone"], "resnet26d",
+                                  "patch_embed.backbone."))
+    return sd
+

@@ -41,9 +41,10 @@ def mode_counts() -> Dict[str, int]:
     layer_norm's K6 / K7 extensions; attention's and attention_bwd's prob
     dropout, lengths past 1024 padded tokens (K10, 512-px training),
     launches on separate q, k, v (K8 non-slab) and on per-head q, k, v
-    (K9, with its online mode past 1024); decode_attention's cluster
-    launches over more than one beam group an image (constrained beam
-    search)."""
+    (K9, with its online mode past 1024) and at head dims past 64
+    (attention[hdp128]); layer_norm's rows wider than 1024
+    (layer_norm[wide]); decode_attention's cluster launches over more
+    than one beam group an image (constrained beam search)."""
     return {f"{name}[{k}]": n for name, m in KERNELS.items()
             for k, n in getattr(m, "mode_launches", {}).items()}
 

@@ -40,8 +40,10 @@ pre-scaled in its own dtype, and a softmax that runs online over key tiles
 of ONLINE_TK with each tile's probabilities rounded against that tile's
 running max (attention_heads_plain says it line for line).
 mode_launches counts the launches with dropout, past MAX_LP, through
-attention_qkv ("non_slab"), through attention_heads ("heads") and in the
-online mode.  kernel_info() reads the bf16 kernels' launch configuration
+attention_qkv ("non_slab"), through attention_heads ("heads"), in the
+online mode and at a head dim past 64 ("hdp128": the kernels' instances
+for head dims up to 128, which pad the head dim to 128 in shared memory;
+the model zoo's ViT-H/14 at 80 and old ViT-S/16 at 96).  kernel_info() reads the bf16 kernels' launch configuration
 (registers, spills, shared memory, resident blocks per SM) on the card.
 """
 
@@ -63,7 +65,8 @@ mode_launches = {"dropout": 0,    # launches with prob dropout
                  "long": 0,       # launches with Lp > MAX_LP
                  "non_slab": 0,   # launches through attention_qkv
                  "heads": 0,      # launches through attention_heads (K9)
-                 "online": 0}     # launches in the online mode (K9 > 1024)
+                 "online": 0,     # launches in the online mode (K9 > 1024)
+                 "hdp128": 0}     # launches at a head dim past 64
 
 
 def split_slab(slab: torch.Tensor):
@@ -231,6 +234,7 @@ def _attention(q, k, v, l_actual, bias, rate, seed, online, mode):
     mode_launches["dropout"] += rate > 0.0
     mode_launches["long"] += Lp > MAX_LP
     mode_launches["online"] += bool(online)
+    mode_launches["hdp128"] += hd > 64
     if mode != "slab":
         mode_launches[mode] += 1
     return heads_view(out, nh)

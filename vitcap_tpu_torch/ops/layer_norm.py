@@ -6,8 +6,10 @@ _tail_kernel, the post-LNs of _bert_tail_kernel); the source note in
 csrc/layer_norm.cu says what bounds it on the H100.  vector_path() is the
 wrapper's choice between the kernel's two loops: each row held in registers
 with 16-byte accesses (H a multiple of 8, at most 1024, aligned tensors: the
-port's 768) or the scalar loop (any other H).  kernel_info() reads the
-kernel's launch configuration on the card.
+port's 768) or the scalar loop (any other H; mode_launches["wide"]
+counts the launches of rows wider than MAX_VEC_H, such as the model zoo's
+ViT-H at 1280).  kernel_info() reads the kernel's launch configuration on
+the card.
 
 ``stats=True`` (the train forwards: LN1/LN2 of K6, the post-LNs of K7) also
 returns each row's f32 mean and rsig = 1 / sqrt(var + eps), which the
@@ -23,7 +25,8 @@ from typing import Tuple, Union
 from . import _build
 
 launches = 0
-mode_launches = {"stats": 0}      # launches with row statistics
+mode_launches = {"stats": 0,      # launches with row statistics
+                 "wide": 0}       # launches of rows wider than MAX_VEC_H
 VEC = 8                           # values per 16-byte chunk of the row
 MAX_VEC_H = 1024                  # the widest row held in registers
 
@@ -104,4 +107,5 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     global launches
     launches += 1
     mode_launches["stats"] += stats
+    mode_launches["wide"] += H > MAX_VEC_H
     return (y, st[0], st[1]) if stats else y

@@ -167,7 +167,8 @@ class CaptionUniPipeline(UniPipeline):
                           "config.json")) as f:
             j = json.load(f)
         # 'VitEmb_<timm-name>' (reference get_image_encoder_model
-        # …bertemb.py:750-778): the trunk's patch and depth
+        # …bertemb.py:750-778): the trunk's patch and depth from the model
+        # zoo's spec
         patch, hidden, depth = vit_trunk(self.cfg.image_encoder_type)
         num_layers = j["num_hidden_layers"]
         # trunk and fusion share one width; when a down-scaled fusion
