@@ -4973,6 +4973,258 @@ def phase_zoo_parity(dev, devices=None):
     return res
 
 
+# phase 18, part 2a: one model per family at full depth, its own image
+# size, B=64 bf16
+ZOO_CNN2 = [("tf_efficientnet_b7_ns", 600),
+            ("efficientnet_cc_b1_8e", 240),
+            ("mobilenetv3_large_100", 224),
+            ("mixnet_xl", 224),
+            ("rexnet_200", 224),
+            ("regnety_160", 224),
+            ("nf_regnet_b1", 224),
+            ("resnetv2_50x3_bitm", 480)]
+ZOO_TRAIN = ("efficientnet_b3", 300, 0.2)   # name, image size, drop-path
+# f32 card vs CPU: (name, image size, stages kept)
+ZOO_CNN2_PARITY = [("tf_efficientnet_b7_ns", 600, 3),
+                   ("efficientnet_cc_b1_8e", 240, 5),
+                   ("mobilenetv3_large_100", 224, 3),
+                   ("mixnet_xl", 224, 3),
+                   ("rexnet_200", 224, 3),
+                   ("regnety_160", 224, 2),
+                   ("nf_regnet_b1", 224, 2),
+                   ("resnetv2_50x3_bitm", 480, 2)]
+
+
+def _no_hand_kernels(what):
+    from vitcap_tpu_torch import ops
+    got = {k: v for k, v in dict(ops.launch_counts(),
+                                 **ops.mode_counts()).items() if v}
+    if got:
+        raise AssertionError(f"{what}: hand-kernel launches {got}")
+
+
+def _conv_flops(fn):
+    """The operations one call of fn does (torch's FlopCounterMode: the
+    convolutions and products, 2 a multiply-add)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as fc:
+        fn()
+    return float(fc.get_total_flops())
+
+
+def phase_zoo_cnn2(dev, smi, Bn=None):
+    """The zoo's part 2a on the card (create_model, random weights from
+    the seed, bf16, B=64): one model per family (ZOO_CNN2) at full depth
+    and its own image size: no hand-kernel launch a batch (asserted),
+    images/s (the median of ZOO_TIMED batches by CUDA events), peak
+    memory, the idle share and device time by kernel (torch.profiler, a
+    fresh profile a model), the operations a batch (FlopCounterMode) and
+    their bound at the bf16 peak."""
+    from vitcap_tpu_torch import ops
+    from vitcap_tpu_torch.models import registry as TR
+    Bn = Bn or ZOO_B
+    out = {}
+    for name, img in ZOO_CNN2:
+        tag = f"{name}@{img}"
+        m = TR.create_model(name, dtype=torch.bfloat16, device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(SEED))
+        x = _zoo_images(Bn, img, SEED + 48, dev)
+
+        def batch():
+            return m.apply(m.params, x, head=True)
+        with torch.no_grad():
+            batch()
+            torch.cuda.synchronize()
+            ops.reset_counts()
+            logits = batch()
+            torch.cuda.synchronize()
+            _no_hand_kernels(f"zoo {tag}")
+            if logits.shape != (Bn, m.spec.num_classes) or not \
+                    torch.isfinite(logits).all():
+                raise AssertionError(f"zoo {tag}: logits {logits.shape}, "
+                                     f"or non-finite")
+            torch.cuda.reset_peak_memory_stats()
+            ms, all_ms = _zoo_batches(batch, ZOO_TIMED)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            prof = _profile(f"zoo_{name}_{img}", batch, reps=1)
+            flops = _conv_flops(batch)
+        b_ms, _ = bound(flops, 0.0, "bf16")
+        out[tag] = {"batch_ms": ms, "batch_ms_all": all_ms,
+                    "images_per_s": Bn / ms * 1e3, "peak_gib": peak,
+                    "idle_share": prof["idle_share"],
+                    "device_busy_ms": prof["device_busy_ms"],
+                    "top_kernels": prof["kernels"][:6],
+                    "tflop": flops / 1e12, "flops_bound_ms": b_ms,
+                    "logits_scale": logits.float().abs().max().item()}
+        log(f"[zoo2] {tag}: {Bn / ms * 1e3:.2f} images/s ({ms:.3f} ms a "
+            f"batch of {Bn}, median of {ZOO_TIMED}), peak {peak:.2f} GiB, "
+            f"idle share {prof['idle_share']:.4f} (busy "
+            f"{prof['device_busy_ms']:.3f} ms), {flops / 1e12:.3f} TFLOP a "
+            f"batch (bound {b_ms:.3f} ms at the bf16 peak); no hand-kernel "
+            f"launch on {smi}")
+        del m, x, logits
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_zoo_train(dev, smi, Bn=None):
+    """The zoo's train mode on the card: forward + backward of ZOO_TRAIN
+    (efficientnet_b3 at 300 px, B=64 bf16, drop-path 0.2, BatchNorm on
+    batch statistics, cross-entropy on seeded labels) under
+    zoo_train_mode with a CUDA generator: no hand-kernel launch, finite
+    loss and gradients, the running statistics moved; images/s (median of
+    ZOO_TIMED steps by CUDA events), peak memory, the idle share."""
+    from vitcap_tpu_torch import ops
+    from vitcap_tpu_torch.models import backbones as TB
+    from vitcap_tpu_torch.models import registry as TR
+    Bn = Bn or ZOO_B
+    name, img, dpr = ZOO_TRAIN
+    m = TR.create_model(name, dtype=torch.bfloat16, device=dev,
+                        generator=torch.Generator(device=dev)
+                        .manual_seed(SEED))
+    model = m.params.requires_grad_(True)
+    x = _zoo_images(Bn, img, SEED + 49, dev)
+    labels = torch.from_numpy(np.random.RandomState(SEED + 50).randint(
+        0, m.spec.num_classes, Bn)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 51)
+    before = model.bn2.running_mean.clone()
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        with TB.zoo_train_mode(model, gen, drop_path_rate=dpr):
+            logits = m.apply(model, x, head=True)
+        loss = F.cross_entropy(logits.float(), labels)
+        loss.backward()
+        return loss
+    ops.reset_counts()
+    loss = step()
+    torch.cuda.synchronize()
+    _no_hand_kernels(f"zoo train {name}")
+    grads = [p.grad for p in model.parameters()]
+    if not torch.isfinite(loss) or any(
+            g is None or not torch.isfinite(g).all() for g in grads):
+        raise AssertionError(f"zoo train {name}: non-finite loss or grads")
+    if torch.equal(before, model.bn2.running_mean) or model.training:
+        raise AssertionError(f"zoo train {name}: running statistics did not "
+                             f"move, or the model stayed in train mode")
+    torch.cuda.reset_peak_memory_stats()
+    ms, all_ms = _zoo_batches(step, ZOO_TIMED)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = _profile(f"zoo_train_{name}_{img}", step, reps=1)
+    res = {"step_ms": ms, "step_ms_all": all_ms,
+           "images_per_s": Bn / ms * 1e3, "peak_gib": peak,
+           "idle_share": prof["idle_share"],
+           "device_busy_ms": prof["device_busy_ms"],
+           "top_kernels": prof["kernels"][:6], "loss": loss.item()}
+    log(f"[zoo2-train] {name}@{img}: {Bn / ms * 1e3:.2f} images/s ({ms:.3f} "
+        f"ms a forward + backward of {Bn}, drop-path {dpr}, median of "
+        f"{ZOO_TIMED}), peak {peak:.2f} GiB, idle share "
+        f"{prof['idle_share']:.4f}; no hand-kernel launch on {smi}")
+    del m, model, x, grads
+    torch.cuda.empty_cache()
+    return res
+
+
+@torch.no_grad()
+def _perturb_norms(model, seed):
+    """Every norm's affine and running statistics, every bias and NFNet
+    gain redrawn from a seed: no identity norm or zero-initialised branch
+    hides a fault."""
+    g = torch.Generator().manual_seed(seed)
+    for mod in model.modules():
+        norm = isinstance(mod, (torch.nn.BatchNorm2d, torch.nn.GroupNorm))
+        for name, t in [*mod.named_parameters(recurse=False),
+                        *mod.named_buffers(recurse=False)]:
+            if not t.is_floating_point():
+                continue
+            r = torch.randn(t.shape, generator=g).to(t.device)
+            if name == "running_var":
+                t.copy_(1.0 + 0.2 * r.abs())
+            elif name in ("running_mean", "bias"):
+                t.copy_(0.1 * r)
+            elif name == "gain" or (norm and name == "weight"):
+                t.copy_(1.0 + 0.1 * r)
+    return model
+
+
+def _within_scale(what, got, want, rel=1e-4, scale=None):
+    got, want = got.double().cpu(), want.double().cpu()
+    scale = want.abs().max().item() if scale is None else scale
+    err = (got - want).abs().max().item()
+    if not err <= rel * scale:
+        raise AssertionError(f"{what}: max abs err {err:.3e} > {rel} x "
+                             f"{scale:.3e}")
+    return err, scale
+
+
+def phase_zoo_cnn2_parity(dev, devices=None):
+    """f32, the card (cuDNN, TF32 off) against the CPU, the same weights
+    (norms perturbed from a seed) and images, B=2: each family of part 2a
+    at a reduced depth (ZOO_CNN2_PARITY), the feature map and the logits
+    within 1e-4 of their scale; then efficientnet_b0's first two stages
+    in train mode (batch statistics): the logits and every updated running
+    statistic within 1e-4 of its scale, every parameter's gradient (of
+    sum(logits * r)) within 1e-4 of the largest."""
+    from vitcap_tpu_torch.models import registry as TR
+    devices = devices or (dev, torch.device("cpu"))
+    res = {}
+    for name, img, ns in ZOO_CNN2_PARITY:
+        spec = TR.model_spec(name)
+        model = _perturb_norms(TR.init_pooled_cnn_params(
+            spec, torch.Generator().manual_seed(SEED + 52), "cpu", ns),
+            SEED + 53)
+        x = _zoo_images(2, img, SEED + 54, "cpu")
+        outs = []
+        for d in devices:
+            md = copy.deepcopy(model).to(d)
+            with torch.no_grad():
+                outs.append([TR.pooled_cnn_forward(md, x.to(d), spec,
+                                                   head=h).float().cpu()
+                             for h in (False, True)])
+            del md
+        (ef, sf), (el, sl) = [_within_scale(f"zoo2 parity {name} {w}", a, b)
+                              for w, a, b in zip(("features", "logits"),
+                                                 outs[0], outs[1])]
+        res[name] = {"stages": ns, "img": img, "features_err": ef,
+                     "features_scale": sf, "logits_err": el,
+                     "logits_scale": sl}
+        log(f"[zoo2-parity] {name} ({ns} stages, {img} px) f32 card vs CPU: "
+            f"features err {ef:.3e} (scale {sf:.3f}), logits err {el:.3e} "
+            f"(scale {sl:.3f})")
+    spec = TR.model_spec("efficientnet_b0")
+    model = _perturb_norms(TR.init_pooled_cnn_params(
+        spec, torch.Generator().manual_seed(SEED + 55), "cpu", 2), SEED + 56)
+    x = _zoo_images(2, 224, SEED + 57, "cpu")
+    r = torch.randn(2, spec.num_classes,
+                    generator=torch.Generator().manual_seed(SEED + 58))
+    runs = []
+    for d in devices:
+        md = copy.deepcopy(model).to(d).requires_grad_(True).train()
+        logits = TR.pooled_cnn_forward(md, x.to(d), spec, head=True)
+        (logits * r.to(d)).sum().backward()
+        md.eval()
+        runs.append((logits.detach().cpu(),
+                     {k: v.cpu() for k, v in md.state_dict().items()
+                      if "running" in k},
+                     {k: p.grad.cpu() for k, p in md.named_parameters()}))
+        del md
+    (lg, stats, grads), (lg0, stats0, grads0) = runs
+    el, _ = _within_scale("zoo2 train parity logits", lg, lg0)
+    es = max(_within_scale(f"zoo2 train parity {k}", stats[k], stats0[k])[0]
+             for k in stats0)
+    top = max(g.abs().max().item() for g in grads0.values())
+    eg = max(_within_scale(f"zoo2 train parity grad {k}", grads[k],
+                           grads0[k], scale=top)[0] for k in grads0)
+    res["train:efficientnet_b0"] = {"stages": 2, "logits_err": el,
+                                    "running_stats_err": es,
+                                    "grads_err": eg, "grads_top": top}
+    log(f"[zoo2-parity] efficientnet_b0 train mode (2 stages) f32 card vs "
+        f"CPU: logits err {el:.3e}, running statistics err {es:.3e}, "
+        f"gradients err {eg:.3e} (largest {top:.3e})")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5055,6 +5307,11 @@ def main() -> int:
     zoo = phase_zoo(dev, smi)
     zoo["parity"] = phase_zoo_parity(dev)
     log(f"[zoo] phases took {time.perf_counter() - t_zoo:.1f} s")
+    t_zoo2 = time.perf_counter()
+    zoo["cnn2"] = phase_zoo_cnn2(dev, smi)
+    zoo["train"] = phase_zoo_train(dev, smi)
+    zoo["cnn2_parity"] = phase_zoo_cnn2_parity(dev)
+    log(f"[zoo2] phases took {time.perf_counter() - t_zoo2:.1f} s")
 
     for name, n in counts.items():
         if n == 0 and name != "attention_bwd":

@@ -399,7 +399,8 @@ def test_vit_trunk_table_matches_jax_registry():
     """vit_trunk resolves every ViT of the JAX registry to its spec's
     (patch, width, depth) through the port's model zoo; another name
     falls back to patch 32 or 16 as the JAX pipeline does; a zoo name of
-    part 2 raises NotImplementedError, a CNN ValueError."""
+    part 2b raises NotImplementedError, a CNN (part 1's or 2a's)
+    ValueError."""
     from vitcap_tpu.models import registry as R
     vits = [n for n in R.list_models()
             if isinstance(R.model_spec(n), R.VisionModelSpec)]
@@ -411,9 +412,10 @@ def test_vit_trunk_table_matches_jax_registry():
     assert TC.vit_trunk("VitEmb_my_patch32_trunk") == (32, None, None)
     assert TC.vit_trunk("VitEmb_my_trunk") == (16, None, None)
     with pytest.raises(NotImplementedError, match="module 13 part 2"):
-        TC.vit_trunk("VitEmb_efficientnet_b0")
-    with pytest.raises(ValueError, match="no ViT"):
-        TC.vit_trunk("VitEmb_resnet50")
+        TC.vit_trunk("VitEmb_densenet121")
+    for cnn in ("resnet50", "efficientnet_b0"):
+        with pytest.raises(ValueError, match="no ViT"):
+            TC.vit_trunk(f"VitEmb_{cnn}")
 
 
 def test_flagship_model_cfg_matches_jax():

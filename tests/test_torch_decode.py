@@ -409,7 +409,10 @@ def test_port_sources_import_no_jax():
                 "parallel/distributed.py", "parallel/mesh.py",
                 "models/pretrained.py", "models/scan.py",
                 "models/registry.py", "models/backbones.py",
-                "models/t2t_vit.py", "models/pruned.py"):
+                "models/t2t_vit.py", "models/pruned.py",
+                "models/efficientnet.py", "models/mobilenetv3.py",
+                "models/mixnet.py", "models/rexnet.py", "models/regnet.py",
+                "models/nfnet.py", "models/resnetv2.py"):
         assert ROOT / "vitcap_tpu_torch" / new in files
     bad = []
     for path in files:

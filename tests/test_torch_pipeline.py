@@ -409,10 +409,12 @@ def test_scst_two_steps_write_snapshot(root, port_run, tmp_path):
     ({"checkpoint_backend": "orbax"}, ValueError, "one backend"),
     ({"async_checkpoint": True}, ValueError, "synchronously"),
     ({"jax_profile_dir": "trace"}, NotImplementedError, "profiler"),
-    ({"image_encoder_type": "VitEmb_efficientnet_b0"},
+    ({"image_encoder_type": "VitEmb_densenet121"},
      NotImplementedError, "module 13 part 2"),
+    ({"image_encoder_type": "VitEmb_efficientnet_b0"}, ValueError,
+     "no ViT trunk"),
 ], ids=["grain", "mesh_data", "msgpack", "orbax", "async",
-        "jax_profile_dir", "zoo_trunk"])
+        "jax_profile_dir", "zoo_trunk", "zoo_cnn_trunk"])
 def test_unported_keys_raise(root, tmp_path, kw, err, words):
     param = _param(root, str(tmp_path), device="cpu", **kw)
     with pytest.raises(err, match=words):

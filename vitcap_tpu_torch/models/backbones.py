@@ -1,5 +1,5 @@
-"""CNN stems of the hybrid ViTs and the ResNet family of the model zoo,
-the port of vitcap_tpu/models/backbones.py in eval semantics.
+"""CNN stems of the hybrid ViTs, the ResNet family of the model zoo and
+the zoo's train mode: the port of vitcap_tpu/models/backbones.py.
 
 - ResNetV2R50 (the R50+ViT-B/16 hybrid stem): 3 stages of bottlenecks
   without pre-activation, weight-standardised convs with TF-'SAME'
@@ -22,15 +22,24 @@ parameters stay f32 and are cast per use, normalisation statistics are
 f32.  The convolutions are PyTorch's (cuDNN on the card): the JAX package
 computes them with lax.conv outside any Pallas kernel.
 
-BatchNorm always normalises on the running statistics: the zoo's train
-mode (batch statistics, stochastic depth, head dropout) is ROADMAP.md
-module 13 part 2; in eval those are the identity.
+Train mode (the JAX package's zoo_train_mode): `model.train()` makes every
+BatchNorm of the zoo normalise on the batch's statistics (biased
+variance, f32 accumulation, gradients through them) and update its
+running statistics in place (momentum blend, unbiased variance; torch's
+_BatchNorm).  `with zoo_train_mode(model, generator, drop_path_rate,
+drop_rate):` also drops the effnet and mobilenetv3 residual branches per
+sample (the builder's linear depth schedule) and applies dropout before
+the classifiers the JAX package wraps in _head_dropout (ResNet,
+efficientnet, mobilenetv3, regnet), every mask drawn from `generator`.
+In eval every path is the identity of these.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -86,10 +95,87 @@ def _group_norm(x: torch.Tensor, m: nn.GroupNorm, act: bool = True
 
 def _batch_norm(x: torch.Tensor, m: nn.BatchNorm2d, act: bool = True
                 ) -> torch.Tensor:
-    """BatchNorm on the running statistics (eval), then ReLU."""
+    """BatchNorm, then ReLU.  Eval: on the running statistics.  Train
+    (m.training): on the batch's statistics over every axis but the
+    channels (biased variance, accumulated in f32 for a bf16 input,
+    gradients through them), the running statistics updated in place to
+    (1 - momentum) * running + momentum * batch with the batch variance
+    unbiased (the JAX package's bn_updated_params)."""
     y = F.batch_norm(x, m.running_mean, m.running_var, m.weight, m.bias,
-                     False, 0.0, m.eps)
+                     m.training, m.momentum, m.eps)
     return F.relu(y) if act else y
+
+
+# ---------------------------------------------------------------------------
+# the zoo's train mode: stochastic depth and head dropout
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ZooTrainMode:
+    """The drop rates of a zoo_train_mode block and the generator its
+    masks come from."""
+    generator: Optional[torch.Generator] = None
+    drop_path_rate: float = 0.0
+    drop_rate: float = 0.0
+
+    def uniform(self, shape, device) -> torch.Tensor:
+        """U[0, 1) draws of `shape` from the generator, on `device`."""
+        if self.generator is None:
+            raise ValueError("zoo_train_mode needs a generator when "
+                             "drop_path_rate or drop_rate > 0")
+        return torch.rand(shape, generator=self.generator,
+                          device=self.generator.device).to(device)
+
+
+@contextlib.contextmanager
+def zoo_train_mode(model: nn.Module,
+                   generator: Optional[torch.Generator] = None,
+                   drop_path_rate: float = 0.0, drop_rate: float = 0.0):
+    """model.train() for the block, with stochastic depth (drop_path_rate,
+    scaled by each residual block's flat index over the block count) and
+    head dropout (drop_rate), masks from `generator`; the model's mode is
+    restored after."""
+    was = model.training
+    model.train()
+    model.zoo_train = ZooTrainMode(generator, drop_path_rate, drop_rate)
+    try:
+        yield model.zoo_train
+    finally:
+        del model.zoo_train
+        model.train(was)
+
+
+def train_opts(model: nn.Module) -> Optional[ZooTrainMode]:
+    """The model's zoo_train_mode options while it trains, else None."""
+    return getattr(model, "zoo_train", None) if model.training else None
+
+
+def drop_path(x: torch.Tensor, tm: Optional[ZooTrainMode],
+              rate_scale: float = 1.0) -> torch.Tensor:
+    """Stochastic depth on a residual branch: each sample kept whole with
+    probability keep = 1 - drop_path_rate * rate_scale (the mask
+    floor(keep + U[0, 1))) and scaled by 1 / keep; the identity outside
+    zoo_train_mode or at rate 0."""
+    rate = tm.drop_path_rate * rate_scale if tm is not None else 0.0
+    if rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.floor(keep + tm.uniform(
+        (x.shape[0],) + (1,) * (x.ndim - 1), x.device))
+    return x * (mask / keep).to(x.dtype)
+
+
+def head_dropout(x: torch.Tensor, tm: Optional[ZooTrainMode]
+                 ) -> torch.Tensor:
+    """Dropout before a classifier: each value kept with probability
+    1 - drop_rate and scaled by its inverse; the identity outside
+    zoo_train_mode or at rate 0."""
+    if tm is None or tm.drop_rate == 0.0:
+        return x
+    keep = 1.0 - tm.drop_rate
+    mask = tm.uniform(x.shape, x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
 
 
 def _max_pool_same(x: torch.Tensor, k: int = 3, stride: int = 2
@@ -112,8 +198,9 @@ def _blur_pool(x: torch.Tensor, stride: int = 2) -> torch.Tensor:
                     w.expand(c, 1, 3, 3).contiguous(), None, stride, 0, 1, c)
 
 
-def _bn(c: int, device) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=_EPS, device=device)
+def _bn(c: int, device, eps: float = _EPS, momentum: float = 0.1
+        ) -> nn.BatchNorm2d:
+    return nn.BatchNorm2d(c, eps=eps, momentum=momentum, device=device)
 
 
 def _cv(cin: int, cout: int, k: int, device, groups: int = 1,

@@ -1,17 +1,21 @@
-"""The model zoo's factory, part 1: the port of vitcap_tpu/models/registry.py
-for its ViT family (ViT, DeiT, distilled DeiT, the in21k checkpoints and the
-CNN-stem hybrids), the ResNet family (models/backbones.py) and T2T-ViT
-(models/t2t_vit.py): 159 of the JAX package's 422 registered names.
+"""The model zoo's factory: the port of vitcap_tpu/models/registry.py for
+its ViT family (ViT, DeiT, distilled DeiT, the in21k checkpoints and the
+CNN-stem hybrids), the ResNet family (models/backbones.py), T2T-ViT
+(models/t2t_vit.py) and the CNN families of part 2a: the EfficientNet
+builder's nets (models/efficientnet.py: efficientnet, tf_efficientnet,
+lite, CondConv, EdgeTPU, pruned, mnasnet, mobilenetv2, fbnetc, spnasnet),
+MobileNetV3, MixNet, ReXNet, RegNet, NFNet and BiT ResNetV2: 319 of the
+JAX package's 422 registered names.
 
     spec = model_spec("vit_large_patch16_384")
     m = create_model("vit_large_patch16_384", dtype=torch.bfloat16)
     tokens = m.apply(m.params, images)            # NHWC in, (B, 1+N, H)
     logits = m.apply(m.params, images, head=True)
 
-The JAX package's other 26 families (263 names: efficientnet, regnet,
-densenet, ...) and the zoo's train mode are ROADMAP.md module 13 part 2: a
-name of theirs raises NotImplementedError from model_spec and
-create_model; a name no registry knows raises ValueError, as there.
+The JAX package's other 19 families (103 names: densenet, dla, vovnet,
+...) are ROADMAP.md module 13 part 2b: a name of theirs raises
+NotImplementedError from model_spec and create_model; a name no registry
+knows raises ValueError, as there.
 
 The models are nn.Modules holding f32 parameters under the timm torch
 state-dict names, built on the card unless the caller passes device="cpu"
@@ -24,15 +28,23 @@ kernels on the card; past 1024 padded tokens the same composition, K10)
 and the token axis is padded once for all blocks.  The patch embedding,
 the final norm, the heads, the CNN families' convolutions (cuDNN) and
 T2T are plain PyTorch, as the JAX package computes them outside any
-Pallas kernel.
+Pallas kernel.  The CNNs' forwards give the NHWC feature map, or with
+head=True the logits of its global average pool.
+
+Train mode: model.train() (BatchNorm on batch statistics, the running
+statistics updated) and models/backbones.py zoo_train_mode (stochastic
+depth, head dropout, masks from a caller's generator), as the JAX
+package's zoo_train_mode; its own tests hold resnet, efficientnet,
+mobilenetv3, regnet and the BN hybrid stems to it.
 
 Checkpoints: load_timm_checkpoint / load_cnn_checkpoint /
-load_t2t_vit_checkpoint read a timm-layout torch state dict through
-solver/checkpoint_bridge.py load_torch_state_dict (the ViT loader strips a
-'module.' prefix, resizes a pos-embed of another grid bicubically and keeps
-a zero qkv bias where the checkpoint has none; the conv weights stay
-OIHW, the torch layout the modules hold).  zoo_params_from_jax carries the
-JAX package's param trees across (the tests hold the port to it so).
+load_t2t_vit_checkpoint and the part-2a families' load_*_checkpoint read
+a timm-layout torch state dict through solver/checkpoint_bridge.py
+load_torch_state_dict (the ViT loader strips a 'module.' prefix, resizes
+a pos-embed of another grid bicubically and keeps a zero qkv bias where
+the checkpoint has none; the conv weights stay OIHW, the torch layout the
+modules hold).  zoo_params_from_jax carries the JAX package's param trees
+across (the tests hold the port to it so).
 
 T2T's qk_scale (F5): as in the JAX package, loading a checkpoint keeps the
 head-dim scale; only an explicit qk_scale= (a spec field, e.g.
@@ -54,8 +66,21 @@ import torch.nn.functional as F
 from ..ops.fused_block import pad_len
 from ..solver.checkpoint_bridge import load_torch_state_dict
 from .backbones import (HYBRIDS, RESNETS, ResNet, apply_backbone,
-                        resnet_feature_channels, resnet_from_jax,
-                        resnetv2_r50_from_jax)
+                        head_dropout, resnet_feature_channels,
+                        resnet_from_jax, resnetv2_r50_from_jax, train_opts)
+from .efficientnet import (EFFICIENTNETS, GENERIC_EFFNETS, TF_EFFNETS,
+                           EfficientNet, effnet_feature_channels,
+                           effnet_from_jax)
+from .mixnet import (MIXNETS, TF_MIXNETS, MixNet, mixnet_feature_channels,
+                     mixnet_from_jax)
+from .mobilenetv3 import (MOBILENETV3S, MobileNetV3, mn3_feature_channels,
+                          mn3_from_jax)
+from .nfnet import NFNETS, NfNet, ScaledStdConv, nfnet_feature_channels, \
+    nfnet_from_jax
+from .regnet import REGNETS, RegNet, regnet_feature_channels, regnet_from_jax
+from .resnetv2 import (RESNETV2S, ResNetV2, resnetv2_feature_channels,
+                       resnetv2_from_jax)
+from .rexnet import REXNETS, ReXNet, rexnet_feature_channels, rexnet_from_jax
 from .layers import (ViTBlock, _Group, _pos_embed_for, dense,
                      interpolate_pos_embed, layer_norm, patch_embed,
                      vit_block)
@@ -64,74 +89,32 @@ from .t2t_vit import (T2T_VITS, T2TViT, TokenPerformer, sinusoid_pos_embed,
 
 _REGISTRY: Dict[str, Callable] = {}
 
-# the JAX package's registered names of the families ported in part 2
+# the JAX package's registered names of the families of part 2b
 PART2_NAMES = frozenset("""
 adv_inception_v3 cspdarknet53 cspdarknet53_iabn cspresnet50 cspresnet50d
 cspresnet50w cspresnext50 cspresnext50_iabn darknet53 densenet121
 densenet121d densenet161 densenet169 densenet201 densenet264
 densenet264d_iabn densenetblur121d dla102 dla102x dla102x2 dla169 dla34
 dla46_c dla46x_c dla60 dla60_res2net dla60_res2next dla60x dla60x_c dpn107
-dpn131 dpn68 dpn68b dpn92 dpn98 eca_vovnet39b efficientnet_b0
-efficientnet_b1 efficientnet_b1_pruned efficientnet_b2
-efficientnet_b2_pruned efficientnet_b2a efficientnet_b3
-efficientnet_b3_pruned efficientnet_b3a efficientnet_b4 efficientnet_b5
-efficientnet_b6 efficientnet_b7 efficientnet_b8 efficientnet_cc_b0_4e
-efficientnet_cc_b0_8e efficientnet_cc_b1_8e efficientnet_el efficientnet_em
-efficientnet_es efficientnet_l2 efficientnet_lite0 efficientnet_lite1
-efficientnet_lite2 efficientnet_lite3 efficientnet_lite4
-ens_adv_inception_resnet_v2 ese_vovnet19b ese_vovnet19b_dw
-ese_vovnet19b_slim ese_vovnet19b_slim_dw ese_vovnet39b ese_vovnet39b_evos
-ese_vovnet57b ese_vovnet99b ese_vovnet99b_iabn fbnetc_100 gluon_inception_v3
-gluon_xception65 hrnet_w18 hrnet_w18_small hrnet_w18_small_v2 hrnet_w30
-hrnet_w32 hrnet_w40 hrnet_w44 hrnet_w48 hrnet_w64 inception_resnet_v2
-inception_v3 inception_v4 legacy_senet154 legacy_seresnet101
-legacy_seresnet152 legacy_seresnet18 legacy_seresnet34 legacy_seresnet50
-legacy_seresnext101_32x4d legacy_seresnext26_32x4d legacy_seresnext50_32x4d
-mixnet_l mixnet_m mixnet_s mixnet_xl mixnet_xxl mnasnet_050 mnasnet_075
-mnasnet_100 mnasnet_140 mnasnet_a1 mnasnet_b1 mnasnet_small mobilenetv2_100
-mobilenetv2_110d mobilenetv2_120d mobilenetv2_140 mobilenetv3_large_075
-mobilenetv3_large_100 mobilenetv3_rw mobilenetv3_small_075
-mobilenetv3_small_100 nasnetalarge nf_ecaresnet101 nf_ecaresnet26
-nf_ecaresnet50 nf_regnet_b0 nf_regnet_b1 nf_regnet_b2 nf_regnet_b3
-nf_regnet_b4 nf_regnet_b5 nf_resnet101 nf_resnet26 nf_resnet50
-nf_seresnet101 nf_seresnet26 nf_seresnet50 pnasnet5large regnetx_002
-regnetx_004 regnetx_006 regnetx_008 regnetx_016 regnetx_032 regnetx_040
-regnetx_064 regnetx_080 regnetx_120 regnetx_160 regnetx_320 regnety_002
-regnety_004 regnety_006 regnety_008 regnety_016 regnety_032 regnety_040
-regnety_064 regnety_080 regnety_120 regnety_160 regnety_320 resnest101e
-resnest14d resnest200e resnest269e resnest26d resnest50d resnest50d_1s4x24d
-resnest50d_4s2x40d resnetv2_101x1_bitm resnetv2_101x1_bitm_in21k
-resnetv2_101x3_bitm resnetv2_101x3_bitm_in21k resnetv2_152x2_bitm
-resnetv2_152x2_bitm_in21k resnetv2_152x4_bitm resnetv2_152x4_bitm_in21k
-resnetv2_50x1_bitm resnetv2_50x1_bitm_in21k resnetv2_50x3_bitm
-resnetv2_50x3_bitm_in21k rexnet_100 rexnet_130 rexnet_150 rexnet_200
-rexnetr_100 rexnetr_130 rexnetr_150 rexnetr_200 selecsls42 selecsls42b
-selecsls60 selecsls60b selecsls84 semnasnet_050 semnasnet_075 semnasnet_100
-semnasnet_140 skresnet18 skresnet34 skresnet50 skresnet50d skresnext50_32x4d
-spnasnet_100 tf_efficientnet_b0 tf_efficientnet_b0_ap tf_efficientnet_b0_ns
-tf_efficientnet_b1 tf_efficientnet_b1_ap tf_efficientnet_b1_ns
-tf_efficientnet_b2 tf_efficientnet_b2_ap tf_efficientnet_b2_ns
-tf_efficientnet_b3 tf_efficientnet_b3_ap tf_efficientnet_b3_ns
-tf_efficientnet_b4 tf_efficientnet_b4_ap tf_efficientnet_b4_ns
-tf_efficientnet_b5 tf_efficientnet_b5_ap tf_efficientnet_b5_ns
-tf_efficientnet_b6 tf_efficientnet_b6_ap tf_efficientnet_b6_ns
-tf_efficientnet_b7 tf_efficientnet_b7_ap tf_efficientnet_b7_ns
-tf_efficientnet_b8 tf_efficientnet_b8_ap tf_efficientnet_cc_b0_4e
-tf_efficientnet_cc_b0_8e tf_efficientnet_cc_b1_8e tf_efficientnet_el
-tf_efficientnet_em tf_efficientnet_es tf_efficientnet_l2_ns
-tf_efficientnet_l2_ns_475 tf_efficientnet_lite0 tf_efficientnet_lite1
-tf_efficientnet_lite2 tf_efficientnet_lite3 tf_efficientnet_lite4
-tf_inception_v3 tf_mixnet_l tf_mixnet_m tf_mixnet_s tf_mobilenetv3_large_075
-tf_mobilenetv3_large_100 tf_mobilenetv3_large_minimal_100
-tf_mobilenetv3_small_075 tf_mobilenetv3_small_100
-tf_mobilenetv3_small_minimal_100 tresnet_l tresnet_l_448 tresnet_m
+dpn131 dpn68 dpn68b dpn92 dpn98 eca_vovnet39b ens_adv_inception_resnet_v2
+ese_vovnet19b ese_vovnet19b_dw ese_vovnet19b_slim ese_vovnet19b_slim_dw
+ese_vovnet39b ese_vovnet39b_evos ese_vovnet57b ese_vovnet99b
+ese_vovnet99b_iabn gluon_inception_v3 gluon_xception65 hrnet_w18
+hrnet_w18_small hrnet_w18_small_v2 hrnet_w30 hrnet_w32 hrnet_w40 hrnet_w44
+hrnet_w48 hrnet_w64 inception_resnet_v2 inception_v3 inception_v4
+legacy_senet154 legacy_seresnet101 legacy_seresnet152 legacy_seresnet18
+legacy_seresnet34 legacy_seresnet50 legacy_seresnext101_32x4d
+legacy_seresnext26_32x4d legacy_seresnext50_32x4d nasnetalarge pnasnet5large
+resnest101e resnest14d resnest200e resnest269e resnest26d resnest50d
+resnest50d_1s4x24d resnest50d_4s2x40d selecsls42 selecsls42b selecsls60
+selecsls60b selecsls84 skresnet18 skresnet34 skresnet50 skresnet50d
+skresnext50_32x4d tf_inception_v3 tresnet_l tresnet_l_448 tresnet_m
 tresnet_m_448 tresnet_xl tresnet_xl_448 tv_densenet121 vovnet39a vovnet57a
 xception xception41 xception65 xception71
 """.split())
 
-_PART2 = ("the model zoo's part 2 (ROADMAP.md queue 1, module 13 part 2: "
-          "the remaining 26 families and the zoo's train mode) is not "
-          "ported yet")
+_PART2 = ("the model zoo's part 2b (ROADMAP.md queue 1, module 13 part 2b: "
+          "the remaining 19 families) is not ported yet")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,6 +177,77 @@ class T2tVitModelSpec:
     @property
     def feature_channels(self) -> int:
         return t2t_feature_dim(self.variant)
+
+
+@dataclasses.dataclass(frozen=True)
+class _PooledCnnSpec:
+    """A CNN classifier of part 2a: its feature map, global-average pooled
+    into the family's head."""
+    name: str
+    variant: str
+    num_classes: int = 1000
+    img_size: int = 224            # default cfg only; any size runs
+
+    @property
+    def feature_channels(self) -> int:
+        return self._feature_channels(self.variant)
+
+
+@dataclasses.dataclass(frozen=True)
+class EffNetModelSpec(_PooledCnnSpec):
+    """An EfficientNet-builder classifier (key of efficientnet.py's
+    EFFICIENTNETS, GENERIC_EFFNETS or TF_EFFNETS)."""
+    _feature_channels = staticmethod(effnet_feature_channels)
+
+
+@dataclasses.dataclass(frozen=True)
+class Mn3ModelSpec(_PooledCnnSpec):
+    """A MobileNetV3 classifier (key of mobilenetv3.MOBILENETV3S)."""
+    _feature_channels = staticmethod(mn3_feature_channels)
+
+
+@dataclasses.dataclass(frozen=True)
+class MixNetModelSpec(_PooledCnnSpec):
+    """A MixNet classifier (key of mixnet.MIXNETS or TF_MIXNETS)."""
+    _feature_channels = staticmethod(mixnet_feature_channels)
+
+
+@dataclasses.dataclass(frozen=True)
+class RexNetModelSpec(_PooledCnnSpec):
+    """A ReXNetV1 classifier (key of rexnet.REXNETS)."""
+    _feature_channels = staticmethod(rexnet_feature_channels)
+
+
+@dataclasses.dataclass(frozen=True)
+class RegNetModelSpec(_PooledCnnSpec):
+    """A RegNet classifier (key of regnet.REGNETS)."""
+    _feature_channels = staticmethod(regnet_feature_channels)
+
+
+@dataclasses.dataclass(frozen=True)
+class NfNetModelSpec(_PooledCnnSpec):
+    """A Normalizer-Free classifier (key of nfnet.NFNETS)."""
+    _feature_channels = staticmethod(nfnet_feature_channels)
+
+
+@dataclasses.dataclass(frozen=True)
+class ResNetV2ModelSpec(_PooledCnnSpec):
+    """A ResNetV2 / BiT classifier (key of resnetv2.RESNETV2S)."""
+    img_size: int = 480
+    _feature_channels = staticmethod(resnetv2_feature_channels)
+
+
+# spec class -> (module class, JAX tree converter, head name, 1x1-conv
+# head)
+_POOLED = {
+    EffNetModelSpec: (EfficientNet, effnet_from_jax, "classifier", False),
+    Mn3ModelSpec: (MobileNetV3, mn3_from_jax, "classifier", False),
+    MixNetModelSpec: (MixNet, mixnet_from_jax, "classifier", False),
+    RexNetModelSpec: (ReXNet, rexnet_from_jax, "head.fc", False),
+    RegNetModelSpec: (RegNet, regnet_from_jax, "head.fc", False),
+    NfNetModelSpec: (NfNet, nfnet_from_jax, "head.fc", False),
+    ResNetV2ModelSpec: (ResNetV2, resnetv2_from_jax, "head.fc", True),
+}
 
 
 def register_model(fn: Callable):
@@ -317,10 +371,36 @@ def _t2t_spec_fn(name):
     return spec_fn
 
 
+def _pooled_spec_fn(cls, img, **defaults):
+    def make(name):
+        def spec_fn(**kw):
+            kw.setdefault("img_size", img)
+            for k, v in defaults.items():
+                kw.setdefault(k, v)
+            return cls(name=name, variant=name, **kw)
+        return spec_fn
+    return make
+
+
 _register_family(_VITS, _vit_spec_fn)
 _register_family(RESNETS, _cnn_spec_fn)
 _register_family([n for v in T2T_VITS for n in (v, "T2t" + v[3:])],
                  _t2t_spec_fn)
+for _name, _cfg in EFFICIENTNETS.items():
+    _register_family([_name], _pooled_spec_fn(EffNetModelSpec, _cfg[2]))
+_register_family(GENERIC_EFFNETS, _pooled_spec_fn(EffNetModelSpec, 224))
+for _name, (_, _img) in TF_EFFNETS.items():
+    _register_family([_name], _pooled_spec_fn(EffNetModelSpec, _img))
+for _name, _cfg in MOBILENETV3S.items():
+    _register_family([_name], _pooled_spec_fn(Mn3ModelSpec, _cfg[1]))
+_register_family([*MIXNETS, *TF_MIXNETS],
+                 _pooled_spec_fn(MixNetModelSpec, 224))
+_register_family(REXNETS, _pooled_spec_fn(RexNetModelSpec, 224))
+_register_family(REGNETS, _pooled_spec_fn(RegNetModelSpec, 224))
+_register_family(NFNETS, _pooled_spec_fn(NfNetModelSpec, 224))
+for _name, (_, _, _nc) in RESNETV2S.items():
+    _register_family([_name], _pooled_spec_fn(ResNetV2ModelSpec, 480,
+                                              num_classes=_nc))
 
 
 # ---------------------------------------------------------------------------
@@ -370,22 +450,27 @@ class VisionTransformer(nn.Module):
                                            device=device)
 
 
-def _fill_(t: torch.Tensor, generator: torch.Generator, kind: str) -> None:
+def _fill_(t: torch.Tensor, generator: torch.Generator, kind: str,
+           std: float = 0.0) -> None:
     """Fill t from generator (values drawn on the generator's device):
     'trunc_normal' std 0.02 cut at +-2 sigma, 'kaiming' normal with std
-    sqrt(2 / fan_out) (an OIHW kernel), 'uniform' in +-1 / sqrt(k) (a 1-d
-    conv of width k)."""
-    v = torch.empty(t.shape, device=generator.device)
+    sqrt(2 / fan_out) (an OIHW kernel), 'normal' with std `std`,
+    'uniform' in +-1 / sqrt(k) (a 1-d conv of width k)."""
+    v = (t if t.device == generator.device
+         else torch.empty(t.shape, device=generator.device))
     if kind == "trunc_normal":
         nn.init.trunc_normal_(v, std=0.02, a=-0.04, b=0.04,
                               generator=generator)
     elif kind == "kaiming":
         fan_out = t.shape[0] * math.prod(t.shape[2:])
         v.normal_(generator=generator).mul_(math.sqrt(2.0 / fan_out))
+    elif kind == "normal":
+        v.normal_(generator=generator).mul_(std)
     else:
         bound = 1.0 / math.sqrt(t.shape[-1])
         v.uniform_(-bound, bound, generator=generator)
-    t.copy_(v)
+    if v is not t:
+        t.copy_(v)
 
 
 _NORMS = (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm2d)
@@ -394,12 +479,15 @@ _NORMS = (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm2d)
 @torch.no_grad()
 def _init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """The JAX package's init rules (its init_vision_params, init_resnet,
-    init_t2t_vit): unit norms with zero shifts and BatchNorm running
-    statistics (0, 1); zero biases; truncated normal linears, pos-embeds
-    and the ViT's patch projection; kaiming-normal (fan out) convs; ECA
-    kernels uniform; zero ViT cls/dist tokens, truncated normal T2T ones;
-    T2T's sinusoid pos-embed and each performer's orthogonal w times
-    sqrt(m).  Random values come from `generator`, not the JAX streams."""
+    init_t2t_vit and part 2a's init_*): unit norms with zero shifts (zero
+    scales where the JAX package zero-inits a block's last BN) and
+    BatchNorm running statistics (0, 1); zero biases and unit NFNet
+    gains; truncated normal linears, pos-embeds and the ViT's patch
+    projection; kaiming-normal (fan out) convs, a depthwise one's fan out
+    k * k; CondConv experts normal with their std; ECA kernels uniform;
+    zero ViT cls/dist tokens, truncated normal T2T ones; T2T's sinusoid
+    pos-embed and each performer's orthogonal w times sqrt(m).  Random
+    values come from `generator`, not the JAX streams."""
     vit_proj = (model.patch_embed.proj
                 if isinstance(model, VisionTransformer) else None)
     for mod in model.modules():
@@ -409,9 +497,14 @@ def _init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             mod.num_batches_tracked.zero_()
         for name, prm in mod.named_parameters(recurse=False):
             if isinstance(mod, _NORMS):
-                prm.fill_(1.0 if name == "weight" else 0.0)
+                prm.fill_(1.0 if name == "weight" and not getattr(
+                    mod, "zero_init", False) else 0.0)
+            elif name == "gain" and isinstance(mod, ScaledStdConv):
+                prm.fill_(1.0)
             elif name == "bias":
                 prm.zero_()
+            elif hasattr(mod, "init_std"):
+                _fill_(prm, generator, "normal", mod.init_std)
             elif isinstance(mod, TokenPerformer) and name == "w":
                 v = torch.empty(prm.shape, device=generator.device)
                 nn.init.orthogonal_(v, generator=generator)
@@ -423,11 +516,16 @@ def _init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 prm.zero_()
             elif isinstance(mod, nn.Conv1d):
                 _fill_(prm, generator, "uniform")
+            elif (isinstance(mod, nn.Conv2d) and mod.groups > 1
+                  and mod.groups == mod.out_channels):
+                # depthwise: fan_out k * k (the goog init divides by groups)
+                _fill_(prm, generator, "normal",
+                       math.sqrt(2.0 / math.prod(mod.kernel_size)))
             elif isinstance(mod, nn.Conv2d) and mod is not vit_proj:
                 _fill_(prm, generator, "kaiming")
             else:
                 _fill_(prm, generator, "trunc_normal")
-    return model.requires_grad_(False)
+    return model.requires_grad_(False).eval()
 
 
 def _build(make: Callable[[object], nn.Module], device,
@@ -459,6 +557,22 @@ def init_t2t_vit_params(spec: T2tVitModelSpec,
     """depth > 0 cuts the body's blocks (a reduced-depth check)."""
     return _build(lambda d: T2TViT(spec.variant, spec.num_classes, depth, d),
                   device, generator)
+
+
+def init_pooled_cnn_params(spec: _PooledCnnSpec,
+                           generator: Optional[torch.Generator] = None,
+                           device="cuda", n_stages: int = 0) -> nn.Module:
+    """A part-2a CNN with its head of spec.num_classes (none at 0);
+    n_stages > 0 keeps the first n_stages stages (a reduced-depth
+    check)."""
+    cls = _POOLED[type(spec)][0]
+    return _build(lambda d: cls(spec.variant, spec.num_classes, n_stages,
+                                d), device, generator)
+
+
+init_effnet_params = init_mn3_params = init_mixnet_params = \
+    init_rexnet_params = init_regnet_params = init_nfnet_params = \
+    init_resnetv2_params = init_pooled_cnn_params
 
 
 # ---------------------------------------------------------------------------
@@ -556,11 +670,31 @@ def _block_attn_probs(blk: ViTBlock, x: torch.Tensor,
 def cnn_forward(model: ResNet, images: torch.Tensor, spec: CnnModelSpec,
                 head: bool = False, dtype=torch.float32) -> torch.Tensor:
     """head=False: the NHWC feature map; head=True: global average pool +
-    fc logits."""
+    fc logits (dropout before fc in train mode)."""
     x = apply_backbone(model, images.to(dtype))
     if not head:
         return x
-    return dense(model.fc, x.mean(dim=(1, 2)))
+    return dense(model.fc, head_dropout(x.mean(dim=(1, 2)),
+                                        train_opts(model)))
+
+
+def pooled_cnn_forward(model: nn.Module, images: torch.Tensor,
+                       spec: _PooledCnnSpec, head: bool = False,
+                       dtype=torch.float32) -> torch.Tensor:
+    """A part-2a CNN: head=False, the NHWC feature map (timm's
+    forward_features); head=True, its global average pool through the
+    family's head (mobilenetv3: conv_head and act first; dropout in train
+    mode before the effnet, mobilenetv3 and regnet classifiers)."""
+    x = apply_backbone(model, images.to(dtype))
+    if not head:
+        return x
+    if not spec.num_classes:
+        raise ValueError(f"{spec.name}: head=True with num_classes=0")
+    return model.classify(x.mean(dim=(1, 2)))
+
+
+effnet_forward = mn3_forward = mixnet_forward = rexnet_forward = \
+    regnet_forward = nfnet_forward = resnetv2_forward = pooled_cnn_forward
 
 
 def t2t_vit_forward(model: T2TViT, images: torch.Tensor,
@@ -602,6 +736,9 @@ def create_model(name: str, pretrained: bool = False,
     if isinstance(spec, T2tVitModelSpec):
         init, load, fwd = (init_t2t_vit_params, load_t2t_vit_checkpoint,
                            t2t_vit_forward)
+    elif isinstance(spec, _PooledCnnSpec):
+        init, load, fwd = (init_pooled_cnn_params,
+                           load_pooled_cnn_checkpoint, pooled_cnn_forward)
     elif isinstance(spec, CnnModelSpec):
         init, load, fwd = init_cnn_params, load_cnn_checkpoint, cnn_forward
     else:
@@ -682,6 +819,19 @@ def load_cnn_checkpoint(model: ResNet, path: str,
     return load_zoo_state(model, load_torch_state_dict(path))
 
 
+def load_pooled_cnn_checkpoint(model: nn.Module, path: str,
+                               spec: _PooledCnnSpec) -> nn.Module:
+    """A timm torch state dict of a part-2a family (its forward_features'
+    names, and its head's) into `model`, in place."""
+    return load_zoo_state(model, load_torch_state_dict(path))
+
+
+load_effnet_checkpoint = load_mn3_checkpoint = load_mixnet_checkpoint = \
+    load_rexnet_checkpoint = load_regnet_checkpoint = \
+    load_nfnet_checkpoint = load_resnetv2_checkpoint = \
+    load_pooled_cnn_checkpoint
+
+
 def load_t2t_vit_checkpoint(model: T2TViT, path: str,
                             spec: T2tVitModelSpec) -> T2TViT:
     """A T2T-ViT torch state dict into `model`, in place (the head only if
@@ -694,9 +844,10 @@ def load_t2t_vit_checkpoint(model: T2TViT, path: str,
 
 
 def zoo_params_from_jax(params_np, spec) -> Dict[str, torch.Tensor]:
-    """The JAX package's param tree (numpy leaves) of a ViT, hybrid,
-    ResNet or T2T model -> this port's state dict (f32 CPU tensors): linear
-    kernels transposed to (out, in), HWIO kernels to OIHW."""
+    """The JAX package's param tree (numpy leaves) of a zoo model -> this
+    port's state dict (f32 CPU tensors): linear kernels transposed to
+    (out, in), HWIO kernels to OIHW, CondConv experts to their flat torch
+    layout."""
     def t(a):
         return torch.from_numpy(np.array(a, dtype=np.float32))
 
@@ -707,6 +858,14 @@ def zoo_params_from_jax(params_np, spec) -> Dict[str, torch.Tensor]:
     def nrm(q, name):
         return {name + ".weight": t(q["scale"]), name + ".bias": t(q["bias"])}
 
+    if isinstance(spec, _PooledCnnSpec):
+        _, from_jax, head, conv = _POOLED[type(spec)]
+        sd = from_jax(params_np["backbone"])
+        if "head" in params_np:
+            sd.update(lin(params_np["head"], head))
+            if conv:
+                sd[head + ".weight"] = sd[head + ".weight"][:, :, None, None]
+        return sd
     if isinstance(spec, CnnModelSpec):
         sd = resnet_from_jax(params_np["backbone"], spec.variant)
         if "head" in params_np:
