@@ -4993,6 +4993,23 @@ ZOO_CNN2_PARITY = [("tf_efficientnet_b7_ns", 600, 3),
                    ("regnety_160", 224, 2),
                    ("nf_regnet_b1", 224, 2),
                    ("resnetv2_50x3_bitm", 480, 2)]
+# phase 18, part 2b: one model a family at full depth, the registry's
+# image size, B=64 bf16; the train step of resnest50d runs the BNs on the
+# pooled attention vector in train mode
+ZOO_CNN2B = [("legacy_senet154", 224),
+             ("skresnext50_32x4d", 224),
+             ("resnest101e", 224),
+             ("tresnet_l_448", 448),
+             ("cspresnext50", 256),
+             ("dpn92", 224),
+             ("densenet161", 224),
+             ("dla102x2", 224),
+             ("ese_vovnet99b", 224),
+             ("selecsls60b", 224)]
+# name, image size, drop-path, the running statistic that must move
+ZOO_TRAIN_2B = ("resnest50d", 224, 0.0, "layer1.0.conv2.bn1.running_mean")
+# f32 card vs CPU: (name, image size, stages kept)
+ZOO_CNN2B_PARITY = [(name, img, 2) for name, img in ZOO_CNN2B]
 
 
 def _no_hand_kernels(what):
@@ -5012,20 +5029,47 @@ def _conv_flops(fn):
     return float(fc.get_total_flops())
 
 
-def phase_zoo_cnn2(dev, smi, Bn=None):
-    """The zoo's part 2a on the card (create_model, random weights from
-    the seed, bf16, B=64): one model per family (ZOO_CNN2) at full depth
-    and its own image size: no hand-kernel launch a batch (asserted),
-    images/s (the median of ZOO_TIMED batches by CUDA events), peak
-    memory, the idle share and device time by kernel (torch.profiler, a
-    fresh profile a model), the operations a batch (FlopCounterMode) and
-    their bound at the bf16 peak."""
+def _eager_bytes(fn):
+    """The bytes one call of fn moves op by op, as eager PyTorch runs it:
+    every op that is no view reads its inputs of 3 or more dims (maps and
+    conv kernels) and writes its outputs once."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class _Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not func.is_view:
+                self.n += sum(t.numel() * t.element_size()
+                              for t in tree_leaves((args, kwargs))
+                              if isinstance(t, torch.Tensor) and t.dim() >= 3)
+                self.n += sum(t.numel() * t.element_size()
+                              for t in tree_leaves(out)
+                              if isinstance(t, torch.Tensor))
+            return out
+    with _Count() as c:
+        fn()
+    return float(c.n)
+
+
+def phase_zoo_cnn2(dev, smi, Bn=None, models=None, tag="zoo2"):
+    """The zoo's part 2 on the card (create_model, random weights from
+    the seed, bf16, B=64): one model per family (`models`: ZOO_CNN2 for
+    part 2a, ZOO_CNN2B for 2b) at full depth and its own image size: no
+    hand-kernel launch a batch (asserted), images/s (the median of
+    ZOO_TIMED batches by CUDA events), peak memory, the idle share and
+    device time by kernel (torch.profiler, a fresh profile a model), the
+    operations a batch (FlopCounterMode) and their bound at the bf16 peak,
+    the bytes its eager ops move (_eager_bytes) and their time at the
+    card's memory rate."""
     from vitcap_tpu_torch import ops
     from vitcap_tpu_torch.models import registry as TR
     Bn = Bn or ZOO_B
     out = {}
-    for name, img in ZOO_CNN2:
-        tag = f"{name}@{img}"
+    for name, img in models or ZOO_CNN2:
+        what = f"{name}@{img}"
         m = TR.create_model(name, dtype=torch.bfloat16, device=dev,
                             generator=torch.Generator(device=dev)
                             .manual_seed(SEED))
@@ -5039,47 +5083,52 @@ def phase_zoo_cnn2(dev, smi, Bn=None):
             ops.reset_counts()
             logits = batch()
             torch.cuda.synchronize()
-            _no_hand_kernels(f"zoo {tag}")
+            _no_hand_kernels(f"zoo {what}")
             if logits.shape != (Bn, m.spec.num_classes) or not \
                     torch.isfinite(logits).all():
-                raise AssertionError(f"zoo {tag}: logits {logits.shape}, "
+                raise AssertionError(f"zoo {what}: logits {logits.shape}, "
                                      f"or non-finite")
             torch.cuda.reset_peak_memory_stats()
             ms, all_ms = _zoo_batches(batch, ZOO_TIMED)
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
             prof = _profile(f"zoo_{name}_{img}", batch, reps=1)
             flops = _conv_flops(batch)
+            moved = _eager_bytes(batch)
         b_ms, _ = bound(flops, 0.0, "bf16")
-        out[tag] = {"batch_ms": ms, "batch_ms_all": all_ms,
+        gb_ms, _ = bound(0.0, moved, "bf16")
+        out[what] = {"batch_ms": ms, "batch_ms_all": all_ms,
                     "images_per_s": Bn / ms * 1e3, "peak_gib": peak,
                     "idle_share": prof["idle_share"],
                     "device_busy_ms": prof["device_busy_ms"],
                     "top_kernels": prof["kernels"][:6],
                     "tflop": flops / 1e12, "flops_bound_ms": b_ms,
+                    "eager_gb": moved / 1e9, "eager_bytes_ms": gb_ms,
                     "logits_scale": logits.float().abs().max().item()}
-        log(f"[zoo2] {tag}: {Bn / ms * 1e3:.2f} images/s ({ms:.3f} ms a "
+        log(f"[{tag}] {what}: {Bn / ms * 1e3:.2f} images/s ({ms:.3f} ms a "
             f"batch of {Bn}, median of {ZOO_TIMED}), peak {peak:.2f} GiB, "
             f"idle share {prof['idle_share']:.4f} (busy "
             f"{prof['device_busy_ms']:.3f} ms), {flops / 1e12:.3f} TFLOP a "
-            f"batch (bound {b_ms:.3f} ms at the bf16 peak); no hand-kernel "
-            f"launch on {smi}")
+            f"batch (bound {b_ms:.3f} ms at the bf16 peak), eager ops move "
+            f"{moved / 1e9:.1f} GB ({gb_ms:.3f} ms at the memory rate); no "
+            f"hand-kernel launch on {smi}")
         del m, x, logits
         torch.cuda.empty_cache()
     return out
 
 
-def phase_zoo_train(dev, smi, Bn=None):
-    """The zoo's train mode on the card: forward + backward of ZOO_TRAIN
-    (efficientnet_b3 at 300 px, B=64 bf16, drop-path 0.2, BatchNorm on
-    batch statistics, cross-entropy on seeded labels) under
-    zoo_train_mode with a CUDA generator: no hand-kernel launch, finite
-    loss and gradients, the running statistics moved; images/s (median of
-    ZOO_TIMED steps by CUDA events), peak memory, the idle share."""
+def phase_zoo_train(dev, smi, Bn=None, case=None, tag="zoo2-train"):
+    """The zoo's train mode on the card: forward + backward of `case`
+    (ZOO_TRAIN: efficientnet_b3 at 300 px, drop-path 0.2; ZOO_TRAIN_2B:
+    resnest50d at 224; B=64 bf16, BatchNorm on batch statistics,
+    cross-entropy on seeded labels) under zoo_train_mode with a CUDA
+    generator: no hand-kernel launch, finite loss and gradients, the
+    case's running statistic moved; images/s (median of ZOO_TIMED steps
+    by CUDA events), peak memory, the idle share."""
     from vitcap_tpu_torch import ops
     from vitcap_tpu_torch.models import backbones as TB
     from vitcap_tpu_torch.models import registry as TR
     Bn = Bn or ZOO_B
-    name, img, dpr = ZOO_TRAIN
+    name, img, dpr, watch = case or ZOO_TRAIN + ("bn2.running_mean",)
     m = TR.create_model(name, dtype=torch.bfloat16, device=dev,
                         generator=torch.Generator(device=dev)
                         .manual_seed(SEED))
@@ -5088,7 +5137,7 @@ def phase_zoo_train(dev, smi, Bn=None):
     labels = torch.from_numpy(np.random.RandomState(SEED + 50).randint(
         0, m.spec.num_classes, Bn)).to(dev)
     gen = torch.Generator(device=dev).manual_seed(SEED + 51)
-    before = model.bn2.running_mean.clone()
+    before = model.get_buffer(watch).clone()
 
     def step():
         model.zero_grad(set_to_none=True)
@@ -5105,7 +5154,7 @@ def phase_zoo_train(dev, smi, Bn=None):
     if not torch.isfinite(loss) or any(
             g is None or not torch.isfinite(g).all() for g in grads):
         raise AssertionError(f"zoo train {name}: non-finite loss or grads")
-    if torch.equal(before, model.bn2.running_mean) or model.training:
+    if torch.equal(before, model.get_buffer(watch)) or model.training:
         raise AssertionError(f"zoo train {name}: running statistics did not "
                              f"move, or the model stayed in train mode")
     torch.cuda.reset_peak_memory_stats()
@@ -5117,7 +5166,7 @@ def phase_zoo_train(dev, smi, Bn=None):
            "idle_share": prof["idle_share"],
            "device_busy_ms": prof["device_busy_ms"],
            "top_kernels": prof["kernels"][:6], "loss": loss.item()}
-    log(f"[zoo2-train] {name}@{img}: {Bn / ms * 1e3:.2f} images/s ({ms:.3f} "
+    log(f"[{tag}] {name}@{img}: {Bn / ms * 1e3:.2f} images/s ({ms:.3f} "
         f"ms a forward + backward of {Bn}, drop-path {dpr}, median of "
         f"{ZOO_TIMED}), peak {peak:.2f} GiB, idle share "
         f"{prof['idle_share']:.4f}; no hand-kernel launch on {smi}")
@@ -5158,18 +5207,13 @@ def _within_scale(what, got, want, rel=1e-4, scale=None):
     return err, scale
 
 
-def phase_zoo_cnn2_parity(dev, devices=None):
-    """f32, the card (cuDNN, TF32 off) against the CPU, the same weights
-    (norms perturbed from a seed) and images, B=2: each family of part 2a
-    at a reduced depth (ZOO_CNN2_PARITY), the feature map and the logits
-    within 1e-4 of their scale; then efficientnet_b0's first two stages
-    in train mode (batch statistics): the logits and every updated running
-    statistic within 1e-4 of its scale, every parameter's gradient (of
-    sum(logits * r)) within 1e-4 of the largest."""
+def _zoo_cnn_parity(cases, devices, tag):
+    """f32 feature maps and logits of each (name, image size, stages kept)
+    in `cases` on devices[0] against devices[1], the same weights (norms
+    perturbed from a seed) and images, B=2, within 1e-4 of their scale."""
     from vitcap_tpu_torch.models import registry as TR
-    devices = devices or (dev, torch.device("cpu"))
     res = {}
-    for name, img, ns in ZOO_CNN2_PARITY:
+    for name, img, ns in cases:
         spec = TR.model_spec(name)
         model = _perturb_norms(TR.init_pooled_cnn_params(
             spec, torch.Generator().manual_seed(SEED + 52), "cpu", ns),
@@ -5183,15 +5227,29 @@ def phase_zoo_cnn2_parity(dev, devices=None):
                                                    head=h).float().cpu()
                              for h in (False, True)])
             del md
-        (ef, sf), (el, sl) = [_within_scale(f"zoo2 parity {name} {w}", a, b)
+        (ef, sf), (el, sl) = [_within_scale(f"{tag} {name} {w}", a, b)
                               for w, a, b in zip(("features", "logits"),
                                                  outs[0], outs[1])]
         res[name] = {"stages": ns, "img": img, "features_err": ef,
                      "features_scale": sf, "logits_err": el,
                      "logits_scale": sl}
-        log(f"[zoo2-parity] {name} ({ns} stages, {img} px) f32 card vs CPU: "
+        log(f"[{tag}] {name} ({ns} stages, {img} px) f32 card vs CPU: "
             f"features err {ef:.3e} (scale {sf:.3f}), logits err {el:.3e} "
             f"(scale {sl:.3f})")
+    return res
+
+
+def phase_zoo_cnn2_parity(dev, devices=None):
+    """f32, the card (cuDNN, TF32 off) against the CPU, the same weights
+    (norms perturbed from a seed) and images, B=2: each family of part 2a
+    at a reduced depth (ZOO_CNN2_PARITY), the feature map and the logits
+    within 1e-4 of their scale; then efficientnet_b0's first two stages
+    in train mode (batch statistics): the logits and every updated running
+    statistic within 1e-4 of its scale, every parameter's gradient (of
+    sum(logits * r)) within 1e-4 of the largest."""
+    from vitcap_tpu_torch.models import registry as TR
+    devices = devices or (dev, torch.device("cpu"))
+    res = _zoo_cnn_parity(ZOO_CNN2_PARITY, devices, "zoo2-parity")
     spec = TR.model_spec("efficientnet_b0")
     model = _perturb_norms(TR.init_pooled_cnn_params(
         spec, torch.Generator().manual_seed(SEED + 55), "cpu", 2), SEED + 56)
@@ -5312,6 +5370,13 @@ def main() -> int:
     zoo["train"] = phase_zoo_train(dev, smi)
     zoo["cnn2_parity"] = phase_zoo_cnn2_parity(dev)
     log(f"[zoo2] phases took {time.perf_counter() - t_zoo2:.1f} s")
+    t_zoo2b = time.perf_counter()
+    zoo["cnn2b"] = phase_zoo_cnn2(dev, smi, models=ZOO_CNN2B, tag="zoo2b")
+    zoo["train2b"] = phase_zoo_train(dev, smi, case=ZOO_TRAIN_2B,
+                                     tag="zoo2b-train")
+    zoo["cnn2b_parity"] = _zoo_cnn_parity(
+        ZOO_CNN2B_PARITY, (dev, torch.device("cpu")), "zoo2b-parity")
+    log(f"[zoo2b] phases took {time.perf_counter() - t_zoo2b:.1f} s")
 
     for name, n in counts.items():
         if n == 0 and name != "attention_bwd":

@@ -399,7 +399,7 @@ def test_vit_trunk_table_matches_jax_registry():
     """vit_trunk resolves every ViT of the JAX registry to its spec's
     (patch, width, depth) through the port's model zoo; another name
     falls back to patch 32 or 16 as the JAX pipeline does; a zoo name of
-    part 2b raises NotImplementedError, a CNN (part 1's or 2a's)
+    part 2c raises NotImplementedError, a CNN (part 1's or 2's)
     ValueError."""
     from vitcap_tpu.models import registry as R
     vits = [n for n in R.list_models()
@@ -412,8 +412,8 @@ def test_vit_trunk_table_matches_jax_registry():
     assert TC.vit_trunk("VitEmb_my_patch32_trunk") == (32, None, None)
     assert TC.vit_trunk("VitEmb_my_trunk") == (16, None, None)
     with pytest.raises(NotImplementedError, match="module 13 part 2"):
-        TC.vit_trunk("VitEmb_densenet121")
-    for cnn in ("resnet50", "efficientnet_b0"):
+        TC.vit_trunk("VitEmb_hrnet_w18")
+    for cnn in ("resnet50", "efficientnet_b0", "densenet121"):
         with pytest.raises(ValueError, match="no ViT"):
             TC.vit_trunk(f"VitEmb_{cnn}")
 

@@ -62,7 +62,7 @@ def _same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
 
 
 def _conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1, pad=0,
-          groups: int = 1) -> torch.Tensor:
+          groups: int = 1, dilation: int = 1) -> torch.Tensor:
     """x NCHW, w OIHW (I = C_in / groups).  pad: an int (torch's symmetric
     zero padding) or 'same' (TF-'SAME')."""
     w = w.to(x.dtype)
@@ -72,7 +72,7 @@ def _conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1, pad=0,
         if t or b or l or r:
             x = F.pad(x, (l, r, t, b))
         pad = 0
-    return F.conv2d(x, w, None, stride, pad, 1, groups)
+    return F.conv2d(x, w, None, stride, pad, dilation, groups)
 
 
 def _std_conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
@@ -198,9 +198,43 @@ def _blur_pool(x: torch.Tensor, stride: int = 2) -> torch.Tensor:
                     w.expand(c, 1, 3, 3).contiguous(), None, stride, 0, 1, c)
 
 
-def _bn(c: int, device, eps: float = _EPS, momentum: float = 0.1
-        ) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=eps, momentum=momentum, device=device)
+def _maxpool_ceil(x: torch.Tensor) -> torch.Tensor:
+    """MaxPool2d(3, 2, ceil_mode=True): the last window may hang past the
+    bottom and right edges (vovnet, legacy senet)."""
+    return F.max_pool2d(x, 3, 2, ceil_mode=True)
+
+
+def _avg_pool2(x: torch.Tensor) -> torch.Tensor:
+    """AvgPool2d(2, 2), the avg-pool downsample."""
+    return F.avg_pool2d(x, 2, 2)
+
+
+def _bn(c: int, device, eps: float = _EPS, momentum: float = 0.1,
+        zero_init: bool = False) -> nn.BatchNorm2d:
+    """zero_init: the JAX package starts this BN's scale at zero (a
+    residual branch's last norm)."""
+    bn = nn.BatchNorm2d(c, eps=eps, momentum=momentum, device=device)
+    bn.zero_init = zero_init
+    return bn
+
+
+def _cb(cin: int, cout: int, k: int, device, groups: int = 1,
+        names=("conv", "bn"), **bn_kw) -> "_Group":
+    """A conv (no bias) and its BN under two names: {conv, bn} or a
+    Sequential's {0, 1}."""
+    return _Group(**{names[0]: _cv(cin, cout, k, device, groups),
+                     names[1]: _bn(cout, device, **bn_kw)})
+
+
+class PooledHead:
+    """classify(pooled): the module at self.head_name, a Linear or a 1x1
+    Conv2d (dpn, dla), on the globally pooled features, in their dtype."""
+    head_name = "fc"
+
+    def classify(self, pooled: torch.Tensor) -> torch.Tensor:
+        fc = self.get_submodule(self.head_name)
+        return F.linear(pooled, fc.weight.flatten(1).to(pooled.dtype),
+                        fc.bias.to(pooled.dtype))
 
 
 def _cv(cin: int, cout: int, k: int, device, groups: int = 1,
@@ -722,6 +756,12 @@ def _oihw(w) -> torch.Tensor:
 
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _cb_sd(w, bn, conv_key: str, bn_prefix: str
+           ) -> Dict[str, torch.Tensor]:
+    """An HWIO kernel and its BN dict -> {conv_key: OIHW, bn_prefix*}."""
+    return {conv_key: _oihw(w), **_norm_sd(bn, bn_prefix)}
 
 
 def _norm_sd(p, prefix: str) -> Dict[str, torch.Tensor]:

@@ -24,11 +24,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .backbones import _batch_norm, _bn, _conv, _cv, _norm_sd, _oihw
+from .backbones import (PooledHead, _batch_norm, _bn, _conv, _cv, _norm_sd,
+                        _oihw)
 from .efficientnet import (BN_EPS_TF, _dw, _pad, _se, _se_module,
                            blocks_from_jax, make_divisible, round_channels,
                            scale_stage_repeats)
-from .layers import _Group, dense
+from .layers import _Group
 
 
 def _split_channels(c: int, n: int) -> List[int]:
@@ -146,10 +147,11 @@ def _mixed_apply(x: torch.Tensor, m, stride: int = 1, same: bool = False,
                       for c, cv in zip(chunks, convs)], dim=1)
 
 
-class MixNet(nn.Module):
+class MixNet(PooledHead, nn.Module):
     """(B, 3, H, W) -> (B, 1536, H / 32, W / 32); `classifier` with
     num_classes > 0.  n_stages > 0 keeps the first n_stages stages (a
     reduced-depth check)."""
+    head_name = "classifier"
 
     def __init__(self, variant: str, num_classes: int = 0,
                  n_stages: int = 0, device=None):
@@ -218,9 +220,6 @@ class MixNet(nn.Module):
                     y = bn(_mixed_apply(y, m.conv_pwl), m.bn3)
                 x = y + x if s == 1 and blk["in"] == blk["out"] else y
         return F.relu(bn(_conv(x, self.conv_head.weight), self.bn2))
-
-    def classify(self, pooled: torch.Tensor) -> torch.Tensor:
-        return dense(self.classifier, pooled)
 
 
 def mixnet_from_jax(p) -> dict:

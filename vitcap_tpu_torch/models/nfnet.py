@@ -28,9 +28,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .backbones import _eca_apply, _oihw, _se_apply, _t, eca_kernel_size
+from .backbones import (PooledHead, _eca_apply, _oihw, _se_apply, _t,
+                        eca_kernel_size)
 from .efficientnet import make_divisible
-from .layers import _Group, dense
+from .layers import _Group
 
 _GAMMA = {"silu": 1.0 / 0.5595,
           "relu": (0.5 * (1.0 - 1.0 / math.pi)) ** -0.5}
@@ -160,11 +161,12 @@ def _avg2_excl_ceil(x: torch.Tensor) -> torch.Tensor:
     return F.avg_pool2d(x, 2, 2, ceil_mode=True, count_include_pad=False)
 
 
-class NfNet(nn.Module):
+class NfNet(PooledHead, nn.Module):
     """(B, 3, H, W) -> the post-final-act map; `head.fc` with
     num_classes > 0.  n_stages > 0 keeps the first n_stages stages (a
     reduced-depth check; the regnets' final conv then reads their last
     width)."""
+    head_name = "head.fc"
 
     def __init__(self, variant: str, num_classes: int = 0,
                  n_stages: int = 0, device=None):
@@ -231,9 +233,6 @@ class NfNet(nn.Module):
         if hasattr(self, "final_conv"):
             x = _std_conv(x, self.final_conv, 1, gamma)
         return act(x)
-
-    def classify(self, pooled: torch.Tensor) -> torch.Tensor:
-        return dense(self.head.fc, pooled)
 
 
 def _sc_sd(p, prefix: str) -> dict:

@@ -1,19 +1,21 @@
 """The model zoo's factory: the port of vitcap_tpu/models/registry.py for
 its ViT family (ViT, DeiT, distilled DeiT, the in21k checkpoints and the
 CNN-stem hybrids), the ResNet family (models/backbones.py), T2T-ViT
-(models/t2t_vit.py) and the CNN families of part 2a: the EfficientNet
-builder's nets (models/efficientnet.py: efficientnet, tf_efficientnet,
-lite, CondConv, EdgeTPU, pruned, mnasnet, mobilenetv2, fbnetc, spnasnet),
-MobileNetV3, MixNet, ReXNet, RegNet, NFNet and BiT ResNetV2: 319 of the
-JAX package's 422 registered names.
+(models/t2t_vit.py), the CNN families of part 2a (the EfficientNet
+builder's nets in models/efficientnet.py: efficientnet, tf_efficientnet,
+lite, CondConv, EdgeTPU, pruned, mnasnet, mobilenetv2, fbnetc, spnasnet;
+MobileNetV3, MixNet, ReXNet, RegNet, NFNet and BiT ResNetV2) and those of
+part 2b (legacy SENet, SKNet, ResNeSt, TResNet, SelecSLS, CSPNet, DPN,
+DenseNet, DLA and VoVNet): 399 of the JAX package's 422 registered names.
 
     spec = model_spec("vit_large_patch16_384")
     m = create_model("vit_large_patch16_384", dtype=torch.bfloat16)
     tokens = m.apply(m.params, images)            # NHWC in, (B, 1+N, H)
     logits = m.apply(m.params, images, head=True)
 
-The JAX package's other 19 families (103 names: densenet, dla, vovnet,
-...) are ROADMAP.md module 13 part 2b: a name of theirs raises
+The JAX package's other 9 families (23 names: hrnet, inception,
+xception, nasnet, pnasnet) are ROADMAP.md module 13 part 2c: a name of
+theirs raises
 NotImplementedError from model_spec and create_model; a name no registry
 knows raises ValueError, as there.
 
@@ -32,13 +34,14 @@ Pallas kernel.  The CNNs' forwards give the NHWC feature map, or with
 head=True the logits of its global average pool.
 
 Train mode: model.train() (BatchNorm on batch statistics, the running
-statistics updated) and models/backbones.py zoo_train_mode (stochastic
-depth, head dropout, masks from a caller's generator), as the JAX
-package's zoo_train_mode; its own tests hold resnet, efficientnet,
-mobilenetv3, regnet and the BN hybrid stems to it.
+statistics updated, those on a pooled vector in SKNet and ResNeSt too)
+and models/backbones.py zoo_train_mode (stochastic depth, head dropout,
+masks from a caller's generator), as the JAX package's zoo_train_mode;
+its own tests hold resnet, efficientnet, mobilenetv3, regnet, the BN
+hybrid stems, resnest, sknet, dpn, tresnet and vovnet's EvoNorm to it.
 
 Checkpoints: load_timm_checkpoint / load_cnn_checkpoint /
-load_t2t_vit_checkpoint and the part-2a families' load_*_checkpoint read
+load_t2t_vit_checkpoint and part 2's families' load_*_checkpoint read
 a timm-layout torch state dict through solver/checkpoint_bridge.py
 load_torch_state_dict (the ViT loader strips a 'module.' prefix, resizes
 a pos-embed of another grid bicubically and keeps a zero qkv bias where
@@ -68,6 +71,11 @@ from ..solver.checkpoint_bridge import load_torch_state_dict
 from .backbones import (HYBRIDS, RESNETS, ResNet, apply_backbone,
                         head_dropout, resnet_feature_channels,
                         resnet_from_jax, resnetv2_r50_from_jax, train_opts)
+from .cspnet import CSPNETS, CspNet, cspnet_feature_channels, cspnet_from_jax
+from .densenet import (DENSENETS, DenseNet, densenet_feature_channels,
+                       densenet_from_jax)
+from .dla import DLAS, Dla, dla_feature_channels, dla_from_jax
+from .dpn import DPNS, Dpn, dpn_feature_channels, dpn_from_jax
 from .efficientnet import (EFFICIENTNETS, GENERIC_EFFNETS, TF_EFFNETS,
                            EfficientNet, effnet_feature_channels,
                            effnet_from_jax)
@@ -78,9 +86,19 @@ from .mobilenetv3 import (MOBILENETV3S, MobileNetV3, mn3_feature_channels,
 from .nfnet import NFNETS, NfNet, ScaledStdConv, nfnet_feature_channels, \
     nfnet_from_jax
 from .regnet import REGNETS, RegNet, regnet_feature_channels, regnet_from_jax
+from .resnest import (RESNESTS, ResNest, resnest_feature_channels,
+                      resnest_from_jax)
 from .resnetv2 import (RESNETV2S, ResNetV2, resnetv2_feature_channels,
                        resnetv2_from_jax)
 from .rexnet import REXNETS, ReXNet, rexnet_feature_channels, rexnet_from_jax
+from .selecsls import (SELECSLS, SelecSls, selecsls_feature_channels,
+                       selecsls_from_jax)
+from .senet import SENETS, SeNet, senet_feature_channels, senet_from_jax
+from .sknet import SKNETS, SkNet, sknet_feature_channels, sknet_from_jax
+from .tresnet import (TRESNETS, TResNet, tresnet_feature_channels,
+                      tresnet_from_jax)
+from .vovnet import (VOVNETS, EvoNormS0, VovNet, vovnet_feature_channels,
+                     vovnet_from_jax)
 from .layers import (ViTBlock, _Group, _pos_embed_for, dense,
                      interpolate_pos_embed, layer_norm, patch_embed,
                      vit_block)
@@ -89,32 +107,17 @@ from .t2t_vit import (T2T_VITS, T2TViT, TokenPerformer, sinusoid_pos_embed,
 
 _REGISTRY: Dict[str, Callable] = {}
 
-# the JAX package's registered names of the families of part 2b
+# the JAX package's registered names of the families of part 2c
 PART2_NAMES = frozenset("""
-adv_inception_v3 cspdarknet53 cspdarknet53_iabn cspresnet50 cspresnet50d
-cspresnet50w cspresnext50 cspresnext50_iabn darknet53 densenet121
-densenet121d densenet161 densenet169 densenet201 densenet264
-densenet264d_iabn densenetblur121d dla102 dla102x dla102x2 dla169 dla34
-dla46_c dla46x_c dla60 dla60_res2net dla60_res2next dla60x dla60x_c dpn107
-dpn131 dpn68 dpn68b dpn92 dpn98 eca_vovnet39b ens_adv_inception_resnet_v2
-ese_vovnet19b ese_vovnet19b_dw ese_vovnet19b_slim ese_vovnet19b_slim_dw
-ese_vovnet39b ese_vovnet39b_evos ese_vovnet57b ese_vovnet99b
-ese_vovnet99b_iabn gluon_inception_v3 gluon_xception65 hrnet_w18
-hrnet_w18_small hrnet_w18_small_v2 hrnet_w30 hrnet_w32 hrnet_w40 hrnet_w44
-hrnet_w48 hrnet_w64 inception_resnet_v2 inception_v3 inception_v4
-legacy_senet154 legacy_seresnet101 legacy_seresnet152 legacy_seresnet18
-legacy_seresnet34 legacy_seresnet50 legacy_seresnext101_32x4d
-legacy_seresnext26_32x4d legacy_seresnext50_32x4d nasnetalarge pnasnet5large
-resnest101e resnest14d resnest200e resnest269e resnest26d resnest50d
-resnest50d_1s4x24d resnest50d_4s2x40d selecsls42 selecsls42b selecsls60
-selecsls60b selecsls84 skresnet18 skresnet34 skresnet50 skresnet50d
-skresnext50_32x4d tf_inception_v3 tresnet_l tresnet_l_448 tresnet_m
-tresnet_m_448 tresnet_xl tresnet_xl_448 tv_densenet121 vovnet39a vovnet57a
+adv_inception_v3 ens_adv_inception_resnet_v2 gluon_inception_v3
+gluon_xception65 hrnet_w18 hrnet_w18_small hrnet_w18_small_v2 hrnet_w30
+hrnet_w32 hrnet_w40 hrnet_w44 hrnet_w48 hrnet_w64 inception_resnet_v2
+inception_v3 inception_v4 nasnetalarge pnasnet5large tf_inception_v3
 xception xception41 xception65 xception71
 """.split())
 
-_PART2 = ("the model zoo's part 2b (ROADMAP.md queue 1, module 13 part 2b: "
-          "the remaining 19 families) is not ported yet")
+_PART2 = ("the model zoo's part 2c (ROADMAP.md queue 1, module 13 part 2c: "
+          "the remaining 9 families) is not ported yet")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,7 +184,7 @@ class T2tVitModelSpec:
 
 @dataclasses.dataclass(frozen=True)
 class _PooledCnnSpec:
-    """A CNN classifier of part 2a: its feature map, global-average pooled
+    """A CNN classifier of part 2: its feature map, global-average pooled
     into the family's head."""
     name: str
     variant: str
@@ -237,6 +240,68 @@ class ResNetV2ModelSpec(_PooledCnnSpec):
     _feature_channels = staticmethod(resnetv2_feature_channels)
 
 
+@dataclasses.dataclass(frozen=True)
+class SelecSlsModelSpec(_PooledCnnSpec):
+    """A SelecSLS classifier (key of selecsls.SELECSLS)."""
+    _feature_channels = staticmethod(selecsls_feature_channels)
+
+
+@dataclasses.dataclass(frozen=True)
+class SeNetModelSpec(_PooledCnnSpec):
+    """A legacy SENet classifier (key of senet.SENETS)."""
+    _feature_channels = staticmethod(senet_feature_channels)
+
+
+@dataclasses.dataclass(frozen=True)
+class SkNetModelSpec(_PooledCnnSpec):
+    """A Selective-Kernel ResNet classifier (key of sknet.SKNETS)."""
+    _feature_channels = staticmethod(sknet_feature_channels)
+
+
+@dataclasses.dataclass(frozen=True)
+class ResNestModelSpec(_PooledCnnSpec):
+    """A ResNeSt classifier (key of resnest.RESNESTS)."""
+    _feature_channels = staticmethod(resnest_feature_channels)
+
+
+@dataclasses.dataclass(frozen=True)
+class TResNetModelSpec(_PooledCnnSpec):
+    """A TResNet classifier (key of tresnet.TRESNETS; the _448 names
+    default to 448 px)."""
+    _feature_channels = staticmethod(tresnet_feature_channels)
+
+
+@dataclasses.dataclass(frozen=True)
+class CspNetModelSpec(_PooledCnnSpec):
+    """A CSPNet / DarkNet classifier (key of cspnet.CSPNETS)."""
+    img_size: int = 256
+    _feature_channels = staticmethod(cspnet_feature_channels)
+
+
+@dataclasses.dataclass(frozen=True)
+class DpnModelSpec(_PooledCnnSpec):
+    """A Dual-Path-Network classifier (key of dpn.DPNS)."""
+    _feature_channels = staticmethod(dpn_feature_channels)
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseNetModelSpec(_PooledCnnSpec):
+    """A DenseNet classifier (key of densenet.DENSENETS)."""
+    _feature_channels = staticmethod(densenet_feature_channels)
+
+
+@dataclasses.dataclass(frozen=True)
+class DlaModelSpec(_PooledCnnSpec):
+    """A Deep-Layer-Aggregation classifier (key of dla.DLAS)."""
+    _feature_channels = staticmethod(dla_feature_channels)
+
+
+@dataclasses.dataclass(frozen=True)
+class VovNetModelSpec(_PooledCnnSpec):
+    """A VoVNet classifier (key of vovnet.VOVNETS)."""
+    _feature_channels = staticmethod(vovnet_feature_channels)
+
+
 # spec class -> (module class, JAX tree converter, head name, 1x1-conv
 # head)
 _POOLED = {
@@ -247,6 +312,16 @@ _POOLED = {
     RegNetModelSpec: (RegNet, regnet_from_jax, "head.fc", False),
     NfNetModelSpec: (NfNet, nfnet_from_jax, "head.fc", False),
     ResNetV2ModelSpec: (ResNetV2, resnetv2_from_jax, "head.fc", True),
+    SelecSlsModelSpec: (SelecSls, selecsls_from_jax, "fc", False),
+    SeNetModelSpec: (SeNet, senet_from_jax, "last_linear", False),
+    SkNetModelSpec: (SkNet, sknet_from_jax, "fc", False),
+    ResNestModelSpec: (ResNest, resnest_from_jax, "fc", False),
+    TResNetModelSpec: (TResNet, tresnet_from_jax, "head.fc", False),
+    CspNetModelSpec: (CspNet, cspnet_from_jax, "head.fc", False),
+    DpnModelSpec: (Dpn, dpn_from_jax, "classifier", True),
+    DenseNetModelSpec: (DenseNet, densenet_from_jax, "classifier", False),
+    DlaModelSpec: (Dla, dla_from_jax, "fc", True),
+    VovNetModelSpec: (VovNet, vovnet_from_jax, "head.fc", False),
 }
 
 
@@ -401,6 +476,15 @@ _register_family(NFNETS, _pooled_spec_fn(NfNetModelSpec, 224))
 for _name, (_, _, _nc) in RESNETV2S.items():
     _register_family([_name], _pooled_spec_fn(ResNetV2ModelSpec, 480,
                                               num_classes=_nc))
+for _names, _cls in ((SELECSLS, SelecSlsModelSpec), (SENETS, SeNetModelSpec),
+                     (SKNETS, SkNetModelSpec), (RESNESTS, ResNestModelSpec),
+                     (DPNS, DpnModelSpec), (DENSENETS, DenseNetModelSpec),
+                     (DLAS, DlaModelSpec), (VOVNETS, VovNetModelSpec)):
+    _register_family(_names, _pooled_spec_fn(_cls, 224))
+_register_family(CSPNETS, _pooled_spec_fn(CspNetModelSpec, 256))
+for _name in TRESNETS:
+    _register_family([_name], _pooled_spec_fn(
+        TResNetModelSpec, 448 if _name.endswith("_448") else 224))
 
 
 # ---------------------------------------------------------------------------
@@ -473,20 +557,21 @@ def _fill_(t: torch.Tensor, generator: torch.Generator, kind: str,
         t.copy_(v)
 
 
-_NORMS = (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm2d)
+_NORMS = (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm2d, EvoNormS0)
 
 
 @torch.no_grad()
 def _init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """The JAX package's init rules (its init_vision_params, init_resnet,
-    init_t2t_vit and part 2a's init_*): unit norms with zero shifts (zero
+    init_t2t_vit and part 2's init_*): unit norms with zero shifts (zero
     scales where the JAX package zero-inits a block's last BN) and
     BatchNorm running statistics (0, 1); zero biases and unit NFNet
     gains; truncated normal linears, pos-embeds and the ViT's patch
     projection; kaiming-normal (fan out) convs, a depthwise one's fan out
     k * k; CondConv experts normal with their std; ECA kernels uniform;
     zero ViT cls/dist tokens, truncated normal T2T ones; T2T's sinusoid
-    pos-embed and each performer's orthogonal w times sqrt(m).  Random
+    pos-embed and each performer's orthogonal w times sqrt(m); EvoNorm's
+    v at one.  Random
     values come from `generator`, not the JAX streams."""
     vit_proj = (model.patch_embed.proj
                 if isinstance(model, VisionTransformer) else None)
@@ -497,7 +582,7 @@ def _init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             mod.num_batches_tracked.zero_()
         for name, prm in mod.named_parameters(recurse=False):
             if isinstance(mod, _NORMS):
-                prm.fill_(1.0 if name == "weight" and not getattr(
+                prm.fill_(1.0 if name in ("weight", "v") and not getattr(
                     mod, "zero_init", False) else 0.0)
             elif name == "gain" and isinstance(mod, ScaledStdConv):
                 prm.fill_(1.0)
@@ -562,7 +647,7 @@ def init_t2t_vit_params(spec: T2tVitModelSpec,
 def init_pooled_cnn_params(spec: _PooledCnnSpec,
                            generator: Optional[torch.Generator] = None,
                            device="cuda", n_stages: int = 0) -> nn.Module:
-    """A part-2a CNN with its head of spec.num_classes (none at 0);
+    """A part-2 CNN with its head of spec.num_classes (none at 0);
     n_stages > 0 keeps the first n_stages stages (a reduced-depth
     check)."""
     cls = _POOLED[type(spec)][0]
@@ -572,7 +657,10 @@ def init_pooled_cnn_params(spec: _PooledCnnSpec,
 
 init_effnet_params = init_mn3_params = init_mixnet_params = \
     init_rexnet_params = init_regnet_params = init_nfnet_params = \
-    init_resnetv2_params = init_pooled_cnn_params
+    init_resnetv2_params = init_selecsls_params = init_senet_params = \
+    init_sknet_params = init_resnest_params = init_tresnet_params = \
+    init_cspnet_params = init_dpn_params = init_densenet_params = \
+    init_dla_params = init_vovnet_params = init_pooled_cnn_params
 
 
 # ---------------------------------------------------------------------------
@@ -681,7 +769,7 @@ def cnn_forward(model: ResNet, images: torch.Tensor, spec: CnnModelSpec,
 def pooled_cnn_forward(model: nn.Module, images: torch.Tensor,
                        spec: _PooledCnnSpec, head: bool = False,
                        dtype=torch.float32) -> torch.Tensor:
-    """A part-2a CNN: head=False, the NHWC feature map (timm's
+    """A part-2 CNN: head=False, the NHWC feature map (timm's
     forward_features); head=True, its global average pool through the
     family's head (mobilenetv3: conv_head and act first; dropout in train
     mode before the effnet, mobilenetv3 and regnet classifiers)."""
@@ -694,7 +782,10 @@ def pooled_cnn_forward(model: nn.Module, images: torch.Tensor,
 
 
 effnet_forward = mn3_forward = mixnet_forward = rexnet_forward = \
-    regnet_forward = nfnet_forward = resnetv2_forward = pooled_cnn_forward
+    regnet_forward = nfnet_forward = resnetv2_forward = selecsls_forward = \
+    senet_forward = sknet_forward = resnest_forward = tresnet_forward = \
+    cspnet_forward = dpn_forward = densenet_forward = dla_forward = \
+    vovnet_forward = pooled_cnn_forward
 
 
 def t2t_vit_forward(model: T2TViT, images: torch.Tensor,
@@ -821,7 +912,7 @@ def load_cnn_checkpoint(model: ResNet, path: str,
 
 def load_pooled_cnn_checkpoint(model: nn.Module, path: str,
                                spec: _PooledCnnSpec) -> nn.Module:
-    """A timm torch state dict of a part-2a family (its forward_features'
+    """A timm torch state dict of a part-2 family (its forward_features'
     names, and its head's) into `model`, in place."""
     return load_zoo_state(model, load_torch_state_dict(path))
 
@@ -829,7 +920,11 @@ def load_pooled_cnn_checkpoint(model: nn.Module, path: str,
 load_effnet_checkpoint = load_mn3_checkpoint = load_mixnet_checkpoint = \
     load_rexnet_checkpoint = load_regnet_checkpoint = \
     load_nfnet_checkpoint = load_resnetv2_checkpoint = \
-    load_pooled_cnn_checkpoint
+    load_selecsls_checkpoint = load_senet_checkpoint = \
+    load_sknet_checkpoint = load_resnest_checkpoint = \
+    load_tresnet_checkpoint = load_cspnet_checkpoint = \
+    load_dpn_checkpoint = load_densenet_checkpoint = load_dla_checkpoint = \
+    load_vovnet_checkpoint = load_pooled_cnn_checkpoint
 
 
 def load_t2t_vit_checkpoint(model: T2TViT, path: str,

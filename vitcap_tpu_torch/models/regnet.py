@@ -23,7 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .backbones import (_batch_norm, _bn, _conv, _cv, _norm_sd, _oihw,
+from .backbones import (_batch_norm, _cb, _conv, _cv, _norm_sd, _oihw,
                         _se_apply, head_dropout, train_opts)
 from .efficientnet import _se_sd
 from .layers import _Group, dense
@@ -98,13 +98,6 @@ def regnet_feature_channels(variant: str) -> int:
     return regnet_plan(variant)[-1][-1]["out"]
 
 
-def _cba(cin: int, cout: int, k: int, device, groups: int = 1,
-         zero_init: bool = False) -> _Group:
-    bn = _bn(cout, device)
-    bn.zero_init = zero_init
-    return _Group(conv=_cv(cin, cout, k, device, groups), bn=bn)
-
-
 class RegNet(nn.Module):
     """(B, 3, H, W) -> (B, C_last, H / 32, W / 32); `head.fc` with
     num_classes > 0.  n_stages > 0 keeps the first n_stages stages (a
@@ -114,20 +107,20 @@ class RegNet(nn.Module):
                  n_stages: int = 0, device=None):
         super().__init__()
         self.plan = regnet_plan(variant)[:n_stages or None]
-        self.stem = _cba(3, STEM_WIDTH, 3, device)
+        self.stem = _cb(3, STEM_WIDTH, 3, device)
         for si, blocks in enumerate(self.plan):
             stage = _Group()
             for bi, b in enumerate(blocks):
                 cin, out = b["in"], b["out"]
-                m = _Group(conv1=_cba(cin, out, 1, device),
-                           conv2=_cba(out, out, 3, device,
-                                      out // b["group"]),
-                           conv3=_cba(out, out, 1, device, zero_init=True))
+                m = _Group(conv1=_cb(cin, out, 1, device),
+                           conv2=_cb(out, out, 3, device,
+                                     out // b["group"]),
+                           conv3=_cb(out, out, 1, device, zero_init=True))
                 if b["se"]:
                     m.se = _Group(fc1=_cv(out, b["se"], 1, device, bias=True),
                                   fc2=_cv(b["se"], out, 1, device, bias=True))
                 if cin != out or b["stride"] != 1:
-                    m.downsample = _cba(cin, out, 1, device)
+                    m.downsample = _cb(cin, out, 1, device)
                 setattr(stage, f"b{bi + 1}", m)
             setattr(self, f"s{si + 1}", stage)
         self.num_features = self.plan[-1][-1]["out"]

@@ -24,7 +24,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .backbones import _EPS, _cv, _group_norm, _norm_sd, _oihw, _std_conv
+from .backbones import (_EPS, PooledHead, _cv, _group_norm, _norm_sd, _oihw,
+                        _std_conv)
 from .efficientnet import make_divisible
 from .layers import _Group
 
@@ -63,10 +64,11 @@ def _gn(c: int, device) -> nn.GroupNorm:
     return nn.GroupNorm(32, c, eps=_EPS, device=device)
 
 
-class ResNetV2(nn.Module):
+class ResNetV2(PooledHead, nn.Module):
     """(B, 3, H, W) -> (B, C, H / 32, W / 32), post-norm; `head.fc` with
     num_classes > 0.  n_stages > 0 keeps the first n_stages stages (a
     reduced-depth check)."""
+    head_name = "head.fc"
 
     def __init__(self, variant: str, num_classes: int = 0,
                  n_stages: int = 0, device=None):
@@ -114,11 +116,6 @@ class ResNetV2(nn.Module):
                 y = conv(_group_norm(y, blk.norm3), blk.conv3.weight)
                 x = y + shortcut
         return _group_norm(x, self.norm)
-
-    def classify(self, pooled: torch.Tensor) -> torch.Tensor:
-        fc = self.head.fc
-        return F.linear(pooled, fc.weight.flatten(1).to(pooled.dtype),
-                        fc.bias.to(pooled.dtype))
 
 
 def resnetv2_from_jax(p) -> dict:

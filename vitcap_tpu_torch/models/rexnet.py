@@ -25,9 +25,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .backbones import _batch_norm, _bn, _conv, _cv, _norm_sd, _oihw, _t
+from .backbones import (PooledHead, _batch_norm, _bn, _conv, _cv, _norm_sd,
+                        _oihw, _t)
 from .efficientnet import _dw, make_divisible
-from .layers import _Group, dense
+from .layers import _Group
 
 # name -> (width_mult, ch_div)
 REXNETS = {
@@ -71,10 +72,11 @@ def _cba(cin: int, cout: int, k: int, device, groups: int = 1) -> _Group:
     return _Group(conv=_cv(cin, cout, k, device, groups), bn=_bn(cout, device))
 
 
-class ReXNet(nn.Module):
+class ReXNet(PooledHead, nn.Module):
     """(B, 3, H, W) -> (B, pen, H / 32, W / 32); `head.fc` with
     num_classes > 0.  n_stages > 0 keeps the blocks of the first n_stages
     of the six stages (a reduced-depth check)."""
+    head_name = "head.fc"
 
     def __init__(self, variant: str, num_classes: int = 0,
                  n_stages: int = 0, device=None):
@@ -126,9 +128,6 @@ class ReXNet(nn.Module):
                 y = torch.cat([y[:, :cin] + x, y[:, cin:]], dim=1)
             x = y
         return cba(x, self.features[len(self.plan)], act=F.silu)
-
-    def classify(self, pooled: torch.Tensor) -> torch.Tensor:
-        return dense(self.head.fc, pooled)
 
 
 def _se_norm(x: torch.Tensor, se) -> torch.Tensor:
