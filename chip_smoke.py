@@ -5010,6 +5010,23 @@ ZOO_CNN2B = [("legacy_senet154", 224),
 ZOO_TRAIN_2B = ("resnest50d", 224, 0.0, "layer1.0.conv2.bn1.running_mean")
 # f32 card vs CPU: (name, image size, stages kept)
 ZOO_CNN2B_PARITY = [(name, img, 2) for name, img in ZOO_CNN2B]
+# phase 18c, part 2c: one model a family at full depth, the registry's
+# image size, B=64 bf16; the train step of hrnet_w18 runs a fuse path's BN
+# (whose gradient comes back through the upsample) in train mode
+ZOO_CNN2C = [("hrnet_w64", 224),
+             ("inception_v3", 299),
+             ("inception_v4", 299),
+             ("inception_resnet_v2", 299),
+             ("xception", 299),
+             ("xception71", 299),
+             ("gluon_xception65", 299),
+             ("nasnetalarge", 331),
+             ("pnasnet5large", 331)]
+ZOO_TRAIN_2C = ("hrnet_w18", 224, 0.0,
+                "stage2.0.fuse_layers.0.1.1.running_mean")
+# f32 card vs CPU: (name, image size, n_stages: the first module a stage,
+# block a run of repeated blocks, cell a run of plain cells)
+ZOO_CNN2C_PARITY = [(name, img, 1) for name, img in ZOO_CNN2C]
 
 
 def _no_hand_kernels(what):
@@ -5054,10 +5071,38 @@ def _eager_bytes(fn):
     return float(c.n)
 
 
+def zoo_counts(models, Bn=None):
+    """The operations (_conv_flops) and eager bytes (_eager_bytes) of a
+    bf16 batch of Bn (ZOO_B) through each (name, image size) of `models`,
+    counted on the meta device: shapes only, nothing computed, no card
+    needed (`python3 chip_smoke.py --zoo-counts`: part 2c's models and its
+    train case's forward; the predictions of PERF.md)."""
+    from vitcap_tpu_torch.models import registry as TR
+    Bn = Bn or ZOO_B
+    out = {}
+    for name, img in models:
+        spec = TR.model_spec(name)
+        m = TR._POOLED[type(spec)][0](spec.variant, spec.num_classes, 0,
+                                      "meta").eval()
+        x = torch.empty(Bn, img, img, 3, device="meta", dtype=torch.bfloat16)
+
+        def batch():
+            return TR.pooled_cnn_forward(m, x, spec, head=True,
+                                         dtype=torch.bfloat16)
+        with torch.no_grad():
+            flops, moved = _conv_flops(batch), _eager_bytes(batch)
+        out[f"{name}@{img}"] = (flops, moved)
+        log(f"[zoo-counts] {name}@{img}, B={Bn} bf16: {flops / 1e12:.3f} "
+            f"TFLOP (bound {bound(flops, 0.0, 'bf16')[0]:.2f} ms), "
+            f"{flops / 2 / Bn / 1e9:.2f} GMAC an image; eager ops move "
+            f"{moved / 1e9:.1f} GB ({bound(0.0, moved, 'bf16')[0]:.1f} ms)")
+    return out
+
+
 def phase_zoo_cnn2(dev, smi, Bn=None, models=None, tag="zoo2"):
     """The zoo's part 2 on the card (create_model, random weights from
     the seed, bf16, B=64): one model per family (`models`: ZOO_CNN2 for
-    part 2a, ZOO_CNN2B for 2b) at full depth and its own image size: no
+    part 2a, ZOO_CNN2B for 2b, ZOO_CNN2C for 2c) at full depth and its own image size: no
     hand-kernel launch a batch (asserted), images/s (the median of
     ZOO_TIMED batches by CUDA events), peak memory, the idle share and
     device time by kernel (torch.profiler, a fresh profile a model), the
@@ -5119,7 +5164,7 @@ def phase_zoo_cnn2(dev, smi, Bn=None, models=None, tag="zoo2"):
 def phase_zoo_train(dev, smi, Bn=None, case=None, tag="zoo2-train"):
     """The zoo's train mode on the card: forward + backward of `case`
     (ZOO_TRAIN: efficientnet_b3 at 300 px, drop-path 0.2; ZOO_TRAIN_2B:
-    resnest50d at 224; B=64 bf16, BatchNorm on batch statistics,
+    resnest50d at 224; ZOO_TRAIN_2C: hrnet_w18 at 224; B=64 bf16, BatchNorm on batch statistics,
     cross-entropy on seeded labels) under zoo_train_mode with a CUDA
     generator: no hand-kernel launch, finite loss and gradients, the
     case's running statistic moved; images/s (median of ZOO_TIMED steps
@@ -5377,6 +5422,13 @@ def main() -> int:
     zoo["cnn2b_parity"] = _zoo_cnn_parity(
         ZOO_CNN2B_PARITY, (dev, torch.device("cpu")), "zoo2b-parity")
     log(f"[zoo2b] phases took {time.perf_counter() - t_zoo2b:.1f} s")
+    t_zoo2c = time.perf_counter()
+    zoo["cnn2c"] = phase_zoo_cnn2(dev, smi, models=ZOO_CNN2C, tag="zoo2c")
+    zoo["train2c"] = phase_zoo_train(dev, smi, case=ZOO_TRAIN_2C,
+                                     tag="zoo2c-train")
+    zoo["cnn2c_parity"] = _zoo_cnn_parity(
+        ZOO_CNN2C_PARITY, (dev, torch.device("cpu")), "zoo2c-parity")
+    log(f"[zoo2c] phases took {time.perf_counter() - t_zoo2c:.1f} s")
 
     for name, n in counts.items():
         if n == 0 and name != "attention_bwd":
@@ -5431,4 +5483,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:
         sys.exit(dp_worker(*sys.argv[2:6]))
+    if sys.argv[1:2] == ["--zoo-counts"]:
+        sys.path.insert(0, str(ROOT))
+        zoo_counts(ZOO_CNN2C + [ZOO_TRAIN_2C[:2]])
+        sys.exit(0)
     sys.exit(main())

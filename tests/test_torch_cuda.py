@@ -1314,3 +1314,45 @@ def test_cuda_zoo_vit_runs_the_kernels_and_matches_plain(cuda, monkeypatch,
                                    dtype=dtype), dtype)
         if dtype == torch.float32:
             _close(got, TR.vit_forward(cpu_model, x, spec, head=True), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,img,n_stages", [("hrnet_w18_small_v2", 128, 0),
+                                               ("inception_v3", 107, 1),
+                                               ("nasnetalarge", 96, 1)])
+def test_cuda_zoo_2c_matches_cpu(cuda, name, img, n_stages):
+    """A net of the zoo's part 2c (cuDNN convolutions, no hand kernel) in
+    f32 on the card: the feature map and the logits within 1e-4 of their
+    scale of the CPU's, the same weights (every norm and bias redrawn from
+    a seed) and images, B=2; no kernel of the port launched."""
+    from vitcap_tpu_torch.models import registry as TR
+    spec = TR.model_spec(name, num_classes=10)
+    model = TR.init_pooled_cnn_params(spec, torch.Generator().manual_seed(0),
+                                      "cpu", n_stages)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.copy_(1 + 0.1 * torch.randn(m.weight.shape,
+                                                     generator=g))
+                m.running_mean.copy_(0.1 * torch.randn(
+                    m.running_mean.shape, generator=g))
+                m.running_var.copy_(1 + 0.2 * torch.randn(
+                    m.running_var.shape, generator=g).abs())
+            for pn, p in m.named_parameters(recurse=False):
+                if pn == "bias":
+                    p.copy_(0.1 * torch.randn(p.shape, generator=g))
+    x = torch.rand(2, img, img, 3, generator=g) * 2 - 1
+    card = copy.deepcopy(model).to(cuda)
+    with torch.no_grad():
+        ops.reset_counts()
+        got = [TR.pooled_cnn_forward(card, x.to(cuda), spec, head=h).cpu()
+               for h in (False, True)]
+        torch.cuda.synchronize()
+        assert not any(ops.launch_counts().values())
+        want = [TR.pooled_cnn_forward(model, x, spec, head=h)
+                for h in (False, True)]
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        scale = b.abs().max().item()
+        assert (a - b).abs().max().item() <= 1e-4 * scale

@@ -398,9 +398,8 @@ def test_resize_word_embeddings_keeps_rows(tied, new):
 def test_vit_trunk_table_matches_jax_registry():
     """vit_trunk resolves every ViT of the JAX registry to its spec's
     (patch, width, depth) through the port's model zoo; another name
-    falls back to patch 32 or 16 as the JAX pipeline does; a zoo name of
-    part 2c raises NotImplementedError, a CNN (part 1's or 2's)
-    ValueError."""
+    falls back to patch 32 or 16 as the JAX pipeline does; a CNN of the
+    zoo (part 1's or 2's, part 2c's HRNet too) raises ValueError."""
     from vitcap_tpu.models import registry as R
     vits = [n for n in R.list_models()
             if isinstance(R.model_spec(n), R.VisionModelSpec)]
@@ -411,7 +410,7 @@ def test_vit_trunk_table_matches_jax_registry():
             (spec.patch_size, spec.hidden_size, spec.depth)
     assert TC.vit_trunk("VitEmb_my_patch32_trunk") == (32, None, None)
     assert TC.vit_trunk("VitEmb_my_trunk") == (16, None, None)
-    with pytest.raises(NotImplementedError, match="module 13 part 2"):
+    with pytest.raises(ValueError, match="no ViT"):
         TC.vit_trunk("VitEmb_hrnet_w18")
     for cnn in ("resnet50", "efficientnet_b0", "densenet121"):
         with pytest.raises(ValueError, match="no ViT"):

@@ -409,8 +409,8 @@ def test_scst_two_steps_write_snapshot(root, port_run, tmp_path):
     ({"checkpoint_backend": "orbax"}, ValueError, "one backend"),
     ({"async_checkpoint": True}, ValueError, "synchronously"),
     ({"jax_profile_dir": "trace"}, NotImplementedError, "profiler"),
-    ({"image_encoder_type": "VitEmb_hrnet_w18"},
-     NotImplementedError, "module 13 part 2"),
+    ({"image_encoder_type": "VitEmb_hrnet_w18"}, ValueError,
+     "no ViT trunk"),
     ({"image_encoder_type": "VitEmb_efficientnet_b0"}, ValueError,
      "no ViT trunk"),
 ], ids=["grain", "mesh_data", "msgpack", "orbax", "async",

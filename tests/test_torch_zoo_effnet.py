@@ -217,10 +217,10 @@ def family_names(families):
                   if type(JR.model_spec(n)).__name__ in families)
 
 
-def check_spec_and_build(name):
+def check_spec_and_build(name, size=64):
     """The spec equals the JAX package's field by field (and its
-    feature_channels); create_model builds it on the CPU and runs a 64-px
-    image to the logits."""
+    feature_channels); create_model builds it on the CPU and runs a
+    `size`-px image (64 by default) to the logits."""
     j, t = JR.model_spec(name), TR.model_spec(name)
     assert type(t).__name__ == type(j).__name__ and TR.is_model(name)
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
@@ -228,7 +228,7 @@ def check_spec_and_build(name):
     m = TR.create_model(name, device="cpu")
     assert not m.params.training
     with torch.no_grad():
-        feats = m.apply(m.params, torch.from_numpy(imgs(64, n=1)))
+        feats = m.apply(m.params, torch.from_numpy(imgs(size, n=1)))
         # apply(head=True)'s pooled head, on this forward's map
         logits = m.params.classify(feats.mean(dim=(1, 2)))
     # mobilenetv3's feature_channels are its head conv's, past the map

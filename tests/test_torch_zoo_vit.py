@@ -52,7 +52,8 @@ def port_model(jspec, jparams):
 
 # the spec classes of part 2a (tests/test_torch_zoo_effnet.py and
 # test_torch_zoo_nets.py hold their specs and models to the JAX package's)
-# and of part 2b (tests/test_torch_zoo_2b_res.py and _2b_agg.py)
+# and of parts 2b (tests/test_torch_zoo_2b_res.py and _2b_agg.py) and 2c
+# (tests/test_torch_zoo_2c_*.py)
 PART2A = ("EffNetModelSpec", "Mn3ModelSpec", "MixNetModelSpec",
           "RexNetModelSpec", "RegNetModelSpec", "NfNetModelSpec",
           "ResNetV2ModelSpec")
@@ -60,21 +61,25 @@ PART2B = ("SelecSlsModelSpec", "SeNetModelSpec", "SkNetModelSpec",
           "ResNestModelSpec", "TResNetModelSpec", "CspNetModelSpec",
           "DpnModelSpec", "DenseNetModelSpec", "DlaModelSpec",
           "VovNetModelSpec")
+PART2C = ("HrNetModelSpec", "InceptionV3ModelSpec", "InceptionV4ModelSpec",
+          "InceptionResnetV2ModelSpec", "XceptionModelSpec",
+          "XcepAlignedModelSpec", "GluonXceptionModelSpec",
+          "NASNetModelSpec", "PNASNetModelSpec")
 
 
 @pytest.mark.parametrize("family", [f[0] for f in FAMILIES])
 def test_registry_names_and_specs_match_jax(family):
-    """The port registers exactly the JAX names of its twenty families,
-    every spec field and property of part 1's three equal; the other
-    families' names (part 2c) raise NotImplementedError naming module 13
-    part 2, an unknown name ValueError."""
+    """The port registers exactly the JAX names of its twenty-nine
+    families, all 422, every spec field and property of part 1's three
+    equal; no JAX name is left unported (create_model builds part 2c's
+    hrnet_w18), an unknown name raises ValueError."""
     _, jcls, tcls, props = next(f for f in FAMILIES if f[0] == family)
     jax_names = JR.list_models()
-    kinds = tuple(f[1] for f in FAMILIES) + tuple(getattr(JR, k)
-                                                  for k in PART2A + PART2B)
+    kinds = tuple(f[1] for f in FAMILIES) + tuple(
+        getattr(JR, k) for k in PART2A + PART2B + PART2C)
     ported = sorted(n for n in jax_names
                     if isinstance(JR.model_spec(n), kinds))
-    assert len(ported) == 399 and TR.list_models() == ported
+    assert len(ported) == 422 and TR.list_models() == ported
     mine = [n for n in ported if isinstance(JR.model_spec(n), jcls)]
     assert len(mine) == {"vit": 34, "cnn": 103, "t2t": 22}[family]
     for name in mine:
@@ -84,13 +89,10 @@ def test_registry_names_and_specs_match_jax(family):
         for prop in props:
             assert getattr(t, prop) == getattr(j, prop), (name, prop)
     rest = sorted(set(jax_names) - set(ported))
-    assert len(rest) == 23 and set(rest) == TR.PART2_NAMES
-    for name in rest[{"vit": 0, "cnn": 1, "t2t": 2}[family]::3]:
-        assert not TR.is_model(name)
-        with pytest.raises(NotImplementedError, match="module 13 part 2"):
-            TR.model_spec(name)
-    with pytest.raises(NotImplementedError, match="module 13 part 2"):
-        TR.create_model("hrnet_w18", device="cpu")
+    assert rest == [] and not hasattr(TR, "PART2_NAMES")
+    m = TR.create_model("hrnet_w18", device="cpu")
+    assert type(m.spec).__name__ == "HrNetModelSpec"
+    assert isinstance(m.params, TR.HrNet)
     with pytest.raises(ValueError):
         TR.model_spec("nope_model")
 

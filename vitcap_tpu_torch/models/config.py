@@ -175,11 +175,10 @@ def vit_trunk(image_encoder_type: str
     model_cfg): a name of the model zoo (models/registry.py) gives its
     spec's patch, width and depth; any other name patch 32 if it says
     'patch32', else 16, and no width or depth (the json's stand).  A zoo
-    name that is no ViT (a CNN of part 1 or 2) raises ValueError; one of
-    the zoo's part 2c NotImplementedError."""
+    name that is no ViT (a CNN of part 1 or 2) raises ValueError."""
     from . import registry as R
     name = image_encoder_type.split("VitEmb_")[-1]
-    if R.is_model(name) or name in R.PART2_NAMES:
+    if R.is_model(name):
         spec = R.model_spec(name)
         if not isinstance(spec, R.VisionModelSpec):
             raise ValueError(f"image_encoder_type {image_encoder_type!r}: "

@@ -6,18 +6,17 @@ builder's nets in models/efficientnet.py: efficientnet, tf_efficientnet,
 lite, CondConv, EdgeTPU, pruned, mnasnet, mobilenetv2, fbnetc, spnasnet;
 MobileNetV3, MixNet, ReXNet, RegNet, NFNet and BiT ResNetV2) and those of
 part 2b (legacy SENet, SKNet, ResNeSt, TResNet, SelecSLS, CSPNet, DPN,
-DenseNet, DLA and VoVNet): 399 of the JAX package's 422 registered names.
+DenseNet, DLA and VoVNet) and those of part 2c (HRNet, Inception-V3,
+Inception-V4, Inception-ResNet-V2, Xception, the aligned Xceptions, Gluon's
+Xception-65, NASNet-A-Large and PNASNet-5-Large): all 422 of the JAX
+package's registered names.
 
     spec = model_spec("vit_large_patch16_384")
     m = create_model("vit_large_patch16_384", dtype=torch.bfloat16)
     tokens = m.apply(m.params, images)            # NHWC in, (B, 1+N, H)
     logits = m.apply(m.params, images, head=True)
 
-The JAX package's other 9 families (23 names: hrnet, inception,
-xception, nasnet, pnasnet) are ROADMAP.md module 13 part 2c: a name of
-theirs raises
-NotImplementedError from model_spec and create_model; a name no registry
-knows raises ValueError, as there.
+A name no registry knows raises ValueError, as there.
 
 The models are nn.Modules holding f32 parameters under the timm torch
 state-dict names, built on the card unless the caller passes device="cpu"
@@ -38,7 +37,8 @@ statistics updated, those on a pooled vector in SKNet and ResNeSt too)
 and models/backbones.py zoo_train_mode (stochastic depth, head dropout,
 masks from a caller's generator), as the JAX package's zoo_train_mode;
 its own tests hold resnet, efficientnet, mobilenetv3, regnet, the BN
-hybrid stems, resnest, sknet, dpn, tresnet and vovnet's EvoNorm to it.
+hybrid stems, resnest, sknet, dpn, tresnet, vovnet's EvoNorm and part
+2c's BN layouts (no drop path or head dropout there) to it.
 
 Checkpoints: load_timm_checkpoint / load_cnn_checkpoint /
 load_t2t_vit_checkpoint and part 2's families' load_*_checkpoint read
@@ -79,12 +79,25 @@ from .dpn import DPNS, Dpn, dpn_feature_channels, dpn_from_jax
 from .efficientnet import (EFFICIENTNETS, GENERIC_EFFNETS, TF_EFFNETS,
                            EfficientNet, effnet_feature_channels,
                            effnet_from_jax)
+from .gluon_xception import (GluonXception, gluon_xception_feature_channels,
+                             gluon_xception_from_jax)
+from .hrnet import HRNETS, HrNet, hrnet_feature_channels, hrnet_from_jax
+from .inception_resnet_v2 import (INCEPTION_RESNET_V2_NAMES,
+                                  InceptionResnetV2,
+                                  inception_resnet_v2_feature_channels,
+                                  inception_resnet_v2_from_jax)
+from .inception_v3 import (INCEPTION_V3_NAMES, InceptionV3,
+                           basic_convs_from_jax,
+                           inception_v3_feature_channels)
+from .inception_v4 import InceptionV4, inception_v4_feature_channels
 from .mixnet import (MIXNETS, TF_MIXNETS, MixNet, mixnet_feature_channels,
                      mixnet_from_jax)
 from .mobilenetv3 import (MOBILENETV3S, MobileNetV3, mn3_feature_channels,
                           mn3_from_jax)
+from .nasnet import NasNet, nasnet_feature_channels, nasnet_from_jax
 from .nfnet import NFNETS, NfNet, ScaledStdConv, nfnet_feature_channels, \
     nfnet_from_jax
+from .pnasnet import PnasNet, pnasnet_feature_channels, pnasnet_from_jax
 from .regnet import REGNETS, RegNet, regnet_feature_channels, regnet_from_jax
 from .resnest import (RESNESTS, ResNest, resnest_feature_channels,
                       resnest_from_jax)
@@ -99,6 +112,10 @@ from .tresnet import (TRESNETS, TResNet, tresnet_feature_channels,
                       tresnet_from_jax)
 from .vovnet import (VOVNETS, EvoNormS0, VovNet, vovnet_feature_channels,
                      vovnet_from_jax)
+from .xception import Xception, xception_feature_channels, xception_from_jax
+from .xception_aligned import (XCEPTION_ALIGNED, XceptionAligned,
+                               xception_aligned_feature_channels,
+                               xception_aligned_from_jax)
 from .layers import (ViTBlock, _Group, _pos_embed_for, dense,
                      interpolate_pos_embed, layer_norm, patch_embed,
                      vit_block)
@@ -106,18 +123,6 @@ from .t2t_vit import (T2T_VITS, T2TViT, TokenPerformer, sinusoid_pos_embed,
                       t2t_feature_dim, t2t_vit_from_jax)
 
 _REGISTRY: Dict[str, Callable] = {}
-
-# the JAX package's registered names of the families of part 2c
-PART2_NAMES = frozenset("""
-adv_inception_v3 ens_adv_inception_resnet_v2 gluon_inception_v3
-gluon_xception65 hrnet_w18 hrnet_w18_small hrnet_w18_small_v2 hrnet_w30
-hrnet_w32 hrnet_w40 hrnet_w44 hrnet_w48 hrnet_w64 inception_resnet_v2
-inception_v3 inception_v4 nasnetalarge pnasnet5large tf_inception_v3
-xception xception41 xception65 xception71
-""".split())
-
-_PART2 = ("the model zoo's part 2c (ROADMAP.md queue 1, module 13 part 2c: "
-          "the remaining 9 families) is not ported yet")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -302,6 +307,93 @@ class VovNetModelSpec(_PooledCnnSpec):
     _feature_channels = staticmethod(vovnet_feature_channels)
 
 
+@dataclasses.dataclass(frozen=True)
+class HrNetModelSpec(_PooledCnnSpec):
+    """An HRNet classifier (key of hrnet.HRNETS)."""
+    _feature_channels = staticmethod(hrnet_feature_channels)
+
+
+@dataclasses.dataclass(frozen=True)
+class XcepAlignedModelSpec(_PooledCnnSpec):
+    """An aligned Xception 41 / 65 / 71 classifier (key of
+    xception_aligned.XCEPTION_ALIGNED)."""
+    img_size: int = 299
+    _feature_channels = staticmethod(xception_aligned_feature_channels)
+
+
+@dataclasses.dataclass(frozen=True)
+class _GraphCnnSpec:
+    """A CNN classifier of part 2c with one graph for all its names (the
+    names are weight flavours): no variant field, as in the JAX package;
+    the module is built from the name."""
+    name: str
+    num_classes: int = 1000
+    img_size: int = 299
+
+    @property
+    def variant(self) -> str:
+        return self.name
+
+    @property
+    def feature_channels(self) -> int:
+        return self._feature_channels(self.name)
+
+
+@dataclasses.dataclass(frozen=True)
+class InceptionV3ModelSpec(_GraphCnnSpec):
+    """An Inception-V3 classifier (inception_v3.INCEPTION_V3_NAMES)."""
+    name: str = "inception_v3"
+    _feature_channels = staticmethod(inception_v3_feature_channels)
+
+
+@dataclasses.dataclass(frozen=True)
+class InceptionV4ModelSpec(_GraphCnnSpec):
+    """The Inception-V4 classifier."""
+    name: str = "inception_v4"
+    _feature_channels = staticmethod(inception_v4_feature_channels)
+
+
+@dataclasses.dataclass(frozen=True)
+class InceptionResnetV2ModelSpec(_GraphCnnSpec):
+    """An Inception-ResNet-V2 classifier
+    (inception_resnet_v2.INCEPTION_RESNET_V2_NAMES)."""
+    name: str = "inception_resnet_v2"
+    _feature_channels = staticmethod(inception_resnet_v2_feature_channels)
+
+
+@dataclasses.dataclass(frozen=True)
+class XceptionModelSpec(_GraphCnnSpec):
+    """The Xception classifier."""
+    name: str = "xception"
+    _feature_channels = staticmethod(xception_feature_channels)
+
+
+@dataclasses.dataclass(frozen=True)
+class GluonXceptionModelSpec(_GraphCnnSpec):
+    """Gluon's aligned Xception-65 classifier."""
+    name: str = "gluon_xception65"
+    _feature_channels = staticmethod(gluon_xception_feature_channels)
+
+
+@dataclasses.dataclass(frozen=True)
+class NASNetModelSpec(_GraphCnnSpec):
+    """The NASNet-A-Large classifier (1001 classes: the Cadene
+    checkpoints' background class)."""
+    name: str = "nasnetalarge"
+    num_classes: int = 1001
+    img_size: int = 331
+    _feature_channels = staticmethod(nasnet_feature_channels)
+
+
+@dataclasses.dataclass(frozen=True)
+class PNASNetModelSpec(_GraphCnnSpec):
+    """The PNASNet-5-Large classifier (1001 classes)."""
+    name: str = "pnasnet5large"
+    num_classes: int = 1001
+    img_size: int = 331
+    _feature_channels = staticmethod(pnasnet_feature_channels)
+
+
 # spec class -> (module class, JAX tree converter, head name, 1x1-conv
 # head)
 _POOLED = {
@@ -322,6 +414,20 @@ _POOLED = {
     DenseNetModelSpec: (DenseNet, densenet_from_jax, "classifier", False),
     DlaModelSpec: (Dla, dla_from_jax, "fc", True),
     VovNetModelSpec: (VovNet, vovnet_from_jax, "head.fc", False),
+    HrNetModelSpec: (HrNet, hrnet_from_jax, "classifier", False),
+    InceptionV3ModelSpec: (InceptionV3, basic_convs_from_jax, "fc", False),
+    InceptionV4ModelSpec: (InceptionV4, basic_convs_from_jax,
+                           "last_linear", False),
+    InceptionResnetV2ModelSpec: (InceptionResnetV2,
+                                 inception_resnet_v2_from_jax, "classif",
+                                 False),
+    XceptionModelSpec: (Xception, xception_from_jax, "fc", False),
+    XcepAlignedModelSpec: (XceptionAligned, xception_aligned_from_jax,
+                           "head.fc", False),
+    GluonXceptionModelSpec: (GluonXception, gluon_xception_from_jax, "fc",
+                             False),
+    NASNetModelSpec: (NasNet, nasnet_from_jax, "last_linear", False),
+    PNASNetModelSpec: (PnasNet, pnasnet_from_jax, "last_linear", False),
 }
 
 
@@ -343,8 +449,6 @@ def is_model(name: str) -> bool:
 def model_spec(name: str, **kw):
     if name in _REGISTRY:
         return _REGISTRY[name](**kw)
-    if name in PART2_NAMES:
-        raise NotImplementedError(f"model '{name}': {_PART2}")
     raise ValueError(f"unknown model '{name}'; known: "
                      f"{', '.join(list_models())}")
 
@@ -457,6 +561,15 @@ def _pooled_spec_fn(cls, img, **defaults):
     return make
 
 
+def _graph_spec_fn(cls):
+    """The spec class's own defaults (image size, classes) stand."""
+    def make(name):
+        def spec_fn(**kw):
+            return cls(name=name, **kw)
+        return spec_fn
+    return make
+
+
 _register_family(_VITS, _vit_spec_fn)
 _register_family(RESNETS, _cnn_spec_fn)
 _register_family([n for v in T2T_VITS for n in (v, "T2t" + v[3:])],
@@ -485,6 +598,16 @@ _register_family(CSPNETS, _pooled_spec_fn(CspNetModelSpec, 256))
 for _name in TRESNETS:
     _register_family([_name], _pooled_spec_fn(
         TResNetModelSpec, 448 if _name.endswith("_448") else 224))
+_register_family(HRNETS, _pooled_spec_fn(HrNetModelSpec, 224))
+_register_family(XCEPTION_ALIGNED, _pooled_spec_fn(XcepAlignedModelSpec, 299))
+for _names, _cls in ((INCEPTION_V3_NAMES, InceptionV3ModelSpec),
+                     (("inception_v4",), InceptionV4ModelSpec),
+                     (INCEPTION_RESNET_V2_NAMES, InceptionResnetV2ModelSpec),
+                     (("xception",), XceptionModelSpec),
+                     (("gluon_xception65",), GluonXceptionModelSpec),
+                     (("nasnetalarge",), NASNetModelSpec),
+                     (("pnasnet5large",), PNASNetModelSpec)):
+    _register_family(_names, _graph_spec_fn(_cls))
 
 
 # ---------------------------------------------------------------------------
@@ -537,13 +660,15 @@ class VisionTransformer(nn.Module):
 def _fill_(t: torch.Tensor, generator: torch.Generator, kind: str,
            std: float = 0.0) -> None:
     """Fill t from generator (values drawn on the generator's device):
-    'trunc_normal' std 0.02 cut at +-2 sigma, 'kaiming' normal with std
+    'trunc_normal' std `std` (0.02 by default) cut at +-2 sigma, 'kaiming'
+    normal with std
     sqrt(2 / fan_out) (an OIHW kernel), 'normal' with std `std`,
     'uniform' in +-1 / sqrt(k) (a 1-d conv of width k)."""
     v = (t if t.device == generator.device
          else torch.empty(t.shape, device=generator.device))
     if kind == "trunc_normal":
-        nn.init.trunc_normal_(v, std=0.02, a=-0.04, b=0.04,
+        std = std or 0.02
+        nn.init.trunc_normal_(v, std=std, a=-2 * std, b=2 * std,
                               generator=generator)
     elif kind == "kaiming":
         fan_out = t.shape[0] * math.prod(t.shape[2:])
@@ -571,7 +696,8 @@ def _init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     k * k; CondConv experts normal with their std; ECA kernels uniform;
     zero ViT cls/dist tokens, truncated normal T2T ones; T2T's sinusoid
     pos-embed and each performer's orthogonal w times sqrt(m); EvoNorm's
-    v at one.  Random
+    v at one; the inceptions' BasicConv2d kernels truncated normal with
+    their trunc_std, Inception-ResNet-V2's scale convs normal.  Random
     values come from `generator`, not the JAX streams."""
     vit_proj = (model.patch_embed.proj
                 if isinstance(model, VisionTransformer) else None)
@@ -590,6 +716,8 @@ def _init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 prm.zero_()
             elif hasattr(mod, "init_std"):
                 _fill_(prm, generator, "normal", mod.init_std)
+            elif hasattr(mod, "trunc_std"):
+                _fill_(prm, generator, "trunc_normal", mod.trunc_std)
             elif isinstance(mod, TokenPerformer) and name == "w":
                 v = torch.empty(prm.shape, device=generator.device)
                 nn.init.orthogonal_(v, generator=generator)
@@ -644,7 +772,7 @@ def init_t2t_vit_params(spec: T2tVitModelSpec,
                   device, generator)
 
 
-def init_pooled_cnn_params(spec: _PooledCnnSpec,
+def init_pooled_cnn_params(spec,
                            generator: Optional[torch.Generator] = None,
                            device="cuda", n_stages: int = 0) -> nn.Module:
     """A part-2 CNN with its head of spec.num_classes (none at 0);
@@ -660,7 +788,11 @@ init_effnet_params = init_mn3_params = init_mixnet_params = \
     init_resnetv2_params = init_selecsls_params = init_senet_params = \
     init_sknet_params = init_resnest_params = init_tresnet_params = \
     init_cspnet_params = init_dpn_params = init_densenet_params = \
-    init_dla_params = init_vovnet_params = init_pooled_cnn_params
+    init_dla_params = init_vovnet_params = init_hrnet_params = \
+    init_inception_v3_params = init_inception_v4_params = \
+    init_inception_resnet_v2_params = init_xception_params = \
+    init_xception_aligned_params = init_gluon_xception_params = \
+    init_nasnet_params = init_pnasnet_params = init_pooled_cnn_params
 
 
 # ---------------------------------------------------------------------------
@@ -767,7 +899,7 @@ def cnn_forward(model: ResNet, images: torch.Tensor, spec: CnnModelSpec,
 
 
 def pooled_cnn_forward(model: nn.Module, images: torch.Tensor,
-                       spec: _PooledCnnSpec, head: bool = False,
+                       spec, head: bool = False,
                        dtype=torch.float32) -> torch.Tensor:
     """A part-2 CNN: head=False, the NHWC feature map (timm's
     forward_features); head=True, its global average pool through the
@@ -785,7 +917,10 @@ effnet_forward = mn3_forward = mixnet_forward = rexnet_forward = \
     regnet_forward = nfnet_forward = resnetv2_forward = selecsls_forward = \
     senet_forward = sknet_forward = resnest_forward = tresnet_forward = \
     cspnet_forward = dpn_forward = densenet_forward = dla_forward = \
-    vovnet_forward = pooled_cnn_forward
+    vovnet_forward = hrnet_forward = inception_v3_forward = \
+    inception_v4_forward = inception_resnet_v2_forward = \
+    xception_forward = xception_aligned_forward = gluon_xception_forward = \
+    nasnet_forward = pnasnet_forward = pooled_cnn_forward
 
 
 def t2t_vit_forward(model: T2TViT, images: torch.Tensor,
@@ -827,7 +962,7 @@ def create_model(name: str, pretrained: bool = False,
     if isinstance(spec, T2tVitModelSpec):
         init, load, fwd = (init_t2t_vit_params, load_t2t_vit_checkpoint,
                            t2t_vit_forward)
-    elif isinstance(spec, _PooledCnnSpec):
+    elif type(spec) in _POOLED:
         init, load, fwd = (init_pooled_cnn_params,
                            load_pooled_cnn_checkpoint, pooled_cnn_forward)
     elif isinstance(spec, CnnModelSpec):
@@ -911,7 +1046,7 @@ def load_cnn_checkpoint(model: ResNet, path: str,
 
 
 def load_pooled_cnn_checkpoint(model: nn.Module, path: str,
-                               spec: _PooledCnnSpec) -> nn.Module:
+                               spec) -> nn.Module:
     """A timm torch state dict of a part-2 family (its forward_features'
     names, and its head's) into `model`, in place."""
     return load_zoo_state(model, load_torch_state_dict(path))
@@ -924,7 +1059,12 @@ load_effnet_checkpoint = load_mn3_checkpoint = load_mixnet_checkpoint = \
     load_sknet_checkpoint = load_resnest_checkpoint = \
     load_tresnet_checkpoint = load_cspnet_checkpoint = \
     load_dpn_checkpoint = load_densenet_checkpoint = load_dla_checkpoint = \
-    load_vovnet_checkpoint = load_pooled_cnn_checkpoint
+    load_vovnet_checkpoint = load_hrnet_checkpoint = \
+    load_inception_v3_checkpoint = load_inception_v4_checkpoint = \
+    load_inception_resnet_v2_checkpoint = load_xception_checkpoint = \
+    load_xception_aligned_checkpoint = load_gluon_xception_checkpoint = \
+    load_nasnet_checkpoint = load_pnasnet_checkpoint = \
+    load_pooled_cnn_checkpoint
 
 
 def load_t2t_vit_checkpoint(model: T2TViT, path: str,
@@ -953,7 +1093,7 @@ def zoo_params_from_jax(params_np, spec) -> Dict[str, torch.Tensor]:
     def nrm(q, name):
         return {name + ".weight": t(q["scale"]), name + ".bias": t(q["bias"])}
 
-    if isinstance(spec, _PooledCnnSpec):
+    if type(spec) in _POOLED:
         _, from_jax, head, conv = _POOLED[type(spec)]
         sd = from_jax(params_np["backbone"])
         if "head" in params_np:
