@@ -170,6 +170,24 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
    chain's distance reported); resnet50 and t2t_vit_t_14 (no hand kernel:
    images/s); f32 card vs CPU at reduced depth (2 blocks of ViT-L and of
    ViT-H width, a 2-stage resnet50, T2T with 2 body blocks) within 1e-4.
+19. the host side (vitcap_tpu_torch/native: the port's g++-built copies
+   of the JAX package's C++; data/grain_loader.py; the profiler hooks):
+   a. the three host libraries built with g++ (seconds each; the image
+   decoder only where g++ finds libjpeg's jpeglib.h, which phase 1
+   reports: without it phases 14, 16 and 19c run image_backend: pil);
+   b. CIDEr-D at SCST's shape (192 hypotheses x 5 references): native
+   vs Python within rtol 1e-9 and the ms of each, then phase 13's SCST
+   step with the native reward (reward, decode and grad ms, images/s
+   beside phase 13's Python reward); c. 128 seeded 640x480 JPEGs decoded,
+   resized and cropped to 384 by PIL, the native exact mode (bit-equal
+   to PIL) and the fast mode (within 1 LSB of exact on average), ms an
+   image, then the fused predict of those images on each image_backend
+   (captions/s, idle share, prep_time); d. the .lineidx.8b of a seeded
+   200 MiB TSV, native vs the Python scan (offsets equal, ms of each);
+   e. 3 flagship train steps with loader: grain and grain_workers 2
+   (batches equal a grain_workers 0 loader's; img/s and the host gap);
+   f. a 2-step train window under jax_profile_dir whose Chrome trace
+   holds CUDA kernel events of the port's gemm and attention.
 Phase 3 also runs decode_attention at S = 2000 context keys (hd 64 with 4
 beams, hd 128 with 1), at least 99% bit-equal at B=64, with its share and
 times, and a sweep of small calls (3 images, 8 seeds, 3 t; from 628 to
@@ -191,6 +209,7 @@ import copy
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -440,7 +459,27 @@ def phase_host():
         f"cuda {torch.version.cuda} devices {torch.cuda.device_count()}")
     log(f"[host] nvcc: {nvcc[-1] if nvcc else 'not found'}")
     log(f"[host] triton: {tri}")
+    log(f"[host] g++ finds jpeglib.h (the native image decoder's "
+        f"libjpeg headers): {_jpeg_headers()}; the pipelines' "
+        f"image_backend: {_image_backend()}")
     return smi
+
+
+def _jpeg_headers() -> bool:
+    """Whether g++ on this host finds libjpeg's headers, which the native
+    image decoder (vitcap_tpu_torch/native/imageproc.cpp) includes."""
+    if not shutil.which("g++"):
+        return False
+    return subprocess.run(["g++", "-E", "-x", "c++", "-"],
+                          input="#include <jpeglib.h>\n", text=True,
+                          capture_output=True).returncode == 0
+
+
+def _image_backend() -> str:
+    """The pipelines' image_backend: the default 'native' where the native
+    decoder can be built; 'pil' on a host without libjpeg's headers, where
+    'native' raises."""
+    return "native" if _jpeg_headers() else "pil"
 
 
 def phase_build():
@@ -980,18 +1019,23 @@ def _opts(cfg, **kw):
 
 
 @contextlib.contextmanager
-def _engine(fused: bool):
-    """Select the decode engine for a block, as a user does: through
-    VITCAP_DECODE_FUSED."""
-    old = os.environ.get("VITCAP_DECODE_FUSED")
-    os.environ["VITCAP_DECODE_FUSED"] = "1" if fused else "0"
+def _env(name: str, value: str):
+    """os.environ[name] = value inside the block."""
+    old = os.environ.get(name)
+    os.environ[name] = value
     try:
         yield
     finally:
         if old is None:
-            os.environ.pop("VITCAP_DECODE_FUSED")
+            os.environ.pop(name)
         else:
-            os.environ["VITCAP_DECODE_FUSED"] = old
+            os.environ[name] = old
+
+
+def _engine(fused: bool):
+    """Select the decode engine for a block, as a user does: through
+    VITCAP_DECODE_FUSED."""
+    return _env("VITCAP_DECODE_FUSED", "1" if fused else "0")
 
 
 def _serve(dev, smi, cfg, model, opts, label, per_batch, img=None,
@@ -3012,15 +3056,24 @@ def _counted(fn):
     return out, {k: after[k] - before[k] for k in after}
 
 
-def phase_scst(dev, smi, Bn=B, cfg_kw=None):
+def _cider_env(native: bool):
+    """Select the CIDEr-D scorer for a block, as a user does: through
+    VITCAP_NATIVE_CIDER (the C++ scorer unless it is 0)."""
+    return _env("VITCAP_NATIVE_CIDER", "1" if native else "0")
+
+
+def phase_scst(dev, smi, Bn=B, cfg_kw=None, native_cider=False,
+               ratio07=True, tag="scst"):
     """Self-critical fine-tuning at the flagship (384 px, B=64, K=2,
     greedy baseline, corpus CIDEr-D against _gt_captions, max_length 20,
     bf16, fused decode engine): one warm-up step through
     scst_train_step, then 3 steps
     through decode_fn, the host reward and grad_step, each timed apart
     (host clock around synchronised work) with exact launch counts per
-    kernel; then one step at visual_token_ratio=0.7.  Returns the counts
-    of the timed run (set to 0 just before it) and the results."""
+    kernel; then (ratio07) one step at visual_token_ratio=0.7.  The reward
+    scores with the pure-Python CIDEr-D, or with the native C++ one
+    (native_cider: phase 19).  Returns the counts of the timed run (set
+    to 0 just before it) and the results."""
     from vitcap_tpu_torch import ops
     from vitcap_tpu_torch.data.tokenization import CaptionDecoder
     from vitcap_tpu_torch.solver import scst as SC
@@ -3037,7 +3090,8 @@ def phase_scst(dev, smi, Bn=B, cfg_kw=None):
     gen = torch.Generator(device=dev).manual_seed(SEED + 22)
     state = init_train_state(model, None)
     res = {}
-    with _engine(fused=True):
+    scorer = "native C++" if native_cider else "pure Python"
+    with _engine(fused=True), _cider_env(native_cider):
         decode_fn, grad_step = SC.make_scst_fns(
             cfg, opts, SC.ScstConfig(num_return=SCST_K), hyper)
         first = decode_fn(model, batch["image"], batch["od_ids"], None,
@@ -3092,19 +3146,24 @@ def phase_scst(dev, smi, Bn=B, cfg_kw=None):
         med = {k: sorted(st[k] for st in steps)[1]
                for k in ("decode_ms", "reward_ms", "grad_ms")}
         step_ms = sum(med.values())
-        log(f"[scst] launches per step: decode {steps[0]['decode_launches']}"
-            f"; grad {steps[0]['grad_launches']}")
-        log(f"[scst] losses {[round(s['loss'], 5) for s in steps]} grad_norm "
-            f"{[round(s['grad_norm'], 4) for s in steps]} CIDEr-D "
+        log(f"[{tag}] launches per step: decode "
+            f"{steps[0]['decode_launches']}; grad "
+            f"{steps[0]['grad_launches']}")
+        log(f"[{tag}] losses {[round(s['loss'], 5) for s in steps]} "
+            f"grad_norm {[round(s['grad_norm'], 4) for s in steps]} CIDEr-D "
             f"{[round(s['cider'], 4) for s in steps]} nonzero advantages "
             f"{[s['adv_nonzero'] for s in steps]}")
-        log(f"[scst] median of 3 steps: decode {med['decode_ms']:.1f} ms, "
+        log(f"[{tag}] median of 3 steps: decode {med['decode_ms']:.1f} ms, "
             f"host reward {med['reward_ms']:.1f} ms ({Bn * (SCST_K + 1)} "
-            f"captions, pure Python CIDEr-D), grad {med['grad_ms']:.1f} ms; "
+            f"captions, {scorer} CIDEr-D), grad {med['grad_ms']:.1f} ms; "
             f"{Bn / step_ms * 1e3:.2f} images/s, peak memory {peak:.2f} GiB "
             f"(B={Bn}, K={SCST_K}, bf16, 384x384, fused engine) on {smi}")
         res.update(steps=steps, median=med, images_per_s=Bn / step_ms * 1e3,
-                   peak_gib=peak)
+                   peak_gib=peak, cider_scorer=scorer)
+        if not ratio07:
+            del state, model
+            torch.cuda.empty_cache()
+            return counts, res
         # TokenSample: 404 of 577 visual tokens
         dec7, grad7 = SC.make_scst_fns(
             cfg, opts, SC.ScstConfig(num_return=SCST_K,
@@ -3257,7 +3316,8 @@ def _pipeline_param(root, **kw):
     + 4 tag blocks), 4 decoder layers, topk 50, the reference YAML's
     sequence lengths (70, caption 20, generation 20), bf16,
     tag_loss_weight 1.0, batches of 64, random weights from random_seed
-    (no basemodel), 8 loader threads."""
+    (no basemodel), 8 loader threads, the native image decoder where the
+    host can build it (_image_backend)."""
     p = {"data": "synthcoco", "test_data": "synthcoco",
          "test_split": "test", "net": "flagship", "expid": "phase14",
          "data_root": os.path.join(root, "data"),
@@ -3269,7 +3329,7 @@ def _pipeline_param(root, **kw):
          "tag_loss_weight": 1.0, "effective_batch_size": B,
          "test_batch_size": B, "max_iter": 6, "snapshot_steps": 3,
          "base_lr": 1e-4, "random_seed": SEED, "num_workers": 8,
-         "device": "cuda"}
+         "image_backend": _image_backend(), "device": "cuda"}
     p.update(kw)
     return p
 
@@ -3632,7 +3692,7 @@ def phase_pipeline_parity(root, devices=("cuda", "cpu")):
              "max_iter": 3, "snapshot_steps": 2, "log_step": 1,
              "base_lr": 1e-3, "drop_out": 0.0, "num_workers": 1,
              "encode": "bert", "tag_loss_weight": 1.0,
-             "compute_dtype": "float32",
+             "compute_dtype": "float32", "image_backend": _image_backend(),
              "basemodel": os.path.join(root, "tiny_base.ckpt")}
     cfg = TR.create_pipeline(dict(param, device="cpu")).model_cfg
     model = init_params(cfg, torch.Generator().manual_seed(SEED + 61),
@@ -5328,6 +5388,347 @@ def phase_zoo_cnn2_parity(dev, devices=None):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the host side (vitcap_tpu_torch/native, data/grain_loader.py,
+# the profiler hooks)
+# ---------------------------------------------------------------------------
+
+HOST_IMAGES = 128            # seeded JPEGs of the decode timing and predict
+HOST_HW = (480, 640)         # their (height, width)
+HOST_TSV_BYTES = 200 << 20   # the line-index TSV
+HOST_TRAIN = 2 * B           # train images of the loader and profiler runs
+
+
+def phase_host_build():
+    """a. Build the host libraries from the port's sources with g++ (the
+    image decoder only where the host has libjpeg's headers); the seconds
+    each took, and whether it was built or found."""
+    from vitcap_tpu_torch import native
+    names = ["tsvtools", "cider"] + (["imageproc"] if _jpeg_headers()
+                                     else [])
+    for name in names:
+        native.library(name)
+    out = {n: dict(native.build_info[n]) for n in names}
+    for n, info in out.items():
+        log(f"[host19] g++ {n}: {info['seconds']:.2f} s "
+            f"({'built' if info['built'] else 'found built'}) -> "
+            f"{info['path']}")
+    if not _jpeg_headers():
+        log("[host19] the native image decoder is unavailable on this host: "
+            "g++ finds no jpeglib.h (libjpeg's headers), so "
+            "vitcap_tpu_torch/native/imageproc.cpp cannot be built; phases "
+            "14, 16 and 19c run image_backend: pil")
+    return out
+
+
+def phase_host_cider(dev, smi, scst13):
+    """b. CIDEr-D at SCST's shape (B=64, K=2: 192 hypotheses, 5 references
+    each, 6-12 seeded words of PIPE_WORDS, so that n-grams overlap and
+    the scores are not 0): the native scorer against the Python one (rtol
+    1e-9), ms of each (median of 3, in turns); then phase 13's SCST step
+    again with the native reward beside phase 13's."""
+    from vitcap_tpu_torch.evals.metrics import CiderD
+    rs = np.random.RandomState(SEED + 90)
+    n = B * (SCST_K + 1)
+
+    def cap():
+        return " ".join(rs.choice(PIPE_WORDS, rs.randint(6, 13)))
+    gts = {i: [cap() for _ in range(5)] for i in range(n)}
+    res = {i: [cap()] for i in range(n)}
+    ms = {"python": [], "native": []}
+    scores = {}
+    for native in (False, True, True, False, False, True):
+        with _cider_env(native):
+            t0 = time.perf_counter()
+            mean, sc = CiderD().compute_score(gts, res)
+            ms["native" if native else "python"].append(
+                (time.perf_counter() - t0) * 1e3)
+        scores[native] = (mean, sc)
+    (pm, ps), (nm, ns) = scores[False], scores[True]
+    if not (np.allclose(ns, ps, rtol=1e-9, atol=1e-12)
+            and math.isclose(nm, pm, rel_tol=1e-9) and nm > 0):
+        raise AssertionError(f"native CIDEr-D {nm} vs Python {pm}: max "
+                             f"difference {np.abs(ns - ps).max():.3e}")
+    med = {k: sorted(v)[1] for k, v in ms.items()}
+    log(f"[host19] CIDEr-D of {n} hypotheses x 5 references: Python "
+        f"{med['python']:.2f} ms, native {med['native']:.2f} ms (median of "
+        f"3, in turns; {med['python'] / med['native']:.1f}x); corpus score "
+        f"{nm:.6f}, max |native - Python| {np.abs(ns - ps).max():.3e}")
+    counts, step = phase_scst(dev, smi, native_cider=True, ratio07=False,
+                              tag="host19 scst")
+    a, b = scst13["median"], step["median"]
+    log(f"[host19] SCST step, Python vs native reward: reward "
+        f"{a['reward_ms']:.1f} -> {b['reward_ms']:.1f} ms, decode "
+        f"{a['decode_ms']:.1f} -> {b['decode_ms']:.1f} ms, grad "
+        f"{a['grad_ms']:.1f} -> {b['grad_ms']:.1f} ms; "
+        f"{scst13['images_per_s']:.2f} -> {step['images_per_s']:.2f} "
+        f"images/s (phase 13 -> phase 19, B={B}, K={SCST_K}) on {smi}")
+    return {"cider_ms": ms, "cider_median_ms": med, "score": nm,
+            "max_abs_diff": float(np.abs(ns - ps).max()),
+            "scst_native": step, "scst_native_launches": counts,
+            "scst_python_median": a,
+            "scst_python_images_per_s": scst13["images_per_s"]}
+
+
+def _tsv_payloads(path):
+    import base64
+    from vitcap_tpu_torch.data.tsv import tsv_reader
+    return [base64.b64decode(r[-1]) for r in tsv_reader(path)]
+
+
+def phase_host_images(dev, smi, root):
+    """c. HOST_IMAGES seeded 640x480 JPEGs (_pipeline_dataset's smooth
+    images with noise) through the test transform at 384: PIL, native
+    exact and native fast, ms per image (best of 2 passes in turns);
+    exact bit-equal to PIL, fast within 1 LSB of exact on average.  Then
+    the fused predict of those images (the flagship, random weights from
+    the seed, written as a snapshot) on each image_backend: captions/s,
+    the idle share (_profile, model load included) and the .speed.yaml's
+    prep_time.  Without libjpeg's headers only PIL runs."""
+    import io
+    from PIL import Image
+    from vitcap_tpu_torch import run as TR
+    from vitcap_tpu_torch.data.transforms import TestImageTransform
+    from vitcap_tpu_torch.models.vitcap import init_params
+    _pipeline_dataset(root, SEED + 91, n_train=B, n_test=HOST_IMAGES,
+                      hw=HOST_HW)
+    data = _tsv_payloads(os.path.join(root, "data", "synthcoco",
+                                      "test.tsv"))
+    pil = TestImageTransform(crop_size=384, emit_uint8=True, backend="pil")
+    modes = {"pil": lambda d: pil(Image.open(io.BytesIO(d)).convert("RGB"))}
+    if _jpeg_headers():
+        exact = TestImageTransform(crop_size=384, emit_uint8=True)
+        fast = TestImageTransform(crop_size=384, emit_uint8=True,
+                                  fast_decode=True)
+        modes.update(native=exact.from_jpeg_bytes, fast=fast.from_jpeg_bytes)
+    ms, outs = {m: [] for m in modes}, {}
+    for _ in range(2):
+        for m, fn in modes.items():
+            t0 = time.perf_counter()
+            outs[m] = [fn(d) for d in data]
+            ms[m].append((time.perf_counter() - t0) * 1e3 / len(data))
+    per_image = {m: min(v) for m, v in ms.items()}
+    res = {"ms_per_image": per_image, "images": len(data),
+           "native_available": _jpeg_headers()}
+    if _jpeg_headers():
+        bad = [i for i, (a, b) in enumerate(zip(outs["native"], outs["pil"]))
+               if not np.array_equal(a, b)]
+        if bad:
+            raise AssertionError(f"native exact decode differs from PIL on "
+                                 f"images {bad[:8]}")
+        lsb = float(np.mean([np.abs(f.astype(np.int16) - e).mean()
+                             for f, e in zip(outs["fast"], outs["native"])]))
+        if not lsb < 1.0:
+            raise AssertionError(f"native fast decode: mean |fast - exact| "
+                                 f"{lsb:.3f} LSB, not under 1")
+        res["fast_mean_abs_lsb"] = lsb
+        log(f"[host19] decode+resize+crop of {len(data)} {HOST_HW[1]}x"
+            f"{HOST_HW[0]} JPEGs to 384: PIL {per_image['pil']:.2f}, native "
+            f"{per_image['native']:.2f}, fast {per_image['fast']:.2f} ms an "
+            f"image (one host thread); native bit-equal to PIL, fast within "
+            f"{lsb:.3f} LSB of exact on average")
+    else:
+        log(f"[host19] decode+resize+crop of {len(data)} {HOST_HW[1]}x"
+            f"{HOST_HW[0]} JPEGs to 384: PIL {per_image['pil']:.2f} ms an "
+            f"image (one host thread); native and fast: not measured (the "
+            f"native decoder is unavailable on this host)")
+    # the fused predict of these images on each backend
+    param = _pipeline_param(root, expid="phase19", max_iter=1,
+                            force_predict=1)
+    pip = TR.create_pipeline(dict(param, **PIPE_TEST_DATA[0]))
+    model = init_params(pip.model_cfg, torch.Generator().manual_seed(
+        SEED + 92), dev)
+    os.makedirs(pip.model_folder, exist_ok=True)
+    torch.save({"model": model.state_dict()}, pip.get_checkpoint_file())
+    del model
+    torch.cuda.empty_cache()
+    res["predict"] = {}
+    for backend in ["pil"] + (["native"] if _jpeg_headers() else []):
+        pd = TR.create_pipeline(dict(param, image_backend=backend,
+                                     **PIPE_TEST_DATA[0]))
+        with _engine(fused=True):
+            prof = _profile(f"host19_predict_{backend}", pd.ensure_predict,
+                            reps=1)
+        _predict_rows(pd, HOST_IMAGES)
+        speed = _read_yaml(pd.get_predict_file() + ".speed.yaml")
+        res["predict"][backend] = {
+            "captions_per_s": HOST_IMAGES / prof["wall_ms"] * 1e3,
+            "idle_share": prof["idle_share"], "wall_ms": prof["wall_ms"],
+            "prep_time": speed["prep_time"],
+            "pipeline_time": speed["pipeline_time"]}
+        log(f"[host19] fused predict, image_backend {backend}: "
+            f"{HOST_IMAGES / prof['wall_ms'] * 1e3:.2f} captions/s, idle "
+            f"share {prof['idle_share']:.4f}, prep_time "
+            f"{speed['prep_time']}, pipeline_time {speed['pipeline_time']} "
+            f"(B={B}, model load included) on {smi}")
+        del pd
+    if not _jpeg_headers():
+        log("[host19] fused predict, image_backend native: not measured "
+            "(the native decoder is unavailable on this host)")
+    return res
+
+
+def phase_host_lineidx(root):
+    """d. A seeded TSV of HOST_TSV_BYTES (rows of 20-2000 letters with a
+    tab, the page cache warm: the file was just written): the native
+    .lineidx.8b against the Python line scan's offsets, ms of each (best
+    of 2, in turns)."""
+    from vitcap_tpu_torch.data.native_tsv import build_lineidx_8b
+    from vitcap_tpu_torch.data.tsv import generate_lineidx
+    rs = np.random.RandomState(SEED + 93)
+    lens = rs.randint(20, 2001, HOST_TSV_BYTES // 1000)
+    ends = np.cumsum(lens)
+    buf = rs.randint(97, 123, int(ends[-1]), dtype=np.uint8)
+    buf[ends - 1] = ord("\n")
+    buf[ends - lens + 8] = ord("\t")
+    tsv = os.path.join(root, "lines.tsv")
+    buf.tofile(tsv)
+    want = np.concatenate([[0], ends[:-1]]).astype("<u8")
+    ms = {"python": [], "native": []}
+    for kind in ("python", "native", "native", "python"):
+        t0 = time.perf_counter()
+        if kind == "native":
+            n = build_lineidx_8b(tsv, tsv + ".8b")
+        else:
+            generate_lineidx(tsv, tsv + ".lineidx")
+        ms[kind].append((time.perf_counter() - t0) * 1e3)
+    got = np.fromfile(tsv + ".8b", "<u8")
+    with open(tsv + ".lineidx") as f:
+        scan = np.asarray(f.read().split(), np.uint64)
+    if n != len(lens) or not (np.array_equal(got, want)
+                              and np.array_equal(scan, want)):
+        raise AssertionError(f"line index: {n} lines, native "
+                             f"{np.array_equal(got, want)}, Python scan "
+                             f"{np.array_equal(scan, want)}")
+    best = {k: min(v) for k, v in ms.items()}
+    ratio = best["python"] / best["native"]
+    log(f"[host19] .lineidx.8b of a {buf.size / 2 ** 20:.1f} MiB TSV "
+        f"({n} lines, warm page cache): Python scan {best['python']:.1f} ms, "
+        f"native {best['native']:.1f} ms ({ratio:.1f}x); offsets equal")
+    os.remove(tsv)
+    return {"mib": buf.size / 2 ** 20, "lines": n, "ms": ms, "best_ms": best}
+
+
+def _train_keys(rec):
+    """Wrap CaptionUniPipeline._device_train_batch to record each train
+    batch's image keys into rec."""
+    def wrap(orig):
+        def f(self, batch):
+            rec.append(list(batch["key"]))
+            return orig(self, batch)
+        return f
+    return wrap
+
+
+def phase_host_loader(dev, smi, root):
+    """e. 3 flagship train steps through the pipeline with `loader: grain`
+    and grain_workers 2 (spawned processes; the thread-pool loader's
+    prefetch does not apply): the batches' image keys equal a
+    grain_workers 0 loader's first 3 batches; train img/s over steps 2-3
+    and the host gap before each step (loader wait + batch copy)."""
+    from vitcap_tpu_torch import run as TR
+    from vitcap_tpu_torch.pipelines import caption_pipeline as TCP
+    _pipeline_dataset(root, SEED + 94, n_train=HOST_TRAIN, n_test=8,
+                      name="grain")
+    param = dict(_pipeline_param(root, data="grain", test_data="grain",
+                                 expid="phase19_grain", max_iter=3,
+                                 snapshot_steps=100, log_step=1,
+                                 loader="grain", grain_workers=2),
+                 test_split="test")
+    keys = []
+    pip = TR.create_pipeline(param)
+    with _pipeline_probes({}) as rec, _wrapped(
+            TCP.CaptionUniPipeline, "_device_train_batch", _train_keys(keys)):
+        t0 = time.perf_counter()
+        pip.ensure_train()
+        run_s = time.perf_counter() - t0
+    steps = rec["steps"]
+    losses = [s["loss"].item() for s in steps]
+    if len(steps) != 3 or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"grain train: losses {losses}")
+    p0 = TR.create_pipeline(dict(param, grain_workers=0))
+    want = []
+    for batch in p0.get_data_loader(is_train=True):
+        want.append(list(batch["key"]))
+        if len(want) == 3:
+            break
+    if keys != want:
+        raise AssertionError(f"grain_workers 2 batches {keys} differ from "
+                             f"grain_workers 0's {want}")
+    gap_ms = [(steps[i]["t0"] - steps[i - 1]["t1"]) * 1e3 for i in (1, 2)]
+    rate = B * 2 / (steps[2]["t1"] - steps[1]["t0"])
+    log(f"[host19] loader: grain, grain_workers 2: 3 train steps in "
+        f"{run_s:.1f} s (workers' start and the final snapshot included); "
+        f"{rate:.2f} img/s over steps 2-3; host gap before steps 2-3 "
+        f"{[round(v, 1) for v in gap_ms]} ms; step ms "
+        f"{[round((s['t1'] - s['t0']) * 1e3, 1) for s in steps]}; losses "
+        f"{[round(v, 4) for v in losses]}; batches equal grain_workers 0's "
+        f"(B={B}, bf16) on {smi}")
+    return {"img_per_s_steps_2_3": rate, "host_gap_ms": gap_ms,
+            "run_s": run_s, "losses": losses, "batches": keys}
+
+
+def phase_host_profiler(dev, smi, root):
+    """f. A 2-step flagship train window under jax_profile_dir (steps 2-3
+    of 3: jax_profile_start 1, jax_profile_steps 2; a start of 0 reads as
+    the default 2, as in the JAX package): the Chrome trace exists and
+    holds CUDA kernel events of the port's gemm and attention kernels."""
+    from vitcap_tpu_torch import run as TR
+    prof = Path(root) / "trace"
+    param = dict(_pipeline_param(root, data="grain", test_data="grain",
+                                 expid="phase19_prof", max_iter=3,
+                                 snapshot_steps=100, log_step=1,
+                                 jax_profile_dir=str(prof),
+                                 jax_profile_start=1, jax_profile_steps=2),
+                 test_split="test")
+    t0 = time.perf_counter()
+    TR.create_pipeline(param).ensure_train()
+    run_s = time.perf_counter() - t0
+    traces = sorted(prof.glob("train_rank0_*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"profiler: traces {traces}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    gemm = [k for k in kernels if "gemm_wide_kernel" in k
+            or "gemm_split_kernel" in k]
+    attn = [k for k in kernels if "attention_wgmma" in k]
+    if not gemm or not attn:
+        raise AssertionError(f"profiler trace: {len(kernels)} kernel events,"
+                             f" {len(gemm)} gemm, {len(attn)} attention")
+    size = traces[0].stat().st_size
+    log(f"[host19] jax_profile_dir: train steps 2-3 of 3 traced, the run "
+        f"{run_s:.1f} s "
+        f"-> {traces[0].name} ({size / 2 ** 20:.1f} MiB): {len(kernels)} "
+        f"CUDA kernel events, {len(gemm)} of the port's gemm and "
+        f"{len(attn)} of its attention")
+    return {"trace_mib": size / 2 ** 20, "kernel_events": len(kernels),
+            "gemm_events": len(gemm), "attention_events": len(attn),
+            "run_s": run_s}
+
+
+def phase_host_side(dev, smi, scst13):
+    """Phase 19 (a-f), under a temporary directory of build/."""
+    import tempfile
+    from vitcap_tpu_torch.utils import common as UC
+    UC._LOGGING_INITED = True
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_host_", dir=ROOT / "build")
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        out["build"] = phase_host_build()
+        out["cider"] = phase_host_cider(dev, smi, scst13)
+        out["images"] = phase_host_images(dev, smi, root)
+        out["lineidx"] = phase_host_lineidx(root)
+        out["loader"] = phase_host_loader(dev, smi, root)
+        out["profiler"] = phase_host_profiler(dev, smi, root)
+        out["seconds"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5383,7 +5784,7 @@ def main() -> int:
     log(f"[checkpoint] phase took {time.perf_counter() - t_ck:.1f} s")
     t_scst = time.perf_counter()
     phase_scst_kernels(dev, rows)
-    scst_counts, scst = phase_scst(dev, smi)
+    scst_counts, scst = phase_scst(dev, smi)     # the Python reward
     scst["parity"] = phase_scst_parity(dev)
     log(f"[scst] phases took {time.perf_counter() - t_scst:.1f} s")
     for name in ("gemm", "layer_norm", "attention", "attention_bwd",
@@ -5429,6 +5830,9 @@ def main() -> int:
     zoo["cnn2c_parity"] = _zoo_cnn_parity(
         ZOO_CNN2C_PARITY, (dev, torch.device("cpu")), "zoo2c-parity")
     log(f"[zoo2c] phases took {time.perf_counter() - t_zoo2c:.1f} s")
+    t_host = time.perf_counter()
+    host = phase_host_side(dev, smi, scst)
+    log(f"[host19] phase took {time.perf_counter() - t_host:.1f} s")
 
     for name, n in counts.items():
         if n == 0 and name != "attention_bwd":
@@ -5469,7 +5873,7 @@ def main() -> int:
          "decode_attention_sweep": sweep, "pipeline": pipe,
          "pipeline_launches": pipe_counts, "cbs": cbs,
          "cbs_launches": cbs_counts, "dp": dp, "module12": module12,
-         "zoo": zoo,
+         "zoo": zoo, "host_side": host,
          "kernels": kernels},
         indent=1, default=str))
     log(json.dumps({"kernels": kernels}))

@@ -1356,3 +1356,137 @@ def test_cuda_zoo_2c_matches_cpu(cuda, name, img, n_stages):
         assert a.shape == b.shape and torch.isfinite(a).all()
         scale = b.abs().max().item()
         assert (a - b).abs().max().item() <= 1e-4 * scale
+
+
+# ---------------------------------------------------------------------------
+# the pipelines' host side on the card: the native image decoder and the
+# profiler hooks (jax_profile_dir)
+# ---------------------------------------------------------------------------
+
+def _jpeg_headers():
+    """Whether g++ finds libjpeg's headers (the native decoder's build)."""
+    import shutil
+    import subprocess
+    return bool(shutil.which("g++")) and subprocess.run(
+        ["g++", "-E", "-x", "c++", "-"], input="#include <jpeglib.h>\n",
+        text=True, capture_output=True).returncode == 0
+
+
+def _tiny_pipeline(root):
+    """A 6-image dataset of 120x160 JPEGs (5 train + test splits alike), a
+    tiny text encoder (H 32, 4 heads, the shipped vocab) and a port
+    `.ckpt` basemodel from a seed; the pipeline's parameters (f32, 3
+    train steps, predict batches of 4)."""
+    import base64
+    import io
+    import json
+    import os
+    import shutil
+    from PIL import Image
+    from vitcap_tpu_torch import run as TR
+    from vitcap_tpu_torch.data.tokenization import DEFAULT_VOCAB
+    from vitcap_tpu_torch.data.tsv import tsv_writer
+    rs = np.random.RandomState(0)
+    keys = [f"im{i}" for i in range(6)]
+    words = "a dog cat man on the grass street red ball".split()
+    d = os.path.join(root, "data", "tinyjpeg")
+    for split in ("train", "test"):
+        rows = []
+        for k in keys:
+            img = Image.fromarray(rs.randint(0, 256, (3, 4, 3)).astype(
+                np.uint8)).resize((160, 120), Image.BICUBIC)
+            buf = io.BytesIO()
+            img.save(buf, format="JPEG", quality=90)
+            rows.append((k, "0", base64.b64encode(buf.getvalue()).decode()))
+        tsv_writer(rows, f"{d}/{split}.tsv")
+        tsv_writer(((k, json.dumps([{"height": 120, "width": 160}]))
+                    for k in keys), f"{d}/{split}.hw.tsv")
+        tsv_writer(((k, json.dumps([{"caption": " ".join(
+            rs.choice(words, 6))} for _ in range(2)])) for k in keys),
+            f"{d}/{split}.caption.tsv")
+        tsv_writer(((k, "2") for k in keys), f"{d}/{split}.num_caption.tsv")
+        tsv_writer(((k, json.dumps([{"class": "dog", "conf": 0.9}]))
+                    for k in keys), f"{d}/{split}.label.tsv")
+    enc = os.path.join(root, "tiny_encoder")
+    os.makedirs(enc)
+    with open(os.path.join(enc, "config.json"), "w") as f:
+        json.dump({"hidden_size": 32, "num_attention_heads": 4,
+                   "intermediate_size": 64, "num_hidden_layers": 2,
+                   "max_position_embeddings": 96, "type_vocab_size": 2,
+                   "vocab_size": 30522, "layer_norm_eps": 1e-12,
+                   "attention_probs_dropout_prob": 0.0}, f)
+    shutil.copy(DEFAULT_VOCAB, enc)
+    param = {"data": "tinyjpeg", "test_data": "tinyjpeg",
+             "test_split": "test", "net": "tiny", "expid": "host",
+             "data_root": os.path.join(root, "data"),
+             "output_root": os.path.join(root, "output"),
+             "text_encoder_type": enc, "train_crop_size": 32,
+             "test_crop_size": 32, "max_seq_length": 26,
+             "max_seq_a_length": 6, "max_gen_length": 6, "topk": 5,
+             "split_blocks": 1, "decoder_layers": 2,
+             "effective_batch_size": 2, "test_batch_size": 4,
+             "max_iter": 3, "snapshot_steps": 5, "log_step": 1,
+             "base_lr": 1e-3, "drop_out": 0.0, "num_workers": 1,
+             "encode": "bert", "tag_loss_weight": 1.0,
+             "compute_dtype": "float32", "image_backend": "pil",
+             "basemodel": os.path.join(root, "base.ckpt")}
+    cfg = TR.create_pipeline(dict(param, device="cpu")).model_cfg
+    model = init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    torch.save({"model": model.state_dict()}, param["basemodel"])
+    return param
+
+
+PORT_GEMM = ("gemm_wide_kernel", "gemm_split_kernel", "gemm_f32_kernel")
+PORT_OTHER = ("attention_kernel", "attention_wgmma", "attn_bwd_",
+              "layer_norm_kernel")
+
+
+@pytest.mark.cuda
+def test_cuda_pipeline_profiler_window(cuda, tmp_path):
+    """jax_profile_dir on the card: the train window (steps 2-3) and the
+    whole predict each write a Chrome trace holding CUDA kernel events of
+    the port's kernels."""
+    import json
+    from vitcap_tpu_torch import run as TR
+    prof = tmp_path / "trace"
+    param = dict(_tiny_pipeline(str(tmp_path)), device="cuda",
+                 jax_profile_dir=str(prof), jax_profile_start=1,
+                 jax_profile_steps=2)
+    TR.pipeline_train_eval_multi([{"test_data": "tinyjpeg",
+                                   "test_split": "test"}], param)
+    for kind in ("train", "predict"):
+        (trace,) = prof.glob(f"{kind}_rank0_*.pt.trace.json")
+        with open(trace) as f:
+            names = [e["name"] for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "kernel"]
+        assert any(k in n for n in names for k in PORT_GEMM), kind
+        assert any(k in n for n in names for k in PORT_OTHER), kind
+
+
+@pytest.mark.cuda
+def test_cuda_pipeline_predict_native_decoder(cuda, tmp_path):
+    """The predict of one snapshot (the basemodel) with image_backend
+    native (the native decoder, bit-exact with PIL) gives the PIL
+    backend's captions, on the card."""
+    if not _jpeg_headers():
+        pytest.skip("g++ finds no jpeglib.h on this host: the native image "
+                    "decoder cannot be built here (image_backend native "
+                    "raises; chip_smoke.py runs image_backend pil)")
+    import json
+    import os
+    import shutil
+    from vitcap_tpu_torch import run as TR
+    from vitcap_tpu_torch.data.tsv import tsv_reader
+    base = _tiny_pipeline(str(tmp_path))
+    rows = {}
+    for backend in ("pil", "native"):
+        pip = TR.create_pipeline(dict(
+            base, device="cuda", image_backend=backend, max_iter=1,
+            output_root=str(tmp_path / backend), test_data="tinyjpeg",
+            test_split="test"))
+        os.makedirs(pip.model_folder)
+        shutil.copy(base["basemodel"], pip.get_checkpoint_file())
+        predict_file = pip.ensure_predict()
+        rows[backend] = [(k, [c["caption"] for c in json.loads(v)])
+                         for k, v in tsv_reader(predict_file)]
+    assert len(rows["native"]) == 6 and rows["native"] == rows["pil"]

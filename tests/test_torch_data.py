@@ -230,13 +230,15 @@ def test_tsv_files_match_jax_bytes(tmp_path):
     f = TS.TSVFile(str(tmp_path / "t" / "r.tsv"))
     assert len(f) == len(rows)
     assert f[0] == list(rows[-1]) and f.seek_first_column(1) == "k4"
-    # an index the port builds itself (no sidecars): Python line scan
+    # an index the port builds itself (no sidecars): the native scanner
+    # writes the .lineidx.8b that the JAX package's writer wrote
     os.remove(tmp_path / "t" / "a.lineidx")
     os.remove(tmp_path / "t" / "a.lineidx.8b")
     g = TS.TSVFile(str(tmp_path / "t" / "a.tsv"))
     assert [g[i] for i in range(len(g))] == [list(r) for r in rows]
-    assert (tmp_path / "t" / "a.lineidx").read_bytes() == \
-        (tmp_path / "j" / "a.lineidx").read_bytes()
+    assert not (tmp_path / "t" / "a.lineidx").exists()
+    assert (tmp_path / "t" / "a.lineidx.8b").read_bytes() == \
+        (tmp_path / "j" / "a.lineidx.8b").read_bytes()
     TS.delete_tsv_files([str(tmp_path / "t" / "b.tsv")])
     assert not (tmp_path / "t" / "b.lineidx.8b").exists()
 
@@ -319,8 +321,21 @@ def test_transforms_match_jax():
     t = TX.TrainImageTransform(crop_size=32, seed=3)
     for _ in range(3):
         np.testing.assert_array_equal(t(pt), j(pj))
-    with pytest.raises(ValueError, match="not ported"):
-        TX.TestImageTransform(fast_decode=True)
+    # the native decoder's fast mode (DCT-scaled decode) on a JPEG large
+    # enough to scale: the JAX package's bytes, within 1 LSB of exact
+    from PIL import Image
+    big = np.asarray(Image.fromarray(
+        rs.randint(0, 256, (6, 8, 3)).astype(np.uint8)).resize(
+            (420, 300), Image.BICUBIC))
+    jpeg = base64.b64decode(JX.encoded_from_img(big, fmt="JPEG"))
+    kw = dict(crop_size=64, emit_uint8=True, backend="native")
+    fast = TX.TestImageTransform(fast_decode=True, **kw).from_jpeg_bytes(jpeg)
+    np.testing.assert_array_equal(
+        fast, JX.TestImageTransform(fast_decode=True, **kw).from_jpeg_bytes(
+            jpeg))
+    exact = TX.TestImageTransform(**kw).from_jpeg_bytes(jpeg)
+    assert not np.array_equal(fast, exact)
+    assert np.abs(fast.astype(np.int16) - exact).mean() < 1.0
 
 
 def test_samplers_match_jax():

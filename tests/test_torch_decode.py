@@ -13,6 +13,7 @@ deterministic limit and statistically.
 """
 
 import ast
+import re
 import logging
 import threading
 from pathlib import Path
@@ -390,14 +391,63 @@ def _banned(name: str) -> bool:
             or top == "vitcap_tpu")
 
 
+_JAX_NATIVE_FILES = ("tsvtools.cpp", "cider.cpp", "imageproc.cpp",
+                     "libtsvtools.so", "libcider.so", "libimageproc.so")
+
+
+def _native_refs(tree) -> list:
+    """Line numbers where a module builds from or loads something under
+    the repository's native/ directory (the JAX package's C++): a string
+    word that names one of its sources or libraries, or a path with a
+    `native` component, outside vitcap_tpu_torch/native; or `native` as a
+    component of a path join or `/`.  Docstrings are left out."""
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Expr) and isinstance(node.value,
+                                                     ast.Constant):
+            docs.add(id(node.value))
+
+    def words(c):
+        return c.value.split() if isinstance(c, ast.Constant) \
+            and isinstance(c.value, str) and id(c) not in docs else []
+
+    def reaches(word):
+        p = re.split(r"[/\\]+", word)
+        if any(a == "vitcap_tpu_torch" and b == "native"
+               for a, b in zip(p, p[1:])):
+            return False
+        return any(f in word for f in _JAX_NATIVE_FILES) or (
+            len(p) > 1 and "native" in p)
+
+    def is_native(c):
+        return any("native" in re.split(r"[/\\]+", w) for w in words(c))
+
+    bad = []
+    for node in ast.walk(tree):
+        if any(reaches(w) for w in words(node)):
+            bad.append(node.lineno)
+        elif isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div) \
+                and (is_native(node.left) or is_native(node.right)):
+            bad.append(node.lineno)
+        elif isinstance(node, ast.Call):
+            fn = node.func
+            name = getattr(fn, "attr", None) or getattr(fn, "id", None)
+            if name in ("join", "Path", "PurePath", "joinpath") and any(
+                    is_native(a) for a in node.args):
+                bad.append(node.lineno)
+    return bad
+
+
 def test_port_sources_import_no_jax():
     """Every module of vitcap_tpu_torch, and chip_smoke.py, parsed with
     ast: no `import jax`, `from jax...`, no flax, orbax, optax or grain
     (JAX-ecosystem packages), no `import vitcap_tpu` or
     `from vitcap_tpu...`, at any depth (vitcap_tpu_torch itself is
-    allowed)."""
+    allowed); and nothing built from or loaded out of the repository's
+    native/ directory (the port builds its own copies, under
+    vitcap_tpu_torch/native, into build/vitcap_tpu_torch/host)."""
     files = _port_sources()
-    assert len(files) >= 55
+    assert len(files) >= 62
     for new in ("solver/checkpointing.py", "solver/scst.py",
                 "evals/metrics.py", "ops/flash_attention.py",
                 "utils/common.py", "utils/meters.py", "data/tsv.py",
@@ -412,11 +462,17 @@ def test_port_sources_import_no_jax():
                 "models/t2t_vit.py", "models/pruned.py",
                 "models/efficientnet.py", "models/mobilenetv3.py",
                 "models/mixnet.py", "models/rexnet.py", "models/regnet.py",
-                "models/nfnet.py", "models/resnetv2.py"):
+                "models/nfnet.py", "models/resnetv2.py",
+                "native/__init__.py", "data/native_tsv.py",
+                "data/native_image.py", "data/grain_loader.py",
+                "evals/native_cider.py", "utils/metric.py"):
         assert ROOT / "vitcap_tpu_torch" / new in files
     bad = []
     for path in files:
-        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        tree = ast.parse(path.read_text(), str(path))
+        bad += [f"{path.relative_to(ROOT)}:{n} native/"
+                for n in _native_refs(tree)]
+        for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
             elif isinstance(node, ast.ImportFrom) and node.level == 0:
@@ -429,6 +485,21 @@ def test_port_sources_import_no_jax():
     assert not _banned("vitcap_tpu_torch.ops")
     assert _banned("orbax.checkpoint") and _banned("flax.serialization")
     assert _banned("grain.python")
+    # the native check catches the JAX package's own way of finding its
+    # libraries, and lets the port's names and the image_backend value be
+    for src, n in (('op.join(op.dirname(__file__), "..", "..", "native")', 1),
+                   ('ROOT / "native" / name', 1),
+                   ('ctypes.CDLL("../native/libcider.so")', 1),
+                   ('x = "libimageproc.so"', 1),
+                   ('Path(ROOT, "native")', 1),
+                   ('"""see native/cider.cpp"""', 0),
+                   ('f = "vitcap_tpu_torch/native/cider.cpp"', 0),
+                   ('if backend == "native": pass', 0),
+                   ('library("cider")', 0)):
+        assert len(_native_refs(ast.parse(src))) == n, src
+    from vitcap_tpu_torch import native
+    assert native.SOURCES == ROOT / "vitcap_tpu_torch" / "native"
+    assert native.BUILD_ROOT == ROOT / "build" / "vitcap_tpu_torch" / "host"
 
 
 def test_checkpoint_bridge_copy_matches_jax_bridge():

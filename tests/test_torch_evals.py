@@ -6,11 +6,11 @@ score within 1e-12; evaluate_on_coco_caption's `.report` within 1e-12;
 the nocaps submission json; and the report on a host without nltk, which
 leaves METEOR and SPICE out and says why.
 
-The JAX package scores corpus CIDEr-D with its native C++ scorer unless
-VITCAP_NATIVE_CIDER=0; the port has the Python scorer only (the native
-one is a later item), so the JAX side runs its Python path here, and
-test_cider_matches_the_native_scorer holds the port to the C++ one at the
-last bits of f64 sums in another order.
+Both packages score corpus CIDEr-D with their native C++ scorers unless
+VITCAP_NATIVE_CIDER=0: both sides run their Python paths here, and
+test_cider_matches_the_native_scorer holds the port's C++ scorer to the
+JAX package's (tests/test_torch_host_native.py holds it to the Python
+one at the last bits of f64 sums in another order).
 """
 
 import json

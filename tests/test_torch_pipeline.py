@@ -403,23 +403,89 @@ def test_scst_two_steps_write_snapshot(root, port_run, tmp_path):
 
 
 @pytest.mark.parametrize("kw, err, words", [
-    ({"loader": "grain"}, NotImplementedError, "Grain"),
     ({"mesh_data": 2}, ValueError, "nproc_per_node 2"),
     ({"checkpoint_backend": "msgpack"}, ValueError, "one backend"),
     ({"checkpoint_backend": "orbax"}, ValueError, "one backend"),
     ({"async_checkpoint": True}, ValueError, "synchronously"),
-    ({"jax_profile_dir": "trace"}, NotImplementedError, "profiler"),
     ({"image_encoder_type": "VitEmb_hrnet_w18"}, ValueError,
      "no ViT trunk"),
     ({"image_encoder_type": "VitEmb_efficientnet_b0"}, ValueError,
      "no ViT trunk"),
-], ids=["grain", "mesh_data", "msgpack", "orbax", "async",
-        "jax_profile_dir", "zoo_trunk", "zoo_cnn_trunk"])
+], ids=["mesh_data", "msgpack", "orbax", "async", "zoo_trunk",
+        "zoo_cnn_trunk"])
 def test_unported_keys_raise(root, tmp_path, kw, err, words):
     param = _param(root, str(tmp_path), device="cpu", **kw)
     with pytest.raises(err, match=words):
         pip = TR.create_pipeline(param)
         pip.model_cfg
+
+
+def test_grain_loader_losses_match_jax(root):
+    """`loader: grain` (shuffled, in-process) on both packages: the JAX
+    package's run drives Grain, the port's reproduces its record order;
+    the per-step losses within rtol 2e-5, as with the thread-pool
+    loader."""
+    kw = dict(loader="grain", grain_workers=0, expid="grain",
+              ignore_predict=True)
+    want = _run(JCP, JTS, "make_jitted_train_step", JR,
+                _param(root, "out_jax", **kw))
+    got = _run(TCP, TTS, "make_train_step", TR,
+               _param(root, "out_port", device="cpu", **kw))
+    assert len(got["losses"]) == len(want["losses"]) == 3
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=2e-5)
+
+
+def _traces(folder, prefix):
+    names = sorted(n for n in os.listdir(folder) if n.startswith(prefix))
+    out = []
+    for n in names:
+        with open(os.path.join(folder, n)) as f:
+            out.append(json.load(f)["traceEvents"])
+    return out
+
+
+def test_jax_profile_dir_writes_train_and_predict_traces(root, tmp_path):
+    """jax_profile_dir on the CPU: a Chrome trace of the train window
+    (steps 2-3: jax_profile_start 1, jax_profile_steps 2) and one of the
+    whole predict, each holding the port's CPU ops."""
+    prof = str(tmp_path / "trace")
+    param = _param(root, str(tmp_path), device="cpu", expid="prof",
+                   jax_profile_dir=prof, jax_profile_start=1,
+                   jax_profile_steps=2)
+    TR.pipeline_train_eval_multi(TEST, param)
+    (train,) = _traces(prof, "train_rank0_")
+    (predict,) = _traces(prof, "predict_rank0_")
+    for events in (train, predict):
+        names = {e.get("name", "") for e in events}
+        assert any(n.startswith("aten::") for n in names), sorted(names)[:20]
+    assert any("addmm" in e.get("name", "") or "mm" in e.get("name", "")
+               for e in train)
+
+
+def test_profile_window_closed_at_an_exception(root, tmp_path, monkeypatch):
+    """A step that raises inside the train window: the exception reaches
+    the caller and the window is closed and written."""
+    prof = str(tmp_path / "trace")
+    make = TTS.make_train_step
+
+    def failing(*a, **kw):
+        fn = make(*a, **kw)
+        calls = []
+
+        def step(*args):
+            calls.append(1)
+            if len(calls) == 2:
+                raise RuntimeError("step 2 failed")
+            return fn(*args)
+        return step
+    monkeypatch.setattr(TTS, "make_train_step", failing)
+    pip = TR.create_pipeline(_param(
+        root, str(tmp_path), device="cpu", expid="prof_fail",
+        jax_profile_dir=prof, jax_profile_start=1, jax_profile_steps=5))
+    with pytest.raises(RuntimeError, match="step 2 failed"):
+        pip.ensure_train()
+    (events,) = _traces(prof, "train_rank0_")
+    assert events
 
 
 def test_more_than_one_rank_raises(root, tmp_path, monkeypatch):

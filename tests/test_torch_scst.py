@@ -131,10 +131,11 @@ def _cider_inputs(seed=0, n=6, refs=5):
 @pytest.mark.parametrize("native", ["0", "1"])
 @pytest.mark.parametrize("df", ["corpus", "pickle"])
 def test_cider_d_matches_jax(monkeypatch, tmp_path, native, df):
-    """The port's pure-Python CiderD against the JAX package's Python path
-    (VITCAP_NATIVE_CIDER=0) and its native path (the C++ scorer, used in
-    corpus mode), within 1e-9: in corpus mode, and with a document
-    frequency pickle in the cider repo's format."""
+    """The port's CiderD against the JAX package's, each on its Python
+    path (VITCAP_NATIVE_CIDER=0) and its native path (the C++ scorer,
+    used in corpus mode), within 1e-9: in corpus mode, and with a
+    document frequency pickle in the cider repo's format (Python on both
+    sides whatever the variable says)."""
     monkeypatch.setenv("VITCAP_NATIVE_CIDER", native)
     gts, res = _cider_inputs()
     if df == "pickle":
@@ -171,8 +172,8 @@ def test_ngram_counter_matches_jax():
 @pytest.mark.parametrize("baseline", ["greedy", "sample"])
 def test_scst_reward_matches_jax(baseline):
     """Advantages (B * K,) for both baselines, against the JAX package's
-    ScstReward on the same captions (corpus df, its Python CiderD path
-    and ours share the arithmetic); and by hand: the greedy baseline is
+    ScstReward on the same captions (corpus df: both packages' native
+    C++ scorers, the same arithmetic); and by hand: the greedy baseline is
     each image's greedy score, the sample baseline the mean of the
     image's other samples."""
     rs = np.random.RandomState(5)

@@ -14,6 +14,7 @@ builder.py:4-39):
 
 from __future__ import annotations
 
+import base64
 import concurrent.futures
 import json
 import math
@@ -139,9 +140,16 @@ class LoadImage:
 
     def __call__(self, data):
         row = self.tsv[data["idx_img"]]
-        img = img_from_base64(row[-1])
-        if self.image_transform is not None:
-            img = self.image_transform(img)
+        img = None
+        tf = self.image_transform
+        if tf is not None and hasattr(tf, "from_jpeg_bytes"):
+            # the fused native decode+resize+crop (transforms.py); None
+            # for a payload libjpeg refuses or under image_backend: pil
+            img = tf.from_jpeg_bytes(base64.b64decode(row[-1]))
+        if img is None:
+            img = img_from_base64(row[-1])
+            if tf is not None:
+                img = tf(img)
         data["image"] = img
         if self.add_key:
             data["key"] = row[0]

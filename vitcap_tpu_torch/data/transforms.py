@@ -1,10 +1,10 @@
 """Host-side image pipeline: base64 JPEG decode + train/test transforms,
 the port's copy of vitcap_tpu/data/transforms.py.  Images decode with
-PIL, imported where an image is decoded.  The JAX package's fused native
-decoder (native/imageproc.cpp, `image_backend: native`) is not ported
-yet: a test transform asked for it logs so and decodes with PIL, which
-the JAX package also falls back to (its native path is bit-exact with
-PIL's).
+PIL, imported where an image is decoded, except where the test transform
+takes a JPEG payload itself (`image_backend: native`, the default):
+then the fused C++ decode + resize + crop of data/native_image.py runs,
+bit-exact with the PIL path (`image_fast_decode`: libjpeg's DCT-scaled
+decode, within 1 LSB on average).
 
 Numpy/PIL re-implementation of the reference torchvision chains (same
 distributions, RGB layout, NHWC float32 or uint8 output):
@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import base64
 import io
-import logging
 import math
 import random
 from typing import Optional, Tuple
@@ -130,10 +129,12 @@ class TrainImageTransform:
 class TestImageTransform:
     """Resize(floor(crop/crop_pct), bicubic) + CenterCrop(crop).
 
-    `backend="native"` (the default, as in the JAX package) asks for the
-    fused C++ decode+resize+crop, which the port has not ported yet: the
-    transform logs it and decodes with PIL.  `fast_decode=True` belongs
-    to that decoder and raises here."""
+    `backend="native"` (the default, as in the JAX package) routes JPEG
+    payloads through the fused C++ decode+resize+crop (`from_jpeg_bytes`,
+    data/native_image.py), bit-exact with the PIL path; its library is
+    built here, and a host that cannot build it raises (use
+    backend="pil" there).  `fast_decode=True` adds libjpeg's DCT-domain
+    scaled decode (output within 1 LSB of exact on average)."""
 
     def __init__(self, crop_size: int = 384, crop_pct: float = 1.0,
                  mean: float = 0.5, std: float = 0.5, patchify: int = 0,
@@ -144,15 +145,11 @@ class TestImageTransform:
         self.mean, self.std = mean, std
         self.patchify = patchify
         self.emit_uint8 = emit_uint8
-        if fast_decode:
-            raise ValueError(
-                "image_fast_decode selects the native decoder's DCT-scaled "
-                "decode (native/imageproc.cpp), which the port has not "
-                "ported yet (ROADMAP.md queue 1)")
-        if backend == "native":
-            logging.info("image_backend 'native': the native decoder "
-                         "(native/imageproc.cpp) is not ported yet; "
-                         "decoding with PIL")
+        self.backend = backend
+        self.fast_decode = fast_decode
+        if backend == "native":          # build it now: raises if it cannot
+            from ..native import library
+            library("imageproc")
 
     def _finish(self, arr_u8: np.ndarray) -> np.ndarray:
         if self.emit_uint8:
@@ -162,6 +159,17 @@ class TestImageTransform:
             from ..models.layers import patchify_host
             arr = patchify_host(arr, self.patchify)
         return arr
+
+    def from_jpeg_bytes(self, data: bytes) -> Optional[np.ndarray]:
+        """The fused native path for a raw payload; None when the backend
+        is PIL or libjpeg refuses the payload (a PNG row): the caller then
+        decodes with PIL and calls the transform."""
+        if self.backend != "native":
+            return None
+        from .native_image import decode_resize_center_crop
+        out = decode_resize_center_crop(data, self.resize_size,
+                                        self.crop_size, fast=self.fast_decode)
+        return None if out is None else self._finish(out)
 
     def __call__(self, img: "Image.Image") -> np.ndarray:
         from PIL import Image

@@ -1,7 +1,7 @@
 """TSV storage engine, binary-compatible with the reference format: the
-port's copy of vitcap_tpu/data/tsv.py.  A missing index is built by the
-Python line scan; the JAX package's native scanner (native/tsvtools.cpp)
-is not ported yet.
+port's copy of vitcap_tpu/data/tsv.py.  A missing index is built as
+`.lineidx.8b` by the native scanner (data/native_tsv.py); the Python line
+scan `generate_lineidx` is its plain version.
 
 Behavioral reference: ViTCAP src/tools/tsv/tsv_io.py — TSVFile (:174-370)
 with sidecar `.lineidx` (ascii offsets :294-308) and `.lineidx.8b`
@@ -68,7 +68,9 @@ class TSVFile:
             if not self._generate_index:
                 raise FileNotFoundError(
                     f"no lineidx for {self.tsv_path}")
-            generate_lineidx(self.tsv_path, self.lineidx_path)
+            # the C++ scanner writes .lineidx.8b at disk speed
+            from .native_tsv import build_lineidx_8b
+            build_lineidx_8b(self.tsv_path, self.lineidx_8b_path)
         if op.isfile(self.lineidx_8b_path):
             if os.path.getsize(self.lineidx_8b_path) == 0:
                 # empty TSV: memmap refuses 0-byte files
@@ -136,6 +138,20 @@ class TSVFile:
         if self._fp is not None:
             self._local.fp.close()
             self._local.fp = None
+
+    def __getstate__(self):
+        """Picklable for process-based loaders (data/grain_loader.py
+        workers): drop the per-thread handles and the offset memmap (a
+        memmap would pickle by value, the handles not at all); both
+        rebuild lazily in the worker."""
+        state = self.__dict__.copy()
+        state["_local"] = None
+        state["_offsets"] = None
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._local = threading.local()
 
 
 class CompositeTSVFile:

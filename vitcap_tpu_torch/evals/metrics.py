@@ -12,8 +12,9 @@ Algorithms follow the published pycocoevalcap / cider implementations:
   references of each call (df='corpus') or from a pickle
   {'ref_len', 'document_frequency'} (the cider repo's coco-train-words.p
   format).  The SCST reward (solver/scst.py) scores B * (K + 1) captions
-  with it every step.  The JAX package's native C++ scorer
-  (native/cider.cpp) is not ported yet.
+  with it every step: with df='corpus' and n = 4 the scorer runs in C++
+  (evals/native_cider.py) unless VITCAP_NATIVE_CIDER=0 selects the
+  Python scorer, its plain version.
 - ROUGE-L: LCS F-beta with beta=1.2, max over refs (pycocoevalcap rouge).
 - METEOR and SPICE-lite: evals/meteor.py and evals/spice.py (their
   stemmer is nltk's Porter stemmer).
@@ -25,6 +26,7 @@ pre-tokenized (space-joined) strings, like pycocoevalcap after PTBTokenizer.
 from __future__ import annotations
 
 import math
+import os
 import pickle
 from collections import Counter, defaultdict
 from typing import Dict, List, Optional, Tuple
@@ -156,6 +158,10 @@ class CiderD:
                       res: Dict[str, List[str]]
                       ) -> Tuple[float, np.ndarray]:
         """(corpus mean, per-id scores in the order of gts' keys)."""
+        if self.df_mode == "corpus" and self.n == 4 \
+                and os.environ.get("VITCAP_NATIVE_CIDER", "1") != "0":
+            from .native_cider import ciderd_corpus_native
+            return ciderd_corpus_native(gts, res, self.sigma)
         keys = list(gts.keys())
         crefs = [[_ngram_counter(r, self.n) for r in gts[k]] for k in keys]
         ctest = [_ngram_counter(res[k][0], self.n) for k in keys]

@@ -15,10 +15,11 @@ data-parallel (solver/train_step.py: each rank takes
 effective_batch_size / N rows of each global batch, and the step is the
 global batch's), only rank 0 snapshots, a SIGTERM stops every rank at
 the same iteration, and each rank predicts its shard of the test set.
-`mesh_data`, the JAX package's data-axis size, must be unset or N.  Keys
-whose machinery is not ported raise, naming the ROADMAP.md item: loader:
-grain, checkpoint_backend other than 'torch', async_checkpoint,
-jax_profile_dir.
+`mesh_data`, the JAX package's data-axis size, must be unset or N.
+`jax_profile_dir` (with `jax_profile_start`, default 2, and
+`jax_profile_steps`, default 5) writes a torch.profiler trace of a window
+of train steps.  Keys of the JAX package's checkpoint machinery raise:
+checkpoint_backend other than 'torch', async_checkpoint.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from typing import Any, Dict, Iterator, Optional
 import numpy as np
 import torch
 
-from .uni_pipeline import UniPipeline
+from .uni_pipeline import ProfileWindow, UniPipeline
 from ..data.dataset import (
     CaptionIdxTSVDataset, Compose, IdentifyTextAB, ImageIdxTSVDataset,
     LoadCaption, LoadHW, LoadImage, LoadLabel, RemoveUselessKeys, RenameKey,
@@ -47,11 +48,6 @@ from ..parallel.distributed import any_process
 from ..parallel.mesh import check_mesh_data, rank_seed, replicate_params
 from ..utils.common import Config, asset_path, resolve_asset
 from ..utils.meters import MetricLogger
-
-
-def _not_ported(key: str, what: str) -> NotImplementedError:
-    return NotImplementedError(f"{key}: {what} is not ported to "
-                               f"vitcap_tpu_torch yet (ROADMAP.md queue 1)")
 
 
 class CaptionUniPipeline(UniPipeline):
@@ -129,10 +125,6 @@ class CaptionUniPipeline(UniPipeline):
         """Raise on the keys whose machinery the port does not have; none
         of them is ignored."""
         c = self.cfg
-        if c.get("loader") == "grain":
-            raise _not_ported("loader: grain", "the Grain loader (a "
-                              "JAX-ecosystem loader; the port's loader is "
-                              "the thread-pool DataLoader)")
         check_mesh_data(c.mesh_data, self.mpi_size)
         if c.get("checkpoint_backend") not in (None, "torch"):
             raise ValueError(
@@ -142,9 +134,6 @@ class CaptionUniPipeline(UniPipeline):
         if c.get("async_checkpoint"):
             raise ValueError("async_checkpoint is the JAX package's orbax "
                              "machinery; the port saves synchronously")
-        if c.get("jax_profile_dir"):
-            raise _not_ported("jax_profile_dir", "the profiler hooks (as "
-                              "torch.profiler hooks)")
 
     # ------------------------------------------------------------------
     # pieces
@@ -406,6 +395,15 @@ class CaptionUniPipeline(UniPipeline):
         elif self.cfg.get("pred_tag_train"):
             gen_tag_ratio = 1.0
 
+        # jax_profile_dir (+ jax_profile_start, jax_profile_steps): a
+        # torch.profiler trace of a window of train steps (the train-side
+        # analogue of the predict hook in uni_pipeline.predict)
+        profile_dir = self.cfg.get("jax_profile_dir")
+        profile_at = int(self.cfg.get("jax_profile_start") or 2)
+        profile_n = int(self.cfg.get("jax_profile_steps") or 5)
+        trace = ProfileWindow(profile_dir, f"train_rank{self.mpi_rank}",
+                              self.device) if profile_dir else None
+
         # preemption-safe shutdown: a caught SIGTERM requests one final
         # snapshot + clean loop exit so recover_or_load resumes from the
         # exact iteration (the reference snapshots on a step cadence only,
@@ -426,6 +424,8 @@ class CaptionUniPipeline(UniPipeline):
         # host prep of batch N+1 overlaps device compute of batch N
         try:
             for batch in loader:
+                if trace and iteration == start_iter + profile_at:
+                    trace.start()
                 data_time = time.time() - t_end
                 dev = self._device_train_batch(batch)
                 if gen_tag_ratio is not None:
@@ -440,6 +440,9 @@ class CaptionUniPipeline(UniPipeline):
                                or it_next >= self.max_iter)
                 state, metrics = step_fn(state, dev, want_probes)
                 iteration += 1
+                if trace and trace.active and \
+                        iteration >= start_iter + profile_at + profile_n:
+                    trace.stop()
                 if iteration % nan_check_steps == 0 \
                         and iteration % log_step != 0 \
                         and iteration != self.max_iter:
@@ -501,6 +504,10 @@ class CaptionUniPipeline(UniPipeline):
             if self.mpi_rank == 0:
                 ckpt.save(self.max_iter, state)
         finally:
+            # a window still open (it ran past max_iter, or a step raised)
+            # is closed and written
+            if trace and trace.active:
+                trace.stop()
             if prev_handler is not None:
                 signal.signal(signal.SIGTERM, prev_handler)
         return state

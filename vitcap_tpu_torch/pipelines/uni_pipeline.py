@@ -16,14 +16,20 @@ src/pipelines/uni_pipeline.py:91-1130):
   rank 0 alone saves the parameters and snapshots, writes the
   `.info.yaml`, merges the per-rank predict shards (concatenated, the
   sampler's duplicated tail dropped, the dataset's key order restored)
-  and evaluates.
+  and evaluates;
+- `loader: grain` (data/grain_loader.py, `grain_workers` processes) in
+  place of the thread-pool DataLoader; `jax_profile_dir` (the YAML key the
+  JAX package shares) writes a torch.profiler Chrome trace of the whole
+  predict, and of a window of train steps (caption_pipeline.py).
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import os
 import os.path as op
+import time
 from typing import Any, Dict, Iterator, Optional
 
 import numpy as np
@@ -43,6 +49,49 @@ from ..utils.common import (
     init_logging, save_parameters, worth_create, write_to_yaml_file,
 )
 from ..utils.meters import MetricLogger
+
+
+class ProfileWindow:
+    """The torch.profiler window behind `jax_profile_dir`: CPU activity,
+    plus CUDA activity on the card.  stop() (or leaving the `with` block,
+    an exception included) ends it and writes a Chrome trace
+    `<folder>/<name>_<time>_<pid>.pt.trace.json`, whose path it returns."""
+
+    def __init__(self, folder: str, name: str, device: torch.device):
+        self.folder, self.name, self.device = folder, name, device
+        self._prof = None
+
+    @property
+    def active(self) -> bool:
+        return self._prof is not None
+
+    def start(self) -> None:
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        self._prof = profile(activities=acts)
+        self._prof.start()
+
+    def stop(self) -> str:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof, self._prof = self._prof, None
+        prof.stop()
+        ensure_directory(self.folder)
+        path = op.join(self.folder, f"{self.name}_"
+                       f"{time.strftime('%Y%m%d_%H%M%S')}_"
+                       f"{os.getpid()}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        logging.info("profiler trace: %s", path)
+        return path
+
+    def __enter__(self) -> "ProfileWindow":
+        self.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
 
 
 class UniPipeline:
@@ -171,17 +220,28 @@ class UniPipeline:
                         dataset=None):
         if dataset is None:
             dataset = self.get_dataset(is_train)
+        if is_train and self.cfg.effective_batch_size % self.mpi_size:
+            raise ValueError(
+                f"effective_batch_size {self.cfg.effective_batch_size} "
+                f"does not divide over {self.mpi_size} ranks")
+        per_rank = (self.cfg.effective_batch_size // self.mpi_size
+                    if is_train else self.cfg.test_batch_size)
+        if self.cfg.get("loader") == "grain":
+            from ..data.grain_loader import GrainDataLoader
+            return GrainDataLoader(
+                dataset, per_rank,
+                shuffle=is_train and bool(self.cfg.train_shuffle),
+                seed=int(self.cfg.get("seed") or self.cfg.random_seed or 0),
+                infinite=is_train,
+                max_iter=self.max_iter if is_train else None,
+                start_iter=start_iter,
+                shard_index=self.mpi_rank, shard_count=self.mpi_size,
+                num_workers=int(self.cfg.get("grain_workers") or 0))
         if is_train:
-            if self.cfg.effective_batch_size % self.mpi_size:
-                raise ValueError(
-                    f"effective_batch_size {self.cfg.effective_batch_size} "
-                    f"does not divide over {self.mpi_size} ranks")
             sampler = DistributedSampler(dataset, self.mpi_size,
                                          self.mpi_rank,
                                          shuffle=self.cfg.train_shuffle)
-            bs = BatchSampler(sampler,
-                              self.cfg.effective_batch_size // self.mpi_size,
-                              drop_last=True)
+            bs = BatchSampler(sampler, per_rank, drop_last=True)
             ibs = IterationBasedBatchSampler(bs, self.max_iter, start_iter)
             return DataLoader(dataset, ibs,
                               num_workers=self.cfg.num_workers)
@@ -255,7 +315,14 @@ class UniPipeline:
         dataset = self.get_dataset(is_train=False)
         loader = self.get_data_loader(is_train=False, dataset=dataset)
         meters = MetricLogger()
-        tsv_writer(self.predict_iter(loader, model, meters), sub_file)
+        profile_dir = self.cfg.get("jax_profile_dir")
+        if profile_dir:                   # a trace of the whole predict
+            with ProfileWindow(profile_dir, f"predict_rank{self.mpi_rank}",
+                               self.device):
+                tsv_writer(self.predict_iter(loader, model, meters),
+                           sub_file)
+        else:
+            tsv_writer(self.predict_iter(loader, model, meters), sub_file)
         logging.info(str(meters))
         # per-prediction speed report (reference .speed.yaml,
         # uni_pipeline.py:804-805); `module_time` carries the per-stage
