@@ -12,7 +12,8 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
    (registers, local bytes, shared memory per block, resident blocks per
    SM);
 3. each kernel vs its plain PyTorch version on the card, at the flagship
-   shapes (ViT-B/16-384, B=64), in bf16 and f32: max abs error, times, the
+   shapes (ViT-B/16-384, B=64), in bf16 and f32 (the f32 checks, here and
+   in phases 8-10, over F32_B = 16 images): max abs error, times, the
    bound (the least time the card could take) and the time of one
    PyTorch call computing the same function (the yardstick); bf16 gemm
    and attention at least 99% bit-equal to their plain versions; the gemm
@@ -176,18 +177,32 @@ Phases (each prints its lines; any failure raises, so the exit code is not 0):
    decoder only where g++ finds libjpeg's jpeglib.h, which phase 1
    reports: without it phases 14, 16 and 19c run image_backend: pil);
    b. CIDEr-D at SCST's shape (192 hypotheses x 5 references): native
-   vs Python within rtol 1e-9 and the ms of each, then phase 13's SCST
-   step with the native reward (reward, decode and grad ms, images/s
-   beside phase 13's Python reward); c. 128 seeded 640x480 JPEGs decoded,
-   resized and cropped to 384 by PIL, the native exact mode (bit-equal
-   to PIL) and the fast mode (within 1 LSB of exact on average), ms an
-   image, then the fused predict of those images on each image_backend
-   (captions/s, idle share, prep_time); d. the .lineidx.8b of a seeded
-   200 MiB TSV, native vs the Python scan (offsets equal, ms of each);
-   e. 3 flagship train steps with loader: grain and grain_workers 2
-   (batches equal a grain_workers 0 loader's; img/s and the host gap);
-   f. a 2-step train window under jax_profile_dir whose Chrome trace
-   holds CUDA kernel events of the port's gemm and attention.
+   vs Python within rtol 1e-9 and the ms of each, beside phase 13's SCST
+   step, which rewards with the native scorer; c. 128 seeded 640x480
+   JPEGs decoded, resized and cropped to 384 by PIL, the native exact
+   mode (bit-equal to PIL) and the fast mode (within 1 LSB of exact on
+   average), ms an image, then the fused predict of those images on each
+   image_backend (captions/s, idle share, prep_time); d. the .lineidx.8b
+   of a seeded 200 MiB TSV, native vs the Python scan (offsets equal, ms
+   of each);
+   e. 4 flagship train steps with loader: grain and grain_workers 2
+   (the first 3 batches equal a grain_workers 0 loader's; img/s over
+   steps 2-3 and the host gap); f. in that run, step 4 under
+   jax_profile_dir, whose Chrome trace holds CUDA kernel events of the
+   port's gemm and attention.
+20. tensor parallelism (parallel/mesh.py make_mesh, shard_params(...,
+   tensor_parallel=True), gather_params; parallel/tensor_parallel.py):
+   a. attention and attention_bwd with prob dropout on a rank's head
+   slice (heads 6-11 of 12, the salt's head offset) vs their plain
+   versions, bf16 and f32; b. two ranks on cuda:0 over Gloo (this script
+   with --tp-worker) on a (1, 2) grid against this process's unsplit
+   runs: 2 flagship train steps (bf16, dropout 0.1, 16 images; losses
+   within 2e-2, each rank's launches a step the unsplit step's kernels,
+   the model axis's all-reduce ms a step) and one f32 step at 4 + 2 + 2
+   blocks (loss rtol 1e-5, the gathered parameters rtol 2e-4 / atol
+   1e-6); c. before each run's training a greedy and a beam-3 batch on
+   the fused engine (f32 tokens equal the unsplit tokens; bf16 first-step
+   logits within 2e-2 of their scale).
 Phase 3 also runs decode_attention at S = 2000 context keys (hd 64 with 4
 beams, hd 128 with 1), at least 99% bit-equal at B=64, with its share and
 times, and a sweep of small calls (3 images, 8 seeds, 3 t; from 628 to
@@ -227,6 +242,8 @@ SEED = 0
 F32_TOL = 1e-4               # f32 kernels vs plain: exact arithmetic,
                              # only the summation order differs
 BF16_TOL = 2e-2              # bf16: of the output's scale
+F32_B = 16                   # images of the f32 kernel checks (of B): a
+                             # check of exactness, not a timed main row
 # H100 SXM peaks (NVIDIA's data sheet, dense): the bound of a kernel is
 # the larger of its operations over the peak of their type and its bytes
 # (each input read once, each output written once) over the HBM rate
@@ -252,7 +269,8 @@ TRAIN_MODES_PER_STEP = {"gemm[pre_out]": 19, "gemm[dropout]": 8,
                         "attention[heads]": 0, "attention[online]": 0,
                         "attention_bwd[heads]": 0,
                         "decode_attention[groups]": 0,
-                        "attention[hdp128]": 0, "layer_norm[wide]": 0}
+                        "attention[hdp128]": 0, "layer_norm[wide]": 0,
+                        "attention[tp]": 0, "attention_bwd[tp]": 0}
 # one 512-px flagship train step: past 1024 padded tokens every
 # self-attention takes the plain chain's packed route (flash_attention_
 # packed): 15 ViT blocks at Lp 1152 (the CLS-only tag block attends from
@@ -269,7 +287,8 @@ TRAIN_512_MODES_PER_STEP = {"gemm[pre_out]": 0, "gemm[dropout]": 0,
                             "attention[heads]": 0, "attention[online]": 0,
                             "attention_bwd[heads]": 0,
                             "decode_attention[groups]": 0,
-                            "attention[hdp128]": 0, "layer_norm[wide]": 0}
+                            "attention[hdp128]": 0, "layer_norm[wide]": 0,
+                            "attention[tp]": 0, "attention_bwd[tp]": 0}
 HIGHRES = 512                # phase 9's images, against 384-px weights
 LONG = {"attention[long]": 18}          # per 512-px batch: every block
 FILTERED_LONG = {"attention[long]": 2}  # token_filter_keep=0.5: blocks 0, 1
@@ -397,6 +416,21 @@ MODE_SOURCES = {
                    "(csrc/gemm.cu, layer_norm.cu)",
                    "vitcap_tpu/ops/fused_block.py:831 _tail_train_kernel "
                    "(K12)", "577"),
+    "attention[tp]": ("vitcap_tpu_torch/csrc/attention.cu "
+                      "(attention_wgmma_kernel, the dropout salt's global "
+                      "head b * nh_total + head_offset + h)",
+                      "vitcap_tpu/ops/flash_attention.py:484 "
+                      "_fwd_packed_pair_kernel, :452 _fwd_packed_kernel (K8 "
+                      "forward) on a tensor-parallel rank's heads, as "
+                      "vitcap_tpu/parallel/mesh.py:106 shard_params("
+                      "tensor_parallel=True) places them",
+                      "bert train heads 6-11"),
+    "attention_bwd[tp]": ("vitcap_tpu_torch/csrc/attention_bwd.cu (the "
+                          "same salt)",
+                          "vitcap_tpu/ops/flash_attention.py:530 "
+                          "_bwd_packed_pair_kernel, :600 _bwd_packed_kernel "
+                          "(K8 backward) on a tensor-parallel rank's heads",
+                          "bert train heads 6-11"),
 }
 
 
@@ -569,21 +603,22 @@ def phase_kernels(dev, rows, Lp=592, gemm_cases=GEMM_CASES,
                   attn_cases=ATTN_CASES, tag=""):
     """Each kernel vs its plain version, timed beside its bound and its
     yardstick: the gemms and LayerNorms over B * Lp rows, the attention
-    cases; `tag` is appended to the gemm and LayerNorm case names."""
+    cases (f32 over F32_B images); `tag` is appended to the gemm and
+    LayerNorm case names."""
     from vitcap_tpu_torch.ops.attention import attention, attention_plain
     from vitcap_tpu_torch.ops.gemm import gemm, gemm_plain
     from vitcap_tpu_torch.ops.layer_norm import layer_norm, layer_norm_plain
     g = torch.Generator().manual_seed(SEED)
-    M = B * Lp
     H = 768
     first = len(rows)
 
     def rnd(*shape, scale=1.0, dtype=torch.float32):
         return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
 
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype, Bd in ((torch.bfloat16, B), (torch.float32, F32_B)):
         dn = "bf16" if dtype == torch.bfloat16 else "f32"
         es = 2 if dtype == torch.bfloat16 else 4
+        M = Bd * Lp
         for name, K, N, epi in gemm_cases:
             a = [rnd(M, K, dtype=dtype) for _ in range(2)]
             w = rnd(N, K, scale=0.02, dtype=dtype)
@@ -626,9 +661,10 @@ def phase_kernels(dev, rows, Lp=592, gemm_cases=GEMM_CASES,
             in_es = 4 if idt == torch.float32 else 2
             _row(rows, "layer_norm", name + tag, dn, f"rows={M} H={H}", err,
                  ms, pms, lms, 8.0 * M * H, M * H * (in_es + es) + 8 * H)
-        for kname, name, Bn, L, Lp, with_bias in attn_cases:
-            slab = [rnd(Bn, Lp, 3 * H, dtype=dtype) for _ in range(2)]
-            bias = _prefill_bias(Bn, L, Lp, dev) if with_bias else None
+        for kname, name, Bn, L, Lpa, with_bias in attn_cases:
+            Bn = min(Bn, Bd)
+            slab = [rnd(Bn, Lpa, 3 * H, dtype=dtype) for _ in range(2)]
+            bias = _prefill_bias(Bn, L, Lpa, dev) if with_bias else None
             out = attention(slab[0], 12, L, bias)
             ref = attention_plain(slab[0], 12, L, bias)
             err = compare(f"{kname} {name} {dn}", out, ref, dtype)
@@ -638,20 +674,20 @@ def phase_kernels(dev, rows, Lp=592, gemm_cases=GEMM_CASES,
             pms = cuda_ms(lambda i: attention_plain(slab[i % 2], 12, L,
                                                     bias), 5)
             # yardstick: SDPA on the slab's q/k/v with the same float mask
-            mask = torch.zeros(Bn, 1, Lp, Lp, device=dev, dtype=dtype)
+            mask = torch.zeros(Bn, 1, Lpa, Lpa, device=dev, dtype=dtype)
             mask[..., L:] = float("-inf")
             if bias is not None:
                 mask = mask + bias.to(dtype)
-            qkv = [s.view(Bn, Lp, 3, 12, 64).permute(2, 0, 3, 1, 4)
+            qkv = [s.view(Bn, Lpa, 3, 12, 64).permute(2, 0, 3, 1, 4)
                    for s in slab]
             lms = cuda_ms(lambda i: F.scaled_dot_product_attention(
                 qkv[i % 2][0], qkv[i % 2][1], qkv[i % 2][2],
                 attn_mask=mask), 5)
-            nbytes = es * Bn * Lp * 4 * H + (4 * Bn * Lp * Lp if with_bias
-                                             else 0)
+            nbytes = es * Bn * Lpa * 4 * H + (4 * Bn * Lpa * Lpa if with_bias
+                                              else 0)
             _row(rows, kname, name, dn,
-                 f"B={Bn} L={L} Lp={Lp} heads=12x64", err, ms, pms, lms,
-                 4.0 * Bn * 12 * Lp * L * 64, nbytes)
+                 f"B={Bn} L={L} Lp={Lpa} heads=12x64", err, ms, pms, lms,
+                 4.0 * Bn * 12 * Lpa * L * 64, nbytes)
             rows[-1]["bit_equal"] = eq
             del mask, qkv, slab, bias
             torch.cuda.empty_cache()
@@ -1265,9 +1301,9 @@ def phase_train_kernels(dev, rows):
     the gemm's pre-GELU output (ViT fc1), the K7 dropout epilogue (BERT
     out-dense and fc2, rates 0 and 0.1), attention with prob dropout (BERT,
     bias, 0.1), and attention_bwd (ViT: no bias, rate 0, l_actual 577;
-    BERT: bias, 0.1, l_actual 648).  Yardsticks: F.layer_norm, F.linear,
-    SDPA with a float mask and dropout_p, and SDPA's backward on a
-    retained graph."""
+    BERT: bias, 0.1, l_actual 648; f32 over F32_B images).  Yardsticks:
+    F.layer_norm, F.linear, SDPA with a float mask and dropout_p, and
+    SDPA's backward on a retained graph."""
     from vitcap_tpu_torch.ops.attention import attention, attention_plain
     from vitcap_tpu_torch.ops.attention_bwd import (attention_bwd,
                                                     attention_bwd_plain)
@@ -1288,7 +1324,7 @@ def phase_train_kernels(dev, rows):
             return eq
         return None
 
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype, Bd in ((torch.bfloat16, B), (torch.float32, F32_B)):
         dn = "bf16" if dtype == torch.bfloat16 else "f32"
         es = 2 if dtype == torch.bfloat16 else 4
         for case, M in (("vit rows", B * 592), ("bert rows", B * 656)):
@@ -1359,11 +1395,11 @@ def phase_train_kernels(dev, rows):
         for case, L, Lp, with_bias, rate in (
                 ("vit", 577, 592, False, 0.0),
                 ("bert", 648, 656, True, 0.1)):
-            slab = rnd(B, Lp, 3 * H, dtype=dtype)
-            up = rnd(B, Lp, H, dtype=dtype)
+            slab = rnd(Bd, Lp, 3 * H, dtype=dtype)
+            up = rnd(Bd, Lp, H, dtype=dtype)
             up[:, L:] = 0.0
-            bias = _bert_train_bias(B, L, Lp, dev) if with_bias else None
-            mask = torch.zeros(B, 1, Lp, Lp, device=dev, dtype=dtype)
+            bias = _bert_train_bias(Bd, L, Lp, dev) if with_bias else None
+            mask = torch.zeros(Bd, 1, Lp, Lp, device=dev, dtype=dtype)
             mask[..., L:] = float("-inf")
             if bias is not None:
                 mask = mask + bias.to(dtype)
@@ -1377,14 +1413,14 @@ def phase_train_kernels(dev, rows):
                     lambda i: attention(slab, nh, L, bias, rate, 4242),
                     lambda i: attention_plain(slab, nh, L, bias, rate, 4242),
                     5, 2)
-                qkv = slab.view(B, Lp, 3, nh, hd).permute(2, 0, 3, 1, 4)
+                qkv = slab.view(Bd, Lp, 3, nh, hd).permute(2, 0, 3, 1, 4)
                 lms = cuda_ms(lambda i: F.scaled_dot_product_attention(
                     qkv[0], qkv[1], qkv[2], attn_mask=mask, dropout_p=rate),
                     5)
                 _row(rows, "attention[dropout]", f"{case} train", dn,
-                     f"B={B} L={L} Lp={Lp} heads=12x64 rate={rate}", err, ms,
-                     pms, lms, 4.0 * B * nh * Lp * L * hd,
-                     es * B * Lp * 4 * H + 4 * B * Lp * Lp)
+                     f"B={Bd} L={L} Lp={Lp} heads=12x64 rate={rate}", err,
+                     ms, pms, lms, 4.0 * Bd * nh * Lp * L * hd,
+                     es * Bd * Lp * 4 * H + 4 * Bd * Lp * Lp)
                 rows[-1]["bit_equal"] = eq
                 del out, ref, qkv
             got = attention_bwd(slab, up, nh, L, bias, rate, 777)
@@ -1402,17 +1438,18 @@ def phase_train_kernels(dev, rows):
             # yardstick: SDPA's backward on a retained graph (its forward
             # saved what its backward reads; dropout from its own RNG)
             qkv = [t.detach().contiguous().requires_grad_(True) for t in
-                   slab.view(B, Lp, 3, nh, hd).permute(2, 0, 3, 1, 4)]
+                   slab.view(Bd, Lp, 3, nh, hd).permute(2, 0, 3, 1, 4)]
             o = F.scaled_dot_product_attention(*qkv, attn_mask=mask,
                                                dropout_p=rate)
-            go = up.view(B, Lp, nh, hd).transpose(1, 2)
+            go = up.view(Bd, Lp, nh, hd).transpose(1, 2)
             lms = cuda_ms(lambda i: torch.autograd.grad(
                 o, qkv, go, retain_graph=True), 3)
             _row(rows, "attention_bwd", case, dn,
-                 f"B={B} L={L} Lp={Lp} heads=12x64 rate={rate} "
+                 f"B={Bd} L={L} Lp={Lp} heads=12x64 rate={rate} "
                  f"bias={with_bias}", err, ms, pms, lms,
-                 10.0 * B * nh * Lp * L * hd,
-                 es * B * Lp * 7 * H + (4 * B * Lp * Lp if with_bias else 0))
+                 10.0 * Bd * nh * Lp * L * hd,
+                 es * Bd * Lp * 7 * H + (4 * Bd * Lp * Lp if with_bias
+                                         else 0))
             rows[-1]["bit_equal"] = eqs[0] and min(eqs)
             del slab, up, bias, mask, qkv, o
             torch.cuda.empty_cache()
@@ -2067,7 +2104,7 @@ def phase_highres_parity(dev):
 
 def phase_train512_kernels(dev, rows):
     """The attention and attention_bwd kernels as the 512-px train step
-    calls them through flash_attention_packed, B=64, bf16 and f32: ViT
+    calls them through flash_attention_packed, B=64 bf16 and F32_B f32: ViT
     (chunk views of one (B, 1152, 2304) qkv tensor, l_actual 1025, no
     bias, rate 0) and BERT (separate contiguous q, k, v (B, 1104, 768), the
     decoder's (B, 1, 1104, 1104) f32 bias, rate 0.1, l_actual 1096).  The
@@ -2091,9 +2128,9 @@ def phase_train512_kernels(dev, rows):
     def chunks(q, k, v, *rest):
         return [(q[c:c + Bc], k[c:c + Bc], v[c:c + Bc],
                  *(t[c:c + Bc] if t is not None else None for t in rest))
-                for c in range(0, B, Bc)]
+                for c in range(0, q.shape[0], Bc)]
 
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype, Bd in ((torch.bfloat16, B), (torch.float32, F32_B)):
         dn = "bf16" if dtype == torch.bfloat16 else "f32"
         es = 2 if dtype == torch.bfloat16 else 4
         for case, L, Lp, with_bias, rate in (("vit 1152", 1025, 1152, False,
@@ -2101,12 +2138,12 @@ def phase_train512_kernels(dev, rows):
                                              ("bert 1104", 1096, 1104, True,
                                               0.1)):
             if with_bias:
-                q, k, v = (rnd(B, Lp, H, dtype=dtype) for _ in range(3))
-                bias = _bert_train_bias(B, L, Lp, dev)
+                q, k, v = (rnd(Bd, Lp, H, dtype=dtype) for _ in range(3))
+                bias = _bert_train_bias(Bd, L, Lp, dev)
             else:
-                q, k, v = rnd(B, Lp, 3 * H, dtype=dtype).chunk(3, dim=-1)
+                q, k, v = rnd(Bd, Lp, 3 * H, dtype=dtype).chunk(3, dim=-1)
                 bias = None
-            up = rnd(B, Lp, H, dtype=dtype)
+            up = rnd(Bd, Lp, H, dtype=dtype)
             up[:, L:] = 0.0
             seed = 4343
             out = attention_qkv(q, k, v, nh, L, bias, rate, seed)
@@ -2121,7 +2158,7 @@ def phase_train512_kernels(dev, rows):
             pms = cuda_ms(lambda i: [attention_qkv_plain(
                 qc, kc, vc, nh, L, bc, rate, seed)
                 for qc, kc, vc, bc in chunks(q, k, v, bias)], 2)
-            mask = torch.zeros(B, 1, Lp, Lp, device=dev, dtype=dtype)
+            mask = torch.zeros(Bd, 1, Lp, Lp, device=dev, dtype=dtype)
             mask[..., L:] = float("-inf")
             if bias is not None:
                 mask = mask + bias.to(dtype)
@@ -2130,10 +2167,11 @@ def phase_train512_kernels(dev, rows):
             lms = cuda_ms(lambda i: F.scaled_dot_product_attention(
                 *heads, attn_mask=mask, dropout_p=rate), 5)
             _row(rows, "attention[non_slab]", case, dn,
-                 f"B={B} L={L} Lp={Lp} heads=12x64 rate={rate} "
+                 f"B={Bd} L={L} Lp={Lp} heads=12x64 rate={rate} "
                  f"bias={with_bias}", err, ms, pms, lms,
-                 4.0 * B * nh * Lp * L * hd,
-                 es * B * Lp * 4 * H + (4 * B * Lp * Lp if with_bias else 0))
+                 4.0 * Bd * nh * Lp * L * hd,
+                 es * Bd * Lp * 4 * H + (4 * Bd * Lp * Lp if with_bias
+                                         else 0))
             rows[-1]["bit_equal"] = eq
 
             got = attention_bwd_qkv(q, k, v, up, nh, L, bias, rate, seed)
@@ -2154,14 +2192,15 @@ def phase_train512_kernels(dev, rows):
                       for t in heads]
             o = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
                                                dropout_p=rate)
-            go = up.view(B, Lp, nh, hd).transpose(1, 2)
+            go = up.view(Bd, Lp, nh, hd).transpose(1, 2)
             lms = cuda_ms(lambda i: torch.autograd.grad(
                 o, leaves, go, retain_graph=True), 3)
             _row(rows, "attention_bwd[non_slab]", case, dn,
-                 f"B={B} L={L} Lp={Lp} heads=12x64 rate={rate} "
+                 f"B={Bd} L={L} Lp={Lp} heads=12x64 rate={rate} "
                  f"bias={with_bias}", err, ms, pms, lms,
-                 10.0 * B * nh * Lp * L * hd,
-                 es * B * Lp * 7 * H + (4 * B * Lp * Lp if with_bias else 0))
+                 10.0 * Bd * nh * Lp * L * hd,
+                 es * Bd * Lp * 7 * H + (4 * Bd * Lp * Lp if with_bias
+                                         else 0))
             rows[-1]["bit_equal"] = eqs[0] and min(eqs)
             del q, k, v, up, bias, mask, heads, leaves, o, go
             del q16, k16, v16, b16, up16
@@ -4209,10 +4248,10 @@ def dp_worker(rank, world, port, workdir):
         timed = []
         reduce_grads = TTS.all_reduce_grads
 
-        def timed_reduce(grads, extras=None):
+        def timed_reduce(grads, extras=None, group=None):
             sync()
             t0 = time.perf_counter()
-            res = reduce_grads(grads, extras)
+            res = reduce_grads(grads, extras, group)
             sync()
             timed.append({"ms": (time.perf_counter() - t0) * 1e3,
                           "bytes": sum(g.numel() * g.element_size()
@@ -5425,8 +5464,8 @@ def phase_host_cider(dev, smi, scst13):
     """b. CIDEr-D at SCST's shape (B=64, K=2: 192 hypotheses, 5 references
     each, 6-12 seeded words of PIPE_WORDS, so that n-grams overlap and
     the scores are not 0): the native scorer against the Python one (rtol
-    1e-9), ms of each (median of 3, in turns); then phase 13's SCST step
-    again with the native reward beside phase 13's."""
+    1e-9), ms of each (median of 3, in turns), beside phase 13's SCST step,
+    which rewards with the native scorer (the default route)."""
     from vitcap_tpu_torch.evals.metrics import CiderD
     rs = np.random.RandomState(SEED + 90)
     n = B * (SCST_K + 1)
@@ -5454,20 +5493,15 @@ def phase_host_cider(dev, smi, scst13):
         f"{med['python']:.2f} ms, native {med['native']:.2f} ms (median of "
         f"3, in turns; {med['python'] / med['native']:.1f}x); corpus score "
         f"{nm:.6f}, max |native - Python| {np.abs(ns - ps).max():.3e}")
-    counts, step = phase_scst(dev, smi, native_cider=True, ratio07=False,
-                              tag="host19 scst")
-    a, b = scst13["median"], step["median"]
-    log(f"[host19] SCST step, Python vs native reward: reward "
-        f"{a['reward_ms']:.1f} -> {b['reward_ms']:.1f} ms, decode "
-        f"{a['decode_ms']:.1f} -> {b['decode_ms']:.1f} ms, grad "
-        f"{a['grad_ms']:.1f} -> {b['grad_ms']:.1f} ms; "
-        f"{scst13['images_per_s']:.2f} -> {step['images_per_s']:.2f} "
-        f"images/s (phase 13 -> phase 19, B={B}, K={SCST_K}) on {smi}")
+    a = scst13["median"]
+    log(f"[host19] phase 13's SCST step with the native reward: reward "
+        f"{a['reward_ms']:.1f} ms, decode {a['decode_ms']:.1f} ms, grad "
+        f"{a['grad_ms']:.1f} ms, {scst13['images_per_s']:.2f} images/s "
+        f"(B={B}, K={SCST_K}) on {smi}")
     return {"cider_ms": ms, "cider_median_ms": med, "score": nm,
             "max_abs_diff": float(np.abs(ns - ps).max()),
-            "scst_native": step, "scst_native_launches": counts,
-            "scst_python_median": a,
-            "scst_python_images_per_s": scst13["images_per_s"]}
+            "scst_native_median": a,
+            "scst_native_images_per_s": scst13["images_per_s"]}
 
 
 def _tsv_payloads(path):
@@ -5621,19 +5655,25 @@ def _train_keys(rec):
 
 
 def phase_host_loader(dev, smi, root):
-    """e. 3 flagship train steps through the pipeline with `loader: grain`
+    """e. 4 flagship train steps through the pipeline with `loader: grain`
     and grain_workers 2 (spawned processes; the thread-pool loader's
-    prefetch does not apply): the batches' image keys equal a
-    grain_workers 0 loader's first 3 batches; train img/s over steps 2-3
-    and the host gap before each step (loader wait + batch copy)."""
+    prefetch does not apply): the first 3 batches' image keys equal a
+    grain_workers 0 loader's; train img/s over steps 2-3 and the host gap
+    before each step (loader wait + batch copy); f. in the same run, step
+    4 under jax_profile_dir (jax_profile_start 3, jax_profile_steps 1),
+    whose Chrome trace holds CUDA kernel events of the port's gemm and
+    attention."""
     from vitcap_tpu_torch import run as TR
     from vitcap_tpu_torch.pipelines import caption_pipeline as TCP
     _pipeline_dataset(root, SEED + 94, n_train=HOST_TRAIN, n_test=8,
                       name="grain")
+    prof = Path(root) / "trace"
     param = dict(_pipeline_param(root, data="grain", test_data="grain",
-                                 expid="phase19_grain", max_iter=3,
+                                 expid="phase19_grain", max_iter=4,
                                  snapshot_steps=100, log_step=1,
-                                 loader="grain", grain_workers=2),
+                                 loader="grain", grain_workers=2,
+                                 jax_profile_dir=str(prof),
+                                 jax_profile_start=3, jax_profile_steps=1),
                  test_split="test")
     keys = []
     pip = TR.create_pipeline(param)
@@ -5644,8 +5684,9 @@ def phase_host_loader(dev, smi, root):
         run_s = time.perf_counter() - t0
     steps = rec["steps"]
     losses = [s["loss"].item() for s in steps]
-    if len(steps) != 3 or not all(math.isfinite(v) for v in losses):
+    if len(steps) != 4 or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"grain train: losses {losses}")
+    keys = keys[:3]
     p0 = TR.create_pipeline(dict(param, grain_workers=0))
     want = []
     for batch in p0.get_data_loader(is_train=True):
@@ -5657,33 +5698,22 @@ def phase_host_loader(dev, smi, root):
                              f"grain_workers 0's {want}")
     gap_ms = [(steps[i]["t0"] - steps[i - 1]["t1"]) * 1e3 for i in (1, 2)]
     rate = B * 2 / (steps[2]["t1"] - steps[1]["t0"])
-    log(f"[host19] loader: grain, grain_workers 2: 3 train steps in "
-        f"{run_s:.1f} s (workers' start and the final snapshot included); "
+    log(f"[host19] loader: grain, grain_workers 2: 4 train steps in "
+        f"{run_s:.1f} s (workers' start, the traced step 4 and the final "
+        f"snapshot included); "
         f"{rate:.2f} img/s over steps 2-3; host gap before steps 2-3 "
         f"{[round(v, 1) for v in gap_ms]} ms; step ms "
         f"{[round((s['t1'] - s['t0']) * 1e3, 1) for s in steps]}; losses "
         f"{[round(v, 4) for v in losses]}; batches equal grain_workers 0's "
         f"(B={B}, bf16) on {smi}")
     return {"img_per_s_steps_2_3": rate, "host_gap_ms": gap_ms,
-            "run_s": run_s, "losses": losses, "batches": keys}
+            "run_s": run_s, "losses": losses, "batches": keys,
+            "profiler": _host_trace(prof)}
 
 
-def phase_host_profiler(dev, smi, root):
-    """f. A 2-step flagship train window under jax_profile_dir (steps 2-3
-    of 3: jax_profile_start 1, jax_profile_steps 2; a start of 0 reads as
-    the default 2, as in the JAX package): the Chrome trace exists and
-    holds CUDA kernel events of the port's gemm and attention kernels."""
-    from vitcap_tpu_torch import run as TR
-    prof = Path(root) / "trace"
-    param = dict(_pipeline_param(root, data="grain", test_data="grain",
-                                 expid="phase19_prof", max_iter=3,
-                                 snapshot_steps=100, log_step=1,
-                                 jax_profile_dir=str(prof),
-                                 jax_profile_start=1, jax_profile_steps=2),
-                 test_split="test")
-    t0 = time.perf_counter()
-    TR.create_pipeline(param).ensure_train()
-    run_s = time.perf_counter() - t0
+def _host_trace(prof):
+    """f. The train window's Chrome trace under `prof`: one file, with
+    CUDA kernel events of the port's gemm and attention kernels."""
     traces = sorted(prof.glob("train_rank0_*.pt.trace.json"))
     if len(traces) != 1:
         raise AssertionError(f"profiler: traces {traces}")
@@ -5697,14 +5727,12 @@ def phase_host_profiler(dev, smi, root):
         raise AssertionError(f"profiler trace: {len(kernels)} kernel events,"
                              f" {len(gemm)} gemm, {len(attn)} attention")
     size = traces[0].stat().st_size
-    log(f"[host19] jax_profile_dir: train steps 2-3 of 3 traced, the run "
-        f"{run_s:.1f} s "
+    log(f"[host19] jax_profile_dir: train step 4 of 4 traced "
         f"-> {traces[0].name} ({size / 2 ** 20:.1f} MiB): {len(kernels)} "
         f"CUDA kernel events, {len(gemm)} of the port's gemm and "
         f"{len(attn)} of its attention")
     return {"trace_mib": size / 2 ** 20, "kernel_events": len(kernels),
-            "gemm_events": len(gemm), "attention_events": len(attn),
-            "run_s": run_s}
+            "gemm_events": len(gemm), "attention_events": len(attn)}
 
 
 def phase_host_side(dev, smi, scst13):
@@ -5722,10 +5750,385 @@ def phase_host_side(dev, smi, scst13):
         out["images"] = phase_host_images(dev, smi, root)
         out["lineidx"] = phase_host_lineidx(root)
         out["loader"] = phase_host_loader(dev, smi, root)
-        out["profiler"] = phase_host_profiler(dev, smi, root)
         out["seconds"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 20: tensor parallelism (parallel/mesh.py, parallel/tensor_parallel.py)
+# ---------------------------------------------------------------------------
+
+TP_B = 16                    # flagship train rows and bf16 decode images
+TP_F32_B = 4                 # f32 train rows and decode images
+TP_F32_DEPTH = dict(num_hidden_layers=4, split_blocks=2, decoder_layers=2)
+TP_HEADS = (6, 6, 12)        # rank 1's heads: 6 from head 6 of 12
+
+
+def _tp_cfg(dtype, **kw):
+    """The bench training line (its dropouts 0.1 on) in `dtype`."""
+    from vitcap_tpu_torch.models.config import ModelConfig
+    return ModelConfig(dtype=dtype, tag_loss_weight=1.0, **kw)
+
+
+def phase_tp_kernels(dev, rows):
+    """a. attention and attention_bwd with prob dropout 0.1 on a tensor-
+    parallel rank's head slice (heads 6-11 of 12: the salt b * 12 + 6 + h)
+    against their plain versions, at the flagship decoder's train shape
+    on one rank of the (1, 2) grid (B=TP_B, L 648, Lp 656, the bias),
+    bf16 (2e-2 of scale, >= 99% bit-equal) and f32 (1e-4)."""
+    from vitcap_tpu_torch.ops.attention import attention, attention_plain
+    from vitcap_tpu_torch.ops.attention_bwd import (attention_bwd,
+                                                    attention_bwd_plain)
+    g = torch.Generator().manual_seed(SEED + 110)
+    nh, off, total = TP_HEADS
+    hd, L, Lp, rate, Bn = 64, 648, 656, 0.1, TP_B
+    H = nh * hd
+    first = len(rows)
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = "bf16" if dtype == torch.bfloat16 else "f32"
+        es = 2 if dtype == torch.bfloat16 else 4
+        slab = torch.randn(Bn, Lp, 3 * H, generator=g).to(dev, dtype)
+        up = torch.randn(Bn, Lp, H, generator=g).to(dev, dtype)
+        up[:, L:] = 0.0
+        bias = _bert_train_bias(Bn, L, Lp, dev)
+        mask = torch.zeros(Bn, 1, Lp, Lp, device=dev, dtype=dtype)
+        mask[..., L:] = float("-inf")
+        mask = mask + bias.to(dtype)
+        salt = (total, off)
+        out = attention(slab, nh, L, bias, rate, 4243, *salt)
+        ref = attention_plain(slab, nh, L, bias, rate, 4243, *salt)
+        err = compare(f"attention[tp] {dn}", out, ref, dtype)
+        eq = _bits("attention[tp]", out, ref)
+        ms, pms = _time_pair(
+            lambda i: attention(slab, nh, L, bias, rate, 4243, *salt),
+            lambda i: attention_plain(slab, nh, L, bias, rate, 4243, *salt),
+            5, 2)
+        qkv = slab.view(Bn, Lp, 3, nh, hd).permute(2, 0, 3, 1, 4)
+        lms = cuda_ms(lambda i: F.scaled_dot_product_attention(
+            qkv[0], qkv[1], qkv[2], attn_mask=mask, dropout_p=rate), 5)
+        _row(rows, "attention[tp]", "bert train heads 6-11", dn,
+             f"B={Bn} L={L} Lp={Lp} heads=6x64 of 12 rate={rate}", err, ms,
+             pms, lms, 4.0 * Bn * nh * Lp * L * hd,
+             es * Bn * Lp * 4 * H + 4 * Bn * Lp * Lp)
+        rows[-1]["bit_equal"] = eq
+        got = attention_bwd(slab, up, nh, L, bias, rate, 778, *salt)
+        want = attention_bwd_plain(slab, up, nh, L, bias, rate, 778, *salt)
+        err, eqs = 0.0, []
+        for part, o, r in zip("qkv", got, want):
+            name = f"attention_bwd[tp] d{part} {dn}"
+            err = max(err, compare(name, o, r, dtype))
+            eqs.append(_bits(name, o, r))
+        del got, want
+        ms, pms = _time_pair(
+            lambda i: attention_bwd(slab, up, nh, L, bias, rate, 778, *salt),
+            lambda i: attention_bwd_plain(slab, up, nh, L, bias, rate, 778,
+                                          *salt), 3, 2)
+        qkv = [t.detach().contiguous().requires_grad_(True) for t in qkv]
+        o = F.scaled_dot_product_attention(*qkv, attn_mask=mask,
+                                           dropout_p=rate)
+        go = up.view(Bn, Lp, nh, hd).transpose(1, 2)
+        lms = cuda_ms(lambda i: torch.autograd.grad(o, qkv, go,
+                                                    retain_graph=True), 3)
+        _row(rows, "attention_bwd[tp]", "bert train heads 6-11", dn,
+             f"B={Bn} L={L} Lp={Lp} heads=6x64 of 12 rate={rate}", err, ms,
+             pms, lms, 10.0 * Bn * nh * Lp * L * hd,
+             es * Bn * Lp * 7 * H + 4 * Bn * Lp * Lp)
+        rows[-1]["bit_equal"] = min(e for e in eqs if e is not None) \
+            if dtype == torch.bfloat16 else None
+        del slab, up, bias, mask, qkv, o
+        torch.cuda.empty_cache()
+    for r in rows[first:]:
+        log(f"[tp20] {r['kernel']:18s} {r['case']:22s} {r['dtype']:4s} err "
+            f"{r['max_abs_err']:.3e}  kernel {r['ms']:.4f} ms  plain "
+            f"{r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+            + (f"  bit-equal {r['bit_equal']:.5f}" if r.get("bit_equal")
+               else ""))
+
+
+def _tp_decode(cfg, model, dev, Bn):
+    """One greedy and one beam-3 batch of Bn seeded uint8 images on the
+    fused engine, and the first step's f32 logits -> (ids, logits, the
+    launches of each batch)."""
+    from vitcap_tpu_torch.models import decode as TD
+    rs = np.random.RandomState(SEED + 104)
+    imgs = torch.from_numpy(rs.randint(0, 256, (Bn, cfg.img_size,
+                                                cfg.img_size, 3))
+                            .astype(np.uint8)).to(dev)
+    od = torch.from_numpy(rs.randint(1, 9000, (Bn, cfg.max_seq_len
+                                               - cfg.max_seq_a_len))).to(dev)
+    sl = torch.from_numpy(rs.randint(cfg.max_seq_a_len + 1,
+                                     cfg.max_seq_len + 1, Bn)).to(dev)
+    opts = _opts(cfg)
+    with _engine(True):
+        g, cg = _counted(lambda: TD.generate_greedy(model, imgs, od, None, sl,
+                                                    cfg, opts))
+        b, cb = _counted(lambda: TD.generate_beam(model, imgs, od, None, sl,
+                                                  cfg, _opts(cfg,
+                                                             num_beams=3)))
+        with torch.inference_mode():
+            ctx = TD.build_decode_context(model, imgs, od, None, sl, cfg,
+                                          opts)
+            init, step, _ = TD._decode_engine(model, ctx, cfg, opts, Bn)
+            logits = step(init(), torch.full((Bn,), cfg.cls_token_id,
+                                             device=dev), 1)[0]
+    return ({"greedy": g["ids"].cpu().tolist(),
+             "beam": b["ids"].cpu().tolist()}, logits.float().cpu(),
+            {"greedy": {k: n for k, n in cg.items() if n},
+             "beam": {k: n for k, n in cb.items() if n}})
+
+
+def _tp_train(cfg, dev, Bn, decode_b, steps, batch_seed, mesh=None):
+    """Build the seed's model (split over `mesh`'s model axis when given),
+    decode one greedy and one beam-3 batch with it, then take `steps` train
+    steps of Bn rows (dropout from the seed's generator; the all-reduces
+    of the last step timed) -> dict of losses, launches a step, step ms,
+    the model axis's all-reduce stats a step, the decode's, and the
+    state."""
+    from vitcap_tpu_torch.models.vitcap import init_params
+    from vitcap_tpu_torch.parallel import tensor_parallel as TP
+    from vitcap_tpu_torch.parallel.mesh import rank_seed, shard_params
+    from vitcap_tpu_torch.solver.train_step import (TrainHyper,
+                                                    init_train_state,
+                                                    make_train_step)
+    model = init_params(cfg, torch.Generator().manual_seed(SEED), dev)
+    if mesh is not None:
+        shard_params(model, mesh, tensor_parallel=True)
+    ids, logits, dec_launches = _tp_decode(cfg, model, dev, decode_b)
+    state = init_train_state(
+        model, torch.Generator().manual_seed(rank_seed(SEED + 9)))
+    step = make_train_step(cfg, TrainHyper(base_lr=1e-4, max_iter=1000))
+    batch = _train_batch(cfg, Bn, batch_seed, dev)
+    out = {"losses": [], "launches": [], "step_ms": [], "all_reduce": [],
+           "ids": ids, "logits": logits, "decode_launches": dec_launches}
+    for i in range(steps):
+        TP.reset_stats()
+        TP.timed = i == steps - 1
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (state, m), c = _counted(lambda: step(state, batch, False))
+        loss = m["loss"].item()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["losses"].append(loss)
+        out["launches"].append({k: n for k, n in c.items() if n})
+        out["all_reduce"].append(dict(TP.stats))
+    TP.timed = False
+    return out, state
+
+
+def tp_worker(rank, world, port, workdir):
+    """One rank of phase 20 (`chip_smoke.py --tp-worker RANK WORLD PORT
+    DIR`), its job in DIR/job.json (the device, both configs and their
+    rows): joins a Gloo group on the job's device with the other rank
+    (cuda:0 for both: NCCL refuses two ranks on one card), makes the (1,
+    world) grid and runs _tp_train's bf16 (2 steps) and f32 (1 step) runs
+    on its shard; holds the f32 run's gathered parameters to
+    DIR/f32_ref.pt (rtol 2e-4 / atol 1e-6); writes DIR/tp_<rank>.json and
+    DIR/tp_logits_<rank>.pt."""
+    rank, world = int(rank), int(world)
+    sys.path.insert(0, str(ROOT))
+    from vitcap_tpu_torch.models.config import ModelConfig
+    from vitcap_tpu_torch.parallel import distributed as PD
+    from vitcap_tpu_torch.parallel.mesh import gather_params, make_mesh
+    with open(os.path.join(workdir, "job.json")) as f:
+        job = json.load(f)
+    dev = torch.device(job["device"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    PD.ensure_init_distributed(f"127.0.0.1:{port}", world, rank,
+                               backend="gloo", device=dev)
+    out = {"rank": rank, "backend": torch.distributed.get_backend()}
+    logits = {}
+    try:
+        cfg = ModelConfig(**job["bf16_cfg"])
+        mesh = make_mesh(1, world, cfg)
+        t0 = time.perf_counter()
+        run, state = _tp_train(cfg, dev, job["rows"], job["rows"], 2,
+                               SEED + 101, mesh)
+        out["bf16_s"] = time.perf_counter() - t0
+        logits["bf16"] = run.pop("logits")
+        out["bf16"] = run
+        out["local_heads"] = state.model.bert.decoder.layer[0].tp.heads
+        del state
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        cfg = ModelConfig(**job["f32_cfg"])
+        t0 = time.perf_counter()
+        run, state = _tp_train(cfg, dev, job["f32_rows"], job["f32_rows"], 1,
+                               SEED + 102, mesh)
+        out["f32_s"] = time.perf_counter() - t0
+        logits["f32"] = run.pop("logits")
+        full = gather_params(state.model)
+        ref = torch.load(os.path.join(workdir, "f32_ref.pt"),
+                         weights_only=True)
+        bad, worst = [], 0.0
+        for n, want in ref.items():
+            got = full[n].float().cpu()
+            worst = max(worst, (got - want).abs().max().item())
+            if not torch.allclose(got, want, rtol=2e-4, atol=1e-6):
+                bad.append(n)
+        out["f32"] = dict(run, param_max_abs_diff=worst, params_off=bad,
+                          n_params=len(ref))
+        del state, full
+        PD.barrier()
+    finally:
+        PD.shutdown()
+    torch.save(logits, os.path.join(workdir, f"tp_logits_{rank}.pt"))
+    with open(os.path.join(workdir, f"tp_{rank}.json"), "w") as f:
+        json.dump(out, f, default=str)
+    return 0
+
+
+def phase_tp(dev, smi, rows):
+    """Tensor parallelism over a (1, 2) grid: two ranks on cuda:0 over
+    Gloo (tp_worker), against this process's unsplit runs:
+    a. phase_tp_kernels (the salted attention kernels);
+    b. the flagship (ViT-B/16-384, 12 + 4 blocks, 4 decoder layers, bf16,
+       dropout 0.1) at TP_B rows, 2 steps: losses within 2e-2 relative,
+       each rank's launches a step (the unsplit step's kernels, on 6 heads)
+       equal to the unsplit step's; the model axis's all-reduces a step
+       (calls, MiB, ms, synchronised); then f32 at a reduced depth
+       (TP_F32_DEPTH, TP_F32_B rows, 1 step): loss rtol 1e-5, the gathered
+       parameters rtol 2e-4 / atol 1e-6 (tests/test_solver.py:162's bound);
+    c. before each run's training, one greedy and one beam-3 batch on the
+       fused engine: in f32 the tokens equal the unsplit tokens; in bf16
+       the first step's logits within 2e-2 of their scale, the token
+       agreement printed.
+    Two ranks on one card prove the split's correctness and measure the
+    collectives' cost, not scaling."""
+    import dataclasses
+    import shutil
+    import tempfile
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_tp_", dir=ROOT / "build")
+    res = {}
+    try:
+        t0 = time.perf_counter()
+        phase_tp_kernels(dev, rows)
+        res["kernels_s"] = time.perf_counter() - t0
+        cfg16, cfg32 = _tp_cfg("bfloat16"), _tp_cfg("float32", **TP_F32_DEPTH)
+        t0 = time.perf_counter()
+        ref, state = _tp_train(cfg16, dev, TP_B, TP_B, 2, SEED + 101)
+        del state
+        torch.cuda.empty_cache()
+        ref32, state = _tp_train(cfg32, dev, TP_F32_B, TP_F32_B, 1,
+                                 SEED + 102)
+        torch.save({n: p.detach().float().cpu()
+                    for n, p in state.model.named_parameters()},
+                   Path(root) / "f32_ref.pt")
+        del state
+        torch.cuda.empty_cache()
+        res["unsplit_s"] = time.perf_counter() - t0
+        (Path(root) / "job.json").write_text(json.dumps({
+            "device": str(dev), "rows": TP_B, "f32_rows": TP_F32_B,
+            "bf16_cfg": dataclasses.asdict(cfg16),
+            "f32_cfg": dataclasses.asdict(cfg32)}))
+        port = str(_free_port())
+        t0 = time.perf_counter()
+        _run_children([[sys.executable, str(ROOT / "chip_smoke.py"),
+                        "--tp-worker", str(r), "2", port, root]
+                       for r in range(2)], dict(os.environ), "tp ranks",
+                      root)
+        res["ranks_s"] = time.perf_counter() - t0
+        w = [json.loads((Path(root) / f"tp_{r}.json").read_text())
+             for r in range(2)]
+        lg = [torch.load(Path(root) / f"tp_logits_{r}.pt", weights_only=True)
+              for r in range(2)]
+        base = ("gemm", "layer_norm", "attention", "attention_bwd")
+        for x, logits in zip(w, lg):
+            r = x["rank"]
+            if x["backend"] != "gloo" or x["local_heads"] != 6:
+                raise AssertionError(f"tp rank {r}: {x['backend']}, "
+                                     f"{x['local_heads']} heads")
+            bf, f32 = x["bf16"], x["f32"]
+            rel = [abs(a - b) / abs(b) for a, b in zip(bf["losses"],
+                                                        ref["losses"])]
+            if max(rel) > 2e-2:
+                raise AssertionError(f"tp rank {r}: bf16 losses "
+                                     f"{bf['losses']} vs {ref['losses']}")
+            for c in bf["launches"]:
+                if any(c.get(k, 0) != ref["launches"][0].get(k, 0)
+                       for k in base) or (dev.type == "cuda"
+                                          and not c.get("attention[tp]")):
+                    raise AssertionError(f"tp rank {r}: launches {c} vs the "
+                                         f"unsplit step's "
+                                         f"{ref['launches'][0]}")
+            if not math.isclose(f32["losses"][0], ref32["losses"][0],
+                                rel_tol=1e-5):
+                raise AssertionError(f"tp rank {r}: f32 loss "
+                                     f"{f32['losses'][0]} vs "
+                                     f"{ref32['losses'][0]}")
+            if f32["params_off"]:
+                raise AssertionError(
+                    f"tp rank {r}: {len(f32['params_off'])} of "
+                    f"{f32['n_params']} f32 parameters past rtol 2e-4 / atol "
+                    f"1e-6 (max abs diff {f32['param_max_abs_diff']:.3e}): "
+                    f"{f32['params_off'][:6]}")
+            if f32["ids"] != ref32["ids"]:
+                raise AssertionError(f"tp rank {r}: f32 tokens differ from "
+                                     f"the unsplit tokens")
+            err = (logits["bf16"] - ref["logits"]).abs().max().item()
+            scale = ref["logits"].abs().max().item()
+            if not err <= BF16_TOL * scale:
+                raise AssertionError(f"tp rank {r}: bf16 first-step logits "
+                                     f"off by {err:.3g} (scale {scale:.3g})")
+            agree = {k: float(np.mean(np.asarray(bf["ids"][k])
+                                      == np.asarray(ref["ids"][k])))
+                     for k in ("greedy", "beam")}
+            x.update(bf16_logit_err=err, bf16_logit_scale=scale,
+                     bf16_token_agreement=agree,
+                     f32_logit_err=(logits["f32"] - ref32["logits"]).abs()
+                     .max().item())
+        if w[0]["bf16"]["ids"] != w[1]["bf16"]["ids"]:
+            raise AssertionError("tp: the two ranks picked other tokens")
+        ar = w[0]["bf16"]["all_reduce"][-1]
+        res.update(workers=w, unsplit={k: v for k, v in ref.items()
+                                       if k != "logits"},
+                   unsplit_f32={k: v for k, v in ref32.items()
+                                if k != "logits"})
+        log(f"[tp20] a. salted attention / attention_bwd held to their plain "
+            f"versions ({res['kernels_s']:.1f} s)")
+        log(f"[tp20] unsplit references (bf16 2 steps of {TP_B}, f32 4+2+2 "
+            f"blocks 1 step of {TP_F32_B}, their decodes) "
+            f"{res['unsplit_s']:.1f} s; 2 ranks over Gloo on cuda:0 "
+            f"{res['ranks_s']:.1f} s")
+        for x in w:
+            log(f"[tp20] b. rank {x['rank']}: bf16 losses "
+                f"{[round(v, 5) for v in x['bf16']['losses']]} vs unsplit "
+                f"{[round(v, 5) for v in ref['losses']]}; step ms "
+                f"{[round(v, 1) for v in x['bf16']['step_ms']]} vs "
+                f"{[round(v, 1) for v in ref['step_ms']]}; launches a step "
+                f"{x['bf16']['launches'][-1]}")
+            log(f"[tp20] b. rank {x['rank']}: f32 loss "
+                f"{x['f32']['losses'][0]:.7f} vs {ref32['losses'][0]:.7f}, "
+                f"{x['f32']['n_params']} gathered parameters within rtol "
+                f"2e-4 / atol 1e-6 (max abs diff "
+                f"{x['f32']['param_max_abs_diff']:.3e})")
+            log(f"[tp20] c. rank {x['rank']}: f32 greedy and beam-3 tokens "
+                f"== unsplit (first-step logits max abs diff "
+                f"{x['f32_logit_err']:.3e}); bf16 first-step logits max abs "
+                f"diff {x['bf16_logit_err']:.4g} of scale "
+                f"{x['bf16_logit_scale']:.4g}, token agreement "
+                f"{x['bf16_token_agreement']}; launches a batch "
+                f"{x['bf16']['decode_launches']}")
+        log(f"[tp20] b. the model axis's all-reduces in one bf16 train step "
+            f"(rank 0, Gloo, the card's tensors through the host, "
+            f"synchronised): {ar['calls']} calls, "
+            f"{ar['bytes'] / 2 ** 20:.1f} MiB, {ar['seconds'] * 1e3:.1f} ms, "
+            f"on {smi}; two ranks on one card measure the collectives' "
+            f"cost, not scaling")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
+def _timed(name, fn, *args):
+    """fn(*args), its seconds logged under `name`."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[{name}] phase took {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -5742,22 +6145,22 @@ def main() -> int:
     smi = phase_host()
     kernel_launch = phase_build()
     rows = []
-    phase_kernels(dev, rows)
-    phase_decode_gemm(dev, rows)
-    phase_decode_layer_norm(dev, rows)
-    phase_decode_attention(dev, rows)
-    phase_decode_attention_long(dev, rows)
-    sweep = phase_decode_attention_sweep(dev)
-    phase_blocks(dev, rows)
-    phase_decode_step(dev, rows)
-    greedy_counts, greedy = phase_main_path(dev, smi)
-    counts, beam = phase_beam_path(dev, smi)
+    _timed("kernels", phase_kernels, dev, rows)
+    _timed("decode-gemm", phase_decode_gemm, dev, rows)
+    _timed("decode-ln", phase_decode_layer_norm, dev, rows)
+    _timed("decode-attention", phase_decode_attention, dev, rows)
+    _timed("decode-attention-long", phase_decode_attention_long, dev, rows)
+    sweep = _timed("sweep", phase_decode_attention_sweep, dev)
+    _timed("blocks", phase_blocks, dev, rows)
+    _timed("decode-step", phase_decode_step, dev, rows)
+    greedy_counts, greedy = _timed("main-path", phase_main_path, dev, smi)
+    counts, beam = _timed("beam-path", phase_beam_path, dev, smi)
     log(f"[beam] beam-3 fused {beam['beam3_fused']['captions_per_s']:.2f} "
         f"captions/s; greedy fused "
         f"{beam['greedy_fused']['captions_per_s']:.2f} vs greedy eager "
         f"{greedy['captions_per_s']:.2f} captions/s (B={B}, bf16) on {smi}")
-    phase_parity(dev)
-    prof = phase_profile(dev)
+    _timed("parity", phase_parity, dev)
+    prof = _timed("profile", phase_profile, dev)
     t_train = time.perf_counter()
     phase_train_kernels(dev, rows)
     phase_train_blocks(dev, rows)
@@ -5784,7 +6187,7 @@ def main() -> int:
     log(f"[checkpoint] phase took {time.perf_counter() - t_ck:.1f} s")
     t_scst = time.perf_counter()
     phase_scst_kernels(dev, rows)
-    scst_counts, scst = phase_scst(dev, smi)     # the Python reward
+    scst_counts, scst = phase_scst(dev, smi, native_cider=True)
     scst["parity"] = phase_scst_parity(dev)
     log(f"[scst] phases took {time.perf_counter() - t_scst:.1f} s")
     for name in ("gemm", "layer_norm", "attention", "attention_bwd",
@@ -5833,6 +6236,10 @@ def main() -> int:
     t_host = time.perf_counter()
     host = phase_host_side(dev, smi, scst)
     log(f"[host19] phase took {time.perf_counter() - t_host:.1f} s")
+    t_tp = time.perf_counter()
+    tp = phase_tp(dev, smi, rows)
+    tp["seconds"] = time.perf_counter() - t_tp
+    log(f"[tp20] phase took {tp['seconds']:.1f} s")
 
     for name, n in counts.items():
         if n == 0 and name != "attention_bwd":
@@ -5845,7 +6252,8 @@ def main() -> int:
                                    "attention[heads]", "attention[online]",
                                    "attention_bwd[heads]",
                                    "decode_attention[groups]",
-                                   "attention[hdp128]", "layer_norm[wide]"):
+                                   "attention[hdp128]", "layer_norm[wide]",
+                                   "attention[tp]", "attention_bwd[tp]"):
             raise AssertionError(f"{name}: no launch on the train path")
     kernels = summarise(rows, counts, dict(
         train_counts, **{"attention[long]": high_counts["attention[long]"]},
@@ -5858,7 +6266,9 @@ def main() -> int:
         **{"decode_attention[groups]":
            cbs_counts["decode_attention[groups]"]},
         **{k: zoo["mode_launches"][k] for k in ("attention[hdp128]",
-                                                "layer_norm[wide]")}))
+                                                "layer_norm[wide]")},
+        **{k: tp["workers"][0]["bf16"]["launches"][0][k]
+           for k in ("attention[tp]", "attention_bwd[tp]")}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(
@@ -5873,7 +6283,7 @@ def main() -> int:
          "decode_attention_sweep": sweep, "pipeline": pipe,
          "pipeline_launches": pipe_counts, "cbs": cbs,
          "cbs_launches": cbs_counts, "dp": dp, "module12": module12,
-         "zoo": zoo, "host_side": host,
+         "zoo": zoo, "host_side": host, "tp": tp,
          "kernels": kernels},
         indent=1, default=str))
     log(json.dumps({"kernels": kernels}))
@@ -5887,6 +6297,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:
         sys.exit(dp_worker(*sys.argv[2:6]))
+    if sys.argv[1:2] == ["--tp-worker"]:
+        sys.exit(tp_worker(*sys.argv[2:6]))
     if sys.argv[1:2] == ["--zoo-counts"]:
         sys.path.insert(0, str(ROOT))
         zoo_counts(ZOO_CNN2C + [ZOO_TRAIN_2C[:2]])

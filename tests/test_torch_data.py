@@ -120,10 +120,16 @@ def test_dict_paths_worth_create_and_assets(tmp_path):
     b.write_text("2")
     os.utime(a, (1, 1))
     assert not TCo.worth_create(str(a), str(b))
+    # the port reads its own copies of the JAX package's data files
     for name in ("VILT-L12-H784-uncased_16_384", "vinvl_label.json"):
-        assert TCo.asset_path(name) == JC.asset_path(name)
-        assert TCo.resolve_asset(f"./yaml/{name}") == \
-            JC.resolve_asset(f"./yaml/{name}")
+        mine = TCo.asset_path(name)
+        assert mine == os.path.join(os.path.dirname(os.path.dirname(
+            TCo.__file__)), "assets", name)
+        assert sorted(os.listdir(mine)) == sorted(os.listdir(
+            JC.asset_path(name))) if os.path.isdir(mine) else \
+            open(mine, "rb").read() == open(JC.asset_path(name), "rb").read()
+        assert TCo.resolve_asset(f"./yaml/{name}") == mine
+        assert JC.resolve_asset(f"./yaml/{name}") == JC.asset_path(name)
     TCo.execute_func({"from": "vitcap_tpu_torch.utils.common",
                       "import": "ensure_directory",
                       "param": {"path": str(tmp_path / "made")}})

@@ -438,6 +438,43 @@ def _native_refs(tree) -> list:
     return bad
 
 
+def _asset_refs(tree) -> list:
+    """Line numbers where a module reaches the JAX package's data files:
+    a string word with the path components vitcap_tpu/assets, or a path
+    join (a call's arguments, or a chain of `/`) whose string parts run
+    "vitcap_tpu", "assets".  Docstrings are left out."""
+    docs = {id(n.value) for n in ast.walk(tree)
+            if isinstance(n, ast.Expr) and isinstance(n.value, ast.Constant)}
+
+    def text(c):
+        return c.value if isinstance(c, ast.Constant) and isinstance(
+            c.value, str) and id(c) not in docs else None
+
+    def joined(parts):
+        words = [text(p) for p in parts]
+        return any(a == "vitcap_tpu" and b == "assets"
+                   for a, b in zip(words, words[1:]))
+
+    def div_parts(node):
+        if isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div):
+            return div_parts(node.left) + div_parts(node.right)
+        return [node]
+
+    bad = []
+    for node in ast.walk(tree):
+        word = text(node)
+        if word is not None:
+            p = re.split(r"[/\\]+", word)
+            if any(a == "vitcap_tpu" and b == "assets"
+                   for a, b in zip(p, p[1:])):
+                bad.append(node.lineno)
+        elif isinstance(node, ast.Call) and joined(node.args):
+            bad.append(node.lineno)
+        elif isinstance(node, ast.BinOp) and joined(div_parts(node)):
+            bad.append(node.lineno)
+    return sorted(set(bad))
+
+
 def test_port_sources_import_no_jax():
     """Every module of vitcap_tpu_torch, and chip_smoke.py, parsed with
     ast: no `import jax`, `from jax...`, no flax, orbax, optax or grain
@@ -445,7 +482,9 @@ def test_port_sources_import_no_jax():
     `from vitcap_tpu...`, at any depth (vitcap_tpu_torch itself is
     allowed); and nothing built from or loaded out of the repository's
     native/ directory (the port builds its own copies, under
-    vitcap_tpu_torch/native, into build/vitcap_tpu_torch/host)."""
+    vitcap_tpu_torch/native, into build/vitcap_tpu_torch/host), and no
+    path into the JAX package's vitcap_tpu/assets (the port reads its own
+    copies under vitcap_tpu_torch/assets)."""
     files = _port_sources()
     assert len(files) >= 62
     for new in ("solver/checkpointing.py", "solver/scst.py",
@@ -472,6 +511,8 @@ def test_port_sources_import_no_jax():
         tree = ast.parse(path.read_text(), str(path))
         bad += [f"{path.relative_to(ROOT)}:{n} native/"
                 for n in _native_refs(tree)]
+        bad += [f"{path.relative_to(ROOT)}:{n} vitcap_tpu/assets"
+                for n in _asset_refs(tree)]
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -497,6 +538,15 @@ def test_port_sources_import_no_jax():
                    ('if backend == "native": pass', 0),
                    ('library("cider")', 0)):
         assert len(_native_refs(ast.parse(src))) == n, src
+    # the assets check: the JAX package's data directory by any spelling,
+    # but not the port's own
+    for src, n in (('p = "vitcap_tpu/assets/vinvl_label.json"', 1),
+                   ('op.join(root, "vitcap_tpu", "assets", name)', 1),
+                   ('Path(r).parents[2] / "vitcap_tpu" / "assets" / "x"', 1),
+                   ('p = "vitcap_tpu_torch/assets/vinvl_label.json"', 0),
+                   ('op.join(root, "vitcap_tpu_torch", "assets")', 0),
+                   ('"""from vitcap_tpu/assets/"""', 0)):
+        assert len(_asset_refs(ast.parse(src))) == n, src
     from vitcap_tpu_torch import native
     assert native.SOURCES == ROOT / "vitcap_tpu_torch" / "native"
     assert native.BUILD_ROOT == ROOT / "build" / "vitcap_tpu_torch" / "host"

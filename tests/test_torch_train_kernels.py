@@ -263,9 +263,10 @@ def test_lp_past_1024_takes_the_plain_chain(monkeypatch):
     calls = []
     packed = TL.flash_attention_packed
 
-    def counting(q, k, v, bias, seed, nh, rate=0.0, l_actual=0):
+    def counting(q, k, v, bias, seed, nh, rate=0.0, l_actual=0,
+                 salt_heads=(0, 0)):
         calls.append((tuple(q.shape), bias is not None, l_actual))
-        return packed(q, k, v, bias, seed, nh, rate, l_actual)
+        return packed(q, k, v, bias, seed, nh, rate, l_actual, salt_heads)
     monkeypatch.setattr(TL, "flash_attention_packed", counting)
     _, model = _models(2, 16)
     blk = model.bert.encoder.blocks[0]

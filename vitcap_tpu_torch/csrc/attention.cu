@@ -41,8 +41,9 @@
 // exp(s - m) of a dropped (query, key) pair is 0 and a kept one is
 // multiplied by 1 / (1 - rate) in f32 before the rounding; the row sum l
 // stays the undropped one.  The keep bit is vc_dropout_keep(query row, key
-// column, seed, b * nh + h), the bits the backward (attention_bwd.cu)
-// regenerates.
+// column, seed, b * nh_total + head_offset + h: the global head, which is
+// b * nh + h without tensor parallelism), the bits the backward
+// (attention_bwd.cu) regenerates.
 // Online function (K9 past 1024): q pre-scaled in its own dtype
 // (round(q * round(scale)), exact at hd 64 where the scale is 2^-3), the
 // scores q . k^T with no further scale, and the softmax online over key
@@ -168,7 +169,7 @@ __global__ void __launch_bounds__(WG_THREADS)
   const int h = blockIdx.x, q0 = blockIdx.y * WG_Q, b = blockIdx.z;
   const WgThread me(q0);
   const uint32_t sqw = sq + me.wg * (WG_ROWS * 128);
-  const unsigned salt = b * gridDim.x + h;  // global head b * nh + h
+  const unsigned salt = drop.salt(b, h);  // the global head
   const bf16* kh = k.head(b, h);
   const bf16* vh = v.head(b, h);
   const BiasRows br(bias, b, h, me.row0, Lp);
@@ -391,7 +392,7 @@ __global__ void __launch_bounds__(ATT_Q)
   const int b = blockIdx.z, h = blockIdx.y;
   const int row = blockIdx.x * ATT_Q + threadIdx.x;
   const bool active = row < Lp;
-  const unsigned salt = b * gridDim.y + h;
+  const unsigned salt = drop.salt(b, h);
   const float* qh = qo.head(b, h);
   const float* kh = ko.head(b, h);
   const float* vh = vo.head(b, h);
@@ -540,9 +541,12 @@ extern "C" int vc_attention(
     const void* v, long long v_sb, long long v_sh, long long v_sr,
     const void* bias, long long bias_sb, long long bias_sh, void* out, int B,
     int Lp, int H, int nh, int l_actual, float scale, unsigned seed,
-    unsigned thresh, float inv, int online, int dtype, void* stream) {
-  const Dropout drop{seed, thresh, inv, thresh != 0u || inv != 1.0f};
-  if (nh <= 0 || H % nh) return (int)cudaErrorInvalidValue;
+    unsigned thresh, float inv, int nh_total, int head_offset, int online,
+    int dtype, void* stream) {
+  if (nh <= 0 || H % nh || head_offset < 0 || nh_total < nh + head_offset)
+    return (int)cudaErrorInvalidValue;
+  const Dropout drop{seed, thresh, inv, thresh != 0u || inv != 1.0f,
+                     (unsigned)nh_total, (unsigned)head_offset};
   const int hd = H / nh;
   if (hd % 8 || hd > 128 || H % 8) return (int)cudaErrorInvalidValue;
   if (online && drop.on) return (int)cudaErrorInvalidValue;

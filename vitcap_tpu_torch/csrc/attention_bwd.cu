@@ -22,8 +22,9 @@
 //   r = sum_k dp p;  ds = round(p (dp - r))
 //   dq = ds k * scale;  dk = ds^T q * scale
 // with every product summed in f32 and round() the compute dtype.  The
-// keep bit is vc_dropout_keep(query row, key column, seed, b * nh + h), the
-// bits the forward (attention.cu) used.
+// keep bit is vc_dropout_keep(query row, key column, seed, the global head
+// b * nh_total + head_offset + h), the bits the forward (attention.cu)
+// used.
 //
 // What bounds it on the H100: per (image, head) five products of Lp x L x
 // hd (s, dp, dv, dq, dk), 10 Lp L hd flops against 7 Lp hd operand values
@@ -165,7 +166,7 @@ __global__ void __launch_bounds__(BW_THREADS, 3)
   const int h = blockIdx.x, q0 = blockIdx.y * BW_ROWS, b = blockIdx.z;
   const int nh = gridDim.x;
   const WgThread me(q0);
-  const unsigned salt = b * nh + h;
+  const unsigned salt = drop.salt(b, h);
   const int nt = (l_actual + KT - 1) / KT;
 
   // the head and bias row pointers are formed where they are used: held
@@ -373,7 +374,7 @@ __global__ void __launch_bounds__(BW_THREADS)
     store_rows(dva, 1.0f, dv, b, h, Lp, H, hd, me.row0, me.cq);
     return;
   }
-  const unsigned salt = b * nh + h;
+  const unsigned salt = drop.salt(b, h);
   const bf16* qh = q.head(b, h);
   const bf16* gh = g.head(b, h);
   const float* bh = bias.row(b, h, 0, Lp);  // null without a bias
@@ -542,7 +543,7 @@ __global__ void __launch_bounds__(FR)
   const int b = blockIdx.z, h = blockIdx.y, nh = gridDim.y;
   const int t = threadIdx.x, qrow = blockIdx.x * FR + t;
   const bool active = qrow < Lp;
-  const unsigned salt = b * nh + h;
+  const unsigned salt = drop.salt(b, h);
   const float* qh = q.head(b, h);
   const float* kh = k.head(b, h);
   const float* vh = v.head(b, h);
@@ -640,7 +641,7 @@ __global__ void __launch_bounds__(FR)
   const int b = blockIdx.z, h = blockIdx.y, nh = gridDim.y;
   const int t = threadIdx.x, key = blockIdx.x * FR + t;
   const bool key_ok = key < l_actual;
-  const unsigned salt = b * nh + h;
+  const unsigned salt = drop.salt(b, h);
   const float* qh = q.head(b, h);
   const float* gh = g.head(b, h);
   const float* bh = bias.row(b, h, 0, Lp);  // null without a bias
@@ -734,11 +735,13 @@ extern "C" int vc_attention_bwd(
     const void* bias, long long bias_sb, long long bias_sh, void* dq,
     void* dk, void* dv, void* mlr, int B, int Lp, int H, int nh,
     int l_actual, float scale, unsigned seed, unsigned thresh, float inv,
-    int dtype, void* stream) {
-  if (nh <= 0 || H % nh) return (int)cudaErrorInvalidValue;
+    int nh_total, int head_offset, int dtype, void* stream) {
+  if (nh <= 0 || H % nh || head_offset < 0 || nh_total < nh + head_offset)
+    return (int)cudaErrorInvalidValue;
   const int hd = H / nh;
   if (hd % 8 || hd > BW_HD) return (int)cudaErrorInvalidValue;
-  const Dropout drop{seed, thresh, inv, thresh != 0u || inv != 1.0f};
+  const Dropout drop{seed, thresh, inv, thresh != 0u || inv != 1.0f,
+                     (unsigned)nh_total, (unsigned)head_offset};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Bias bf{static_cast<const float*>(bias), bias_sb, bias_sh};
   float* m = static_cast<float*>(mlr);

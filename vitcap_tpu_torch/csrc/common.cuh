@@ -46,12 +46,21 @@ __device__ __forceinline__ bool vc_dropout_keep(unsigned r, unsigned c,
 }
 
 // the dropout parameters a kernel takes: rate 0 is thresh 0 (every bit
-// kept) and inv 1
+// kept) and inv 1.  Attention-prob dropout salts with the global head
+// b * nh_total + head_offset + h: a tensor-parallel rank runs heads
+// [head_offset, head_offset + nh) of nh_total, and draws the bits the
+// unsplit model draws for them (nh_total = nh, head_offset = 0 without
+// tensor parallelism).
 struct Dropout {
   unsigned seed;
   unsigned thresh;
   float inv;  // 1 / (1 - rate), in f32
   int on;     // rate > 0
+  unsigned nh_total;
+  unsigned head_offset;
+  __device__ __forceinline__ unsigned salt(unsigned b, unsigned h) const {
+    return b * nh_total + head_offset + h;
+  }
 };
 
 // A per-head operand read by base pointer and strides, in elements:

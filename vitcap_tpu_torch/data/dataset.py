@@ -404,6 +404,23 @@ def collate_numpy(samples: List[Dict[str, Any]]) -> Dict[str, Any]:
     return out
 
 
+def pert_collate(samples: List[Dict[str, Any]], prob: float,
+                 rng: Optional[np.random.RandomState] = None
+                 ) -> Dict[str, Any]:
+    """ITM-negative collate: shuffle the first int(n * prob) + 1 images so
+    caption/image pairs mismatch; emits `matched` bool per row (reference
+    pert_collate_fn dataset.py:846-856)."""
+    rng = rng or np.random
+    batch = collate_numpy(samples)
+    n = batch["image"].shape[0]
+    shuffle_len = int(n * prob) + 1
+    idx = np.concatenate([rng.permutation(shuffle_len),
+                          np.arange(shuffle_len, n)])
+    batch["image"] = batch["image"][idx]
+    batch["matched"] = idx == np.arange(n)
+    return batch
+
+
 class DataLoader:
     """Thread-pool prefetching loader: maps sample indices through the
     dataset transform in parallel and collates; keeps `prefetch` batches in

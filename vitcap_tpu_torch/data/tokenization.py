@@ -15,7 +15,7 @@ from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
 # the vocab shipped with the repo (30522 tokens, id = line number)
-DEFAULT_VOCAB = (Path(__file__).resolve().parents[2] / "vitcap_tpu" / "assets"
+DEFAULT_VOCAB = (Path(__file__).resolve().parents[1] / "assets"
                  / "VILT-L12-H784-uncased_16_384" / "vocab.txt")
 
 SPECIAL_TOKENS = ("[CLS]", "[SEP]", "[PAD]", "[MASK]")

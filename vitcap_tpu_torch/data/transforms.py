@@ -38,6 +38,18 @@ def img_from_base64(s: str) -> "Image.Image":
     return img.convert("RGB")
 
 
+def encoded_from_img(img, fmt: str = "JPEG", quality: int = 95) -> str:
+    """PIL image (or HWC uint8 array) -> base64 string, the inverse of
+    img_from_base64 (reference `encoded_from_img`, used when writing image
+    TSVs)."""
+    from PIL import Image
+    if isinstance(img, np.ndarray):
+        img = Image.fromarray(img.astype(np.uint8))
+    buf = io.BytesIO()
+    img.save(buf, format=fmt, quality=quality)
+    return base64.b64encode(buf.getvalue()).decode("ascii")
+
+
 def normalize_to_array(img: "Image.Image", mean=0.5, std=0.5) -> np.ndarray:
     x = np.asarray(img, dtype=np.float32) / 255.0
     return (x - mean) / std                           # HWC RGB

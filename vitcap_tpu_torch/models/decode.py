@@ -23,6 +23,13 @@ selected as the TPU package selects them (_pick_layout):
 
 Sampling draws from explicit torch.Generators, whose streams differ from
 the TPU package's jax.random streams (same distributions).
+
+Tensor parallelism (parallel/mesh.py shard_params): both engines run the
+decoder layers' shard (their TPShard, `tp`) on the rank's heads: the
+context and caption caches hold those heads, the out-projection and fc2
+partials are summed over the model axis at every layer and step, and the
+tag head, the tag selection and the LM head are replicated, so every rank
+picks the same tokens.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import torch.nn.functional as F
 from ..ops.decode_step import (fused_decode_step, pack_decode_context,
                                pack_decode_layers)
 from ..ops.fused_block import pad_len
+from ..parallel.tensor_parallel import all_reduce_tp, local_heads, tp_of
 from . import vitcap as M
 from .config import ModelConfig
 from .layers import (NEG_MASK_VALUE, bert_embeddings, bert_layer, dense, gelu,
@@ -220,6 +228,8 @@ def build_decode_context(model: M.ViTCAP, images: torch.Tensor,
 
     nH = cfg.num_attention_heads
     hd = cfg.hidden_size // nH
+    layers = model.bert.decoder.layer
+    nH_local = local_heads(_decoder_shard(model), nH)
     pad = pad_len(S_ctx) - S_ctx
     x = F.pad(ctx, (0, 0, 0, pad))
     bias = F.pad(bias, (0, 0, 0, pad))
@@ -230,12 +240,11 @@ def build_decode_context(model: M.ViTCAP, images: torch.Tensor,
         if layout == "flat":
             return a.contiguous()
         if quant:
-            return _quantize_cache_proj(a, nH, hd)
-        return a.reshape(B, S_ctx, nH, hd).transpose(1, 2).contiguous()
+            return _quantize_cache_proj(a, nH_local, hd)
+        return a.reshape(B, S_ctx, nH_local, hd).transpose(1, 2).contiguous()
 
     ctx_k: List[Any] = []
     ctx_v: List[Any] = []
-    layers = model.bert.decoder.layer
     for li, layer in enumerate(layers):
         ps = layer.attention.self
         ctx_k.append(cache(dense(ps.key, x)))
@@ -251,6 +260,12 @@ def build_decode_context(model: M.ViTCAP, images: torch.Tensor,
     else:
         out.update(ctx_k=ctx_k, ctx_v=ctx_v)
     return out
+
+
+def _decoder_shard(model: M.ViTCAP):
+    """The decoder layers' TPShard (one for all layers), or None."""
+    layers = model.bert.decoder.layer
+    return tp_of(layers[0]) if len(layers) else None
 
 
 def _ctx_layout(ctx: Dict[str, Any]) -> str:
@@ -272,12 +287,15 @@ def _step_params(model: M.ViTCAP, cfg: ModelConfig) -> Dict[str, Any]:
 def _decode_params_cast(model: M.ViTCAP, cfg: ModelConfig) -> Dict[str, Any]:
     """_step_params plus the decoder layers' weights for the eager step,
     cast to the compute dtype once (LayerNorms stay f32) and with q/k/v
-    merged into one (3H, H) matrix per layer."""
+    merged into one (3H, H) matrix per layer; each layer's TPShard and
+    heads."""
     dt = cfg.compute_dtype
     layers = []
     for layer in model.bert.decoder.layer:
         ps, po = layer.attention.self, layer.attention.output
+        tp = tp_of(layer)
         layers.append({
+            "tp": tp, "heads": local_heads(tp, cfg.num_attention_heads),
             "qkv_w": torch.cat([ps.query.weight, ps.key.weight,
                                 ps.value.weight]).to(dt),
             "qkv_b": torch.cat([ps.query.bias, ps.key.bias,
@@ -301,6 +319,15 @@ def _lin(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return x @ w.t() + b
 
 
+def _row_lin(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, tp
+             ) -> torch.Tensor:
+    """_lin of a row-split layer: the f32 partial products summed over the
+    model axis, rounded once, then the bias (_lin without a shard)."""
+    if tp is None:
+        return _lin(x, w, b)
+    return all_reduce_tp(x.float() @ w.float().t(), tp).to(x.dtype) + b
+
+
 def _decode_attention(lw: Dict[str, Any], x_win: torch.Tensor,
                       cap_k: torch.Tensor, cap_v: torch.Tensor,
                       ctx_k: Any, ctx_v: Any, ctx_valid: torch.Tensor,
@@ -309,8 +336,11 @@ def _decode_attention(lw: Dict[str, Any], x_win: torch.Tensor,
     <= t-1), the MASK row's own K/V, and the context cache (per od
     validity).  cap_* (Bb, h, A, d) are updated in place at slot t-1;
     ctx_* are per-image (B, h, S, d) f32 copies shared by the Bb rows, or
-    int8 dicts {'q8': float copy of the int8 values, 'scale'}."""
-    Bb, W, H = x_win.shape
+    int8 dicts {'q8': float copy of the int8 values, 'scale'}.  H below is
+    the width of the layer's num_heads heads (a shard's under tensor
+    parallelism)."""
+    Bb, W, _ = x_win.shape
+    H = lw["qkv_w"].shape[0] // 3
     quant = isinstance(ctx_k, dict)
     k_arr = ctx_k["q8"] if quant else ctx_k
     B, _, S, _ = k_arr.shape
@@ -382,11 +412,11 @@ def _decode_layer(lw: Dict[str, Any], x_win: torch.Tensor, cap_k, cap_v,
                   ) -> torch.Tensor:
     eps = cfg.bert_layer_norm_eps
     attn = _decode_attention(lw, x_win, cap_k, cap_v, ctx_k, ctx_v,
-                             ctx_valid, t, cfg.num_attention_heads)
-    attn = _lin(attn, lw["out_w"], lw["out_b"])
+                             ctx_valid, t, lw["heads"])
+    attn = _row_lin(attn, lw["out_w"], lw["out_b"], lw["tp"])
     x = layer_norm(lw["ln1"], attn + x_win, eps)
-    out = _lin(gelu(_lin(x, lw["inter_w"], lw["inter_b"])),
-               lw["out2_w"], lw["out2_b"])
+    out = _row_lin(gelu(_lin(x, lw["inter_w"], lw["inter_b"])),
+                   lw["out2_w"], lw["out2_b"], lw["tp"])
     return layer_norm(lw["ln2"], out + x, eps)
 
 
@@ -452,10 +482,13 @@ def _decode_engine(model: M.ViTCAP, ctx: Dict[str, Any], cfg: ModelConfig,
     caches), the caches updated in place; reorder(caches, flat_idx) ->
     caches gathered by row (beam reorder)."""
     A = opts.max_length
-    H = cfg.hidden_size
     nL = cfg.decoder_layers
     dt = cfg.compute_dtype
     dev = ctx["ctx_valid"].device
+    tp = _decoder_shard(model)
+    heads = local_heads(tp, cfg.num_attention_heads)
+    # the caches' width: the rank's heads under tensor parallelism
+    H = cfg.hidden_size // cfg.num_attention_heads * heads
 
     if _ctx_layout(ctx) == "flat":
         dw = _step_params(model, cfg)
@@ -471,8 +504,8 @@ def _decode_engine(model: M.ViTCAP, ctx: Dict[str, Any], cfg: ModelConfig,
             x = _window_embeddings(dw, prev, t, cfg)
             x = fused_decode_step(packed, ctx["ctx_k"], ctx["ctx_v"],
                                   ctx["ctx_bias"], cap_k, cap_v, x, ts[t],
-                                  num_heads=cfg.num_attention_heads,
-                                  eps=cfg.bert_layer_norm_eps)
+                                  num_heads=heads,
+                                  eps=cfg.bert_layer_norm_eps, tp=tp)
             return _logits(dw, x, cfg), caches
 
         def reorder(caches, flat_idx):
@@ -487,14 +520,15 @@ def _decode_engine(model: M.ViTCAP, ctx: Dict[str, Any], cfg: ModelConfig,
         # f32 copies made once: the step's context scores and outputs
         # accumulate in f32 over compute-dtype values, as on the TPU
         if isinstance(c, dict):
-            return {"q8": c["q8"].to(_int8_sum_dtype(max(S, H))),
+            n = max(S, cfg.hidden_size)
+            return {"q8": c["q8"].to(_int8_sum_dtype(n)),
                     "scale": c["scale"]}
         return c.float()
     step_ctx = dict(ctx, ctx_k=[step_cache(c) for c in ctx["ctx_k"]],
                     ctx_v=[step_cache(c) for c in ctx["ctx_v"]])
 
     def init():
-        return _init_caps(Bb, nL, A, H, dt, cfg.num_attention_heads, dev)
+        return _init_caps(Bb, nL, A, H, dt, heads, dev)
 
     def step(caches, prev, t):
         cap_k, cap_v = caches

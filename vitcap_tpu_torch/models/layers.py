@@ -32,6 +32,17 @@ from int32 seeds through the counter hash (ops/dropout.py), the TPU
 kernels' bits; the plain attention's and hidden dropout of the plain
 layers, and the embeddings', draw Bernoulli masks from a torch.Generator
 (the TPU package's jax.random.bernoulli there).
+
+Tensor parallelism: a block split by parallel/mesh.py shard_params carries
+a TPShard (`tp`) and runs its heads on every route.  The plain chains put
+copy_to_tp before each column-split product and sum each row-split one
+(row_dense: an f32 partial, reduce_from_tp, then the bias once), so their
+autograd backward is the split model's.  The counter-hash dropouts salt
+with the global head; the generator's attention dropout draws the mask of
+every head and keeps the rank's (the generator advances as unsplit), and
+the hidden and embedding dropouts run on replicated activations, so a
+rank draws what the unsplit model draws.  vit_block_cls_only splits
+likewise; cls_attention_scores gathers every head's scores.
 """
 
 from __future__ import annotations
@@ -46,10 +57,13 @@ import torch.nn.functional as F
 
 from ..ops.attention import heads_view, merge_heads
 from ..ops.flash_attention import flash_attention, flash_attention_packed
-from ..ops.fused_block import (fused_bert_block, fused_vit_block,
+from ..ops.fused_block import (fused_bert_block, fused_vit_block, local_bias,
                                split_bert_layer_train, split_vit_block_train,
                                takes_split_train)
 from ..ops.layer_norm import layer_norm_plain
+from ..parallel.tensor_parallel import (TPShard, all_gather_tp, copy_to_tp,
+                                        local_heads, reduce_from_tp,
+                                        salt_heads, tp_of)
 
 NEG_MASK_VALUE = -10000.0  # the reference's (1 - m) * -10000 mask value
 
@@ -133,6 +147,17 @@ def dense(p: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def row_dense(p: nn.Linear, x: torch.Tensor,
+              tp: Optional[TPShard]) -> torch.Tensor:
+    """dense of a row-split Linear: this rank's f32 partial product summed
+    over the model axis (reduce_from_tp), rounded to x's dtype once, then
+    the bias, as dense rounds; dense itself without a shard."""
+    if tp is None:
+        return dense(p, x)
+    y = reduce_from_tp(x.float() @ p.weight.float().t(), tp).to(x.dtype)
+    return y + p.bias.to(x.dtype)
+
+
 def layer_norm(p: nn.LayerNorm, x: torch.Tensor, eps: float) -> torch.Tensor:
     """Normalise in f32 whatever the compute dtype (always the plain
     version: this is the LayerNorm outside the fused blocks)."""
@@ -144,13 +169,22 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            heads: Tuple[int, int] = (0, 0)) -> torch.Tensor:
     """Inverted dropout with a Bernoulli mask from `generator`; the
-    identity at rate 0 or without a generator (deterministic)."""
+    identity at rate 0 or without a generator (deterministic).  heads
+    (nh_total, head_offset) with nh_total > 0: x is (B, nh, ...) of heads
+    [head_offset, head_offset + nh); the mask is drawn over all nh_total
+    heads and this slice kept, so the generator draws and advances as for
+    the unsplit tensor."""
     if rate == 0.0 or generator is None:
         return x
-    keep = torch.rand(x.shape, generator=generator,
+    nh_total, off = heads
+    shape = ((x.shape[0], nh_total, *x.shape[2:]) if nh_total else x.shape)
+    keep = torch.rand(shape, generator=generator,
                       device=generator.device).to(x.device) >= rate
+    if nh_total:
+        keep = keep[:, off:off + x.shape[1]]
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
@@ -210,7 +244,8 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
         scores_dtype: Optional[torch.dtype] = None,
         dropout_rate: float = 0.0,
         generator: Optional[torch.Generator] = None,
-        seed: Optional[int] = None, l_actual: int = 0) -> torch.Tensor:
+        seed: Optional[int] = None, l_actual: int = 0,
+        heads: Tuple[int, int] = (0, 0)) -> torch.Tensor:
     """q (B, Lq, H), k/v (B, Lk, H), bias (B, 1|nh, Lq, Lk) additive ->
     (B, Lq, H).  seed (an int32 value): a dropout-active train call.  A
     train call (seed given, or q, k or v carrying a gradient) with Lq == Lk
@@ -221,7 +256,9 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
     as in the TPU package.  Any other call takes the plain attention below,
     with dropout from `generator` when given.
     l_actual > 0: q, k, v are pre-padded with that many valid rows, which
-    only the packed route takes."""
+    only the packed route takes.  heads (nh_total, head_offset): q, k, v
+    hold heads [head_offset, head_offset + num_heads) of nh_total (a
+    tensor-parallel rank's), which both dropouts key on; (0, 0): all."""
     B, Lq, H = q.shape
     Lk = k.shape[1]
     hd = H // num_heads
@@ -231,7 +268,7 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
             and (bias is None or bias.shape[1] == 1)):
         rate = dropout_rate if seed is not None else 0.0
         return flash_attention_packed(q, k, v, bias, seed or 0, num_heads,
-                                      rate, l_actual)
+                                      rate, l_actual, heads)
     if l_actual:
         raise ValueError("pre-padded mha (l_actual > 0) needs the packed "
                          "train route")
@@ -253,7 +290,7 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
         if bias is not None:
             scores = scores + bias.float()
         probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    probs = dropout(probs, dropout_rate, generator)
+    probs = dropout(probs, dropout_rate, generator, heads)
     out = probs @ vh
     return out.transpose(1, 2).reshape(B, Lq, H)
 
@@ -262,8 +299,11 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
 # ViT (pre-norm)
 # ---------------------------------------------------------------------------
 
-def vit_mlp(p, x: torch.Tensor) -> torch.Tensor:
-    return dense(p.fc2, gelu(dense(p.fc1, x)))
+def vit_mlp(p, x: torch.Tensor, tp: Optional[TPShard] = None
+            ) -> torch.Tensor:
+    """fc2(GELU(fc1(x))); under a shard fc1 is column-split and fc2
+    row-split (x replicated, the output summed)."""
+    return row_dense(p.fc2, gelu(dense(p.fc1, copy_to_tp(x, tp))), tp)
 
 
 def _vit_block_plain(p: ViTBlock, x: torch.Tensor, num_heads: int,
@@ -271,11 +311,13 @@ def _vit_block_plain(p: ViTBlock, x: torch.Tensor, num_heads: int,
                      scores_dtype=None, l_actual: int = 0) -> torch.Tensor:
     """The plain chain (the TPU package's _vit_block_xla): the products on
     every row, the attention through mha's routing."""
-    y = layer_norm(p.norm1, x, ln_eps)
+    tp = tp_of(p)
+    y = copy_to_tp(layer_norm(p.norm1, x, ln_eps), tp)
     q, k, v = dense(p.attn.qkv, y).chunk(3, dim=-1)
-    x = x + dense(p.attn.proj, mha(q, k, v, num_heads, bias, scores_dtype,
-                                   l_actual=l_actual))
-    return x + vit_mlp(p.mlp, layer_norm(p.norm2, x, ln_eps))
+    x = x + row_dense(p.attn.proj, mha(
+        q, k, v, local_heads(tp, num_heads), local_bias(bias, tp),
+        scores_dtype, l_actual=l_actual, heads=salt_heads(tp)), tp)
+    return x + vit_mlp(p.mlp, layer_norm(p.norm2, x, ln_eps), tp)
 
 
 def vit_block(p: ViTBlock, x: torch.Tensor, num_heads: int, ln_eps: float,
@@ -301,34 +343,40 @@ def vit_block_cls_only(p: ViTBlock, x: torch.Tensor, num_heads: int,
                        ln_eps: float, scores_dtype=None) -> torch.Tensor:
     """Exact CLS-row output of vit_block, (B, L, H) -> (B, 1, H): q, proj
     and MLP run on one row, k/v on every row."""
-    H = x.shape[-1]
-    ln1 = layer_norm(p.norm1, x, ln_eps)
+    tp = tp_of(p)
+    ln1 = copy_to_tp(layer_norm(p.norm1, x, ln_eps), tp)
     w = p.attn.qkv.weight.to(x.dtype)
     b = p.attn.qkv.bias.to(x.dtype)
+    H = w.shape[0] // 3                  # the shard's heads' width
     q = ln1[:, :1] @ w[:H].t() + b[:H]
     kv = ln1 @ w[H:].t() + b[H:]
     k, v = kv.chunk(2, dim=-1)
-    out = mha(q, k, v, num_heads, scores_dtype=scores_dtype)
-    x0 = x[:, :1] + dense(p.attn.proj, out)
-    return x0 + vit_mlp(p.mlp, layer_norm(p.norm2, x0, ln_eps))
+    out = mha(q, k, v, local_heads(tp, num_heads), scores_dtype=scores_dtype)
+    x0 = x[:, :1] + row_dense(p.attn.proj, out, tp)
+    return x0 + vit_mlp(p.mlp, layer_norm(p.norm2, x0, ln_eps), tp)
 
 
 def cls_attention_scores(p: ViTBlock, x: torch.Tensor, num_heads: int,
                          ln_eps: float) -> torch.Tensor:
     """CLS-row attention mass of a ViT block over its input, (B, L) f32,
     averaged over the heads: the token-importance signal of the
-    attention-aware token filter (one query row, no value product)."""
+    attention-aware token filter (one query row, no value product).  A
+    split block gathers every head's scores over the model axis first."""
     B, L, H = x.shape
     hd = H // num_heads
+    tp = tp_of(p)
     y = layer_norm(p.norm1, x, ln_eps)
     w = p.attn.qkv.weight.to(x.dtype)
     b = p.attn.qkv.bias.to(x.dtype)
-    q = y[:, :1] @ w[:H].t() + b[:H]
-    k = y @ w[H:2 * H].t() + b[H:2 * H]
-    qh = q.reshape(B, 1, num_heads, hd).transpose(1, 2).float()
-    kh = k.reshape(B, L, num_heads, hd).transpose(1, 2).float()
+    Hl = w.shape[0] // 3                 # the shard's heads' width
+    nh = Hl // hd
+    q = y[:, :1] @ w[:Hl].t() + b[:Hl]
+    k = y @ w[Hl:2 * Hl].t() + b[Hl:2 * Hl]
+    qh = q.reshape(B, 1, nh, hd).transpose(1, 2).float()
+    kh = k.reshape(B, L, nh, hd).transpose(1, 2).float()
     s = (qh @ kh.transpose(-1, -2)) * (hd ** -0.5)        # (B, h, 1, L)
-    return torch.softmax(s, dim=-1).mean(1)[:, 0]
+    probs = all_gather_tp(torch.softmax(s, dim=-1), tp, dim=1)
+    return probs.mean(1)[:, 0]
 
 
 def patch_embed(p: nn.Conv2d, images: torch.Tensor,
@@ -472,14 +520,19 @@ def _bert_layer_plain(p: BertLayer, x: torch.Tensor, bias: torch.Tensor,
     bits from seeds[0] through the counter hash, the other dropouts
     Bernoulli masks from a generator seeded by both (_seed_generator)."""
     ps = p.attention.self
+    tp = tp_of(p)
     generator = _seed_generator(seeds)
-    attn = mha(dense(ps.query, x), dense(ps.key, x), dense(ps.value, x),
-               num_heads, bias, scores_dtype, attn_dropout, generator,
-               None if seeds is None else int(seeds[0]), l_actual)
-    attn = dropout(dense(p.attention.output.dense, attn), hidden_dropout,
-                   generator)
+    xs = copy_to_tp(x, tp)
+    attn = mha(dense(ps.query, xs), dense(ps.key, xs), dense(ps.value, xs),
+               local_heads(tp, num_heads), local_bias(bias, tp),
+               scores_dtype, attn_dropout, generator,
+               None if seeds is None else int(seeds[0]), l_actual,
+               salt_heads(tp))
+    attn = dropout(row_dense(p.attention.output.dense, attn, tp),
+                   hidden_dropout, generator)
     x = layer_norm(p.attention.output.LayerNorm, attn + x, ln_eps)
-    out = dense(p.output.dense, gelu(dense(p.intermediate.dense, x)))
+    out = row_dense(p.output.dense, gelu(dense(p.intermediate.dense,
+                                               copy_to_tp(x, tp))), tp)
     out = dropout(out, hidden_dropout, generator)
     return layer_norm(p.output.LayerNorm, out + x, ln_eps)
 

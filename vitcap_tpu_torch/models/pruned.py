@@ -5,8 +5,8 @@ convs (and ECA kernels) to their weight shapes (the pruning of arxiv
 2002.08258, timm's pruned/*.txt); backbones.ResNet reads the widths of
 ecaresnet50d_pruned and ecaresnet101d_pruned from them, and
 efficientnet.effnet_plan those of efficientnet_b1/b2/b3_pruned.  The JSON
-files are the data files the JAX package ships
-(vitcap_tpu/assets/pruned/), read by path through
+files are copies of the data files the JAX package ships, in the port's
+own vitcap_tpu_torch/assets/pruned/, read by path through
 utils.common.asset_path.
 """
 

@@ -10,7 +10,11 @@ masks, fusion decoder and losses.
 ViTCAP is an nn.Module that only holds parameters; its state_dict() names
 are those solver.checkpoint_bridge.params_to_torch_state_dict emits,
 without the leading 'module.'.  The functions below are the forward
-pieces, taking the model and tensors.
+pieces, taking the model and tensors.  It keeps its config (`cfg`), which
+parallel/mesh.py shard_params splits by: under tensor parallelism every
+block it holds carries its TPShard (the model axis's group, the rank's
+heads and their offset), so the forwards below hand each block the
+model's head count and the block runs its own heads.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from .losses import focal_neg_loss
 class ViTCAP(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
+        self.cfg = cfg      # what parallel/mesh.py shard_params splits by
         h, i = cfg.hidden_size, cfg.intermediate_size
         gh = cfg.img_size // cfg.patch_size
         p = cfg.patch_size

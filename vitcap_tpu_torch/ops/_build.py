@@ -43,14 +43,15 @@ SIGNATURES = {
     "vc_layer_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
     # q, k, v (each pointer, batch, head and row strides), bias (pointer,
     # batch and head strides), out, B, Lp, H, nh, l_actual, scale, seed,
-    # thresh, inv, online, dtype, stream
+    # thresh, inv, nh_total, head_offset (the dropout salt's global head),
+    # online, dtype, stream
     "vc_attention": [*_OPERAND * 3, *_BIAS, _P, _I, _I, _I, _I, _I, _F, _U,
-                     _U, _F, _I, _I, _P],
+                     _U, _F, _I, _I, _I, _I, _P],
     # q, k, v, g (each pointer, batch, head and row strides), bias (pointer,
     # batch and head strides), dq, dk, dv, mlr, B, Lp, H, nh, l_actual,
-    # scale, seed, thresh, inv, dtype, stream
+    # scale, seed, thresh, inv, nh_total, head_offset, dtype, stream
     "vc_attention_bwd": [*_OPERAND * 4, *_BIAS, _P, _P, _P, _P, _I, _I, _I,
-                         _I, _I, _F, _U, _U, _F, _I, _P],
+                         _I, _I, _F, _U, _U, _F, _I, _I, _I, _P],
     # qkv, cap_k, cap_v, ctx_k, ctx_v, bias, t, out, B, nb, beam groups,
     # S, A, H, nh, scale, dtype, ranks, keys per rank, key capacity, stream
     "vc_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

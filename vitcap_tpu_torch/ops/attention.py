@@ -29,8 +29,11 @@ With ``rate`` > 0 it is also the train forward of K8
 :670 _flash_fwd_packed on separate q, k, v; kernels :452
 _fwd_packed_kernel / :484 _fwd_packed_pair_kernel): attention-prob dropout
 on the unnormalised exp(s - m), keep bits from ops/dropout.py (lattice
-(query row, key column), salt b * nh + h), kept values times 1 / (1 -
-rate) in f32 before the rounding; l stays the undropped sum.
+(query row, key column), salt the global head b * nh + h), kept values
+times 1 / (1 - rate) in f32 before the rounding; l stays the undropped
+sum.  Under tensor parallelism a call runs heads [head_offset, head_offset
++ nh) of nh_total and salts with b * nh_total + head_offset + h, so each
+rank drops what the unsplit model drops for its heads.
 
 Past 1024 padded tokens it is also the attention of K10 (vitcap_tpu/ops/
 fused_block.py:125 _block_kernel and :470 _bert_kernel, whose q-tiled
@@ -41,10 +44,13 @@ of ONLINE_TK with each tile's probabilities rounded against that tile's
 running max (attention_heads_plain says it line for line).
 mode_launches counts the launches with dropout, past MAX_LP, through
 attention_qkv ("non_slab"), through attention_heads ("heads"), in the
-online mode and at a head dim past 64 ("hdp128": the kernels' instances
+online mode, at a head dim past 64 ("hdp128": the kernels' instances
 for head dims up to 128, which pad the head dim to 128 in shared memory;
-the model zoo's ViT-H/14 at 80 and old ViT-S/16 at 96).  kernel_info() reads the bf16 kernels' launch configuration
-(registers, spills, shared memory, resident blocks per SM) on the card.
+the model zoo's ViT-H/14 at 80 and old ViT-S/16 at 96) and on a
+tensor-parallel rank's head slice with the global salt ("tp": nh_total
+past the call's heads).  kernel_info() reads the bf16 kernels' launch
+configuration (registers, spills, shared memory, resident blocks per SM)
+on the card.
 """
 
 from __future__ import annotations
@@ -66,7 +72,8 @@ mode_launches = {"dropout": 0,    # launches with prob dropout
                  "non_slab": 0,   # launches through attention_qkv
                  "heads": 0,      # launches through attention_heads (K9)
                  "online": 0,     # launches in the online mode (K9 > 1024)
-                 "hdp128": 0}     # launches at a head dim past 64
+                 "hdp128": 0,     # launches at a head dim past 64
+                 "tp": 0}         # launches on a tensor-parallel head slice
 
 
 def split_slab(slab: torch.Tensor):
@@ -115,10 +122,12 @@ def _online_plain(q, k, v, l_actual, bias):
 def attention_heads_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           l_actual: int, bias: Optional[torch.Tensor] = None,
                           rate: float = 0.0, seed: int = 0,
-                          online: bool = False) -> torch.Tensor:
+                          online: bool = False, nh_total: int = 0,
+                          head_offset: int = 0) -> torch.Tensor:
     """Plain PyTorch version over per-head q, k, v (B, nH, Lp, hd) -> (B,
     nH, Lp, hd) in q's dtype; bias (B, 1 | nH, Lp, Lp) or None; online:
-    K9's q-tiled function (no dropout)."""
+    K9's q-tiled function (no dropout); nh_total, head_offset: the dropout
+    salt's global heads (module docstring)."""
     B, nh, Lp, hd = q.shape
     if online:
         return _online_plain(q, k, v, l_actual, bias).to(q.dtype)
@@ -132,7 +141,8 @@ def attention_heads_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
     if rate > 0.0:
-        keep = dropout.attention_keep(seed, rate, B, nh, Lp, q.device)
+        keep = dropout.attention_keep(seed, rate, B, nh, Lp, q.device,
+                                      nh_total, head_offset)
         p = torch.where(keep, p * (1.0 / (1.0 - rate)), 0.0)
     # probabilities rounded to the compute dtype for the product with v,
     # as the TPU kernels do
@@ -143,19 +153,21 @@ def attention_heads_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attention_qkv_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         num_heads: int, l_actual: int,
                         bias: Optional[torch.Tensor] = None,
-                        rate: float = 0.0, seed: int = 0) -> torch.Tensor:
+                        rate: float = 0.0, seed: int = 0, nh_total: int = 0,
+                        head_offset: int = 0) -> torch.Tensor:
     """Plain PyTorch version: q, k, v (B, Lp, H) -> (B, Lp, H)."""
     return merge_heads(attention_heads_plain(
         *(heads_view(t, num_heads) for t in (q, k, v)), l_actual, bias,
-        rate, seed))
+        rate, seed, False, nh_total, head_offset))
 
 
 def attention_plain(slab: torch.Tensor, num_heads: int, l_actual: int,
                     bias: Optional[torch.Tensor] = None, rate: float = 0.0,
-                    seed: int = 0) -> torch.Tensor:
+                    seed: int = 0, nh_total: int = 0,
+                    head_offset: int = 0) -> torch.Tensor:
     """Plain PyTorch version: slab (B, Lp, 3H) -> (B, Lp, H)."""
     return attention_qkv_plain(*split_slab(slab), num_heads, l_actual, bias,
-                               rate, seed)
+                               rate, seed, nh_total, head_offset)
 
 
 def operand_args(name: str, t: torch.Tensor, shape, dtype, device):
@@ -200,7 +212,8 @@ def check_head_dim(name: str, hd: int, max_hd: int) -> None:
                          f"up to {max_hd}")
 
 
-def _attention(q, k, v, l_actual, bias, rate, seed, online, mode):
+def _attention(q, k, v, l_actual, bias, rate, seed, online, mode,
+               nh_total=0, head_offset=0):
     """q, k, v per-head (B, nH, Lp, hd) -> (B, nH, Lp, hd): the plain
     version for CPU tensors, else the kernel, whose (B, Lp, H) output is
     returned as its per-head view.  mode: 'slab', 'non_slab' or 'heads'
@@ -208,9 +221,10 @@ def _attention(q, k, v, l_actual, bias, rate, seed, online, mode):
     drop = dropout.kernel_args(rate, seed)
     if online and rate > 0.0:
         raise ValueError("attention: the online mode takes no dropout")
+    nh_total = dropout.heads_total(q.shape[1], nh_total, head_offset)
     if q.device.type == "cpu":
         return attention_heads_plain(q, k, v, l_actual, bias, rate, seed,
-                                     online)
+                                     online, nh_total, head_offset)
     if q.device.type != "cuda":
         raise RuntimeError(f"attention: no kernel for device {q.device}")
     B, nh, Lp, hd = q.shape
@@ -225,7 +239,8 @@ def _attention(q, k, v, l_actual, bias, rate, seed, online, mode):
     rc = lib.vc_attention(*args, *bias_args("attention", bias, B, nh, Lp,
                                             q.device),
                           out.data_ptr(), B, Lp, nh * hd, nh, int(l_actual),
-                          float(hd ** -0.5), *drop, int(online),
+                          float(hd ** -0.5), *drop, nh_total,
+                          int(head_offset), int(online),
                           _build.dtype_code(q.dtype),
                           torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "attention")
@@ -235,6 +250,7 @@ def _attention(q, k, v, l_actual, bias, rate, seed, online, mode):
     mode_launches["long"] += Lp > MAX_LP
     mode_launches["online"] += bool(online)
     mode_launches["hdp128"] += hd > 64
+    mode_launches["tp"] += nh_total != nh
     if mode != "slab":
         mode_launches[mode] += 1
     return heads_view(out, nh)
@@ -253,26 +269,29 @@ def check_heads(name: str, H: int, num_heads: int) -> None:
 
 def attention(slab: torch.Tensor, num_heads: int, l_actual: int,
               bias: Optional[torch.Tensor] = None, rate: float = 0.0,
-              seed: int = 0) -> torch.Tensor:
+              seed: int = 0, nh_total: int = 0,
+              head_offset: int = 0) -> torch.Tensor:
     """slab (B, Lp, 3H) -> (B, Lp, H); bias None or (B, 1 | nH, Lp, Lp);
     rate > 0 drops probabilities with the int32 `seed` (ignored at rate
-    0)."""
+    0); the slab's heads are [head_offset, head_offset + num_heads) of
+    nh_total for the dropout salt (nh_total 0: num_heads, offset 0)."""
     if slab.dim() != 3 or slab.shape[-1] % 3:
         raise ValueError(f"attention: slab must be (B, Lp, 3H), got "
                          f"{tuple(slab.shape)}")
     check_heads("attention", slab.shape[-1] // 3, num_heads)
     return merge_heads(_attention(
         *(heads_view(t, num_heads) for t in split_slab(slab)), l_actual,
-        bias, rate, seed, False, "slab"))
+        bias, rate, seed, False, "slab", nh_total, head_offset))
 
 
 def attention_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   num_heads: int, l_actual: int,
                   bias: Optional[torch.Tensor] = None, rate: float = 0.0,
-                  seed: int = 0) -> torch.Tensor:
+                  seed: int = 0, nh_total: int = 0,
+                  head_offset: int = 0) -> torch.Tensor:
     """q, k, v (B, Lp, H), each any layout the kernel reads by stride (see
-    operand_args) -> contiguous (B, Lp, H); bias, rate and seed as for
-    attention()."""
+    operand_args) -> contiguous (B, Lp, H); bias, rate, seed, nh_total and
+    head_offset as for attention()."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 3:
             raise ValueError(f"attention: {name} must be (B, Lp, H), got "
@@ -280,7 +299,7 @@ def attention_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_heads("attention", q.shape[-1], num_heads)
     return merge_heads(_attention(
         *(heads_view(t, num_heads) for t in (q, k, v)), l_actual, bias,
-        rate, seed, False, "non_slab"))
+        rate, seed, False, "non_slab", nh_total, head_offset))
 
 
 def attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -41,7 +41,8 @@ launches = 0              # kernel launches (two per CUDA call)
 mode_launches = {"dropout": 0,    # launches with prob dropout
                  "long": 0,       # launches with Lp > MAX_LP
                  "non_slab": 0,   # launches through attention_bwd_qkv
-                 "heads": 0}      # launches through attention_bwd_heads
+                 "heads": 0,      # launches through attention_bwd_heads
+                 "tp": 0}         # launches on a tensor-parallel head slice
 
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -51,9 +52,12 @@ def attention_bwd_heads_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, g: torch.Tensor,
                               l_actual: int,
                               bias: Optional[torch.Tensor] = None,
-                              rate: float = 0.0, seed: int = 0) -> Grads:
+                              rate: float = 0.0, seed: int = 0,
+                              nh_total: int = 0,
+                              head_offset: int = 0) -> Grads:
     """Plain PyTorch version over per-head q, k, v, g (B, nH, Lp, hd) ->
-    dq, dk, dv, each (B, nH, Lp, hd) in q's dtype."""
+    dq, dk, dv, each (B, nH, Lp, hd) in q's dtype; nh_total, head_offset:
+    the dropout salt's global heads (ops/attention.py)."""
     B, nh, Lp, hd = q.shape
     dt = q.dtype
     scale = hd ** -0.5
@@ -69,7 +73,8 @@ def attention_bwd_heads_plain(q: torch.Tensor, k: torch.Tensor,
     dp = gh @ vh.transpose(-1, -2)
     pd = p
     if rate > 0.0:
-        keep = dropout.attention_keep(seed, rate, B, nh, Lp, q.device)
+        keep = dropout.attention_keep(seed, rate, B, nh, Lp, q.device,
+                                      nh_total, head_offset)
         inv = 1.0 / (1.0 - rate)
         pd = torch.where(keep, p * inv, 0.0)
         dp = torch.where(keep, dp * inv, 0.0)
@@ -85,31 +90,36 @@ def attention_bwd_qkv_plain(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, g: torch.Tensor, num_heads: int,
                             l_actual: int,
                             bias: Optional[torch.Tensor] = None,
-                            rate: float = 0.0, seed: int = 0) -> Grads:
+                            rate: float = 0.0, seed: int = 0,
+                            nh_total: int = 0, head_offset: int = 0) -> Grads:
     """Plain PyTorch version: q, k, v, g (B, Lp, H) -> dq, dk, dv, each
     (B, Lp, H) in q's dtype."""
     return tuple(merge_heads(t) for t in attention_bwd_heads_plain(
         *(heads_view(t, num_heads) for t in (q, k, v, g)), l_actual, bias,
-        rate, seed))
+        rate, seed, nh_total, head_offset))
 
 
 def attention_bwd_plain(slab: torch.Tensor, g: torch.Tensor, num_heads: int,
                         l_actual: int, bias: Optional[torch.Tensor] = None,
-                        rate: float = 0.0, seed: int = 0) -> Grads:
+                        rate: float = 0.0, seed: int = 0, nh_total: int = 0,
+                        head_offset: int = 0) -> Grads:
     """Plain PyTorch version: slab (B, Lp, 3H), g (B, Lp, H) -> dq, dk, dv,
     each (B, Lp, H) in the slab's dtype."""
     return attention_bwd_qkv_plain(*split_slab(slab), g, num_heads,
-                                   l_actual, bias, rate, seed)
+                                   l_actual, bias, rate, seed, nh_total,
+                                   head_offset)
 
 
-def _attention_bwd(q, k, v, g, l_actual, bias, rate, seed, mode) -> Grads:
+def _attention_bwd(q, k, v, g, l_actual, bias, rate, seed, mode,
+                   nh_total=0, head_offset=0) -> Grads:
     """Per-head (B, nH, Lp, hd) q, k, v, g -> per-head dq, dk, dv: the
     plain version for CPU tensors, else the kernels, whose (B, Lp, H)
     outputs are returned as their per-head views."""
     drop = dropout.kernel_args(rate, seed)
+    nh_total = dropout.heads_total(q.shape[1], nh_total, head_offset)
     if q.device.type == "cpu":
         return attention_bwd_heads_plain(q, k, v, g, l_actual, bias, rate,
-                                         seed)
+                                         seed, nh_total, head_offset)
     if q.device.type != "cuda":
         raise RuntimeError(f"attention_bwd: no kernel for device "
                            f"{q.device}")
@@ -130,14 +140,15 @@ def _attention_bwd(q, k, v, g, l_actual, bias, rate, seed, mode) -> Grads:
     rc = lib.vc_attention_bwd(
         *args, *bias_args("attention_bwd", bias, B, nh, Lp, q.device),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), mlr.data_ptr(), B, Lp,
-        H, nh, int(l_actual), float(hd ** -0.5), *drop,
-        _build.dtype_code(q.dtype),
+        H, nh, int(l_actual), float(hd ** -0.5), *drop, nh_total,
+        int(head_offset), _build.dtype_code(q.dtype),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "attention_bwd")
     global launches
     launches += 2
     mode_launches["dropout"] += 2 * (rate > 0.0)
     mode_launches["long"] += 2 * (Lp > MAX_LP)
+    mode_launches["tp"] += 2 * (nh_total != nh)
     if mode != "slab":
         mode_launches[mode] += 2
     return tuple(heads_view(t, nh) for t in (dq, dk, dv))
@@ -151,23 +162,26 @@ def kernel_info() -> list:
 
 def attention_bwd(slab: torch.Tensor, g: torch.Tensor, num_heads: int,
                   l_actual: int, bias: Optional[torch.Tensor] = None,
-                  rate: float = 0.0, seed: int = 0) -> Grads:
+                  rate: float = 0.0, seed: int = 0, nh_total: int = 0,
+                  head_offset: int = 0) -> Grads:
     """slab (B, Lp, 3H), g (B, Lp, H) in the slab's dtype, bias None or
-    contiguous f32 (B, 1 | nH, Lp, Lp), the forward's rate and int32 seed
-    -> (dq, dk, dv).  CUDA: head dims multiple of 8 up to 64."""
+    contiguous f32 (B, 1 | nH, Lp, Lp), the forward's rate, int32 seed and
+    salt heads (nh_total, head_offset: ops/attention.py attention) -> (dq,
+    dk, dv).  CUDA: head dims multiple of 8 up to 64."""
     if slab.dim() != 3 or slab.shape[-1] % 3:
         raise ValueError(f"attention_bwd: slab must be (B, Lp, 3H), got "
                          f"{tuple(slab.shape)}")
     check_heads("attention_bwd", slab.shape[-1] // 3, num_heads)
     return tuple(merge_heads(t) for t in _attention_bwd(
         *(heads_view(t, num_heads) for t in (*split_slab(slab), g)),
-        l_actual, bias, rate, seed, "slab"))
+        l_actual, bias, rate, seed, "slab", nh_total, head_offset))
 
 
 def attention_bwd_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       g: torch.Tensor, num_heads: int, l_actual: int,
                       bias: Optional[torch.Tensor] = None, rate: float = 0.0,
-                      seed: int = 0) -> Grads:
+                      seed: int = 0, nh_total: int = 0,
+                      head_offset: int = 0) -> Grads:
     """q, k, v, g (B, Lp, H), each any layout the kernels read by stride
     (ops.attention.operand_args) -> contiguous (dq, dk, dv)."""
     for name, t in (("q", q), ("k", k), ("v", v), ("g", g)):
@@ -177,7 +191,7 @@ def attention_bwd_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_heads("attention_bwd", q.shape[-1], num_heads)
     return tuple(merge_heads(t) for t in _attention_bwd(
         *(heads_view(t, num_heads) for t in (q, k, v, g)), l_actual, bias,
-        rate, seed, "non_slab"))
+        rate, seed, "non_slab", nh_total, head_offset))
 
 
 def attention_bwd_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

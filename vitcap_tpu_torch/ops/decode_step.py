@@ -22,12 +22,17 @@ post-LNs on layer_norm, rounded where it rounds:
 - fc1: the f32 product plus the bias, rounded, then exact GELU;
 - fc2: the f32 product plus the bias plus the residual, in f32; post-LN.
 So one layer is 7 launches (gemm, decode_attention, gemm, layer_norm, gemm,
-gemm, layer_norm) and one step of 4 layers 28.
+gemm, layer_norm) and one step of 4 layers 28.  Under tensor parallelism
+(tp, the decoder layers' TPShard) each rank runs the same 7 launches on
+its heads: qkv and fc1 on its rows, decode_attention over its heads'
+caches, the out-projection and fc2 as f32 partial sums summed over the
+model axis before the bias and residual (gemm.row_gemm).
 
 Layouts (the 'flat' layout of models/decode.py):
-- caption caches (nL, Bb, A, H) in the compute dtype; Bb = B * nb rows,
-  the beams of an image adjacent; updated in place at slot t-1;
-- context K/V (nL, B, S, H) in the compute dtype, one copy per image,
+- caption caches (nL, Bb, A, Hl) in the compute dtype; Bb = B * nb rows,
+  the beams of an image adjacent; updated in place at slot t-1; Hl is the
+  width of the rank's heads (H unsplit);
+- context K/V (nL, B, S, Hl) in the compute dtype, one copy per image,
   shared by its beams; S is the context length itself (no padding);
 - context bias (B, S) f32: 0 on valid slots, -10000 on invalid od slots;
 - t: the MASK row's position, a one-element int32 tensor on the tensors'
@@ -37,12 +42,13 @@ Layouts (the 'flat' layout of models/decode.py):
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from . import _build
-from .gemm import gemm, gemm_plain
+from ..parallel.tensor_parallel import TPShard
+from .gemm import gemm, gemm_plain, row_gemm
 from .layer_norm import layer_norm, layer_norm_plain
 
 NEG_MASK_VALUE = -10000.0     # the reference's mask value on invalid slots
@@ -315,7 +321,7 @@ def decode_attention(qkv: torch.Tensor, cap_k: torch.Tensor,
 def _step(kernels, packed: Dict[str, torch.Tensor], ctx_k: torch.Tensor,
           ctx_v: torch.Tensor, ctx_bias: torch.Tensor, cap_k: torch.Tensor,
           cap_v: torch.Tensor, x_win: torch.Tensor, t, num_heads: int,
-          eps: float) -> torch.Tensor:
+          eps: float, tp: Optional[TPShard] = None) -> torch.Tensor:
     mm, attn, ln = kernels
     Bb, W, H = x_win.shape
     dt = x_win.dtype
@@ -323,14 +329,14 @@ def _step(kernels, packed: Dict[str, torch.Tensor], ctx_k: torch.Tensor,
     for li in range(ctx_k.shape[0]):
         p = {k: v[li] for k, v in packed.items()}
         qkv = mm(x, p["wqkv"], p["bqkv"], f32_sum=True)
-        o = attn(qkv.view(Bb, W, 3 * H), cap_k[li], cap_v[li], ctx_k[li],
-                 ctx_v[li], ctx_bias, t, num_heads)
-        y = mm(o.view(Bb * W, H), p["wo"], p["bo"], residual=x, f32_sum=True,
-               out_f32=True)
+        o = attn(qkv.view(Bb, W, qkv.shape[1]), cap_k[li], cap_v[li],
+                 ctx_k[li], ctx_v[li], ctx_bias, t, num_heads)
+        y = row_gemm(mm, tp, o.view(Bb * W, -1), p["wo"], p["bo"],
+                     residual=x, f32_sum=True, out_f32=True)
         x = ln(y, p["ln1w"], p["ln1b"], eps, dt)
         h = mm(x, p["wfc1"], p["bfc1"], gelu=True, f32_sum=True)
-        y = mm(h, p["wfc2"], p["bfc2"], residual=x, f32_sum=True,
-               out_f32=True)
+        y = row_gemm(mm, tp, h, p["wfc2"], p["bfc2"], residual=x,
+                     f32_sum=True, out_f32=True)
         x = ln(y, p["ln2w"], p["ln2b"], eps, dt)
     return x.view(Bb, W, H)
 
@@ -339,26 +345,30 @@ def fused_decode_step_plain(packed: Dict[str, torch.Tensor],
                             ctx_k: torch.Tensor, ctx_v: torch.Tensor,
                             ctx_bias: torch.Tensor, cap_k: torch.Tensor,
                             cap_v: torch.Tensor, x_win: torch.Tensor, t, *,
-                            num_heads: int, eps: float) -> torch.Tensor:
+                            num_heads: int, eps: float,
+                            tp: Optional[TPShard] = None) -> torch.Tensor:
     """Plain PyTorch version of fused_decode_step (the plain gemm,
     decode_attention and layer_norm versions, on any device)."""
     return _step((gemm_plain, decode_attention_plain, layer_norm_plain),
                  packed, ctx_k, ctx_v, ctx_bias, cap_k, cap_v, x_win, t,
-                 num_heads, eps)
+                 num_heads, eps, tp)
 
 
 def fused_decode_step(packed: Dict[str, torch.Tensor], ctx_k: torch.Tensor,
                       ctx_v: torch.Tensor, ctx_bias: torch.Tensor,
                       cap_k: torch.Tensor, cap_v: torch.Tensor,
                       x_win: torch.Tensor, t, *, num_heads: int,
-                      eps: float) -> torch.Tensor:
+                      eps: float, tp: Optional[TPShard] = None
+                      ) -> torch.Tensor:
     """One step of every decoder layer: x_win (Bb, 2, H) in the compute
     dtype -> (Bb, 2, H); the caption caches are updated in place.
     packed: pack_decode_layers; ctx_k/v, ctx_bias: pack_decode_context.
-    CPU tensors run fused_decode_step_plain; CUDA tensors the kernels."""
+    tp: the decoder layers' TPShard (num_heads then the rank's heads, the
+    caches its heads' width).  CPU tensors run fused_decode_step_plain;
+    CUDA tensors the kernels."""
     if x_win.device.type == "cpu":
         return fused_decode_step_plain(packed, ctx_k, ctx_v, ctx_bias, cap_k,
                                        cap_v, x_win, t, num_heads=num_heads,
-                                       eps=eps)
+                                       eps=eps, tp=tp)
     return _step((gemm, decode_attention, layer_norm), packed, ctx_k, ctx_v,
-                 ctx_bias, cap_k, cap_v, x_win, t, num_heads, eps)
+                 ctx_bias, cap_k, cap_v, x_win, t, num_heads, eps, tp)

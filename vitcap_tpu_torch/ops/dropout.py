@@ -4,7 +4,10 @@ vitcap_tpu/ops/flash_attention.py:40 ``_dropout_keep`` hashes a (row, col)
 lattice coordinate with a seed and a salt through murmur3-fmix32 and keeps
 an element when the hash is at least ``rate * 2^32``.  Attention-prob
 dropout uses the (query row, key column) lattice with salt = global head
-``b * nh + h``; the BERT tail's hidden dropout the (token, feature) lattice
+``b * nh + h``; a tensor-parallel rank that runs heads [head_offset,
+head_offset + nh) of nh_total salts with ``b * nh_total + head_offset +
+h``, the bits the unsplit model draws for its heads.  The BERT tail's
+hidden dropout the (token, feature) lattice
 with salt ``2 * image + which`` (0: after the out-dense, 1: after fc2).
 The same function runs as ``vc_dropout_keep`` in csrc/common.cuh inside
 every kernel that drops, so a backward regenerates the forward's mask from
@@ -41,7 +44,8 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
 
 def kernel_args(rate: float, seed: int):
     """(seed, thresh, inv) as the kernels take them (csrc/common.cuh
-    Dropout): rate 0 is thresh 0 and inv 1, which the kernels read as off."""
+    Dropout, whose salt fields the attention wrappers pass apart): rate 0
+    is thresh 0 and inv 1, which the kernels read as off."""
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate {rate} outside [0, 1)")
     if rate == 0.0:
@@ -68,12 +72,27 @@ def keep_mask(rows: torch.Tensor, cols: torch.Tensor, seed: int, salt,
     return x >= threshold(rate)
 
 
+def heads_total(nh: int, nh_total: int = 0, head_offset: int = 0) -> int:
+    """The global head count of a call over heads [head_offset, head_offset
+    + nh) (nh_total 0: the call's own nh); ValueError if they do not fit."""
+    total = nh_total or nh
+    if head_offset < 0 or head_offset + nh > total:
+        raise ValueError(f"heads [{head_offset}, {head_offset + nh}) outside "
+                         f"the {total} heads")
+    return total
+
+
 def attention_keep(seed: int, rate: float, B: int, nh: int, Lp: int,
-                   device=None) -> torch.Tensor:
+                   device=None, nh_total: int = 0,
+                   head_offset: int = 0) -> torch.Tensor:
     """(B, nh, Lp, Lp) attention-prob keep bits: lattice (query, key),
-    salt b * nh + h."""
+    salt the global head b * nh_total + head_offset + h (nh_total 0: nh),
+    so heads [head_offset, head_offset + nh) of a tensor-parallel rank get
+    their slice of the unsplit model's bits."""
+    total = heads_total(nh, nh_total, head_offset)
     i = torch.arange(Lp, device=device)
-    salt = torch.arange(B * nh, device=device).view(B, nh, 1, 1)
+    salt = (torch.arange(B, device=device).view(B, 1, 1, 1) * total
+            + head_offset + torch.arange(nh, device=device).view(1, nh, 1, 1))
     return keep_mask(i.view(Lp, 1), i.view(1, Lp), seed, salt, rate)
 
 

@@ -75,24 +75,27 @@ class _FlashAttentionPacked(torch.autograd.Function):
     the reference)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, seed, num_heads, rate, l_actual, plain):
+    def forward(ctx, q, k, v, bias, seed, num_heads, rate, l_actual, plain,
+                salt_heads):
         fwd = attention_qkv_plain if plain else attention_qkv
-        out = fwd(q, k, v, num_heads, l_actual, bias, rate, seed)
+        out = fwd(q, k, v, num_heads, l_actual, bias, rate, seed,
+                  *salt_heads)
         ctx.save_for_backward(q, k, v, bias)
-        ctx.cfg = (seed, num_heads, rate, l_actual, plain)
+        ctx.cfg = (seed, num_heads, rate, l_actual, plain, salt_heads)
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias = ctx.saved_tensors
-        seed, num_heads, rate, l_actual, plain = ctx.cfg
+        seed, num_heads, rate, l_actual, plain, salt_heads = ctx.cfg
         bwd = attention_bwd_qkv_plain if plain else attention_bwd_qkv
         dq, dk, dv = bwd(q, k, v, g.to(q.dtype).contiguous(), num_heads,
-                         l_actual, bias, rate, seed)
-        return dq, dk, dv, None, None, None, None, None, None
+                         l_actual, bias, rate, seed, *salt_heads)
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
-def _apply(q, k, v, bias, seed, num_heads, dropout_rate, l_actual, plain):
+def _apply(q, k, v, bias, seed, num_heads, dropout_rate, l_actual, plain,
+           salt_heads=(0, 0)):
     if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"flash_attention_packed: q, k, v must share one "
                          f"(B, L, H) shape, got {tuple(q.shape)}, "
@@ -116,32 +119,36 @@ def _apply(q, k, v, bias, seed, num_heads, dropout_rate, l_actual, plain):
         bias = bias.float().contiguous()
     return _FlashAttentionPacked.apply(q, k, v, bias, int(seed), num_heads,
                                        float(dropout_rate), l_actual or L,
-                                       plain)
+                                       plain, tuple(salt_heads))
 
 
 def flash_attention_packed(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, bias: Optional[torch.Tensor],
                            seed: int, num_heads: int,
                            dropout_rate: float = 0.0,
-                           l_actual: int = 0) -> torch.Tensor:
+                           l_actual: int = 0,
+                           salt_heads=(0, 0)) -> torch.Tensor:
     """q, k, v (B, L, H) (views of one tensor or separate), bias None or
     (B, 1, L, L) additive, seed an int32 value (ignored at dropout_rate 0)
     -> (B, L, H).  l_actual > 0: pre-padded 16-aligned input with that many
-    valid rows, output unsliced.  CUDA tensors launch the kernels; CPU
+    valid rows, output unsliced.  salt_heads (nh_total, head_offset): the
+    dropout salt's global heads of a tensor-parallel rank (ops/attention.py
+    attention; (0, 0) without).  CUDA tensors launch the kernels; CPU
     tensors run their plain versions."""
     return _apply(q, k, v, bias, seed, num_heads, dropout_rate, l_actual,
-                  False)
+                  False, salt_heads)
 
 
 def flash_attention_packed_plain(q: torch.Tensor, k: torch.Tensor,
                                  v: torch.Tensor,
                                  bias: Optional[torch.Tensor], seed: int,
                                  num_heads: int, dropout_rate: float = 0.0,
-                                 l_actual: int = 0) -> torch.Tensor:
+                                 l_actual: int = 0,
+                                 salt_heads=(0, 0)) -> torch.Tensor:
     """flash_attention_packed on the kernels' plain PyTorch versions, on
     any device: the reference the kernels are held to."""
     return _apply(q, k, v, bias, seed, num_heads, dropout_rate, l_actual,
-                  True)
+                  True, salt_heads)
 
 
 # ---------------------------------------------------------------------------

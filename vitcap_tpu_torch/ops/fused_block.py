@@ -48,6 +48,21 @@ Function): the d-GEMMs are plain matrix products with f32 results, as XLA's
 are in the TPU package, and the attention backward is the attention_bwd
 kernel.  Cotangents travel in the compute dtype where the TPU package casts
 them.  They take the f32 parameters and return f32 parameter gradients.
+
+Tensor parallelism (parallel/mesh.py shard_params): a block that carries a
+TPShard holds its rank's heads of qkv (or q, k, v), its MLP columns of
+fc1 and the matching columns of proj / out-dense and fc2.  Every route
+runs the same kernels on the local heads and widths: attention on
+tp.heads heads (its dropout salted with the global head), and each
+row-split product as an f32 partial sum (gemm.row_gemm), summed over the
+model axis before its bias and residual are added once and the
+LayerNorm reads the full sum.  The train blocks' backwards also sum the
+two partial input gradients of the column-split products (before LN2's
+and LN1's backward in the ViT block, the fc1 input gradient and dx in the
+BERT layer).  Under a shard the BERT hidden dropout follows the sum: it
+runs in epilogue_plain with dropout.hidden_keep over the full width, the
+kernel epilogue's bits.  The num_heads a caller passes is the model's;
+the block runs tp.heads of them.
 """
 
 from __future__ import annotations
@@ -58,9 +73,11 @@ import torch
 import torch.nn.functional as F
 
 from . import dropout
+from ..parallel.tensor_parallel import (all_reduce_tp, local_heads,
+                                        salt_heads, tp_of)
 from .attention import MAX_LP, attention, attention_plain
 from .attention_bwd import attention_bwd
-from .gemm import gemm, gemm_plain
+from .gemm import gemm, gemm_plain, row_gemm
 from .layer_norm import layer_norm, layer_norm_plain
 
 # the kernels a composition launches, and their plain versions
@@ -133,23 +150,25 @@ def _bert_weights(p, dt):
 def _vit_attention(ops, x2, B, L, num_heads, eps, n1w, n1b, wqkv, bqkv):
     """LN1, the qkv gemm (K1) and attention (K2) of a ViT block over x2
     (B * Lp, H) with L valid tokens per image -> the attention output (B *
-    Lp, H).  ops: KERNELS or PLAIN."""
+    Lp, Hl), Hl the width of wqkv's num_heads heads (H unsplit).  ops:
+    KERNELS or PLAIN."""
     gemm_, layer_norm_, attention_ = ops
-    H = x2.shape[1]
     ln1 = layer_norm_(x2, n1w, n1b, eps, x2.dtype)
     slab = gemm_(ln1, wqkv, bqkv)
-    return attention_(slab.view(B, -1, 3 * H), num_heads, L).reshape(-1, H)
+    return attention_(slab.view(B, -1, slab.shape[1]), num_heads,
+                      L).reshape(-1, slab.shape[1] // 3)
 
 
 def _vit_tail(ops, x2, attn, eps, wp, bp, n2w, n2b, w1, b1, w2, b2,
-              stats=False, keep_pre=False):
+              stats=False, keep_pre=False, tp=None):
     """K3's tail over rows: y1 = x2 + proj(attn); LN2 (its f32 row
     statistics too when `stats`); fc1 + GELU (the pre-GELU fc1 output kept
     when `keep_pre`); out = y1 + fc2.  -> (out, y1, pre1, mu2, rs2), the
-    last three None when not asked for.  ops: KERNELS or PLAIN."""
+    last three None when not asked for.  ops: KERNELS or PLAIN; tp: the
+    block's TPShard (proj and fc2 summed over the model axis)."""
     gemm_, layer_norm_ = ops[:2]
     dt = x2.dtype
-    y1 = gemm_(attn, wp, bp, residual=x2)
+    y1 = row_gemm(gemm_, tp, attn, wp, bp, residual=x2)
     if stats:
         ln2, mu2, rs2 = layer_norm_(y1, n2w, n2b, eps, dt, stats=True)
     else:
@@ -157,7 +176,7 @@ def _vit_tail(ops, x2, attn, eps, wp, bp, n2w, n2b, w1, b1, w2, b2,
     pre1 = (torch.empty((y1.shape[0], w1.shape[0]), dtype=dt,
                         device=y1.device) if keep_pre else None)
     h = gemm_(ln2, w1, b1, gelu=True, pre_out=pre1)
-    return gemm_(h, w2, b2, residual=y1), y1, pre1, mu2, rs2
+    return row_gemm(gemm_, tp, h, w2, b2, residual=y1), y1, pre1, mu2, rs2
 
 
 def fused_vit_block(p, x: torch.Tensor, num_heads: int, ln_eps: float,
@@ -166,6 +185,8 @@ def fused_vit_block(p, x: torch.Tensor, num_heads: int, ln_eps: float,
     module.  l_actual > 0: x is already padded to pad_len with that many
     valid rows (the caller hoisted the pad out of its block loop)."""
     _refuse_grad("fused_vit_block", p, x)
+    tp = tp_of(p)
+    num_heads = local_heads(tp, num_heads)
     B, L, H = x.shape
     if l_actual:
         if L % 16 or (L > MAX_LP and L % 128):
@@ -183,8 +204,16 @@ def fused_vit_block(p, x: torch.Tensor, num_heads: int, ln_eps: float,
                           p.norm1.weight, p.norm1.bias, wqkv, p.attn.qkv.bias)
     out = _vit_tail(KERNELS, x2, attn, ln_eps, wproj, p.attn.proj.bias,
                     p.norm2.weight, p.norm2.bias, w1, p.mlp.fc1.bias, w2,
-                    p.mlp.fc2.bias)[0].view(B, Lp, H)
+                    p.mlp.fc2.bias, tp=tp)[0].view(B, Lp, H)
     return out[:, :L] if pad else out
+
+
+def local_bias(bias, tp):
+    """A per-head (B, nH, L, L) bias cut to the shard's heads (a
+    head-broadcast or absent bias as it is)."""
+    if tp is None or bias is None or bias.shape[1] == 1:
+        return bias
+    return bias[:, tp.head_offset:tp.head_offset + tp.heads]
 
 
 def fused_bert_block(p, x: torch.Tensor, bias: torch.Tensor, num_heads: int,
@@ -192,6 +221,9 @@ def fused_bert_block(p, x: torch.Tensor, bias: torch.Tensor, num_heads: int,
     """One post-norm BERT layer with an additive (B, 1, L, L) attention
     bias (deterministic path).  p is a BertLayer module."""
     _refuse_grad("fused_bert_block", p, x)
+    tp = tp_of(p)
+    num_heads = local_heads(tp, num_heads)
+    bias = local_bias(bias, tp)
     B, L, H = x.shape
     Lp = pad_len(L)
     pad = Lp - L
@@ -203,14 +235,14 @@ def fused_bert_block(p, x: torch.Tensor, bias: torch.Tensor, num_heads: int,
     po = p.attention.output
     x2 = x.contiguous().view(B * Lp, H)
     slab = gemm(x2, wqkv, bqkv)
-    attn = attention(slab.view(B, Lp, 3 * H), num_heads, L,
+    attn = attention(slab.view(B, Lp, slab.shape[1]), num_heads, L,
                      bias.float().contiguous())
-    s1 = gemm(attn.view(B * Lp, H), wo, po.dense.bias, residual=x2,
-              f32_sum=True, out_f32=True)
+    s1 = row_gemm(gemm, tp, attn.view(B * Lp, -1), wo, po.dense.bias,
+                  residual=x2, f32_sum=True, out_f32=True)
     y = layer_norm(s1, po.LayerNorm.weight, po.LayerNorm.bias, ln_eps, dt)
     h = gemm(y, w1, p.intermediate.dense.bias, gelu=True, f32_sum=True)
-    s2 = gemm(h, w2, p.output.dense.bias, residual=y, f32_sum=True,
-              out_f32=True)
+    s2 = row_gemm(gemm, tp, h, w2, p.output.dense.bias, residual=y,
+                  f32_sum=True, out_f32=True)
     out = layer_norm(s2, p.output.LayerNorm.weight, p.output.LayerNorm.bias,
                      ln_eps, dt).view(B, Lp, H)
     return out[:, :L] if pad else out
@@ -421,31 +453,32 @@ class _SplitViTBlockTrain(torch.autograd.Function):
     _sbt_vjp_bwd of the TPU package, with attention_bwd."""
 
     @staticmethod
-    def forward(ctx, x, num_heads, eps, L, *prm):
+    def forward(ctx, x, num_heads, eps, L, tp, *prm):
         n1w, n1b, wqkv, bqkv, wp, bp, n2w, n2b, w1, b1, w2, b2 = prm
         B, Lp, H = x.shape
         dt = x.dtype
         x2 = x.contiguous().view(B * Lp, H)
         ln1, mu1, rs1 = layer_norm(x2, n1w, n1b, eps, dt, stats=True)
-        slab = gemm(ln1, wqkv.to(dt), bqkv).view(B, Lp, 3 * H)
+        slab = gemm(ln1, wqkv.to(dt), bqkv).view(B, Lp, wqkv.shape[0])
         attn = attention(slab, num_heads, L)
         out, y1, pre1, mu2, rs2 = _vit_tail(
-            KERNELS, x2, attn.view(B * Lp, H), eps, wp.to(dt), bp, n2w, n2b,
-            w1.to(dt), b1, w2.to(dt), b2, stats=True, keep_pre=True)
+            KERNELS, x2, attn.view(B * Lp, -1), eps, wp.to(dt), bp, n2w,
+            n2b, w1.to(dt), b1, w2.to(dt), b2, stats=True, keep_pre=True,
+            tp=tp)
         ctx.save_for_backward(x2, slab, attn, y1, pre1, mu1, rs1, mu2, rs2,
                               *prm)
-        ctx.cfg = (num_heads, L)
+        ctx.cfg = (num_heads, L, tp)
         return out.view(B, Lp, H)
 
     @staticmethod
     def backward(ctx, g):
         (x2, slab, attn, y1, pre1, mu1, rs1, mu2, rs2, n1w, n1b, wqkv, bqkv,
          wp, bp, n2w, n2b, w1, b1, w2, b2) = ctx.saved_tensors
-        num_heads, L = ctx.cfg
+        num_heads, L, tp = ctx.cfg
         B, Lp, H3 = slab.shape
-        H = H3 // 3
+        H = H3 // 3             # the local heads' width (all of it unsplit)
         dt = x2.dtype
-        g = g.to(dt).reshape(B * Lp, H)
+        g = g.to(dt).reshape(B * Lp, x2.shape[1])
         wqkv_d, wp_d, w1_d, w2_d = (w.to(dt) for w in (wqkv, wp, w1, w2))
 
         # tail: out = y1 + gelu(pre1) @ W2^T + b2
@@ -457,8 +490,8 @@ class _SplitViTBlockTrain(torch.autograd.Function):
         ln2 = (xhat2 * n2w + n2b).to(dt)
         dw1 = _mm32(dpre1.t(), ln2)
         db1 = dpre1.float().sum(0)
-        dy1_ln, dn2w, dn2b = _ln_bwd(_mm32(dpre1, w1_d), xhat2,
-                                     rs2[:, None], n2w)
+        dy1_ln, dn2w, dn2b = _ln_bwd(all_reduce_tp(_mm32(dpre1, w1_d), tp),
+                                     xhat2, rs2[:, None], n2w)
         dy1 = (g.float() + dy1_ln).to(dt)
 
         # proj: y1 = x + attn @ Wp^T + bp
@@ -474,12 +507,12 @@ class _SplitViTBlockTrain(torch.autograd.Function):
         ln1 = (xhat1 * n1w + n1b).to(dt)
         dwqkv = torch.cat([_mm32(d.t(), ln1) for d in (dq, dk, dv)])
         dbqkv = torch.cat([d.float().sum(0) for d in (dq, dk, dv)])
-        dln1 = (_mm32(dq, wqkv_d[:H]) + _mm32(dk, wqkv_d[H:2 * H])
-                + _mm32(dv, wqkv_d[2 * H:]))
+        dln1 = all_reduce_tp(_mm32(dq, wqkv_d[:H]) + _mm32(dk, wqkv_d[H:2 * H])
+                             + _mm32(dv, wqkv_d[2 * H:]), tp)
         dx_ln, dn1w, dn1b = _ln_bwd(dln1, xhat1, rs1[:, None], n1w)
-        dx = (dy1.float() + dx_ln).to(dt).view(B, Lp, H)
-        return (dx, None, None, None, dn1w, dn1b, dwqkv, dbqkv, dwp, dbp,
-                dn2w, dn2b, dw1, db1, dw2, db2)
+        dx = (dy1.float() + dx_ln).to(dt).view(B, Lp, -1)
+        return (dx, None, None, None, None, dn1w, dn1b, dwqkv, dbqkv, dwp,
+                dbp, dn2w, dn2b, dw1, db1, dw2, db2)
 
 
 def split_vit_block_train(p, x: torch.Tensor, num_heads: int,
@@ -489,8 +522,9 @@ def split_vit_block_train(p, x: torch.Tensor, num_heads: int,
     finite values, are masked as keys, and give and take no gradient when
     the upstream gradient's padded rows are zero."""
     B, Lp, H = _check_train_shape("split_vit_block_train", x)
-    return _SplitViTBlockTrain.apply(x, num_heads, ln_eps, l_actual or Lp,
-                                     *_vit_params(p))
+    tp = tp_of(p)
+    return _SplitViTBlockTrain.apply(x, local_heads(tp, num_heads), ln_eps,
+                                     l_actual or Lp, tp, *_vit_params(p))
 
 
 def _bert_params(p) -> Tuple[torch.Tensor, ...]:
@@ -514,26 +548,27 @@ class _SplitBertLayerTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, bias, num_heads, eps, L, hidden_rate, attn_rate,
-                seeds, *prm):
+                seeds, tp, *prm):
         (wq, bq, wk, bk, wv, bv, wo, bo, l1w, l1b, wi, bi, wo2, bo2, l2w,
          l2b) = prm
         B, Lp, H = x.shape
         dt = x.dtype
         x2 = x.contiguous().view(B * Lp, H)
         slab = gemm(x2, torch.cat([wq, wk, wv]).to(dt),
-                    torch.cat([bq, bk, bv])).view(B, Lp, 3 * H)
-        a = attention(slab, num_heads, L, bias, attn_rate, seeds[0])
-        r1 = gemm(a.view(B * Lp, H), wo.to(dt), bo, residual=x2,
-                  dropout=(hidden_rate, seeds[1], 0, Lp))
+                    torch.cat([bq, bk, bv])).view(B, Lp, 3 * wq.shape[0])
+        a = attention(slab, num_heads, L, bias, attn_rate, seeds[0],
+                      *salt_heads(tp))
+        r1 = row_gemm(gemm, tp, a.view(B * Lp, -1), wo.to(dt), bo,
+                      residual=x2, dropout=(hidden_rate, seeds[1], 0, Lp))
         y1, mu1, rs1 = layer_norm(r1, l1w, l1b, eps, dt, stats=True)
         pre1 = torch.empty((B * Lp, wi.shape[0]), dtype=dt, device=x.device)
         h = gemm(y1, wi.to(dt), bi, gelu=True, pre_out=pre1)
-        r2 = gemm(h, wo2.to(dt), bo2, residual=y1,
-                  dropout=(hidden_rate, seeds[1], 1, Lp))
+        r2 = row_gemm(gemm, tp, h, wo2.to(dt), bo2, residual=y1,
+                      dropout=(hidden_rate, seeds[1], 1, Lp))
         out, mu2, rs2 = layer_norm(r2, l2w, l2b, eps, dt, stats=True)
         ctx.save_for_backward(x2, bias, slab, a, r1, y1, pre1, r2, mu1, rs1,
                               mu2, rs2, *prm)
-        ctx.cfg = (num_heads, L, hidden_rate, attn_rate, seeds)
+        ctx.cfg = (num_heads, L, hidden_rate, attn_rate, seeds, tp)
         return out.view(B, Lp, H)
 
     @staticmethod
@@ -541,9 +576,10 @@ class _SplitBertLayerTrain(torch.autograd.Function):
         (x2, bias, slab, a, r1, y1, pre1, r2, mu1, rs1, mu2, rs2, wq, bq, wk,
          bk, wv, bv, wo, bo, l1w, l1b, wi, bi, wo2, bo2, l2w,
          l2b) = ctx.saved_tensors
-        num_heads, L, h_rate, a_rate, seeds = ctx.cfg
+        num_heads, L, h_rate, a_rate, seeds, tp = ctx.cfg
         B, Lp, H3 = slab.shape
-        H = H3 // 3
+        H = H3 // 3             # the local heads' width (all of it unsplit)
+        Hf = x2.shape[1]
         dt = x2.dtype
         wqkv = torch.cat([wq, wk, wv]).to(dt)
         wo_d, wi_d, wo2_d = (w.to(dt) for w in (wo, wi, wo2))
@@ -553,15 +589,15 @@ class _SplitBertLayerTrain(torch.autograd.Function):
             compute dtype."""
             if h_rate == 0.0:
                 return d
-            keep = dropout.hidden_keep(seeds[1], which, h_rate, B, Lp, H,
-                                       d.device).view(B * Lp, H)
+            keep = dropout.hidden_keep(seeds[1], which, h_rate, B, Lp, Hf,
+                                       d.device).view(B * Lp, Hf)
             inv = torch.tensor(1.0 / (1.0 - h_rate), dtype=dt,
                                device=d.device)
             return torch.where(keep, d, 0.0).to(dt) * inv
 
         # LN2: out = LN(r2) * s2 + b2, r2 = y1 + dropout(gelu(pre1) @ Wo2^T)
         xhat2 = _xhat(r2, mu2, rs2)
-        dr2, dl2w, dl2b = _ln_bwd(g.reshape(B * Lp, H).float(), xhat2,
+        dr2, dl2w, dl2b = _ln_bwd(g.reshape(B * Lp, Hf).float(), xhat2,
                                   rs2[:, None], l2w)
         dr2 = dr2.to(dt)
         du = hmask(1, dr2)
@@ -571,7 +607,7 @@ class _SplitBertLayerTrain(torch.autograd.Function):
         dpre1 = (_mm32(du, wo2_d) * _gelu_grad(pre1.float())).to(dt)
         dwi = _mm32(dpre1.t(), y1)
         dbi = dpre1.float().sum(0)
-        dy1 = (dr2.float() + _mm32(dpre1, wi_d)).to(dt)
+        dy1 = (dr2.float() + all_reduce_tp(_mm32(dpre1, wi_d), tp)).to(dt)
 
         # LN1: y1 = LN(r1) * s1 + b1, r1 = x + dropout(a @ Wo^T + bo)
         xhat1 = _xhat(r1, mu1, rs1)
@@ -583,15 +619,16 @@ class _SplitBertLayerTrain(torch.autograd.Function):
         dbo = dt_.float().sum(0)
 
         dq, dk, dv = attention_bwd(slab, da.view(B, Lp, H), num_heads, L,
-                                   bias, a_rate, seeds[0])
+                                   bias, a_rate, seeds[0], *salt_heads(tp))
         dq, dk, dv = (t.view(B * Lp, H) for t in (dq, dk, dv))
         dwq, dwk, dwv = (_mm32(d.t(), x2) for d in (dq, dk, dv))
         dbq, dbk, dbv = (d.float().sum(0) for d in (dq, dk, dv))
-        dx = (dr1.float() + _mm32(dq, wqkv[:H]) + _mm32(dk, wqkv[H:2 * H])
-              + _mm32(dv, wqkv[2 * H:])).to(dt).view(B, Lp, H)
-        return (dx, None, None, None, None, None, None, None, dwq, dbq, dwk,
-                dbk, dwv, dbv, dwo, dbo, dl1w, dl1b, dwi, dbi, dwo2, dbo2,
-                dl2w, dl2b)
+        dqkv = all_reduce_tp(_mm32(dq, wqkv[:H]) + _mm32(dk, wqkv[H:2 * H])
+                             + _mm32(dv, wqkv[2 * H:]), tp)
+        dx = (dr1.float() + dqkv).to(dt).view(B, Lp, Hf)
+        return (dx, None, None, None, None, None, None, None, None, dwq, dbq,
+                dwk, dbk, dwv, dbv, dwo, dbo, dl1w, dl1b, dwi, dbi, dwo2,
+                dbo2, dl2w, dl2b)
 
 
 def split_bert_layer_train(p, x: torch.Tensor, bias: torch.Tensor,
@@ -612,6 +649,8 @@ def split_bert_layer_train(p, x: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"split_bert_layer_train: bias must be ({B}, 1, "
                          f"{Lp}, {Lp}), got {tuple(bias.shape)}")
     seeds = tuple(int(s) for s in seeds)
+    tp = tp_of(p)
     return _SplitBertLayerTrain.apply(
-        x, bias.float().contiguous(), num_heads, ln_eps, l_actual or Lp,
-        float(hidden_rate), float(attn_rate), seeds, *_bert_params(p))
+        x, bias.float().contiguous(), local_heads(tp, num_heads), ln_eps,
+        l_actual or Lp, float(hidden_rate), float(attn_rate), seeds, tp,
+        *_bert_params(p))

@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build, dropout as _dropout
+from ..parallel.tensor_parallel import TPShard, all_reduce_tp
 
 launches = 0
 # launches of the train epilogues (a subset of `launches`)
@@ -212,3 +213,17 @@ def gemm(a: torch.Tensor, w: torch.Tensor,
     mode_launches["pre_out"] += pre_out is not None
     mode_launches["dropout"] += dropout is not None
     return out
+
+
+def row_gemm(gemm_, tp: Optional[TPShard], a: torch.Tensor, w: torch.Tensor,
+             bias: Optional[torch.Tensor] = None, **epilogue) -> torch.Tensor:
+    """A row-split product (proj / out-dense, fc2) under tensor
+    parallelism: gemm_ (gemm or gemm_plain) of this rank's slice of the
+    input and of w's columns as an f32 partial sum with no bias and no
+    residual, the partials summed over the model axis, then the epilogue
+    once, as epilogue_plain on the full sum (the kernels' rounding; the
+    bias added once).  Without a shard: gemm_(a, w, bias, **epilogue)."""
+    if tp is None:
+        return gemm_(a, w, bias, **epilogue)
+    acc = all_reduce_tp(gemm_(a, w, f32_sum=True, out_f32=True), tp)
+    return epilogue_plain(acc, a.dtype, bias, **epilogue)

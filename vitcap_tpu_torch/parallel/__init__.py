@@ -1,1 +1,1 @@
-"""Data parallelism on torch.distributed: one process a device."""
+"""Data and tensor parallelism on torch.distributed: one process a device."""

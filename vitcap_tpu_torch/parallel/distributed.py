@@ -116,6 +116,9 @@ def all_gather_host(values: Any) -> List[Any]:
 
 
 def shutdown() -> None:
-    """Destroy the process group, if there is one."""
+    """Destroy the process group, if there is one, and forget its grid
+    (parallel/mesh.py make_mesh)."""
     if dist.is_initialized():
         dist.destroy_process_group()
+    from . import mesh
+    mesh._current = None

@@ -358,11 +358,11 @@ class CaptionUniPipeline(UniPipeline):
         model, snap, start_iter = ckpt.recover_or_load(self.cfg.basemodel,
                                                        model)
         gen = torch.Generator(device=dev).manual_seed(
-            rank_seed(seed, self.mpi_rank))
+            rank_seed(seed))
         if snap is not None:
             state = restore_train_state(snap, model, gen)
             if self.mpi_rank > 0:
-                gen.manual_seed(rank_seed(seed, self.mpi_rank, start_iter))
+                gen.manual_seed(rank_seed(seed, step=start_iter))
         else:
             if init_tag_blocks:
                 M.init_tag_blocks_from_encoder(model, cfg)
@@ -545,7 +545,7 @@ class CaptionUniPipeline(UniPipeline):
         self.train_meters = meters
         iteration = start_iter
         sample_gen = torch.Generator(device=dev).manual_seed(rank_seed(
-            int(self.cfg.random_seed) + 1, self.mpi_rank))
+            int(self.cfg.random_seed) + 1))
         t_end = time.time()
         for batch in loader:
             data_time = time.time() - t_end
@@ -680,7 +680,7 @@ class CaptionUniPipeline(UniPipeline):
         opts = self.decode_options()
         A = opts.max_length
         gen = torch.Generator(device=self.device).manual_seed(
-            rank_seed(int(self.cfg.random_seed) + 7, self.mpi_rank))
+            rank_seed(int(self.cfg.random_seed) + 7))
         cbs = self._make_cbs_decoder() if self.cfg.use_cbs else None
 
         B = int(self.cfg.test_batch_size)

@@ -43,7 +43,7 @@ from ..data.tsv import (
     concat_tsv_files, delete_tsv_files, reorder_tsv_keys, tsv_writer,
 )
 from ..parallel import distributed
-from ..parallel.mesh import rank_device
+from ..parallel.mesh import data_rank, data_size, rank_device
 from ..utils.common import (
     Config, ensure_directory, get_mpi_local_rank, get_mpi_rank, get_mpi_size,
     init_logging, save_parameters, worth_create, write_to_yaml_file,
@@ -220,11 +220,14 @@ class UniPipeline:
                         dataset=None):
         if dataset is None:
             dataset = self.get_dataset(is_train)
-        if is_train and self.cfg.effective_batch_size % self.mpi_size:
+        # the rows are the data axis's: the ranks of one model group (none
+        # here without a grid) take the same rows
+        rank, size = data_rank(), data_size()
+        if is_train and self.cfg.effective_batch_size % size:
             raise ValueError(
                 f"effective_batch_size {self.cfg.effective_batch_size} "
-                f"does not divide over {self.mpi_size} ranks")
-        per_rank = (self.cfg.effective_batch_size // self.mpi_size
+                f"does not divide over {size} ranks")
+        per_rank = (self.cfg.effective_batch_size // size
                     if is_train else self.cfg.test_batch_size)
         if self.cfg.get("loader") == "grain":
             from ..data.grain_loader import GrainDataLoader
@@ -235,18 +238,16 @@ class UniPipeline:
                 infinite=is_train,
                 max_iter=self.max_iter if is_train else None,
                 start_iter=start_iter,
-                shard_index=self.mpi_rank, shard_count=self.mpi_size,
+                shard_index=rank, shard_count=size,
                 num_workers=int(self.cfg.get("grain_workers") or 0))
         if is_train:
-            sampler = DistributedSampler(dataset, self.mpi_size,
-                                         self.mpi_rank,
+            sampler = DistributedSampler(dataset, size, rank,
                                          shuffle=self.cfg.train_shuffle)
             bs = BatchSampler(sampler, per_rank, drop_last=True)
             ibs = IterationBasedBatchSampler(bs, self.max_iter, start_iter)
             return DataLoader(dataset, ibs,
                               num_workers=self.cfg.num_workers)
-        sampler = DistributedSampler(dataset, self.mpi_size, self.mpi_rank,
-                                     shuffle=False)
+        sampler = DistributedSampler(dataset, size, rank, shuffle=False)
         bs = BatchSampler(sampler, self.cfg.test_batch_size, drop_last=False)
         return DataLoader(dataset, bs, num_workers=self.cfg.num_workers)
 

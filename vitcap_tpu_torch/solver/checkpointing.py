@@ -18,6 +18,13 @@ torch.load(weights_only=True) and put the tensors on the model's device,
 so a snapshot saved on the card loads on the card.  The TPU package's
 orbax backend and its async saves are JAX machinery: backend='orbax' and
 async_save=True raise ValueError.
+
+A tensor-parallel model (parallel/mesh.py shard_params) saves the unsplit
+layout: snapshot gathers its split leaves and their Adam moments over the
+model axis (parallel/mesh.py gather_state; every rank of the model group
+calls it), so the file loads into an unsplit model; a load into a split
+model cuts the unsplit tensors to the rank's shard (shard_state), so an
+unsplit snapshot resumes a tensor-parallel run.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..parallel.mesh import gather_state, shard_state
 from .optimization import AdamWState
 from .train_step import TrainState
 
@@ -51,11 +59,14 @@ def load_state(path: str, device=None) -> Dict[str, Any]:
 
 
 def snapshot(state: TrainState, iteration: int) -> Dict[str, Any]:
-    """The snapshot dict of a TrainState at `iteration`."""
+    """The snapshot dict of a TrainState at `iteration`, in the unsplit
+    layout (a tensor-parallel model's leaves and moments gathered)."""
     gen = state.generator
-    return {"model": state.model.state_dict(),
-            "opt": {"step": int(state.opt.step), "mu": state.opt.mu,
-                    "nu": state.opt.nu},
+    model = state.model
+    return {"model": gather_state(model, model.state_dict()),
+            "opt": {"step": int(state.opt.step),
+                    "mu": gather_state(model, state.opt.mu),
+                    "nu": gather_state(model, state.opt.nu)},
             "generator": None if gen is None else gen.get_state(),
             "generator_device": None if gen is None else gen.device.type,
             "iteration": int(iteration)}
@@ -69,10 +80,10 @@ def restore_train_state(snap: Dict[str, Any], model: torch.nn.Module,
     generator's state set on `generator` (made on the device it was saved
     from when None).  Gradients are turned on, as init_train_state does."""
     dev = next(model.parameters()).device
-    model.load_state_dict(snap["model"], strict=True)
+    model.load_state_dict(shard_state(model, snap["model"]), strict=True)
     opt = snap["opt"]
-    mu = {n: t.to(dev) for n, t in opt["mu"].items()}
-    nu = {n: t.to(dev) for n, t in opt["nu"].items()}
+    mu = {n: t.to(dev) for n, t in shard_state(model, opt["mu"]).items()}
+    nu = {n: t.to(dev) for n, t in shard_state(model, opt["nu"]).items()}
     if snap["generator"] is not None:
         if generator is None:
             generator = torch.Generator(device=snap["generator_device"])
@@ -151,7 +162,8 @@ class Checkpointer:
         last = self.last_checkpoint()
         if last:
             snap = load_state(last, dev)
-            model.load_state_dict(snap["model"], strict=True)
+            model.load_state_dict(shard_state(model, snap["model"]),
+                                  strict=True)
             logging.info("recovered %s", last)
             return model, snap, int(snap.get("iteration", 0))
         if basemodel:
@@ -166,7 +178,7 @@ class Checkpointer:
                     "mismatch=%d)", basemodel, len(report["matched"]),
                     len(report["missing"]), len(report["shape_mismatch"]))
             else:
-                model.load_state_dict(load_state(basemodel, dev)["model"],
-                                      strict=True)
+                model.load_state_dict(shard_state(
+                    model, load_state(basemodel, dev)["model"]), strict=True)
                 logging.info("loaded port basemodel %s", basemodel)
         return model, None, 0

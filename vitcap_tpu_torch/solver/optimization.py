@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -176,16 +176,31 @@ def adamw_init(params: Tensors) -> AdamWState:
                       {n: torch.zeros_like(p) for n, p in params.items()})
 
 
+def _square_sum(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+    return sum(t.float().square().sum() for t in tensors)
+
+
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+    return torch.sqrt(_square_sum(tensors))
 
 
-def clip_by_global_norm(grads: Tensors, max_norm: float
+def clip_by_global_norm(grads: Tensors, max_norm: float,
+                        split: Iterable[str] = (),
+                        reduce_split: Optional[Callable] = None
                         ) -> Tuple[Tensors, torch.Tensor]:
     """torch.nn.utils.clip_grad_norm_ semantics: scale by
     max_norm / (norm + 1e-6) only when that is below 1.  Returns the
-    scaled gradients and the norm before scaling (a device tensor)."""
-    norm = global_norm(grads.values())
+    scaled gradients and the norm before scaling (a device tensor).
+    Tensor parallelism: `split` names the leaves split over the model
+    axis, whose squared sum reduce_split sums over it; the replicated
+    leaves are counted once."""
+    split = set(split)
+    if split:
+        norm = torch.sqrt(
+            _square_sum(g for n, g in grads.items() if n not in split)
+            + reduce_split(_square_sum(grads[n] for n in split)))
+    else:
+        norm = global_norm(grads.values())
     scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
     return {n: (g.float() * scale).to(g.dtype) for n, g in grads.items()}, \
         norm

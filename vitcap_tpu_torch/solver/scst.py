@@ -19,8 +19,11 @@ own ground truth, as each process of the TPU package does, and the
 gradient step is the global batch's: each rank's loss is its share of the
 global mean (the ranks' rows counted by one small all-reduce), and the
 gradients and metric sums are SUMmed before the clip
-(parallel/mesh.py all_reduce_grads).  The TPU package's `mesh` argument is
-a JAX sharding and raises.
+(parallel/mesh.py all_reduce_grads).  On a (data, model) grid those sums
+run over the data group and a tensor-parallel model's clip sums its split
+leaves over the model group, as in solver/train_step.py; decoding and
+scoring run the blocks' shards.  The TPU package's `mesh` argument is a
+JAX sharding and raises.
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ from ..models import decode as D
 from ..models import vitcap as M
 from ..models.config import ModelConfig
 from ..models.layers import NEG_MASK_VALUE, bert_embeddings
-from ..parallel.mesh import all_reduce_grads, all_reduce_sum
+from ..parallel.mesh import (all_reduce_grads, all_reduce_sum, mesh_of,
+                             split_norm_args)
 from .optimization import (AdamWConfig, adamw_update, caption_param_hypers,
                            clip_by_global_norm, warmup_linear)
 from .train_step import TrainState
@@ -254,10 +258,12 @@ def make_scst_fns(cfg: ModelConfig, opts: D.DecodeOptions,
         for p in params.values():
             p.grad = None
         dp = torch.distributed.is_initialized()
+        mesh = mesh_of(state.model)
+        group = mesh.data_group if mesh is not None else None
         if dp:            # this rank's share of the global mean
             rows = sample_ids.new_tensor([float(sample_ids.shape[0])],
                                          dtype=torch.float32)
-            share = rows[0] / all_reduce_sum(rows)[0]
+            share = rows[0] / all_reduce_sum(rows, group)[0]
         lp = score_caption_logprobs(
             state.model, batch["image"], batch["od_ids"],
             batch.get("od_token_type_ids"), batch["seq_len"], sample_ids,
@@ -273,9 +279,10 @@ def make_scst_fns(cfg: ModelConfig, opts: D.DecodeOptions,
                  for n, p in params.items()}
         if dp:
             grads, sums = all_reduce_grads(
-                grads, torch.stack([loss.detach(), mean_lp]))
+                grads, torch.stack([loss.detach(), mean_lp]), group)
             loss, mean_lp = sums[0], sums[1]
-        grads, gnorm = clip_by_global_norm(grads, hyper.grad_clip)
+        grads, gnorm = clip_by_global_norm(grads, hyper.grad_clip,
+                                           *split_norm_args(state.model))
         key = tuple(params)
         if key not in hypers:
             hypers[key] = caption_param_hypers(

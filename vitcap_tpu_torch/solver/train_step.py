@@ -20,6 +20,16 @@ reported metrics are the global batch's.  Each rank's dropout draws from
 its own generator (the pipeline seeds it from the seed and the rank), so
 with dropout on, the masks differ from the TPU package's one draw over the
 global batch.
+
+On a (data, model) grid (parallel/mesh.py shard_params; the model records
+its grid) every one of those sums runs over the data group: the ranks of
+one model group hold the same rows and replicated sums, which a sum over
+the world would count n_model times.  With tensor_parallel=True the
+blocks run their shards (ops/fused_block.py), the clip's norm sums the
+split leaves' squares over the model group and counts the replicated
+leaves once, and AdamW updates each shard elementwise as it is.  The
+ranks of one model group draw from generators with one seed
+(parallel/mesh.py rank_seed over the data rank).
 """
 
 from __future__ import annotations
@@ -31,7 +41,8 @@ import torch
 
 from ..models import vitcap as M
 from ..models.config import ModelConfig
-from ..parallel.mesh import all_reduce_grads, all_reduce_sum
+from ..parallel.mesh import (all_reduce_grads, all_reduce_sum, mesh_of,
+                             split_norm_args)
 from .optimization import (SCHEDULES, AdamWConfig, AdamWState, adamw_init,
                            adamw_update, caption_param_hypers,
                            clip_by_global_norm)
@@ -131,12 +142,14 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper,
         for p in params.values():
             p.grad = None
         dp = torch.distributed.is_initialized()
+        mesh = mesh_of(state.model)
+        group = mesh.data_group if mesh is not None else None
         if dp:
             _, w = M.masked_slots(batch["masked_pos"], batch["masked_ids"],
                                   cfg.max_masked_tokens)
             rows = torch.tensor([float(batch["input_ids"].shape[0])],
                                 device=w.device)
-            totals = all_reduce_sum(torch.cat([w.sum()[None], rows]))
+            totals = all_reduce_sum(torch.cat([w.sum()[None], rows]), group)
             batch = dict(batch, masked_weight_total=totals[0],
                          rows_total=totals[1])
         loss, aux = loss_fn(state.model, batch, cfg, state.generator,
@@ -161,12 +174,13 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper,
                         aux["tag_logits"], batch["label"])
         if dp:
             flat = torch.cat([v.float().reshape(-1) for v in sums.values()])
-            grads, flat = all_reduce_grads(grads, flat)
+            grads, flat = all_reduce_grads(grads, flat, group)
             sums = dict(zip(sums, flat.split([v.numel()
                                               for v in sums.values()])))
             sums = {k: v.reshape(()) if v.numel() == 1 else v
                     for k, v in sums.items()}
-        grads, gnorm = clip_by_global_norm(grads, hyper.grad_clip)
+        grads, gnorm = clip_by_global_norm(grads, hyper.grad_clip,
+                                           *split_norm_args(state.model))
         key = tuple(params)
         if key not in hypers:
             hypers[key] = caption_param_hypers(

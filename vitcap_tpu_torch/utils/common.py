@@ -22,7 +22,7 @@ import logging
 import os
 import os.path as op
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterator, Optional
 
 
 # ---------------------------------------------------------------------------
@@ -60,6 +60,37 @@ def dict_set_path_value(d: Dict, path: str, value: Any) -> None:
             cur[part] = {}
         cur = cur[part]
     cur[parts[-1]] = value
+
+
+def dict_remove_path(d: Dict, path: str) -> None:
+    """Remove the '$'-path's leaf, then every parent it left empty (a
+    missing path is a no-op)."""
+    parts = path.split("$")
+    cur = d
+    stack = []
+    for part in parts[:-1]:
+        if not isinstance(cur, dict) or part not in cur:
+            return
+        stack.append((cur, part))
+        cur = cur[part]
+    if isinstance(cur, dict):
+        cur.pop(parts[-1], None)
+    while stack:
+        parent, key = stack.pop()
+        if isinstance(parent[key], dict) and not parent[key]:
+            del parent[key]
+        else:
+            break
+
+
+def iter_dict_paths(d: Dict, prefix: str = "") -> Iterator[str]:
+    """The '$'-paths of every leaf (an empty dict is a leaf)."""
+    for k, v in d.items():
+        path = f"{prefix}${k}" if prefix else str(k)
+        if isinstance(v, dict) and v:
+            yield from iter_dict_paths(v, path)
+        else:
+            yield path
 
 
 def dict_update_nested(base: Dict, overwrite: Dict) -> Dict:
@@ -123,17 +154,117 @@ def ensure_remove_file(path: str) -> None:
             pass
 
 
+def ensure_remove_dir(d: str) -> None:
+    """rm -rf semantics, missing-ok (reference `ensure_remove_dir`)."""
+    import shutil
+    if op.isdir(d):
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def write_to_file(contents: str, fname: str, append: bool = False) -> None:
+    ensure_directory(op.dirname(fname))
+    with open(fname, "a" if append else "w") as fp:
+        fp.write(contents)
+
+
+def read_to_buffer(fname: str) -> bytes:
+    with open(fname, "rb") as fp:
+        return fp.read()
+
+
+def hash_sha1(s: Any) -> str:
+    """sha1 hex digest of a string, or of anything else as sorted JSON."""
+    import hashlib
+    if not isinstance(s, str):
+        s = json.dumps(s, sort_keys=True, default=str)
+    return hashlib.sha1(s.encode()).hexdigest()
+
+
+class acquire_lock:
+    """Exclusive fcntl lock on a lockfile, as a context manager (reference
+    `acquireLock`/`releaseLock`, common.py:515-527); guards multi-process
+    critical sections on a shared filesystem.  The default lockfile lies
+    in the temporary directory (tempfile.gettempdir())."""
+
+    def __init__(self, lock_path: Optional[str] = None):
+        if lock_path is None:
+            import tempfile
+            lock_path = op.join(tempfile.gettempdir(),
+                                "vitcap_lockfile.LOCK")
+        self.lock_path = lock_path
+        self._fp = None
+
+    def __enter__(self):
+        import fcntl
+        self._fp = open(self.lock_path, "a")
+        fcntl.flock(self._fp.fileno(), fcntl.LOCK_EX)
+        return self._fp
+
+    def __exit__(self, *exc):
+        import fcntl
+        fcntl.flock(self._fp.fileno(), fcntl.LOCK_UN)
+        self._fp.close()
+        return False
+
+
+def exclusive_open_to_read(fname: str, mode: str = "r"):
+    """Open with an fcntl shared lock on a sidecar lockfile (reference
+    common.py:591-607); protects shared-FS reads.  On a read-only
+    filesystem (no lockfile can be made) it opens plainly."""
+    import fcntl
+
+    def _open():
+        lock_fp = open(fname + ".lock", "a")
+        fcntl.flock(lock_fp.fileno(), fcntl.LOCK_SH)
+        try:
+            return open(fname, mode)
+        finally:
+            fcntl.flock(lock_fp.fileno(), fcntl.LOCK_UN)
+            lock_fp.close()
+
+    try:
+        return _open()
+    except PermissionError:
+        return open(fname, mode)
+
+
+def limited_retry_agent(n_retry: int, func, *args, sleep_s: float = 1.0,
+                        **kwargs):
+    """Retry ``func`` up to n_retry times, the last failure raised
+    (reference common.py:568-580)."""
+    for i in range(n_retry):
+        try:
+            return func(*args, **kwargs)
+        except Exception:
+            if i == n_retry - 1:
+                raise
+            logging.exception("retry %d/%d for %s", i + 1, n_retry, func)
+            time.sleep(sleep_s)
+
+
+def try_once(func):
+    """Best-effort wrapper: log and swallow exceptions, returning None
+    (reference trainer.py:10-12, used for snapshot saving)."""
+    def wrapper(*args, **kwargs):
+        try:
+            return func(*args, **kwargs)
+        except Exception:
+            logging.exception("ignored failure in %s",
+                              getattr(func, "__name__", func))
+    return wrapper
+
+
 # ---------------------------------------------------------------------------
 # packaged data assets (tokenizer vocab, BertConfig jsons, vinvl labels)
 # ---------------------------------------------------------------------------
 
 def asset_path(*parts: str) -> str:
-    """Path into the repository's ``vitcap_tpu/assets/`` data directory
+    """Path into the port's own ``vitcap_tpu_torch/assets/`` data directory
     (the framework-shipped equivalents of the reference's yaml/ data files:
-    VILT-* vocab.txt/config.json, vinvl_label.json), read by path: the
-    port shares the data files, not the code."""
-    root = op.dirname(op.dirname(op.dirname(op.abspath(__file__))))
-    return op.join(root, "vitcap_tpu", "assets", *parts)
+    VILT-* vocab.txt/config.json, vinvl_label.json, the pruned-variant
+    manifests)."""
+    return op.join(op.dirname(op.dirname(op.abspath(__file__))), "assets",
+                   *parts)
 
 
 def resolve_asset(path: str) -> str:

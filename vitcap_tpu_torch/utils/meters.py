@@ -7,6 +7,7 @@ MetricLogger :40-80).
 
 from __future__ import annotations
 
+import math
 from collections import defaultdict, deque
 from typing import Deque, Dict
 
@@ -72,3 +73,35 @@ class MetricLogger:
                 for name, m in self.meters.items()}
 
 
+
+
+class MeanSigmaMetricLogger:
+    """Accumulate mean and standard deviation per key (used by the
+    forward-pass profiler)."""
+
+    def __init__(self, delimiter: str = "  "):
+        self._sum: Dict[str, float] = defaultdict(float)
+        self._sumsq: Dict[str, float] = defaultdict(float)
+        self._count: Dict[str, int] = defaultdict(int)
+        self.delimiter = delimiter
+
+    def update(self, **kwargs: float) -> None:
+        for k, v in kwargs.items():
+            v = float(v)
+            self._sum[k] += v
+            self._sumsq[k] += v * v
+            self._count[k] += 1
+
+    def get_info(self) -> Dict[str, Dict[str, float]]:
+        out = {}
+        for k in self._sum:
+            n = self._count[k]
+            mean = self._sum[k] / n
+            var = max(self._sumsq[k] / n - mean * mean, 0.0)
+            out[k] = {"mean": mean, "sigma": math.sqrt(var), "count": n}
+        return out
+
+    def __str__(self) -> str:
+        return self.delimiter.join(
+            f"{k}: {v['mean']:.4f}\u00b1{v['sigma']:.4f}"
+            for k, v in self.get_info().items())
