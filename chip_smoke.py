@@ -1588,7 +1588,7 @@ def phase_train_step(dev, smi, img=None, per_step_want=TRAIN_PER_STEP,
     batch = _train_batch(cfg, B, SEED + 10, dev, img)
     torch.cuda.reset_peak_memory_stats()
     state, m = step(state, batch, False)
-    torch.cuda.synchronize()
+    warm_loss = m["loss"].item()
     ops.reset_counts()
     per_step, losses = [], []
     t0 = time.perf_counter()
@@ -1629,6 +1629,7 @@ def phase_train_step(dev, smi, img=None, per_step_want=TRAIN_PER_STEP,
     out = {"img_per_s": rate, "step_ms": step_ms, "peak_gib": peak,
            "step_tflop": flops / 1e12, "step_bound_ms": bound_ms,
            "losses": losses, "grad_norm": gnorm,
+           "first_losses": [warm_loss, losses[0]],
            "launches_per_step": per_step[0]}
     return counts, out, (state, step, batch)
 
@@ -1847,6 +1848,82 @@ def phase_train_profile(train, name="train_step"):
     out = _profile(name, one)
     log(f"[profile] {name}: step {out['wall_ms']:.3f} ms (median of 3)")
     return out
+
+
+# one flagship train step with train_fused_blocks: the 15 ViT blocks run
+# the inference kernels forward (4 gemm, 2 layer_norm, 1 attention each)
+# and, in the backward, the plain chain recomputed (cuBLAS products, eager
+# LayerNorm, one packed attention call: 1 attention and 2 attention_bwd
+# launches on separate q, k, v); the 4 decoder layers as phase 8's
+TRAIN_FUSED_PER_STEP = {"gemm": 76, "layer_norm": 38, "attention": 34,
+                        "attention_bwd": 38, "decode_attention": 0}
+TRAIN_FUSED_MODES_PER_STEP = dict(
+    TRAIN_MODES_PER_STEP, **{"gemm[pre_out]": 4, "layer_norm[stats]": 8,
+                             "attention[non_slab]": 15,
+                             "attention_bwd[non_slab]": 30})
+TRAIN_FUSED_STEPS = 2
+
+
+def phase_train_fused(dev, smi, split, split_profile):
+    """cfg.train_fused_blocks at the flagship train line (B=64, bf16,
+    attention dropout 0.1) from phase 8's initial state and batch: 2
+    steps, each launching exactly TRAIN_FUSED_PER_STEP (counts set to 0
+    before, read after), their losses within BF16_TOL of phase 8's first
+    two; then the step's time, idle share and peak memory beside phase
+    8's (`split`, `split_profile`)."""
+    from vitcap_tpu_torch import ops
+    from vitcap_tpu_torch.models.config import ModelConfig
+    from vitcap_tpu_torch.models.vitcap import init_params
+    from vitcap_tpu_torch.solver.train_step import (TrainHyper,
+                                                    init_train_state,
+                                                    make_train_step)
+    cfg = ModelConfig(dtype="bfloat16", tag_loss_weight=1.0,
+                      train_fused_blocks=True)
+    model = init_params(cfg, torch.Generator().manual_seed(SEED), dev)
+    state = init_train_state(model, torch.Generator().manual_seed(SEED + 9))
+    step = make_train_step(cfg, TrainHyper(base_lr=1e-4, max_iter=1000))
+    batch = _train_batch(cfg, B, SEED + 10, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    want = dict(TRAIN_FUSED_PER_STEP, **TRAIN_FUSED_MODES_PER_STEP)
+    losses, step_ms = [], []
+    for _ in range(TRAIN_FUSED_STEPS):
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, False)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        got = dict(ops.launch_counts(), **ops.mode_counts())
+        if got != want:
+            raise AssertionError(f"train_fused step launches {got} != "
+                                 f"{want}")
+        losses.append(m["loss"].item())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ref = split["first_losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+    log(f"[train_fused] launches per step {got}")
+    log(f"[train_fused] losses {losses} vs the split route's {ref}: "
+        f"relative {rel} (bound {BF16_TOL})")
+    if not (all(math.isfinite(v) for v in losses)
+            and max(rel) <= BF16_TOL):
+        raise AssertionError(f"train_fused losses {losses} vs {ref}")
+    prof = phase_train_profile((state, step, batch), "train_fused_step")
+    log(f"[train_fused] step {prof['wall_ms']:.3f} ms (median of 3; the "
+        f"first two {step_ms[0]:.3f}, {step_ms[1]:.3f}), idle share "
+        f"{prof['idle_share']:.4f}, peak memory {peak:.2f} GiB; the split "
+        f"route (phase 8): step {split_profile['wall_ms']:.3f} ms, idle "
+        f"share {split_profile['idle_share']:.4f}, peak memory "
+        f"{split['peak_gib']:.2f} GiB (B={B}, bf16, attention dropout "
+        f"0.1) on {smi}")
+    del state, step, batch, model
+    torch.cuda.empty_cache()
+    return {"losses": losses, "split_losses": ref, "loss_rel": rel,
+            "first_step_ms": step_ms, "step_ms": prof["wall_ms"],
+            "idle_share": prof["idle_share"], "peak_gib": peak,
+            "split_step_ms": split_profile["wall_ms"],
+            "split_idle_share": split_profile["idle_share"],
+            "split_peak_gib": split["peak_gib"], "launches_per_step": got,
+            "profile": prof}
 
 
 def phase_profile(dev):
@@ -2825,35 +2902,46 @@ def phase_checkpoint(dev, smi, Bn=B, cfg_kw=None):
             t.device != dev for t in resumed.opt.mu.values()):
         raise AssertionError("checkpoint: the snapshot did not load on the "
                              "card")
-    twin = _copy_state(state)
     del snap
+    mp = _msgpack_roundtrip(dev, smi, cfg, state, resumed)
+    resumed_mp = mp.pop("state")
+    twin = _copy_state(state)
     out = {}
     for name, st in (("continued", state), ("twin", twin),
-                     ("resumed", resumed)):
+                     ("resumed", resumed), ("resumed_mp", resumed_mp)):
         st, m = step(st, batch, False)
         out[name] = (st, m["loss"].item())
     torch.cuda.synchronize()
     twin_diff, twin_names = _state_diff(out["continued"][0], out["twin"][0])
     res_diff, res_names = _state_diff(out["continued"][0],
                                       out["resumed"][0])
+    mp_diff, mp_names = _state_diff(out["continued"][0],
+                                    out["resumed_mp"][0])
     log(f"[checkpoint] step 3 losses: continued {out['continued'][1]:.6f} "
-        f"twin {out['twin'][1]:.6f} resumed {out['resumed'][1]:.6f}")
+        f"twin {out['twin'][1]:.6f} resumed {out['resumed'][1]:.6f} "
+        f"resumed from msgpack {out['resumed_mp'][1]:.6f}")
     log(f"[checkpoint] max |diff| after step 3 (parameters and moments): "
         f"continued vs twin {twin_diff:.3e} ({len(twin_names)} tensors), "
-        f"continued vs resumed {res_diff:.3e} ({len(res_names)} tensors)")
+        f"continued vs resumed {res_diff:.3e} ({len(res_names)} tensors), "
+        f"continued vs resumed from msgpack {mp_diff:.3e} "
+        f"({len(mp_names)} tensors)")
     if twin_names:
         log(f"[checkpoint] not bit-deterministic from one state: "
             f"{twin_names[:8]}")
     if not res_diff <= twin_diff:
         raise AssertionError(f"checkpoint: resumed differs by {res_diff:.3e}"
                              f", two continued runs by {twin_diff:.3e}")
+    if not mp_diff <= twin_diff:
+        raise AssertionError(f"checkpoint: resumed from msgpack differs by "
+                             f"{mp_diff:.3e}, two continued runs by "
+                             f"{twin_diff:.3e}")
     # a reference-named .pt: 'module.' on everything but the image encoder
     src = out["continued"][0].model
     sd = {("" if n.startswith("image_encoder") else "module.") + n:
           t.detach().cpu() for n, t in src.state_dict().items()}
     pt = CKPT_DIR / "reference.pt"
     torch.save({"model": sd, "iteration": 3}, pt)
-    del out, twin, resumed, state
+    del out, twin, resumed, resumed_mp, state
     torch.cuda.empty_cache()
     base = CK.Checkpointer(str(CKPT_DIR / "fresh"))
     tgt = init_params(cfg, torch.Generator().manual_seed(SEED + 78), dev)
@@ -2875,14 +2963,146 @@ def phase_checkpoint(dev, smi, Bn=B, cfg_kw=None):
         raise AssertionError("checkpoint: reference .pt load report")
     log(f"[checkpoint] save {save_ms:.1f} ms, load + restore {load_ms:.1f} "
         f"ms, snapshot {nbytes} bytes ({nbytes / 2 ** 30:.3f} GiB: f32 "
-        f"weights and both Adam moments); .pt bridge load {pt_ms:.1f} ms; "
-        f"B={Bn}, on {smi}")
+        f"weights and both Adam moments); msgpack save "
+        f"{mp['save_ms']:.1f} ms, load + restore {mp['load_ms']:.1f} ms, "
+        f"{mp['bytes']} bytes; .pt bridge load {pt_ms:.1f} ms; B={Bn}, on "
+        f"{smi}")
     del tgt, src
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
     return {"save_ms": save_ms, "load_ms": load_ms, "pt_load_ms": pt_ms,
             "snapshot_bytes": nbytes, "twin_diff": twin_diff,
-            "resumed_diff": res_diff, "nondeterministic": twin_names}
+            "resumed_diff": res_diff, "nondeterministic": twin_names,
+            "msgpack": dict(mp, resumed_diff=mp_diff)}
+
+
+DEMO_DETECTIONS = [{"class": "dog", "conf": 0.97, "rect": [10, 20, 200, 300]},
+                   {"class": "bench", "conf": 0.8, "rect": [0, 250, 384, 384]},
+                   {"class": "dog", "conf": 0.6, "rect": [12, 22, 190, 310]}]
+
+
+def _msgpack_roundtrip(dev, smi, cfg, state, resumed):
+    """Phase 12's msgpack half: `state` (2 flagship steps) saved with
+    backend='msgpack' (the JAX package's format) and loaded on the card
+    into a fresh model: weights and moments equal the torch snapshot's
+    (`resumed`) bit for bit; a fused greedy batch of B from each model
+    gives the same ids; the port's demo and demo_e2e, run on a seeded
+    JPEG from the msgpack file (on the card by default), each caption
+    what the same call gives through models.decode.generate or
+    models.cbs.constrained_beam_search directly on the torch-loaded
+    weights.  Returns the save and load ms, the file's bytes and the
+    msgpack-resumed TrainState (under 'state')."""
+    from PIL import Image
+    from vitcap_tpu_torch import demo, demo_e2e
+    from vitcap_tpu_torch.data.tokenization import (DEFAULT_VOCAB,
+                                                    BertTokenizer)
+    from vitcap_tpu_torch.models import cbs as C
+    from vitcap_tpu_torch.models import decode as TD
+    from vitcap_tpu_torch.models.vitcap import init_params
+    from vitcap_tpu_torch.solver import checkpointing as CK
+    ck = CK.Checkpointer(str(CKPT_DIR / "run_mp"), backend="msgpack")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = ck.save(2, state)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = os.path.getsize(path)
+    if CK.is_torch_file(path):
+        raise AssertionError("checkpoint: the msgpack snapshot is a zip")
+    fresh = init_params(cfg, torch.Generator().manual_seed(SEED + 79), dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh, snap, it = ck.recover_or_load(None, fresh)
+    got = CK.restore_train_state(snap, fresh)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    del snap
+    diff, names = _state_diff(got, resumed)
+    if (it != 2 or got.opt.step != 2 or diff or names
+            or next(got.model.parameters()).device != dev
+            or not torch.equal(got.generator.get_state(),
+                               resumed.generator.get_state())):
+        raise AssertionError(f"checkpoint: the msgpack snapshot resumed at "
+                             f"{it}, step {got.opt.step}, {diff:.3e} from "
+                             f"the torch one ({len(names)} tensors)")
+    rs = np.random.RandomState(SEED + 14)
+    imgs = torch.from_numpy(rs.randint(0, 256, (B, cfg.img_size,
+                                                cfg.img_size, 3))
+                            .astype(np.uint8)).to(dev)
+    od = torch.zeros((B, cfg.max_seq_len - cfg.max_seq_a_len),
+                     dtype=torch.long, device=dev)
+    seq = torch.full((B,), cfg.max_seq_a_len, device=dev)
+    ids = []
+    with _engine(True):
+        for st in (got, resumed):
+            ids.append(TD.generate_greedy(st.model, imgs, od, None, seq, cfg,
+                                          _opts(cfg))["ids"])
+    if not torch.equal(ids[0], ids[1]):
+        raise AssertionError("checkpoint: the msgpack-loaded model's fused "
+                             "greedy ids differ from the torch-loaded one's")
+    log(f"[checkpoint] msgpack: save {save_ms:.1f} ms, load + restore "
+        f"{load_ms:.1f} ms, {nbytes} bytes; weights, moments and generator "
+        f"equal the torch snapshot's; a fused greedy batch of {B}: the same "
+        f"ids")
+    # the demos, from the msgpack file, against direct calls
+    enc = CKPT_DIR / "encoder"
+    enc.mkdir(parents=True, exist_ok=True)
+    (enc / "config.json").write_text(json.dumps({
+        "hidden_size": cfg.hidden_size, "intermediate_size":
+        cfg.intermediate_size, "num_attention_heads": cfg.num_attention_heads,
+        "num_hidden_layers": cfg.num_hidden_layers,
+        "vocab_size": cfg.vocab_size,
+        "max_position_embeddings": cfg.max_position_embeddings}))
+    shutil.copy(DEFAULT_VOCAB, enc / "vocab.txt")
+    jpeg, det = CKPT_DIR / "photo.jpg", CKPT_DIR / "det.json"
+    Image.fromarray(rs.randint(0, 256, (480, 640, 3)).astype(np.uint8)).save(
+        jpeg, quality=90)
+    det.write_text(json.dumps({"detections": DEMO_DETECTIONS}))
+    argv = ["--checkpoint", path, "--image", str(jpeg), "--encoder-dir",
+            str(enc), "--crop-size", str(cfg.img_size)]
+    if dev.type != "cuda":
+        argv += ["--device", str(dev)]
+    t0 = time.perf_counter()
+    got_demo = demo.main(argv)
+    demo_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got_e2e = demo_e2e.main(argv + ["--detections", str(det)])
+    e2e_s = time.perf_counter() - t0
+    dcfg = demo.encoder_config(str(enc), cfg.img_size)
+    tok = BertTokenizer(str(DEFAULT_VOCAB))
+    x = demo.load_image(str(jpeg), cfg.img_size, dev)
+    model = resumed.model
+    od1 = torch.zeros((1, od.shape[1]), dtype=torch.long, device=dev)
+    with torch.inference_mode():
+        out = TD.generate(model, x, od1, None, seq[:1], dcfg,
+                          TD.DecodeOptions(
+                              max_length=dcfg.max_gen_length,
+                              od_labels_start_posid=dcfg.max_seq_a_len))
+    want_demo = tok.decode(out["ids"][0, 0].tolist(),
+                           skip_special_tokens=True)
+    cons = ["dog", "bench"]           # by confidence, duplicates dropped
+    od_tok = tok.tokenize("bench") + tok.tokenize("dog")    # sorted names
+    od1[0, :len(od_tok)] = torch.tensor(tok.convert_tokens_to_ids(od_tok))
+    fsm, _ = C.FiniteStateMachineBuilder(
+        tok, {c: tok.tokenize(c) for c in cons},
+        {c: sorted({c, c + "s"}) for c in cons}, 3).build(cons)
+    opts = TD.DecodeOptions(max_length=dcfg.max_gen_length,
+                            od_labels_start_posid=dcfg.max_seq_a_len)
+    out = C.constrained_beam_search(
+        model, x, od1, None, seq[:1] + len(od_tok),
+        torch.from_numpy(fsm[None]).to(dev), dcfg, opts, beam_size=5)
+    best, _ = C.select_best_beam_with_constraints(
+        out["ids"][:, :, :, 1:].cpu().numpy(), out["logprobs"].cpu().numpy(),
+        np.asarray([len(cons)]), 2, [dcfg.sep_token_id])
+    want_e2e = tok.decode(best[0].tolist(), skip_special_tokens=True)
+    log(f"[checkpoint] demo from the msgpack file {got_demo!r} ({demo_s:.1f}"
+        f" s), generate directly {want_demo!r}; demo_e2e {got_e2e!r} "
+        f"({e2e_s:.1f} s), constrained_beam_search directly {want_e2e!r}")
+    if got_demo != want_demo or got_e2e != want_e2e or not got_demo:
+        raise AssertionError("checkpoint: a demo's caption differs from "
+                             "the direct call's")
+    return {"save_ms": save_ms, "load_ms": load_ms, "bytes": nbytes,
+            "demo": got_demo, "demo_e2e": got_e2e, "demo_s": demo_s,
+            "demo_e2e_s": e2e_s, "state": got}
 
 
 # ---------------------------------------------------------------------------
@@ -6169,6 +6389,8 @@ def main() -> int:
     prof["train_step"] = phase_train_profile(train_run)
     del train_run
     torch.cuda.empty_cache()
+    train["fused_blocks"] = _timed("train-fused", phase_train_fused, dev,
+                                   smi, train, prof["train_step"])
     log(f"[train] phases took {time.perf_counter() - t_train:.1f} s")
     t_high = time.perf_counter()
     phase_highres_kernels(dev, rows)

@@ -1205,6 +1205,96 @@ def test_cuda_checkpoint_resume_matches_continuation(cuda, tmp_path):
 
 
 @pytest.mark.cuda
+def test_cuda_msgpack_checkpoint_loads_on_the_card(cuda, tmp_path):
+    """A msgpack snapshot (the JAX package's format) of a card run: its
+    weights and moments come back on the card bit for bit, and the
+    resumed step matches the continued one as closely as a copy of the
+    run continued alongside; load_model_state puts the weights on the
+    card."""
+    import copy
+    from vitcap_tpu_torch.solver import checkpointing as CK
+    from vitcap_tpu_torch.solver.optimization import AdamWState
+    from vitcap_tpu_torch.solver.train_step import (TrainHyper, TrainState,
+                                                    init_train_state,
+                                                    make_train_step)
+    cfg = tiny_config(img_size=128, attention_probs_dropout_prob=0.1,
+                      tag_loss_weight=1.0)
+    step = make_train_step(cfg, TrainHyper(base_lr=1e-3, max_iter=20))
+    batch = _tiny_train_batch(cfg, cuda)
+    state = init_train_state(
+        init_params(cfg, torch.Generator().manual_seed(0), cuda),
+        torch.Generator().manual_seed(3))
+    for _ in range(2):
+        state, _ = step(state, batch)
+    ck = CK.Checkpointer(str(tmp_path), backend="msgpack")
+    path = ck.save(2, state)
+    assert not CK.is_torch_file(path)
+    model, snap, it = ck.recover_or_load(
+        None, init_params(cfg, torch.Generator().manual_seed(9), cuda))
+    resumed = CK.restore_train_state(snap, model)
+    assert it == 2 and resumed.opt.step == 2
+    for (n, p), q in zip(state.model.named_parameters(),
+                         resumed.model.parameters()):
+        assert q.is_cuda and torch.equal(p, q), n
+        assert torch.equal(state.opt.mu[n], resumed.opt.mu[n]), n
+        assert torch.equal(state.opt.nu[n], resumed.opt.nu[n]), n
+    assert all(t.is_cuda for t in CK.load_model_state(path, cuda).values())
+    gen = torch.Generator()
+    gen.set_state(state.generator.get_state())
+    twin = TrainState(copy.deepcopy(state.model), AdamWState(
+        state.opt.step, {n: t.clone() for n, t in state.opt.mu.items()},
+        {n: t.clone() for n, t in state.opt.nu.items()}), gen)
+    runs = [step(s, batch)[0] for s in (state, twin, resumed)]
+    torch.cuda.synchronize()
+
+    def diff(a, b):
+        return max((x - y).abs().max().item() for x, y in zip(
+            [*a.model.parameters(), *a.opt.mu.values(), *a.opt.nu.values()],
+            [*b.model.parameters(), *b.opt.mu.values(), *b.opt.nu.values()]))
+    assert diff(runs[0], runs[2]) <= diff(runs[0], runs[1])
+
+
+@pytest.mark.cuda
+def test_cuda_train_fused_blocks_step_matches_cpu(cuda):
+    """tiny_config(img_size=128, train_fused_blocks=True), f32: one train
+    step on the card launches the inference block kernels forward (5 ViT
+    blocks: 4 trunk + 1 tag, the CLS-only one aside) and the packed
+    attention's forward and backward in each block's recompute, besides
+    the 2 decoder layers' split train kernels; its loss and gradients
+    match the CPU's (loss 1e-4 relative, gradients 1e-3 of each leaf's
+    scale)."""
+    import copy
+    from vitcap_tpu_torch.solver.train_step import (TrainHyper,
+                                                    init_train_state,
+                                                    make_train_step)
+    cfg = tiny_config(img_size=128, train_fused_blocks=True,
+                      tag_loss_weight=1.0)
+    cpu_model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    out = {}
+    for model, d in ((copy.deepcopy(cpu_model).to(cuda), cuda),
+                     (cpu_model, "cpu")):
+        step = make_train_step(cfg, TrainHyper(base_lr=1e-3, max_iter=20))
+        ops.reset_counts()
+        _, m = step(init_train_state(model, None),
+                    _tiny_train_batch(cfg, d))
+        out[str(d)] = (m["loss"].item(),
+                       dict(ops.launch_counts(), **ops.mode_counts()),
+                       {n: p.grad.float().cpu() for n, p in
+                        model.named_parameters() if p.grad is not None})
+    (gl, gc, gg), (cl, _, cg) = out[str(cuda)], out["cpu"]
+    vit, bert = 5, 2
+    want = {"gemm": 4 * (vit + bert), "layer_norm": 2 * (vit + bert),
+            "attention": 2 * vit + bert, "attention_bwd": 2 * (vit + bert),
+            "attention[non_slab]": vit, "attention_bwd[non_slab]": 2 * vit}
+    assert {k: gc[k] for k in want} == want
+    assert abs(gl - cl) <= 1e-4 * abs(cl)
+    assert gg.keys() == cg.keys()
+    for n in cg:
+        scale = max(cg[n].abs().max().item(), 1e-6)
+        assert (gg[n] - cg[n]).abs().max().item() <= 1e-3 * scale, n
+
+
+@pytest.mark.cuda
 def test_cuda_scst_step_matches_cpu(cuda):
     """tiny_config(img_size=128), f32: one SCST grad_step on the card and
     on the CPU given the same sampled ids, raw tokens, advantages and

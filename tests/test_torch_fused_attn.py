@@ -17,7 +17,6 @@ chain's bf16 rounding vs the JAX package, on the CPU.
   _gelu_exact are.  The measured bit-equal fraction at each site is
   pinned below, and a bf16 train call of the plain chain is held to the
   JAX one.
-- F8: train_fused_blocks=True raises.
 
 Tolerances: f32 within 1e-4 of the reference's scale (gradients of each
 leaf within 1e-4 of that leaf's scale); bf16 within 2e-2 of the scale and,
@@ -46,7 +45,6 @@ from vitcap_tpu_torch.models import layers as TL
 from vitcap_tpu_torch.models import vitcap as TM
 from vitcap_tpu_torch.ops import fused_block as TF
 from vitcap_tpu_torch.solver import checkpoint_bridge as TB
-from vitcap_tpu_torch.solver import train_step as TT
 
 B = 2
 NH, HD = 2, 64
@@ -384,20 +382,3 @@ def test_bf16_plain_chain_matches_jax(models):
     p.requires_grad_(False)
     _agree(out, jout, torch.bfloat16, bits=0.90)
     _agree(xt.grad, jgx, torch.bfloat16, bits=0.0)
-
-
-# ---------------------------------------------------------------------------
-# F8: train_fused_blocks
-# ---------------------------------------------------------------------------
-
-def test_train_fused_blocks_raises(tmp_path):
-    """train_fused_blocks=True selects the TPU package's unported
-    train-time experiment: the config still loads and round-trips, and
-    forward_train and make_train_step raise ValueError."""
-    cfg = TC.tiny_config(train_fused_blocks=True)
-    cfg.save_pretrained(str(tmp_path))
-    assert TC.ModelConfig.from_pretrained(str(tmp_path)).train_fused_blocks
-    with pytest.raises(ValueError, match="not ported"):
-        TT.make_train_step(cfg, TT.TrainHyper(base_lr=1e-3, max_iter=2))
-    with pytest.raises(ValueError, match="not ported"):
-        TM.forward_train(None, {}, cfg)

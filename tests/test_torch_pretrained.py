@@ -1,7 +1,8 @@
 """vitcap_tpu_torch.models.pretrained (save_pretrained / from_pretrained,
 reference modeling_utils.py:80-123, :324-533): the cases of
 tests/test_pretrained.py in the port, and directories crossing between
-the port and the JAX package in both directions."""
+the port and the JAX package in both directions (the JAX package's
+`model.msgpack` weights included)."""
 
 import json
 import os.path as op
@@ -143,14 +144,27 @@ def test_directories_cross_between_the_packages(tmp_path, direction):
         np.testing.assert_array_equal(got[path], want, err_msg=path)
 
 
-def test_msgpack_weights_raise(tiny, tmp_path):
-    """The JAX package's msgpack weights are a JAX format."""
-    cfg, _ = tiny
+def test_msgpack_weights_load(tmp_path):
+    """A directory holding the JAX package's flax msgpack weights
+    (`model.msgpack`, as its save_pretrained writes them without torch)
+    loads into the port with the JAX package's from_pretrained's
+    parameters and config; a directory with neither weights file
+    raises."""
+    from vitcap_tpu.solver.checkpointing import save_state
     d = tmp_path / "saved"
     d.mkdir()
-    (d / "config.json").write_text(json.dumps(P.config_to_json_dict(cfg)))
+    jcfg = jax_tiny_config(**KW)
+    jparams = jax.tree_util.tree_map(
+        np.asarray, JM.init_params(jax.random.PRNGKey(5), jcfg))
+    (d / "config.json").write_text(json.dumps(JP.config_to_json_dict(jcfg)))
     with pytest.raises(FileNotFoundError, match="pytorch_model.bin"):
         P.from_pretrained(str(d), device="cpu")
-    (d / "model.msgpack").write_bytes(b"\x80")
-    with pytest.raises(ValueError, match="msgpack"):
-        P.from_pretrained(str(d), device="cpu")
+    save_state(str(d / "model.msgpack"), {"params": jparams})
+    model, cfg = P.from_pretrained(str(d), device="cpu")
+    ref, rcfg = JP.from_pretrained(str(d))
+    assert P.config_to_json_dict(cfg) == JP.config_to_json_dict(rcfg)
+    got = TB.state_to_jax_flat(dict(model.named_parameters()))
+    want = TB.flatten_params(jax.tree_util.tree_map(np.asarray, ref))
+    assert got.keys() == want.keys()
+    for path, w in want.items():
+        np.testing.assert_array_equal(got[path], w, err_msg=path)

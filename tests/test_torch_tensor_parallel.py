@@ -14,11 +14,12 @@ they write with runs in this process:
   trip gather_params(shard_params(m)) bit for bit; one train step with
   hidden and attention dropout 0.1 on the generator route (the tiny
   decoder's 22 tokens) and on the counter-hash route (128-px images:
-  65-token trunk, 82-token decoder, the split train blocks), at the same
+  65-token trunk, 82-token decoder, the split train blocks) and with
+  train_fused_blocks (the trunk's fused_vit_block_train), at the same
   bounds; the snapshot of the split run loaded into an unsplit model, and
-  loaded back into a split one; greedy and beam-3 on both engines (the
-  tokens equal, the first step's logits within 1e-5 of their scale), with
-  the int8 context cache, and the token filter's decode (every head's CLS
+  loaded back into a split one, and written as msgpack too; greedy and
+  beam-3 on both engines (the tokens equal, the first step's logits
+  within 1e-5 of their scale), with the int8 context cache, and the token filter's decode (every head's CLS
   scores gathered); the SCST gradient step; the sparse constrained beam
   search; a ViT block and a BERT layer past 1024 tokens: the fused
   inference blocks, and the plain chain (the packed attention, K8
@@ -62,8 +63,11 @@ DROP = dict(hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1,
             tag_loss_weight=1.0)
 # the dropout runs: the tiny decoder's 22 tokens take the plain chain with
 # the generator's masks; 128-px images (65 trunk tokens, an 82-token
-# decoder) the split train blocks with the counter hash
-ROUTES = {"generator": dict(DROP), "hash": dict(DROP, img_size=128)}
+# decoder) the split train blocks with the counter hash; with
+# train_fused_blocks the trunk's inference blocks and their recomputing
+# backward (fused_vit_block_train)
+ROUTES = {"generator": dict(DROP), "hash": dict(DROP, img_size=128),
+          "fused": dict(DROP, img_size=128, train_fused_blocks=True)}
 # decoding 64-px images (a resized pos-embed) with the attention-aware
 # token filter before trunk block 1 (CLS scores of every head, gathered)
 FILTER = dict(KW, img_size=64, token_filter_keep=0.5, token_filter_block=1)
@@ -366,6 +370,8 @@ def _run_tp(rank, world, workdir):
         if route == "hash":
             if rank == 0:
                 TCk.save_state(os.path.join(workdir, "tp_snap.ckpt"), snap)
+                TCk.save_state(os.path.join(workdir, "tp_snap_mp.ckpt"),
+                               snap, "msgpack")
             # the unsplit file back into a split model
             back = _model(cfg, torch.load(os.path.join(workdir,
                                                        f"{route}.pt")))
@@ -642,6 +648,25 @@ def test_split_step_with_dropout_matches_the_unsplit_port(tp_run, route):
             for n, t in snap["opt"]["mu"].items():
                 assert torch.equal(got[r]["reloaded_mu"][n], t), n
                 assert st.opt.mu[n].shape == t.shape
+
+
+def test_split_snapshot_in_msgpack(tp_run):
+    """The split run's gathered snapshot written with backend 'msgpack'
+    loads as the torch one: weights, both moments, step, iteration and
+    the generator's state, bit for bit."""
+    d, _, _ = tp_run
+    mp = TCk.load_state(str(d / "tp_snap_mp.ckpt"))
+    pt = TCk.load_state(str(d / "tp_snap.ckpt"))
+    assert not TCk.is_torch_file(str(d / "tp_snap_mp.ckpt"))
+    assert mp["iteration"] == pt["iteration"] == 1
+    assert mp["opt"]["step"] == pt["opt"]["step"] == 1
+    assert torch.equal(mp["generator"], pt["generator"])
+    for key, a, b in (("model", mp["model"], pt["model"]),
+                      ("mu", mp["opt"]["mu"], pt["opt"]["mu"]),
+                      ("nu", mp["opt"]["nu"], pt["opt"]["nu"])):
+        assert a.keys() == b.keys(), key
+        for n in b:
+            assert torch.equal(a[n], b[n]), (key, n)
 
 
 @pytest.mark.parametrize("case", sorted(DECODE_CASES))

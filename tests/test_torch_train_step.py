@@ -8,7 +8,8 @@ its train blocks (split_vit_block_train, split_bert_layer_train and the
 packed attention kernels) run where the port's do.  At tiny_config(
 img_size=128) the trunk has 65 -> 80 tokens and the decoder 82 -> 96, so
 every train route engages.  Gradients come back through the port's
-reverse bridge (checkpoint_bridge.state_to_jax_flat).
+reverse bridge (checkpoint_bridge.state_to_jax_flat).  train_fused_blocks
+is held to the JAX package's with VITCAP_PALLAS=interpret too.
 """
 
 import jax
@@ -137,6 +138,60 @@ def test_forward_train_and_grads_match_jax(interpret, attn_dropout):
                                    np.asarray(jaux[key]), rtol=2e-5,
                                    atol=2e-5, err_msg=key)
     loss.backward()
+    got = _grads_np(model)
+    ref = TB.flatten_params(jax.tree_util.tree_map(np.asarray, jg))
+    assert got.keys() == ref.keys()
+    for path, want in ref.items():
+        scale = max(float(np.abs(want).max()), 1e-3)
+        np.testing.assert_allclose(got[path], want, rtol=0,
+                                   atol=1e-4 * scale, err_msg=path)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_train_fused_blocks_match_jax(interpret, monkeypatch, remat):
+    """cfg.train_fused_blocks: the JAX side with VITCAP_PALLAS=interpret
+    (its fused_vit_block custom_vjp: the inference kernel forward, the
+    plain chain recomputed backward), the port's trunk through
+    fused_vit_block_train.  The 65 trunk tokens pad to 80 once
+    (l_actual 65).  Loss, its parts, the logits and every gradient at the
+    tolerances above; every trunk block and every tag block but the
+    CLS-only last one take the inference forward once and the recompute
+    once; remat changes nothing (no checkpoint wraps them, as in JAX)."""
+    from vitcap_tpu_torch.models import layers as TL
+    from vitcap_tpu_torch.ops import fused_block as TFB
+    monkeypatch.setenv("VITCAP_PALLAS", "interpret")
+    jcfg, cfg, params, model, batch = _setup(train_fused_blocks=True,
+                                             remat=remat)
+    assert cfg.use_remat == remat
+
+    def jloss(p):
+        return JM.forward_train(p, _jax_batch(batch), jcfg, None)
+    (jl, jaux), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
+        params)
+    calls = {"forward": [], "recompute": []}
+    fwd, plain = TFB.fused_vit_block, TL._vit_block_plain
+
+    def forward(p, x, nh, eps, l_actual=0):
+        calls["forward"].append((x.shape[1], l_actual))
+        return fwd(p, x, nh, eps, l_actual)
+
+    def recompute(p, x, *a, **kw):
+        calls["recompute"].append(x.shape[1])
+        return plain(p, x, *a, **kw)
+    monkeypatch.setattr(TFB, "fused_vit_block", forward)
+    monkeypatch.setattr(TL, "_vit_block_plain", recompute)
+    loss, aux = TM.forward_train(model, _torch_batch(batch), cfg)
+    n_blocks = cfg.num_hidden_layers + cfg.split_blocks - 1
+    assert calls["forward"] == [(80, 65)] * n_blocks
+    for key in ("loss", "masked_loss", "tag_loss"):
+        np.testing.assert_allclose(aux[key].item(), float(jaux[key]),
+                                   rtol=2e-5, err_msg=key)
+    for key in ("class_logits", "tag_logits"):
+        np.testing.assert_allclose(aux[key].detach().numpy(),
+                                   np.asarray(jaux[key]), rtol=2e-5,
+                                   atol=2e-5, err_msg=key)
+    loss.backward()
+    assert calls["recompute"] == [65] * n_blocks
     got = _grads_np(model)
     ref = TB.flatten_params(jax.tree_util.tree_map(np.asarray, jg))
     assert got.keys() == ref.keys()

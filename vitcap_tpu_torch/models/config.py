@@ -1,10 +1,10 @@
 """Static model configuration: the fields and defaults of
 vitcap_tpu.models.config.ModelConfig, with the two dtype properties mapped
 to torch dtypes.  `remat` has the TPU package's meaning (use_remat,
-use_remat_fusion); train_fused_blocks keeps its field so a config.json
-round-trips between the packages, but the experiment it selects there is
-not ported (the TPU package records it as slower than the split blocks):
-forward_train and make_train_step raise ValueError when it is True.
+use_remat_fusion); train_fused_blocks trains the trunk through the
+inference blocks with a recomputing backward, as there
+(models/vitcap.py split_encoder, ops/fused_block.py
+fused_vit_block_train).
 """
 
 from __future__ import annotations
@@ -82,7 +82,7 @@ class ModelConfig:
     dtype: str = "float32"               # compute dtype: 'float32' | 'bfloat16'
     scores_dtype: str = "auto"           # 'auto' = compute dtype, 'f32' = exact
     remat: Any = "auto"                  # True | False | 'auto' | 'fusion'
-    train_fused_blocks: bool = False     # TPU-package experiment, unported
+    train_fused_blocks: bool = False     # trunk: inference kernels + recompute
     kv_cache_quant: str = "none"         # 'none' | 'int8' (eager engine)
 
     def __post_init__(self):

@@ -15,8 +15,10 @@ A directory holds `config.json` and `pytorch_model.bin` (and optionally
 - loading goes through the `.pt` bridge's dot-suffix matching
   (solver/checkpoint_bridge.py), so `module.` prefixes and foreign layouts
   load as in the reference.
-The JAX package's msgpack weights (`model.msgpack`) are a JAX format: a
-directory holding only those raises.
+A directory without `pytorch_model.bin` may hold the JAX package's flax
+msgpack weights (`model.msgpack`, {'params': the JAX tree}), which load
+through the port's own codec (utils/msgpack_state.py), strictly: every
+parameter, as the JAX package's from_pretrained maps the tree.
 """
 
 from __future__ import annotations
@@ -93,11 +95,12 @@ def from_pretrained(pretrained_dir: str, generator: Optional[
                     **config_overrides) -> Tuple[torch.nn.Module,
                                                  ModelConfig]:
     """(model, cfg) from a save_pretrained directory, or a config.json
-    path beside a pytorch_model.bin.  The model is built by init_params
-    from `generator` (default: seed 0) on `device` (the card unless asked
-    otherwise), then every parameter whose name a state-dict key ends in
-    takes that key's tensor; the rest keep their initial values, as the
-    reference's loader does.  `config_overrides` update the config before
+    path beside a pytorch_model.bin (or a model.msgpack).  The model is
+    built by init_params from `generator` (default: seed 0) on `device`
+    (the card unless asked otherwise), then every parameter whose name a
+    state-dict key ends in takes that key's tensor; the rest keep their
+    initial values, as the reference's loader does (a model.msgpack must
+    cover every parameter).  `config_overrides` update the config before
     the model is built (modeling_utils.py:110-123)."""
     from . import vitcap as M
     from ..solver.checkpoint_bridge import (load_params_from_torch,
@@ -110,15 +113,17 @@ def from_pretrained(pretrained_dir: str, generator: Optional[
     with open(cfg_file) as f:
         cfg = config_from_json_dict(json.load(f), **config_overrides)
     bin_path = op.join(base, WEIGHTS_NAME)
-    if not op.exists(bin_path):
-        if op.exists(op.join(base, NATIVE_WEIGHTS_NAME)):
-            raise ValueError(
-                f"{base} holds {NATIVE_WEIGHTS_NAME}, the JAX package's flax "
-                f"msgpack weights; the port reads {WEIGHTS_NAME} (save the "
-                f"directory with torch installed)")
-        raise FileNotFoundError(f"no {WEIGHTS_NAME} in {base}")
+    native_path = op.join(base, NATIVE_WEIGHTS_NAME)
+    if not op.exists(bin_path) and not op.exists(native_path):
+        raise FileNotFoundError(
+            f"no {WEIGHTS_NAME} or {NATIVE_WEIGHTS_NAME} in {base}")
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     model = M.init_params(cfg, generator, device=device)
-    load_params_from_torch(model, load_torch_state_dict(bin_path))
+    if op.exists(bin_path):
+        load_params_from_torch(model, load_torch_state_dict(bin_path))
+    else:
+        from ..solver.checkpointing import load_model_state
+        load_params_from_torch(model, load_model_state(native_path, device),
+                               strict=True)
     return model, cfg

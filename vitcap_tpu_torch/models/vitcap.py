@@ -27,7 +27,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.fused_block import pad_len
+from ..ops.fused_block import fused_vit_block_train, pad_len
 from .config import ModelConfig
 from .layers import (NEG_MASK_VALUE, BertEmbeddings, BertLayer,
                      LMPredictionHead, ViTBlock, _Group, _linear, _train_call,
@@ -164,13 +164,19 @@ def split_encoder(model: ViTCAP, visual_in: torch.Tensor, cfg: ModelConfig
     cfg.token_filter_block; the pad is then redone for the new length, and
     the tag branch keeps the length it forked with.  cfg.use_remat
     recomputes each block in the backward (torch.utils.checkpoint) instead
-    of keeping its residuals.
+    of keeping its residuals.  cfg.train_fused_blocks sends a
+    gradient-carrying call's trunk and tag blocks (the CLS-only last one
+    aside) through fused_vit_block_train, the inference kernels with a
+    recomputing backward, which keeps only the block inputs: no remat
+    wraps them, as in the TPU package (vitcap_tpu/models/vitcap.py:218-267).
 
     Returns (caption_hidden (B, V, H), tag_cls (B, 1, H))."""
     sd = cfg.attention_scores_dtype
     nh, eps = cfg.num_attention_heads, cfg.vit_layer_norm_eps
 
     def block(blk, x, l_actual):
+        if cfg.train_fused_blocks and _train_call(blk, x):
+            return fused_vit_block_train(blk, x, nh, eps, l_actual)
         if cfg.use_remat and _train_call(blk, x):
             return checkpoint(vit_block, blk, x, nh, eps, scores_dtype=sd,
                               l_actual=l_actual, use_reentrant=False)
@@ -469,18 +475,6 @@ def mix_gt_tags(pred_topk: torch.Tensor, label: torch.Tensor, ratio: float,
     return out
 
 
-def check_train_config(cfg: ModelConfig) -> None:
-    """Refuse a config whose train path is not ported: train_fused_blocks
-    selects the TPU package's train-time fused-block experiment
-    (vitcap_tpu/models/vitcap.py:218-253), which the port leaves out."""
-    if cfg.train_fused_blocks:
-        raise ValueError(
-            "train_fused_blocks=True selects the TPU package's train-time "
-            "fused-block experiment (inference kernels' rounding with an "
-            "XLA backward), which is not ported; set it to False (the "
-            "split train blocks)")
-
-
 def forward_train(model: ViTCAP, batch: Dict[str, torch.Tensor],
                   cfg: ModelConfig,
                   generator: Optional[torch.Generator] = None,
@@ -497,14 +491,12 @@ def forward_train(model: ViTCAP, batch: Dict[str, torch.Tensor],
     seeds, the embedding dropout and the GT-tag curriculum's noise;
     `layer_seeds` (per decoder layer (attn, hidden)) overrides the drawn
     seeds, so a caller can hand the JAX package's seeds to both.  Neither
-    given: deterministic.  cfg.train_fused_blocks=True raises ValueError
-    (check_train_config).
+    given: deterministic.
 
     Data parallelism (solver/train_step.py) adds the global batch's
     masked_weight_total (the masked loss's weight sum) and rows_total (its
     rows), scalar tensors; the losses are then this rank's shares,
     which sum over the ranks to the global batch's losses."""
-    check_train_config(cfg)
     deterministic = generator is None and layer_seeds is None
     enc = encode(model, batch["image"], cfg)
     pred_topk = enc["pred_topk"]

@@ -36,7 +36,9 @@ The GEMM weights are cast (and BERT's q/k/v concatenated) once per module
 and compute dtype, not per call; the cache is remade when a parameter is
 replaced or changed in place (a checkpoint load).  These inference blocks
 have no backward: under grad they raise, and gradient-carrying callers take
-the train blocks below.
+the train blocks below, or fused_vit_block_train (cfg.train_fused_blocks:
+the inference kernels forward, the plain chain recomputed backward, as the
+TPU package's custom_vjp does).
 
 split_vit_block_train and split_bert_layer_train are the train blocks, the
 ports of vitcap_tpu/ops/fused_block.py:959 split_vit_block_train and :1225
@@ -206,6 +208,51 @@ def fused_vit_block(p, x: torch.Tensor, num_heads: int, ln_eps: float,
                     p.norm2.weight, p.norm2.bias, w1, p.mlp.fc1.bias, w2,
                     p.mlp.fc2.bias, tp=tp)[0].view(B, Lp, H)
     return out[:, :L] if pad else out
+
+
+class _FusedViTBlockTrain(torch.autograd.Function):
+    """cfg.train_fused_blocks: the TPU package's fused_vit_block custom_vjp
+    (vitcap_tpu/ops/fused_block.py:787-824).  Forward: the inference block
+    (fused_vit_block: K1-K3, K10a past 1024 padded tokens), saving only x
+    and the block's parameters.  Backward: _blk_vjp_bwd, autograd through
+    the plain chain (models.layers._vit_block_plain) on x[:, :l_actual]:
+    a train call, so its attention takes the packed route (K8 non-slab
+    forward and backward); the padded rows get a zero gradient."""
+
+    @staticmethod
+    def forward(ctx, x, p, num_heads, eps, l_actual, *prm):
+        ctx.save_for_backward(x, *prm)
+        ctx.cfg = (p, num_heads, eps, l_actual)
+        return fused_vit_block(p, x, num_heads, eps, l_actual)
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..models.layers import _vit_block_plain
+        p, num_heads, eps, l_actual = ctx.cfg
+        x = ctx.saved_tensors[0].detach().requires_grad_(
+            ctx.needs_input_grad[0])
+        prm = _vit_params(p)          # the tensors _vit_block_plain reads
+        wrt = [t for t, need in zip((x,) + prm, ctx.needs_input_grad[:1]
+                                    + ctx.needs_input_grad[5:]) if need]
+        with torch.enable_grad():
+            xs, gs = (x[:, :l_actual], g[:, :l_actual]) if l_actual else (x, g)
+            out = _vit_block_plain(p, xs, num_heads, eps)
+            got = iter(torch.autograd.grad(out, wrt, gs.to(out.dtype)))
+        dx = next(got) if ctx.needs_input_grad[0] else None
+        return (dx, None, None, None, None,
+                *(next(got) if need else None
+                  for need in ctx.needs_input_grad[5:]))
+
+
+def fused_vit_block_train(p, x: torch.Tensor, num_heads: int, ln_eps: float,
+                          l_actual: int = 0) -> torch.Tensor:
+    """fused_vit_block with a backward (cfg.train_fused_blocks): the
+    inference kernels forward, the plain chain recomputed backward.  p a
+    ViTBlock module, x (B, L, H) pre-padded to pad_len with l_actual valid
+    rows (0: all rows, or x unpadded).  Under a tensor-parallel shard it
+    runs the rank's heads, as the blocks it composes do."""
+    return _FusedViTBlockTrain.apply(x, p, num_heads, ln_eps, l_actual,
+                                     *_vit_params(p))
 
 
 def local_bias(bias, tp):

@@ -18,8 +18,11 @@ the same iteration, and each rank predicts its shard of the test set.
 `mesh_data`, the JAX package's data-axis size, must be unset or N.
 `jax_profile_dir` (with `jax_profile_start`, default 2, and
 `jax_profile_steps`, default 5) writes a torch.profiler trace of a window
-of train steps.  Keys of the JAX package's checkpoint machinery raise:
-checkpoint_backend other than 'torch', async_checkpoint.
+of train steps.  Snapshots are torch.save files unless
+`checkpoint_backend: msgpack` asks for the JAX package's format (its
+default); either format resumes and predicts, so a run directory the
+JAX package wrote trains on and predicts here.  The JAX package's orbax
+machinery raises: checkpoint_backend orbax, async_checkpoint.
 """
 
 from __future__ import annotations
@@ -126,11 +129,11 @@ class CaptionUniPipeline(UniPipeline):
         of them is ignored."""
         c = self.cfg
         check_mesh_data(c.mesh_data, self.mpi_size)
-        if c.get("checkpoint_backend") not in (None, "torch"):
+        if c.get("checkpoint_backend") not in (None, "torch", "msgpack"):
             raise ValueError(
                 f"checkpoint_backend={c.get('checkpoint_backend')!r}: the "
-                f"port has one backend, 'torch' (msgpack and orbax are the "
-                f"JAX package's formats)")
+                f"port writes 'torch' or 'msgpack' (orbax is the JAX "
+                f"package's machinery)")
         if c.get("async_checkpoint"):
             raise ValueError("async_checkpoint is the JAX package's orbax "
                              "machinery; the port saves synchronously")
@@ -340,6 +343,11 @@ class CaptionUniPipeline(UniPipeline):
             scheduler_type=self.cfg.scheduler_type,
             grad_clip=float(self.cfg.gradient_clip))
 
+    def _checkpointer(self):
+        from ..solver.checkpointing import Checkpointer
+        return Checkpointer(self.model_folder,
+                            self.cfg.get("checkpoint_backend") or "torch")
+
     def _train_state(self, ckpt, init_tag_blocks: bool):
         """(TrainState, start iteration): random weights from random_seed,
         then the last snapshot (weights, moments, generator) or the
@@ -371,10 +379,9 @@ class CaptionUniPipeline(UniPipeline):
         return state, start_iter
 
     def _train_xe(self):
-        from ..solver.checkpointing import Checkpointer
         from ..solver.train_step import make_train_step
 
-        ckpt = Checkpointer(self.model_folder)
+        ckpt = self._checkpointer()
         state, start_iter = self._train_state(ckpt, init_tag_blocks=True)
         step_fn = make_train_step(self.model_cfg, self._train_hyper())
         loader = self.get_data_loader(is_train=True, start_iter=start_iter)
@@ -516,11 +523,10 @@ class CaptionUniPipeline(UniPipeline):
         """SCST fine-tuning loop (reference …expanding.py:404-478): greedy
         baseline + sampled decode, CIDEr-D advantage on the host,
         policy-gradient step on the device."""
-        from ..solver.checkpointing import Checkpointer
         from ..solver.scst import (ScstConfig, ScstReward, make_scst_fns,
                                    scst_train_step)
 
-        ckpt = Checkpointer(self.model_folder)
+        ckpt = self._checkpointer()
         state, start_iter = self._train_state(ckpt, init_tag_blocks=False)
         opts = self.decode_options()
         scfg = ScstConfig(num_return=int(self.cfg.scst_num_return),
@@ -621,10 +627,11 @@ class CaptionUniPipeline(UniPipeline):
             od_labels_start_posid=int(self.cfg.max_seq_a_length))
 
     def load_test_model(self, model_file: str):
-        """The model of a snapshot (`.ckpt`, or a port state dict) or of a
-        reference `.pt`/`.pth` through the bridge (its missing names keep
-        init_params' values), on the pipeline's device.  A snapshot is
-        memory-mapped, so its optimizer moments are never read."""
+        """The model of a snapshot (`.ckpt` of either format, or a port
+        state dict) or of a reference `.pt`/`.pth` through the bridge (its
+        missing names keep init_params' values), on the pipeline's device.
+        A snapshot is memory-mapped, so its optimizer moments are never
+        read."""
         from ..models import vitcap as M
         cfg, dev = self.model_cfg, self.device
         if model_file.endswith((".pt", ".pth")):
@@ -634,10 +641,9 @@ class CaptionUniPipeline(UniPipeline):
                                   device=dev)
             load_params_from_torch(model, load_torch_state_dict(model_file))
             return model
-        state = torch.load(model_file, map_location="cpu", mmap=True,
-                           weights_only=True)
+        from ..solver.checkpointing import load_model_state
         model = M.ViTCAP(cfg, device="meta").to_empty(device=dev)
-        model.load_state_dict(state["model"] if "model" in state else state,
+        model.load_state_dict(load_model_state(model_file, dev),
                               strict=True)
         return model.requires_grad_(False)
 

@@ -12,9 +12,11 @@ per call.  This is numpy only: the port keeps its own copy of the naming
 rules of vitcap_tpu/solver/checkpoint_bridge.py and imports nothing of the
 JAX package.
 
-The reverse direction (torch_name_to_jax_path, state_to_jax_flat) inverts
-the same rules, so tests can hold the port's gradients and optimizer state
-against the JAX package's leaf by leaf.
+The reverse direction (torch_name_to_jax_path, state_to_jax_tensors,
+unflatten_params) inverts the same rules: the msgpack snapshots
+(solver/checkpointing.py) write the port's weights and Adam moments in
+the JAX package's tree with it, and tests hold the port's gradients and
+optimizer state against the JAX package's leaf by leaf.
 
 A reference-named torch state dict (a `.pt` checkpoint of the reference,
 or params_to_torch_state_dict's output) loads into the port's ViTCAP
@@ -101,9 +103,15 @@ def jax_path_to_torch_name(path: str) -> Tuple[str, str]:
     raise KeyError(f"no torch mapping for param path {path!r}")
 
 
-def _apply_transform(arr: np.ndarray, transform: str) -> np.ndarray:
+def _apply_transform(arr, transform: str):
     """JAX layout -> torch layout: dense (in, out) -> (out, in); conv HWIO
-    -> OIHW."""
+    -> OIHW.  A numpy array comes back contiguous, a tensor as a view."""
+    if isinstance(arr, torch.Tensor):
+        if transform == "linear_t":
+            return arr.t()
+        if transform == "conv_hwio_to_oihw":
+            return arr.permute(3, 2, 0, 1)
+        return arr
     if transform == "linear_t":
         return np.ascontiguousarray(arr.T)
     if transform == "conv_hwio_to_oihw":
@@ -111,16 +119,24 @@ def _apply_transform(arr: np.ndarray, transform: str) -> np.ndarray:
     return arr
 
 
-def params_to_torch_state_dict(params: Params) -> Dict[str, np.ndarray]:
+def params_to_torch_state_dict(params: Params) -> Dict[str, Any]:
     """The param tree as a reference-named torch state dict ('module.'
-    prefix on everything but the image encoder)."""
-    out: Dict[str, np.ndarray] = {}
+    prefix on everything but the image encoder).  Tensor leaves (a msgpack
+    snapshot's) stay tensors, in the torch layout as views."""
+    out: Dict[str, Any] = {}
     for path, arr in flatten_params(params).items():
         torch_name, transform = jax_path_to_torch_name(path)
         prefix = "" if torch_name.startswith("image_encoder") else "module."
-        out[prefix + torch_name] = _apply_transform(np.asarray(arr),
-                                                    transform)
+        if not isinstance(arr, torch.Tensor):
+            arr = np.asarray(arr)
+        out[prefix + torch_name] = _apply_transform(arr, transform)
     return out
+
+
+def port_state_dict(params: Params) -> Dict[str, Any]:
+    """params_to_torch_state_dict under the port's names (no 'module.')."""
+    return {(n[len("module."):] if n.startswith("module.") else n): a
+            for n, a in params_to_torch_state_dict(params).items()}
 
 
 def load_jax_params(model: torch.nn.Module, params_np: Dict[str, Any]
@@ -128,11 +144,8 @@ def load_jax_params(model: torch.nn.Module, params_np: Dict[str, Any]
     """Strictly load `params_np` (the JAX param tree with numpy leaves) into
     `model`, in place; returns the model with gradients off (training turns
     them on: solver.train_step.init_train_state)."""
-    sd = {}
-    for name, arr in params_to_torch_state_dict(params_np).items():
-        if name.startswith("module."):
-            name = name[len("module."):]
-        sd[name] = torch.from_numpy(np.array(arr, dtype=np.float32))
+    sd = {name: torch.from_numpy(np.array(arr, dtype=np.float32))
+          for name, arr in port_state_dict(params_np).items()}
     model.load_state_dict(sd, strict=True)
     return model.requires_grad_(False)
 
@@ -175,21 +188,51 @@ def torch_name_to_jax_path(name: str, ndim: int) -> Tuple[str, str]:
     return dense(body[:-1])
 
 
-def state_to_jax_flat(tensors: Dict[str, torch.Tensor]
-                      ) -> Dict[str, np.ndarray]:
+def state_to_jax_tensors(tensors: Dict[str, torch.Tensor]
+                         ) -> Dict[str, torch.Tensor]:
     """{port parameter name: tensor} (parameters, or gradients or Adam
     moments keyed by parameter name) -> the JAX package's flattened tree
-    {path: numpy array in the JAX layout}."""
-    out: Dict[str, np.ndarray] = {}
+    {path: f32 tensor in the JAX layout, a view where it is transposed},
+    on the tensors' devices."""
+    out: Dict[str, torch.Tensor] = {}
     for name, t in tensors.items():
         path, transform = torch_name_to_jax_path(name, t.dim())
-        a = t.detach().float().cpu().numpy()
+        a = t.detach().float()
         if transform == "linear_t":
-            a = np.ascontiguousarray(a.T)
+            a = a.t()
         elif transform == "conv_oihw_to_hwio":
-            a = np.ascontiguousarray(a.transpose(2, 3, 1, 0))
+            a = a.permute(2, 3, 1, 0)
         out[path] = a
     return out
+
+
+def state_to_jax_flat(tensors: Dict[str, torch.Tensor]
+                      ) -> Dict[str, np.ndarray]:
+    """state_to_jax_tensors as contiguous numpy arrays on the host."""
+    return {p: t.cpu().contiguous().numpy()
+            for p, t in state_to_jax_tensors(tensors).items()}
+
+
+def unflatten_params(flat: Dict[str, Any]) -> Params:
+    """{'a/b/0': x, 'a/b/1': y} -> {'a': {'b': [x, y]}}: the inverse of
+    flatten_params, a level whose keys are 0..n-1 a list (the JAX
+    package's block lists)."""
+    tree: Dict[str, Any] = {}
+    for path, leaf in flat.items():
+        *parents, last = path.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = leaf
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        out = {k: lists(v) for k, v in node.items()}
+        if out and sorted(out) == sorted(str(i) for i in range(len(out))):
+            return [out[str(i)] for i in range(len(out))]
+        return out
+    return lists(tree)
 
 
 # ---------------------------------------------------------------------------

@@ -123,9 +123,7 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper,
     when given, are the decoder's per-layer dropout seeds for this step.
     With a process group the step is data-parallel (module docstring): the
     batch is this rank's rows, and loss_fn must read the batch's
-    masked_weight_total and rows_total as forward_train does.
-    cfg.train_fused_blocks=True raises ValueError (not ported)."""
-    M.check_train_config(cfg)
+    masked_weight_total and rows_total as forward_train does."""
     if loss_fn is None:
         loss_fn = M.forward_train
     schedule = SCHEDULES[hyper.scheduler_type](hyper.warmup_steps,
