@@ -2864,8 +2864,10 @@ def phase_checkpoint(dev, smi, Bn=B, cfg_kw=None):
     it.  The resumed step must match the continued one as closely as the
     two continued steps match each other.  Then a synthetic
     reference-named `.pt` through Checkpointer.recover_or_load: every
-    parameter matched, nothing missing.  Prints the save and load ms and
-    the snapshot's bytes."""
+    parameter matched, nothing missing.  The msgpack and orbax halves
+    (_msgpack_roundtrip, _orbax_roundtrip) save the same state in the JAX
+    package's two formats, and their resumed steps pass the same check.
+    Prints the save and load ms and the snapshot's bytes."""
     import shutil
     from vitcap_tpu_torch.models.config import ModelConfig
     from vitcap_tpu_torch.models.vitcap import init_params
@@ -2873,16 +2875,30 @@ def phase_checkpoint(dev, smi, Bn=B, cfg_kw=None):
     from vitcap_tpu_torch.solver.train_step import (TrainHyper,
                                                     init_train_state,
                                                     make_train_step)
+    from vitcap_tpu_torch import native
+    # the orbax half's zstd library builds with g++ while the steps run
+    zstd_build = threading.Thread(target=native.library, args=("zstd",))
+    zstd_build.start()
     cfg = ModelConfig(**dict(dict(dtype="bfloat16", tag_loss_weight=1.0),
                              **(cfg_kw or {})))
     model = init_params(cfg, torch.Generator().manual_seed(SEED), dev)
     state = init_train_state(model, torch.Generator().manual_seed(SEED + 9))
     step = make_train_step(cfg, TrainHyper(base_lr=1e-4, max_iter=1000))
     batch = _train_batch(cfg, Bn, SEED + 10, dev)
+    # the orbax half's async Checkpointer reserves its pinned buffer while
+    # the steps run, as a pipeline's recover_or_load does at its start
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    ack = CK.Checkpointer(str(CKPT_DIR / "run_ob_async"), backend="orbax",
+                          async_save=True)
+    t0 = time.perf_counter()
+    reserving = ack.reserve(model)
     for _ in range(2):
         state, _ = step(state, batch, False)
     torch.cuda.synchronize()
-    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    if reserving is not None:
+        reserving.join()
+    log(f"[checkpoint] 2 train steps, the pinned buffer reserved beside "
+        f"them: {(time.perf_counter() - t0) * 1e3:.1f} ms")
     ck = CK.Checkpointer(str(CKPT_DIR / "run"))
     t0 = time.perf_counter()
     path = ck.save(2, state)
@@ -2905,10 +2921,15 @@ def phase_checkpoint(dev, smi, Bn=B, cfg_kw=None):
     del snap
     mp = _msgpack_roundtrip(dev, smi, cfg, state, resumed)
     resumed_mp = mp.pop("state")
+    shutil.rmtree(CKPT_DIR / "run_mp", ignore_errors=True)
+    ob = _orbax_roundtrip(dev, smi, cfg, state, resumed, step, batch,
+                          zstd_build, ack)
+    resumed_ob = ob.pop("state")
     twin = _copy_state(state)
     out = {}
     for name, st in (("continued", state), ("twin", twin),
-                     ("resumed", resumed), ("resumed_mp", resumed_mp)):
+                     ("resumed", resumed), ("resumed_mp", resumed_mp),
+                     ("resumed_ob", resumed_ob)):
         st, m = step(st, batch, False)
         out[name] = (st, m["loss"].item())
     torch.cuda.synchronize()
@@ -2917,14 +2938,18 @@ def phase_checkpoint(dev, smi, Bn=B, cfg_kw=None):
                                       out["resumed"][0])
     mp_diff, mp_names = _state_diff(out["continued"][0],
                                     out["resumed_mp"][0])
+    ob_diff, ob_names = _state_diff(out["continued"][0],
+                                    out["resumed_ob"][0])
     log(f"[checkpoint] step 3 losses: continued {out['continued'][1]:.6f} "
         f"twin {out['twin'][1]:.6f} resumed {out['resumed'][1]:.6f} "
-        f"resumed from msgpack {out['resumed_mp'][1]:.6f}")
+        f"resumed from msgpack {out['resumed_mp'][1]:.6f} resumed from "
+        f"orbax {out['resumed_ob'][1]:.6f}")
     log(f"[checkpoint] max |diff| after step 3 (parameters and moments): "
         f"continued vs twin {twin_diff:.3e} ({len(twin_names)} tensors), "
         f"continued vs resumed {res_diff:.3e} ({len(res_names)} tensors), "
         f"continued vs resumed from msgpack {mp_diff:.3e} "
-        f"({len(mp_names)} tensors)")
+        f"({len(mp_names)} tensors), continued vs resumed from orbax "
+        f"{ob_diff:.3e} ({len(ob_names)} tensors)")
     if twin_names:
         log(f"[checkpoint] not bit-deterministic from one state: "
             f"{twin_names[:8]}")
@@ -2935,13 +2960,17 @@ def phase_checkpoint(dev, smi, Bn=B, cfg_kw=None):
         raise AssertionError(f"checkpoint: resumed from msgpack differs by "
                              f"{mp_diff:.3e}, two continued runs by "
                              f"{twin_diff:.3e}")
+    if not ob_diff <= twin_diff:
+        raise AssertionError(f"checkpoint: resumed from orbax differs by "
+                             f"{ob_diff:.3e}, two continued runs by "
+                             f"{twin_diff:.3e}")
     # a reference-named .pt: 'module.' on everything but the image encoder
     src = out["continued"][0].model
     sd = {("" if n.startswith("image_encoder") else "module.") + n:
           t.detach().cpu() for n, t in src.state_dict().items()}
     pt = CKPT_DIR / "reference.pt"
     torch.save({"model": sd, "iteration": 3}, pt)
-    del out, twin, resumed, resumed_mp, state
+    del out, twin, resumed, resumed_mp, resumed_ob, state
     torch.cuda.empty_cache()
     base = CK.Checkpointer(str(CKPT_DIR / "fresh"))
     tgt = init_params(cfg, torch.Generator().manual_seed(SEED + 78), dev)
@@ -2965,15 +2994,227 @@ def phase_checkpoint(dev, smi, Bn=B, cfg_kw=None):
         f"ms, snapshot {nbytes} bytes ({nbytes / 2 ** 30:.3f} GiB: f32 "
         f"weights and both Adam moments); msgpack save "
         f"{mp['save_ms']:.1f} ms, load + restore {mp['load_ms']:.1f} ms, "
-        f"{mp['bytes']} bytes; .pt bridge load {pt_ms:.1f} ms; B={Bn}, on "
-        f"{smi}")
+        f"{mp['bytes']} bytes; orbax save {ob['save_ms']:.1f} ms (async: "
+        f"{ob['async_blocking_ms']:.1f} ms blocking), load + restore "
+        f"{ob['load_ms']:.1f} ms, {ob['bytes']} bytes; .pt bridge load "
+        f"{pt_ms:.1f} ms; B={Bn}, on {smi}")
     del tgt, src
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
     return {"save_ms": save_ms, "load_ms": load_ms, "pt_load_ms": pt_ms,
             "snapshot_bytes": nbytes, "twin_diff": twin_diff,
             "resumed_diff": res_diff, "nondeterministic": twin_names,
-            "msgpack": dict(mp, resumed_diff=mp_diff)}
+            "msgpack": dict(mp, resumed_diff=mp_diff),
+            "orbax": dict(ob, resumed_diff=ob_diff)}
+
+
+ORBAX_FIXTURE = ROOT / "tests" / "data" / "orbax_jax_tiny"
+ZSTD_BENCH_BYTES = 1 << 30
+
+
+def _tree_equal(a, b, path=""):
+    """Whether two trees of tensors (dicts, lists) are the same, leaf by
+    leaf, bit for bit (shape and dtype too); the first difference."""
+    if isinstance(b, dict):
+        if not isinstance(a, dict) or a.keys() != b.keys():
+            return path or "/"
+        for k in b:
+            bad = _tree_equal(a[k], b[k], f"{path}/{k}")
+            if bad:
+                return bad
+        return None
+    if isinstance(b, list):
+        if not isinstance(a, list) or len(a) != len(b):
+            return path
+        for i, (x, y) in enumerate(zip(a, b)):
+            bad = _tree_equal(x, y, f"{path}/{i}")
+            if bad:
+                return bad
+        return None
+    x, y = (t if isinstance(t, torch.Tensor) else torch.tensor(t)
+            for t in (a, b))
+    if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(
+            x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8)):
+        return path
+    return None
+
+
+def _zstd_bench():
+    """The hand-written zstd decoder over the committed fixture's chunk
+    frames (concatenated frames are one zstd stream) repeated to about
+    ZSTD_BENCH_BYTES of output, split over the host's CPUs (at most 8)
+    decoding their shares into their parts of one buffer; then one
+    thread over a quarter of it.  -> MB/s of output."""
+    from concurrent.futures import ThreadPoolExecutor
+    from vitcap_tpu_torch.utils import orbax_state as OS
+    threads = min(8, os.cpu_count() or 1)
+    frames = OS.chunk_frames(str(ORBAX_FIXTURE))
+    one = b"".join(bytes(src) for _, src, _ in frames)
+    out_one = sum(n for _, _, n in frames)
+    reps = max(threads, ZSTD_BENCH_BYTES // out_one // threads * threads)
+    total = out_one * reps
+    counts = np.zeros(len(OS.COUNTERS), np.uint64)
+    OS.zstd_decode_into(np.frombuffer(one, np.uint8),
+                        np.empty(out_one, np.uint8), "fixture", counts)
+    out = np.empty(total, np.uint8)
+    out.fill(0)                            # fault the pages in first
+    share = np.frombuffer(one * (reps // threads), np.uint8)
+    part = out_one * (reps // threads)
+    with ThreadPoolExecutor(threads) as pool:
+        t0 = time.perf_counter()
+        list(pool.map(lambda i: OS.zstd_decode_into(
+            share, out[i * part:(i + 1) * part], "bench"), range(threads)))
+        par_s = time.perf_counter() - t0
+    quarter = np.frombuffer(one * (reps // 4), np.uint8)
+    one_out = out_one * (reps // 4)
+    t0 = time.perf_counter()
+    OS.zstd_decode_into(quarter, out[:one_out], "bench")
+    one_s = time.perf_counter() - t0
+    del out, share, quarter
+    return {"frames": len(frames), "compressed_bytes": len(one),
+            "decoded_bytes": out_one, "reps": reps, "output_bytes": total,
+            "one_thread_bytes": one_out,
+            "one_thread_MBps": one_out / one_s / 1e6, "threads": threads,
+            "all_threads_MBps": part * threads / par_s / 1e6,
+            "block_kinds": dict(zip(OS.COUNTERS, counts.tolist()))}
+
+
+def _orbax_roundtrip(dev, smi, cfg, state, resumed, step, batch, build,
+                     ack):
+    """Phase 12's orbax half: `state` (2 flagship steps) saved with
+    backend='orbax' (the JAX package's orbax directory, written by the
+    port's own OCDBT, zarr and zstd code) and loaded on the card into a
+    fresh model: weights, moments and generator equal the torch
+    snapshot's (`resumed`) bit for bit, and a fused greedy batch of B from
+    each model gives the same ids (run while an async save writes).  The
+    async save: from a copy of the state that takes one more train step
+    before the write is waited for, bit-equal to the synchronous one;
+    `ack` is its Checkpointer, whose pinned buffer the phase reserved
+    before its train steps, as a pipeline's recover_or_load does at its
+    start.  Then the committed JAX-written
+    fixture decodes bit-equal to its msgpack twin, and the zstd decoder is
+    timed (_zstd_bench).  `build`: the thread building the decoder's
+    library, started with the phase.  Returns the ms, bytes, MB/s and the
+    orbax-resumed TrainState (under 'state')."""
+    from vitcap_tpu_torch import native
+    from vitcap_tpu_torch.models import decode as TD
+    from vitcap_tpu_torch.models.vitcap import init_params
+    from vitcap_tpu_torch.solver import checkpointing as CK
+    from vitcap_tpu_torch.utils import msgpack_state, orbax_state
+    t_half = time.perf_counter()
+    build.join()
+    native.library("zstd")               # raises what the build raised
+    zinfo = native.build_info["zstd"]
+    twin = _copy_state(state)
+    ck = CK.Checkpointer(str(CKPT_DIR / "run_ob"), backend="orbax")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = ck.save(2, state)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = sum(f.stat().st_size for f in Path(path).rglob("*")
+                 if f.is_file())
+    if not os.path.isdir(path) or not path.endswith(".orbax"):
+        raise AssertionError(f"checkpoint: orbax snapshot {path}")
+    fresh = init_params(cfg, torch.Generator().manual_seed(SEED + 80), dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh, snap, it = ck.recover_or_load(None, fresh)
+    got = CK.restore_train_state(snap, fresh)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    del snap
+    diff, names = _state_diff(got, resumed)
+    if (it != 2 or got.opt.step != 2 or diff or names
+            or next(got.model.parameters()).device != dev
+            or not torch.equal(got.generator.get_state(),
+                               resumed.generator.get_state())):
+        raise AssertionError(f"checkpoint: the orbax snapshot resumed at "
+                             f"{it}, step {got.opt.step}, {diff:.3e} from "
+                             f"the torch one ({len(names)} tensors)")
+    # async: one more train step (AdamW in place) while the writer runs
+    torch.cuda.synchronize()
+    apath = ack.save(2, twin)
+    blocking_ms = ack.last_blocking_s * 1e3
+    t0 = time.perf_counter()
+    twin, _ = step(twin, batch, False)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    del twin
+    rs = np.random.RandomState(SEED + 15)
+    imgs = torch.from_numpy(rs.randint(0, 256, (B, cfg.img_size,
+                                                cfg.img_size, 3))
+                            .astype(np.uint8)).to(dev)
+    od = torch.zeros((B, cfg.max_seq_len - cfg.max_seq_a_len),
+                     dtype=torch.long, device=dev)
+    seq = torch.full((B,), cfg.max_seq_a_len, device=dev)
+    ids = []
+    with _engine(True):
+        for st in (got, resumed):
+            ids.append(TD.generate_greedy(st.model, imgs, od, None, seq, cfg,
+                                          _opts(cfg))["ids"])
+    if not torch.equal(ids[0], ids[1]):
+        raise AssertionError("checkpoint: the orbax-loaded model's fused "
+                             "greedy ids differ from the torch-loaded one's")
+    t0 = time.perf_counter()
+    ack.wait_until_finished()
+    wait_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    frames = [{k: src for k, src, _ in orbax_state.chunk_frames(p)}
+              for p in (apath, path)]
+    bad = [k for k in frames[1] if k not in frames[0]
+           or not np.array_equal(frames[0][k], frames[1][k])]
+    if bad or frames[0].keys() != frames[1].keys():
+        raise AssertionError(f"checkpoint: the async orbax snapshot differs "
+                             f"from the synchronous one at {bad[:4]} (a "
+                             f"train step ran before it finished)")
+    del frames
+    compare_ms = (time.perf_counter() - t0) * 1e3
+    shutil.rmtree(CKPT_DIR / "run_ob", ignore_errors=True)
+    shutil.rmtree(CKPT_DIR / "run_ob_async", ignore_errors=True)
+    t0 = time.perf_counter()
+    fixture = orbax_state.load(str(ORBAX_FIXTURE))
+    fixture_ms = (time.perf_counter() - t0) * 1e3
+    bad = _tree_equal(fixture, msgpack_state.load(str(ORBAX_FIXTURE)
+                                                  + ".ckpt"))
+    if bad:
+        raise AssertionError(f"checkpoint: the JAX-written fixture differs "
+                             f"from its msgpack twin at {bad}")
+    t0 = time.perf_counter()
+    bench = _zstd_bench()
+    bench_ms = (time.perf_counter() - t0) * 1e3
+    kinds = bench["block_kinds"]
+    gib = nbytes / 2 ** 30
+    built = "built" if zinfo["built"] else "found"
+    log(f"[checkpoint] orbax: zstd library {built} in "
+        f"{zinfo['seconds']:.1f} s (in a thread since the phase "
+        f"began); save {save_ms:.1f} ms, {nbytes} bytes ({gib:.3f} GiB, raw "
+        f"zstd blocks); load + restore {load_ms:.1f} ms; weights, moments "
+        f"and generator equal the torch snapshot's; a fused greedy batch "
+        f"of {B}: the same ids")
+    log(f"[checkpoint] orbax async: save {blocking_ms:.1f} ms blocking (its "
+        f"pinned buffer reserved before the train steps), then a train step of "
+        f"{step_ms:.1f} ms and the greedy batch ran before it finished "
+        f"({wait_ms:.1f} ms more waited); bit-equal to the synchronous one "
+        f"(compared chunk by chunk in {compare_ms:.1f} ms)")
+    log(f"[checkpoint] orbax: the JAX-written fixture decodes bit-equal to "
+        f"its msgpack twin ({fixture_ms:.1f} ms);"
+        f" zstd decode of its {bench['frames']} frames x {bench['reps']} "
+        f"({bench['output_bytes']} bytes out) on {bench['threads']} "
+        f"threads: {bench['all_threads_MBps']:.1f} MB/s; a quarter on one "
+        f"thread: {bench['one_thread_MBps']:.1f} MB/s ({bench_ms:.1f} ms "
+        f"in all); a "
+        f"JAX-written snapshot of {gib:.3f} GiB would decode in "
+        f"{nbytes / bench['one_thread_MBps'] / 1e6:.2f} s on one thread, "
+        f"{nbytes / bench['all_threads_MBps'] / 1e6:.2f} s on "
+        f"{bench['threads']}; block kinds {kinds}; host CPUs "
+        f"{os.cpu_count()}; the orbax half took "
+        f"{time.perf_counter() - t_half:.1f} s; {smi}")
+    return {"save_ms": save_ms, "async_blocking_ms": blocking_ms,
+            "async_step_ms": step_ms, "async_wait_ms": wait_ms,
+            "load_ms": load_ms, "bytes": nbytes,
+            "fixture_ms": fixture_ms, "zstd_build_s": zinfo["seconds"],
+            "async_compare_ms": compare_ms, "zstd_bench_ms": bench_ms,
+            "zstd": bench, "state": got}
 
 
 DEMO_DETECTIONS = [{"class": "dog", "conf": 0.97, "rect": [10, 20, 200, 300]},

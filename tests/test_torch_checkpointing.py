@@ -181,10 +181,15 @@ def test_save_tagged_leaves_the_pointer(tmp_path):
 
 
 def test_jax_only_backends_raise(tmp_path):
-    with pytest.raises(ValueError, match="orbax"):
-        TCk.Checkpointer(str(tmp_path), backend="orbax")
-    with pytest.raises(ValueError, match="async"):
-        TCk.Checkpointer(str(tmp_path), async_save=True)
+    """The JAX package's orbax backend and async saves, which the port
+    once refused, are now the port's too (their round trips:
+    test_torch_orbax.py); a backend neither package writes raises."""
+    ck = TCk.Checkpointer(str(tmp_path), backend="orbax", async_save=True)
+    assert ck.async_save and ck.checkpoint_path(3).endswith(
+        "model_iter_0000003.orbax")
+    assert TCk.BACKENDS == ("torch", "msgpack", "orbax")
+    with pytest.raises(ValueError, match="zarr3"):
+        TCk.Checkpointer(str(tmp_path), backend="zarr3")
 
 
 def test_recover_or_load_priority(tmp_path):

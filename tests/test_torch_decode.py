@@ -388,7 +388,7 @@ def _port_sources():
 def _banned(name: str) -> bool:
     top = name.split(".")[0]
     return (top in ("jax", "jaxlib", "flax", "orbax", "optax", "grain",
-                    "msgpack")
+                    "msgpack", "tensorstore", "zstandard")
             or top == "vitcap_tpu")
 
 
@@ -479,8 +479,9 @@ def _asset_refs(tree) -> list:
 def test_port_sources_import_no_jax():
     """Every module of vitcap_tpu_torch, and chip_smoke.py, parsed with
     ast: no `import jax`, `from jax...`, no flax, orbax, optax or grain
-    (JAX-ecosystem packages), no msgpack (the card host lacks it: the
-    port reads and writes flax msgpack with its own codec), no
+    (JAX-ecosystem packages), no msgpack, tensorstore or zstandard (the
+    card host lacks them: the port reads and writes flax msgpack and
+    orbax's OCDBT, zarr and zstd with its own code), no
     `import vitcap_tpu` or
     `from vitcap_tpu...`, at any depth (vitcap_tpu_torch itself is
     allowed); and nothing built from or loaded out of the repository's
@@ -509,7 +510,7 @@ def test_port_sources_import_no_jax():
                 "data/native_image.py", "data/grain_loader.py",
                 "evals/native_cider.py", "utils/metric.py",
                 "utils/msgpack_state.py", "demo.py", "demo_e2e.py",
-                "tools/precompute_tags.py"):
+                "tools/precompute_tags.py", "utils/orbax_state.py"):
         assert ROOT / "vitcap_tpu_torch" / new in files
     bad = []
     for path in files:
@@ -531,6 +532,8 @@ def test_port_sources_import_no_jax():
     assert not _banned("vitcap_tpu_torch.ops")
     assert _banned("orbax.checkpoint") and _banned("flax.serialization")
     assert _banned("grain.python") and _banned("msgpack")
+    assert _banned("tensorstore") and _banned("zstandard")
+    assert not _banned("vitcap_tpu_torch.utils.orbax_state")
     # the native check catches the JAX package's own way of finding its
     # libraries, and lets the port's names and the image_backend value be
     for src, n in (('op.join(op.dirname(__file__), "..", "..", "native")', 1),

@@ -406,8 +406,8 @@ def test_scst_two_steps_write_snapshot(root, port_run, tmp_path):
 
 @pytest.mark.parametrize("kw, err, words", [
     ({"mesh_data": 2}, ValueError, "nproc_per_node 2"),
-    ({"checkpoint_backend": "orbax"}, ValueError, "orbax"),
-    ({"async_checkpoint": True}, ValueError, "synchronously"),
+    ({"checkpoint_backend": "orbax"}, None, "orbax"),
+    ({"async_checkpoint": True}, None, "async"),
     ({"image_encoder_type": "VitEmb_hrnet_w18"}, ValueError,
      "no ViT trunk"),
     ({"image_encoder_type": "VitEmb_efficientnet_b0"}, ValueError,
@@ -415,10 +415,58 @@ def test_scst_two_steps_write_snapshot(root, port_run, tmp_path):
 ], ids=["mesh_data", "orbax", "async", "zoo_trunk",
         "zoo_cnn_trunk"])
 def test_unported_keys_raise(root, tmp_path, kw, err, words):
+    """Keys whose machinery the port lacks raise; `checkpoint_backend:
+    orbax` and `async_checkpoint`, which raised before the port had the
+    orbax backend, now build the pipeline and its Checkpointer (err
+    None; their runs: test_orbax_pipeline_run)."""
     param = _param(root, str(tmp_path), device="cpu", **kw)
+    if err is None:
+        pip = TR.create_pipeline(param)
+        ck = pip._checkpointer()
+        assert ck.backend == kw.get("checkpoint_backend", "torch")
+        assert ck.async_save == bool(kw.get("async_checkpoint"))
+        assert pip.get_checkpoint_file().endswith(
+            ".orbax" if words == "orbax" else ".ckpt")
+        return
     with pytest.raises(err, match=words):
         pip = TR.create_pipeline(param)
         pip.model_cfg
+
+
+@pytest.mark.parametrize("kw", [
+    {"checkpoint_backend": "orbax"},
+    {"checkpoint_backend": "orbax", "async_checkpoint": True},
+    {"async_checkpoint": True},
+], ids=["orbax", "orbax_async", "torch_async"])
+def test_orbax_pipeline_run(root, port_run, tmp_path, kw):
+    """The port's run with `checkpoint_backend: orbax` and/or
+    `async_checkpoint`: the losses and the predictions of the default
+    run, `.orbax` directories at the snapshot steps (the final one on disk
+    when ensure_train returns), whose weights, moments and step equal the
+    torch snapshot's bit for bit."""
+    got = _run(TCP, TTS, "make_train_step", TR,
+               _param(root, str(tmp_path), device="cpu", **kw))
+    assert got["losses"] == port_run["losses"]
+    assert _predict_rows(got["snapshot"]) == \
+        _predict_rows(port_run["snapshot"])
+    suffix = ".orbax" if kw.get("checkpoint_backend") else ".ckpt"
+    for it in (2, 3):
+        assert os.path.exists(os.path.join(
+            got["snapshot"], f"model_iter_{it:07d}{suffix}"))
+    from vitcap_tpu_torch.solver import checkpointing as TCk
+    snap = TCk.load_state(os.path.join(got["snapshot"],
+                                       f"model_iter_0000003{suffix}"))
+    ref = torch.load(os.path.join(port_run["snapshot"],
+                                  "model_iter_0000003.ckpt"),
+                     weights_only=True)
+    assert snap["iteration"] == ref["iteration"] == 3
+    assert snap["opt"]["step"] == ref["opt"]["step"]
+    for key in ("mu", "nu"):
+        for n, t in ref["opt"][key].items():
+            assert torch.equal(snap["opt"][key][n], t), (key, n)
+    for n, t in ref["model"].items():
+        assert torch.equal(snap["model"][n], t), n
+    assert torch.equal(snap["generator"], ref["generator"])
 
 
 def test_grain_loader_losses_match_jax(root):

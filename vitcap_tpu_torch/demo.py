@@ -2,12 +2,12 @@
 reference `Loading Script.ipynb` path).
 
 Usage:
-  python -m vitcap_tpu_torch.demo --checkpoint ckpt.pt|ckpt.ckpt \
+  python -m vitcap_tpu_torch.demo --checkpoint ckpt.pt|ckpt.ckpt|ckpt.orbax \
       --image photo.jpg [--encoder-dir DIR] [--beams 1] [--device cuda]
 
 Loads the model (a reference `.pt` through the checkpoint bridge, or a
-`.ckpt` snapshot of either format: the port's torch.save or the JAX
-package's msgpack), runs the test image transform (PIL), and greedy- or
+snapshot of any format: the port's torch.save, the JAX package's msgpack
+`.ckpt` or its orbax `.orbax` directory), runs the test image transform (PIL), and greedy- or
 beam-decodes one caption with its predicted concept tags, on the card
 unless --device says otherwise (cuda without a card raises).
 """
@@ -51,7 +51,7 @@ def encoder_config(encoder_dir: str, crop_size: int, **kw):
 
 def load_weights(model, checkpoint: str):
     """A reference `.pt`/`.pth` through the bridge (missing names keep
-    their initial values; its report returned), else a `.ckpt` of either
+    their initial values; its report returned), else a snapshot of any
     format, strictly (None returned)."""
     if checkpoint.endswith((".pt", ".pth")):
         from vitcap_tpu_torch.solver.checkpoint_bridge import (

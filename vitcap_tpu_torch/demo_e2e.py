@@ -31,7 +31,7 @@ from vitcap_tpu_torch.utils.common import asset_path
 
 def load_model(checkpoint: str, encoder_dir: str, crop_size: int, dev):
     """(model, cfg, tokenizer): the encoder's config with up to 4 tag
-    blocks, weights from a `.pt` or a `.ckpt` of either format."""
+    blocks, weights from a `.pt` or a snapshot of any format."""
     import torch
     from vitcap_tpu_torch.data.tokenization import BertTokenizer
     from vitcap_tpu_torch.demo import encoder_config, load_weights

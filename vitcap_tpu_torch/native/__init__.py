@@ -1,7 +1,8 @@
 """Build and load the port's host C++ libraries: the sources beside this
 file (tsvtools.cpp, the `.lineidx.8b` scanner; cider.cpp, the CIDEr-D
 scorer; imageproc.cpp, the fused JPEG decode + bicubic resize + center
-crop, linked with libjpeg).
+crop, linked with libjpeg; zstd.cpp, the zstd frame decoder and CRC-32C
+of the orbax snapshots, which links no library).
 
 These run on the CPU: each is compiled with g++ into a shared library with
 a plain C interface, loaded with ctypes.  A library is built at its first
@@ -35,6 +36,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _I64P = ctypes.POINTER(ctypes.c_int64)
+_SZ = ctypes.c_size_t
 # each library's C entry points: {name: (argtypes, restype)}
 SIGNATURES = {
     "tsvtools": {
@@ -59,6 +61,16 @@ SIGNATURES = {
         # src, sw, sh, rw, rh, cx, cy, cw, ch, dst
         "vc_resize_bicubic_crop": ([_P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
                                    None),
+    },
+    "zstd": {
+        # src, length, dst, capacity, &written, &error offset, counters (or
+        # None), message buffer, its size -> 0 or -1
+        "vc_zstd_decode": ([_P, _SZ, _P, _SZ, ctypes.POINTER(_SZ),
+                            ctypes.POINTER(_SZ), _P, ctypes.c_char_p, _SZ],
+                           _I),
+        "vc_zstd_counter_count": ([], _I),
+        # bytes, length, running crc (0 to start) -> CRC-32C
+        "vc_crc32c": ([_P, _SZ, ctypes.c_uint32], ctypes.c_uint32),
     },
 }
 
@@ -101,7 +113,7 @@ def _build(name: str, out: Path) -> None:
 
 def library(name: str) -> ctypes.CDLL:
     """Build (once per source hash) and load the host library `name`
-    ('tsvtools', 'cider' or 'imageproc')."""
+    ('tsvtools', 'cider', 'imageproc' or 'zstd')."""
     lib = _libs.get(name)
     if lib is not None:
         return lib

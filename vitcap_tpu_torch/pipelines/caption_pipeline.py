@@ -19,10 +19,12 @@ the same iteration, and each rank predicts its shard of the test set.
 `jax_profile_dir` (with `jax_profile_start`, default 2, and
 `jax_profile_steps`, default 5) writes a torch.profiler trace of a window
 of train steps.  Snapshots are torch.save files unless
-`checkpoint_backend: msgpack` asks for the JAX package's format (its
-default); either format resumes and predicts, so a run directory the
-JAX package wrote trains on and predicts here.  The JAX package's orbax
-machinery raises: checkpoint_backend orbax, async_checkpoint.
+`checkpoint_backend` asks for one of the JAX package's formats: `msgpack`
+(its default) or `orbax` (`.orbax` directories); `async_checkpoint: true`
+writes them from a background thread, and the run waits for the last one
+before it returns.  Every format resumes and predicts, so a run directory
+the JAX package wrote in either of its formats trains on and predicts
+here.
 """
 
 from __future__ import annotations
@@ -129,14 +131,11 @@ class CaptionUniPipeline(UniPipeline):
         of them is ignored."""
         c = self.cfg
         check_mesh_data(c.mesh_data, self.mpi_size)
-        if c.get("checkpoint_backend") not in (None, "torch", "msgpack"):
+        if c.get("checkpoint_backend") not in (None, "torch", "msgpack",
+                                               "orbax"):
             raise ValueError(
                 f"checkpoint_backend={c.get('checkpoint_backend')!r}: the "
-                f"port writes 'torch' or 'msgpack' (orbax is the JAX "
-                f"package's machinery)")
-        if c.get("async_checkpoint"):
-            raise ValueError("async_checkpoint is the JAX package's orbax "
-                             "machinery; the port saves synchronously")
+                f"port writes 'torch', 'msgpack' or 'orbax'")
 
     # ------------------------------------------------------------------
     # pieces
@@ -345,8 +344,10 @@ class CaptionUniPipeline(UniPipeline):
 
     def _checkpointer(self):
         from ..solver.checkpointing import Checkpointer
-        return Checkpointer(self.model_folder,
-                            self.cfg.get("checkpoint_backend") or "torch")
+        return Checkpointer(
+            self.model_folder,
+            backend=self.cfg.get("checkpoint_backend") or "torch",
+            async_save=bool(self.cfg.get("async_checkpoint")))
 
     def _train_state(self, ckpt, init_tag_blocks: bool):
         """(TrainState, start iteration): random weights from random_seed,
@@ -517,6 +518,9 @@ class CaptionUniPipeline(UniPipeline):
                 trace.stop()
             if prev_handler is not None:
                 signal.signal(signal.SIGTERM, prev_handler)
+        # an async save writes in the background; the final snapshot must
+        # be on disk before ensure_train returns (predict reads it)
+        ckpt.wait_until_finished()
         return state
 
     def _train_scst(self):
@@ -588,6 +592,7 @@ class CaptionUniPipeline(UniPipeline):
                 break
         if self.mpi_rank == 0:
             ckpt.save(self.max_iter, state)
+        ckpt.wait_until_finished()
         return state
 
     def _to_device_image(self, v) -> torch.Tensor:
@@ -627,10 +632,10 @@ class CaptionUniPipeline(UniPipeline):
             od_labels_start_posid=int(self.cfg.max_seq_a_length))
 
     def load_test_model(self, model_file: str):
-        """The model of a snapshot (`.ckpt` of either format, or a port
-        state dict) or of a reference `.pt`/`.pth` through the bridge (its
-        missing names keep init_params' values), on the pipeline's device.
-        A snapshot is memory-mapped, so its optimizer moments are never
+        """The model of a snapshot (a `.ckpt` file or an `.orbax`
+        directory, or a port state dict) or of a reference `.pt`/`.pth`
+        through the bridge (its missing names keep init_params' values), on
+        the pipeline's device.  A snapshot's optimizer moments are never
         read."""
         from ..models import vitcap as M
         cfg, dev = self.model_cfg, self.device

@@ -167,7 +167,10 @@ class UniPipeline:
     def get_checkpoint_file(self, iteration: Optional[int] = None) -> str:
         if iteration is None:
             iteration = self.max_iter
-        path = op.join(self.model_folder, f"model_iter_{iteration:07d}.ckpt")
+        suffix = ".orbax" if self.cfg.get("checkpoint_backend") == "orbax" \
+            else ".ckpt"
+        path = op.join(self.model_folder,
+                       f"model_iter_{iteration:07d}{suffix}")
         if not op.exists(path):
             # a released torch checkpoint dropped into the snapshot dir as
             # model_iter_*.pt evaluates through the bridge
