@@ -43,8 +43,12 @@ any check of a phase fails.
 
     python3 chip_ab.py --decode-attention PARENT_TREE . . PARENT_TREE
 
-runs only the build and the CUDA-graph decode_attention rows (DECODE_GRAPH)
-in each process: a quick comparison of that kernel alone.
+runs only the build, the CUDA-graph decode_attention rows (DECODE_GRAPH:
+greedy and beam-3 at 384 and 512 px, constrained beam search's 160 beams
+an image at 384 px) and the bf16 attention at the model zoo's head dims 80
+and 96 (ZOO_ATTENTION: ViT-H/14 and the old ViT-S/16 at B=64, back to back,
+with SDPA on the same inputs) in each process: a quick comparison of those
+kernels alone.
 """
 
 from __future__ import annotations
@@ -65,7 +69,10 @@ SHOWN = ("gemm", "attention", "decode_attention", "layer_norm", "serve",
          "train_step")
 # (case, context keys S, beams) of the CUDA-graph decode_attention rows
 DECODE_GRAPH = (("graph greedy 384", 628, 1), ("graph beam3 384", 628, 3),
-                ("graph greedy 512", 1076, 1), ("graph beam3 512", 1076, 3))
+                ("graph greedy 512", 1076, 1), ("graph beam3 512", 1076, 3),
+                ("graph cbs160 384", 628, 160))
+# (case, heads, head dim, l_actual) of the zoo's attention rows, B=64 bf16
+ZOO_ATTENTION = (("zoo hd80", 16, 80, 257), ("zoo hd96", 8, 96, 197))
 
 
 def train_step_ms(cs, dev, smi, img=None):
@@ -186,11 +193,45 @@ def decode_attention_graph(own, dev, rows):
                                      t, nh)
         err = own.compare(f"decode_attention {case}", out, ref, dt)
         ms = own.graph_ms(lambda: decode_attention(d["qkv"], *caps, *args,
-                                                   t_dev, nh), 20)
+                                                   t_dev, nh),
+                          20 if nb <= 16 else 5)
         rows.append(dict(kernel="decode_attention", case=case, dtype="bf16",
                          ms=ms, max_abs_err=err,
                          bit_equal=(out == ref).float().mean().item()))
         del d, caps, out, ref
+        torch.cuda.empty_cache()
+
+
+def zoo_attention(own, dev, rows):
+    """The tree's bf16 slab attention at ZOO_ATTENTION's shapes (B=64,
+    Lp = pad_len(L)), back to back over two inputs (own.cuda_ms), checked
+    against the plain version within the bf16 tolerance, and SDPA on the
+    same inputs (rows "sdpa <case>")."""
+    import torch
+    import torch.nn.functional as F
+    from vitcap_tpu_torch.ops.attention import attention, attention_plain
+    from vitcap_tpu_torch.ops.fused_block import pad_len
+    g = torch.Generator().manual_seed(own.SEED + 40)
+    Bn = own.ZOO_B
+    for case, nh, hd, L in ZOO_ATTENTION:
+        Lp, H = pad_len(L), nh * hd
+        slab = [torch.randn(Bn, Lp, 3 * H, generator=g).to(dev,
+                                                            torch.bfloat16)
+                for _ in range(2)]
+        out, ref = attention(slab[0], nh, L), attention_plain(slab[0], nh, L)
+        err = own.compare(f"attention {case}", out, ref, torch.bfloat16)
+        eq = (out == ref).float().mean().item()
+        ms = own.cuda_ms(lambda i: attention(slab[i % 2], nh, L), 10)
+        mask = torch.zeros(Bn, 1, Lp, Lp, device=dev, dtype=torch.bfloat16)
+        mask[..., L:] = float("-inf")
+        qkv = [x.view(Bn, Lp, 3, nh, hd).permute(2, 0, 3, 1, 4) for x in slab]
+        lms = own.cuda_ms(lambda i: F.scaled_dot_product_attention(
+            qkv[i % 2][0], qkv[i % 2][1], qkv[i % 2][2], attn_mask=mask), 10)
+        rows.append(dict(kernel="attention", case=case, dtype="bf16", ms=ms,
+                         max_abs_err=err, bit_equal=eq))
+        rows.append(dict(kernel="attention", case=f"sdpa {case}",
+                         dtype="bf16", ms=lms))
+        del slab, qkv, mask, out, ref
         torch.cuda.empty_cache()
 
 
@@ -222,6 +263,7 @@ def worker(tree: str, decode_only: bool = False) -> None:
     own = _own_chip_smoke()
     if decode_only:
         decode_attention_graph(own, dev, rows)
+        zoo_attention(own, dev, rows)
         print("ROWS " + json.dumps(rows), flush=True)
         return
     cs.phase_kernels(dev, rows)

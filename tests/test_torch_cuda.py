@@ -333,8 +333,9 @@ def test_cuda_bf16_attention_ragged_lengths(cuda, online, past, L):
 @pytest.mark.parametrize("online", [False, True])
 @pytest.mark.parametrize("hd", [8, 40, 64, 128])
 def test_cuda_bf16_attention_head_dims(cuda, online, hd):
-    """Every head size runs on the tensor cores, padded to 64 or 128 with
-    zeros, in both modes and with each bias kind (and dropout)."""
+    """Every head size runs on the tensor cores, padded with zeros to its
+    instance's width (64 or 128 here), in both modes and with each bias
+    kind (and dropout)."""
     L = 200 if online else 150
     for bias_heads in (None, 1, 3):
         _bf16_attention_case(cuda, online, L, L if online else 171, hd,
@@ -342,6 +343,97 @@ def test_cuda_bf16_attention_head_dims(cuda, online, hd):
     if not online:
         _bf16_attention_case(cuda, False, L, 171, hd, 3, rate=0.2, nh=3,
                              seed=hd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("online", [False, True])
+@pytest.mark.parametrize("hd", [72, 80, 88, 96])
+def test_cuda_bf16_attention_tail_panel_instances(cuda, online, hd):
+    """Head dims 80 and 96 on the instances of their own width (72 and 88
+    zero-filled up to them), never the 128-column one: q . k^T over 5 or
+    6 k-steps (the tail panel in the 32- or 64-byte swizzle), p . v with
+    N = 64 + 16 or 32; both functions, each bias kind, ragged l_actual on
+    both sides of a key tile's edge and a ragged Lp (a q tile's idle
+    second warpgroup), prob dropout with a tensor-parallel salt; at least
+    99% bit-equal, every launch counted at hd > 64."""
+    from vitcap_tpu_torch.ops import attention as AT
+    assert AT.plan(hd) == (80 if hd <= 80 else 96)
+    for L in (63, 65, 129, 257):
+        for bias_heads in (None, 1, 3):
+            _bf16_attention_case(cuda, online, L, L if online else L + 15,
+                                 hd, bias_heads, nh=3, seed=hd + L)
+            assert ops.mode_counts()["attention[hd>64]"] == 1
+    if not online:
+        _bf16_attention_case(cuda, False, 197, 208, hd, 3, rate=0.2, nh=3,
+                             seed=hd)
+        g = torch.Generator().manual_seed(hd)
+        slab = torch.randn(2, 208, 3 * 2 * hd, generator=g).to(
+            cuda, torch.bfloat16)
+        kw = dict(rate=0.1, seed=99, nh_total=6, head_offset=2)
+        _close(attention(slab, 2, 197, **kw),
+               attention_plain(slab, 2, 197, **kw), torch.bfloat16)
+        _bits_equal(attention(slab, 2, 197, **kw),
+                    attention_plain(slab, 2, 197, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [80, 96])
+def test_cuda_bf16_attention_tail_panel_strided(cuda, hd):
+    """The 80- and 96-column instances on operands read by stride: chunk
+    views of one (B, Lp, 3H) tensor and separate q, k, v (attention_qkv,
+    with the bias and dropout), and K9's per-head (B, nH, L, hd) views of
+    (B, L, H) tensors (attention_heads, both functions, a per-head bias);
+    at least 99% bit-equal."""
+    from vitcap_tpu_torch.ops.attention import (attention_heads,
+                                                attention_heads_plain,
+                                                attention_qkv,
+                                                attention_qkv_plain,
+                                                heads_view)
+    g = torch.Generator().manual_seed(hd + 1)
+    B, nh, L, Lp = 2, 4, 190, 200
+    H = nh * hd
+    qkv = torch.randn(B, Lp, 3 * H, generator=g).to(cuda, torch.bfloat16)
+    sep = [torch.randn(B, Lp, H, generator=g).to(cuda, torch.bfloat16)
+           for _ in range(3)]
+    bias = torch.where(torch.rand(B, 1, Lp, Lp, generator=g) > 0.3, 0.0,
+                       -10000.0)
+    bias[..., 0] = 0.0
+    bias = bias.to(cuda)
+    for (q, k, v), bb, rate in ((qkv.chunk(3, dim=-1), None, 0.0),
+                                (sep, bias, 0.1)):
+        out = attention_qkv(q, k, v, nh, L, bb, rate, 5)
+        ref = attention_qkv_plain(q, k, v, nh, L, bb, rate, 5)
+        _close(out, ref, torch.bfloat16)
+        _bits_equal(out, ref)
+    hb = 0.5 * torch.randn(B, nh, L, L, generator=g).to(cuda)
+    q, k, v = (heads_view(t[:, :L], nh) for t in sep)
+    for online in (False, True):
+        out = attention_heads(q, k, v, hb, online=online)
+        ref = attention_heads_plain(q, k, v, L, hb, online=online)
+        _close(out, ref, torch.bfloat16)
+        _bits_equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_kernel_info(cuda):
+    """The bf16 attention kernels at each instance width (64, 80, 96,
+    128), both functions, with and without a bias, each with its
+    registers, spills and resident blocks; the 80- and 96-column
+    instances spill no more than the 128-column one (the online <96,
+    false> 8 bytes at 255 registers on the H100, <128, ...> 24 and 104),
+    fit at least as many blocks an SM and take less shared memory."""
+    from vitcap_tpu_torch.ops import attention as AT
+    info = AT.kernel_info()
+    assert len(info) == 16
+    by_name = {k["name"]: k for k in info}
+    for kernel in ("attention_wgmma_kernel", "attention_wgmma_online_kernel"):
+        for bias in ("false", "true"):
+            wide = by_name[f"{kernel}<128, {bias}>"]
+            for hdp in (80, 96):
+                k = by_name[f"{kernel}<{hdp}, {bias}>"]
+                assert k["local_bytes"] <= wide["local_bytes"], k
+                assert k["blocks_per_sm"] >= wide["blocks_per_sm"] >= 1, k
+                assert k["shared_bytes"] < wide["shared_bytes"], k
 
 
 @pytest.mark.cuda
@@ -452,13 +544,13 @@ def test_cuda_decode_attention_matches_plain(cuda, dtype, hd, nb, S):
     rows take a second pass over V, or a second row tile), contexts that
     take every cluster size plan() picks here (1, 2, 5, 6, 8 ranks) and
     one that needs more than 48 KB of shared memory, t at both ends.  bf16
-    on the cluster kernel: at least 99% of the outputs bit-equal over 64
-    images, the precondition of PERF.md section 2 (S = 2000 included).
-    A call of 3 images is not held to it: its tensor-core scores differ
-    from the plain version's in a last bit now and then, and a (head, row)
-    pair whose largest probabilities then round otherwise moves about a
-    fifth of its outputs by an ulp, 1-2% of such a call's share at any
-    length (F9, open; chip_smoke.py's sweep reports those shares)."""
+    on the cluster kernel: at least 99% of the outputs bit-equal in every
+    call, of 3 images and of 64 (S = 2000 included), the precondition of
+    PERF.md section 2.  A call of 3 images has 6-48 (head, row) pairs,
+    and one whose largest probabilities rounded otherwise would move
+    about a fifth of its outputs by an ulp, 1-2% of the call (F9): the
+    kernel's scores and exponential are the plain version's, operation
+    for operation, so every probability rounds alike."""
     B, nh, A = 3, 2, 6
     H = nh * hd
     for t in (1, 4, A):
@@ -478,6 +570,8 @@ def test_cuda_decode_attention_matches_plain(cuda, dtype, hd, nb, S):
         _close(out, ref, dtype)
         assert torch.equal(caps[0], d["cap_k"])
         assert torch.equal(caps[1], d["cap_v"])
+        if plan(S, nb, hd, A, dtype).ranks:
+            assert (out == ref).float().mean().item() >= 0.99, t
     if plan(S, nb, hd, A, dtype).ranks:
         Bm, t = 64, 4
         d = _decode_inputs(cuda, dtype, Bm, nb, H, S, A, seed=7)
@@ -1396,7 +1490,7 @@ def test_cuda_zoo_vit_runs_the_kernels_and_matches_plain(cuda, monkeypatch,
                                        "attention": 2, "attention_bwd": 0,
                                        "decode_attention": 0}
         modes = ops.mode_counts()
-        assert modes["attention[hdp128]"] == (2 if hd > 64 else 0)
+        assert modes["attention[hd>64]"] == (2 if hd > 64 else 0)
         assert modes["layer_norm[wide]"] == (4 if spec.hidden_size > 1024
                                              else 0)
         monkeypatch.setattr(FB, "KERNELS", FB.PLAIN)

@@ -5,14 +5,17 @@ ops.decode_step.plan(S, nb, hd, A) picks, from the shape alone, the bf16
 kernel (csrc/decode_attention.cu): decode_attention_cluster_kernel with
 clusters of `ranks` blocks along the context (rank q the keys [q kpr,
 (q + 1) kpr), the last rank the rest and the caption), or the simple kernel.
-split_order() renders the cluster kernel's order in torch: every
+split_order() renders the cluster kernel's arithmetic in torch, lane by
+lane: each score a chain of f32 adds per lane over its 16-byte units of
+the head dim, the four lanes joined as the two shuffles join them; every
 probability exp(s - m) against the global max of the row, rounded once;
-per rank an f32 partial P.V and denominator; the partials and denominators
-summed in rank order.  It must keep at least 99% of the bf16 outputs
-bit-equal to decode_attention_plain (the f32 outputs within 1e-5 of their
-scale), and a fused decode step built on it must agree with the JAX
-package's fused_decode_step (interpret mode) within
-tests/test_torch_decode.py's tolerance.  The CUDA kernels themselves are
+per rank an f32 partial P.V and denominator; the partials and
+denominators summed in rank order.  Its scores and bf16 probabilities
+must be bit-equal to decode_attention_plain's, at least 99% of its bf16
+outputs too (the f32 outputs within 1e-5 of their scale), and a fused
+decode step built on it must agree with the JAX package's
+fused_decode_step (interpret mode) within tests/test_torch_decode.py's
+tolerance.  The CUDA kernels themselves are
 held to the plain versions on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
 
@@ -105,12 +108,12 @@ def test_plan_edges():
     for hd in (8, 16, 32):
         assert TDS.plan(628, 3, hd, A).ranks == 0
     assert TDS.plan(6000, 1, 64, A).ranks == 0
-    # the layout's size by hand: K, V rows of 72 elements, 8 q rows and
-    # the MASK rows' k and v, 144 biases, 8 rows of 148 f32 scores, 16 of
+    # the layout's size by hand: K, V rows of 72 elements, 8 f32 q rows
+    # and the MASK rows' k and v, 144 biases, 8 rows of 148 f32 scores, 16 of
     # 152 bf16 probabilities, 16 statistics a row, two mbarriers; the K
     # rows' bytes hold the 7 other ranks' pushed partials (6 x 64 outputs
     # and 6 sums each), more bytes than the K rows when they outgrow them
-    assert TDS.cluster_smem(64, 3, 144, 8) == (2 * 144 * 72 * 2 + 8 * 72 * 2
+    assert TDS.cluster_smem(64, 3, 144, 8) == (2 * 144 * 72 * 2 + 8 * 64 * 4
                                                + 8 * 64 * 2 + 144 * 4
                                                + 8 * 148 * 4 + 16 * 152 * 2
                                                + 8 * 16 * 4 + 16)
@@ -134,14 +137,67 @@ def test_plan_is_monotone_in_the_context():
 # the cluster kernel's order of sums
 # ---------------------------------------------------------------------------
 
+def lane_dot(a, b, rounded=None):
+    """decode_attention_cluster_kernel's score of every a row (..., M, hd)
+    against every b row (..., N, hd) -> (..., M, N) f32: lane j of the
+    four a key takes the 16-byte units j, j + 4, ... of the head dim and
+    chains f32 FMAs from 0 over their products (exact for bf16 values, so
+    an add of the product); the shuffle over lanes 8 apart adds the
+    partner's sum to its own, then over lanes 16 apart.  rounded: a dtype
+    the products are rounded to first (the MASK row's own score; M = N
+    and the rows taken pairwise)."""
+    hd = a.shape[-1]
+    lanes = []
+    for j in range(4):
+        acc = torch.zeros(())
+        for u in range(j, hd // 8, 4):
+            for e in range(8):
+                d = 8 * u + e
+                if rounded is not None:
+                    x = (a[..., d] * b[..., d]).to(rounded).float()
+                else:
+                    x = a[..., :, None, d].float() * b[..., None, :, d].float()
+                acc = acc + x
+        lanes.append(acc)
+    x8 = [lanes[j] + lanes[j ^ 1] for j in range(4)]     # lanes 8 apart
+    return x8[0] + x8[2]                                 # lanes 16 apart
+
+
+def split_scores(qkv, cap_k, ctx_k, ctx_bias, t, num_heads):
+    """The cluster kernel's scores (s_cap, s_self, s_ctx) in the shapes of
+    decode_scores_plain, cap_k holding slot t-1."""
+    Bb, W, H3 = qkv.shape
+    H = H3 // 3
+    B, S, _ = ctx_k.shape
+    nb = Bb // B
+    hd = H // num_heads
+    q, kw, _ = qkv.split(H, dim=-1)
+
+    def heads(a):                                  # (N, L, H) -> (N, h, L, d)
+        return a.reshape(a.shape[0], a.shape[1], num_heads, hd).transpose(1, 2)
+
+    qs = heads(q) * torch.tensor(hd ** -0.5, dtype=qkv.dtype)
+    s_cap = lane_dot(qs, heads(cap_k[:, :t]))
+    s_self = lane_dot(qs, heads(kw[:, 1:2]).expand_as(qs),
+                      rounded=qkv.dtype)
+    s_self = s_self[..., None].clone()
+    s_self[:, :, 0] = float("-inf")
+    kx = heads(ctx_k)
+    s_ctx = torch.stack([lane_dot(qs[i], kx[i // nb]) for i in range(Bb)])
+    s_ctx = s_ctx + ctx_bias.repeat_interleave(nb, 0)[:, None, None, :]
+    return s_cap, s_self, s_ctx
+
+
 def split_order(qkv, cap_k, cap_v, ctx_k, ctx_v, ctx_bias, t, num_heads,
-                p=None):
+                p=None, parts=None):
     """decode_attention_plain's function in decode_attention_cluster_
-    kernel's order: one global max a row over the caption, the MASK row's
-    own term and the context; per rank the f32 partial P.V of its rounded
-    probabilities and the sum of their f32 values (the last rank with the
-    caption and the MASK term); partials and sums added in rank order.
-    p: the plan (default: plan() at hd 64, whatever the head dim)."""
+    kernel's order: its scores (split_scores); one global max a row over
+    the caption, the MASK row's own term and the context; per rank the f32
+    partial P.V of its rounded probabilities and the sum of their f32
+    values (the last rank with the caption and the MASK term); partials
+    and sums added in rank order.  p: the plan (default: plan() at hd 64,
+    whatever the head dim).  parts: a dict that receives the scores and
+    the unrounded f32 probabilities."""
     Bb, W, H3 = qkv.shape
     H = H3 // 3
     B, S, _ = ctx_k.shape
@@ -158,18 +214,15 @@ def split_order(qkv, cap_k, cap_v, ctx_k, ctx_v, ctx_bias, t, num_heads,
     def heads(a):                                  # (N, L, H) -> (N, h, L, d)
         return a.reshape(a.shape[0], a.shape[1], num_heads, hd).transpose(1, 2)
 
-    qs = heads(q) * torch.tensor(hd ** -0.5, dtype=dt)
-    qf = qs.float()
-    s_cap = qf @ heads(cap_k[:, :t]).float().transpose(-1, -2)   # (Bb,h,2,t)
-    s_self = (qs * heads(kw[:, 1:2])).float().sum(-1, keepdim=True)
-    s_self[:, :, 0] = float("-inf")
-    kx, vx = heads(ctx_k).float(), heads(ctx_v).float()
-    s_ctx = torch.einsum("bjhwd,bhsd->bjhws",
-                         qf.reshape(B, nb, num_heads, W, hd), kx)
-    s_ctx = (s_ctx + ctx_bias[:, None, None, None, :].float()) \
-        .reshape(Bb, num_heads, W, S)
+    s_cap, s_self, s_ctx = split_scores(qkv, cap_k, ctx_k, ctx_bias, t,
+                                        num_heads)
+    vx = heads(ctx_v).float()
     m = torch.maximum(torch.maximum(s_cap.amax(-1, keepdim=True),
                                     s_ctx.amax(-1, keepdim=True)), s_self)
+    if parts is not None:
+        parts.update(s_cap=s_cap, s_self=s_self, s_ctx=s_ctx,
+                     p_cap=torch.exp(s_cap - m), p_self=torch.exp(s_self - m),
+                     p_ctx=torch.exp(s_ctx - m))
     o_sum = l_sum = None
     for q_, (lo, hi) in enumerate(_rank_ranges(S, p)):
         pc = torch.exp(s_ctx[..., lo:hi] - m)
@@ -236,6 +289,39 @@ def test_split_order_matches_plain(dtype, hd, S, nb):
             scale = ref.abs().max().item()
             err = (out - ref).abs().max().item()
             assert err <= 1e-5 * scale, (t, err, scale)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("S,nb,t", [(70, 1, 1), (70, 3, 6), (628, 3, 20),
+                                    (300, 10, 7)])
+def test_split_order_scores_and_probabilities_bit_equal(hd, S, nb, t):
+    """bf16: the cluster kernel's scores (caption, the MASK row's own,
+    context) and its bf16 probabilities, rendered lane by lane, are
+    bit-equal to decode_attention_plain's (decode_scores_plain, then
+    torch.exp against the row max), every call size and t: F9's
+    precondition that the two round each probability alike."""
+    B, nh = 3, 2
+    d = _inputs(torch.bfloat16, B, nb, nh, hd, S, A, seed=S + nb + t + hd)
+    H = nh * hd
+    q, kw, vw = d["qkv"].split(H, dim=-1)
+    cap_k = d["cap_k"].clone()
+    cap_k[:, t - 1] = kw[:, 0]
+    plain = TDS.decode_scores_plain(q, kw, cap_k, d["ctx_k"], d["bias"], t,
+                                    nh)
+    parts = {}
+    split_order(d["qkv"], d["cap_k"].clone(), d["cap_v"].clone(),
+                d["ctx_k"], d["ctx_v"], d["bias"], t, nh,
+                p=TDS.plan(S, nb, hd, A), parts=parts)
+    for name, ref in zip(("s_cap", "s_self", "s_ctx"), plain):
+        assert torch.equal(parts[name], ref), name
+    m = torch.maximum(torch.maximum(plain[0].amax(-1, keepdim=True),
+                                    plain[2].amax(-1, keepdim=True)),
+                      plain[1])
+    for name, s in zip(("p_cap", "p_self", "p_ctx"), plain):
+        ref = torch.exp(s - m)
+        assert torch.equal(parts[name], ref), name
+        assert torch.equal(parts[name].to(torch.bfloat16),
+                           ref.to(torch.bfloat16)), name
 
 
 @pytest.fixture(scope="module", params=[64, 128], ids=["hd64", "hd128"])

@@ -154,6 +154,25 @@ def test_arguments_override_env_and_name_the_backend(no_dist_env, captured,
         "tcp://127.0.0.1:5", 2, 1)
 
 
+def test_default_device_is_the_card(no_dist_env, captured, monkeypatch):
+    """With no device named, the rank's device is the card: without one
+    the init raises RuntimeError, from the arguments or the environment,
+    and makes no group (never a quiet Gloo group on the CPU); device="cpu"
+    makes the Gloo one."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TD.ensure_init_distributed("127.0.0.1:5", 2, 1)
+    for k, v in (("MASTER_ADDR", "127.0.0.1"), ("WORLD_SIZE", "2"),
+                 ("RANK", "0")):
+        monkeypatch.setenv(k, v)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TD.ensure_init_distributed()
+    assert captured == []
+    TD.ensure_init_distributed(device="cpu")
+    (backend,), _ = captured[0]
+    assert backend == "gloo"
+
+
 def test_a_world_size_without_an_address_raises(no_dist_env, captured,
                                                  monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "2")

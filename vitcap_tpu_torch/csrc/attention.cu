@@ -75,11 +75,18 @@
 // is the transposed B operand from shared memory (the building blocks,
 // shared with attention_bwd.cu, are in wgmma.cuh).  No score, probability
 // or accumulator goes through shared memory.  K and V tiles stream through
-// a two-stage ring of cp.async copies written in the 128-byte swizzle the
-// wgmma descriptors name (a head-dim row of 64 bf16 is one 128-byte line;
-// hd 128 is two panels of 64 columns), so the next tile loads while the
-// current one is in the products; pass 1 of the two-pass kernel loads only
-// K.  Pass 1 finds the row max (without a bias, of the raw products,
+// a two-stage ring of cp.async copies written in the swizzle the wgmma
+// descriptors name, so the next tile loads while the current one is in
+// the products; pass 1 of the two-pass kernel loads only K.  Each kernel is
+// built per head width HDP (ops/attention.py plan picks it): 64 (one
+// panel of 64 columns, a 128-byte line a row, in the 128-byte swizzle),
+// 80 and 96 (that panel, then a tail panel of 16 or 32 columns, 32- or
+// 64-byte lines in the 32- or 64-byte swizzle; q . k^T in 5 or 6 k-steps
+// of 16, the tail's with descriptors of its own swizzle, and p . v as a
+// wgmma of N = 64 plus one of N = 16 or 32 over the tail: 37.5% and 25%
+// less tensor-core work, shared memory and output accumulators than the
+// 128-column instance, ViT-H/14's and the old ViT-S/16's heads) and 128
+// (two panels).  Pass 1 finds the row max (without a bias, of the raw products,
 // scaled once: rounding is monotonic); pass 2 forms p = exp(s - m) once,
 // sums l from it (the undropped sum, as the plain version sums it) and
 // multiplies by v, so the output accumulator needs no rescaling.  exp is
@@ -91,9 +98,9 @@
 // to back and find it in L2.  The online kernel runs each 128-key tile's
 // p . v into fresh register accumulators and folds them into the output
 // accumulator as acc * corr + pv per element.  Head sizes are padded with
-// zeros to 64 or 128 (16, 32, 64 or 128 on the CUDA cores), which leaves
-// the dot products unchanged; ragged l_actual and Lp are masked in the
-// kernel.
+// zeros to the instance's width (16, 32, 64 or 128 on the CUDA cores),
+// which leaves the dot products unchanged; ragged l_actual and Lp are
+// masked in the kernel.
 //
 // f32: CUDA cores, one thread per query row with q and the output
 // accumulator in registers, K/V tiles staged as f32 in shared memory
@@ -126,30 +133,65 @@ struct WgSmem {
   static constexpr size_t BYTES = Q + 4 * T + 1024;  // + base alignment
 };
 
+// The output accumulators a thread holds for HDP head columns: NP
+// panels of 64 columns (32 each) and the tail panel's TN (0, 8 or 16; an
+// unused one when 0).
+template <int HDP>
+struct OutAcc {
+  static constexpr int NP = HDP / 64, TN = Panels<HDP>::TAIL / 2;
+  float o[NP][32];
+  float ot[TN > 0 ? TN : 1];
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int np = 0; np < NP; ++np)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) o[np][e] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < (TN > 0 ? TN : 1); ++e) ot[e] = 0.0f;
+  }
+  __device__ __forceinline__ void fence() {
+#pragma unroll
+    for (int np = 0; np < NP; ++np) fence_regs(o[np]);
+    if constexpr (TN > 0) fence_regs(ot);
+  }
+};
+
 // o / max(l, 1e-30) -> rows row0, row0 + 8 (those below Lp), columns below
 // hd of head h in the (B, Lp, H) output, as bf16 pairs
-template <int NP>
-__device__ __forceinline__ void store_out(const float (&o)[NP][32],
+template <int N>
+__device__ __forceinline__ void store_cols(const float* o, int c0,
+                                           const float (&den)[2],
+                                           bf16* __restrict__ out, int b,
+                                           int h, int Lp, int H, int hd,
+                                           int row0, int cq) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int col = c0 + 8 * j + cq;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row0 + 8 * i;
+      if (col < hd && r < Lp)
+        *reinterpret_cast<__nv_bfloat162*>(
+            out + ((size_t)b * Lp + r) * H + h * hd + col) =
+            __floats2bfloat162_rn(o[4 * j + 2 * i] / den[i],
+                                  o[4 * j + 2 * i + 1] / den[i]);
+    }
+  }
+}
+
+template <int HDP>
+__device__ __forceinline__ void store_out(const OutAcc<HDP>& acc,
                                           const float (&l)[2],
                                           bf16* __restrict__ out, int b,
                                           int h, int Lp, int H, int hd,
                                           int row0, int cq) {
   const float den[2] = {fmaxf(l[0], 1e-30f), fmaxf(l[1], 1e-30f)};
 #pragma unroll
-  for (int np = 0; np < NP; ++np)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = np * 64 + 8 * j + cq;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = row0 + 8 * i;
-        if (col < hd && r < Lp)
-          *reinterpret_cast<__nv_bfloat162*>(
-              out + ((size_t)b * Lp + r) * H + h * hd + col) =
-              __floats2bfloat162_rn(o[np][4 * j + 2 * i] / den[i],
-                                    o[np][4 * j + 2 * i + 1] / den[i]);
-      }
-    }
+  for (int np = 0; np < OutAcc<HDP>::NP; ++np)
+    store_cols<64>(acc.o[np], 64 * np, den, out, b, h, Lp, H, hd, row0, cq);
+  if constexpr (OutAcc<HDP>::TN > 0)
+    store_cols<2 * OutAcc<HDP>::TN>(acc.ot, 64 * OutAcc<HDP>::NP, den, out,
+                                    b, h, Lp, H, hd, row0, cq);
 }
 
 // Two passes over the keys: steps 0 .. nt - 1 find the row max over K
@@ -168,7 +210,7 @@ __global__ void __launch_bounds__(WG_THREADS)
   const uint32_t sk = sq + S::Q, sv = sk + 2 * S::T;
   const int h = blockIdx.x, q0 = blockIdx.y * WG_Q, b = blockIdx.z;
   const WgThread me(q0);
-  const uint32_t sqw = sq + me.wg * (WG_ROWS * 128);
+  const int arow = me.wg * WG_ROWS;  // this warpgroup's rows of the q tile
   const unsigned salt = drop.salt(b, h);  // the global head
   const bf16* kh = k.head(b, h);
   const bf16* vh = v.head(b, h);
@@ -187,11 +229,8 @@ __global__ void __launch_bounds__(WG_THREADS)
   cp_commit();
 
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
-  float o[NP][32];
-#pragma unroll
-  for (int np = 0; np < NP; ++np)
-#pragma unroll
-    for (int e = 0; e < 32; ++e) o[np][e] = 0.0f;
+  OutAcc<HDP> acc;
+  acc.zero();
 
   for (int step = 0; step < 2 * nt; ++step) {
     const bool pass2 = step >= nt;
@@ -206,7 +245,7 @@ __global__ void __launch_bounds__(WG_THREADS)
     fence_async_smem();
     __syncthreads();
     float s[KT / 64][32];
-    qk_product<HDP, KT>(s, sqw, sk + st);
+    qk_product<HDP, KT>(s, sq, sk + st, arow);
     if (!pass2 && !BIAS) {
       // max(round(s * scale)) = round(max(s) * scale) for scale > 0
       finish_scores<KT, false, false>(s, bv, scale, kc, l_actual, -INFINITY,
@@ -242,21 +281,22 @@ __global__ void __launch_bounds__(WG_THREADS)
             }
             p[4 * n + j / 2][2 * (j % 2) + i] = pack_bf16(e0, e1);
           }
-#pragma unroll
-      for (int np = 0; np < NP; ++np) fence_regs(o[np]);
+      acc.fence();
       wg_fence();
 #pragma unroll
-      for (int np = 0; np < NP; ++np) pv_product<KT>(o[np], p, sv + st, np);
+      for (int np = 0; np < NP; ++np)
+        pv_product<KT>(acc.o[np], p, sv + st, np);
+      if constexpr (OutAcc<HDP>::TN > 0)
+        pv_tail<HDP, KT>(acc.ot, p, sv + st + NP * (KT * 128));
       wg_commit();
       wg_wait0();
-#pragma unroll
-      for (int np = 0; np < NP; ++np) fence_regs(o[np]);
+      acc.fence();
     }
     __syncthreads();  // the stage is free for the load two steps on
   }
   l[0] = quad_sum(l[0]);
   l[1] = quad_sum(l[1]);
-  store_out<NP>(o, l, out, b, h, Lp, H, hd, me.row0, me.cq);
+  store_out<HDP>(acc, l, out, b, h, Lp, H, hd, me.row0, me.cq);
 }
 
 // K9's q-tiled function past 1024: one pass over 128-key tiles, each with
@@ -275,7 +315,7 @@ __global__ void __launch_bounds__(WG_THREADS)
   const uint32_t sk = sq + S::Q, sv = sk + 2 * S::T;
   const int h = blockIdx.x, q0 = blockIdx.y * WG_Q, b = blockIdx.z;
   const WgThread me(q0);
-  const uint32_t sqw = sq + me.wg * (WG_ROWS * 128);
+  const int arow = me.wg * WG_ROWS;  // this warpgroup's rows of the q tile
   const bf16* kh = k.head(b, h);
   const bf16* vh = v.head(b, h);
   const BiasRows br(bias, b, h, me.row0, Lp);
@@ -311,11 +351,8 @@ __global__ void __launch_bounds__(WG_THREADS)
   }
 
   float m[2] = {ON_NEG, ON_NEG}, l[2] = {0.0f, 0.0f};
-  float o[NP][32];
-#pragma unroll
-  for (int np = 0; np < NP; ++np)
-#pragma unroll
-    for (int e = 0; e < 32; ++e) o[np][e] = 0.0f;
+  OutAcc<HDP> acc;
+  acc.zero();
 
   for (int t = 0; t < nt; ++t) {
     const int kc = t * KT + me.cq;
@@ -329,7 +366,7 @@ __global__ void __launch_bounds__(WG_THREADS)
     fence_async_smem();
     __syncthreads();
     float s[KT / 64][32];
-    qk_product<HDP, KT>(s, sqw, sk + st);
+    qk_product<HDP, KT>(s, sq, sk + st, arow);
     finish_scores<KT, false, BIAS>(s, bv, 1.0f, kc, l_actual, ON_NEG, edge);
     float corr[2], part[2] = {0.0f, 0.0f};
     uint32_t p[KT / 16][4];
@@ -366,11 +403,27 @@ __global__ void __launch_bounds__(WG_THREADS)
       fence_regs(pv);
 #pragma unroll
       for (int e = 0; e < 32; ++e)
-        o[np][e] = __fadd_rn(__fmul_rn(o[np][e], corr[(e / 2) % 2]), pv[e]);
+        acc.o[np][e] =
+            __fadd_rn(__fmul_rn(acc.o[np][e], corr[(e / 2) % 2]), pv[e]);
+    }
+    if constexpr (OutAcc<HDP>::TN > 0) {
+      constexpr int TN = OutAcc<HDP>::TN;
+      float pv[TN];
+#pragma unroll
+      for (int e = 0; e < TN; ++e) pv[e] = 0.0f;
+      fence_regs(pv);
+      wg_fence();
+      pv_tail<HDP, KT>(pv, p, sv + st + NP * (KT * 128));
+      wg_commit();
+      wg_wait0();
+      fence_regs(pv);
+#pragma unroll
+      for (int e = 0; e < TN; ++e)
+        acc.ot[e] = __fadd_rn(__fmul_rn(acc.ot[e], corr[(e / 2) % 2]), pv[e]);
     }
     __syncthreads();  // the stage is free for the load two tiles on
   }
-  store_out<NP>(o, l, out, b, h, Lp, H, hd, me.row0, me.cq);
+  store_out<HDP>(acc, l, out, b, h, Lp, H, hd, me.row0, me.cq);
 }
 
 // ---------------------------------------------------------------------------
@@ -534,7 +587,9 @@ static int launch_bf16(const Operand<bf16>* ops, Bias bs, void* out, int B,
 // q, k, v: base pointers with batch, head and row strides in elements;
 // bias: base pointer (or null) with batch and head strides, rows of Lp
 // (the wrapper checks alignment and shapes); out: contiguous (B, Lp, H).
-// online: K9's online softmax past 1024 (no dropout).
+// online: K9's online softmax past 1024 (no dropout).  hdp: the bf16
+// instance's head columns (64, 80, 96 or 128, at least hd;
+// ops/attention.py plan), ignored in f32.
 extern "C" int vc_attention(
     const void* q, long long q_sb, long long q_sh, long long q_sr,
     const void* k, long long k_sb, long long k_sh, long long k_sr,
@@ -542,7 +597,7 @@ extern "C" int vc_attention(
     const void* bias, long long bias_sb, long long bias_sh, void* out, int B,
     int Lp, int H, int nh, int l_actual, float scale, unsigned seed,
     unsigned thresh, float inv, int nh_total, int head_offset, int online,
-    int dtype, void* stream) {
+    int hdp, int dtype, void* stream) {
   if (nh <= 0 || H % nh || head_offset < 0 || nh_total < nh + head_offset)
     return (int)cudaErrorInvalidValue;
   const Dropout drop{seed, thresh, inv, thresh != 0u || inv != 1.0f,
@@ -558,10 +613,21 @@ extern "C" int vc_attention(
         {static_cast<const bf16*>(q), q_sb, q_sh, q_sr},
         {static_cast<const bf16*>(k), k_sb, k_sh, k_sr},
         {static_cast<const bf16*>(v), v_sb, v_sh, v_sr}};
-    rc = hd <= 64 ? launch_bf16<64>(ops, bs, out, B, Lp, H, nh, l_actual,
-                                    scale, drop, online, s)
-                  : launch_bf16<128>(ops, bs, out, B, Lp, H, nh, l_actual,
-                                     scale, drop, online, s);
+    if (hdp < hd) return (int)cudaErrorInvalidValue;
+#define VC_ATT_CASE(HDP)                                                   \
+  case HDP:                                                                \
+    rc = launch_bf16<HDP>(ops, bs, out, B, Lp, H, nh, l_actual, scale,     \
+                          drop, online, s);                                \
+    break;
+    switch (hdp) {
+      VC_ATT_CASE(64)
+      VC_ATT_CASE(80)
+      VC_ATT_CASE(96)
+      VC_ATT_CASE(128)
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+#undef VC_ATT_CASE
   } else if (dtype == VC_F32) {
     const Operand<float> ops[3] = {
         {static_cast<const float*>(q), q_sb, q_sh, q_sr},
@@ -596,10 +662,18 @@ extern "C" int vc_attention(
 static const WgKernel WG_KERNELS[] = {
     WG_KERNEL(attention_wgmma_kernel, 64, false, WG_KT),
     WG_KERNEL(attention_wgmma_kernel, 64, true, WG_KT),
+    WG_KERNEL(attention_wgmma_kernel, 80, false, WG_KT),
+    WG_KERNEL(attention_wgmma_kernel, 80, true, WG_KT),
+    WG_KERNEL(attention_wgmma_kernel, 96, false, WG_KT),
+    WG_KERNEL(attention_wgmma_kernel, 96, true, WG_KT),
     WG_KERNEL(attention_wgmma_kernel, 128, false, WG_KT),
     WG_KERNEL(attention_wgmma_kernel, 128, true, WG_KT),
     WG_KERNEL(attention_wgmma_online_kernel, 64, false, ON_KT),
     WG_KERNEL(attention_wgmma_online_kernel, 64, true, ON_KT),
+    WG_KERNEL(attention_wgmma_online_kernel, 80, false, ON_KT),
+    WG_KERNEL(attention_wgmma_online_kernel, 80, true, ON_KT),
+    WG_KERNEL(attention_wgmma_online_kernel, 96, false, ON_KT),
+    WG_KERNEL(attention_wgmma_online_kernel, 96, true, ON_KT),
     WG_KERNEL(attention_wgmma_online_kernel, 128, false, ON_KT),
     WG_KERNEL(attention_wgmma_online_kernel, 128, true, ON_KT),
 };

@@ -47,27 +47,34 @@
 // 1076); the last rank also takes the beams' caption keys (slots < t, slot
 // t-1 read from the window), so the caption is one more key range whose
 // scores are masked to their own beam.  A rank:
-// - issues 16-byte cp.async loads of all its K rows, then all its V rows
-//   (three commit groups, zero-filled past its keys), so the V bytes are
-//   in flight while the scores are computed: 33-37 KB a block at the
-//   flagship's shapes (130-146 keys of 256 bytes), four blocks an SM
-//   (54 KB of shared memory each); only the last rank reads t, after its
-//   context loads are issued; the bias and the MASK rows' own k and v go
-//   to shared memory while the rows fly;
-// - computes its scores on the tensor cores, mma.sync m16n8k16 bf16 with
-//   f32 accumulators, transposed: 16 keys as M against the window rows as
-//   N = 8 (a group's beams: 2 rows greedy, 6 beam-3, up to 4 tiles of 8),
-//   so few rows waste little; q and K through ldmatrix from rows padded
-//   by 16 bytes (no bank conflicts); each mma sums its 16 products from
-//   zero and an IEEE add takes it into the running f32 sum; adds the bias
-//   or the caption mask, keeps the scores in shared memory and its
-//   per-row max;
+// - issues 16-byte cp.async loads of its K rows, each lane the chunks it
+//   will itself read (so the scores wait on no barrier for K), the
+//   context's in four commit groups by key iteration, then the caption's
+//   and the MASK rows' own k and v, then every V row (zero-filled past
+//   its keys), so the later K and the V bytes are in flight while the
+//   first scores are computed: 33-37 KB a block at the flagship's shapes
+//   (130-146 keys of 256 bytes), four blocks an SM (55 KB of shared
+//   memory each); only the last rank reads t, after its context loads are
+//   issued; the bias and the scaled q rows (f32) go to shared memory
+//   while the rows fly;
+// - computes its scores on the CUDA cores in one fixed order that the
+//   plain version repeats (ops/decode_step.py decode_attention_plain):
+//   four lanes a key, lane j the 16-byte chunks j, j + 4, ... of the head
+//   dim, a chain of f32 FMAs from 0 over its elements (a bf16 x bf16
+//   product is exact in f32, so an FMA rounds as a multiply and an add
+//   do), the four partial sums joined by two shuffles as (p0 + p1) + (p2 +
+//   p3); a pass per two beams (one at hd 128) holds their q rows in
+//   registers, so each K unit is read and widened once for four rows; adds
+//   the bias or the caption mask, keeps the scores in shared memory and
+//   its per-row max.  The MASK row's own score takes the same order over
+//   products rounded to bf16;
 // - exchanges the per-row maxes with the other ranks: each rank writes
 //   its maxes into every rank's shared memory (distributed shared memory)
 //   and arrives on that rank's mbarrier, then waits on its own while its
 //   V rows land.  No online rescaling: every probability is exp(s -
-//   m_global) (ex2.approx, as the forward attention kernels compute it)
-//   rounded once, as the plain version rounds it;
+//   m_global) (expf, which torch.exp computes on a CUDA tensor) rounded
+//   once, as the plain version rounds it, so a probability is bit-equal
+//   to the plain version's (F9);
 // - each warp turns its own scores into bf16 probabilities (the
 //   denominator sums the f32 values: per lane, over a row's lanes, over
 //   the warps in order) and the block forms its partial o^T = V^T P^T on
@@ -85,7 +92,9 @@
 // global timer at each step): a block spends under half its life waiting
 // for its K rows and the rest in a chain of dependent steps (scores, the
 // exchange, the probabilities, P.V, the push) that four blocks an SM do
-// not hide.
+// not hide.  The scores on the CUDA cores cost about hd FMAs a (key,
+// row), 430 a thread at the flagship's beam-3 shape; the first pass runs
+// as its K rows land.
 //
 // f32, and bf16 at hd 8/16/32 (or a context too long for the cluster
 // kernel's shared memory): decode_attention_simple_kernel, the first
@@ -95,6 +104,8 @@
 #include <math.h>
 
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "wgmma.cuh"
 
@@ -126,17 +137,21 @@ constexpr int DC_THREADS = 128;
 constexpr int DC_WARPS = DC_THREADS / 32;
 constexpr int DC_MAX_RANKS = 8;  // the portable cluster size
 constexpr int DC_KEYS = 16;      // keys per group (mma's K of P.V)
+constexpr int DC_LPK = 4;        // lanes a key in the score loop
+constexpr int DC_KEYS_IT = DC_THREADS / DC_LPK;  // keys a block iteration
+constexpr int DC_CTX_GROUPS = 4;  // commit groups of the context K rows
 constexpr size_t DC_SMEM_LIMIT = 232448;  // a block's shared bytes, H100
 
 // Shared memory of one block, in bytes, for NR tiles of 8 window rows (R
 // of them used), `kmax` keys (a multiple of 16) and `ranks` ranks;
-// ops/decode_step.py cluster_smem repeats it.  K and V rows, q rows and P rows are padded by 16 bytes (ldmatrix
-// reads eight rows an odd number of 16-byte units apart: no bank
-// conflicts).  Once the scores are formed the K rows are dead, and on the
-// last rank the other ranks push their partial outputs and denominators
-// there.
+// ops/decode_step.py cluster_smem repeats it.  K, V and P rows are padded
+// by 16 bytes (ldmatrix, and the score loop's 16-byte reads of eight keys,
+// touch rows an odd number of 16-byte units apart: no bank conflicts); the
+// q rows are f32, each lane's 16-byte reads the same for eight lanes.
+// Once the scores are formed the K rows are dead, and on the last rank the
+// other ranks push their partial outputs and denominators there.
 struct DcLayout {
-  int kst, sst, pst;  // K/V/q row, score row, P row strides (elements)
+  int kst, sst, pst;  // K/V row, score row, P row strides (elements)
   size_t k, v, q, kvw, bs, s, p, stat, bar, total;  // byte offsets, size
   __host__ __device__ DcLayout(int hd, int nr, int kmax, int ranks, int R) {
     const int rows = 8 * nr, prows = rows > 16 ? rows : 16;
@@ -149,7 +164,7 @@ struct DcLayout {
     k = 0;
     v = k + (kbytes > recv ? kbytes : recv);
     q = v + kbytes;
-    kvw = q + (size_t)rows * kst * 2;  // the MASK rows' own k, then v
+    kvw = q + (size_t)rows * hd * 4;   // the MASK rows' own k, then v
     bs = kvw + (size_t)rows * hd * 2;  // per key: bias, 0 or -inf
     s = bs + (size_t)kmax * 4;
     // the f32 scores, then (once they are probabilities) the partial
@@ -240,15 +255,46 @@ __device__ __forceinline__ void mma_add(float (&d)[4], const uint32_t (&a)[4],
   d[3] += c3;
 }
 
+// The score loop's lane split (DC_LPK = 4 lanes a key): lane `lane` takes
+// key lane % 8 of its warp's eight and quarter j = lane / 8 of the head
+// dim, the 16-byte chunks j, j + 4, ... of the row.  Its partial sum
+// shuffled over lanes 8 and 16 apart is (p0 + p1) + (p2 + p3) on every
+// lane (IEEE addition commutes exactly).
+__device__ __forceinline__ float quarter_sum(float p) {
+  p += __shfl_xor_sync(0xffffffffu, p, 8);
+  return p + __shfl_xor_sync(0xffffffffu, p, 16);
+}
+
+// the two f32 values of a bf16 pair (the low half is the lower element)
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// wait until this thread's cp.async group `g` (0-4 of the cluster kernel's
+// six) has landed
+__device__ __forceinline__ void dc_wait_group(int g) {
+  switch (g) {
+    case 0: cp_wait<5>(); break;
+    case 1: cp_wait<4>(); break;
+    case 2: cp_wait<3>(); break;
+    case 3: cp_wait<2>(); break;
+    default: cp_wait<1>(); break;
+  }
+}
+
 // Block (rank, h, b) of a cluster of `ranks` blocks along x: head h of
 // beam group b, the beams [b nb, (b + 1) nb) of image b / groups.  Rank q takes
 // the context keys [q kpr, min(S, (q + 1) kpr)), the last rank those from
 // (ranks - 1) kpr to S and the caption keys c = j t + a of beam j, slot
 // a < t.  kmax: the key capacity of the shared buffers (a multiple of 16,
 // at least every rank's count).  NR: tiles of 8 window rows (2 nb <= 8 NR).
-// The products run transposed, keys (and head columns) as mma's M and
-// the window rows as its N = 8, so a group's few rows waste little:
-// S^T = K q^T per 16 keys, o^T = V^T P^T per 16 head columns.
+// The scores run on the CUDA cores in the fixed order of quarter_sum; P.V
+// on the tensor cores, transposed, the head columns as mma's M and the
+// window rows as its N = 8, so a group's few rows waste little: o^T = V^T
+// P^T per 16 head columns.
 template <int HD, int NR>
 __global__ void __launch_bounds__(DC_THREADS, NR == 1 ? 4 : 2)
     decode_attention_cluster_kernel(const bf16* __restrict__ qkv, bf16* cap_k,
@@ -260,14 +306,19 @@ __global__ void __launch_bounds__(DC_THREADS, NR == 1 ? 4 : 2)
                                     int groups, int S, int A, int H,
                                     float scale, int kpr, int kmax) {
   constexpr int U = HD / 8;              // 16-byte units per head row
+  constexpr int CPL = U / DC_LPK;        // units of a key a lane takes
+  constexpr int EPL = 8 * CPL;           // elements of a key a lane takes
   constexpr int RP = 8 * NR;             // window rows, padded
   constexpr int MTW = HD / 16 / DC_WARPS;  // P.V tiles of 16 columns a warp
   static_assert(MTW >= 1, "a warp takes at least 16 head columns");
+  static_assert(CPL >= 1 && U % DC_LPK == 0, "whole units a lane");
   cg::cluster_group cl = cg::this_cluster();
   const int rank = (int)cl.block_rank(), ranks = (int)cl.num_blocks();
   const int h = blockIdx.y, b = blockIdx.z, bc = b / groups;
   const int R = 2 * nb;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  // the score loop's key of this lane in an iteration, and its quarter
+  const int kown = 8 * warp + lane % 8, qj = lane / 8;
   const size_t H3 = 3 * (size_t)H;
   const bool last = rank == ranks - 1;
   const int c0 = min(S, rank * kpr);
@@ -277,7 +328,7 @@ __global__ void __launch_bounds__(DC_THREADS, NR == 1 ? 4 : 2)
   const DcLayout L(HD, NR, kmax, ranks, R);
   bf16* ks = reinterpret_cast<bf16*>(dc_smem + L.k);
   bf16* vs = reinterpret_cast<bf16*>(dc_smem + L.v);
-  bf16* qs = reinterpret_cast<bf16*>(dc_smem + L.q);
+  float* qf = reinterpret_cast<float*>(dc_smem + L.q);
   bf16* kvw = reinterpret_cast<bf16*>(dc_smem + L.kvw);
   float* bs = reinterpret_cast<float*>(dc_smem + L.bs);
   float* ss = reinterpret_cast<float*>(dc_smem + L.s);
@@ -312,15 +363,28 @@ __global__ void __launch_bounds__(DC_THREADS, NR == 1 ? 4 : 2)
   const bf16* kx = ctx_k + ((size_t)bc * S + c0) * H + h * HD;
   const bf16* vx = ctx_v + ((size_t)bc * S + c0) * H + h * HD;
 
-  // 1. three cp.async groups: the context's K rows; the caption's K rows
-  //    (last rank: slot t-1 from the window) and the MASK rows' own k and
-  //    v; every V row.  Only the last rank reads t (the MASK row's
-  //    position; prev sits at t - 1), after its context loads are issued,
-  //    so no rank's loads wait on it.
-  for (int i = tid; i < nctx * U; i += DC_THREADS)
-    cp_async16(smem_u32(ks + (i / U) * L.kst + 8 * (i % U)),
-               kx + (size_t)(i / U) * H + 8 * (i % U), 16);
-  cp_commit();
+  // 1. six cp.async groups: the context's K rows of key iterations 0, 1, 2
+  //    and 3 on (each lane the units of its own keys that it reads in the
+  //    score loop); the caption's K rows (last rank: slot t-1 from the
+  //    window) and the MASK rows' own k and v; every V row.  Only the last
+  //    rank reads t (the MASK row's position; prev sits at t - 1), after
+  //    its context loads are issued, so no rank's loads wait on it.
+  auto load_k = [&](int k, const bf16* src) {
+#pragma unroll
+    for (int m = 0; m < CPL; ++m) {
+      const int u = qj + DC_LPK * m;
+      cp_async16(smem_u32(ks + k * L.kst + 8 * u), src + 8 * u, 16);
+    }
+  };
+  const int nit = (nctx + DC_KEYS_IT - 1) / DC_KEYS_IT;
+  for (int grp = 0; grp < DC_CTX_GROUPS; ++grp) {
+    const int it1 = grp < DC_CTX_GROUPS - 1 ? min(grp + 1, nit) : nit;
+    for (int it = grp; it < it1; ++it) {
+      const int k = it * DC_KEYS_IT + kown;
+      if (k < nctx) load_k(k, kx + (size_t)k * H);
+    }
+    cp_commit();
+  }
   const int t = last ? *t_ptr : 1;
   if (t < 1 || t > A) __trap();
   const int nk = nctx + (last ? nb * t : 0);
@@ -332,12 +396,11 @@ __global__ void __launch_bounds__(DC_THREADS, NR == 1 ? 4 : 2)
     if (a == t - 1) return win + (size_t)2 * j * H3 + part_off;
     return cap + cap0 + ((size_t)j * A + a) * H;
   };
-  for (int i = tid; i < (nkp - nctx) * U; i += DC_THREADS) {
-    const int k = nctx + i / U, u = i % U;
-    const bool on = k < nk;
-    cp_async16(smem_u32(ks + k * L.kst + 8 * u),
-               on ? cap_src(k - nctx, H, cap_k) + 8 * u : ctx_k, on ? 16 : 0);
-  }
+  for (int k = kown + (nctx > kown ? (nctx - kown + DC_KEYS_IT - 1) /
+                                         DC_KEYS_IT * DC_KEYS_IT
+                                   : 0);
+       k < nk; k += DC_KEYS_IT)
+    load_k(k, cap_src(k - nctx, H, cap_k));
   if (last)
     for (int i = tid; i < 2 * nb * U; i += DC_THREADS) {
       const int kv = i / (nb * U), j = i / U % nb, u = i % U;
@@ -356,27 +419,24 @@ __global__ void __launch_bounds__(DC_THREADS, NR == 1 ? 4 : 2)
   cp_commit();
 
   // 2. while those fly: per key the bias (context), 0 (caption) or -inf
-  //    (past the keys); the scaled q rows (zero rows past R); the last rank
-  //    writes each beam's prev k/v into its caption cache (this launch
-  //    reads slot t-1 from the window, never from the cache)
+  //    (past the keys); the scaled q rows, rounded to bf16, as f32; the
+  //    last rank writes each beam's prev k/v into its caption cache (this
+  //    launch reads slot t-1 from the window, never from the cache)
   for (int k = tid; k < nkp; k += DC_THREADS)
     bs[k] = k < nctx ? bias[(size_t)bc * S + c0 + k] : k < nk ? 0.0f
                                                              : -INFINITY;
   const float sc = rnd<bf16>(scale);
-  for (int i = tid; i < RP * U; i += DC_THREADS) {
+  for (int i = tid; i < R * U; i += DC_THREADS) {
     const int r = i / U, u = i % U;
-    uint4 w = make_uint4(0, 0, 0, 0);
-    if (r < R) {
-      w = *reinterpret_cast<const uint4*>(win + r * H3 + 8 * u);
-      __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(&w);
+    const uint4 w = *reinterpret_cast<const uint4*>(win + r * H3 + 8 * u);
+    const uint32_t* x = reinterpret_cast<const uint32_t*>(&w);
+    float4* dst = reinterpret_cast<float4*>(qf + r * HD + 8 * u);
 #pragma unroll
-      for (int e = 0; e < 4; e++) {
-        const float2 f = __bfloat1622float2(x[e]);
-        x[e] = __floats2bfloat162_rn(rnd<bf16>(f.x * sc),
-                                     rnd<bf16>(f.y * sc));
-      }
-    }
-    *reinterpret_cast<uint4*>(qs + r * L.kst + 8 * u) = w;
+    for (int e = 0; e < 2; e++)
+      dst[e] = make_float4(rnd<bf16>(bf16_lo(x[2 * e]) * sc),
+                           rnd<bf16>(bf16_hi(x[2 * e]) * sc),
+                           rnd<bf16>(bf16_lo(x[2 * e + 1]) * sc),
+                           rnd<bf16>(bf16_hi(x[2 * e + 1]) * sc));
   }
   if (last) {
     for (int i = tid; i < 2 * nb * U; i += DC_THREADS) {
@@ -387,88 +447,117 @@ __global__ void __launch_bounds__(DC_THREADS, NR == 1 ? 4 : 2)
       *reinterpret_cast<uint4*>((kv ? cap_v : cap_k) + dst) = w;
     }
   }
-  cp_wait<1>();
   __syncthreads();
 
-  // 3. the MASK rows' own scores (last rank): products rounded, f32 sum
-  if (last) {
-    for (int j = warp; j < nb; j += DC_WARPS) {
-      const int r = 2 * j + 1;
-      float p = 0.0f;
-      for (int d = lane; d < HD; d += 32)
-        p += rnd<bf16>(to_f32(qs[r * L.kst + d]) * to_f32(kvw[j * HD + d]));
-      p = warp_sum(p);
-      if (lane == 0) s_self[r] = p;
-    }
-  }
-
-  // 4. scores S^T = K q^T on the tensor cores, warp w the key groups w,
-  //    w + 4, ...; lane holds keys lane / 4 (+ 8) of a group and rows
-  //    2 (lane % 4) (+ 1) of each row tile
-  const uint32_t ks_a = smem_u32(ks), vs_a = smem_u32(vs);
-  const uint32_t qs_a = smem_u32(qs), ps_a = smem_u32(ps);
-  uint32_t qb[NR][HD / 16][2];  // q as the B operand, 16 columns a step
+  // 3. scores, a pass per NBP beams from j0 (2 at hd 64, then 1 for an odd
+  //    last beam; 1 at hd 128) over rows 2 j (prev) and 2 j + 1 (MASK) of
+  //    each, their q quarters in registers; iteration it takes keys [32 it,
+  //    32 it + 32), warp w the eight from 32 it + 8 w.  The first pass waits
+  //    for each key's own cp.async group.  Caption keys of another beam are
+  //    masked; lanes 8 w' .. 8 w' + 7 store the pass's row w'.
+  auto pass = [&](int j0, auto beams) {
+    constexpr int NBP = decltype(beams)::value;  // beams of this pass
+    constexpr int NRW = 2 * NBP;
+    const int r0 = 2 * j0;
+    float qr[NRW][EPL];
 #pragma unroll
-  for (int n = 0; n < NR; ++n)
+    for (int w = 0; w < NRW; ++w)
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; kk += 2) {
-      uint32_t x[4];
-      ldsm_x4(x, qs_a + ((8 * n + lane % 8) * L.kst + 16 * kk +
-                         8 * (lane / 8)) * 2);
-      qb[n][kk][0] = x[0];
-      qb[n][kk][1] = x[1];
-      qb[n][kk + 1][0] = x[2];
-      qb[n][kk + 1][1] = x[3];
-    }
-  float mx[NR][2];
+      for (int m = 0; m < CPL; ++m)
 #pragma unroll
-  for (int n = 0; n < NR; ++n) mx[n][0] = mx[n][1] = -INFINITY;
-  const int kl = lane / 4, rl = 2 * (lane % 4);  // a lane's key, row
-#pragma unroll 2
-  for (int g = warp; g < G; g += DC_WARPS) {
-    float c[NR][4] = {};
+        for (int e = 0; e < 2; ++e) {
+          const int d = 8 * (qj + DC_LPK * m) + 4 * e;
+          const float4 x =
+              *reinterpret_cast<const float4*>(qf + (r0 + w) * HD + d);
+          qr[w][8 * m + 4 * e] = x.x;
+          qr[w][8 * m + 4 * e + 1] = x.y;
+          qr[w][8 * m + 4 * e + 2] = x.z;
+          qr[w][8 * m + 4 * e + 3] = x.w;
+        }
+    float mx[NRW];
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t ka[4];
-      ldsm_x4(ka, ks_a + ((g * DC_KEYS + lane % 8 + 8 * (lane / 8 % 2)) *
-                              L.kst + 16 * kk + 8 * (lane / 16)) * 2);
+    for (int w = 0; w < NRW; ++w) mx[w] = -INFINITY;
+    for (int kb = 8 * warp; kb < nkp; kb += DC_KEYS_IT) {
+      const int k = kb + lane % 8;
+      if (j0 == 0)
+        dc_wait_group(k < nctx ? min(kb / DC_KEYS_IT, DC_CTX_GROUPS - 1)
+                               : DC_CTX_GROUPS);
+      float a[NRW];
 #pragma unroll
-      for (int n = 0; n < NR; ++n) mma_add(c[n], ka, qb[n][kk][0], qb[n][kk][1]);
-    }
-    const int k0 = g * DC_KEYS + kl;
-    const float b0 = bs[k0], b1 = bs[k0 + 8];
-    // a caption key of another beam is masked
-    const int j0 = k0 >= nctx && k0 < nk ? (k0 - nctx) / t : -1;
-    const int j1 = k0 + 8 >= nctx && k0 + 8 < nk ? (k0 + 8 - nctx) / t : -1;
+      for (int w = 0; w < NRW; ++w) a[w] = 0.0f;
+      if (k < nk) {
 #pragma unroll
-    for (int n = 0; n < NR; ++n)
+        for (int m = 0; m < CPL; ++m) {
+          const uint4 u4 = *reinterpret_cast<const uint4*>(
+              ks + k * L.kst + 8 * (qj + DC_LPK * m));
+          const uint32_t x[4] = {u4.x, u4.y, u4.z, u4.w};
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = 8 * n + rl + e % 2, k = k0 + 8 * (e / 2);
-        const int j = e / 2 ? j1 : j0;
-        float s = c[n][e] + (e / 2 ? b1 : b0);
-        if (j >= 0 && j != row / 2) s = -INFINITY;
-        mx[n][e % 2] = fmaxf(mx[n][e % 2], s);
-        ss[row * L.sst + k] = s;
+          for (int e = 0; e < 4; ++e) {
+            const float lo = bf16_lo(x[e]), hi = bf16_hi(x[e]);
+#pragma unroll
+            for (int w = 0; w < NRW; ++w) a[w] = fmaf(qr[w][8 * m + 2 * e], lo, a[w]);
+#pragma unroll
+            for (int w = 0; w < NRW; ++w)
+              a[w] = fmaf(qr[w][8 * m + 2 * e + 1], hi, a[w]);
+          }
+        }
       }
-  }
+      const float bk = bs[k];
+      const int jb = k >= nctx && k < nk ? (k - nctx) / t : -1;
 #pragma unroll
-  for (int n = 0; n < NR; ++n)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float m = mx[n][e];
-#pragma unroll
-      for (int o = 4; o < 32; o <<= 1)
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      if (lane < 4) red[warp * RP + 8 * n + rl + e] = m;
+      for (int w = 0; w < NRW; ++w) {
+        float s = quarter_sum(a[w]) + bk;
+        if (jb >= 0 && jb != j0 + w / 2) s = -INFINITY;
+        mx[w] = fmaxf(mx[w], s);
+        if (qj == w) ss[(r0 + w) * L.sst + k] = s;
+      }
     }
-  __syncthreads();
-  if (tid < RP) {
-    float m = red[tid];
 #pragma unroll
-    for (int w = 1; w < DC_WARPS; ++w) m = fmaxf(m, red[w * RP + tid]);
-    if (last && tid < R && tid % 2) m = fmaxf(m, s_self[tid]);
-    m_loc[tid] = m;
+    for (int w = 0; w < NRW; ++w) {
+#pragma unroll
+      for (int o = 1; o < 8; o <<= 1)
+        mx[w] = fmaxf(mx[w], __shfl_xor_sync(0xffffffffu, mx[w], o));
+      if (lane == 8 * w) red[warp * RP + r0 + w] = mx[w];
+    }
+  };
+  constexpr int MAXB = HD == 64 ? 2 : 1;  // beams a pass (q registers)
+  int j = 0;
+  for (; j + MAXB <= nb; j += MAXB)
+    pass(j, std::integral_constant<int, MAXB>());
+  if (MAXB == 2 && j < nb) pass(j, std::integral_constant<int, 1>());
+  cp_wait<1>();  // every group but V: the last rank's MASK k and v too
+  __syncthreads();
+
+  // 4. beam j = 8 w + lane % 8 (warps 0 and 1): the MASK row's own score
+  //    (last rank: products rounded to bf16, the score loop's order) and
+  //    both rows' maxes over this rank's keys
+  if (8 * warp < nb) {
+    const int j = kown, r = 2 * j + 1;
+    float p = 0.0f;
+    if (last && j < nb) {
+#pragma unroll
+      for (int m = 0; m < CPL; ++m)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int d = 8 * (qj + DC_LPK * m) + e;
+          p += rnd<bf16>(qf[r * HD + d] * to_f32(kvw[j * HD + d]));
+        }
+    }
+    p = quarter_sum(p);
+    if (qj == 0 && j < nb) {
+      float m0 = red[2 * j], m1 = red[r];
+#pragma unroll
+      for (int w = 1; w < DC_WARPS; ++w) {
+        m0 = fmaxf(m0, red[w * RP + 2 * j]);
+        m1 = fmaxf(m1, red[w * RP + r]);
+      }
+      if (last) {
+        s_self[r] = p;
+        m1 = fmaxf(m1, p);
+      }
+      m_loc[2 * j] = m0;
+      m_loc[r] = m1;
+    }
   }
   __syncthreads();
 
@@ -490,10 +579,12 @@ __global__ void __launch_bounds__(DC_THREADS, NR == 1 ? 4 : 2)
     return row < R ? m : 0.0f;
   };
 
-  // 6. each warp's own scores to probabilities: exp(s - m) rounded to bf16
-  //    for P (zero past the keys), the denominator's share from the f32
-  //    values (per lane, then over the lanes of a row, then over the warps
-  //    in order)
+  // 6. warp w's key groups w, w + 4, ... to probabilities: exp(s - m)
+  //    rounded to bf16 for P (zero past the keys and the rows), the
+  //    denominator's share from the f32 values (per lane, then over the
+  //    lanes of a row, then over the warps in order); lane holds keys
+  //    lane / 4 (+ 8) of a group and rows 2 (lane % 4) (+ 1) of each tile
+  const int kl = lane / 4, rl = 2 * (lane % 4);  // a lane's key, row
   float mg[NR][2], ls[NR][2];
 #pragma unroll
   for (int n = 0; n < NR; ++n)
@@ -509,7 +600,8 @@ __global__ void __launch_bounds__(DC_THREADS, NR == 1 ? 4 : 2)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int row = 8 * n + rl + e % 2, k = g * DC_KEYS + kl + 8 * (e / 2);
-        const float p = vc_exp(ss[row * L.sst + k] - mg[n][e % 2]);
+        const float p =
+            row < R ? expf(ss[row * L.sst + k] - mg[n][e % 2]) : 0.0f;
         ls[n][e % 2] += p;
         ps[row * L.pst + k] = __float2bfloat16(p);
       }
@@ -533,7 +625,7 @@ __global__ void __launch_bounds__(DC_THREADS, NR == 1 ? 4 : 2)
 #pragma unroll
     for (int w = 1; w < DC_WARPS; ++w) l += red[w * RP + tid];
     if (last && tid % 2) {
-      const float pe = vc_exp(s_self[tid] - row_max(tid));
+      const float pe = expf(s_self[tid] - row_max(tid));
       p_self[tid] = pe;
       l += pe;
     }
@@ -542,6 +634,7 @@ __global__ void __launch_bounds__(DC_THREADS, NR == 1 ? 4 : 2)
 
   // 7. partial o^T = V^T P^T on the tensor cores: warp w takes the head
   //    columns [16 MTW w, 16 MTW (w + 1)), every key group
+  const uint32_t vs_a = smem_u32(vs), ps_a = smem_u32(ps);
   {
     float o[MTW][NR][4] = {};
     for (int g = 0; g < G; ++g) {

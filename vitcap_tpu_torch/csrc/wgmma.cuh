@@ -4,8 +4,10 @@
 // cp.async or TMA, wgmma.m64nNk16 products (N 64, 128) with the
 // accumulators (and the A operand of the attention's second product) in
 // registers, mbarriers, and the bias, max and sum helpers that run on the
-// accumulator layout.  Head dims are padded with zeros to 64 (one 128-byte
-// line per row) or 128 (two panels of 64 columns).
+// accumulator layout.  A tile of HDP head columns (64, 80, 96 or 128; the
+// head dim padded with zeros up to it) is HDP / 64 panels of 64 columns in
+// the 128-byte swizzle (one 128-byte line a row), then for HDP 80 and 96 a
+// tail panel of 16 or 32 columns in the 32- or 64-byte swizzle.
 #pragma once
 
 #include <math.h>
@@ -84,15 +86,44 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// wgmma shared-memory matrix descriptor in the 128-byte swizzle: start
-// address, leading and stride byte offsets (each >> 4), layout type 1 in
-// bits 62-63
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
+// wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (each >> 4), the swizzle in bits 62-63 (1: 128
+// bytes, 2: 64, 3: 32)
+__device__ __forceinline__ uint64_t desc_sw(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo, uint64_t mode) {
   return (uint64_t)((addr >> 4) & 0x3FFF) |
          ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (mode << 62);
 }
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return desc_sw(addr, lbo, sbo, 1);
+}
+
+// The head-dim panels of a tile of HDP columns and ROWS rows: FULL panels
+// of 64 columns, ROWS x 128 bytes each in the 128-byte swizzle, then (HDP
+// 80, 96) a tail panel of TAIL columns, ROWS x TB bytes in the TB-byte
+// swizzle.  Each swizzle XORs the 16-byte unit of a row with address bits
+// 7 and up, so every panel of a 1024-byte aligned tile starts on its
+// pattern.
+template <int HDP>
+struct Panels {
+  static constexpr int FULL = HDP / 64;
+  static constexpr int TAIL = HDP % 64;      // 0, 16 or 32 columns
+  static constexpr int TB = 2 * TAIL;        // its row bytes
+  static constexpr uint64_t TMODE = TAIL == 16 ? 3 : 2;  // 32 / 64 bytes
+  static_assert(TAIL == 0 || TAIL == 16 || TAIL == 32, "HDP 64, 80, 96, 128");
+  // byte offset of row r's 16-byte unit c (c < HDP / 8)
+  template <int ROWS>
+  __device__ __forceinline__ static uint32_t unit(int r, int c) {
+    if constexpr (TAIL != 0) {
+      if (c >= 8 * FULL)
+        return FULL * (ROWS * 128) + r * TB +
+               (((c - 8 * FULL) ^ (r / (128 / TB) % (TB / 16))) << 4);
+    }
+    return (c / 8) * (ROWS * 128) + r * 128 + (((c % 8) ^ (r % 8)) << 4);
+  }
+};
 
 #define WG_D8(o)                                                       \
   "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]),          \
@@ -206,6 +237,31 @@ __device__ __forceinline__ void regs_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS));
 }
 
+// d += A . B, 64 x 16 x 16 and 64 x 32 x 16 (an attention tile's tail
+// panel), A from registers, B MN-major (transposed) in shared memory
+__device__ __forceinline__ void wgmma_rs_t(float (&d)[8],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "1;\n}\n"
+      : WG_D8(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs_t(float (&d)[16],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : WG_D8(0), WG_D8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // d += A . B, 64 x 64 x 16, A from registers (four bf16 pairs per thread),
 // B MN-major (transposed) in shared memory
 __device__ __forceinline__ void wgmma_rs_t(float (&d)[32],
@@ -222,55 +278,70 @@ __device__ __forceinline__ void wgmma_rs_t(float (&d)[32],
 // rows [r0, r0 + ROWS) of one head's hd columns -> the swizzled tile at
 // shared address dst by cp.async (the block's THREADS threads sharing the
 // copies), zero-filled past `valid` rows and past hd columns.  Row r's
-// 16-byte chunk c of panel c / 8 lands at r * 128 + ((c % 8) ^ (r % 8)) *
-// 16 of that panel.
+// 16-byte chunk c lands at Panels<HDP>::unit<ROWS>(r, c): in a panel of 64
+// columns at r * 128 + ((c % 8) ^ (r % 8)) * 16 of that panel.
 template <int HDP, int ROWS, int THREADS = WG_THREADS>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
                                           long long sr, int r0, int valid,
                                           int hd) {
   constexpr int CH = HDP / 8;  // 16-byte chunks per row
-  static_assert(ROWS * CH % THREADS == 0, "whole copies per thread");
+  constexpr int N = ROWS * CH;
 #pragma unroll
-  for (int it = 0; it < ROWS * CH / THREADS; ++it) {
+  for (int it = 0; it < (N + THREADS - 1) / THREADS; ++it) {
     const int i = it * THREADS + threadIdx.x;
+    if (N % THREADS && i >= N) break;
     const int r = i / CH, c = i % CH;
     const bool ok = r0 + r < valid && c * 8 < hd;
     const bf16* p = ok ? src + (size_t)(r0 + r) * sr + c * 8 : src;
-    cp_async16(dst + (c / 8) * (ROWS * 128) + r * 128 +
-                   (((c % 8) ^ (r % 8)) << 4),
-               p, ok ? 16 : 0);
+    cp_async16(dst + Panels<HDP>::template unit<ROWS>(r, c), p, ok ? 16 : 0);
   }
 }
 
-// Issues s[n] (+)= this warpgroup's 64 rows of A (at sa, in panels of
-// AROWS rows) . rows [64 n, 64 n + 64) of the B tile (KT x HDP at sb) as
-// columns, both K-major: a k-step of 16 columns is 32 bytes into a panel's
-// 128-byte line, 8-row groups 1024 bytes apart.  The caller fences,
-// commits and waits, so several products can share one wait.
+// Issues s[n] (+)= rows [arow, arow + 64) of the A tile (AROWS x HDP at
+// sa) . rows [64 n, 64 n + 64) of the B tile (KT x HDP at sb) as columns,
+// both K-major: a k-step of 16 columns is 32 bytes into a panel's line,
+// 8-row groups 8 lines apart (1024 bytes in a 64-column panel, 256 or 512
+// in a tail panel of 16 or 32 columns).  The caller fences, commits and
+// waits, so several products can share one wait.
 template <int HDP, int KT, int AROWS = WG_Q>
 __device__ __forceinline__ void ss_issue(float (&s)[KT / 64][32],
-                                         uint32_t sa, uint32_t sb) {
+                                         uint32_t sa, uint32_t sb,
+                                         int arow = 0) {
+  using P = Panels<HDP>;
 #pragma unroll
   for (int n = 0; n < KT / 64; ++n)
 #pragma unroll
     for (int kk = 0; kk < HDP / 16; ++kk) {
-      const uint32_t col = (kk % 4) * 32;
-      wgmma_ss(s[n],
-               desc_sw128(sa + (kk / 4) * (AROWS * 128) + col, 16, 1024),
-               desc_sw128(sb + (kk / 4) * (KT * 128) + n * 64 * 128 + col,
-                          16, 1024),
-               kk > 0);
+      if (kk < 4 * P::FULL) {
+        const uint32_t col = (kk % 4) * 32;
+        wgmma_ss(s[n],
+                 desc_sw128(sa + (kk / 4) * (AROWS * 128) + arow * 128 + col,
+                            16, 1024),
+                 desc_sw128(sb + (kk / 4) * (KT * 128) + n * 64 * 128 + col,
+                            16, 1024),
+                 kk > 0);
+      } else {
+        const uint32_t col = (kk - 4 * P::FULL) * 32;
+        wgmma_ss(s[n],
+                 desc_sw(sa + P::FULL * (AROWS * 128) + arow * P::TB + col,
+                         16, 8 * P::TB, P::TMODE),
+                 desc_sw(sb + P::FULL * (KT * 128) + n * 64 * P::TB + col,
+                         16, 8 * P::TB, P::TMODE),
+                 1);
+      }
     }
 }
 
-// s = q . k^T as one waited product: ss_issue between the fences
+// s = q . k^T as one waited product: ss_issue between the fences, this
+// warpgroup's rows [arow, arow + 64) of the q tile at sq
 template <int HDP, int KT>
 __device__ __forceinline__ void qk_product(float (&s)[KT / 64][32],
-                                           uint32_t sqw, uint32_t sk) {
+                                           uint32_t sq, uint32_t sk,
+                                           int arow) {
 #pragma unroll
   for (int n = 0; n < KT / 64; ++n) fence_regs(s[n]);
   wg_fence();
-  ss_issue<HDP, KT>(s, sqw, sk);
+  ss_issue<HDP, KT>(s, sq, sk, arow);
   wg_commit();
   wg_wait0();
 #pragma unroll
@@ -290,6 +361,22 @@ __device__ __forceinline__ void pv_product(float (&d)[32],
     wgmma_rs_t(d, p[ks],
                desc_sw128(sv + np * (KT * 128) + ks * 16 * 128, KT * 128,
                           1024));
+}
+
+// d += p . V[:, 64 FULL : HDP] over the tile's KT rows (HDP 80, 96): V's
+// tail panel at sv (KT rows of TB bytes) the MN-major B operand, N = TAIL
+// columns: a k-step of 16 rows is 16 TB bytes on, 8-row groups 8 TB
+// bytes apart
+template <int HDP, int KT>
+__device__ __forceinline__ void pv_tail(float (&d)[Panels<HDP>::TAIL / 2],
+                                        const uint32_t (&p)[KT / 16][4],
+                                        uint32_t sv) {
+  using P = Panels<HDP>;
+#pragma unroll
+  for (int ks = 0; ks < KT / 16; ++ks)
+    wgmma_rs_t(d, p[ks],
+               desc_sw(sv + ks * 16 * P::TB, KT * P::TB, 8 * P::TB,
+                       P::TMODE));
 }
 
 // The accumulator layout of a 64 x 64 wgmma tile: thread (warp w of the

@@ -44,9 +44,9 @@ SIGNATURES = {
     # q, k, v (each pointer, batch, head and row strides), bias (pointer,
     # batch and head strides), out, B, Lp, H, nh, l_actual, scale, seed,
     # thresh, inv, nh_total, head_offset (the dropout salt's global head),
-    # online, dtype, stream
+    # online, the bf16 instance's head columns, dtype, stream
     "vc_attention": [*_OPERAND * 3, *_BIAS, _P, _I, _I, _I, _I, _I, _F, _U,
-                     _U, _F, _I, _I, _I, _I, _P],
+                     _U, _F, _I, _I, _I, _I, _I, _P],
     # q, k, v, g (each pointer, batch, head and row strides), bias (pointer,
     # batch and head strides), dq, dk, dv, mlr, B, Lp, H, nh, l_actual,
     # scale, seed, thresh, inv, nh_total, head_offset, dtype, stream

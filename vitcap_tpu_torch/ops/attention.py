@@ -42,11 +42,14 @@ softmax is the same function) and of 512-px training.  K9 past 1024
 pre-scaled in its own dtype, and a softmax that runs online over key tiles
 of ONLINE_TK with each tile's probabilities rounded against that tile's
 running max (attention_heads_plain says it line for line).
-mode_launches counts the launches with dropout, past MAX_LP, through
-attention_qkv ("non_slab"), through attention_heads ("heads"), in the
-online mode, at a head dim past 64 ("hdp128": the kernels' instances
-for head dims up to 128, which pad the head dim to 128 in shared memory;
-the model zoo's ViT-H/14 at 80 and old ViT-S/16 at 96) and on a
+The bf16 kernels are built per head width: plan(hd) picks the instance,
+the fewest of HD_INSTANCES columns (64, 80, 96, 128) that hold hd, whose
+tiles keep the head dim at that width in shared memory (hd padded with
+zeros up to it): the model zoo's ViT-H/14 at 80 and old ViT-S/16 at 96
+each run an instance of their own width.  mode_launches counts the
+launches with dropout, past MAX_LP, through attention_qkv ("non_slab"),
+through attention_heads ("heads"), in the online mode, at a head dim past
+64 ("hd>64": the 80-, 96- and 128-column instances) and on a
 tensor-parallel rank's head slice with the global salt ("tp": nh_total
 past the call's heads).  kernel_info() reads the bf16 kernels' launch
 configuration (registers, spills, shared memory, resident blocks per SM)
@@ -72,8 +75,32 @@ mode_launches = {"dropout": 0,    # launches with prob dropout
                  "non_slab": 0,   # launches through attention_qkv
                  "heads": 0,      # launches through attention_heads (K9)
                  "online": 0,     # launches in the online mode (K9 > 1024)
-                 "hdp128": 0,     # launches at a head dim past 64
+                 "hd>64": 0,      # launches at a head dim past 64
                  "tp": 0}         # launches on a tensor-parallel head slice
+HD_INSTANCES = (64, 80, 96, 128)  # the bf16 kernels' head columns
+WG_Q = 128          # query rows of a bf16 block (two warpgroups)
+WG_KT = 64          # keys of a bf16 K or V tile (ONLINE_TK in the online mode)
+SMEM_LIMIT = 232448  # shared bytes a block can have on the H100
+
+
+def plan(hd: int) -> int:
+    """The bf16 kernels' instance for head dim hd, the one place the choice
+    is made: the fewest head columns of HD_INSTANCES that hold hd (the
+    tiles zero-filled past it).  64: one panel of 64 columns in the
+    128-byte swizzle; 80 and 96: that panel and a tail panel of 16 or 32
+    columns in the 32- or 64-byte swizzle (q . k^T in 5 or 6 k-steps of
+    16, p . v with N = 64 + 16 or 32); 128: two panels."""
+    check_head_dim("attention", hd, max(HD_INSTANCES))
+    return next(w for w in HD_INSTANCES if hd <= w)
+
+
+def instance_smem(hdp: int, online: bool = False) -> int:
+    """Dynamic shared bytes of a bf16 block of instance hdp
+    (csrc/attention.cu WgSmem): the WG_Q q rows, two stages of K and of V
+    tiles (WG_KT keys, ONLINE_TK in the online mode), 1024 bytes to align
+    the base."""
+    kt = ONLINE_TK if online else WG_KT
+    return WG_Q * hdp * 2 + 4 * kt * hdp * 2 + 1024
 
 
 def split_slab(slab: torch.Tensor):
@@ -228,7 +255,7 @@ def _attention(q, k, v, l_actual, bias, rate, seed, online, mode,
     if q.device.type != "cuda":
         raise RuntimeError(f"attention: no kernel for device {q.device}")
     B, nh, Lp, hd = q.shape
-    check_head_dim("attention", hd, 128)
+    hdp = plan(hd)
     args = [a for name, t in (("q", q), ("k", k), ("v", v))
             for a in operand_args(f"attention: {name}", t, (B, nh, Lp, hd),
                                   q.dtype, q.device)]
@@ -240,7 +267,7 @@ def _attention(q, k, v, l_actual, bias, rate, seed, online, mode,
                                             q.device),
                           out.data_ptr(), B, Lp, nh * hd, nh, int(l_actual),
                           float(hd ** -0.5), *drop, nh_total,
-                          int(head_offset), int(online),
+                          int(head_offset), int(online), hdp,
                           _build.dtype_code(q.dtype),
                           torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "attention")
@@ -249,7 +276,7 @@ def _attention(q, k, v, l_actual, bias, rate, seed, online, mode,
     mode_launches["dropout"] += rate > 0.0
     mode_launches["long"] += Lp > MAX_LP
     mode_launches["online"] += bool(online)
-    mode_launches["hdp128"] += hd > 64
+    mode_launches["hd>64"] += hd > 64
     mode_launches["tp"] += nh_total != nh
     if mode != "slab":
         mode_launches[mode] += 1

@@ -145,15 +145,15 @@ def cluster_smem(hd: int, nb: int, keys_max: int, ranks: int) -> int:
     """Shared bytes of one decode_attention_cluster_kernel block of a
     cluster of `ranks` (csrc/decode_attention.cu DcLayout): K rows (on the
     last rank later the partials the other ranks push) and V rows of
-    keys_max keys, the q rows, the MASK rows' own k and v, a bias per key,
-    the f32 scores (then partial outputs), the bf16 probabilities (at
+    keys_max keys, the f32 q rows, the MASK rows' own k and v, a bias per
+    key, the f32 scores (then partial outputs), the bf16 probabilities (at
     least 16 rows), per-row statistics and every rank's maxes, two
-    mbarriers; K/V/q/P rows padded by 16 bytes."""
+    mbarriers; K/V/P rows padded by 16 bytes."""
     rows = ROW_TILE * row_tiles(nb)
     kst, sst, pst = hd + 8, keys_max + 4, keys_max + 8
     kbytes = keys_max * kst * 2
     recv = (ranks - 1) * 2 * nb * (hd + 1) * 4
-    return (max(kbytes, recv) + kbytes + rows * kst * 2 + rows * hd * 2
+    return (max(kbytes, recv) + kbytes + rows * hd * 4 + rows * hd * 2
             + keys_max * 4 + rows * max(sst, hd) * 4
             + max(16, rows) * pst * 2
             + rows * (CLUSTER_WARPS + 4 + MAX_RANKS) * 4 + 16)
@@ -206,13 +206,97 @@ def kernel_info(S: int = 628, nb: int = 3, A: int = 20) -> list:
     return info
 
 
+SCORE_LANES = 4   # lanes a key in the cluster kernel's score loop
+SCORE_UNIT = 8    # bf16 elements of a lane's 16-byte unit
+
+
+def _lane_order(x: torch.Tensor) -> torch.Tensor:
+    """(..., hd) -> (..., SCORE_LANES, E) f32: lane j's elements of a key
+    in the cluster kernel's score loop, in its chain order (the 8-element
+    units j, j + 4, ... of the head dim); hd is padded with zeros to a
+    multiple of 32 first (a zero only adds +0)."""
+    x = x.float()
+    pad = -x.shape[-1] % (SCORE_LANES * SCORE_UNIT)
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    return x.unflatten(-1, (-1, SCORE_LANES, SCORE_UNIT)) \
+        .transpose(-3, -2).flatten(-2)
+
+
+def _lane_tree(p: torch.Tensor) -> torch.Tensor:
+    """(..., 4) lane partial sums -> (p0 + p1) + (p2 + p3)."""
+    return (p[..., 0] + p[..., 1]) + (p[..., 2] + p[..., 3])
+
+
+def ordered_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (..., M, hd) . b (..., N, hd)^T -> (..., M, N) f32 in the cluster
+    kernel's order (batch dims broadcast): per lane a chain of f32 adds
+    from 0 over its elements' products (_lane_order), then _lane_tree.
+    For operands that hold bf16 values each product is exact in f32, so
+    the kernel's FMA chain rounds as these adds do."""
+    a = _lane_order(a).unsqueeze(-3)               # (..., M, 1, 4, E)
+    b = _lane_order(b).unsqueeze(-4)               # (..., 1, N, 4, E)
+    acc = torch.zeros((), device=a.device)
+    for e in range(a.shape[-1]):
+        acc = acc + a[..., e] * b[..., e]
+    return _lane_tree(acc)
+
+
+def ordered_sum(x: torch.Tensor) -> torch.Tensor:
+    """(..., hd) -> (...,) f32: ordered_dot's order over given terms."""
+    x = _lane_order(x)
+    acc = torch.zeros((), device=x.device)
+    for e in range(x.shape[-1]):
+        acc = acc + x[..., e]
+    return _lane_tree(acc)
+
+
+def decode_scores_plain(q: torch.Tensor, kw: torch.Tensor,
+                        cap_k: torch.Tensor, ctx_k: torch.Tensor,
+                        ctx_bias: torch.Tensor, t: int, num_heads: int):
+    """The scores of decode_attention_plain: q, kw (Bb, 2, H) the window's
+    q and k, cap_k (Bb, >= t, H) with slot t-1 written, ctx_k (B, S, H),
+    ctx_bias (B, S) f32 -> f32 (s_cap (Bb, h, 2, t), s_self (Bb, h, 2, 1),
+    s_ctx (Bb, h, 2, S)), q scaled in its dtype first.  s_cap and s_ctx:
+    ordered_dot of the scaled q and the keys, s_ctx plus the bias;
+    s_self: ordered_sum of the products rounded to the compute dtype, -inf
+    on the prev row (it does not see the MASK key)."""
+    Bb, W, H = q.shape
+    B, S, _ = ctx_k.shape
+    nb = Bb // B
+    hd = H // num_heads
+
+    def heads(a):                                  # (N, L, H) -> (N, h, L, d)
+        return a.reshape(a.shape[0], a.shape[1], num_heads, hd).transpose(1, 2)
+
+    qs = heads(q) * torch.tensor(hd ** -0.5, dtype=q.dtype)  # rounded in dt
+    s_cap = ordered_dot(qs, heads(cap_k[:, :t]))               # (Bb,h,2,t)
+    s_self = ordered_sum(qs * heads(kw[:, 1:2]))[..., None]
+    s_self[:, :, 0] = float("-inf")
+    s_ctx = ordered_dot(qs.reshape(B, nb, num_heads, W, hd),
+                        heads(ctx_k)[:, None])             # (B,nb,h,2,S)
+    s_ctx = (s_ctx + ctx_bias[:, None, None, None, :].float()) \
+        .reshape(Bb, num_heads, W, S)
+    return s_cap, s_self, s_ctx
+
+
 def decode_attention_plain(qkv: torch.Tensor, cap_k: torch.Tensor,
                            cap_v: torch.Tensor, ctx_k: torch.Tensor,
                            ctx_v: torch.Tensor, ctx_bias: torch.Tensor, t,
                            num_heads: int) -> torch.Tensor:
     """Plain PyTorch version.  qkv (Bb, 2, 3H): the window's q/k/v;
     cap_k/v (Bb, A, H), written in place at slot t-1; ctx_k/v (B, S, H);
-    ctx_bias (B, S) f32; t an int or a one-element tensor.  -> (Bb, 2, H)."""
+    ctx_bias (B, S) f32; t an int or a one-element tensor.  -> (Bb, 2, H).
+
+    Everything up to the rounding of each probability is the bf16 cluster
+    kernel's arithmetic, operation for operation (decode_scores_plain): the
+    scores' f32 adds in the kernel's fixed order (ordered_dot), one max a
+    row over the three sources, each probability torch.exp(s - m), which
+    on a CUDA tensor is the kernel's expf; the caption and context
+    probabilities rounded to the compute dtype for the product with v, the
+    MASK row's own term f32; the denominator sums the f32 values.  The
+    P.V sums and the denominator keep their own order (an f32 difference
+    there moves an output only through its single rounding)."""
     Bb, W, H3 = qkv.shape
     H = H3 // 3
     B, S, _ = ctx_k.shape
@@ -227,16 +311,8 @@ def decode_attention_plain(qkv: torch.Tensor, cap_k: torch.Tensor,
     def heads(a):                                  # (N, L, H) -> (N, h, L, d)
         return a.reshape(a.shape[0], a.shape[1], num_heads, hd).transpose(1, 2)
 
-    qs = heads(q) * torch.tensor(hd ** -0.5, dtype=dt)   # rounded in dt
-    qf = qs.float()
-    s_cap = qf @ heads(cap_k[:, :t]).float().transpose(-1, -2)   # (Bb,h,2,t)
-    s_self = (qs * heads(kw[:, 1:2])).float().sum(-1, keepdim=True)
-    s_self[:, :, 0] = float("-inf")                # prev does not see MASK
-    kx = heads(ctx_k).float()                      # (B, h, S, d)
-    s_ctx = torch.einsum("bjhwd,bhsd->bjhws",
-                         qf.reshape(B, nb, num_heads, W, hd), kx)
-    s_ctx = (s_ctx + ctx_bias[:, None, None, None, :].float()) \
-        .reshape(Bb, num_heads, W, S)
+    s_cap, s_self, s_ctx = decode_scores_plain(q, kw, cap_k, ctx_k, ctx_bias,
+                                               t, num_heads)
     m = torch.maximum(torch.maximum(s_cap.amax(-1, keepdim=True),
                                     s_ctx.amax(-1, keepdim=True)), s_self)
     p_cap = torch.exp(s_cap - m)

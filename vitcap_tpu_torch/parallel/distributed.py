@@ -3,10 +3,11 @@ vitcap_tpu/parallel/distributed.py.
 
 Where the JAX package starts one `jax.distributed` client a host, the port
 runs one process a device and joins them in a torch.distributed process
-group: NCCL when the rank's device is a card, Gloo on the CPU.  The
-address, world size and rank come from the arguments or, as in the JAX
-package, from MASTER_ADDR / MASTER_PORT, WORLD_SIZE and RANK (or
-OMPI_COMM_WORLD_*), which `python -m torch.distributed.run` and mpirun set.
+group: NCCL when the rank's device is a card (the default), Gloo on the
+CPU when the caller names it.  The address, world size and rank come from
+the arguments or, as in the JAX package, from MASTER_ADDR / MASTER_PORT,
+WORLD_SIZE and RANK (or OMPI_COMM_WORLD_*), which `python -m
+torch.distributed.run` and mpirun set.
 With one process every helper is the identity.
 """
 
@@ -29,11 +30,13 @@ def ensure_init_distributed(coordinator_address: Optional[str] = None,
                             device: Optional[torch.device] = None) -> None:
     """Idempotent process-group init.  A group the caller already made is
     left as it is; with no argument and no environment (one process),
-    nothing happens.  coordinator_address: 'host:port'.  backend: 'nccl'
-    when `device` (default: the card where there is one) is a card, else
-    'gloo'; naming it overrides that (two ranks on one card need Gloo:
-    NCCL refuses them).  A card device becomes the current device first,
-    so NCCL's communicator and the collectives' tensors live on it."""
+    nothing happens.  coordinator_address: 'host:port'.  device: the
+    rank's device, default the card ('cuda'); a card without one raises
+    RuntimeError (as mesh.rank_device does), and the CPU is taken only
+    when named.  backend: 'nccl' on a card, 'gloo' on the CPU; naming it
+    overrides that (two ranks on one card need Gloo: NCCL refuses them).
+    A card device becomes the current device first, so NCCL's
+    communicator and the collectives' tensors live on it."""
     if dist.is_initialized():
         return
     env = os.environ
@@ -57,10 +60,12 @@ def ensure_init_distributed(coordinator_address: Optional[str] = None,
             f"got {coordinator_address!r}, {num_processes!r}, "
             f"{process_id!r} (set MASTER_ADDR/MASTER_PORT, WORLD_SIZE and "
             f"RANK, or launch with python -m torch.distributed.run)")
-    if device is None:
-        device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    device = torch.device(device)
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"distributed init on {device}: no CUDA device is "
+                f"available; pass device='cpu' for a Gloo group on the CPU")
         torch.cuda.set_device(device)
     backend = backend or ("nccl" if device.type == "cuda" else "gloo")
     dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",
